@@ -6,25 +6,55 @@ Phases, one line each; any failure raises and the script exits non-zero
 without printing the final result line:
 
 1. device: the CUDA device, and ``nvidia-smi``'s name and power limit;
-2. build: nvcc builds the hand-written kernels from ``csrc/``;
-3. kernel vs plain: one interaction of the 3D dam break (obstacle on) at
-   about 50k particles through the CUDA kernel and through its plain torch
-   version on the card, compared by the rule of tests/test_forces.py
-   (rtol 2e-3 on ace and ar, 1e-3 on viscdtmax), both timed with CUDA events
-   (median of 7);
-4. main path: the same case at bench.py's default size (BENCH_NP=300000,
-   267,469 particles) through ``make_carry``/``make_step``, its fluid set
-   moving at 1 m/s along x with a seeded 0.05 m/s jitter so that the skin
-   contract re-divides the state within the run: 5 warm-up and 50 timed
-   steps, which must launch the kernel exactly twice per step, rebuild at
-   least once inside the steps, and keep the state finite and the fluid
-   density within 10% of rho0; then the kernel against its plain version
-   once more on the final main-path state.
+2. build: nvcc builds the hand-written kernels from ``csrc/``, one process
+   per library (``cellforce.cu``, ``nnforce.cu``), started together;
+3. cellforce vs plain: one interaction of the 3D dam break (obstacle on)
+   at about 50k particles through the CUDA kernel and through its plain
+   torch version on the card, compared by the rule of tests/test_forces.py
+   (rtol 2e-3 on ace and ar with a floor of 2e-3 of the largest value,
+   1e-3 on viscdtmax), both timed with CUDA events (median of 7);
+4. dam-break main path: the same case at bench.py's default size
+   (BENCH_NP=300000, 267,469 particles) through ``make_carry``/
+   ``make_step``, its fluid moving at 1 m/s along x with a seeded 0.05 m/s
+   jitter so that the skin contract re-divides the state within the run:
+   5 warm-up and 50 timed steps, which must launch cellforce exactly twice
+   per step, rebuild at least once inside the steps, and keep the state
+   finite and the fluid density within 10% of rho0; then the kernel
+   against its plain version once more on the final state;
+5. NN kernels vs plain: the 2D wet dam break (``wet_dambreak_nn``) at
+   bench.py's nnmud size (BENCH_NP=60000: dp 3.21 mm, 37,143 particles) in
+   a seeded perturbed state (0.5 m/s velocity jitter, 1% density jitter):
+   nnforce_p1, nnforce_p3 and nnforce_fda each against its plain pass on
+   the same inputs, timed with CUDA events (median of 7), then the whole
+   interaction for SPH Morris, SPH ConsEq, SPH artificial, FDA Morris and
+   FDA ConsEq (all Fourtakas), by the same rule (rtol 2e-3 on ace, ar,
+   visco_eta and pass 1's gradvel; 1e-3 on viscdtmax and viscetadtmax);
+6. NN main path: the same case, SPH Morris with Fourtakas (bench.py's nnmud
+   options), its fluid at 1 m/s along x (seeded jitter), through
+   ``make_carry``/``make_nn_step``: 5 warm-up and 50 timed steps, which must
+   launch nnforce_p1 and nnforce_p3 exactly twice per step each, rebuild at
+   least once inside the steps, keep the state finite, each phase's fluid
+   density within 10% of its rho0, and dt_pre > 0;
+7. NN FDA path: the same with FDA Morris (the velocity gradient of the
+   case's XML), 5 + 20 steps, nnforce_fda twice per step;
+8. NN step breakdown: 10 more SPH Morris steps traced with
+   ``torch.profiler`` (CUDA activity only): device busy time (the union of
+   the traced device intervals) and idle share of the host-clock window,
+   device operations per step, and the NN kernels' device time.
 
-The last two lines are a JSON record of the kernels and the result line
-``{"ok": true, "device": {...}}``.  Imports no JAX.
+Each kernel is timed twice: alone (``ms``: CUDA events around 20
+back-to-back launches of the C launcher on prepared inputs, per launch,
+median of 5) and with its wrapper (channel packing, checks, allocation;
+median of 7).  The last two lines are a JSON record of the kernels (with
+each kernel's bound: the larger of the bytes it must move over 3.35 TB/s
+and the f32 operations of this run's in-support pairs over 67 TFLOP/s,
+the H100 SXM peaks) and the result line ``{"ok": true, "device": {...}}``.
+Every launch count comes from its path's run, counted from 0 just before
+it.  Imports no JAX.
 """
 
+import ctypes
+import dataclasses
 import json
 import os
 import statistics
@@ -35,10 +65,26 @@ import time
 import numpy as np
 import torch
 
-RTOL = 2e-3          # tests/test_forces.py assert_close, ace and ar
-RTOL_VISC = 1e-3     # same rule, viscdtmax
-SOURCE = "dualsphysics_multilayer_tpu_torch/csrc/cellforce.cu"
-REPLACES = "dualsphysics_multilayer_tpu/ops/pallas/cellforce.py:1074"
+RTOL = 2e-3          # tests/test_forces.py assert_close: ace, ar, eta, gradvel
+RTOL_SCALAR = 1e-3   # same rule: viscdtmax, viscetadtmax
+PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s
+PEAK_F32 = 67e12       # H100 SXM f32 outside the tensor cores, FLOP/s
+NN_DP = max((2.0 * 0.45 * 0.35 / 60000) ** 0.5 * 1.4, 0.0025)   # bench.py nnmud
+PKG = "dualsphysics_multilayer_tpu_torch/csrc/"
+TPU = "dualsphysics_multilayer_tpu/ops/pallas/"
+KERNELS = {   # name: (source, TPU kernel it replaces)
+    "cellforce": (PKG + "cellforce.cu", TPU + "cellforce.py:1074"),
+    "nnforce_p1": (PKG + "nnforce.cu", TPU + "nnforce.py:76"),
+    "nnforce_p3": (PKG + "nnforce.cu", TPU + "nnforce.py:478"),
+    "nnforce_fda": (PKG + "nnforce.cu", TPU + "nnforce.py:247"),
+}
+# f32 operations per in-support pair of a fluid-side target, each add,
+# multiply, divide, max, sqrt, exp and pow counted once, from the bodies in
+# csrc/ (pairbody.cuh, nnbody.cuh); the data-dependent branches (viscosity
+# of approaching pairs, diffusion of same-phase pairs, the wall trick) are
+# left out, so the count is a lower bound on the work.
+OPS_PER_PAIR = {"cellforce": 50, "nnforce_p1": 80, "nnforce_p3": 40,
+                "nnforce_fda": 124}
 
 
 def say(phase, msg):
@@ -66,62 +112,364 @@ def cuda_ms(fn, reps=7):
     return statistics.median(times)
 
 
-def compare(csp, opts, dom, cells, args, reps):
-    """Kernel vs plain version on the same inputs: errors and both times."""
-    from dualsphysics_multilayer_tpu_torch.ops import forces as F
-    from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
-    got = CF.interaction_forces_cuda(csp, opts, dom, cells, *args)
-    want = F.interaction_forces_plain(csp, opts, dom, cells, *args)
+def launch_ms(launch, count=20, reps=5):
+    """Median milliseconds of one launch: CUDA events around ``count``
+    back-to-back calls of ``launch`` (a C launcher returning its CUDA
+    error code), median over ``reps`` runs."""
+    check(launch() == 0, "kernel launch failed")
     torch.cuda.synchronize()
-    err = {}
-    for k in ("ace", "ar"):
-        g, w = getattr(got, k), getattr(want, k)
-        check(bool(torch.isfinite(g).all()), f"kernel {k} is not finite")
-        scale = float(w.abs().max()) + 1e-6
-        bad = (g - w).abs() > RTOL * scale + RTOL * w.abs()
-        check(not bool(bad.any()), f"kernel {k} disagrees with the plain "
-              f"version at {int(bad.sum())} particles")
-        err[k] = float((g - w).abs().max())
-    gv, wv = float(got.viscdtmax), float(want.viscdtmax)
-    check(abs(gv - wv) <= RTOL_VISC * abs(wv) + 1e-5,
-          f"kernel viscdtmax {gv} != plain {wv}")
-    err["viscdtmax"] = abs(gv - wv)
-    ms = cuda_ms(lambda: CF.interaction_forces_cuda(csp, opts, dom, cells, *args),
-                 reps)
-    plain_ms = cuda_ms(lambda: F.interaction_forces_plain(csp, opts, dom, cells,
-                                                          *args), reps)
-    return err, ms, plain_ms
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(count):
+            launch()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / count)
+    return statistics.median(times)
 
 
-def perturbed_state(case, device, seed=0):
-    """The case's initial state with a seeded random fluid velocity and a
-    1% density jitter, so viscosity and diffusion terms are non-zero."""
+def close(name, got, want, rtol=RTOL):
+    """Max abs error of ``got`` against ``want``; raises beyond rtol with a
+    floor of rtol times the largest value."""
+    check(bool(torch.isfinite(got).all()), f"{name} is not finite")
+    scale = float(want.abs().max()) + 1e-6
+    bad = (got - want).abs() > rtol * scale + rtol * want.abs()
+    check(not bool(bad.any()), f"{name} disagrees with the plain version at "
+          f"{int(bad.sum())} entries")
+    return float((got - want).abs().max())
+
+
+def close_scalar(name, got, want, rtol=RTOL_SCALAR):
+    g, w = float(got), float(want)
+    check(abs(g - w) <= rtol * abs(w) + 1e-5, f"{name} {g} != plain {w}")
+    return abs(g - w)
+
+
+def pair_counts(csp, dom, cells, pos, code, inclusive):
+    """(candidates walked, in-support pairs with a fluid-side target) of
+    one interaction on these inputs."""
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.ops import forces as F
+    live = td.is_active(code) & (cells.cell < dom.ncells)
+    fluidside = td.code_type(code) >= td.TYPE_FLOATING
+    cand = pairs = 0
+    for t, j, valid in F.candidate_chunks(dom, cells, live, 1 << 22):
+        dr = pos[t, None, :] - pos[j]
+        rr2 = (dr * dr).sum(dim=-1)
+        inside = rr2 <= csp.kernelsize2 if inclusive else rr2 < csp.kernelsize2
+        ok = (valid & (j != t[:, None]) & live[j] & (rr2 >= td.ALMOSTZERO)
+              & inside & fluidside[t, None])
+        cand += int(valid.sum())
+        pairs += int(ok.sum())
+    return cand, pairs
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the least time for the bytes and operations."""
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def perturbed_state(case, device, rho0, seed=0, sim2d=False):
+    """The case's initial state with a seeded random fluid velocity (0.5
+    m/s; none along y in 2D) and a density jitter of 1% of ``rho0`` (a
+    tensor per particle), so viscosity and diffusion terms are non-zero."""
     from dualsphysics_multilayer_tpu_torch import typesdef as td
     st = case.state
     rng = np.random.default_rng(seed)
     fluid = td.is_fluid(st.code)
     dv = torch.tensor(rng.normal(0.0, 0.5, (st.n, 3)), dtype=torch.float32,
                       device=device)
-    drho = torch.tensor(rng.uniform(-10.0, 10.0, st.n), dtype=torch.float32,
-                        device=device)
+    if sim2d:
+        dv[:, 1] = 0.0
+    drho = torch.tensor(rng.uniform(-0.01, 0.01, st.n), dtype=torch.float32,
+                        device=device) * rho0
     return (st.pos, torch.where(fluid[:, None], st.vel + dv, st.vel),
             st.rho + torch.where(fluid, drho, 0.0), st.code)
 
 
-def flowing_state(case, device, seed=0):
+def flowing_state(case, device, seed=0, jitter=0.05, sim2d=False):
     """The case's initial state with its fluid moving at 1 m/s along x
-    plus a seeded 0.05 m/s jitter: fast enough for the skin contract to
-    re-divide every few steps, gentle enough to keep the density near
-    rho0."""
-    from dataclasses import replace
+    plus a seeded jitter: fast enough for the skin contract to re-divide
+    every few steps, gentle enough to keep the density near rho0."""
     from dualsphysics_multilayer_tpu_torch import typesdef as td
     st = case.state
     rng = np.random.default_rng(seed)
-    vel = torch.tensor(rng.normal(0.0, 0.05, (st.n, 3)), dtype=torch.float32,
+    vel = torch.tensor(rng.normal(0.0, jitter, (st.n, 3)), dtype=torch.float32,
                        device=device)
     vel[:, 0] += 1.0
-    return replace(st, vel=torch.where(td.is_fluid(st.code)[:, None], vel,
-                                       st.vel))
+    if sim2d:
+        vel[:, 1] = 0.0
+    return dataclasses.replace(st, vel=torch.where(
+        td.is_fluid(st.code)[:, None], vel, st.vel))
+
+
+def sorted_args(dom, pos, vel, rho, code):
+    from dualsphysics_multilayer_tpu_torch.ops import celldiv as cd
+    cells, code = cd.divide_cells(dom, pos, code)
+    o = cells.order
+    return cells, (pos[o], vel[o], rho[o], code[o])
+
+
+def reset_counts():
+    from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
+    from dualsphysics_multilayer_tpu_torch.ops.cuda import nnforce as NF
+    CF.launches = 0
+    NF.launches.update(dict.fromkeys(NF.launches, 0))
+
+
+def counts():
+    from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
+    from dualsphysics_multilayer_tpu_torch.ops.cuda import nnforce as NF
+    return dict(cellforce=CF.launches, **NF.launches)
+
+
+def run_steps(step, carry, nwarm, nsteps):
+    """Run nwarm + nsteps steps; returns (carry, host seconds of the timed
+    steps, the launch counts of the whole run)."""
+    reset_counts()
+    times = []
+    for k in range(nwarm + nsteps):
+        t0 = time.perf_counter()
+        carry = step(carry)
+        torch.cuda.synchronize()
+        if k >= nwarm:
+            times.append(time.perf_counter() - t0)
+    return carry, times, counts()
+
+
+def check_state(carry, nsteps, nrebuild0):
+    check(carry.nstep == nsteps, f"nstep {carry.nstep}")
+    check(carry.nrebuild > nrebuild0, f"no rebuild inside the steps "
+          f"(nrebuild {carry.nrebuild})")
+    check(carry.overflow == 0, f"overflow {carry.overflow}")
+    st = carry.st
+    for k in ("pos", "vel", "rho", "pose"):
+        check(bool(torch.isfinite(getattr(st, k)).all()), f"state {k} not finite")
+    check(bool(torch.isfinite(carry.dt_pre)) and float(carry.dt_pre) > 0,
+          f"dt_pre {float(carry.dt_pre)}")
+
+
+def fluid_rho_range(st, select, rho0):
+    """[min, max] of the active fluid density where ``select``; raises
+    outside +-10% of rho0."""
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    fluid = td.is_fluid(st.code) & td.is_active(st.code) & select
+    rmin, rmax = float(st.rho[fluid].min()), float(st.rho[fluid].max())
+    check(0.9 * rho0 <= rmin and rmax <= 1.1 * rho0,
+          f"fluid density out of +-10% of {rho0}: [{rmin}, {rmax}]")
+    return rmin, rmax
+
+
+def bare_launcher(library, function, params, tensors):
+    """A call of the C launcher ``function`` of ``library`` on ``params``
+    and ``tensors`` (held by the closure), on torch's current stream: the
+    kernel without its wrapper."""
+    from dualsphysics_multilayer_tpu_torch.ops.cuda import build
+    fn = getattr(build.cuda_library(library), function)
+    ptrs = [t.data_ptr() for t in tensors]
+    stream = torch.cuda.current_stream().cuda_stream
+    return lambda held=tensors: fn(ctypes.byref(params), *ptrs, stream)
+
+
+def compare_cellforce(csp, opts, dom, cells, args, reps):
+    """cellforce vs its plain version on the same inputs: errors and the
+    times of the kernel alone, with its wrapper, and of the plain
+    version."""
+    from dualsphysics_multilayer_tpu_torch.ops import forces as F
+    from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
+    got = CF.interaction_forces_cuda(csp, opts, dom, cells, *args)
+    want = F.interaction_forces_plain(csp, opts, dom, cells, *args)
+    torch.cuda.synchronize()
+    err = {k: close(f"cellforce {k}", getattr(got, k), getattr(want, k))
+           for k in ("ace", "ar")}
+    err["viscdtmax"] = close_scalar("cellforce viscdtmax", got.viscdtmax,
+                                    want.viscdtmax)
+    n = args[0].shape[0]
+    pospress, velrho, kind = CF.channels(csp, *args)
+    outs = [torch.empty_like(got.ace), torch.empty_like(got.ar),
+            torch.empty_like(got.ar)]
+    ms = launch_ms(bare_launcher(
+        "cellforce", "dsph_cellforce", CF.make_params(csp, opts, dom, n),
+        [pospress, velrho, kind, cells.cell, cells.begin] + outs))
+    wrapped_ms = cuda_ms(lambda: CF.interaction_forces_cuda(
+        csp, opts, dom, cells, *args), reps)
+    plain_ms = cuda_ms(lambda: F.interaction_forces_plain(csp, opts, dom, cells,
+                                                          *args), reps)
+    return err, ms, wrapped_ms, plain_ms
+
+
+def nn_opts(tvisco, velgrad):
+    from dualsphysics_multilayer_tpu_torch import SolverOpts, TpDensity, TpVelGrad, TpVisco
+    return SolverOpts(tvisco=TpVisco[tvisco], velgrad=TpVelGrad[velgrad],
+                      tdensity=TpDensity.FOURTAKAS)
+
+
+def nn_kernels_vs_plain(case, phases, device, smi):
+    """Phase 5: each NN kernel against its plain pass on the same inputs,
+    then the whole interaction in five configurations.  Returns the
+    kernels' records (without launches)."""
+    from dualsphysics_multilayer_tpu_torch.ops import forces_nn as NN
+    from dualsphysics_multilayer_tpu_torch.ops.cuda import nnforce as NF
+    csp, dom = case.csp, case.dom
+    tb = phases.tables(csp, device)
+    code0 = case.state.code
+    rho0 = tb["rho0"][torch.clamp(code0 & 0xFFFF, 0, phases.count - 1).long()]
+    pos, vel, rho, code = perturbed_state(case, device, rho0, sim2d=True)
+    cells, args = sorted_args(dom, pos, vel, rho, code)
+    spos, svel, srho, scode = args
+    ch = NN.channels(csp, phases, tb, srho, scode)
+    n = spos.shape[0]
+    cand, pairs = pair_counts(csp, dom, cells, spos, scode, inclusive=True)
+    say("nn-pairs", f"{n} particles: {cand} candidates walked, {pairs} "
+        f"in-support pairs with a fluid-side target per pass "
+        f"({cand / n:.1f} and {pairs / n:.1f} per particle)")
+    state_bytes = n * (16 + 16 + 4 + 4 + 4) + (dom.ncells + 1) * 4
+    records = {}
+
+    rows = [torch.cat([spos, ch.press[:, None]], dim=1).contiguous(),
+            torch.cat([svel, srho[:, None]], dim=1).contiguous(), ch.kind,
+            ch.phase, cells.cell, cells.begin]
+
+    def record(name, opts, errs, kernel_fn, plain_fn, run, outs, out_bytes):
+        ms = launch_ms(bare_launcher(
+            "nnforce", f"dsph_{name}", NF.make_params(csp, opts, phases, dom, n),
+            rows + outs))
+        wrapped_ms = cuda_ms(lambda: kernel_fn(*run))
+        plain_ms = cuda_ms(lambda: plain_fn(*run))
+        b = bound(state_bytes + n * out_bytes, pairs * OPS_PER_PAIR[name])
+        records[name] = dict(max_abs_err=errs["ace"], ms=ms, plain_ms=plain_ms,
+                             bound_ms=b[0], bound_by=b[1])
+        say("nn-kernel-vs-plain", f"{name}: max|d| " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items())
+            + f"; kernel alone {ms:.3f} ms, with its wrapper {wrapped_ms:.3f} "
+            f"ms, plain {plain_ms:.3f} ms (CUDA events), bound "
+            f"{b[0] * 1e3:.2f} us by {b[1]} ({smi})")
+
+    def pass1(name, opts, outputs, out_bytes):
+        run = (csp, opts, phases, dom, cells, spos, svel, srho, ch)
+        got, want = NF.pass1(*run), NN.pass1_plain(*run)
+        torch.cuda.synchronize()
+        errs = {k: close(f"{name} {k}", getattr(got, k), getattr(want, k))
+                for k in outputs}
+        errs["viscdtmax"] = close_scalar(
+            f"{name} viscdtmax", got.viscdt.amax(), want.viscdt.amax())
+        outs = [torch.empty_like(got.ace), torch.empty_like(got.ar),
+                torch.empty_like(got.viscdt), torch.empty_like(getattr(got, outputs[-1]))]
+        record(name, opts, errs, NF.pass1, NN.pass1_plain, run, outs, out_bytes)
+
+    morris = nn_opts("LAMINAR_SPS", "SPH")
+    # nnforce_p1: outputs ace, ar, viscdt, gradvel (12 + 4 + 4 + 24 bytes)
+    pass1("nnforce_p1", morris, ("ace", "ar", "gradvel"), 44)
+    # nnforce_fda: outputs ace, ar, viscdt, etamax
+    pass1("nnforce_fda", nn_opts("LAMINAR_SPS", "FDA"), ("ace", "ar", "etamax"),
+          24)
+
+    # nnforce_p3 (Morris) on pass 2 of the plain pass 1: reads eta, ace in
+    # and out
+    p1 = NN.pass1_plain(csp, morris, phases, dom, cells, spos, svel, srho, ch)
+    eta, tau = NN.pass2(morris, tb, ch, scode, p1)
+    run3 = (csp, morris, phases, dom, cells, spos, svel, srho, ch, eta, tau)
+    got, want = torch.zeros_like(p1.ace), torch.zeros_like(p1.ace)
+    NF.pass3(*run3, got)
+    NN.pass3_plain(*run3, want)
+    torch.cuda.synchronize()
+    errs = dict(ace=close("nnforce_p3 ace", got, want))
+    record("nnforce_p3", morris, errs, NF.pass3, NN.pass3_plain, run3 + (got,),
+           [eta, tau, torch.zeros_like(got)], 4 + 12 + 12)
+
+    # the whole interaction in the five configurations
+    for tvisco, velgrad in (("LAMINAR_SPS", "SPH"), ("CONST_EQ", "SPH"),
+                            ("ARTIFICIAL", "SPH"), ("LAMINAR_SPS", "FDA"),
+                            ("CONST_EQ", "FDA")):
+        opts = nn_opts(tvisco, velgrad)
+        run = (csp, opts, phases, dom, cells, *args)
+        got = NF.interaction_forces_nn_cuda(*run)
+        want = NN.interaction_forces_nn_plain(*run)
+        torch.cuda.synchronize()
+        errs = {k: close(f"{velgrad}-{tvisco} {k}", g, w) for k, g, w in (
+            ("ace", got.forces.ace, want.forces.ace),
+            ("ar", got.forces.ar, want.forces.ar),
+            ("visco_eta", got.visco_eta, want.visco_eta),
+            ("tau", got.tau, want.tau),
+            ("gradvel", got.gradvel, want.gradvel))}
+        for k in ("viscdtmax", "viscetadtmax"):
+            errs[k] = close_scalar(f"{velgrad}-{tvisco} {k}",
+                                   getattr(got.forces, k), getattr(want.forces, k))
+        ms = cuda_ms(lambda: NF.interaction_forces_nn_cuda(*run), reps=5)
+        plain_ms = cuda_ms(lambda: NN.interaction_forces_nn_plain(*run), reps=5)
+        say("nn-interaction-vs-plain", f"{velgrad}-{tvisco}: max|d| " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items())
+            + f"; viscetadtmax {float(got.forces.viscetadtmax):.5g}; kernels "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms per interaction (median of "
+            f"5, CUDA events; {smi})")
+    return records
+
+
+def nn_path(case, phases, opts, device, nwarm, nsteps, label, smi):
+    """Phases 6 and 7: ``nwarm + nsteps`` NN steps from a flowing start;
+    returns (the launch counts, the step, the final carry)."""
+    from dualsphysics_multilayer_tpu_torch import make_carry, make_nn_step
+    step = make_nn_step(case.csp, opts, case.dom, phases)
+    st = flowing_state(case, device, sim2d=True)
+    carry = make_carry(st, case.csp, opts, case.dom)
+    nrebuild0 = carry.nrebuild
+    carry, times, launched = run_steps(step, carry, nwarm, nsteps)
+    check_state(carry, nwarm + nsteps, nrebuild0)
+    code = carry.st.code
+    ranges = [fluid_rho_range(carry.st, (code & 0xFFFF) == k, p.rho0)
+              for k, p in enumerate(phases.phases)]
+    n = case.np_total
+    p50 = statistics.median(times)
+    say(label, f"{n} particles, {nsteps} steps after {nwarm} warm-up: p50 step "
+        f"{p50 * 1e3:.3f} ms, {n / p50:.1f} particle-steps/s; launches "
+        f"{launched}, {carry.nrebuild - nrebuild0} rebuilds inside the steps, "
+        f"t {carry.t_host:.6f} s, dt_pre {float(carry.dt_pre):.4g} s, fluid rho "
+        + ", ".join(f"phase {k} [{a:.2f}, {b:.2f}]" for k, (a, b) in
+                    enumerate(ranges)) + f" ({smi})")
+    return launched, step, carry
+
+
+def traced_breakdown(step, carry, nsteps, kernels, smi):
+    """Phase 8: ``nsteps`` steps under ``torch.profiler`` (CUDA activity
+    only): per step, the host-clock window, the device busy time (union of
+    the traced device intervals), the idle share, the device operations and
+    each of ``kernels``' device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(nsteps):
+            carry = step(carry)
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3
+    ev = sorted((e.time_range.start, e.time_range.end, e.name)
+                for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not ev:
+        say("nn-breakdown", f"not measured: the trace of {nsteps} steps holds "
+            f"no device activity ({smi})")
+        return
+    busy, cur_s, cur_e = 0.0, ev[0][0], ev[0][1]
+    for s0, e0, _ in ev[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy = (busy + cur_e - cur_s) * 1e-3
+    per_kernel = {k: sum(e - s0 for s0, e, name in ev if k in name) * 1e-3 / nsteps
+                  for k in kernels}
+    say("nn-breakdown", f"{nsteps} traced steps: window {window / nsteps:.3f} "
+        f"ms per step, device busy {busy / nsteps:.3f} ms per step, idle share "
+        f"{1.0 - busy / window:.4f}, {len(ev) / nsteps:.1f} device operations "
+        f"per step; device ms per step " + ", ".join(
+            f"{k} {v:.4f}" for k, v in per_kernel.items())
+        + f", everything else {busy / nsteps - sum(per_kernel.values()):.4f} "
+        f"({smi})")
 
 
 def main():
@@ -129,12 +477,10 @@ def main():
           "needs an NVIDIA GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dualsphysics_multilayer_tpu_torch import SolverOpts, TpDensity
-    from dualsphysics_multilayer_tpu_torch import typesdef as td
     from dualsphysics_multilayer_tpu_torch.models import cases
+    from dualsphysics_multilayer_tpu_torch.models import nnewtonian as NM
     from dualsphysics_multilayer_tpu_torch.models.wcsph import make_carry, make_step
-    from dualsphysics_multilayer_tpu_torch.ops import celldiv as cd
     from dualsphysics_multilayer_tpu_torch.ops.cuda import build
-    from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
 
     # 1. device
     device = torch.device("cuda", 0)
@@ -146,27 +492,30 @@ def main():
     print(smi, flush=True)
 
     # 2. build
-    t0 = time.perf_counter()
-    build.cuda_library()
-    say("build", f"cellforce.cu built and loaded in "
-        f"{time.perf_counter() - t0:.2f} s")
+    built = build.build_cuda_libraries()
+    say("build", ", ".join(f"{name}.cu built and loaded in {s:.2f} s"
+                           for name, s in built.items())
+        + " (one nvcc per source, started together)")
+    for name in built:
+        with open(build.library_path(name) + ".log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    say("ptxas", f"{name}: {line.strip()}")
 
+    # 3. cellforce vs plain at ~50k particles
     opts = SolverOpts(tdensity=TpDensity.FOURTAKAS)
-
-    # 3. kernel vs plain at ~50k particles
     case = cases.dambreak3d(dp=(0.11 / 5e4) ** (1 / 3), obstacle=True,
                             device=device)
-    pos, vel, rho, code = perturbed_state(case, device)
-    cells, code = cd.divide_cells(case.dom, pos, code)
-    o = cells.order
-    args = (pos[o], vel[o], rho[o], code[o])
-    err, ms, plain_ms = compare(case.csp, opts, case.dom, cells, args, reps=7)
+    pos, vel, rho, code = perturbed_state(case, device, case.csp.rhopzero)
+    cells, args = sorted_args(case.dom, pos, vel, rho, code)
+    err, ms, wrapped_ms, plain_ms = compare_cellforce(
+        case.csp, opts, case.dom, cells, args, reps=7)
     say("kernel-vs-plain", f"{case.np_total} particles: max|d ace| "
         f"{err['ace']:.3e}, max|d ar| {err['ar']:.3e}, |d viscdtmax| "
-        f"{err['viscdtmax']:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-        f"(median of 7, CUDA events; {smi})")
+        f"{err['viscdtmax']:.3e}; kernel alone {ms:.3f} ms, with its wrapper "
+        f"{wrapped_ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events; {smi})")
 
-    # 4. main path at bench.py's default size
+    # 4. dam-break main path at bench.py's default size
     case = cases.dambreak3d(dp=(0.11 / 300000) ** (1 / 3), obstacle=True,
                             device=device)
     n = case.np_total
@@ -174,49 +523,70 @@ def main():
     carry = make_carry(flowing_state(case, device), case.csp, opts, case.dom)
     nrebuild0 = carry.nrebuild
     nwarm, nsteps = 5, 50
-    CF.launches = 0
-    times = []
-    for k in range(nwarm + nsteps):
-        t0 = time.perf_counter()
-        carry = step(carry)
-        torch.cuda.synchronize()
-        if k >= nwarm:
-            times.append(time.perf_counter() - t0)
-    launches = CF.launches
-    check(launches == 2 * (nwarm + nsteps),
-          f"{launches} kernel launches in {nwarm + nsteps} steps, expected 2 per step")
-    check(carry.nstep == nwarm + nsteps, f"nstep {carry.nstep}")
-    check(carry.nrebuild > nrebuild0, f"no rebuild inside the steps "
-          f"(nrebuild {carry.nrebuild})")
-    check(carry.overflow == 0, f"overflow {carry.overflow}")
+    carry, times, launched = run_steps(step, carry, nwarm, nsteps)
+    check(launched["cellforce"] == 2 * (nwarm + nsteps),
+          f"{launched} kernel launches in {nwarm + nsteps} steps, expected "
+          f"cellforce 2 per step")
+    check_state(carry, nwarm + nsteps, nrebuild0)
     st = carry.st
-    for k in ("pos", "vel", "rho", "pose"):
-        check(bool(torch.isfinite(getattr(st, k)).all()), f"state {k} not finite")
-    check(bool(torch.isfinite(carry.dt_pre)) and float(carry.dt_pre) > 0,
-          f"dt_pre {float(carry.dt_pre)}")
-    fluid = td.is_fluid(st.code) & td.is_active(st.code)
-    rmin, rmax = float(st.rho[fluid].min()), float(st.rho[fluid].max())
-    check(0.9 * case.csp.rhopzero <= rmin and rmax <= 1.1 * case.csp.rhopzero,
-          f"fluid density out of +-10% of rho0: [{rmin}, {rmax}]")
+    rmin, rmax = fluid_rho_range(st, True, case.csp.rhopzero)
     p50 = statistics.median(times)
     say("main-path", f"{n} particles, {nsteps} steps after {nwarm} warm-up: "
         f"p50 step {p50 * 1e3:.3f} ms, {n / p50:.1f} particle-steps/s; "
-        f"{launches} kernel launches, {carry.nrebuild - nrebuild0} rebuilds "
-        f"inside the steps, overflow "
-        f"{carry.overflow}, t {carry.t_host:.6f} s, fluid rho [{rmin:.2f}, "
-        f"{rmax:.2f}] ({smi})")
+        f"{launched['cellforce']} kernel launches, {carry.nrebuild - nrebuild0} "
+        f"rebuilds inside the steps, overflow {carry.overflow}, t "
+        f"{carry.t_host:.6f} s, fluid rho [{rmin:.2f}, {rmax:.2f}] ({smi})")
 
-    # kernel vs plain on the final main-path state
-    err, ms, plain_ms = compare(case.csp, opts, case.dom, carry.cells,
-                                (st.pos, st.vel, st.rho, st.code), reps=5)
+    # cellforce vs plain on the final main-path state, and its bound there
+    err, ms, wrapped_ms, plain_ms = compare_cellforce(
+        case.csp, opts, case.dom, carry.cells, (st.pos, st.vel, st.rho, st.code),
+        reps=5)
+    cand, pairs = pair_counts(case.csp, case.dom, carry.cells, st.pos, st.code,
+                              inclusive=False)
+    b = bound(n * (16 + 16 + 4 + 4 + 12 + 4 + 4) + (case.dom.ncells + 1) * 4,
+              pairs * OPS_PER_PAIR["cellforce"])
     say("kernel-vs-plain", f"main-path state, {n} particles: max|d ace| "
-        f"{err['ace']:.3e}, max|d ar| {err['ar']:.3e}; kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms (median of 5, CUDA events; {smi})")
+        f"{err['ace']:.3e}, max|d ar| {err['ar']:.3e}; kernel alone {ms:.3f} "
+        f"ms, with its wrapper {wrapped_ms:.3f} ms, plain {plain_ms:.3f} ms "
+        f"(CUDA events); {cand} "
+        f"candidates, {pairs} in-support pairs with a fluid-side target; bound "
+        f"{b[0] * 1e3:.2f} us by {b[1]} ({smi})")
+    records = {"cellforce": dict(launches=launched["cellforce"],
+                                 max_abs_err=err["ace"], ms=ms,
+                                 plain_ms=plain_ms, bound_ms=b[0],
+                                 bound_by=b[1])}
 
-    print(json.dumps({"kernels": [{
-        "name": "cellforce", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": err["ace"],
-        "ms": ms, "plain_ms": plain_ms}]}), flush=True)
+    # 5. NN kernels vs plain at bench.py's nnmud size
+    case, phases = NM.wet_dambreak_nn(dp=NN_DP, device=device)
+    records.update(nn_kernels_vs_plain(case, phases, device, smi))
+
+    # 6. NN main path: SPH Morris, Fourtakas
+    nwarm, nsteps = 5, 50
+    launched, step, carry = nn_path(case, phases, nn_opts("LAMINAR_SPS", "SPH"),
+                                    device, nwarm, nsteps, "nn-main-path", smi)
+    for k in ("nnforce_p1", "nnforce_p3"):
+        check(launched[k] == 2 * (nwarm + nsteps),
+              f"{launched} in {nwarm + nsteps} steps, expected {k} 2 per step")
+        records[k]["launches"] = launched[k]
+
+    # 7. NN FDA path: FDA Morris
+    nwarm, nsteps = 5, 20
+    launched, _, _ = nn_path(case, phases, nn_opts("LAMINAR_SPS", "FDA"),
+                             device, nwarm, nsteps, "nn-fda-path", smi)
+    check(launched["nnforce_fda"] == 2 * (nwarm + nsteps),
+          f"{launched} in {nwarm + nsteps} steps, expected nnforce_fda 2 per step")
+    records["nnforce_fda"]["launches"] = launched["nnforce_fda"]
+
+    # 8. NN step breakdown, continuing the SPH Morris run
+    traced_breakdown(step, carry, 10, ("nnforce_p1", "nnforce_p3"), smi)
+
+    print(json.dumps({"kernels": [dict(
+        name=name, route="cuda", source=src, replaces=rep,
+        launches=records[name]["launches"],
+        max_abs_err=records[name]["max_abs_err"], ms=records[name]["ms"],
+        plain_ms=records[name]["plain_ms"], bound_ms=records[name]["bound_ms"],
+        bound_by=records[name]["bound_by"], library_ms=None)
+        for name, (src, rep) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -2,20 +2,23 @@
 
 The JAX package ``dualsphysics_multilayer_tpu`` beside it is the reference;
 module names here follow it.  This package imports torch and never JAX.
-The pair interaction runs in a hand-written CUDA kernel for Hopper
-(``csrc/cellforce.cu``) on CUDA tensors and in its plain torch version on
-CPU tensors.
+The pair interactions run in hand-written CUDA kernels for Hopper on CUDA
+tensors (``csrc/cellforce.cu`` single phase, ``csrc/nnforce.cu``
+multiphase non-Newtonian) and in their plain torch versions on CPU tensors.
 """
 
 from . import typesdef
 from .typesdef import (CteSph, TpBoundary, TpDensity, TpKernel, TpShifting,
-                       TpStep, TpVisco, make_ctesph)
+                       TpStep, TpVelGrad, TpVisco, make_ctesph)
 from .ops.forces import SolverOpts
+from .ops.forces_nn import Phase, PhaseCfg
 from .models.wcsph import (SimState, Simulation, StepCarry, make_advance,
                            make_carry, make_step)
+from .models.nnewtonian import make_nn_step
 
 __all__ = [
     "typesdef", "CteSph", "TpBoundary", "TpDensity", "TpKernel", "TpShifting",
-    "TpStep", "TpVisco", "make_ctesph", "SolverOpts", "SimState", "Simulation",
-    "StepCarry", "make_advance", "make_carry", "make_step",
+    "TpStep", "TpVelGrad", "TpVisco", "make_ctesph", "SolverOpts", "Phase",
+    "PhaseCfg", "SimState", "Simulation", "StepCarry", "make_advance",
+    "make_carry", "make_step", "make_nn_step",
 ]

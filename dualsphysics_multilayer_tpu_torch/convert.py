@@ -10,7 +10,10 @@ into the port's, so both packages can compute on the same state.
   ``rho``, ``code``, ``idp`` and optionally ``pose``, which starts at zero
   when absent or None).  uint32 typecodes become int32 (every code fits in
   26 bits); uint32 ids, including the 0xFFFFFFFF fill of padding slots,
-  become int64 unchanged.
+  become int64 unchanged.  The state goes to the card unless ``device``
+  says otherwise.
+* ``phasecfg(phases)``: a JAX ``PhaseCfg``, read by attribute, as the
+  port's ``forces_nn.PhaseCfg`` with plain Python values.
 
 The JAX-side ``SimState`` fields of features outside the slice (Verlet M1
 state, SPS stress, floating bodies, mDBC normals) raise when present.
@@ -26,6 +29,7 @@ import torch
 from . import typesdef as td
 from .models.wcsph import SimState
 from .ops.celldiv import Domain
+from .ops.forces_nn import Phase, PhaseCfg
 
 _UNPORTED_STATE = ("velm1", "rhom1", "spstau", "ft", "boundnormal",
                    "motionvel")
@@ -51,7 +55,7 @@ def domain(fields: Mapping) -> Domain:
                   simulate2d=bool(fields["simulate2d"]))
 
 
-def simstate(arrays: Mapping, device="cpu") -> SimState:
+def simstate(arrays: Mapping, device="cuda") -> SimState:
     for k in _UNPORTED_STATE:
         if arrays.get(k) is not None:
             raise NotImplementedError(f"the torch port does not cover "
@@ -72,3 +76,12 @@ def simstate(arrays: Mapping, device="cpu") -> SimState:
         idp=torch.tensor(np.asarray(arrays["idp"]).astype(np.int64),
                          device=device),
         pose=torch.zeros_like(pos) if pose is None else f32(pose))
+
+
+def phasecfg(phases) -> PhaseCfg:
+    def one(p):
+        return Phase(mkfluid=int(p.mkfluid), newtonian=bool(p.newtonian),
+                     **{k: float(getattr(p, k)) for k in (
+                         "rho0", "csound", "gamma", "visco", "tau_yield",
+                         "tau_max", "bi_multi", "hbp_m", "hbp_n")})
+    return PhaseCfg(phases=tuple(one(p) for p in phases.phases))

@@ -1,11 +1,13 @@
 """Built-in case construction for the port: the dp-lattice box drawing of
-GenCase and the 3D dam break (`examples/main/01_DamBreak/
-CaseDambreak_Def.xml`).
+GenCase (3D, or 2D in the y = 0 plane) and the 3D dam break
+(`examples/main/01_DamBreak/CaseDambreak_Def.xml`); the 2D wet dam break
+of the multiphase non-Newtonian solver lives in ``models/nnewtonian.py``.
 
 Counterpart of `dualsphysics_multilayer_tpu/models/cases.py` (``Draw.box``,
 ``Draw.build``, ``Case``, ``_make_state``, ``_make_domain``,
 ``dambreak3d``).  Lattices, ids, densities and the domain come out equal to
-the JAX package's, which the tests check array for array.
+the JAX package's, which the tests check array for array.  Cases are built
+on the card unless the caller asks for another device.
 """
 
 from __future__ import annotations
@@ -32,10 +34,12 @@ _EPS = 1e-6
 
 @dataclass
 class Draw:
-    """3D dp-lattice drawing canvas anchored at the origin, with
+    """dp-lattice drawing canvas anchored at the origin, with
     last-draw-wins overwrite (GenCase ``setmkfluid``/``setmkbound`` +
-    ``drawbox``)."""
+    ``drawbox``).  With ``simulate2d`` every point lies in the y = 0 plane
+    and boxes have no front/back faces."""
     dp: float
+    simulate2d: bool = False
     points: dict = field(default_factory=dict)   # (i,j,k) -> (ptype, mk)
 
     def _irange(self, lo, hi):
@@ -48,15 +52,18 @@ class Draw:
         bottom, top, left, right, front, back (left/right = x faces,
         front/back = y faces, bottom/top = z faces)."""
         xs, ys, zs = (self._irange(pmin[a], pmax[a]) for a in range(3))
+        if self.simulate2d:
+            ys = [0]
         want = None if faces == "solid" else {f.strip() for f in faces.split("|")}
+        depth = not self.simulate2d
 
         def sel(i, j, k):
             if want is None:
                 return True
             return (("left" in want and i == xs[0])
                     or ("right" in want and i == xs[-1])
-                    or ("front" in want and j == ys[0])
-                    or ("back" in want and j == ys[-1])
+                    or (depth and "front" in want and j == ys[0])
+                    or (depth and "back" in want and j == ys[-1])
                     or ("bottom" in want and k == zs[0])
                     or ("top" in want and k == zs[-1]))
 
@@ -112,19 +119,24 @@ def _make_state(csp: CteSph, pos, code, zsurf, *, device):
     )
 
 
-def _make_domain(csp: CteSph, pos, headroom):
+def _make_domain(csp: CteSph, pos, headroom=0.5):
     """Static cell grid from particle bounds + a 2*KernelSize halo + free-
     surface headroom as a fraction of the lattice height (the
-    `<simulationdomain>` 'default + X%' idiom)."""
+    `<simulationdomain>` 'default + X%' idiom); in 2D one cell row spans
+    y = pos[0,1] +- KernelSize/2."""
     ks = csp.kernelsize
     pmin = pos.min(axis=0) - 2 * ks
     pmax = pos.max(axis=0) + 2 * ks
     pmax[2] += headroom * (pos[:, 2].max() - pos[:, 2].min())
-    return cd.make_domain(tuple(pmin), tuple(pmax), ks, skin=DOMAIN_SKIN)
+    if csp.simulate2d:
+        pmin[1] = pos[0, 1] - ks / 2
+        pmax[1] = pos[0, 1] + ks / 2
+    return cd.make_domain(tuple(pmin), tuple(pmax), ks,
+                          simulate2d=csp.simulate2d, skin=DOMAIN_SKIN)
 
 
 def dambreak3d(dp=0.02, *, tank=(1.6, 0.67, 0.4), column=(0.4, 0.67, 0.3),
-               obstacle=True, device="cpu") -> Case:
+               obstacle=True, device="cuda") -> Case:
     """3D dam break with optional building obstacle (CaseDambreak_Def.xml):
     visco 0.1, coefsound 20, free-surface headroom 100% of the lattice
     height."""

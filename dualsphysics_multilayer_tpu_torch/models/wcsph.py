@@ -1,11 +1,13 @@
-"""Single-phase WCSPH solver on torch: state, the symplectic step and the
-host-side run loop.
+"""WCSPH solver on torch: state, the symplectic step and the host-side run
+loop.
 
 Counterpart of the main-path subset of
 `dualsphysics_multilayer_tpu/models/wcsph.py`: ``SimState``, ``StepCarry``,
 ``make_carry``, the skin-contract rebuild (``_rowdiv_tick``), the DBC
 ``_interaction``, ``make_symplectic_step``, ``make_step``, ``make_advance``
-and ``Simulation``.
+and ``Simulation``.  :func:`symplectic_step` takes the interaction as an
+argument, so the multiphase non-Newtonian step (``models/nnewtonian.py``)
+shares it.
 
 The state lives in cell-sorted order (``ops.celldiv.divide_cells``) and is
 re-sorted only when the skin contract demands it: with cells of
@@ -116,8 +118,10 @@ def _margin(csp: CteSph, dom: cd.Domain) -> float:
 
 def make_carry(st: SimState, csp: CteSph, opts: SolverOpts,
                dom: cd.Domain) -> StepCarry:
-    """Initial carry: the first divide (nrebuild = 1) and dt = DtIni."""
-    F.check_supported(csp, opts)
+    """Initial carry: the first divide (nrebuild = 1) and dt = DtIni.  It
+    serves the single-phase and the NN steps alike; each step checks its
+    own interaction's settings."""
+    F.check_supported_step(csp, opts)
     dev = st.pos.device
     carry = StepCarry(
         st=st,
@@ -141,11 +145,21 @@ def _interaction(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
 def make_symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
                          feats=None):
     """Returns step(carry) -> carry implementing ComputeStep_Sym
-    (JSphCpuSingle.cpp:695-722)."""
+    (JSphCpuSingle.cpp:695-722) over the single-phase interaction."""
     if feats is not None:
         raise NotImplementedError("the torch port does not cover Features "
                                   "hooks yet")
     F.check_supported(csp, opts)
+    return symplectic_step(
+        csp, opts, dom,
+        lambda st, cells: _interaction(csp, opts, dom, st, cells))
+
+
+def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
+                    interaction):
+    """step(carry) -> carry: the symplectic predictor and corrector over
+    ``interaction(st, cells) -> Forces`` on one layout, with the NN dt3
+    control when the forces carry ``viscetadtmax``."""
     margin = _margin(csp, dom)
 
     def step(carry: StepCarry) -> StepCarry:
@@ -155,20 +169,22 @@ def make_symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
         dt = carry.dt_pre
 
         # ---------------- predictor ----------------
-        fr1 = _interaction(csp, opts, dom, st, carry.cells)
+        fr1 = interaction(st, carry.cells)
         velmax1 = I.velocity_max(csp, st.vel, st.code)
         acemax1 = I.ace_max(fr1.ace, st.code)
-        dt_p, bad_p = I.dt_variable(csp, acemax1, velmax1, fr1.viscdtmax)
+        dt_p, bad_p = I.dt_variable(csp, acemax1, velmax1, fr1.viscdtmax,
+                                    fr1.viscetadtmax, opts.relaxationdt)
         pos_pre, vel_pre, rho_pre = st.pos, st.vel, st.rho
         pos1, vel1, rho1, code1 = I.symplectic_pre(
             csp, st.pos, st.vel, st.rho, st.code, fr1.ace, fr1.ar, dt)
         st = replace(st, pos=pos1, vel=vel1, rho=rho1, code=code1)
 
         # ---------------- corrector (same layout) ----------------
-        fr2 = _interaction(csp, opts, dom, st, carry.cells)
+        fr2 = interaction(st, carry.cells)
         velmax2 = I.velocity_max(csp, st.vel, st.code)
         acemax2 = I.ace_max(fr2.ace, st.code)
-        dt_c, bad_c = I.dt_variable(csp, acemax2, velmax2, fr2.viscdtmax)
+        dt_c, bad_c = I.dt_variable(csp, acemax2, velmax2, fr2.viscdtmax,
+                                    fr2.viscetadtmax, opts.relaxationdt)
         out = I.symplectic_corr(csp, pos_pre, vel_pre, rho_pre, st.rho,
                                 st.code, fr2.ace, fr2.ar, dt, pose=st.pose)
         st = replace(st, pos=out[0], vel=out[1], rho=out[2], code=out[3],
@@ -192,11 +208,13 @@ def make_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain, feats=None):
     return make_symplectic_step(csp, opts, dom, feats)
 
 
-def make_advance(csp: CteSph, opts: SolverOpts, dom: cd.Domain, feats=None):
+def make_advance(csp: CteSph, opts: SolverOpts, dom: cd.Domain, feats=None,
+                 step=None):
     """advance(carry, t_target, nstep_max): run steps until interval time
     >= t_target or nstep reaches nstep_max (the reference's main loop
-    between PART saves, JSphCpuSingle.cpp:1090-1120)."""
-    step = make_step(csp, opts, dom, feats)
+    between PART saves, JSphCpuSingle.cpp:1090-1120).  ``step`` replaces
+    the single-phase step, e.g. with ``nnewtonian.make_nn_step``."""
+    step = step or make_step(csp, opts, dom, feats)
 
     def advance(carry: StepCarry, t_target: float, nstep_max: int):
         while carry.t_host < t_target and carry.nstep < nstep_max:
@@ -211,10 +229,10 @@ class Simulation:
     1049-1202): owns the step, the save schedule and the diagnostics."""
 
     def __init__(self, csp: CteSph, opts: SolverOpts, dom: cd.Domain,
-                 state: SimState, feats=None):
+                 state: SimState, feats=None, step=None):
         self.csp, self.opts, self.dom = csp, opts, dom
         self.carry = make_carry(state, csp, opts, dom)
-        self.advance = make_advance(csp, opts, dom, feats)
+        self.advance = make_advance(csp, opts, dom, feats, step=step)
         self.part = 0
         self.time = 0.0        # global simulation time (host f64 accumulator)
 

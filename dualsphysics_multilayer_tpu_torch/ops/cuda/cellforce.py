@@ -67,9 +67,29 @@ def channels(csp: CteSph, pos, vel, rho, code):
     return pospress, velrho, kind.to(torch.int32).contiguous()
 
 
-def _check(dom: Domain, cells: CellDiv, pos, vel, rho, code, device_type):
+def check_inputs(kernel: str, device_type: str, want: dict) -> None:
+    """Raise ValueError unless every ``name: (tensor, dtype, shape)`` of
+    ``want`` is a contiguous tensor of that dtype and shape on the first
+    one's device, of type ``device_type``, and the first is not empty."""
+    first = next(iter(want.values()))[0]
+    for name, (x, dtype, shape) in want.items():
+        if x.device.type != device_type or x.device != first.device:
+            raise ValueError(f"{kernel}: {name} is on {x.device}, "
+                             f"expected {first.device} ({device_type})")
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{kernel}: {name} is {x.dtype}{tuple(x.shape)}, "
+                             f"expected {dtype}{shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"{kernel}: {name} is not contiguous")
+    if first.shape[0] == 0:
+        raise ValueError(f"{kernel}: no particles")
+
+
+def state_inputs(dom: Domain, cells: CellDiv, pos, vel, rho, code) -> dict:
+    """The state and divide arrays every pair kernel reads, for
+    :func:`check_inputs`."""
     n = pos.shape[0]
-    want = {
+    return {
         "pos": (pos, torch.float32, (n, 3)),
         "vel": (vel, torch.float32, (n, 3)),
         "rho": (rho, torch.float32, (n,)),
@@ -77,17 +97,11 @@ def _check(dom: Domain, cells: CellDiv, pos, vel, rho, code, device_type):
         "cells.cell": (cells.cell, torch.int32, (n,)),
         "cells.begin": (cells.begin, torch.int32, (dom.ncells + 1,)),
     }
-    for name, (x, dtype, shape) in want.items():
-        if x.device.type != device_type or x.device != pos.device:
-            raise ValueError(f"cellforce: {name} is on {x.device}, "
-                             f"expected {pos.device} ({device_type})")
-        if x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(f"cellforce: {name} is {x.dtype}{tuple(x.shape)}, "
-                             f"expected {dtype}{shape}")
-        if not x.is_contiguous():
-            raise ValueError(f"cellforce: {name} is not contiguous")
-    if n == 0:
-        raise ValueError("cellforce: no particles")
+
+
+def _check(dom: Domain, cells: CellDiv, pos, vel, rho, code, device_type):
+    check_inputs("cellforce", device_type,
+                 state_inputs(dom, cells, pos, vel, rho, code))
 
 
 def _run(lib_fn, csp, opts, dom, cells, pos, vel, rho, code, extra=()):
@@ -112,7 +126,7 @@ def interaction_forces_cuda(csp: CteSph, opts: SolverOpts, dom: Domain,
     """One interaction through the CUDA kernel (CUDA tensors only)."""
     global launches
     _check(dom, cells, pos, vel, rho, code, "cuda")
-    lib = build.cuda_library()
+    lib = build.cuda_library("cellforce")
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream().cuda_stream
         fr = _run(lib.dsph_cellforce, csp, opts, dom, cells, pos, vel, rho,
@@ -126,6 +140,6 @@ def interaction_forces_host_twin(csp: CteSph, opts: SolverOpts, dom: Domain,
                                  code) -> Forces:
     """The kernel's body compiled by g++, on CPU tensors (for tests)."""
     _check(dom, cells, pos, vel, rho, code, "cpu")
-    lib = build.host_twin_library()
+    lib = build.host_twin_library("cellforce")
     return _run(lib.dsph_cellforce_host, csp, opts, dom, cells, pos, vel,
                 rho, code)

@@ -18,7 +18,7 @@ import torch
 
 from .. import typesdef as td
 from ..typesdef import (CteSph, TpBoundary, TpDensity, TpKernel, TpShifting,
-                        TpStep, TpVisco)
+                        TpStep, TpVelGrad, TpVisco)
 from . import eos
 from . import pairphys as PP
 from .celldiv import CellDiv, Domain
@@ -28,8 +28,9 @@ from .pairphys import FLT_MAX
 @dataclass(frozen=True)
 class SolverOpts:
     """Solver configuration; the JAX package's ``SolverOpts`` fields that
-    the port's slice reads.  Values the slice does not cover raise
-    ``NotImplementedError`` in :func:`check_supported`."""
+    the port's slices read.  Values no slice covers raise
+    ``NotImplementedError`` in :func:`check_supported` (single phase) or
+    ``forces_nn.check_supported_nn`` (multiphase non-Newtonian)."""
     tstep: TpStep = TpStep.SYMPLECTIC
     tvisco: TpVisco = TpVisco.ARTIFICIAL
     tdensity: TpDensity = TpDensity.FOURTAKAS
@@ -38,6 +39,11 @@ class SolverOpts:
     with_floating: bool = False
     use_nbrlist: bool = False
     symmetry: bool = False
+    # NN velocity-gradient formulation: SPH = accumulated per-particle
+    # gradients (3 passes), FDA = per-pair finite differences (1 pass)
+    velgrad: TpVelGrad = TpVelGrad.SPH
+    # NN dt relaxation lamda in dt3 = h^2/(ViscEtaDtMax*lamda)
+    relaxationdt: float = 0.2
 
 
 @dataclass
@@ -47,13 +53,16 @@ class Forces:
     ace: torch.Tensor          # (n,3) acceleration without gravity
     ar: torch.Tensor           # (n,)  drho/dt, density diffusion folded in
     viscdtmax: torch.Tensor    # ()    max dot(dv,dr)/(rr2+eta2) over pairs, >= 0
+    # () max effective viscosity for the NN dt3 control; None on the
+    # single-phase path
+    viscetadtmax: torch.Tensor | None = None
 
 
-def check_supported(csp: CteSph, opts: SolverOpts) -> None:
-    """Raise NotImplementedError for any configuration outside the slice."""
+def check_supported_step(csp: CteSph, opts: SolverOpts) -> None:
+    """Raise NotImplementedError for any setting outside every slice's step:
+    what the single-phase and the NN interactions both require."""
     unsupported = [
         (opts.tstep != TpStep.SYMPLECTIC, f"tstep={opts.tstep.name}"),
-        (opts.tvisco != TpVisco.ARTIFICIAL, f"tvisco={opts.tvisco.name}"),
         (opts.tboundary != TpBoundary.DBC, f"tboundary={opts.tboundary.name}"),
         (opts.shiftmode != TpShifting.NONE, f"shiftmode={opts.shiftmode.name}"),
         (opts.with_floating, "with_floating=True"),
@@ -64,6 +73,15 @@ def check_supported(csp: CteSph, opts: SolverOpts) -> None:
     for bad, name in unsupported:
         if bad:
             raise NotImplementedError(f"the torch port does not cover {name} yet")
+
+
+def check_supported(csp: CteSph, opts: SolverOpts) -> None:
+    """Raise NotImplementedError for any configuration outside the
+    single-phase slice."""
+    check_supported_step(csp, opts)
+    if opts.tvisco != TpVisco.ARTIFICIAL:
+        raise NotImplementedError(f"the torch port does not cover "
+                                  f"tvisco={opts.tvisco.name} yet")
 
 
 def interaction_forces(csp: CteSph, opts: SolverOpts, dom: Domain,
@@ -103,12 +121,31 @@ def neighbour_ranges(dom: Domain, cells: CellDiv, live):
     return torch.stack(starts, dim=1), torch.stack(lens, dim=1)
 
 
+def candidate_chunks(dom: Domain, cells: CellDiv, live, max_pairs: int):
+    """Yield ``(t, j, valid)`` for chunks of targets: ``t`` (b,) target
+    slots, ``j`` (b, R*L) their candidate slots, the R neighbour ranges
+    each padded to the longest range L (slot 0 in the padding), and
+    ``valid`` (b, R*L) false in the padding.  A chunk holds at most
+    ``max_pairs`` padded slots, which bounds the pair temporaries (the
+    analog of the JAX bucket path's cell chunks)."""
+    n = live.shape[0]
+    starts, lens = neighbour_ranges(dom, cells, live)
+    R = starts.shape[1]
+    L = max(int(lens.max()), 1) if n else 1
+    B = max(1, max_pairs // (R * L))
+    off = torch.arange(L, device=live.device)
+    for i0 in range(0, n, B):
+        t = torch.arange(i0, min(i0 + B, n), device=live.device)
+        valid = off < lens[t, :, None]                          # (b, R, L)
+        j = torch.where(valid, starts[t, :, None] + off, 0).reshape(len(t), -1)
+        yield t, j, valid.reshape(len(t), -1)
+
+
 def interaction_forces_plain(csp: CteSph, opts: SolverOpts, dom: Domain,
                              cells: CellDiv, pos, vel, rho, code,
                              max_pairs: int = 1 << 21) -> Forces:
-    """Plain torch version of the cellforce kernel.  Targets are processed
-    in chunks of at most ``max_pairs`` padded candidate slots, which bounds
-    the pair temporaries (the analog of the JAX bucket path's cell chunks)."""
+    """Plain torch version of the cellforce kernel, over
+    :func:`candidate_chunks`."""
     check_supported(csp, opts)
     n = pos.shape[0]
     f32 = pos.dtype
@@ -116,20 +153,11 @@ def interaction_forces_plain(csp: CteSph, opts: SolverOpts, dom: Domain,
     act = td.is_active(code)
     fluidside, floating, _fixed, mass = PP.particle_flags(csp, code)
     live = act & (cells.cell < dom.ncells)
-    starts, lens = neighbour_ranges(dom, cells, live)
-    R = starts.shape[1]
-    L = max(int(lens.max()), 1) if n else 1
-    B = max(1, max_pairs // (R * L))
-    off = torch.arange(L, device=pos.device)
 
     ace = torch.zeros((n, 3), dtype=f32, device=pos.device)
     ar = torch.zeros(n, dtype=f32, device=pos.device)
     visc = torch.full((n,), -FLT_MAX, dtype=f32, device=pos.device)
-    for i0 in range(0, n, B):
-        t = torch.arange(i0, min(i0 + B, n), device=pos.device)
-        valid = off < lens[t, :, None]                          # (b, R, L)
-        j = torch.where(valid, starts[t, :, None] + off, 0).reshape(len(t), -1)
-        valid = valid.reshape(len(t), -1)
+    for t, j, valid in candidate_chunks(dom, cells, live, max_pairs):
         dr = pos[t, None, :] - pos[j]
         rr2 = (dr * dr).sum(dim=-1)
         pair = (valid & (j != t[:, None]) & act[j]

@@ -107,24 +107,35 @@ def verlet(csp: CteSph, pos, vel, rho, velm1, rhom1, code, ace, ar, dt,
     return pos_new, vel_new, rho_new, code_new, pose_new
 
 
-def dt_variable_parts(csp: CteSph, acemax, velmax, viscdtmax):
+def dt_variable_parts(csp: CteSph, acemax, velmax, viscdtmax,
+                      viscetadtmax=None, lamda=0.2):
     """Adaptive dt (JSphCpu.cpp:1614-1639): dt1 = sqrt(h/|a|max);
     dt2 = h/(max(cs0,10*velmax) + h*viscdtmax); dt = CFL*min, clamped to
-    DtMin.  Returns (dt, clamped?, dt1, dt2) as 0-d tensors."""
+    DtMin.  Returns (dt, clamped?, dt1, dt2) as 0-d tensors.
+
+    ``viscetadtmax`` (multiphase only) adds the viscous control
+    dt3 = h^2/(ViscEtaDtMax*lamda), ``lamda`` being the RelaxationDt
+    parameter (mphase JSphCpu.cpp:1687, JSph.cpp:616)."""
     h = csp.kernelh
     dt1 = torch.where(acemax > 0, torch.sqrt(h / torch.clamp(acemax, min=1e-30)),
                       3.4e38)
     dt2 = h / (torch.clamp(velmax * 10.0, min=csp.cs0) + h * viscdtmax)
-    dt = csp.cflnumber * torch.minimum(dt1, dt2)
+    dtm = torch.minimum(dt1, dt2)
+    if viscetadtmax is not None:
+        dt3 = h * h / torch.clamp(viscetadtmax * lamda, min=1e-30)
+        dtm = torch.minimum(dtm, dt3)
+    dt = csp.cflnumber * dtm
     if csp.dtfixed:
         dt = torch.full_like(dt, csp.dtfixed)
     bad = torch.isnan(dt) | torch.isinf(dt) | (dt < csp.dtmin)
     return torch.where(bad, csp.dtmin, dt), bad, dt1, dt2
 
 
-def dt_variable(csp: CteSph, acemax, velmax, viscdtmax):
+def dt_variable(csp: CteSph, acemax, velmax, viscdtmax, viscetadtmax=None,
+                lamda=0.2):
     """(dt, clamped?) — see :func:`dt_variable_parts`."""
-    dt, bad, _, _ = dt_variable_parts(csp, acemax, velmax, viscdtmax)
+    dt, bad, _, _ = dt_variable_parts(csp, acemax, velmax, viscdtmax,
+                                      viscetadtmax, lamda)
     return dt, bad
 
 

@@ -102,14 +102,14 @@ def test_dambreak3d_matches(obstacle):
     if obstacle:
         kw = dict(dp=0.05)
     want = jcases.dambreak3d(obstacle=obstacle, **kw)
-    got = cases.dambreak3d(obstacle=obstacle, **kw)
+    got = cases.dambreak3d(obstacle=obstacle, device="cpu", **kw)
     assert got.np_total == want.np_total and got.npb == want.npb
     assert convert.ctesph(dataclasses.asdict(want.csp)) == got.csp
     assert convert.domain(dataclasses.asdict(want.dom)) == got.dom
     st = want.state
     conv = convert.simstate(dict(pos=np.asarray(st.pos), vel=np.asarray(st.vel),
                                  rho=np.asarray(st.rho), code=np.asarray(st.code),
-                                 idp=np.asarray(st.idp)))
+                                 idp=np.asarray(st.idp)), device="cpu")
     for k in ("pos", "vel", "rho", "code", "idp"):
         assert torch.equal(getattr(got.state, k), getattr(conv, k)), k
     # fluid is hydrostatic, walls at rho0
@@ -121,11 +121,12 @@ def test_dambreak3d_matches(obstacle):
 def test_convert_rejects_unported_state():
     st = dict(pos=np.zeros((2, 3)), vel=np.zeros((2, 3)), rho=np.ones(2),
               code=np.zeros(2, np.uint32), idp=np.array([0, 0xFFFFFFFF], np.uint32))
-    assert convert.simstate(st).idp.tolist() == [0, 0xFFFFFFFF]
+    assert convert.simstate(st, device="cpu").idp.tolist() == [0, 0xFFFFFFFF]
     with pytest.raises(NotImplementedError, match="velm1"):
-        convert.simstate(dict(st, velm1=np.zeros((2, 3))))
+        convert.simstate(dict(st, velm1=np.zeros((2, 3))), device="cpu")
     with pytest.raises(ValueError):
-        convert.simstate(dict(st, code=np.array([0, 1 << 27], np.uint32)))
+        convert.simstate(dict(st, code=np.array([0, 1 << 27], np.uint32)),
+                         device="cpu")
     assert jtd.CODE_INOUT_SHIFT + 5 == td.CODE_BITS
 
 
@@ -136,9 +137,9 @@ def test_convert_pose_defaults_to_zero():
               code=np.zeros(3, np.uint32), idp=np.arange(3, dtype=np.uint32))
     for pose in (None, "absent"):
         arrays = st if pose == "absent" else dict(st, pose=pose)
-        got = convert.simstate(arrays).pose
+        got = convert.simstate(arrays, device="cpu").pose
         assert got.dtype == torch.float32 and got.shape == (3, 3)
         assert not bool(got.any())
     pose = np.full((3, 3), 1e-8)
-    got = convert.simstate(dict(st, pose=pose)).pose
+    got = convert.simstate(dict(st, pose=pose), device="cpu").pose
     assert torch.equal(got, torch.tensor(pose, dtype=torch.float32))

@@ -1,12 +1,15 @@
-"""The CUDA kernel on the card against its plain torch version.  Imports no
-JAX, so it runs where only torch is installed:
+"""The CUDA kernels on the card against their plain torch versions, and
+steps on the card against the same steps on the CPU.  Imports no JAX, so
+it runs where only torch is installed:
 
     python -m pytest --noconftest tests/port/test_torch_cuda.py -m gpu
 
 Without a CUDA device every test skips.  Tolerance: the rule of
 tests/test_forces.py assert_close (rtol 2e-3, floor 2e-3 of the largest
-value; viscdtmax rtol 1e-3), as in chip_smoke.py.
+value; viscdtmax and viscetadtmax rtol 1e-3), as in chip_smoke.py.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -15,9 +18,12 @@ import torch
 import dualsphysics_multilayer_tpu_torch as P
 from dualsphysics_multilayer_tpu_torch import typesdef as td
 from dualsphysics_multilayer_tpu_torch.models import cases
+from dualsphysics_multilayer_tpu_torch.models import nnewtonian as NM
 from dualsphysics_multilayer_tpu_torch.ops import celldiv as cd
 from dualsphysics_multilayer_tpu_torch.ops import forces as F
+from dualsphysics_multilayer_tpu_torch.ops import forces_nn as NN
 from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
+from dualsphysics_multilayer_tpu_torch.ops.cuda import nnforce as NF
 
 DDT = ["NONE", "MOLTENI", "FOURTAKAS", "FOURTAKAS_FULL"]
 GEOM = dict(dp=0.04, tank=(0.8, 0.4, 0.3), column=(0.2, 0.4, 0.2),
@@ -135,3 +141,125 @@ def test_cuda_wrapper_rejects_mixed_devices(cuda):
     with pytest.raises(ValueError, match="rho"):
         CF.interaction_forces_cuda(case.csp, F.SolverOpts(), case.dom, cells,
                                    st.pos, st.vel, st.rho.cpu(), code)
+
+
+# ---------------------------------------------------------------------------
+# multiphase non-Newtonian kernels
+# ---------------------------------------------------------------------------
+
+NN_CONFIGS = [("LAMINAR_SPS", "SPH"), ("CONST_EQ", "SPH"), ("ARTIFICIAL", "SPH"),
+              ("LAMINAR_SPS", "FDA"), ("CONST_EQ", "FDA")]
+
+
+def nn_opts(tvisco, velgrad, tdensity="FOURTAKAS"):
+    return P.SolverOpts(tvisco=td.TpVisco[tvisco], velgrad=td.TpVelGrad[velgrad],
+                        tdensity=td.TpDensity[tdensity])
+
+
+def nn_perturbed(case, phases, seed, device):
+    """The case's state with a seeded 0.5 m/s velocity jitter on the fluid
+    (none along y in 2D) and a 1% density jitter of each phase's rho0."""
+    st = case.state
+    rng = np.random.default_rng(seed)
+    fluid = td.is_fluid(st.code)
+    dv = torch.tensor(rng.normal(0, 0.5, (st.n, 3)), dtype=torch.float32,
+                      device=device)
+    if case.csp.simulate2d:
+        dv[:, 1] = 0.0
+    rho0 = phases.tables(case.csp, device)["rho0"][
+        torch.clamp(td.code_value(st.code), 0, phases.count - 1).long()]
+    drho = torch.tensor(rng.uniform(-0.01, 0.01, st.n), dtype=torch.float32,
+                        device=device) * rho0
+    return (st.pos, torch.where(fluid[:, None], dv, 0.0),
+            st.rho + torch.where(fluid, drho, 0.0), st.code)
+
+
+def nn_kernels_vs_plain(csp, opts, phases, dom, pos, vel, rho, code):
+    cells, code = cd.divide_cells(dom, pos, code)
+    o = cells.order
+    run = (csp, opts, phases, dom, cells, pos[o], vel[o], rho[o], code[o])
+    before = dict(NF.launches)
+    fr, eta, tau = NN.interaction_forces_nn(*run)
+    torch.cuda.synchronize()
+    fda = NN.uses_fda(opts)
+    assert NF.launches["nnforce_fda"] == before["nnforce_fda"] + fda
+    assert NF.launches["nnforce_p1"] == before["nnforce_p1"] + (not fda)
+    assert NF.launches["nnforce_p3"] == before["nnforce_p3"] + (not fda)
+    got = NF.interaction_forces_nn_cuda(*run)
+    want = NN.interaction_forces_nn_plain(*run)
+    assert torch.equal(got.forces.ace, fr.ace)     # deterministic sums
+    for k, g, w in (("ace", got.forces.ace, want.forces.ace),
+                    ("ar", got.forces.ar, want.forces.ar),
+                    ("visco_eta", got.visco_eta, want.visco_eta),
+                    ("tau", got.tau, want.tau),
+                    ("gradvel", got.gradvel, want.gradvel)):
+        scale = float(w.abs().max()) + 1e-6
+        torch.testing.assert_close(g, w, rtol=2e-3, atol=2e-3 * scale, msg=k)
+    for k in ("viscdtmax", "viscetadtmax"):
+        torch.testing.assert_close(getattr(got.forces, k),
+                                   getattr(want.forces, k), rtol=1e-3,
+                                   atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tvisco,velgrad", NN_CONFIGS)
+def test_cuda_nn_kernels_match_plain(cuda, tvisco, velgrad):
+    case, phases = NM.wet_dambreak_nn(dp=0.02, device=cuda)
+    nn_kernels_vs_plain(case.csp, nn_opts(tvisco, velgrad), phases, case.dom,
+                        *nn_perturbed(case, phases, 4, cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tdensity", ["NONE", "MOLTENI", "FOURTAKAS_FULL"])
+def test_cuda_nn_kernels_match_plain_ddt(cuda, tdensity):
+    case, phases = NM.wet_dambreak_nn(dp=0.02, device=cuda)
+    nn_kernels_vs_plain(case.csp, nn_opts("LAMINAR_SPS", "SPH", tdensity),
+                        phases, case.dom, *nn_perturbed(case, phases, 5, cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tvisco,velgrad", [("LAMINAR_SPS", "SPH"),
+                                            ("CONST_EQ", "FDA")])
+def test_cuda_nn_kernels_match_plain_3d(cuda, tvisco, velgrad):
+    """A 3D two-phase cloud, so that the 9-row walk runs."""
+    _, phases = NM.wet_dambreak_nn(dp=0.05, device="cpu")
+    csp = NM.make_nn_csp(simulate2d=False, dp=0.05, phases=phases, hswl=0.25)
+    pos, vel, rho, code = cloud(False, 13, cuda)
+    mud = td.is_fluid(code) & (pos[:, 0] >= 0.25)
+    code = torch.where(mud, code | 1, code)
+    rho = torch.where(mud, rho * 1.5, rho)
+    dom = cd.make_domain(pos.min(0).values.tolist(), pos.max(0).values.tolist(),
+                         csp.kernelsize, borders=0.01)
+    nn_kernels_vs_plain(csp, nn_opts(tvisco, velgrad), phases, dom, pos, vel,
+                        rho, code)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("velgrad", ["SPH", "FDA"])
+def test_cuda_nn_steps_match_cpu_steps(cuda, velgrad):
+    """NN steps on the card (kernels) and on the CPU (plain version) agree
+    by particle id within 1e-4*dp, with a rebuild inside the run."""
+    opts = nn_opts("LAMINAR_SPS", velgrad)
+    dp = 0.02
+    out = {}
+    for dev in ("cpu", cuda):
+        case, phases = NM.wet_dambreak_nn(dp=dp, device=dev)
+        fluid = td.is_fluid(case.state.code)
+        vel = torch.where(fluid[:, None],
+                          torch.tensor([2.5, 0.0, 0.0], device=dev), 0.0)
+        carry = P.make_carry(dataclasses.replace(case.state, vel=vel),
+                             case.csp, opts, case.dom)
+        step = P.make_nn_step(case.csp, opts, case.dom, phases)
+        launches = dict(NF.launches)
+        for _ in range(4):
+            carry = step(carry)
+        if dev != "cpu":
+            kernels = ("nnforce_fda",) if velgrad == "FDA" else (
+                "nnforce_p1", "nnforce_p3")
+            for k in kernels:
+                assert NF.launches[k] == launches[k] + 8
+        assert carry.nrebuild >= 2
+        pos = torch.empty_like(carry.st.pos)
+        pos[carry.st.idp] = carry.st.pos
+        out[str(dev)] = pos.cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=0, atol=1e-4 * dp)

@@ -177,7 +177,8 @@ def test_kernel_body_twin_dambreak(gxx):
     """The twin on the dam-break lattice (walls, obstacle-free) with a
     random velocity field, after a divide with the domain skin."""
     case = cases.dambreak3d(dp=0.04, tank=(0.8, 0.4, 0.3),
-                            column=(0.2, 0.4, 0.2), obstacle=False)
+                            column=(0.2, 0.4, 0.2), obstacle=False,
+                            device="cpu")
     st = case.state
     rng = np.random.default_rng(4)
     fluid = td.is_fluid(st.code)

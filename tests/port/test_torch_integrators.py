@@ -126,6 +126,28 @@ def test_dt_variable_matches(acemax, velmax, viscdt):
     assert float(dt) >= csp.dtmin and bool(bad) == bool(want[1])
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_dt_variable_dt3_matches(seed):
+    """The multiphase viscous control dt3 = h^2/(ViscEtaDtMax*lamda), on
+    random scalars spanning the cases where dt3 does and does not set dt."""
+    csp, jcsp = csps()
+    rng = np.random.default_rng(seed)
+    a, v, vd = (np.float32(x) for x in (rng.uniform(0, 50), rng.uniform(0, 3),
+                                         rng.uniform(0, 100)))
+    eta = np.float32(10.0 ** rng.uniform(-3, 4))
+    lamda = float(rng.choice([0.2, 0.5]))
+    want = jI.dt_variable_parts(jcsp, jnp.asarray(a), jnp.asarray(v),
+                                jnp.asarray(vd), jnp.asarray(eta), lamda)
+    got = I.dt_variable_parts(csp, torch.tensor(a), torch.tensor(v),
+                              torch.tensor(vd), torch.tensor(eta), lamda)
+    assert bool(got[1]) == bool(want[1])
+    for g, w in zip(got[:1] + got[2:], want[:1] + want[2:]):
+        np.testing.assert_array_max_ulp(g.numpy(), np.asarray(w), maxulp=MAXULP)
+    dt, bad = I.dt_variable(csp, torch.tensor(a), torch.tensor(v),
+                            torch.tensor(vd), torch.tensor(eta), lamda)
+    assert float(dt) == float(got[0]) and bool(bad) == bool(want[1])
+
+
 def test_dt_variable_fixed_and_clamped():
     csp, jcsp = csps()
     fixed = csp.replace(dtfixed=2e-4)

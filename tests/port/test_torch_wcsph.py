@@ -66,7 +66,7 @@ def test_symplectic_steps_match_jax(jax_ref, flow):
     csp = convert.ctesph(dataclasses.asdict(case.csp))
     dom = convert.domain(dataclasses.asdict(case.dom))
     opts = P.SolverOpts(tdensity=td.TpDensity.FOURTAKAS)
-    carry = P.make_carry(convert.simstate(arrays), csp, opts, dom)
+    carry = P.make_carry(convert.simstate(arrays, device="cpu"), csp, opts, dom)
     step = P.make_step(csp, opts, dom)
     launches = CF.launches
     for _ in range(NSTEPS):
@@ -96,7 +96,7 @@ def test_symplectic_steps_match_jax(jax_ref, flow):
 
 
 def small_case():
-    return cases.dambreak3d(**GEOM)
+    return cases.dambreak3d(**GEOM, device="cpu")
 
 
 def test_simulation_run_and_advance():
