@@ -40,7 +40,28 @@ without printing the final result line:
 8. NN step breakdown: 10 more SPH Morris steps traced with
    ``torch.profiler`` (CUDA activity only): device busy time (the union of
    the traced device intervals) and idle share of the host-clock window,
-   device operations per step, and the NN kernels' device time.
+   device operations per step, and the NN kernels' device time;
+9. variant kernels vs plain: the 3D dam break of phase 3 (about 50k
+   particles, seeded velocity, density and SPS stress) through the other
+   instances of ``cellforce.cu`` against their plain versions, timed alike:
+   cubic, cubic with shifting, Wendland with shifting (kernel 1's shifting
+   instance), laminar+SPS with Wendland, with cubic, and with shifting
+   (rtol 2e-3 on ace, ar, the SPS velocity gradient and the shifting sums,
+   4e-3 with the cubic spline, the shifting flags exact);
+10. laminar+SPS path: the dam break of phase 4 with the reference's
+    ``-viscolamsps:1e-6 -shifting:2`` (laminar+SPS viscosity 1e-6 with the
+    Smagorinsky/Blin constants, NO_FIXED shifting, Wendland, Fourtakas),
+    flowing as in phase 4: 5 warm-up and 50 timed steps, which must launch
+    cellforce_lamsps exactly twice per step and no other single-phase
+    kernel, rebuild at least once inside the steps, keep the state and the
+    SPS stress finite and the fluid density within 10% of rho0; then the
+    layout of the last divide must hold every pair a fresh divide finds, at
+    the positions of the next predictor and one dt beyond (the skin contract
+    under shifting), and the kernel must match its plain version on the
+    final state;
+11. cubic path: the same with ``-cubic`` (the cubic spline with the tensile
+    correction, artificial viscosity 0.1, Fourtakas, no shifting) and
+    cellforce_cubic.
 
 Each kernel is timed twice: alone (``ms``: CUDA events around 20
 back-to-back launches of the C launcher on prepared inputs, per launch,
@@ -57,6 +78,7 @@ import ctypes
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -66,10 +88,14 @@ import numpy as np
 import torch
 
 RTOL = 2e-3          # tests/test_forces.py assert_close: ace, ar, eta, gradvel
+RTOL_CUBIC = 4e-3    # tests/test_forces.py:90, the cubic spline's rule
 RTOL_SCALAR = 1e-3   # same rule: viscdtmax, viscetadtmax
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s
 PEAK_F32 = 67e12       # H100 SXM f32 outside the tensor cores, FLOP/s
 NN_DP = max((2.0 * 0.45 * 0.35 / 60000) ** 0.5 * 1.4, 0.0025)   # bench.py nnmud
+DP_50K = (0.11 / 5e4) ** (1 / 3)        # bench.py's dp for BENCH_NP=50000
+DP_BENCH = (0.11 / 300000) ** (1 / 3)   # BENCH_NP=300000: 267,469 particles
+LAMSPS_VISCO = 1e-6   # water's kinematic viscosity, -viscolamsps:1e-6
 PKG = "dualsphysics_multilayer_tpu_torch/csrc/"
 TPU = "dualsphysics_multilayer_tpu/ops/pallas/"
 KERNELS = {   # name: (source, TPU kernel it replaces)
@@ -77,14 +103,22 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
     "nnforce_p1": (PKG + "nnforce.cu", TPU + "nnforce.py:76"),
     "nnforce_p3": (PKG + "nnforce.cu", TPU + "nnforce.py:478"),
     "nnforce_fda": (PKG + "nnforce.cu", TPU + "nnforce.py:247"),
+    "cellforce_cubic": (PKG + "cellforce.cu", TPU + "cellforce.py:672"),
+    "cellforce_lamsps": (PKG + "cellforce.cu", TPU + "cellforce.py:427"),
 }
 # f32 operations per in-support pair of a fluid-side target, each add,
 # multiply, divide, max, sqrt, exp and pow counted once, from the bodies in
 # csrc/ (pairbody.cuh, nnbody.cuh); the data-dependent branches (viscosity
 # of approaching pairs, diffusion of same-phase pairs, the wall trick) are
-# left out, so the count is a lower bound on the work.
+# left out, so the count is a lower bound on the work.  The variants add
+# to cellforce's 50: the tensile correction 15 (cubic), the laminar
+# operator, SPS stress divergence and velocity gradient 62 (laminar+SPS;
+# the candidate's stress, fluid candidates only, left out) and the
+# shifting sums 9.
 OPS_PER_PAIR = {"cellforce": 50, "nnforce_p1": 80, "nnforce_p3": 40,
-                "nnforce_fda": 124}
+                "nnforce_fda": 124, "cellforce_cubic": 65,
+                "cellforce_lamsps": 112}
+OPS_SHIFT = 9
 
 
 def say(phase, msg):
@@ -148,23 +182,53 @@ def close_scalar(name, got, want, rtol=RTOL_SCALAR):
     return abs(g - w)
 
 
-def pair_counts(csp, dom, cells, pos, code, inclusive):
-    """(candidates walked, in-support pairs with a fluid-side target) of
-    one interaction on these inputs."""
+def pair_walk(csp, dom, cells, pos, code, inclusive=False):
+    """(candidates walked, in-support pairs) of every target through the
+    layout ``cells``, in slot order: what the pair kernels walk and sum
+    (``inclusive``: pairs at exactly the kernel size count, as in the NN
+    bodies)."""
     from dualsphysics_multilayer_tpu_torch import typesdef as td
     from dualsphysics_multilayer_tpu_torch.ops import forces as F
     live = td.is_active(code) & (cells.cell < dom.ncells)
-    fluidside = td.code_type(code) >= td.TYPE_FLOATING
-    cand = pairs = 0
+    cand = torch.zeros(pos.shape[0], dtype=torch.int64, device=pos.device)
+    pairs = torch.zeros_like(cand)
     for t, j, valid in F.candidate_chunks(dom, cells, live, 1 << 22):
         dr = pos[t, None, :] - pos[j]
         rr2 = (dr * dr).sum(dim=-1)
         inside = rr2 <= csp.kernelsize2 if inclusive else rr2 < csp.kernelsize2
-        ok = (valid & (j != t[:, None]) & live[j] & (rr2 >= td.ALMOSTZERO)
-              & inside & fluidside[t, None])
-        cand += int(valid.sum())
-        pairs += int(ok.sum())
+        cand[t] = valid.sum(dim=1)
+        pairs[t] = (valid & (j != t[:, None]) & live[j]
+                    & (rr2 >= td.ALMOSTZERO) & inside).sum(dim=1)
     return cand, pairs
+
+
+def layout_keeps_pairs(csp, dom, carry):
+    """Raise unless the carry's layout holds every pair a fresh divide
+    finds, at the positions of the next predictor and one dt beyond;
+    returns the number of pairs at the first."""
+    from dualsphysics_multilayer_tpu_torch.ops import celldiv as cd
+    check(not carry.rebuild, "the run ended on a rebuild flag")
+    st = carry.st
+    total = None
+    for pos in (st.pos, st.pos + carry.dt_pre * st.vel):
+        fresh, code = cd.divide_cells(dom, pos, st.code)
+        o = fresh.order
+        want = torch.empty_like(o)
+        want[o] = pair_walk(csp, dom, fresh, pos[o], code[o])[1]
+        got = pair_walk(csp, dom, carry.cells, pos, st.code)[1]
+        lost = int((got != want).sum())
+        check(lost == 0, f"{lost} targets lost pairs between rebuilds")
+        total = total if total is not None else int(got.sum())
+    return total
+
+
+def pair_counts(csp, dom, cells, pos, code, inclusive):
+    """(candidates walked, in-support pairs with a fluid-side target) of
+    one interaction on these inputs."""
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    cand, pairs = pair_walk(csp, dom, cells, pos, code, inclusive)
+    fluidside = td.code_type(code) >= td.TYPE_FLOATING
+    return int(cand.sum()), int(pairs[fluidside].sum())
 
 
 def bound(nbytes, ops):
@@ -217,14 +281,14 @@ def sorted_args(dom, pos, vel, rho, code):
 def reset_counts():
     from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
     from dualsphysics_multilayer_tpu_torch.ops.cuda import nnforce as NF
-    CF.launches = 0
+    CF.launches.update(dict.fromkeys(CF.launches, 0))
     NF.launches.update(dict.fromkeys(NF.launches, 0))
 
 
 def counts():
     from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
     from dualsphysics_multilayer_tpu_torch.ops.cuda import nnforce as NF
-    return dict(cellforce=CF.launches, **NF.launches)
+    return dict(**CF.launches, **NF.launches)
 
 
 def run_steps(step, carry, nwarm, nsteps):
@@ -270,36 +334,178 @@ def bare_launcher(library, function, params, tensors):
     kernel without its wrapper."""
     from dualsphysics_multilayer_tpu_torch.ops.cuda import build
     fn = getattr(build.cuda_library(library), function)
-    ptrs = [t.data_ptr() for t in tensors]
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
     stream = torch.cuda.current_stream().cuda_stream
     return lambda held=tensors: fn(ctypes.byref(params), *ptrs, stream)
 
 
-def compare_cellforce(csp, opts, dom, cells, args, reps):
-    """cellforce vs its plain version on the same inputs: errors and the
-    times of the kernel alone, with its wrapper, and of the plain
-    version."""
+def compare_cellforce(csp, opts, dom, cells, args, reps, spstau=None):
+    """The cellforce kernel of this configuration vs its plain version on
+    the same inputs: errors and the times of the kernel alone, with its
+    wrapper, and of the plain version."""
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
     from dualsphysics_multilayer_tpu_torch.ops import forces as F
     from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
-    got = CF.interaction_forces_cuda(csp, opts, dom, cells, *args)
-    want = F.interaction_forces_plain(csp, opts, dom, cells, *args)
+    name = CF.kernel_name(csp, opts)
+    rtol = RTOL_CUBIC if csp.tkernel == td.TpKernel.CUBIC else RTOL
+    got = CF.interaction_forces_cuda(csp, opts, dom, cells, *args, spstau)
+    want = F.interaction_forces_plain(csp, opts, dom, cells, *args, spstau)
     torch.cuda.synchronize()
-    err = {k: close(f"cellforce {k}", getattr(got, k), getattr(want, k))
-           for k in ("ace", "ar")}
-    err["viscdtmax"] = close_scalar("cellforce viscdtmax", got.viscdtmax,
+    err = {k: close(f"{name} {k}", getattr(got, k), getattr(want, k), rtol)
+           for k in ("ace", "ar", "spsgradvel", "shiftposfs")
+           if getattr(want, k) is not None}
+    err["viscdtmax"] = close_scalar(f"{name} viscdtmax", got.viscdtmax,
                                     want.viscdtmax)
+    if want.shift_blocked is not None:
+        check(torch.equal(got.shift_blocked, want.shift_blocked),
+              f"{name} shift_blocked disagrees with the plain version")
     n = args[0].shape[0]
     pospress, velrho, kind = CF.channels(csp, *args)
-    outs = [torch.empty_like(got.ace), torch.empty_like(got.ar),
-            torch.empty_like(got.ar)]
+    outs = [None if x is None else torch.empty_like(x) for x in (
+        got.ace, got.ar, got.ar, got.spsgradvel, got.shiftposfs,
+        got.shift_blocked)]
     ms = launch_ms(bare_launcher(
-        "cellforce", "dsph_cellforce", CF.make_params(csp, opts, dom, n),
-        [pospress, velrho, kind, cells.cell, cells.begin] + outs))
+        "cellforce", f"dsph_{name}", CF.make_params(csp, opts, dom, n),
+        [pospress, velrho, kind, cells.cell, cells.begin, spstau] + outs))
     wrapped_ms = cuda_ms(lambda: CF.interaction_forces_cuda(
-        csp, opts, dom, cells, *args), reps)
-    plain_ms = cuda_ms(lambda: F.interaction_forces_plain(csp, opts, dom, cells,
-                                                          *args), reps)
+        csp, opts, dom, cells, *args, spstau), reps)
+    plain_ms = cuda_ms(lambda: F.interaction_forces_plain(
+        csp, opts, dom, cells, *args, spstau), reps)
     return err, ms, wrapped_ms, plain_ms
+
+
+def cellforce_bytes(n, ncells, opts):
+    """Bytes a cellforce kernel must move: pospress, velrho, kind, cell and
+    begin in, ace, ar, viscdt out, plus the SPS stress in and the gradient
+    out (laminar+SPS) and the shifting sums and flags out."""
+    from dualsphysics_multilayer_tpu_torch import TpShifting, TpVisco
+    per = 16 + 16 + 4 + 4 + 12 + 4 + 4
+    if opts.tvisco == TpVisco.LAMINAR_SPS:
+        per += 24 + 24
+    if opts.shiftmode != TpShifting.NONE:
+        per += 16 + 1
+    return n * per + (ncells + 1) * 4
+
+
+def ops_per_pair(name, opts):
+    from dualsphysics_multilayer_tpu_torch import TpShifting
+    return OPS_PER_PAIR[name] + (OPS_SHIFT if opts.shiftmode != TpShifting.NONE
+                                 else 0)
+
+
+def lamsps_csp(dp, visco=LAMSPS_VISCO):
+    """The dam break's constants under laminar+SPS (make_ctesph with
+    tvisco=LAMINAR_SPS: the Smagorinsky/Blin constants), as an XML case
+    builds them."""
+    from dualsphysics_multilayer_tpu_torch import TpVisco, make_ctesph
+    return make_ctesph(simulate2d=False, dp=dp, hswl=0.3, coefh=1.0,
+                       visco=visco, coefsound=20.0, tvisco=TpVisco.LAMINAR_SPS)
+
+
+def variant_kernels_vs_plain(device, smi):
+    """Phase 9: the other cellforce instances against their plain
+    versions at about 50k particles."""
+    from dualsphysics_multilayer_tpu_torch import (SolverOpts, TpDensity,
+                                                   TpKernel, TpShifting, TpVisco)
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    case = cases.dambreak3d(dp=DP_50K, obstacle=True, device=device)
+    pos, vel, rho, code = perturbed_state(case, device, case.csp.rhopzero,
+                                          seed=1)
+    cells, args = sorted_args(case.dom, pos, vel, rho, code)
+    rng = np.random.default_rng(2)
+    tau = torch.where(td.is_fluid(args[3])[:, None], torch.tensor(
+        rng.normal(0.0, 1e-3, (pos.shape[0], 6)), dtype=torch.float32,
+        device=device), 0.0).contiguous()
+    fourtakas, nofixed = TpDensity.FOURTAKAS, TpShifting.NO_FIXED
+    cubic = case.csp.replace(tkernel=TpKernel.CUBIC)
+    # a viscosity 100x water's, so the laminar term clears the comparison's
+    # floor of 2e-3 of the largest acceleration
+    lam = lamsps_csp(DP_50K, visco=1e-4)
+    lamsps = dict(tvisco=TpVisco.LAMINAR_SPS, tdensity=fourtakas)
+    for label, csp, opts in (
+            ("cubic", cubic, SolverOpts(tdensity=fourtakas)),
+            ("cubic+shift", cubic, SolverOpts(tdensity=fourtakas,
+                                              shiftmode=nofixed)),
+            ("wendland+shift", case.csp, SolverOpts(tdensity=fourtakas,
+                                                    shiftmode=nofixed)),
+            ("lamsps-wendland", lam, SolverOpts(**lamsps)),
+            ("lamsps-cubic", lam.replace(tkernel=TpKernel.CUBIC),
+             SolverOpts(**lamsps)),
+            ("lamsps+shift", lam, SolverOpts(**lamsps, shiftmode=nofixed))):
+        err, ms, wrapped_ms, plain_ms = compare_cellforce(
+            csp, opts, case.dom, cells, args, reps=5,
+            spstau=tau if opts.tvisco == TpVisco.LAMINAR_SPS else None)
+        say("variant-vs-plain", f"{label}, {case.np_total} particles: max|d| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+            + f"; kernel alone {ms:.3f} ms, with its wrapper {wrapped_ms:.3f} "
+            f"ms, plain {plain_ms:.3f} ms (CUDA events; {smi})")
+
+
+def variant_path(label, csp, opts, case, device, smi):
+    """Phases 10 and 11: 5 + 50 steps of the dam break from a flowing start
+    through its kernel; then the layout and the kernel checks.  Returns the
+    kernel's record."""
+    from dualsphysics_multilayer_tpu_torch.models.wcsph import make_carry, make_step
+    from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
+    name = CF.kernel_name(csp, opts)
+    n, nwarm, nsteps = case.np_total, 5, 50
+    step = make_step(csp, opts, case.dom)
+    carry = make_carry(flowing_state(case, device), csp, opts, case.dom)
+    nrebuild0 = carry.nrebuild
+    carry, times, launched = run_steps(step, carry, nwarm, nsteps)
+    single = {k: launched[k] for k in CF.launches}
+    check(single == {**dict.fromkeys(CF.launches, 0),
+                     name: 2 * (nwarm + nsteps)},
+          f"{launched} kernel launches in {nwarm + nsteps} steps, expected "
+          f"{name} 2 per step and no other single-phase kernel")
+    check_state(carry, nwarm + nsteps, nrebuild0)
+    st = carry.st
+    if st.spstau is not None:
+        check(bool(torch.isfinite(st.spstau).all()), "state spstau not finite")
+    rmin, rmax = fluid_rho_range(st, True, csp.rhopzero)
+    p50 = statistics.median(times)
+    say(label, f"{n} particles, {nsteps} steps after {nwarm} warm-up: p50 step "
+        f"{p50 * 1e3:.3f} ms, {n / p50:.1f} particle-steps/s; {launched[name]} "
+        f"{name} launches, {carry.nrebuild - nrebuild0} rebuilds inside the "
+        f"steps, t {carry.t_host:.6f} s, dt_pre {float(carry.dt_pre):.4g} s, "
+        f"fluid rho [{rmin:.2f}, {rmax:.2f}]"
+        + ("" if st.spstau is None else
+           f", max|spstau| {float(st.spstau.abs().max()):.4g}") + f" ({smi})")
+    # the next steps until the layout is current, so the check reads the
+    # layout the next interaction would use
+    extra = 0
+    while carry.rebuild and extra < 5:
+        carry, extra = step(carry), extra + 1
+    npairs = layout_keeps_pairs(csp, case.dom, carry)
+    say(label, f"after {extra} more steps: the layout of the last divide holds "
+        f"all {npairs} pairs a fresh divide finds, at the next predictor's "
+        f"positions and one dt beyond")
+    st = carry.st
+    err, ms, wrapped_ms, plain_ms = compare_cellforce(
+        csp, opts, case.dom, carry.cells, (st.pos, st.vel, st.rho, st.code),
+        reps=5, spstau=st.spstau)
+    cand, pairs = pair_counts(csp, case.dom, carry.cells, st.pos, st.code,
+                              inclusive=False)
+    b = bound(cellforce_bytes(n, case.dom.ncells, opts),
+              pairs * ops_per_pair(name, opts))
+    say("kernel-vs-plain", f"{label} state, {n} particles, {name}: max|d| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+        + f"; kernel alone {ms:.3f} ms, with its wrapper {wrapped_ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms (CUDA events); {cand} candidates, {pairs} "
+        f"in-support pairs with a fluid-side target; bound {b[0] * 1e3:.2f} us "
+        f"by {b[1]} ({smi})")
+    return name, dict(launches=launched[name], max_abs_err=err["ace"], ms=ms,
+                      plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1])
+
+
+def kernel_label(mangled):
+    """A kernel's name in ptxas' log, with its template arguments."""
+    m = re.search(r"\d+([a-z0-9_]+_kernel)(I(?:L[a-z]\d+E)+E)?", mangled)
+    if m is None:
+        return mangled
+    args = re.findall(r"L[a-z](\d+)E", m.group(2) or "")
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
 def nn_opts(tvisco, velgrad):
@@ -433,11 +639,13 @@ def nn_path(case, phases, opts, device, nwarm, nsteps, label, smi):
     return launched, step, carry
 
 
-def traced_breakdown(step, carry, nsteps, kernels, smi):
-    """Phase 8: ``nsteps`` steps under ``torch.profiler`` (CUDA activity
-    only): per step, the host-clock window, the device busy time (union of
-    the traced device intervals), the idle share, the device operations and
-    each of ``kernels``' device time."""
+def trace_steps(step, carry, nsteps, kernels):
+    """``nsteps`` steps under ``torch.profiler`` (CUDA activity only): per
+    step, the host-clock window (``window_ms``), the device busy time
+    (``busy_ms``, the union of the traced device intervals), the
+    ``idle_share``, the device operations (``ops``) and the device time of
+    the kernels whose names contain each of ``kernels`` (``kernel_ms``);
+    None when the trace holds no device activity."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -450,9 +658,7 @@ def traced_breakdown(step, carry, nsteps, kernels, smi):
                 for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA)
     if not ev:
-        say("nn-breakdown", f"not measured: the trace of {nsteps} steps holds "
-            f"no device activity ({smi})")
-        return
+        return None
     busy, cur_s, cur_e = 0.0, ev[0][0], ev[0][1]
     for s0, e0, _ in ev[1:]:
         if s0 > cur_e:
@@ -461,14 +667,26 @@ def traced_breakdown(step, carry, nsteps, kernels, smi):
         else:
             cur_e = max(cur_e, e0)
     busy = (busy + cur_e - cur_s) * 1e-3
-    per_kernel = {k: sum(e - s0 for s0, e, name in ev if k in name) * 1e-3 / nsteps
-                  for k in kernels}
-    say("nn-breakdown", f"{nsteps} traced steps: window {window / nsteps:.3f} "
-        f"ms per step, device busy {busy / nsteps:.3f} ms per step, idle share "
-        f"{1.0 - busy / window:.4f}, {len(ev) / nsteps:.1f} device operations "
+    return dict(window_ms=window / nsteps, busy_ms=busy / nsteps,
+                idle_share=1.0 - busy / window, ops=len(ev) / nsteps,
+                kernel_ms={k: sum(e - s0 for s0, e, name in ev if k in name)
+                           * 1e-3 / nsteps for k in kernels})
+
+
+def traced_breakdown(step, carry, nsteps, kernels, smi):
+    """Phase 8: :func:`trace_steps`, printed."""
+    r = trace_steps(step, carry, nsteps, kernels)
+    if r is None:
+        say("nn-breakdown", f"not measured: the trace of {nsteps} steps holds "
+            f"no device activity ({smi})")
+        return
+    per_kernel = r["kernel_ms"]
+    say("nn-breakdown", f"{nsteps} traced steps: window {r['window_ms']:.3f} "
+        f"ms per step, device busy {r['busy_ms']:.3f} ms per step, idle share "
+        f"{r['idle_share']:.4f}, {r['ops']:.1f} device operations "
         f"per step; device ms per step " + ", ".join(
             f"{k} {v:.4f}" for k, v in per_kernel.items())
-        + f", everything else {busy / nsteps - sum(per_kernel.values()):.4f} "
+        + f", everything else {r['busy_ms'] - sum(per_kernel.values()):.4f} "
         f"({smi})")
 
 
@@ -476,7 +694,8 @@ def main():
     check(torch.cuda.is_available(), "no CUDA device: the port's smoke run "
           "needs an NVIDIA GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from dualsphysics_multilayer_tpu_torch import SolverOpts, TpDensity
+    from dualsphysics_multilayer_tpu_torch import (SolverOpts, TpDensity,
+                                                   TpKernel, TpShifting, TpVisco)
     from dualsphysics_multilayer_tpu_torch.models import cases
     from dualsphysics_multilayer_tpu_torch.models import nnewtonian as NM
     from dualsphysics_multilayer_tpu_torch.models.wcsph import make_carry, make_step
@@ -498,14 +717,17 @@ def main():
         + " (one nvcc per source, started together)")
     for name in built:
         with open(build.library_path(name) + ".log") as f:
+            entry = "?"
             for line in f:
+                m = re.search(r"entry function '([^']+)'", line)
+                if m:
+                    entry = kernel_label(m.group(1))
                 if "registers" in line or "spill" in line:
-                    say("ptxas", f"{name}: {line.strip()}")
+                    say("ptxas", f"{name} {entry}: {line.strip()}")
 
     # 3. cellforce vs plain at ~50k particles
     opts = SolverOpts(tdensity=TpDensity.FOURTAKAS)
-    case = cases.dambreak3d(dp=(0.11 / 5e4) ** (1 / 3), obstacle=True,
-                            device=device)
+    case = cases.dambreak3d(dp=DP_50K, obstacle=True, device=device)
     pos, vel, rho, code = perturbed_state(case, device, case.csp.rhopzero)
     cells, args = sorted_args(case.dom, pos, vel, rho, code)
     err, ms, wrapped_ms, plain_ms = compare_cellforce(
@@ -516,8 +738,7 @@ def main():
         f"{wrapped_ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events; {smi})")
 
     # 4. dam-break main path at bench.py's default size
-    case = cases.dambreak3d(dp=(0.11 / 300000) ** (1 / 3), obstacle=True,
-                            device=device)
+    case = cases.dambreak3d(dp=DP_BENCH, obstacle=True, device=device)
     n = case.np_total
     step = make_step(case.csp, opts, case.dom)
     carry = make_carry(flowing_state(case, device), case.csp, opts, case.dom)
@@ -543,7 +764,7 @@ def main():
         reps=5)
     cand, pairs = pair_counts(case.csp, case.dom, carry.cells, st.pos, st.code,
                               inclusive=False)
-    b = bound(n * (16 + 16 + 4 + 4 + 12 + 4 + 4) + (case.dom.ncells + 1) * 4,
+    b = bound(cellforce_bytes(n, case.dom.ncells, opts),
               pairs * OPS_PER_PAIR["cellforce"])
     say("kernel-vs-plain", f"main-path state, {n} particles: max|d ace| "
         f"{err['ace']:.3e}, max|d ar| {err['ar']:.3e}; kernel alone {ms:.3f} "
@@ -579,6 +800,26 @@ def main():
 
     # 8. NN step breakdown, continuing the SPH Morris run
     traced_breakdown(step, carry, 10, ("nnforce_p1", "nnforce_p3"), smi)
+
+    # 9. the other cellforce instances vs plain at ~50k particles
+    variant_kernels_vs_plain(device, smi)
+
+    # 10. laminar+SPS path: -viscolamsps:1e-6 -shifting:2
+    case = cases.dambreak3d(dp=DP_BENCH, obstacle=True, visco=LAMSPS_VISCO,
+                            need_sps=True, device=device)
+    opts = SolverOpts(tvisco=TpVisco.LAMINAR_SPS, tdensity=TpDensity.FOURTAKAS,
+                      shiftmode=TpShifting.NO_FIXED)
+    name, rec = variant_path("lamsps-path", lamsps_csp(DP_BENCH), opts, case,
+                             device, smi)
+    records[name] = rec
+
+    # 11. cubic path: -cubic
+    case = cases.dambreak3d(dp=DP_BENCH, obstacle=True, device=device)
+    name, rec = variant_path("cubic-path",
+                             case.csp.replace(tkernel=TpKernel.CUBIC),
+                             SolverOpts(tdensity=TpDensity.FOURTAKAS), case,
+                             device, smi)
+    records[name] = rec
 
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=rep,

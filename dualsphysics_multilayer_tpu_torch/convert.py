@@ -8,15 +8,15 @@ into the port's, so both packages can compute on the same state.
   and have no counterpart here.
 * ``simstate(arrays)``: a mapping of numpy arrays (``pos``, ``vel``,
   ``rho``, ``code``, ``idp`` and optionally ``pose``, which starts at zero
-  when absent or None).  uint32 typecodes become int32 (every code fits in
+  when absent or None, and ``spstau``, the laminar+SPS stress).  uint32 typecodes become int32 (every code fits in
   26 bits); uint32 ids, including the 0xFFFFFFFF fill of padding slots,
   become int64 unchanged.  The state goes to the card unless ``device``
   says otherwise.
 * ``phasecfg(phases)``: a JAX ``PhaseCfg``, read by attribute, as the
   port's ``forces_nn.PhaseCfg`` with plain Python values.
 
-The JAX-side ``SimState`` fields of features outside the slice (Verlet M1
-state, SPS stress, floating bodies, mDBC normals) raise when present.
+The JAX-side ``SimState`` fields of features outside the port (Verlet M1
+state, floating bodies, mDBC normals) raise when present.
 """
 
 from __future__ import annotations
@@ -31,8 +31,7 @@ from .models.wcsph import SimState
 from .ops.celldiv import Domain
 from .ops.forces_nn import Phase, PhaseCfg
 
-_UNPORTED_STATE = ("velm1", "rhom1", "spstau", "ft", "boundnormal",
-                   "motionvel")
+_UNPORTED_STATE = ("velm1", "rhom1", "ft", "boundnormal", "motionvel")
 
 
 def _name(v):
@@ -70,12 +69,14 @@ def simstate(arrays: Mapping, device="cuda") -> SimState:
 
     pos = f32(arrays["pos"])
     pose = arrays.get("pose")
+    spstau = arrays.get("spstau")
     return SimState(
         pos=pos, vel=f32(arrays["vel"]), rho=f32(arrays["rho"]),
         code=torch.tensor(code.astype(np.int32), device=device),
         idp=torch.tensor(np.asarray(arrays["idp"]).astype(np.int64),
                          device=device),
-        pose=torch.zeros_like(pos) if pose is None else f32(pose))
+        pose=torch.zeros_like(pos) if pose is None else f32(pose),
+        spstau=None if spstau is None else f32(spstau))
 
 
 def phasecfg(phases) -> PhaseCfg:

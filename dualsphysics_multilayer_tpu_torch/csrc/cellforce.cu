@@ -1,21 +1,32 @@
 // WCSPH pair interaction for Hopper (sm_90a), one thread per target.
 //
-// Replaces the TPU kernel dualsphysics_multilayer_tpu/ops/pallas/cellforce.py
-// `_kernel_v3` with its fast pair body `_make_phys_v4`: the same momentum,
-// continuity, density diffusion and viscdt outputs, over the GPU layout of
-// the original DualSPHysics solver (state sorted by cell, a begin index per
-// cell) instead of the TPU's row-padded lane windows.  The per-pair
-// arithmetic lives in pairbody.cuh, shared with the g++-built CPU twin.
+// Replaces three TPU kernels of
+// dualsphysics_multilayer_tpu/ops/pallas/cellforce.py, one C launcher each:
+//   * dsph_cellforce: `_kernel_v3` with its fast pair body `_make_phys_v4`
+//     (Wendland, artificial viscosity);
+//   * dsph_cellforce_cubic: `_kernel_v3` with `_make_phys_v3` (the cubic
+//     spline with its tensile correction, artificial viscosity);
+//   * dsph_cellforce_lamsps: the v1 `_kernel` (laminar viscosity, the SPS
+//     stress divergence and the SPS velocity gradient; either kernel).
+// Each takes the shifting sums when the launch parameters name a shifting
+// mode.  The outputs are the TPU kernels': momentum, continuity with the
+// density diffusion folded in, viscdt, and the SPS gradient and shifting
+// sums where asked, over the GPU layout of the original DualSPHysics solver
+// (state sorted by cell, a begin index per cell) instead of the TPU's
+// row-padded lane windows.  The per-pair arithmetic lives in pairbody.cuh,
+// one template shared with the g++-built CPU twins.
 //
 // What bounds it on the card: gathers of candidate fields through L1/L2.
 // Each target walks 9 neighbour rows of 3 cells, about 27 x (cell occupancy)
-// candidates (up to 68 slots per cell at the dp-lattice bound of
-// ops/celldiv.py:98 in the JAX package), of which about a tenth lie inside
-// the kernel support; every candidate costs one 16-byte position load and
-// one kind load before the distance test.  The sorted layout is what makes
+// candidates, of which about a tenth lie inside the kernel support; every
+// candidate costs one 16-byte position load and one kind load before the
+// distance test, and an in-support pair one 16-byte velocity load (plus 24
+// bytes of SPS stress under laminar+SPS).  The sorted layout is what makes
 // this cheap: threads of one warp hold neighbouring targets, in the same or
 // adjacent cells, so they read overlapping contiguous slot ranges and the
-// loads of a warp coalesce and hit in cache.
+// loads of a warp coalesce and hit in cache.  The variants add registers
+// (6 gradient and 4 shifting sums, 6 stress values of the target), not
+// loads per candidate.
 #include <cuda_runtime.h>
 
 #include "pairbody.cuh"
@@ -24,30 +35,102 @@ namespace {
 
 constexpr int kBlock = 128;
 
+template <int KER, int VISC, bool SHIFT>
 __global__ void __launch_bounds__(kBlock)
 cellforce_kernel(CfParams p, const F4* __restrict__ pospress,
                  const F4* __restrict__ velrho, const int* __restrict__ kind,
                  const int* __restrict__ cell, const int* __restrict__ begin,
-                 float* __restrict__ ace, float* __restrict__ ar,
-                 float* __restrict__ viscdt) {
+                 const float* __restrict__ tau, float* __restrict__ ace,
+                 float* __restrict__ ar, float* __restrict__ viscdt,
+                 float* __restrict__ gradvel, float* __restrict__ shift,
+                 unsigned char* __restrict__ shiftblk) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i < p.n) {
-    target_forces(i, p, pospress, velrho, kind, cell, begin, ace, ar, viscdt);
+    target_forces<KER, VISC, SHIFT>(i, p, pospress, velrho, kind, cell, begin,
+                                    tau, ace, ar, viscdt, gradvel, shift,
+                                    shiftblk);
   }
+}
+
+template <int KER, int VISC, bool SHIFT>
+void launch_one(const CfParams* p, const void* pospress, const void* velrho,
+                const void* kind, const void* cell, const void* begin,
+                const void* tau, void* ace, void* ar, void* viscdt,
+                void* gradvel, void* shift, void* shiftblk, void* stream) {
+  const int nblocks = (p->n + kBlock - 1) / kBlock;
+  cellforce_kernel<KER, VISC, SHIFT>
+      <<<nblocks, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+          *p, static_cast<const F4*>(pospress), static_cast<const F4*>(velrho),
+          static_cast<const int*>(kind), static_cast<const int*>(cell),
+          static_cast<const int*>(begin), static_cast<const float*>(tau),
+          static_cast<float*>(ace), static_cast<float*>(ar),
+          static_cast<float*>(viscdt), static_cast<float*>(gradvel),
+          static_cast<float*>(shift), static_cast<unsigned char*>(shiftblk));
+}
+
+// The SHIFT instance when the parameters name a shifting mode; returns
+// cudaGetLastError() (0 on success).
+template <int KER, int VISC>
+int launch(const CfParams* p, const void* pospress, const void* velrho,
+           const void* kind, const void* cell, const void* begin,
+           const void* tau, void* ace, void* ar, void* viscdt, void* gradvel,
+           void* shift, void* shiftblk, void* stream) {
+  if (p->shiftmode != SHIFT_NONE) {
+    launch_one<KER, VISC, true>(p, pospress, velrho, kind, cell, begin, tau,
+                                ace, ar, viscdt, gradvel, shift, shiftblk,
+                                stream);
+  } else {
+    launch_one<KER, VISC, false>(p, pospress, velrho, kind, cell, begin, tau,
+                                 ace, ar, viscdt, gradvel, shift, shiftblk,
+                                 stream);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
+// Launch on `stream`.  Inputs: pospress, velrho (n,4) f32, kind, cell (n,)
+// i32, begin (ncells+1,) i32, tau (n,6) f32 (laminar+SPS, else null).
+// Outputs: ace (n,3), ar (n,), viscdt (n,) f32, gradvel (n,6) f32
+// (laminar+SPS, else null), shift (n,4) f32 and shiftblk (n,) u8 (with a
+// shifting mode, else null).  Returns the CUDA error code, 0 on success,
+// cudaErrorInvalidValue when the parameters name another kernel.
 extern "C" int dsph_cellforce(const CfParams* p, const void* pospress,
                               const void* velrho, const void* kind,
-                              const void* cell, const void* begin, void* ace,
-                              void* ar, void* viscdt, void* stream) {
-  const int nblocks = (p->n + kBlock - 1) / kBlock;
-  cellforce_kernel<<<nblocks, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      *p, static_cast<const F4*>(pospress), static_cast<const F4*>(velrho),
-      static_cast<const int*>(kind), static_cast<const int*>(cell),
-      static_cast<const int*>(begin), static_cast<float*>(ace),
-      static_cast<float*>(ar), static_cast<float*>(viscdt));
-  return static_cast<int>(cudaGetLastError());
+                              const void* cell, const void* begin,
+                              const void* tau, void* ace, void* ar,
+                              void* viscdt, void* gradvel, void* shift,
+                              void* shiftblk, void* stream) {
+  if (p->tkernel != KER_WENDLAND) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<KER_WENDLAND, VISCO_ARTIFICIAL>(p, pospress, velrho, kind, cell,
+                                               begin, tau, ace, ar, viscdt,
+                                               gradvel, shift, shiftblk, stream);
+}
+
+extern "C" int dsph_cellforce_cubic(const CfParams* p, const void* pospress,
+                                    const void* velrho, const void* kind,
+                                    const void* cell, const void* begin,
+                                    const void* tau, void* ace, void* ar,
+                                    void* viscdt, void* gradvel, void* shift,
+                                    void* shiftblk, void* stream) {
+  if (p->tkernel != KER_CUBIC) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<KER_CUBIC, VISCO_ARTIFICIAL>(p, pospress, velrho, kind, cell,
+                                            begin, tau, ace, ar, viscdt,
+                                            gradvel, shift, shiftblk, stream);
+}
+
+extern "C" int dsph_cellforce_lamsps(const CfParams* p, const void* pospress,
+                                     const void* velrho, const void* kind,
+                                     const void* cell, const void* begin,
+                                     const void* tau, void* ace, void* ar,
+                                     void* viscdt, void* gradvel, void* shift,
+                                     void* shiftblk, void* stream) {
+  if (p->tkernel == KER_CUBIC) {
+    return launch<KER_CUBIC, VISCO_LAMINAR_SPS>(p, pospress, velrho, kind, cell,
+                                               begin, tau, ace, ar, viscdt,
+                                               gradvel, shift, shiftblk, stream);
+  }
+  return launch<KER_WENDLAND, VISCO_LAMINAR_SPS>(p, pospress, velrho, kind, cell,
+                                                begin, tau, ace, ar, viscdt,
+                                                gradvel, shift, shiftblk, stream);
 }

@@ -1,24 +1,42 @@
 // Per-target WCSPH interaction over the cell-sorted layout, shared by the
-// CUDA kernel (cellforce.cu, one thread per target) and its CPU twin
+// CUDA kernels (cellforce.cu, one thread per target) and their CPU twins
 // (cellforce_host.cpp, a loop over targets, compiled with g++ for tests).
 //
 // Semantics are those of ops/pairphys.py pair_terms (reference
-// JSphCpu.cpp:631-822) for the Wendland kernel with artificial viscosity
-// and every density diffusion mode:
-//   * boundary targets get no acceleration and no diffusion;
+// JSphCpu.cpp:631-822).  One body, three template parameters:
+//   * KER: the Wendland C2 kernel, or the cubic spline with its tensile
+//     correction added to the pressure term (FunSphKernel.h:104-150);
+//   * VISC: artificial viscosity, or the laminar operator with the SPS
+//     stress divergence and the 6-component velocity gradient
+//     (JSphCpu.cpp:757-791);
+//   * SHIFT: the four shifting sums and the blocked flag of the shifting
+//     mode in the launch parameters (JSphCpu.cpp:743-750).
+// Rules every instance keeps:
+//   * boundary targets get only continuity and viscdt;
 //   * boundary-boundary pairs contribute nothing, not even to viscdt;
-//   * the artificial viscosity uses visco*viscoboundfactor for boundary
-//     candidates and acts only on approaching pairs (dot < 0);
+//   * both viscosities use visco*viscoboundfactor for boundary candidates;
+//     the artificial one acts only on approaching pairs (dot < 0);
 //   * fluid targets lose their whole diffusion term when any boundary
 //     neighbour is in range (Molteni, Fourtakas; not Fourtakas-full) or,
 //     with Molteni, any floating one; floating targets never diffuse;
 //   * Fourtakas' hydrostatic correction uses the exact pow form
-//     rho0*(1 + ddtgz*dz)^(1/gamma) - rho0.
+//     rho0*(1 + ddtgz*dz)^(1/gamma) - rho0;
+//   * the SPS stress of a candidate counts only for fluid candidates; the
+//     velocity gradient is summed for fluid targets only;
+//   * shifting: floating targets are always blocked; NO_BOUND blocks a
+//     target with a boundary or floating neighbour, NO_FIXED one with a
+//     fixed neighbour, FULL never.
 // Divisions are exact.  Sums run in registers in f32, in the fixed order of
 // walk_neighbours, so results are deterministic.
 #pragma once
 
 #include "cellwalk.cuh"
+
+// Kernel, viscosity and shifting modes; values match typesdef.TpKernel,
+// TpVisco and TpShifting.
+enum { KER_CUBIC = 1, KER_WENDLAND = 2 };
+enum { VISCO_ARTIFICIAL = 1, VISCO_LAMINAR_SPS = 2 };
+enum { SHIFT_NONE = 0, SHIFT_NO_BOUND = 1, SHIFT_NO_FIXED = 2, SHIFT_FULL = 3 };
 
 // Launch parameters.  Field order and types are mirrored by the ctypes
 // Structure in ops/cuda/cellforce.py: keep both in step.
@@ -28,6 +46,8 @@ struct CfParams {
   int ncells;
   int sim2d;
   int tdensity;
+  int tkernel;
+  int shiftmode;
   float kernelsize2;
   float kernelh;
   float bwen;
@@ -42,19 +62,70 @@ struct CfParams {
   float massfluid;
   float massbound;
   float almostzero;
+  // cubic spline constants (typesdef.KCubicCte, FunSphKernel.h:51-84)
+  float a2, a24, c1, d1, c2, od_wdeltap;
 };
 
+// Cubic spline (1/r) dW/dr and W at squared distance rr2 > 0.
+DSPH_HD float cubic_fac(float rr2, const CfParams& p) {
+  const float rad = sqrtf(rr2);
+  const float qq = rad / p.kernelh;
+  const float wqq1 = 2.f - qq;
+  const float f = rad > p.kernelh ? p.c2 * wqq1 * wqq1 : p.c1 * qq + p.d1 * qq * qq;
+  return f / rad;
+}
+
+DSPH_HD float cubic_wab(float rr2, const CfParams& p) {
+  const float rad = sqrtf(rr2);
+  const float qq = rad / p.kernelh;
+  const float wqq1 = 2.f - qq;
+  return rad > p.kernelh ? p.a24 * (wqq1 * wqq1 * wqq1)
+                         : p.a2 * (1.f + (0.75f * qq - 1.5f) * (qq * qq));
+}
+
+// Tensile correction of the cubic spline (FunSphKernel.h:138-150).
+DSPH_HD float cubic_tensil(float rr2, const CfParams& p, float rho1,
+                           float press1, float rho2, float press2) {
+  float fab = cubic_wab(rr2, p) * p.od_wdeltap;
+  fab = fab * fab;
+  fab = fab * fab;
+  const float t1 = (press1 / (rho1 * rho1)) * (press1 > 0.f ? 0.01f : -0.2f);
+  const float t2 = (press2 / (rho2 * rho2)) * (press2 > 0.f ? 0.01f : -0.2f);
+  return fab * (t1 + t2);
+}
+
+template <int KER>
+DSPH_HD float kernel_fac(float rr2, const CfParams& p) {
+  if constexpr (KER == KER_WENDLAND) {
+    return wendland_fac(rr2, p.kernelh, p.bwen);
+  } else {
+    return cubic_fac(rr2, p);
+  }
+}
+
+// Target i's sums.  tau (n,6) is read and gradvel (n,6) written only with
+// VISCO_LAMINAR_SPS; shift (n,4) and shiftblk (n,) only with SHIFT.
+template <int KER, int VISC, bool SHIFT>
 DSPH_HD void target_forces(int i, const CfParams& p,
                            const F4* __restrict__ pospress,
                            const F4* __restrict__ velrho,
                            const int* __restrict__ kind,
                            const int* __restrict__ cell,
                            const int* __restrict__ begin,
+                           const float* __restrict__ tau,
                            float* __restrict__ ace, float* __restrict__ ar,
-                           float* __restrict__ viscdt) {
+                           float* __restrict__ viscdt,
+                           float* __restrict__ gradvel,
+                           float* __restrict__ shift,
+                           unsigned char* __restrict__ shiftblk) {
   float ax = 0.f, ay = 0.f, az = 0.f, arr = 0.f, dlt = 0.f;
   float vmax = -3.4e38f;
   bool blocked = false;
+  // laminar+SPS: velocity-gradient sums
+  float gxx = 0.f, gxy = 0.f, gxz = 0.f, gyy = 0.f, gyz = 0.f, gzz = 0.f;
+  // shifting sums and flag
+  float shx = 0.f, shy = 0.f, shz = 0.f, shc = 0.f;
+  bool sblk = false;
   const int ki = kind[i];
   const int c = cell[i];
   if (ki != KIND_DEAD && c < p.ncells) {
@@ -62,6 +133,14 @@ DSPH_HD void target_forces(int i, const CfParams& p,
     const F4 vi = velrho[i];
     const bool bound_t = ki < KIND_FLOATING;
     const bool ft_t = ki == KIND_FLOATING;
+    // the target's SPS stress, read once (fluid-side targets only)
+    float ti0 = 0.f, ti1 = 0.f, ti2 = 0.f, ti3 = 0.f, ti4 = 0.f, ti5 = 0.f;
+    if constexpr (VISC == VISCO_LAMINAR_SPS) {
+      if (!bound_t) {
+        const float* t = tau + 6 * i;
+        ti0 = t[0]; ti1 = t[1]; ti2 = t[2]; ti3 = t[3]; ti4 = t[4]; ti5 = t[5];
+      }
+    }
     walk_neighbours(c, p.ncx, p.ncy, p.ncz, p.sim2d, begin, [&](int j) {
       if (j == i) return;
       const int kj = kind[j];
@@ -76,7 +155,7 @@ DSPH_HD void target_forces(int i, const CfParams& p,
       if (rr2 < p.almostzero || rr2 >= p.kernelsize2) return;
       const F4 vj = velrho[j];
       const bool ft_c = kj == KIND_FLOATING;
-      const float fac = wendland_fac(rr2, p.kernelh, p.bwen);
+      const float fac = kernel_fac<KER>(rr2, p);
       const float frx = fac * drx, fry = fac * dry, frz = fac * drz;
       const float dvx = vi.x - vj.x, dvy = vi.y - vj.y, dvz = vi.z - vj.z;
       const float dvfr = dvx * frx + dvy * fry + dvz * frz;
@@ -88,18 +167,68 @@ DSPH_HD void target_forces(int i, const CfParams& p,
       // continuity (JSphCpu.cpp:720)
       arr += mass2 * dvfr * (rhoi / rhoj);
       if (bound_t) return;
-      // momentum: pressure + artificial viscosity (JSphCpu.cpp:713-716,757-764)
-      const float prs = (pi.w + pj.w) / (rhoi * rhoj);
+      // momentum: pressure (+ tensile correction) and artificial viscosity
+      // (JSphCpu.cpp:713-716,757-764)
+      float prs = (pi.w + pj.w) / (rhoi * rhoj);
+      if constexpr (KER == KER_CUBIC) {
+        prs += cubic_tensil(rr2, p, rhoi, pi.w, rhoj, pj.w);
+      }
       float cf = prs * mass2;
-      if (dot < 0.f) {
-        const float visco = bound_c ? p.viscobound : p.visco;
-        const float amubar = p.kernelh * dot_rr2;
-        const float robar = (rhoi + rhoj) * 0.5f;
-        cf += (-visco * p.cs0 * amubar / robar) * mass2;
+      if constexpr (VISC == VISCO_ARTIFICIAL) {
+        if (dot < 0.f) {
+          const float visco = bound_c ? p.viscobound : p.visco;
+          const float amubar = p.kernelh * dot_rr2;
+          const float robar = (rhoi + rhoj) * 0.5f;
+          cf += (-visco * p.cs0 * amubar / robar) * mass2;
+        }
       }
       ax -= cf * frx;
       ay -= cf * fry;
       az -= cf * frz;
+      if constexpr (VISC == VISCO_LAMINAR_SPS) {
+        // laminar operator (JSphCpu.cpp:765-775)
+        const float drfr = drx * frx + dry * fry + drz * frz;
+        const float visco = bound_c ? p.viscobound : p.visco;
+        const float temp = 4.f * visco / ((rr2 + p.eta2) * (rhoi + rhoj));
+        const float vtemp = mass2 * temp * drfr;
+        ax += vtemp * dvx;
+        ay += vtemp * dvy;
+        az += vtemp * dvz;
+        // SPS stress divergence (JSphCpu.cpp:776-782)
+        float t0 = ti0, t1 = ti1, t2 = ti2, t3 = ti3, t4 = ti4, t5 = ti5;
+        if (!bound_c && !ft_c) {
+          const float* t = tau + 6 * j;
+          t0 += t[0]; t1 += t[1]; t2 += t[2]; t3 += t[3]; t4 += t[4]; t5 += t[5];
+        }
+        ax += mass2 * (t0 * frx + t1 * fry + t2 * frz);
+        ay += mass2 * (t1 * frx + t3 * fry + t4 * frz);
+        az += mass2 * (t2 * frx + t4 * fry + t5 * frz);
+        // velocity gradient (GetVelocityGradients_SPH_tsym)
+        if (!ft_t) {
+          const float volp2 = -mass2 / rhoj;
+          const float gvx = dvx * volp2, gvy = dvy * volp2, gvz = dvz * volp2;
+          gxx += gvx * frx;
+          gxy += gvx * fry + gvy * frx;
+          gxz += gvx * frz + gvz * frx;
+          gyy += gvy * fry;
+          gyz += gvy * frz + gvz * fry;
+          gzz += gvz * frz;
+        }
+      }
+      if constexpr (SHIFT) {
+        // shifting sums (JSphCpu.cpp:743-750)
+        const float drfr = drx * frx + dry * fry + drz * frz;
+        const float massrhop = mass2 / rhoj;
+        shx += massrhop * frx;
+        shy += massrhop * fry;
+        shz += massrhop * frz;
+        shc -= massrhop * drfr;
+        if (p.shiftmode == SHIFT_NO_BOUND) {
+          sblk = sblk || bound_c || ft_c;
+        } else if (p.shiftmode == SHIFT_NO_FIXED) {
+          sblk = sblk || kj == KIND_FIXED;
+        }
+      }
       if (p.tdensity == DDT_NONE || ft_t) return;
       const float drfr = drx * frx + dry * fry + drz * frz;
       if (p.tdensity == DDT_MOLTENI) {
@@ -118,7 +247,10 @@ DSPH_HD void target_forces(int i, const CfParams& p,
         blocked = blocked || (bound_c && p.tdensity == DDT_FOURTAKAS);
       }
     });
-    if (ft_t) blocked = true;
+    if (ft_t) {
+      blocked = true;
+      sblk = true;
+    }
   }
   if (p.tdensity != DDT_NONE && !blocked) arr += dlt;
   ace[3 * i + 0] = ax;
@@ -126,4 +258,13 @@ DSPH_HD void target_forces(int i, const CfParams& p,
   ace[3 * i + 2] = az;
   ar[i] = arr;
   viscdt[i] = vmax;
+  if constexpr (VISC == VISCO_LAMINAR_SPS) {
+    float* g = gradvel + 6 * i;
+    g[0] = gxx; g[1] = gxy; g[2] = gxz; g[3] = gyy; g[4] = gyz; g[5] = gzz;
+  }
+  if constexpr (SHIFT) {
+    float* s = shift + 4 * i;
+    s[0] = shx; s[1] = shy; s[2] = shz; s[3] = shc;
+    shiftblk[i] = sblk ? 1 : 0;
+  }
 }

@@ -100,10 +100,11 @@ class Case:
     meta: dict
 
 
-def _make_state(csp: CteSph, pos, code, zsurf, *, device):
+def _make_state(csp: CteSph, pos, code, zsurf, *, device, need_sps=False):
     """Initial state: positions cast from f64 to f32, zero velocity, and
     hydrostatic density for fluid (GenCase ``rhopgradient=2``) evaluated in
-    f32 as the JAX package does; boundaries start at rho0."""
+    f32 as the JAX package does; boundaries start at rho0.  ``need_sps``
+    adds a zero SPS stress for laminar+SPS runs."""
     n = pos.shape[0]
     z = torch.tensor(pos[:, 2], dtype=torch.float32)
     rho_hyd = eos.hydrostatic_rho(csp, z, zsurf).numpy()
@@ -116,6 +117,7 @@ def _make_state(csp: CteSph, pos, code, zsurf, *, device):
         code=torch.tensor(code, dtype=torch.int32, device=device),
         idp=torch.arange(n, dtype=torch.int64, device=device),
         pose=torch.zeros((n, 3), **f32),
+        spstau=torch.zeros((n, 6), **f32) if need_sps else None,
     )
 
 
@@ -136,12 +138,18 @@ def _make_domain(csp: CteSph, pos, headroom=0.5):
 
 
 def dambreak3d(dp=0.02, *, tank=(1.6, 0.67, 0.4), column=(0.4, 0.67, 0.3),
-               obstacle=True, device="cuda") -> Case:
+               obstacle=True, visco=0.1, need_sps=False,
+               device="cuda") -> Case:
     """3D dam break with optional building obstacle (CaseDambreak_Def.xml):
-    visco 0.1, coefsound 20, free-surface headroom 100% of the lattice
-    height."""
+    coefsound 20, free-surface headroom 100% of the lattice height.
+    ``visco`` is the viscosity constant (artificial alpha, or the kinematic
+    viscosity under laminar+SPS); ``need_sps`` allocates the zero SPS stress
+    that laminar+SPS reads.  As in the JAX package, the constants are those
+    of artificial viscosity (``spssmag = spsblin = 0``); a laminar+SPS run
+    takes ``make_ctesph(..., tvisco=LAMINAR_SPS)`` constants, as an XML
+    case's do."""
     csp = make_ctesph(simulate2d=False, dp=dp, hswl=column[2], coefh=1.0,
-                      visco=0.1, coefsound=20.0)
+                      visco=visco, coefsound=20.0)
     d = Draw(dp=dp)
     d.box((0, 0, 0), column, ptype=td.TYPE_FLUID, mk=0)
     d.box((0, 0, 0), tank, ptype=td.TYPE_FIXED, mk=0,
@@ -151,7 +159,8 @@ def dambreak3d(dp=0.02, *, tank=(1.6, 0.67, 0.4), column=(0.4, 0.67, 0.3),
               ptype=td.TYPE_FIXED, mk=1, faces="top|left|right|front|back")
     pos, code = d.build()
     dom = _make_domain(csp, pos, headroom=1.0)
-    st = _make_state(csp, pos, code, zsurf=column[2], device=device)
+    st = _make_state(csp, pos, code, zsurf=column[2], device=device,
+                     need_sps=need_sps)
     npb = int(np.sum(td.code_type(code) < td.TYPE_FLOATING))
     return Case(csp=csp, dom=dom, state=st, npb=npb, np_total=pos.shape[0],
                 meta=dict(name="dambreak3d", dp=dp, zsurf=column[2]))

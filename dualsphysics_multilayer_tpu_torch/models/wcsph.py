@@ -13,7 +13,9 @@ The state lives in cell-sorted order (``ops.celldiv.divide_cells``) and is
 re-sorted only when the skin contract demands it: with cells of
 ``kernelsize + margin``, one divide finds every pair while
 ``2*max|pos - pos0| + 4*dt*vmax < 0.95*margin``.  The predictor and the
-corrector share one layout.
+corrector share one layout.  Shifting needs no term of its own: a step's
+shift enters ``pos`` after the step's two interactions, and the contract
+reads ``pos`` before the next step's first one.
 
 Torch has no device-side loop, so the host drives the steps.  Each step
 ends with ONE small device-to-host copy, ``[rebuild flag for the next step,
@@ -49,13 +51,16 @@ class SimState:
     # compensated-position residual: pos + pose is the trajectory at
     # ~2x24-bit precision (integrators.comp_pos_update)
     pose: torch.Tensor           # (n,3) f32
+    # SPS sub-particle stress (xx, xy, xz, yy, yz, zz), laminar+SPS only
+    spstau: torch.Tensor | None = None   # (n,6) f32
 
     @property
     def n(self) -> int:
         return self.pos.shape[0]
 
     def permuted(self, order) -> "SimState":
-        return SimState(**{k: v[order] for k, v in vars(self).items()})
+        return SimState(**{k: None if v is None else v[order]
+                           for k, v in vars(self).items()})
 
 
 @dataclass
@@ -139,7 +144,7 @@ def _interaction(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     """Forces of one interaction on the current layout (DBC walls, no
     feature hooks: the body of `JSphCpuSingle::Interaction_Forces`)."""
     return F.interaction_forces(csp, opts, dom, cells, st.pos, st.vel,
-                                st.rho, st.code)
+                                st.rho, st.code, st.spstau)
 
 
 def make_symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
@@ -155,11 +160,20 @@ def make_symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
         lambda st, cells: _interaction(csp, opts, dom, st, cells))
 
 
+def _sps_tau(csp: CteSph, st: SimState, fr: F.Forces):
+    """The SPS stress of the forces' velocity gradient at the density the
+    interaction read, zero for all but fluid particles."""
+    tau = F.compute_sps_tau(csp, st.rho, fr.spsgradvel)
+    return torch.where(td.is_fluid(st.code)[:, None], tau, 0.0)
+
+
 def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
                     interaction):
     """step(carry) -> carry: the symplectic predictor and corrector over
-    ``interaction(st, cells) -> Forces`` on one layout, with the NN dt3
-    control when the forces carry ``viscetadtmax``."""
+    ``interaction(st, cells) -> Forces`` on one layout.  What the forces
+    carry switches the rest: ``viscetadtmax`` the NN dt3 control,
+    ``spsgradvel`` the SPS stress after each interaction, ``shiftposfs``
+    the shifting displacement in the corrector."""
     margin = _margin(csp, dom)
 
     def step(carry: StepCarry) -> StepCarry:
@@ -177,6 +191,8 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
         pos_pre, vel_pre, rho_pre = st.pos, st.vel, st.rho
         pos1, vel1, rho1, code1 = I.symplectic_pre(
             csp, st.pos, st.vel, st.rho, st.code, fr1.ace, fr1.ar, dt)
+        if fr1.spsgradvel is not None:
+            st = replace(st, spstau=_sps_tau(csp, st, fr1))
         st = replace(st, pos=pos1, vel=vel1, rho=rho1, code=code1)
 
         # ---------------- corrector (same layout) ----------------
@@ -185,8 +201,16 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
         acemax2 = I.ace_max(fr2.ace, st.code)
         dt_c, bad_c = I.dt_variable(csp, acemax2, velmax2, fr2.viscdtmax,
                                     fr2.viscetadtmax, opts.relaxationdt)
+        shiftdisp = None
+        if fr2.shiftposfs is not None:
+            # the predictor's velocity, the step's dt (JAX wcsph.py:580-586)
+            shiftdisp = F.apply_shifting(csp, opts, dt, st.vel, st.code,
+                                         fr2.shiftposfs, fr2.shift_blocked)
         out = I.symplectic_corr(csp, pos_pre, vel_pre, rho_pre, st.rho,
-                                st.code, fr2.ace, fr2.ar, dt, pose=st.pose)
+                                st.code, fr2.ace, fr2.ar, dt, pose=st.pose,
+                                shiftdisp=shiftdisp)
+        if fr2.spsgradvel is not None:
+            st = replace(st, spstau=_sps_tau(csp, st, fr2))
         st = replace(st, pos=out[0], vel=out[1], rho=out[2], code=out[3],
                      pose=out[4])
 

@@ -2,7 +2,7 @@
 plain C interface, at first use, and loads them with ctypes.
 
 * :func:`cuda_library` compiles one ``.cu`` source with ``nvcc`` for
-  sm_90a (Hopper): ``cellforce`` (the single-phase pair kernel) or
+  sm_90a (Hopper): ``cellforce`` (the three single-phase pair kernels) or
   ``nnforce`` (the three multiphase non-Newtonian kernels).
   :func:`build_cuda_libraries` builds them all at once, one nvcc process
   per source, started together.
@@ -44,7 +44,8 @@ GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 # of the CUDA launcher}); each twin takes the same arguments but the stream
 LIBRARIES = {
     "cellforce": ("cellforce.cu", "cellforce_host.cpp",
-                  {"dsph_cellforce": 10}),
+                  {"dsph_cellforce": 14, "dsph_cellforce_cubic": 14,
+                   "dsph_cellforce_lamsps": 14}),
     "nnforce": ("nnforce.cu", "nnforce_host.cpp",
                 {"dsph_nnforce_p1": 12, "dsph_nnforce_fda": 12,
                  "dsph_nnforce_p3": 11}),

@@ -1,21 +1,31 @@
-"""Wrapper of the hand-written CUDA pair kernel ``csrc/cellforce.cu``.
+"""Wrapper of the hand-written CUDA pair kernels ``csrc/cellforce.cu``.
 
-Counterpart of `dualsphysics_multilayer_tpu/ops/pallas/cellforce.py` on the
-main path (`interaction_forces_rows_v3` launching `_kernel_v3` with
-`_make_phys_v4`):
+Counterpart of `dualsphysics_multilayer_tpu/ops/pallas/cellforce.py`: one
+C launcher per TPU kernel, picked by :func:`kernel_name` from the smoothing
+kernel and the viscosity,
+
+* ``cellforce``: Wendland, artificial viscosity (`_kernel_v3` with
+  `_make_phys_v4`, the main path);
+* ``cellforce_cubic``: the cubic spline with its tensile correction,
+  artificial viscosity (`_kernel_v3` with `_make_phys_v3`);
+* ``cellforce_lamsps``: laminar+SPS viscosity, either kernel (the v1
+  `_kernel`);
+
+each with the shifting sums when ``opts.shiftmode`` names a mode.  A call:
 
 1. per-particle channel prep, the `_fast_channels` analog: position with
    pressure and velocity with density packed as 16-byte rows, and the
    particle kind (type, or -1 when inactive);
 2. the launch, on torch's current stream;
-3. the `_forces_from_canon` analog: the kernel already writes ``ace`` and
-   ``ar`` (diffusion folded in); the wrapper reduces the per-target viscdt
-   with ``torch.amax`` and clamps it at 0.
+3. the `_forces_from_canon` analog: the kernel already writes ``ace``,
+   ``ar`` (diffusion folded in), the SPS velocity gradient and the shifting
+   sums; the wrapper reduces the per-target viscdt with ``torch.amax`` and
+   clamps it at 0.
 
 The wrapper takes CUDA tensors only and raises on anything the kernel does
 not take; CPU tensors go to the plain version in ``ops/forces.py``.
-:func:`interaction_forces_host_twin` runs the same body compiled by g++ on
-CPU tensors, for tests.
+:func:`interaction_forces_host_twin` runs the same bodies compiled by g++
+on CPU tensors, for tests.
 """
 
 from __future__ import annotations
@@ -25,37 +35,50 @@ import ctypes
 import torch
 
 from ... import typesdef as td
-from ...typesdef import CteSph
+from ...typesdef import CteSph, TpKernel, TpShifting, TpVisco
 from .. import eos
 from ..celldiv import CellDiv, Domain
-from ..forces import Forces, SolverOpts, check_supported
+from ..forces import Forces, SolverOpts, check_spstau, check_supported
 from . import build
 
-# Kernel launches since the last reset; the only mutable module state.
-launches = 0
+# Kernel launches since the last reset, one count per kernel; the only
+# mutable module state.
+launches = dict(cellforce=0, cellforce_cubic=0, cellforce_lamsps=0)
 
 
 class CfParams(ctypes.Structure):
     """Mirror of ``struct CfParams`` in csrc/pairbody.cuh."""
     _fields_ = ([(k, ctypes.c_int) for k in (
-        "n", "ncx", "ncy", "ncz", "ncells", "sim2d", "tdensity")]
+        "n", "ncx", "ncy", "ncz", "ncells", "sim2d", "tdensity", "tkernel",
+        "shiftmode")]
         + [(k, ctypes.c_float) for k in (
             "kernelsize2", "kernelh", "bwen", "eta2", "cs0", "visco",
             "viscobound", "ddtkh", "ddtgz", "rhopzero", "ovgamma",
-            "massfluid", "massbound", "almostzero")])
+            "massfluid", "massbound", "almostzero",
+            "a2", "a24", "c1", "d1", "c2", "od_wdeltap")])
+
+
+def kernel_name(csp: CteSph, opts: SolverOpts) -> str:
+    """The kernel that computes this configuration."""
+    if opts.tvisco == TpVisco.LAMINAR_SPS:
+        return "cellforce_lamsps"
+    return "cellforce_cubic" if csp.tkernel == TpKernel.CUBIC else "cellforce"
 
 
 def make_params(csp: CteSph, opts: SolverOpts, dom: Domain, n: int) -> CfParams:
     ncx, ncy, ncz = dom.nc
+    kc = csp.kcubic
     return CfParams(
         n=n, ncx=ncx, ncy=ncy, ncz=ncz, ncells=dom.ncells,
         sim2d=int(csp.simulate2d), tdensity=opts.tdensity.value,
+        tkernel=csp.tkernel.value, shiftmode=opts.shiftmode.value,
         kernelsize2=csp.kernelsize2, kernelh=csp.kernelh, bwen=csp.kwend.bwen,
         eta2=csp.eta2, cs0=csp.cs0, visco=csp.visco,
         viscobound=csp.visco * csp.viscoboundfactor, ddtkh=csp.ddtkh,
         ddtgz=csp.ddtgz, rhopzero=csp.rhopzero, ovgamma=1.0 / csp.gamma,
         massfluid=csp.massfluid, massbound=csp.massbound,
-        almostzero=td.ALMOSTZERO)
+        almostzero=td.ALMOSTZERO, a2=kc.a2, a24=kc.a24, c1=kc.c1, d1=kc.d1,
+        c2=kc.c2, od_wdeltap=kc.od_wdeltap)
 
 
 def channels(csp: CteSph, pos, vel, rho, code):
@@ -99,47 +122,70 @@ def state_inputs(dom: Domain, cells: CellDiv, pos, vel, rho, code) -> dict:
     }
 
 
-def _check(dom: Domain, cells: CellDiv, pos, vel, rho, code, device_type):
-    check_inputs("cellforce", device_type,
-                 state_inputs(dom, cells, pos, vel, rho, code))
-
-
-def _run(lib_fn, csp, opts, dom, cells, pos, vel, rho, code, extra=()):
+def _prepare(csp, opts, dom, cells, pos, vel, rho, code, spstau,
+             device_type):
+    """Check the configuration and the inputs; returns the kernel's name."""
     check_supported(csp, opts)
+    check_spstau(opts, spstau)
+    name = kernel_name(csp, opts)
+    want = state_inputs(dom, cells, pos, vel, rho, code)
+    if opts.tvisco == TpVisco.LAMINAR_SPS:
+        want["spstau"] = (spstau, torch.float32, (pos.shape[0], 6))
+    check_inputs(name, device_type, want)
+    return name
+
+
+def _run(fn, name, csp, opts, dom, cells, pos, vel, rho, code, spstau,
+         extra=()):
     n = pos.shape[0]
+    dev = pos.device
+    use_sps = opts.tvisco == TpVisco.LAMINAR_SPS
+    use_shift = opts.shiftmode != TpShifting.NONE
     pospress, velrho, kind = channels(csp, pos, vel, rho, code)
-    ace = torch.empty((n, 3), dtype=torch.float32, device=pos.device)
-    ar = torch.empty(n, dtype=torch.float32, device=pos.device)
-    viscdt = torch.empty(n, dtype=torch.float32, device=pos.device)
+    ace = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    ar = torch.empty(n, dtype=torch.float32, device=dev)
+    viscdt = torch.empty(n, dtype=torch.float32, device=dev)
+    gradvel = torch.empty((n, 6), dtype=torch.float32, device=dev) \
+        if use_sps else None
+    shift = torch.empty((n, 4), dtype=torch.float32, device=dev) \
+        if use_shift else None
+    shiftblk = torch.empty(n, dtype=torch.bool, device=dev) \
+        if use_shift else None
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     params = make_params(csp, opts, dom, n)
-    err = lib_fn(ctypes.byref(params), pospress.data_ptr(), velrho.data_ptr(),
-                 kind.data_ptr(), cells.cell.data_ptr(), cells.begin.data_ptr(),
-                 ace.data_ptr(), ar.data_ptr(), viscdt.data_ptr(), *extra)
+    err = fn(ctypes.byref(params), pospress.data_ptr(), velrho.data_ptr(),
+             kind.data_ptr(), cells.cell.data_ptr(), cells.begin.data_ptr(),
+             ptr(spstau if use_sps else None), ace.data_ptr(), ar.data_ptr(),
+             viscdt.data_ptr(), ptr(gradvel), ptr(shift), ptr(shiftblk), *extra)
     if err != 0:
-        raise RuntimeError(f"cellforce kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     viscdtmax = torch.clamp(torch.amax(viscdt), min=0.0)
-    return Forces(ace=ace, ar=ar, viscdtmax=viscdtmax)
+    return Forces(ace=ace, ar=ar, viscdtmax=viscdtmax, shiftposfs=shift,
+                  shift_blocked=shiftblk, spsgradvel=gradvel)
 
 
 def interaction_forces_cuda(csp: CteSph, opts: SolverOpts, dom: Domain,
-                            cells: CellDiv, pos, vel, rho, code) -> Forces:
-    """One interaction through the CUDA kernel (CUDA tensors only)."""
-    global launches
-    _check(dom, cells, pos, vel, rho, code, "cuda")
-    lib = build.cuda_library("cellforce")
+                            cells: CellDiv, pos, vel, rho, code,
+                            spstau=None) -> Forces:
+    """One interaction through the CUDA kernel of this configuration (CUDA
+    tensors only), counted in ``launches``."""
+    name = _prepare(csp, opts, dom, cells, pos, vel, rho, code, spstau, "cuda")
+    fn = getattr(build.cuda_library("cellforce"), f"dsph_{name}")
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream().cuda_stream
-        fr = _run(lib.dsph_cellforce, csp, opts, dom, cells, pos, vel, rho,
-                  code, extra=(stream,))
-    launches += 1
+        fr = _run(fn, name, csp, opts, dom, cells, pos, vel, rho, code, spstau,
+                  extra=(stream,))
+    launches[name] += 1
     return fr
 
 
 def interaction_forces_host_twin(csp: CteSph, opts: SolverOpts, dom: Domain,
-                                 cells: CellDiv, pos, vel, rho,
-                                 code) -> Forces:
+                                 cells: CellDiv, pos, vel, rho, code,
+                                 spstau=None) -> Forces:
     """The kernel's body compiled by g++, on CPU tensors (for tests)."""
-    _check(dom, cells, pos, vel, rho, code, "cpu")
-    lib = build.host_twin_library("cellforce")
-    return _run(lib.dsph_cellforce_host, csp, opts, dom, cells, pos, vel,
-                rho, code)
+    name = _prepare(csp, opts, dom, cells, pos, vel, rho, code, spstau, "cpu")
+    fn = getattr(build.host_twin_library("cellforce"), f"dsph_{name}_host")
+    return _run(fn, name, csp, opts, dom, cells, pos, vel, rho, code, spstau)

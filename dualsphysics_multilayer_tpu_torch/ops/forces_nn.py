@@ -32,12 +32,13 @@ from dataclasses import dataclass
 import torch
 
 from .. import typesdef as td
-from ..typesdef import CteSph, TpDensity, TpVelGrad, TpVisco
+from ..typesdef import (CteSph, TpDensity, TpKernel, TpShifting, TpVelGrad,
+                        TpVisco)
 from . import eos
 from . import kernels as K
 from .celldiv import CellDiv, Domain
 from .forces import (FLT_MAX, Forces, SolverOpts, candidate_chunks,
-                     check_supported_step)
+                     check_supported_step, raise_unsupported)
 
 # Largest phase table the CUDA kernels take (csrc/nnbody.cuh NN_MAX_PHASES).
 MAX_PHASES = 8
@@ -178,6 +179,9 @@ def check_supported_nn(csp: CteSph, opts: SolverOpts, phases: PhaseCfg) -> None:
     bodies, mDBC and Verlet among them), ValueError for a phase table the
     kernels cannot hold."""
     check_supported_step(csp, opts)
+    raise_unsupported([
+        (opts.shiftmode != TpShifting.NONE, f"shiftmode={opts.shiftmode.name}"),
+        (csp.tkernel != TpKernel.WENDLAND, f"tkernel={csp.tkernel.name}")])
     if opts.tvisco not in _NN_VISCO:
         raise NotImplementedError(f"the torch port does not cover "
                                   f"tvisco={opts.tvisco.name} yet")

@@ -67,10 +67,12 @@ def comp_pos_update(pos, pose, disp, fluid):
 
 
 def symplectic_corr(csp: CteSph, pos_pre, vel_pre, rho_pre, rho_now, code,
-                    ace, ar, dt, pose):
+                    ace, ar, dt, pose, shiftdisp=None):
     """Corrector full step (JSphCpu.cpp:1510-1610).  ``rho_now`` is the
-    predictor-stage density; ``pose`` is the compensated-position residual.
-    Returns (pos_new, vel_new, rho_new, code_new, pose_new)."""
+    predictor-stage density; ``pose`` is the compensated-position residual;
+    ``shiftdisp`` (n,3), the shifting displacement, adds to the step's
+    displacement.  Returns (pos_new, vel_new, rho_new, code_new,
+    pose_new)."""
     dt05 = dt * 0.5
     bound, floating, fluid = _split_masks(code)
     eps_rdot = (-ar / rho_now) * dt
@@ -80,6 +82,8 @@ def symplectic_corr(csp: CteSph, pos_pre, vel_pre, rho_pre, rho_now, code,
     vel_new = vel_pre + (ace + _gravity(csp, vel_pre)) * dt
     vel_new = torch.where(fluid[:, None], vel_new, vel_pre)
     disp = (vel_pre + vel_new) * dt05
+    if shiftdisp is not None:
+        disp = disp + shiftdisp
     code_new = _mark_outrhop(csp, code, rho_new, fluid)
     pos_new, pose_new = comp_pos_update(pos_pre, pose, disp, fluid)
     return pos_new, vel_new, rho_new, code_new, pose_new

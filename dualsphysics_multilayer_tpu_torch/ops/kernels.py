@@ -49,6 +49,17 @@ def cubic_fac(csp: CteSph, rr2):
     return torch.where(rad > csp.kernelh, outer, inner) / torch.clamp(rad, min=_EPS)
 
 
+def cubic_tensil(csp: CteSph, rr2, rhop1, press1, rhop2, press2):
+    """Cubic-spline tensile correction (`FunSphKernel.h:138-150`), added to
+    the pressure term (p1 + p2)/(rho1*rho2)."""
+    fab = cubic_wab(csp, rr2) * csp.kcubic.od_wdeltap
+    fab = fab * fab
+    fab = fab * fab  # fab^4
+    t1 = (press1 / (rhop1 * rhop1)) * torch.where(press1 > 0, 0.01, -0.2)
+    t2 = (press2 / (rhop2 * rhop2)) * torch.where(press2 > 0, 0.01, -0.2)
+    return fab * (t1 + t2)
+
+
 def kernel_wab(csp: CteSph, rr2):
     if csp.tkernel == TpKernel.WENDLAND:
         return wendland_wab(csp, rr2)

@@ -130,6 +130,23 @@ def test_convert_rejects_unported_state():
     assert jtd.CODE_INOUT_SHIFT + 5 == td.CODE_BITS
 
 
+def test_convert_carries_spstau():
+    """The laminar+SPS stress of a JAX state built with need_sps passes
+    through; a state without one has none."""
+    want = jcases.dambreak3d(dp=0.1, need_sps=True).state
+    arrays = {k: np.asarray(getattr(want, k))
+              for k in ("pos", "vel", "rho", "code", "idp")}
+    tau = np.random.default_rng(0).normal(0, 1e-3, (want.n, 6))
+    got = convert.simstate(dict(arrays, spstau=tau), device="cpu").spstau
+    assert torch.equal(got, torch.tensor(tau, dtype=torch.float32))
+    assert convert.simstate(dict(arrays, spstau=np.asarray(want.spstau)),
+                            device="cpu").spstau.shape == (want.n, 6)
+    assert convert.simstate(arrays, device="cpu").spstau is None
+    port = cases.dambreak3d(dp=0.1, need_sps=True, device="cpu").state
+    assert port.spstau.shape == (want.n, 6) and not bool(port.spstau.any())
+    assert cases.dambreak3d(dp=0.1, device="cpu").state.spstau is None
+
+
 def test_convert_pose_defaults_to_zero():
     """A JAX state without a position residual (``pose`` None) starts
     the port's at zero; a given residual passes through."""

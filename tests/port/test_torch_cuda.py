@@ -6,7 +6,9 @@ it runs where only torch is installed:
 
 Without a CUDA device every test skips.  Tolerance: the rule of
 tests/test_forces.py assert_close (rtol 2e-3, floor 2e-3 of the largest
-value; viscdtmax and viscetadtmax rtol 1e-3), as in chip_smoke.py.
+value, on ace, ar, the SPS velocity gradient and the shifting sums;
+viscdtmax and viscetadtmax rtol 1e-3), as in chip_smoke.py; rtol 4e-3 where
+the cubic spline runs (tests/test_forces.py:90); the shifting flags exact.
 """
 
 import dataclasses
@@ -37,9 +39,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def cloud(sim2d, seed, device, n=400, dp=0.05):
+def cloud(sim2d, seed, device, n=400, dp=0.05, mixed=False):
     """Jittered fluid over a boundary layer (tests/test_forces.py make_cloud
-    at a larger n)."""
+    at a larger n); ``mixed`` makes every third boundary particle moving and
+    every ninth fluid particle floating."""
     rng = np.random.default_rng(seed)
     nb = n // 4
     pos = np.zeros((n, 3))
@@ -54,29 +57,40 @@ def cloud(sim2d, seed, device, n=400, dp=0.05):
     rho = rng.uniform(980, 1050, n)
     code = np.array([td.code_make(td.TYPE_FIXED, 0)] * nb
                     + [td.code_make(td.TYPE_FLUID, 0)] * (n - nb), np.int32)
+    if mixed:
+        code[:nb:3] = td.code_make(td.TYPE_MOVING, 1)
+        code[nb::9] = td.code_make(td.TYPE_FLOATING, 2)
     f32 = dict(dtype=torch.float32, device=device)
     return (torch.tensor(pos, **f32), torch.tensor(vel, **f32),
             torch.tensor(rho, **f32), torch.tensor(code, device=device))
 
 
 def assert_close(want, got, rtol=2e-3):
-    for k in ("ace", "ar"):
+    for k in ("ace", "ar", "spsgradvel", "shiftposfs"):
         w, g = getattr(want, k), getattr(got, k)
-        scale = float(w.abs().max()) + 1e-6
-        torch.testing.assert_close(g, w, rtol=rtol, atol=rtol * scale)
+        assert (w is None) == (g is None), k
+        if w is not None:
+            scale = float(w.abs().max()) + 1e-6
+            torch.testing.assert_close(g, w, rtol=rtol, atol=rtol * scale)
     torch.testing.assert_close(got.viscdtmax, want.viscdtmax, rtol=1e-3,
                                atol=1e-5)
+    if want.shift_blocked is not None:
+        assert torch.equal(got.shift_blocked, want.shift_blocked)
 
 
-def kernel_vs_plain(csp, opts, dom, pos, vel, rho, code):
+def kernel_vs_plain(csp, opts, dom, pos, vel, rho, code, spstau=None):
     cells, code = cd.divide_cells(dom, pos, code)
     o = cells.order
     args = (pos[o], vel[o], rho[o], code[o])
-    launches = CF.launches
-    got = F.interaction_forces(csp, opts, dom, cells, *args)
+    tau = None if spstau is None else spstau[o].contiguous()
+    launches = dict(CF.launches)
+    launches[CF.kernel_name(csp, opts)] += 1
+    got = F.interaction_forces(csp, opts, dom, cells, *args, spstau=tau)
     torch.cuda.synchronize()
-    assert CF.launches == launches + 1
-    assert_close(F.interaction_forces_plain(csp, opts, dom, cells, *args), got)
+    assert CF.launches == launches
+    rtol = 4e-3 if csp.tkernel == td.TpKernel.CUBIC else 2e-3
+    assert_close(F.interaction_forces_plain(csp, opts, dom, cells, *args,
+                                            spstau=tau), got, rtol)
 
 
 @pytest.mark.gpu
@@ -90,6 +104,39 @@ def test_cuda_kernel_matches_plain(cuda, sim2d, tdensity):
     dom = cd.make_domain(pos.min(0).values.tolist(), pos.max(0).values.tolist(),
                          csp.kernelsize, simulate2d=sim2d, borders=0.01)
     kernel_vs_plain(csp, opts, dom, pos, vel, rho, code)
+
+
+# (tkernel, tvisco, shiftmode): every kernel instance of csrc/cellforce.cu
+VARIANTS = [("CUBIC", "ARTIFICIAL", "NONE"), ("CUBIC", "ARTIFICIAL", "NO_FIXED"),
+            ("WENDLAND", "ARTIFICIAL", "NO_BOUND"),
+            ("WENDLAND", "ARTIFICIAL", "NO_FIXED"),
+            ("WENDLAND", "ARTIFICIAL", "FULL"),
+            ("WENDLAND", "LAMINAR_SPS", "NONE"), ("CUBIC", "LAMINAR_SPS", "NONE"),
+            ("WENDLAND", "LAMINAR_SPS", "NO_FIXED"),
+            ("CUBIC", "LAMINAR_SPS", "NO_BOUND")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sim2d", [False, True])
+@pytest.mark.parametrize("tkernel,tvisco,shiftmode", VARIANTS)
+def test_cuda_variant_kernels_match_plain(cuda, sim2d, tkernel, tvisco,
+                                          shiftmode):
+    csp = td.make_ctesph(simulate2d=sim2d, dp=0.05, hswl=0.25,
+                         visco=1e-4 if tvisco == "LAMINAR_SPS" else 0.05,
+                         viscoboundfactor=0.5, tkernel=td.TpKernel[tkernel],
+                         tvisco=td.TpVisco[tvisco])
+    opts = F.SolverOpts(tvisco=td.TpVisco[tvisco],
+                        shiftmode=td.TpShifting[shiftmode])
+    pos, vel, rho, code = cloud(sim2d, 14, cuda, mixed=True)
+    spstau = None
+    if tvisco == "LAMINAR_SPS":
+        rng = np.random.default_rng(15)
+        spstau = torch.where(td.is_fluid(code)[:, None], torch.tensor(
+            rng.normal(0, 1e-3, (pos.shape[0], 6)), dtype=torch.float32,
+            device=cuda), 0.0)
+    dom = cd.make_domain(pos.min(0).values.tolist(), pos.max(0).values.tolist(),
+                         csp.kernelsize, simulate2d=sim2d, borders=0.01)
+    kernel_vs_plain(csp, opts, dom, pos, vel, rho, code, spstau)
 
 
 @pytest.mark.gpu
@@ -120,17 +167,66 @@ def test_cuda_steps_match_cpu_steps(cuda):
                         pose=case.state.pose)
         carry = P.make_carry(st, case.csp, opts, case.dom)
         step = P.make_step(case.csp, opts, case.dom)
-        launches = CF.launches
+        launches = CF.launches["cellforce"]
         for _ in range(4):
             carry = step(carry)
         if dev != "cpu":
-            assert CF.launches == launches + 8
+            assert CF.launches["cellforce"] == launches + 8
         assert carry.nrebuild >= 2
         pos = torch.empty_like(carry.st.pos)
         pos[carry.st.idp] = carry.st.pos
         out[str(dev)] = pos.cpu()
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=0,
                                atol=1e-4 * GEOM["dp"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["lamsps", "cubic"])
+def test_cuda_path_steps_match_cpu_steps(cuda, path):
+    """Steps of the laminar+SPS+shifting and the cubic paths on the card and
+    on the CPU agree by particle id within 1e-4*dp (positions) and rtol
+    2e-3 (SPS stress), with a rebuild inside the run."""
+    if path == "lamsps":
+        opts = P.SolverOpts(tvisco=td.TpVisco.LAMINAR_SPS,
+                            shiftmode=td.TpShifting.NO_FIXED)
+        csp = td.make_ctesph(simulate2d=False, dp=GEOM["dp"],
+                             hswl=GEOM["column"][2], visco=1e-6,
+                             tvisco=td.TpVisco.LAMINAR_SPS)
+        name = "cellforce_lamsps"
+    else:
+        opts = P.SolverOpts()
+        csp = None
+        name = "cellforce_cubic"
+    out = {}
+    for dev in ("cpu", cuda):
+        case = cases.dambreak3d(**GEOM, visco=1e-6 if csp else 0.1,
+                                need_sps=path == "lamsps", device=dev)
+        c = csp or case.csp.replace(tkernel=td.TpKernel.CUBIC)
+        fluid = td.is_fluid(case.state.code)
+        vel = torch.where(fluid[:, None],
+                          torch.tensor([2.5, 0.0, 0.0], device=dev), 0.0)
+        carry = P.make_carry(dataclasses.replace(case.state, vel=vel), c, opts,
+                             case.dom)
+        step = P.make_step(c, opts, case.dom)
+        launches = CF.launches[name]
+        for _ in range(4):
+            carry = step(carry)
+        if dev != "cpu":
+            assert CF.launches[name] == launches + 8
+        assert carry.nrebuild >= 2
+        st = carry.st
+        out[str(dev)] = {}
+        for k in ("pos", "spstau"):
+            if getattr(st, k) is not None:
+                v = torch.empty_like(getattr(st, k))
+                v[st.idp] = getattr(st, k)
+                out[str(dev)][k] = v.cpu()
+    torch.testing.assert_close(out["cuda"]["pos"], out["cpu"]["pos"], rtol=0,
+                               atol=1e-4 * GEOM["dp"])
+    if path == "lamsps":
+        want = out["cpu"]["spstau"]
+        torch.testing.assert_close(out["cuda"]["spstau"], want, rtol=2e-3,
+                                   atol=2e-3 * float(want.abs().max()))
 
 
 @pytest.mark.gpu

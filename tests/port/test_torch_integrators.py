@@ -79,6 +79,26 @@ def test_symplectic_corr_matches(seed):
     assert_same(got, want)
 
 
+def test_symplectic_corr_shiftdisp_matches():
+    """The shifting displacement adds to the corrector's displacement before
+    the compensated update."""
+    csp, jcsp = csps()
+    s = random_state(5)
+    s["rho_now"] = s["rho"] + np.float32(0.5)
+    s["shiftdisp"] = 1e-4 * s["vel"]
+    j, t = to_jax(s), to_torch(s)
+    want = jI.symplectic_corr(jcsp, j["pos"], j["vel"], j["rho"], j["rho_now"],
+                              j["code"], j["ace"], j["ar"], j["dt"],
+                              j["shiftdisp"], pose=j["pose"])
+    got = I.symplectic_corr(csp, t["pos"], t["vel"], t["rho"], t["rho_now"],
+                            t["code"], t["ace"], t["ar"], t["dt"], t["pose"],
+                            shiftdisp=t["shiftdisp"])
+    assert_same(got, want)
+    plain = I.symplectic_corr(csp, t["pos"], t["vel"], t["rho"], t["rho_now"],
+                              t["code"], t["ace"], t["ar"], t["dt"], t["pose"])
+    assert not torch.equal(plain[0], got[0])
+
+
 def test_comp_pos_update_keeps_sub_ulp_displacements():
     """Displacements below half an ulp of the position still accumulate
     through the Kahan residual."""
