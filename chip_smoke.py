@@ -61,7 +61,32 @@ without printing the final result line:
     final state;
 11. cubic path: the same with ``-cubic`` (the cubic spline with the tensile
     correction, artificial viscosity 0.1, Fourtakas, no shifting) and
-    cellforce_cubic.
+    cellforce_cubic;
+12. floating and mDBC instances vs plain: the 2D floating box
+    (``floatingbox2d``) at bench.py's floatingbox size (BENCH_NP=60000: dp
+    4.082 mm, 62,033 particles, 2,401 of them in the box) in a seeded
+    perturbed state, through cellforce with the box's particle mass
+    (Fourtakas, mDBC walls), cellforce with Molteni under mDBC walls, and
+    cellforce_cubic and cellforce_lamsps with the box's mass, each against
+    its plain version and timed alike, with its bound and its instance's
+    ptxas registers (``cellforce_kernel<KER,VISC,SHIFT,FT>``, FT = 1 with
+    floating bodies);
+13. floating box path: the same case with bench.py's floatingbox options
+    (Fourtakas, ``with_floating``, mDBC walls with NO_SLIP; the case has no
+    normals, so no mDBC pre-pass, as in the JAX package), its fluid flowing
+    as in phase 4: 5 warm-up and 50 timed steps, which must launch
+    cellforce exactly twice per step, rebuild at least once inside the
+    steps, keep the state and the body state finite, the fluid density
+    within 10% of rho0 and the box rigid (the distance between its first
+    and last particle within 0.2 dp of its start); then 10 steps from one
+    saved carry, run twice, must give bit-equal states and bodies;
+14. mDBC dam break path: ``dambreak2d(mdbc=True)`` at dp 5.774 mm (bench.py's
+    2D size for BENCH_NP=60000: 61,589 particles, 1,731 walls with normals),
+    Fourtakas, VEL0 (the CLI's ``-mdbc``), flowing as in phase 4: 5 + 50
+    steps, which must launch cellforce and run the mDBC pre-pass exactly
+    twice per step each, rebuild at least once, keep the state finite and
+    the fluid and wall density within 10% of rho0; then the pre-pass alone,
+    timed with CUDA events (torch ops: no TPU kernel to port).
 
 Each kernel is timed twice: alone (``ms``: CUDA events around 20
 back-to-back launches of the C launcher on prepared inputs, per launch,
@@ -95,6 +120,8 @@ PEAK_F32 = 67e12       # H100 SXM f32 outside the tensor cores, FLOP/s
 NN_DP = max((2.0 * 0.45 * 0.35 / 60000) ** 0.5 * 1.4, 0.0025)   # bench.py nnmud
 DP_50K = (0.11 / 5e4) ** (1 / 3)        # bench.py's dp for BENCH_NP=50000
 DP_BENCH = (0.11 / 300000) ** (1 / 3)   # BENCH_NP=300000: 267,469 particles
+DP_FLOAT = (2.0 * 0.5 / 60000) ** 0.5    # bench.py floatingbox: 62,033 particles
+DP_2D = (2.0 / 60000) ** 0.5              # 2D dam break: 61,589 particles
 LAMSPS_VISCO = 1e-6   # water's kinematic viscosity, -viscolamsps:1e-6
 PKG = "dualsphysics_multilayer_tpu_torch/csrc/"
 TPU = "dualsphysics_multilayer_tpu/ops/pallas/"
@@ -339,7 +366,8 @@ def bare_launcher(library, function, params, tensors):
     return lambda held=tensors: fn(ctypes.byref(params), *ptrs, stream)
 
 
-def compare_cellforce(csp, opts, dom, cells, args, reps, spstau=None):
+def compare_cellforce(csp, opts, dom, cells, args, reps, spstau=None,
+                      ftomassp=None):
     """The cellforce kernel of this configuration vs its plain version on
     the same inputs: errors and the times of the kernel alone, with its
     wrapper, and of the plain version."""
@@ -348,8 +376,9 @@ def compare_cellforce(csp, opts, dom, cells, args, reps, spstau=None):
     from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
     name = CF.kernel_name(csp, opts)
     rtol = RTOL_CUBIC if csp.tkernel == td.TpKernel.CUBIC else RTOL
-    got = CF.interaction_forces_cuda(csp, opts, dom, cells, *args, spstau)
-    want = F.interaction_forces_plain(csp, opts, dom, cells, *args, spstau)
+    run = (csp, opts, dom, cells, *args, spstau, ftomassp)
+    got = CF.interaction_forces_cuda(*run)
+    want = F.interaction_forces_plain(*run)
     torch.cuda.synchronize()
     err = {k: close(f"{name} {k}", getattr(got, k), getattr(want, k), rtol)
            for k in ("ace", "ar", "spsgradvel", "shiftposfs")
@@ -364,13 +393,13 @@ def compare_cellforce(csp, opts, dom, cells, args, reps, spstau=None):
     outs = [None if x is None else torch.empty_like(x) for x in (
         got.ace, got.ar, got.ar, got.spsgradvel, got.shiftposfs,
         got.shift_blocked)]
+    ftmass = CF.floating_mass(csp, opts, args[3], ftomassp)
     ms = launch_ms(bare_launcher(
         "cellforce", f"dsph_{name}", CF.make_params(csp, opts, dom, n),
-        [pospress, velrho, kind, cells.cell, cells.begin, spstau] + outs))
-    wrapped_ms = cuda_ms(lambda: CF.interaction_forces_cuda(
-        csp, opts, dom, cells, *args, spstau), reps)
-    plain_ms = cuda_ms(lambda: F.interaction_forces_plain(
-        csp, opts, dom, cells, *args, spstau), reps)
+        [pospress, velrho, kind, cells.cell, cells.begin, spstau, ftmass]
+        + outs))
+    wrapped_ms = cuda_ms(lambda: CF.interaction_forces_cuda(*run), reps)
+    plain_ms = cuda_ms(lambda: F.interaction_forces_plain(*run), reps)
     return err, ms, wrapped_ms, plain_ms
 
 
@@ -499,13 +528,195 @@ def variant_path(label, csp, opts, case, device, smi):
                       plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1])
 
 
+def floating_kernels_vs_plain(device, registers, smi):
+    """Phase 12: the cellforce instances with the floating box's particle
+    mass and the mDBC diffusion rule against their plain versions at
+    bench.py's floatingbox size."""
+    from dualsphysics_multilayer_tpu_torch import (SolverOpts, TpBoundary,
+                                                   TpDensity, TpKernel,
+                                                   TpVisco, make_ctesph)
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.features import floating as FT
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
+    case = cases.floatingbox2d(dp=DP_FLOAT, device=device)
+    csp = case.csp
+    pos, vel, rho, code = perturbed_state(case, device, csp.rhopzero, seed=3,
+                                          sim2d=True)
+    cells, args = sorted_args(case.dom, pos, vel, rho, code)
+    ftomassp = FT.body_tables(case.meta["ftcfg"], tuple(csp.gravity),
+                              device).massp
+    rng = np.random.default_rng(4)
+    tau = torch.where(td.is_fluid(args[3])[:, None], torch.tensor(
+        rng.normal(0.0, 1e-3, (pos.shape[0], 6)), dtype=torch.float32,
+        device=device), 0.0).contiguous()
+    # laminar+SPS at 100x water's viscosity, as in phase 9
+    lam = make_ctesph(simulate2d=True, dp=DP_FLOAT, hswl=0.5, coefh=1.0,
+                      visco=1e-4, coefsound=20.0, tvisco=TpVisco.LAMINAR_SPS)
+    walls = dict(tboundary=TpBoundary.MDBC, with_floating=True)
+    fourtakas = TpDensity.FOURTAKAS
+    nft = int(td.is_floating(code).sum())
+    n = case.np_total
+    cand, pairs = pair_counts(csp, case.dom, cells, args[0], args[3],
+                              inclusive=False)
+    for label, c, opts, instance in (
+            ("floating", csp, SolverOpts(tdensity=fourtakas, **walls), "<2,1,0,1>"),
+            ("floating+molteni-mdbc", csp,
+             SolverOpts(tdensity=TpDensity.MOLTENI, **walls), "<2,1,0,1>"),
+            ("floating-cubic", csp.replace(tkernel=TpKernel.CUBIC),
+             SolverOpts(tdensity=fourtakas, **walls), "<1,1,0,1>"),
+            ("floating-lamsps", lam,
+             SolverOpts(tvisco=TpVisco.LAMINAR_SPS, tdensity=fourtakas,
+                        **walls), "<2,2,0,1>")):
+        err, ms, wrapped_ms, plain_ms = compare_cellforce(
+            c, opts, case.dom, cells, args, reps=5,
+            spstau=tau if opts.tvisco == TpVisco.LAMINAR_SPS else None,
+            ftomassp=ftomassp)
+        name = CF.kernel_name(c, opts)
+        # the inputs of the plain instance plus the slots' masses
+        b = bound(cellforce_bytes(n, case.dom.ncells, opts) + 4 * n,
+                  pairs * ops_per_pair(name, opts))
+        say("floating-vs-plain", f"{label}, {n} particles ({nft} floating, "
+            f"particle mass {float(ftomassp[0]):.6g} kg): max|d| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+            + f"; kernel alone {ms:.3f} ms, with its wrapper {wrapped_ms:.3f} "
+            f"ms, plain {plain_ms:.3f} ms (CUDA events); {cand} candidates, "
+            f"{pairs} in-support pairs with a fluid-side target; bound "
+            f"{b[0] * 1e3:.2f} us by {b[1]}; cellforce_kernel{instance}: "
+            f"{registers.get('cellforce_kernel' + instance, '?')} ({smi})")
+
+
+def floating_path(device, smi):
+    """Phase 13: 5 + 50 steps of the floating box with bench.py's
+    floatingbox options, then 10 steps from one saved carry, twice."""
+    from dualsphysics_multilayer_tpu_torch import (Features, SolverOpts,
+                                                   TpBoundary, TpDensity,
+                                                   TpSlipMode)
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    from dualsphysics_multilayer_tpu_torch.models.wcsph import make_carry, make_step
+    case = cases.floatingbox2d(dp=DP_FLOAT, device=device)
+    csp, dom, n = case.csp, case.dom, case.np_total
+    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS, with_floating=True,
+                      tboundary=TpBoundary.MDBC, slipmode=TpSlipMode.NO_SLIP)
+    step = make_step(csp, opts, dom, Features(floating=case.meta["ftcfg"]))
+    st0 = flowing_state(case, device, sim2d=True)
+    box = torch.nonzero(td.is_floating(st0.code)).squeeze(1)
+    ends = st0.idp[box[[0, -1]]]
+    span0 = float((st0.pos[box[0]] - st0.pos[box[-1]]).norm())
+    carry = make_carry(st0, csp, opts, dom)
+    nrebuild0 = carry.nrebuild
+    nwarm, nsteps = 5, 50
+    carry, times, launched = run_steps(step, carry, nwarm, nsteps)
+    check(launched == {**dict.fromkeys(launched, 0),
+                       "cellforce": 2 * (nwarm + nsteps)},
+          f"{launched} kernel launches in {nwarm + nsteps} steps, expected "
+          f"cellforce 2 per step and no other kernel")
+    check_state(carry, nwarm + nsteps, nrebuild0)
+    st, ft = carry.st, carry.st.ft
+    for k in ("center", "fvel", "fomega", "angles"):
+        check(bool(torch.isfinite(getattr(ft, k)).all()), f"body {k} not finite")
+    rmin, rmax = fluid_rho_range(st, True, csp.rhopzero)
+    slot = torch.empty_like(st.idp)
+    slot[st.idp] = torch.arange(st.n, device=device)
+    a, b = st.pos[slot[ends]]
+    span = float((a - b).norm())
+    check(abs(span - span0) < 0.2 * csp.dp,
+          f"the box deformed: span {span} m, at the start {span0} m")
+    p50 = statistics.median(times)
+    say("floating-path", f"{n} particles ({box.numel()} floating), {nsteps} "
+        f"steps after {nwarm} warm-up: p50 step {p50 * 1e3:.3f} ms, "
+        f"{n / p50:.1f} particle-steps/s; {launched['cellforce']} cellforce "
+        f"launches, {carry.nrebuild - nrebuild0} rebuilds inside the steps, t "
+        f"{carry.t_host:.6f} s, fluid rho [{rmin:.2f}, {rmax:.2f}]; body center "
+        f"{ft.center[0].tolist()}, fvel {ft.fvel[0].tolist()}, fomega "
+        f"{ft.fomega[0].tolist()}; box span {span:.6f} m (start {span0:.6f}) "
+        f"({smi})")
+    runs = []
+    for _ in range(2):
+        c = carry
+        for _ in range(10):
+            c = step(c)
+        runs.append(c.st)
+    fields = ("pos", "vel", "rho", "code", "idp", "pose")
+    same = all(torch.equal(getattr(runs[0], k), getattr(runs[1], k))
+               for k in fields) and all(
+        torch.equal(getattr(runs[0].ft, k), getattr(runs[1].ft, k))
+        for k in ("center", "fvel", "fomega", "angles"))
+    check(same, "10 steps from one carry, run twice, differ")
+    say("floating-path", "10 steps from one saved carry, run twice: states "
+        "and bodies bit-equal")
+
+
+def mdbc_path(device, smi):
+    """Phase 14: 5 + 50 steps of the 2D dam break with mDBC walls (VEL0),
+    the pre-pass counted; then the pre-pass alone."""
+    from dualsphysics_multilayer_tpu_torch import (SolverOpts, TpBoundary,
+                                                   TpDensity, TpSlipMode)
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    from dualsphysics_multilayer_tpu_torch.models.wcsph import make_carry, make_step
+    from dualsphysics_multilayer_tpu_torch.ops import mdbc as MD
+    case = cases.dambreak2d(dp=DP_2D, mdbc=True, device=device)
+    csp, dom, n = case.csp, case.dom, case.np_total
+    nwalls = int(((case.state.boundnormal ** 2).sum(dim=1) > 0).sum())
+    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS, tboundary=TpBoundary.MDBC,
+                      slipmode=TpSlipMode.VEL0)
+    step = make_step(csp, opts, dom)
+    carry = make_carry(flowing_state(case, device, sim2d=True), csp, opts, dom)
+    nrebuild0 = carry.nrebuild
+    prepasses = [0]
+    correction = MD.mdbc_correction
+
+    def counted(*args, **kw):
+        prepasses[0] += 1
+        return correction(*args, **kw)
+
+    nwarm, nsteps = 5, 50
+    MD.mdbc_correction = counted
+    try:
+        carry, times, launched = run_steps(step, carry, nwarm, nsteps)
+    finally:
+        MD.mdbc_correction = correction
+    check(launched == {**dict.fromkeys(launched, 0),
+                       "cellforce": 2 * (nwarm + nsteps)}
+          and prepasses[0] == 2 * (nwarm + nsteps),
+          f"{launched} kernel launches and {prepasses[0]} mDBC pre-passes in "
+          f"{nwarm + nsteps} steps, expected 2 per step each")
+    check_state(carry, nwarm + nsteps, nrebuild0)
+    st = carry.st
+    rmin, rmax = fluid_rho_range(st, True, csp.rhopzero)
+    wall = td.is_bound(st.code)
+    wmin, wmax = float(st.rho[wall].min()), float(st.rho[wall].max())
+    check(0.9 * csp.rhopzero <= wmin and wmax <= 1.1 * csp.rhopzero,
+          f"wall density out of +-10% of rho0: [{wmin}, {wmax}]")
+    p50 = statistics.median(times)
+    say("mdbc-path", f"{n} particles ({nwalls} walls with normals), {nsteps} "
+        f"steps after {nwarm} warm-up: p50 step {p50 * 1e3:.3f} ms, "
+        f"{n / p50:.1f} particle-steps/s; {launched['cellforce']} cellforce "
+        f"launches, {prepasses[0]} mDBC pre-passes, "
+        f"{carry.nrebuild - nrebuild0} rebuilds inside the steps, t "
+        f"{carry.t_host:.6f} s, fluid rho [{rmin:.2f}, {rmax:.2f}], wall rho "
+        f"[{wmin:.2f}, {wmax:.2f}] ({smi})")
+    run = (csp, opts, dom, carry.cells, st.pos, st.vel, st.rho, st.code,
+           st.boundnormal, st.motionvel)
+    ms = cuda_ms(lambda: MD.mdbc_correction(*run))
+    g = MD.ghost_nodes(csp, *run[2:9])
+    branches = torch.bincount(g.branch, minlength=3).tolist()
+    say("mdbc-prepass", f"alone {ms:.3f} ms per pre-pass (CUDA events, median "
+        f"of 7; torch ops) on the final state: {g.idx.numel()} ghost nodes, "
+        f"branches first order / Shepard / rho0 {branches} ({smi})")
+
+
 def kernel_label(mangled):
-    """A kernel's name in ptxas' log, with its template arguments."""
+    """A kernel's name in ptxas' log, with its template arguments and
+    without the anonymous namespace's mangled prefix."""
     m = re.search(r"\d+([a-z0-9_]+_kernel)(I(?:L[a-z]\d+E)+E)?", mangled)
     if m is None:
         return mangled
+    name = re.sub(r"^.*\d(?=[a-z][a-z0-9_]*_kernel$)", "", m.group(1))
     args = re.findall(r"L[a-z](\d+)E", m.group(2) or "")
-    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+    return name + (f"<{','.join(args)}>" if args else "")
 
 
 def nn_opts(tvisco, velgrad):
@@ -715,6 +926,7 @@ def main():
     say("build", ", ".join(f"{name}.cu built and loaded in {s:.2f} s"
                            for name, s in built.items())
         + " (one nvcc per source, started together)")
+    registers = {}   # kernel instance: its ptxas register line
     for name in built:
         with open(build.library_path(name) + ".log") as f:
             entry = "?"
@@ -724,6 +936,8 @@ def main():
                     entry = kernel_label(m.group(1))
                 if "registers" in line or "spill" in line:
                     say("ptxas", f"{name} {entry}: {line.strip()}")
+                if "registers" in line:
+                    registers[entry] = line.strip()
 
     # 3. cellforce vs plain at ~50k particles
     opts = SolverOpts(tdensity=TpDensity.FOURTAKAS)
@@ -820,6 +1034,15 @@ def main():
                              SolverOpts(tdensity=TpDensity.FOURTAKAS), case,
                              device, smi)
     records[name] = rec
+
+    # 12. the floating and mDBC instances vs plain on the floating box
+    floating_kernels_vs_plain(device, registers, smi)
+
+    # 13. floating box path: bench.py's floatingbox options
+    floating_path(device, smi)
+
+    # 14. mDBC dam break path: -mdbc
+    mdbc_path(device, smi)
 
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=rep,

@@ -8,15 +8,20 @@ into the port's, so both packages can compute on the same state.
   and have no counterpart here.
 * ``simstate(arrays)``: a mapping of numpy arrays (``pos``, ``vel``,
   ``rho``, ``code``, ``idp`` and optionally ``pose``, which starts at zero
-  when absent or None, and ``spstau``, the laminar+SPS stress).  uint32 typecodes become int32 (every code fits in
-  26 bits); uint32 ids, including the 0xFFFFFFFF fill of padding slots,
+  when absent or None, ``spstau``, the laminar+SPS stress, ``boundnormal``
+  and ``motionvel``, the mDBC normals and wall velocity, and ``ft``, a
+  mapping of the floating bodies' ``center``, ``fvel``, ``fomega`` and
+  ``angles``).  uint32 typecodes become int32 (every code fits in 26
+  bits); uint32 ids, including the 0xFFFFFFFF fill of padding slots,
   become int64 unchanged.  The state goes to the card unless ``device``
   says otherwise.
 * ``phasecfg(phases)``: a JAX ``PhaseCfg``, read by attribute, as the
   port's ``forces_nn.PhaseCfg`` with plain Python values.
+* ``floatingcfg(cfg)``: a JAX ``FloatingCfg``, read by attribute, as the
+  port's ``features.floating.FloatingCfg``.
 
-The JAX-side ``SimState`` fields of features outside the port (Verlet M1
-state, floating bodies, mDBC normals) raise when present.
+The JAX-side Verlet M1 state (``velm1``, ``rhom1``) is outside the port and
+raises when present.
 """
 
 from __future__ import annotations
@@ -27,11 +32,12 @@ import numpy as np
 import torch
 
 from . import typesdef as td
+from .features.floating import FloatingCfg, FloatingState
 from .models.wcsph import SimState
 from .ops.celldiv import Domain
 from .ops.forces_nn import Phase, PhaseCfg
 
-_UNPORTED_STATE = ("velm1", "rhom1", "ft", "boundnormal", "motionvel")
+_UNPORTED_STATE = ("velm1", "rhom1")
 
 
 def _name(v):
@@ -67,16 +73,22 @@ def simstate(arrays: Mapping, device="cuda") -> SimState:
     def f32(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
+    def opt(k):
+        return None if arrays.get(k) is None else f32(arrays[k])
+
     pos = f32(arrays["pos"])
-    pose = arrays.get("pose")
-    spstau = arrays.get("spstau")
+    ft = arrays.get("ft")
     return SimState(
         pos=pos, vel=f32(arrays["vel"]), rho=f32(arrays["rho"]),
         code=torch.tensor(code.astype(np.int32), device=device),
         idp=torch.tensor(np.asarray(arrays["idp"]).astype(np.int64),
                          device=device),
-        pose=torch.zeros_like(pos) if pose is None else f32(pose),
-        spstau=None if spstau is None else f32(spstau))
+        pose=torch.zeros_like(pos) if arrays.get("pose") is None
+        else f32(arrays["pose"]),
+        spstau=opt("spstau"), boundnormal=opt("boundnormal"),
+        motionvel=opt("motionvel"),
+        ft=None if ft is None else FloatingState(
+            **{k: f32(ft[k]) for k in ("center", "fvel", "fomega", "angles")}))
 
 
 def phasecfg(phases) -> PhaseCfg:
@@ -86,3 +98,10 @@ def phasecfg(phases) -> PhaseCfg:
                          "rho0", "csound", "gamma", "visco", "tau_yield",
                          "tau_max", "bi_multi", "hbp_m", "hbp_n")})
     return PhaseCfg(phases=tuple(one(p) for p in phases.phases))
+
+
+def floatingcfg(cfg) -> FloatingCfg:
+    return FloatingCfg(count=int(cfg.count), ftpause=float(cfg.ftpause),
+                       **{k: tuple(float(x) for x in getattr(cfg, k)) for k in (
+                           "mass", "massp", "inertia0", "translation_dof",
+                           "rotation_dof", "mkbound", "scaleforce")})

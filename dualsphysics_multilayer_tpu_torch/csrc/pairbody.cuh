@@ -3,22 +3,31 @@
 // (cellforce_host.cpp, a loop over targets, compiled with g++ for tests).
 //
 // Semantics are those of ops/pairphys.py pair_terms (reference
-// JSphCpu.cpp:631-822).  One body, three template parameters:
+// JSphCpu.cpp:631-822).  One body, four template parameters:
 //   * KER: the Wendland C2 kernel, or the cubic spline with its tensile
 //     correction added to the pressure term (FunSphKernel.h:104-150);
 //   * VISC: artificial viscosity, or the laminar operator with the SPS
 //     stress divergence and the 6-component velocity gradient
 //     (JSphCpu.cpp:757-791);
 //   * SHIFT: the four shifting sums and the blocked flag of the shifting
-//     mode in the launch parameters (JSphCpu.cpp:743-750).
+//     mode in the launch parameters (JSphCpu.cpp:743-750);
+//   * FT: the run has floating bodies, and a floating candidate reads its
+//     mass from ftmass (the TPU kernels' ftomassp channel); the launcher
+//     picks FT when ftmass is not null.  Without FT the body is the one
+//     without floating bodies, so the runs that have none keep its
+//     registers and time.
 // Rules every instance keeps:
 //   * boundary targets get only continuity and viscdt;
 //   * boundary-boundary pairs contribute nothing, not even to viscdt;
 //   * both viscosities use visco*viscoboundfactor for boundary candidates;
 //     the artificial one acts only on approaching pairs (dot < 0);
 //   * fluid targets lose their whole diffusion term when any boundary
-//     neighbour is in range (Molteni, Fourtakas; not Fourtakas-full) or,
-//     with Molteni, any floating one; floating targets never diffuse;
+//     neighbour is in range (Molteni under DBC walls, Fourtakas; not
+//     Fourtakas-full) or, with Molteni, any floating one; under mDBC walls a
+//     boundary neighbour adds its Molteni term instead (the JAX bucket path,
+//     pairphys.py:107-116); floating targets never diffuse;
+//   * a floating candidate's mass is its body's particle mass from ftmass
+//     (n,) with FT, else massfluid, as a fluid candidate's;
 //   * Fourtakas' hydrostatic correction uses the exact pow form
 //     rho0*(1 + ddtgz*dz)^(1/gamma) - rho0;
 //   * the SPS stress of a candidate counts only for fluid candidates; the
@@ -37,6 +46,8 @@
 enum { KER_CUBIC = 1, KER_WENDLAND = 2 };
 enum { VISCO_ARTIFICIAL = 1, VISCO_LAMINAR_SPS = 2 };
 enum { SHIFT_NONE = 0, SHIFT_NO_BOUND = 1, SHIFT_NO_FIXED = 2, SHIFT_FULL = 3 };
+// Boundary conditions; values match typesdef.TpBoundary.
+enum { BOUNDARY_DBC = 1, BOUNDARY_MDBC = 2 };
 
 // Launch parameters.  Field order and types are mirrored by the ctypes
 // Structure in ops/cuda/cellforce.py: keep both in step.
@@ -48,6 +59,7 @@ struct CfParams {
   int tdensity;
   int tkernel;
   int shiftmode;
+  int tboundary;
   float kernelsize2;
   float kernelh;
   float bwen;
@@ -104,8 +116,9 @@ DSPH_HD float kernel_fac(float rr2, const CfParams& p) {
 }
 
 // Target i's sums.  tau (n,6) is read and gradvel (n,6) written only with
-// VISCO_LAMINAR_SPS; shift (n,4) and shiftblk (n,) only with SHIFT.
-template <int KER, int VISC, bool SHIFT>
+// VISCO_LAMINAR_SPS; shift (n,4) and shiftblk (n,) only with SHIFT; ftmass
+// (n,) only with FT, at floating candidates.
+template <int KER, int VISC, bool SHIFT, bool FT>
 DSPH_HD void target_forces(int i, const CfParams& p,
                            const F4* __restrict__ pospress,
                            const F4* __restrict__ velrho,
@@ -113,6 +126,7 @@ DSPH_HD void target_forces(int i, const CfParams& p,
                            const int* __restrict__ cell,
                            const int* __restrict__ begin,
                            const float* __restrict__ tau,
+                           const float* __restrict__ ftmass,
                            float* __restrict__ ace, float* __restrict__ ar,
                            float* __restrict__ viscdt,
                            float* __restrict__ gradvel,
@@ -161,7 +175,10 @@ DSPH_HD void target_forces(int i, const CfParams& p,
       const float dvfr = dvx * frx + dvy * fry + dvz * frz;
       const float dot = drx * dvx + dry * dvy + drz * dvz;
       const float dot_rr2 = dot / (rr2 + p.eta2);
-      const float mass2 = bound_c ? p.massbound : p.massfluid;
+      float mass2 = bound_c ? p.massbound : p.massfluid;
+      if constexpr (FT) {
+        if (ft_c) mass2 = ftmass[j];
+      }
       const float rhoi = vi.w, rhoj = vj.w;
       vmax = fmaxf(vmax, dot_rr2);
       // continuity (JSphCpu.cpp:720)
@@ -232,10 +249,10 @@ DSPH_HD void target_forces(int i, const CfParams& p,
       if (p.tdensity == DDT_NONE || ft_t) return;
       const float drfr = drx * frx + dry * fry + drz * frz;
       if (p.tdensity == DDT_MOLTENI) {
-        // Molteni & Colagrossi 2009 (JSphCpu.cpp:724-731), DBC walls
+        // Molteni & Colagrossi 2009 (JSphCpu.cpp:724-731)
         const float vd = p.ddtkh * p.cs0 * (rhoi / rhoj - 1.f) / (rr2 + p.eta2);
         dlt += vd * drfr * mass2;
-        blocked = blocked || bound_c || ft_c;
+        blocked = blocked || ft_c || (bound_c && p.tboundary == BOUNDARY_DBC);
       } else {
         // Fourtakas et al. 2019 (JSphCpu.cpp:733-740)
         if (!bound_c && !ft_c) {

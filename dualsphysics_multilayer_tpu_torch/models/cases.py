@@ -1,13 +1,15 @@
 """Built-in case construction for the port: the dp-lattice box drawing of
-GenCase (3D, or 2D in the y = 0 plane) and the 3D dam break
-(`examples/main/01_DamBreak/CaseDambreak_Def.xml`); the 2D wet dam break
+GenCase (3D, or 2D in the y = 0 plane) with the mDBC normals of its faces,
+the 3D and 2D dam breaks (`examples/main/01_DamBreak/CaseDambreak_Def.xml`,
+`CaseDambreakVal2D_Def.xml`) and the 2D floating box; the 2D wet dam break
 of the multiphase non-Newtonian solver lives in ``models/nnewtonian.py``.
 
 Counterpart of `dualsphysics_multilayer_tpu/models/cases.py` (``Draw.box``,
 ``Draw.build``, ``Case``, ``_make_state``, ``_make_domain``,
-``dambreak3d``).  Lattices, ids, densities and the domain come out equal to
-the JAX package's, which the tests check array for array.  Cases are built
-on the card unless the caller asks for another device.
+``dambreak3d``, ``dambreak2d``, ``floatingbox2d``).  Lattices, ids,
+densities, normals and the domain come out equal to the JAX package's,
+which the tests check array for array.  Cases are built on the card unless
+the caller asks for another device.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from .. import typesdef as td
 from ..typesdef import CteSph, make_ctesph
+from ..features import floating as FT
 from ..ops import celldiv as cd
 from ..ops import eos
 from .wcsph import SimState
@@ -40,7 +43,7 @@ class Draw:
     and boxes have no front/back faces."""
     dp: float
     simulate2d: bool = False
-    points: dict = field(default_factory=dict)   # (i,j,k) -> (ptype, mk)
+    points: dict = field(default_factory=dict)   # (i,j,k) -> (ptype, mk, normal)
 
     def _irange(self, lo, hi):
         i0 = int(math.ceil(lo / self.dp - _EPS))
@@ -50,33 +53,45 @@ class Draw:
     def box(self, pmin, pmax, *, ptype, mk, faces="solid"):
         """Draw a box: ``faces`` is 'solid' or a '|'-joined subset of
         bottom, top, left, right, front, back (left/right = x faces,
-        front/back = y faces, bottom/top = z faces)."""
+        front/back = y faces, bottom/top = z faces).  A face point carries
+        the mDBC normal: the sum of its faces' inward unit normals scaled
+        to length dp (the ghost node lies one dp inside, JSphCpu.cpp:1036
+        gpos = pos + boundnormal); a solid box's points carry none."""
         xs, ys, zs = (self._irange(pmin[a], pmax[a]) for a in range(3))
         if self.simulate2d:
             ys = [0]
         want = None if faces == "solid" else {f.strip() for f in faces.split("|")}
         depth = not self.simulate2d
 
-        def sel(i, j, k):
-            if want is None:
-                return True
-            return (("left" in want and i == xs[0])
-                    or ("right" in want and i == xs[-1])
-                    or (depth and "front" in want and j == ys[0])
-                    or (depth and "back" in want and j == ys[-1])
-                    or ("bottom" in want and k == zs[0])
-                    or ("top" in want and k == zs[-1]))
+        def inward(i, j, k):
+            """Inward unit normals of the faces the point lies on."""
+            return [n for on, n in (
+                ("left" in want and i == xs[0], (1, 0, 0)),
+                ("right" in want and i == xs[-1], (-1, 0, 0)),
+                (depth and "front" in want and j == ys[0], (0, 1, 0)),
+                (depth and "back" in want and j == ys[-1], (0, -1, 0)),
+                ("bottom" in want and k == zs[0], (0, 0, 1)),
+                ("top" in want and k == zs[-1], (0, 0, -1))) if on]
 
         for k in zs:
             for j in ys:
                 for i in xs:
-                    if sel(i, j, k):
-                        self.points[(i, j, k)] = (ptype, mk)
+                    if want is None:
+                        self.points[(i, j, k)] = (ptype, mk, (0.0, 0.0, 0.0))
+                        continue
+                    faces_on = inward(i, j, k)
+                    if not faces_on:
+                        continue
+                    v = np.sum(faces_on, axis=0, dtype=np.float64)
+                    nn = np.linalg.norm(v)
+                    v = v / nn * self.dp if nn else np.zeros(3)
+                    self.points[(i, j, k)] = (ptype, mk,
+                                              tuple(float(x) for x in v))
 
     def build(self):
         """Assign canonical ids (fixed < moving < floating < fluid; within a
         type, lattice order z, y, x) and return (pos f64 (np,3), code int32
-        (np,))."""
+        (np,)); the points' mDBC normals land in ``self.normals`` (np,3)."""
         order = {td.TYPE_FIXED: 0, td.TYPE_MOVING: 1,
                  td.TYPE_FLOATING: 2, td.TYPE_FLUID: 3}
         items = sorted(self.points.items(),
@@ -84,8 +99,10 @@ class Draw:
                                        kv[0][0]))
         ijk = np.array([key for key, _ in items], dtype=np.float64).reshape(-1, 3)
         pos = ijk * self.dp
-        code = np.array([td.code_make(t, mk) for _, (t, mk) in items],
+        code = np.array([td.code_make(t, mk) for _, (t, mk, _n) in items],
                         dtype=np.int32)
+        self.normals = np.array([n for _, (_t, _mk, n) in items],
+                                dtype=np.float64).reshape(-1, 3)
         return pos, code
 
 
@@ -100,11 +117,13 @@ class Case:
     meta: dict
 
 
-def _make_state(csp: CteSph, pos, code, zsurf, *, device, need_sps=False):
+def _make_state(csp: CteSph, pos, code, zsurf, *, device, need_sps=False,
+                normals=None):
     """Initial state: positions cast from f64 to f32, zero velocity, and
     hydrostatic density for fluid (GenCase ``rhopgradient=2``) evaluated in
-    f32 as the JAX package does; boundaries start at rho0.  ``need_sps``
-    adds a zero SPS stress for laminar+SPS runs."""
+    f32 as the JAX package does; boundaries and floating bodies start at
+    rho0.  ``need_sps`` adds a zero SPS stress for laminar+SPS runs;
+    ``normals`` (np,3) the mDBC normals, with a zero wall velocity."""
     n = pos.shape[0]
     z = torch.tensor(pos[:, 2], dtype=torch.float32)
     rho_hyd = eos.hydrostatic_rho(csp, z, zsurf).numpy()
@@ -118,6 +137,8 @@ def _make_state(csp: CteSph, pos, code, zsurf, *, device, need_sps=False):
         idp=torch.arange(n, dtype=torch.int64, device=device),
         pose=torch.zeros((n, 3), **f32),
         spstau=torch.zeros((n, 6), **f32) if need_sps else None,
+        boundnormal=None if normals is None else torch.tensor(normals, **f32),
+        motionvel=None if normals is None else torch.zeros((n, 3), **f32),
     )
 
 
@@ -138,16 +159,17 @@ def _make_domain(csp: CteSph, pos, headroom=0.5):
 
 
 def dambreak3d(dp=0.02, *, tank=(1.6, 0.67, 0.4), column=(0.4, 0.67, 0.3),
-               obstacle=True, visco=0.1, need_sps=False,
+               obstacle=True, visco=0.1, need_sps=False, mdbc=False,
                device="cuda") -> Case:
     """3D dam break with optional building obstacle (CaseDambreak_Def.xml):
     coefsound 20, free-surface headroom 100% of the lattice height.
     ``visco`` is the viscosity constant (artificial alpha, or the kinematic
     viscosity under laminar+SPS); ``need_sps`` allocates the zero SPS stress
-    that laminar+SPS reads.  As in the JAX package, the constants are those
-    of artificial viscosity (``spssmag = spsblin = 0``); a laminar+SPS run
-    takes ``make_ctesph(..., tvisco=LAMINAR_SPS)`` constants, as an XML
-    case's do."""
+    that laminar+SPS reads; ``mdbc`` gives the walls their normals.  As in
+    the JAX package, the constants are those of artificial viscosity
+    (``spssmag = spsblin = 0``); a laminar+SPS run takes
+    ``make_ctesph(..., tvisco=LAMINAR_SPS)`` constants, as an XML case's
+    do."""
     csp = make_ctesph(simulate2d=False, dp=dp, hswl=column[2], coefh=1.0,
                       visco=visco, coefsound=20.0)
     d = Draw(dp=dp)
@@ -160,7 +182,58 @@ def dambreak3d(dp=0.02, *, tank=(1.6, 0.67, 0.4), column=(0.4, 0.67, 0.3),
     pos, code = d.build()
     dom = _make_domain(csp, pos, headroom=1.0)
     st = _make_state(csp, pos, code, zsurf=column[2], device=device,
-                     need_sps=need_sps)
+                     need_sps=need_sps, normals=d.normals if mdbc else None)
     npb = int(np.sum(td.code_type(code) < td.TYPE_FLOATING))
     return Case(csp=csp, dom=dom, state=st, npb=npb, np_total=pos.shape[0],
                 meta=dict(name="dambreak3d", dp=dp, zsurf=column[2]))
+
+
+def dambreak2d(dp=0.02, *, tank=(4.0, 3.0), column=(1.0, 2.0), visco=0.02,
+               need_sps=False, mdbc=False, device="cuda") -> Case:
+    """2D dam break (CaseDambreakVal2D_Def.xml geometry): a column of
+    ``column`` (x, z) in a tank with bottom, left and right walls one
+    particle thick; ``mdbc`` gives the walls their normals."""
+    hswl = column[1]
+    csp = make_ctesph(simulate2d=True, dp=dp, hswl=hswl, coefh=1.0,
+                      visco=visco, coefsound=20.0)
+    d = Draw(dp=dp, simulate2d=True)
+    d.box((0, 0, 0), (column[0], 0, column[1]), ptype=td.TYPE_FLUID, mk=0)
+    d.box((0, 0, 0), (tank[0], 0, tank[1]),
+          ptype=td.TYPE_FIXED, mk=0, faces="bottom|left|right")
+    pos, code = d.build()
+    dom = _make_domain(csp, pos)
+    st = _make_state(csp, pos, code, zsurf=column[1], device=device,
+                     need_sps=need_sps, normals=d.normals if mdbc else None)
+    npb = int(np.sum(td.code_type(code) < td.TYPE_FLOATING))
+    return Case(csp=csp, dom=dom, state=st, npb=npb, np_total=pos.shape[0],
+                meta=dict(name="dambreak2d", dp=dp, zsurf=column[1]))
+
+
+def floatingbox2d(dp=0.02, *, tank=(2.0, 1.2), water=0.5,
+                  box=(0.2, 0.2), box_pos=(0.9, 0.42), box_rho=500.0,
+                  visco=0.05, ftpause=0.0, device="cuda") -> Case:
+    """2D floating box in a water tank (the 'floating box in waves'
+    family): a solid box of density ``box_rho`` drawn over the water, body
+    0 of ``meta["ftcfg"]``, with its body state in ``state.ft``.  The walls
+    carry no mDBC normals, as in the JAX package."""
+    csp = make_ctesph(simulate2d=True, dp=dp, hswl=water, coefh=1.0,
+                      visco=visco, coefsound=20.0)
+    d = Draw(dp=dp, simulate2d=True)
+    d.box((0, 0, 0), (tank[0], 0, water), ptype=td.TYPE_FLUID, mk=0)
+    d.box((0, 0, 0), (tank[0], 0, tank[1]),
+          ptype=td.TYPE_FIXED, mk=0, faces="bottom|left|right")
+    d.box((box_pos[0], 0, box_pos[1]),
+          (box_pos[0] + box[0], 0, box_pos[1] + box[1]),
+          ptype=td.TYPE_FLOATING, mk=0)
+    pos, code = d.build()
+    # the floating typecode's value is the body index
+    isft = td.code_type(code) == td.TYPE_FLOATING
+    ftcfg, ftstate = FT.make_floating([pos[isft]], [box_rho], csp,
+                                      ftpause=ftpause, device=device)
+    dom = _make_domain(csp, pos)
+    st = _make_state(csp, pos, code, zsurf=water, device=device)
+    st.ft = ftstate
+    npb = int(np.sum(td.code_type(code) < td.TYPE_FLOATING))
+    return Case(csp=csp, dom=dom, state=st, npb=npb, np_total=pos.shape[0],
+                meta=dict(name="floatingbox2d", dp=dp, zsurf=water,
+                          ftcfg=ftcfg))

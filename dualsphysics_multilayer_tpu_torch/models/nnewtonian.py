@@ -36,7 +36,7 @@ def make_nn_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     def interaction(st: W.SimState, cells: cd.CellDiv):
         fr, _eta, _tau = NN.interaction_forces_nn(
             csp, opts, phases, dom, cells, st.pos, st.vel, st.rho, st.code)
-        return fr
+        return st, fr
 
     return W.symplectic_step(csp, opts, dom, interaction)
 

@@ -1,13 +1,13 @@
 """WCSPH solver on torch: state, the symplectic step and the host-side run
 loop.
 
-Counterpart of the main-path subset of
+Counterpart of the symplectic subset of
 `dualsphysics_multilayer_tpu/models/wcsph.py`: ``SimState``, ``StepCarry``,
-``make_carry``, the skin-contract rebuild (``_rowdiv_tick``), the DBC
-``_interaction``, ``make_symplectic_step``, ``make_step``, ``make_advance``
-and ``Simulation``.  :func:`symplectic_step` takes the interaction as an
-argument, so the multiphase non-Newtonian step (``models/nnewtonian.py``)
-shares it.
+``make_carry``, the skin-contract rebuild (``_rowdiv_tick``),
+``_interaction`` with the mDBC pre-pass, ``make_symplectic_step`` with the
+floating-body hooks, ``make_step``, ``make_advance`` and ``Simulation``.
+:func:`symplectic_step` takes the interaction as an argument, so the
+multiphase non-Newtonian step (``models/nnewtonian.py``) shares it.
 
 The state lives in cell-sorted order (``ops.celldiv.divide_cells``) and is
 re-sorted only when the skin contract demands it: with cells of
@@ -32,10 +32,13 @@ import numpy as np
 import torch
 
 from .. import typesdef as td
-from ..typesdef import CteSph
+from ..typesdef import CteSph, TpBoundary
+from ..features import floating as FT
+from ..features.featureset import Features
 from ..ops import celldiv as cd
 from ..ops import forces as F
 from ..ops import integrators as I
+from ..ops import mdbc as MD
 from ..ops.forces import SolverOpts
 
 
@@ -53,13 +56,18 @@ class SimState:
     pose: torch.Tensor           # (n,3) f32
     # SPS sub-particle stress (xx, xy, xz, yy, yz, zz), laminar+SPS only
     spstau: torch.Tensor | None = None   # (n,6) f32
+    ft: FT.FloatingState | None = None   # floating body state, per body
+    boundnormal: torch.Tensor | None = None   # (n,3) f32 mDBC normals
+    motionvel: torch.Tensor | None = None     # (n,3) f32 mDBC wall velocity
 
     @property
     def n(self) -> int:
         return self.pos.shape[0]
 
     def permuted(self, order) -> "SimState":
-        return SimState(**{k: None if v is None else v[order]
+        """The state with every per-particle field in slot order
+        ``order``; the body state stays as it is."""
+        return SimState(**{k: v if v is None or k == "ft" else v[order]
                            for k, v in vars(self).items()})
 
 
@@ -140,24 +148,54 @@ def make_carry(st: SimState, csp: CteSph, opts: SolverOpts,
 
 
 def _interaction(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
-                 st: SimState, cells: cd.CellDiv) -> F.Forces:
-    """Forces of one interaction on the current layout (DBC walls, no
-    feature hooks: the body of `JSphCpuSingle::Interaction_Forces`)."""
-    return F.interaction_forces(csp, opts, dom, cells, st.pos, st.vel,
-                                st.rho, st.code, st.spstau)
+                 st: SimState, cells: cd.CellDiv, ftomassp=None):
+    """The mDBC pre-pass and the forces of one interaction on the current
+    layout (the body of `JSphCpuSingle::Interaction_Forces`).  Returns (the
+    state with the pre-pass's boundary velocity and density, Forces).  The
+    pre-pass runs under mDBC walls when the state carries normals (JAX
+    `wcsph.py:443-449`); without normals an mDBC run is a DBC run with the
+    mDBC diffusion rule, as in JAX."""
+    if opts.tboundary == TpBoundary.MDBC and st.boundnormal is not None:
+        vel, rho = MD.mdbc_correction(csp, opts, dom, cells, st.pos, st.vel,
+                                      st.rho, st.code, st.boundnormal,
+                                      st.motionvel)
+        st = replace(st, vel=vel, rho=rho)
+    return st, F.interaction_forces(csp, opts, dom, cells, st.pos, st.vel,
+                                    st.rho, st.code, st.spstau, ftomassp)
 
 
 def make_symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
-                         feats=None):
+                         feats: Features | None = None):
     """Returns step(carry) -> carry implementing ComputeStep_Sym
-    (JSphCpuSingle.cpp:695-722) over the single-phase interaction."""
-    if feats is not None:
-        raise NotImplementedError("the torch port does not cover Features "
-                                  "hooks yet")
+    (JSphCpuSingle.cpp:695-722) over the single-phase interaction, with the
+    floating bodies of ``feats`` moved after the predictor (dt/2) and the
+    corrector (dt), JSphCpuSingle.cpp:707,715."""
     F.check_supported(csp, opts)
-    return symplectic_step(
-        csp, opts, dom,
-        lambda st, cells: _interaction(csp, opts, dom, st, cells))
+    floating = None
+    if feats is not None:
+        feats.check_supported()
+        floating = feats.floating
+
+    def interaction(st, cells):
+        ftomassp = None
+        if floating is not None:
+            ftomassp = FT.body_tables(floating, tuple(csp.gravity),
+                                      st.pos.device).massp
+        return _interaction(csp, opts, dom, st, cells, ftomassp)
+
+    rigid = None
+    if floating is not None:
+        def rigid(st, ace, t, dt, predictor):
+            if st.ft is None:
+                raise ValueError("floating bodies need the body state "
+                                 "SimState.ft (features.floating."
+                                 "make_floating)")
+            pos, vel, ft = FT.run_floating(floating, csp, st.ft, t, dt,
+                                           predictor, st.pos, st.vel,
+                                           st.code, ace)
+            return replace(st, pos=pos, vel=vel, ft=ft)
+
+    return symplectic_step(csp, opts, dom, interaction, rigid)
 
 
 def _sps_tau(csp: CteSph, st: SimState, fr: F.Forces):
@@ -168,12 +206,15 @@ def _sps_tau(csp: CteSph, st: SimState, fr: F.Forces):
 
 
 def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
-                    interaction):
+                    interaction, rigid=None):
     """step(carry) -> carry: the symplectic predictor and corrector over
-    ``interaction(st, cells) -> Forces`` on one layout.  What the forces
-    carry switches the rest: ``viscetadtmax`` the NN dt3 control,
-    ``spsgradvel`` the SPS stress after each interaction, ``shiftposfs``
-    the shifting displacement in the corrector."""
+    ``interaction(st, cells) -> (st, Forces)`` on one layout; the state it
+    returns (the mDBC pre-pass's boundary values) is the one that goes on,
+    as in JAX.  What the forces carry switches the rest: ``viscetadtmax``
+    the NN dt3 control, ``spsgradvel`` the SPS stress after each
+    interaction, ``shiftposfs`` the shifting displacement in the corrector.
+    ``rigid(st, ace, t, dt, predictor) -> st`` moves the floating bodies
+    after the predictor (dt/2) and after the corrector (dt)."""
     margin = _margin(csp, dom)
 
     def step(carry: StepCarry) -> StepCarry:
@@ -183,7 +224,7 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
         dt = carry.dt_pre
 
         # ---------------- predictor ----------------
-        fr1 = interaction(st, carry.cells)
+        st, fr1 = interaction(st, carry.cells)
         velmax1 = I.velocity_max(csp, st.vel, st.code)
         acemax1 = I.ace_max(fr1.ace, st.code)
         dt_p, bad_p = I.dt_variable(csp, acemax1, velmax1, fr1.viscdtmax,
@@ -194,9 +235,11 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
         if fr1.spsgradvel is not None:
             st = replace(st, spstau=_sps_tau(csp, st, fr1))
         st = replace(st, pos=pos1, vel=vel1, rho=rho1, code=code1)
+        if rigid is not None:
+            st = rigid(st, fr1.ace, carry.tabs, dt * 0.5, True)
 
         # ---------------- corrector (same layout) ----------------
-        fr2 = interaction(st, carry.cells)
+        st, fr2 = interaction(st, carry.cells)
         velmax2 = I.velocity_max(csp, st.vel, st.code)
         acemax2 = I.ace_max(fr2.ace, st.code)
         dt_c, bad_c = I.dt_variable(csp, acemax2, velmax2, fr2.viscdtmax,
@@ -213,6 +256,8 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             st = replace(st, spstau=_sps_tau(csp, st, fr2))
         st = replace(st, pos=out[0], vel=out[1], rho=out[2], code=out[3],
                      pose=out[4])
+        if rigid is not None:
+            st = rigid(st, fr2.ace, carry.tabs, dt, False)
 
         carry = replace(
             carry, st=st, t=carry.t + dt, dt_pre=torch.minimum(dt_p, dt_c),
@@ -225,15 +270,16 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     return step
 
 
-def make_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain, feats=None):
+def make_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
+              feats: Features | None = None):
     if opts.tstep != td.TpStep.SYMPLECTIC:
         raise NotImplementedError(f"the torch port does not cover "
                                   f"tstep={opts.tstep.name} yet")
     return make_symplectic_step(csp, opts, dom, feats)
 
 
-def make_advance(csp: CteSph, opts: SolverOpts, dom: cd.Domain, feats=None,
-                 step=None):
+def make_advance(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
+                 feats: Features | None = None, step=None):
     """advance(carry, t_target, nstep_max): run steps until interval time
     >= t_target or nstep reaches nstep_max (the reference's main loop
     between PART saves, JSphCpuSingle.cpp:1090-1120).  ``step`` replaces
@@ -253,7 +299,7 @@ class Simulation:
     1049-1202): owns the step, the save schedule and the diagnostics."""
 
     def __init__(self, csp: CteSph, opts: SolverOpts, dom: cd.Domain,
-                 state: SimState, feats=None, step=None):
+                 state: SimState, feats: Features | None = None, step=None):
         self.csp, self.opts, self.dom = csp, opts, dom
         self.carry = make_carry(state, csp, opts, dom)
         self.advance = make_advance(csp, opts, dom, feats, step=step)

@@ -3,7 +3,8 @@ index per cell, the layout of the original DualSPHysics GPU solver (PreSort
 + radix sort + CalcBeginEndCell).
 
 Counterpart of `dualsphysics_multilayer_tpu/ops/celldiv.py` for ``Domain``,
-``make_domain`` and ``cell_coords``.  The JAX package's TPU layouts (fixed
+``make_domain``, ``cell_coords`` and, as :func:`point_ranges`,
+``point_candidates``.  The JAX package's TPU layouts (fixed
 buckets, row padding, lane chunks) are not ported: here the state arrays
 themselves are permuted into cell order, so the particles of one cell are a
 contiguous slot range and the 3 cells of one (dy, dz) neighbour row are one
@@ -94,3 +95,63 @@ def divide_cells(dom: Domain, pos, code):
     cells = torch.arange(ncells + 1, dtype=torch.int32, device=pos.device)
     begin = torch.searchsorted(skey, cells, out_int32=True)
     return CellDiv(cell=skey, begin=begin, order=order), new_code
+
+
+def row_ranges(dom: Domain, cells: CellDiv, cx, cy, cz, live):
+    """(start, length) of the (dy, dz) neighbour rows of cells (cx, cy, cz),
+    (m, R) each with R = 9 (3 in 2D), dz-major then dy as the kernels walk
+    them: the x-cells cx-1..cx+1 of one row, clamped to the grid, are one
+    contiguous slot range.  Rows outside the grid, and every row where
+    ``live`` is false, have length 0."""
+    ncx, ncy, ncz = dom.nc
+    x0 = torch.clamp(cx - 1, min=0)
+    x1 = torch.clamp(cx + 1, max=ncx - 1)
+    begin = cells.begin.long()
+    dys = (0,) if dom.simulate2d else (-1, 0, 1)
+    starts, lens = [], []
+    for dz in (-1, 0, 1):
+        for dy in dys:
+            y, z = cy + dy, cz + dz
+            ok = live & (y >= 0) & (y < ncy) & (z >= 0) & (z < ncz)
+            row = torch.where(ok, (z * ncy + y) * ncx, 0)
+            s = begin[row + x0]
+            e = begin[row + x1 + 1]
+            starts.append(s)
+            lens.append(torch.where(ok, e - s, 0))
+    return torch.stack(starts, dim=1), torch.stack(lens, dim=1)
+
+
+def point_ranges(dom: Domain, cells: CellDiv, points):
+    """(start, length), (m, R) each, of the neighbour rows around arbitrary
+    query points (m,3): the cell is the point's own, not a slot's (JAX
+    ``celldiv.point_candidates``, the mDBC ghost nodes' search).  A point
+    outside the grid has no candidates.
+
+    On a layout divided when the candidates stood at ``pos0``, the rows
+    still hold every candidate j within ``kernelsize`` of a point g while
+    each candidate has moved at most d since (the skin contract, d <
+    ``scell - kernelsize``): |g - pos0_j| <= kernelsize + d < scell, so j
+    lies in g's cell or a neighbour of it."""
+    cxyz = cell_coords(dom, points).long()
+    nc = torch.tensor(dom.nc, dtype=torch.int64, device=points.device)
+    inside = ((cxyz >= 0) & (cxyz < nc)).all(dim=1)
+    cxyz = torch.where(inside[:, None], cxyz, 0)
+    return row_ranges(dom, cells, cxyz[:, 0], cxyz[:, 1], cxyz[:, 2], inside)
+
+
+def range_chunks(starts, lens, max_pairs: int):
+    """Yield ``(t, j, valid)`` for chunks of rows of ``starts``/``lens``
+    (m, R): ``t`` (b,) row numbers, ``j`` (b, R*L) the slots of their R
+    ranges, each padded to the longest range L (slot 0 in the padding),
+    and ``valid`` (b, R*L) false in the padding.  A chunk holds at most
+    ``max_pairs`` padded slots, which bounds the pair temporaries (the
+    analog of the JAX bucket path's cell chunks)."""
+    m, R = starts.shape
+    L = max(int(lens.max()), 1) if m else 1
+    B = max(1, max_pairs // (R * L))
+    off = torch.arange(L, device=starts.device)
+    for i0 in range(0, m, B):
+        t = torch.arange(i0, min(i0 + B, m), device=starts.device)
+        valid = off < lens[t, :, None]                          # (b, R, L)
+        j = torch.where(valid, starts[t, :, None] + off, 0).reshape(len(t), -1)
+        yield t, j, valid.reshape(len(t), -1)

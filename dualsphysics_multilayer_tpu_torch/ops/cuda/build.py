@@ -44,8 +44,8 @@ GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 # of the CUDA launcher}); each twin takes the same arguments but the stream
 LIBRARIES = {
     "cellforce": ("cellforce.cu", "cellforce_host.cpp",
-                  {"dsph_cellforce": 14, "dsph_cellforce_cubic": 14,
-                   "dsph_cellforce_lamsps": 14}),
+                  {"dsph_cellforce": 15, "dsph_cellforce_cubic": 15,
+                   "dsph_cellforce_lamsps": 15}),
     "nnforce": ("nnforce.cu", "nnforce_host.cpp",
                 {"dsph_nnforce_p1": 12, "dsph_nnforce_fda": 12,
                  "dsph_nnforce_p3": 11}),

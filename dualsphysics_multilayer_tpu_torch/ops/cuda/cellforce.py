@@ -11,11 +11,14 @@ kernel and the viscosity,
 * ``cellforce_lamsps``: laminar+SPS viscosity, either kernel (the v1
   `_kernel`);
 
-each with the shifting sums when ``opts.shiftmode`` names a mode.  A call:
+each with the shifting sums when ``opts.shiftmode`` names a mode, the
+floating bodies' particle masses under ``opts.with_floating`` and the mDBC
+form of the Molteni diffusion under ``opts.tboundary == MDBC``.  A call:
 
 1. per-particle channel prep, the `_fast_channels` analog: position with
-   pressure and velocity with density packed as 16-byte rows, and the
-   particle kind (type, or -1 when inactive);
+   pressure and velocity with density packed as 16-byte rows, the particle
+   kind (type, or -1 when inactive) and, with floating bodies, each slot's
+   mass (the `ftomassp` channel);
 2. the launch, on torch's current stream;
 3. the `_forces_from_canon` analog: the kernel already writes ``ace``,
    ``ar`` (diffusion folded in), the SPS velocity gradient and the shifting
@@ -37,6 +40,7 @@ import torch
 from ... import typesdef as td
 from ...typesdef import CteSph, TpKernel, TpShifting, TpVisco
 from .. import eos
+from .. import pairphys as PP
 from ..celldiv import CellDiv, Domain
 from ..forces import Forces, SolverOpts, check_spstau, check_supported
 from . import build
@@ -50,7 +54,7 @@ class CfParams(ctypes.Structure):
     """Mirror of ``struct CfParams`` in csrc/pairbody.cuh."""
     _fields_ = ([(k, ctypes.c_int) for k in (
         "n", "ncx", "ncy", "ncz", "ncells", "sim2d", "tdensity", "tkernel",
-        "shiftmode")]
+        "shiftmode", "tboundary")]
         + [(k, ctypes.c_float) for k in (
             "kernelsize2", "kernelh", "bwen", "eta2", "cs0", "visco",
             "viscobound", "ddtkh", "ddtgz", "rhopzero", "ovgamma",
@@ -72,6 +76,7 @@ def make_params(csp: CteSph, opts: SolverOpts, dom: Domain, n: int) -> CfParams:
         n=n, ncx=ncx, ncy=ncy, ncz=ncz, ncells=dom.ncells,
         sim2d=int(csp.simulate2d), tdensity=opts.tdensity.value,
         tkernel=csp.tkernel.value, shiftmode=opts.shiftmode.value,
+        tboundary=opts.tboundary.value,
         kernelsize2=csp.kernelsize2, kernelh=csp.kernelh, bwen=csp.kwend.bwen,
         eta2=csp.eta2, cs0=csp.cs0, visco=csp.visco,
         viscobound=csp.visco * csp.viscoboundfactor, ddtkh=csp.ddtkh,
@@ -88,6 +93,16 @@ def channels(csp: CteSph, pos, vel, rho, code):
     velrho = torch.cat([vel, rho[:, None]], dim=1).contiguous()
     kind = torch.where(td.is_active(code), td.code_type(code), -1)
     return pospress, velrho, kind.to(torch.int32).contiguous()
+
+
+def floating_mass(csp: CteSph, opts: SolverOpts, code, ftomassp):
+    """(n,) f32 particle mass of each slot, read by the kernel at floating
+    candidates only, when the run has floating bodies (``with_floating`` and
+    ``ftomassp`` given); else None, and floating candidates weigh
+    ``massfluid``."""
+    if not opts.with_floating or ftomassp is None:
+        return None
+    return PP.particle_flags(csp, code, ftomassp, True)[3].contiguous()
 
 
 def check_inputs(kernel: str, device_type: str, want: dict) -> None:
@@ -122,7 +137,7 @@ def state_inputs(dom: Domain, cells: CellDiv, pos, vel, rho, code) -> dict:
     }
 
 
-def _prepare(csp, opts, dom, cells, pos, vel, rho, code, spstau,
+def _prepare(csp, opts, dom, cells, pos, vel, rho, code, spstau, ftomassp,
              device_type):
     """Check the configuration and the inputs; returns the kernel's name."""
     check_supported(csp, opts)
@@ -131,17 +146,20 @@ def _prepare(csp, opts, dom, cells, pos, vel, rho, code, spstau,
     want = state_inputs(dom, cells, pos, vel, rho, code)
     if opts.tvisco == TpVisco.LAMINAR_SPS:
         want["spstau"] = (spstau, torch.float32, (pos.shape[0], 6))
+    if ftomassp is not None:
+        want["ftomassp"] = (ftomassp, torch.float32, (ftomassp.shape[0],))
     check_inputs(name, device_type, want)
     return name
 
 
 def _run(fn, name, csp, opts, dom, cells, pos, vel, rho, code, spstau,
-         extra=()):
+         ftomassp, extra=()):
     n = pos.shape[0]
     dev = pos.device
     use_sps = opts.tvisco == TpVisco.LAMINAR_SPS
     use_shift = opts.shiftmode != TpShifting.NONE
     pospress, velrho, kind = channels(csp, pos, vel, rho, code)
+    ftmass = floating_mass(csp, opts, code, ftomassp)
     ace = torch.empty((n, 3), dtype=torch.float32, device=dev)
     ar = torch.empty(n, dtype=torch.float32, device=dev)
     viscdt = torch.empty(n, dtype=torch.float32, device=dev)
@@ -158,8 +176,9 @@ def _run(fn, name, csp, opts, dom, cells, pos, vel, rho, code, spstau,
     params = make_params(csp, opts, dom, n)
     err = fn(ctypes.byref(params), pospress.data_ptr(), velrho.data_ptr(),
              kind.data_ptr(), cells.cell.data_ptr(), cells.begin.data_ptr(),
-             ptr(spstau if use_sps else None), ace.data_ptr(), ar.data_ptr(),
-             viscdt.data_ptr(), ptr(gradvel), ptr(shift), ptr(shiftblk), *extra)
+             ptr(spstau if use_sps else None), ptr(ftmass), ace.data_ptr(),
+             ar.data_ptr(), viscdt.data_ptr(), ptr(gradvel), ptr(shift),
+             ptr(shiftblk), *extra)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     viscdtmax = torch.clamp(torch.amax(viscdt), min=0.0)
@@ -169,23 +188,26 @@ def _run(fn, name, csp, opts, dom, cells, pos, vel, rho, code, spstau,
 
 def interaction_forces_cuda(csp: CteSph, opts: SolverOpts, dom: Domain,
                             cells: CellDiv, pos, vel, rho, code,
-                            spstau=None) -> Forces:
+                            spstau=None, ftomassp=None) -> Forces:
     """One interaction through the CUDA kernel of this configuration (CUDA
     tensors only), counted in ``launches``."""
-    name = _prepare(csp, opts, dom, cells, pos, vel, rho, code, spstau, "cuda")
+    name = _prepare(csp, opts, dom, cells, pos, vel, rho, code, spstau,
+                    ftomassp, "cuda")
     fn = getattr(build.cuda_library("cellforce"), f"dsph_{name}")
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream().cuda_stream
         fr = _run(fn, name, csp, opts, dom, cells, pos, vel, rho, code, spstau,
-                  extra=(stream,))
+                  ftomassp, extra=(stream,))
     launches[name] += 1
     return fr
 
 
 def interaction_forces_host_twin(csp: CteSph, opts: SolverOpts, dom: Domain,
                                  cells: CellDiv, pos, vel, rho, code,
-                                 spstau=None) -> Forces:
+                                 spstau=None, ftomassp=None) -> Forces:
     """The kernel's body compiled by g++, on CPU tensors (for tests)."""
-    name = _prepare(csp, opts, dom, cells, pos, vel, rho, code, spstau, "cpu")
+    name = _prepare(csp, opts, dom, cells, pos, vel, rho, code, spstau,
+                    ftomassp, "cpu")
     fn = getattr(build.host_twin_library("cellforce"), f"dsph_{name}_host")
-    return _run(fn, name, csp, opts, dom, cells, pos, vel, rho, code, spstau)
+    return _run(fn, name, csp, opts, dom, cells, pos, vel, rho, code, spstau,
+                ftomassp)

@@ -18,11 +18,11 @@ from dataclasses import dataclass
 import torch
 
 from .. import typesdef as td
-from ..typesdef import (CteSph, TpBoundary, TpDensity, TpShifting, TpStep,
-                        TpVelGrad, TpVisco)
+from ..typesdef import (CteSph, TpBoundary, TpDensity, TpShifting,
+                        TpSlipMode, TpStep, TpVelGrad, TpVisco)
 from . import eos
 from . import pairphys as PP
-from .celldiv import CellDiv, Domain
+from .celldiv import CellDiv, Domain, range_chunks, row_ranges
 from .pairphys import FLT_MAX
 
 
@@ -36,8 +36,13 @@ class SolverOpts:
     tvisco: TpVisco = TpVisco.ARTIFICIAL
     tdensity: TpDensity = TpDensity.FOURTAKAS
     tboundary: TpBoundary = TpBoundary.DBC
+    # mDBC wall velocity (ops/mdbc.py); read only under tboundary=MDBC
+    slipmode: TpSlipMode = TpSlipMode.NO_SLIP
     shiftmode: TpShifting = TpShifting.NONE
     with_floating: bool = False
+    # mDBC kernel-completeness gate: a wall particle is corrected only where
+    # its ghost node's Shepard sum reaches it (0 = always)
+    mdbc_threshold: float = 0.0
     use_nbrlist: bool = False
     symmetry: bool = False
     # NN velocity-gradient formulation: SPH = accumulated per-particle
@@ -66,8 +71,6 @@ def check_supported_step(csp: CteSph, opts: SolverOpts) -> None:
     what the single-phase and the NN interactions both require."""
     unsupported = [
         (opts.tstep != TpStep.SYMPLECTIC, f"tstep={opts.tstep.name}"),
-        (opts.tboundary != TpBoundary.DBC, f"tboundary={opts.tboundary.name}"),
-        (opts.with_floating, "with_floating=True"),
         (opts.use_nbrlist, "use_nbrlist=True"),
         (opts.symmetry, "symmetry=True"),
     ]
@@ -85,7 +88,8 @@ def raise_unsupported(unsupported) -> None:
 def check_supported(csp: CteSph, opts: SolverOpts) -> None:
     """Raise NotImplementedError for any configuration outside the
     single-phase interaction: Wendland or cubic, artificial or laminar+SPS
-    viscosity, every density diffusion and shifting mode."""
+    viscosity, every density diffusion and shifting mode, DBC or mDBC
+    walls, with or without floating bodies."""
     check_supported_step(csp, opts)
     raise_unsupported([(opts.tvisco not in (TpVisco.ARTIFICIAL,
                                             TpVisco.LAMINAR_SPS),
@@ -103,67 +107,38 @@ def check_spstau(opts: SolverOpts, spstau) -> None:
 
 def interaction_forces(csp: CteSph, opts: SolverOpts, dom: Domain,
                        cells: CellDiv, pos, vel, rho, code,
-                       spstau=None) -> Forces:
+                       spstau=None, ftomassp=None) -> Forces:
     """One interaction on state arrays in ``cells`` order: the CUDA kernels
     for CUDA tensors, the plain version for CPU tensors.  ``spstau`` (n,6)
-    is read by laminar+SPS viscosity only."""
+    is read by laminar+SPS viscosity only; ``ftomassp`` (B,), the particle
+    mass of each floating body, under ``opts.with_floating`` only."""
     if pos.device.type == "cuda":
         from .cuda import cellforce as CF
         return CF.interaction_forces_cuda(csp, opts, dom, cells, pos, vel,
-                                          rho, code, spstau)
+                                          rho, code, spstau, ftomassp)
     if pos.device.type != "cpu":
         raise ValueError(f"interaction_forces: no path for device {pos.device}")
     return interaction_forces_plain(csp, opts, dom, cells, pos, vel, rho, code,
-                                    spstau)
+                                    spstau, ftomassp)
 
 
 def neighbour_ranges(dom: Domain, cells: CellDiv, live):
     """(start, length) of each target's (dy, dz) neighbour ranges, (n, R)
-    each with R = 9 (3 in 2D): the x-neighbours -1..+1 of one row, clamped
-    to the grid, are one contiguous slot range."""
-    ncx, ncy, ncz = dom.nc
+    each with R = 9 (3 in 2D), from the cell of the target's slot."""
+    ncx, ncy = dom.nc[0], dom.nc[1]
     cell = cells.cell.long()
-    cx, cy, cz = cell % ncx, (cell // ncx) % ncy, cell // (ncx * ncy)
-    x0 = torch.clamp(cx - 1, min=0)
-    x1 = torch.clamp(cx + 1, max=ncx - 1)
-    begin = cells.begin.long()
-    dys = (0,) if dom.simulate2d else (-1, 0, 1)
-    starts, lens = [], []
-    for dz in (-1, 0, 1):
-        for dy in dys:
-            y, z = cy + dy, cz + dz
-            ok = live & (y >= 0) & (y < ncy) & (z >= 0) & (z < ncz)
-            row = torch.where(ok, (z * ncy + y) * ncx, 0)
-            s = begin[row + x0]
-            e = begin[row + x1 + 1]
-            starts.append(s)
-            lens.append(torch.where(ok, e - s, 0))
-    return torch.stack(starts, dim=1), torch.stack(lens, dim=1)
+    return row_ranges(dom, cells, cell % ncx, (cell // ncx) % ncy,
+                      cell // (ncx * ncy), live)
 
 
 def candidate_chunks(dom: Domain, cells: CellDiv, live, max_pairs: int):
-    """Yield ``(t, j, valid)`` for chunks of targets: ``t`` (b,) target
-    slots, ``j`` (b, R*L) their candidate slots, the R neighbour ranges
-    each padded to the longest range L (slot 0 in the padding), and
-    ``valid`` (b, R*L) false in the padding.  A chunk holds at most
-    ``max_pairs`` padded slots, which bounds the pair temporaries (the
-    analog of the JAX bucket path's cell chunks)."""
-    n = live.shape[0]
-    starts, lens = neighbour_ranges(dom, cells, live)
-    R = starts.shape[1]
-    L = max(int(lens.max()), 1) if n else 1
-    B = max(1, max_pairs // (R * L))
-    off = torch.arange(L, device=live.device)
-    for i0 in range(0, n, B):
-        t = torch.arange(i0, min(i0 + B, n), device=live.device)
-        valid = off < lens[t, :, None]                          # (b, R, L)
-        j = torch.where(valid, starts[t, :, None] + off, 0).reshape(len(t), -1)
-        yield t, j, valid.reshape(len(t), -1)
+    """:func:`range_chunks` over every target's neighbour ranges."""
+    return range_chunks(*neighbour_ranges(dom, cells, live), max_pairs)
 
 
 def interaction_forces_plain(csp: CteSph, opts: SolverOpts, dom: Domain,
                              cells: CellDiv, pos, vel, rho, code, spstau=None,
-                             max_pairs: int = 1 << 21) -> Forces:
+                             ftomassp=None, max_pairs: int = 1 << 21) -> Forces:
     """Plain torch version of the cellforce kernels, over
     :func:`candidate_chunks`."""
     check_supported(csp, opts)
@@ -173,7 +148,8 @@ def interaction_forces_plain(csp: CteSph, opts: SolverOpts, dom: Domain,
     dev = pos.device
     press = eos.press_from_rho(csp, rho)
     act = td.is_active(code)
-    fluidside, floating, fixed, mass = PP.particle_flags(csp, code)
+    fluidside, floating, fixed, mass = PP.particle_flags(
+        csp, code, ftomassp, opts.with_floating)
     live = act & (cells.cell < dom.ncells)
     use_sps = opts.tvisco == TpVisco.LAMINAR_SPS
     use_shift = opts.shiftmode != TpShifting.NONE

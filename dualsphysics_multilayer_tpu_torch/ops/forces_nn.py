@@ -32,8 +32,8 @@ from dataclasses import dataclass
 import torch
 
 from .. import typesdef as td
-from ..typesdef import (CteSph, TpDensity, TpKernel, TpShifting, TpVelGrad,
-                        TpVisco)
+from ..typesdef import (CteSph, TpBoundary, TpDensity, TpKernel, TpShifting,
+                        TpVelGrad, TpVisco)
 from . import eos
 from . import kernels as K
 from .celldiv import CellDiv, Domain
@@ -180,6 +180,8 @@ def check_supported_nn(csp: CteSph, opts: SolverOpts, phases: PhaseCfg) -> None:
     kernels cannot hold."""
     check_supported_step(csp, opts)
     raise_unsupported([
+        (opts.tboundary != TpBoundary.DBC, f"tboundary={opts.tboundary.name}"),
+        (opts.with_floating, "with_floating=True"),
         (opts.shiftmode != TpShifting.NONE, f"shiftmode={opts.shiftmode.name}"),
         (csp.tkernel != TpKernel.WENDLAND, f"tkernel={csp.tkernel.name}")])
     if opts.tvisco not in _NN_VISCO:

@@ -3,8 +3,9 @@ body that `csrc/pairbody.cuh` implements for the GPU.
 
 Counterpart of `dualsphysics_multilayer_tpu/ops/pairphys.py` (reference
 `JSphCpu.cpp:631-822`): momentum (pressure, plus the tensile correction of
-the cubic spline), continuity, every density diffusion mode, artificial or
-laminar+SPS viscosity and the shifting accumulators.  Callers lay pairs out
+the cubic spline), continuity, every density diffusion mode under DBC or
+mDBC walls, artificial or laminar+SPS viscosity and the shifting
+accumulators.  Callers lay pairs out
 as they like, build broadcast per-pair inputs, call :func:`pair_terms` and
 reduce over their candidate axis.
 """
@@ -16,7 +17,8 @@ from dataclasses import dataclass
 import torch
 
 from .. import typesdef as td
-from ..typesdef import CteSph, TpDensity, TpKernel, TpShifting, TpVisco
+from ..typesdef import (CteSph, TpBoundary, TpDensity, TpKernel, TpShifting,
+                        TpVisco)
 from . import kernels as K
 
 
@@ -93,10 +95,14 @@ def pair_terms(csp: CteSph, opts, p: PairInputs) -> PairTerms:
         w_ddt = w_mom * (1.0 - p.ft_t.to(f32))
         blocked = p.pair & ~p.bound_t & ~p.ft_t
         if opts.tdensity == TpDensity.MOLTENI:
-            # Molteni & Colagrossi 2009 (JSphCpu.cpp:724-731), DBC walls
+            # Molteni & Colagrossi 2009 (JSphCpu.cpp:724-731); under mDBC a
+            # boundary candidate adds its term instead of blocking
             visc_densi = ddtkh * cbar * (p.rho1 / p.rho2 - 1.0) / (rr2s + csp.eta2)
             delta = w_ddt * visc_densi * drfr * p.mass2
-            delta_blocked = blocked & (p.bound_c | p.ft_c)
+            blockers = p.ft_c
+            if opts.tboundary == TpBoundary.DBC:
+                blockers = blockers | p.bound_c
+            delta_blocked = blocked & blockers
         else:
             # Fourtakas et al. 2019 (JSphCpu.cpp:733-740), exact pow form;
             # FULL has no boundary block
@@ -163,12 +169,18 @@ def pair_terms(csp: CteSph, opts, p: PairInputs) -> PairTerms:
                      visc=visc)
 
 
-def particle_flags(csp: CteSph, code):
+def particle_flags(csp: CteSph, code, ftomassp=None, with_floating=False):
     """Per-particle masks and mass from typecodes:
-    (fluidside, floating, fixed, mass)."""
+    (fluidside, floating, fixed, mass).  With ``with_floating`` and
+    ``ftomassp`` (B,), the particle mass of each body, a floating particle
+    weighs that of its body (the typecode's value, clipped to the table);
+    otherwise it weighs ``massfluid``, as in the JAX bucket path."""
     ptype = td.code_type(code)
     fluidside = ptype >= td.TYPE_FLOATING
     floating = ptype == td.TYPE_FLOATING
     fixed = ptype == td.TYPE_FIXED
     mass = torch.where(fluidside, csp.massfluid, csp.massbound).to(torch.float32)
+    if with_floating and ftomassp is not None:
+        body = torch.clamp(td.code_value(code), max=ftomassp.shape[0] - 1)
+        mass = torch.where(floating, ftomassp[body.long()], mass)
     return fluidside, floating, fixed, mass

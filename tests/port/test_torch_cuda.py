@@ -1,5 +1,6 @@
 """The CUDA kernels on the card against their plain torch versions, and
-steps on the card against the same steps on the CPU.  Imports no JAX, so
+steps on the card against the same steps on the CPU (the floating box and
+the mDBC dam break among them).  Imports no JAX, so
 it runs where only torch is installed:
 
     python -m pytest --noconftest tests/port/test_torch_cuda.py -m gpu
@@ -137,6 +138,144 @@ def test_cuda_variant_kernels_match_plain(cuda, sim2d, tkernel, tvisco,
     dom = cd.make_domain(pos.min(0).values.tolist(), pos.max(0).values.tolist(),
                          csp.kernelsize, simulate2d=sim2d, borders=0.01)
     kernel_vs_plain(csp, opts, dom, pos, vel, rho, code, spstau)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tdensity", ["MOLTENI", "FOURTAKAS"])
+@pytest.mark.parametrize("tkernel,tvisco", [("WENDLAND", "ARTIFICIAL"),
+                                            ("CUBIC", "ARTIFICIAL"),
+                                            ("WENDLAND", "LAMINAR_SPS")])
+def test_cuda_floating_mdbc_kernels_match_plain(cuda, tkernel, tvisco, tdensity):
+    """Kernels 1-3 with two floating bodies of their own particle mass and
+    mDBC walls, against the plain version."""
+    csp = td.make_ctesph(simulate2d=False, dp=0.05, hswl=0.25,
+                         visco=1e-4 if tvisco == "LAMINAR_SPS" else 0.05,
+                         viscoboundfactor=0.5, tkernel=td.TpKernel[tkernel],
+                         tvisco=td.TpVisco[tvisco])
+    opts = F.SolverOpts(tvisco=td.TpVisco[tvisco],
+                        tdensity=td.TpDensity[tdensity],
+                        tboundary=td.TpBoundary.MDBC, with_floating=True)
+    pos, vel, rho, code = cloud(False, 16, cuda, mixed=True)
+    floating = td.is_floating(code)
+    body = torch.arange(code.shape[0], dtype=torch.int32, device=cuda) % 2
+    code = torch.where(floating, td.code_make(td.TYPE_FLOATING, 0) + body,
+                       code).to(torch.int32)
+    ftomassp = torch.tensor([0.5, 0.3], device=cuda) * csp.massfluid
+    spstau = None
+    if tvisco == "LAMINAR_SPS":
+        rng = np.random.default_rng(17)
+        spstau = torch.where(td.is_fluid(code)[:, None], torch.tensor(
+            rng.normal(0, 1e-3, (pos.shape[0], 6)), dtype=torch.float32,
+            device=cuda), 0.0)
+    dom = cd.make_domain(pos.min(0).values.tolist(), pos.max(0).values.tolist(),
+                         csp.kernelsize, borders=0.01)
+    cells, code = cd.divide_cells(dom, pos, code)
+    o = cells.order
+    args = (pos[o], vel[o], rho[o], code[o])
+    tau = None if spstau is None else spstau[o].contiguous()
+    launches = dict(CF.launches)
+    launches[CF.kernel_name(csp, opts)] += 1
+    got = F.interaction_forces(csp, opts, dom, cells, *args, spstau=tau,
+                               ftomassp=ftomassp)
+    torch.cuda.synchronize()
+    assert CF.launches == launches
+    rtol = 4e-3 if tkernel == "CUBIC" else 2e-3
+    want = F.interaction_forces_plain(csp, opts, dom, cells, *args, spstau=tau,
+                                      ftomassp=ftomassp)
+    assert_close(want, got, rtol)
+    # the body masses matter: without them the forces differ
+    other = F.interaction_forces_plain(csp, opts, dom, cells, *args,
+                                       spstau=tau)
+    scale = float(want.ace.abs().max())
+    assert float((other.ace - want.ace).abs().max()) > 10 * rtol * scale
+
+
+def small_floatingbox(dev):
+    case = cases.floatingbox2d(dp=0.04, tank=(0.8, 0.6), water=0.3,
+                               box=(0.16, 0.16), box_pos=(0.32, 0.2),
+                               device=dev)
+    fluid = td.is_fluid(case.state.code)
+    vel = torch.where(fluid[:, None], torch.tensor([2.5, 0.0, 0.0], device=dev),
+                      0.0)
+    return case, dataclasses.replace(case.state, vel=vel)
+
+
+FLOATINGBOX_OPTS = dict(tdensity=td.TpDensity.FOURTAKAS, with_floating=True,
+                        tboundary=td.TpBoundary.MDBC,
+                        slipmode=td.TpSlipMode.NO_SLIP)
+
+
+@pytest.mark.gpu
+def test_cuda_floatingbox_steps_match_cpu_steps(cuda):
+    """Steps of the floating box on the card and on the CPU agree by
+    particle id within 1e-4*dp, the body center within 1e-4*dp and its
+    velocities within rtol 1e-3 (floor 1e-3 of the largest value); two runs
+    on the card give the same bodies bit for bit."""
+    opts = P.SolverOpts(**FLOATINGBOX_OPTS)
+    out = {}
+    for dev in ("cpu", cuda, cuda):
+        case, st = small_floatingbox(dev)
+        feats = P.Features(floating=case.meta["ftcfg"])
+        carry = P.make_carry(st, case.csp, opts, case.dom)
+        step = P.make_step(case.csp, opts, case.dom, feats)
+        launches = CF.launches["cellforce"]
+        for _ in range(4):
+            carry = step(carry)
+        if dev != "cpu":
+            assert CF.launches["cellforce"] == launches + 8
+        assert carry.nrebuild >= 2
+        pos = torch.empty_like(carry.st.pos)
+        pos[carry.st.idp] = carry.st.pos
+        ft = {k: getattr(carry.st.ft, k).cpu()
+              for k in ("center", "fvel", "fomega", "angles")}
+        out.setdefault(str(dev), []).append((pos.cpu(), ft))
+    (pos_c, ft_c), = out["cpu"]
+    (pos_g, ft_g), (pos_g2, ft_g2) = out["cuda"]
+    torch.testing.assert_close(pos_g, pos_c, rtol=0, atol=1e-4 * 0.04)
+    torch.testing.assert_close(ft_g["center"], ft_c["center"], rtol=0,
+                               atol=1e-4 * 0.04)
+    for k in ("fvel", "fomega"):
+        w = ft_c[k]
+        torch.testing.assert_close(ft_g[k], w, rtol=1e-3,
+                                   atol=1e-3 * float(w.abs().max()))
+    assert torch.equal(pos_g, pos_g2)
+    for k in ft_g:
+        assert torch.equal(ft_g[k], ft_g2[k])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slip", ["VEL0", "NO_SLIP"])
+def test_cuda_mdbc_steps_match_cpu_steps(cuda, slip):
+    """Steps of the 2D dam break with mDBC walls on the card and on the CPU
+    agree by particle id: positions within 1e-4*dp, density within rtol
+    1e-5 and velocity within 1e-4 m/s, walls included."""
+    opts = P.SolverOpts(tdensity=td.TpDensity.FOURTAKAS,
+                        tboundary=td.TpBoundary.MDBC,
+                        slipmode=td.TpSlipMode[slip])
+    dp = 0.02
+    out = {}
+    for dev in ("cpu", cuda):
+        case = cases.dambreak2d(dp=dp, tank=(0.8, 0.5), column=(0.2, 0.3),
+                                mdbc=True, device=dev)
+        fluid = td.is_fluid(case.state.code)
+        vel = torch.where(fluid[:, None],
+                          torch.tensor([2.5, 0.0, 0.0], device=dev), 0.0)
+        carry = P.make_carry(dataclasses.replace(case.state, vel=vel),
+                             case.csp, opts, case.dom)
+        step = P.make_step(case.csp, opts, case.dom)
+        for _ in range(4):
+            carry = step(carry)
+        assert carry.nrebuild >= 2
+        st = carry.st
+        out[str(dev)] = {}
+        for k in ("pos", "rho", "vel"):
+            v = torch.empty_like(getattr(st, k))
+            v[st.idp] = getattr(st, k)
+            out[str(dev)][k] = v.cpu()
+    got, want = out["cuda"], out["cpu"]
+    torch.testing.assert_close(got["pos"], want["pos"], rtol=0, atol=1e-4 * dp)
+    torch.testing.assert_close(got["rho"], want["rho"], rtol=1e-5, atol=0)
+    torch.testing.assert_close(got["vel"], want["vel"], rtol=0, atol=1e-4)
 
 
 @pytest.mark.gpu

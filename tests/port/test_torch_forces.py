@@ -132,17 +132,18 @@ def test_plain_skips_inactive_particles():
 
 @pytest.mark.parametrize("kw,name", [
     (dict(tvisco=td.TpVisco.CONST_EQ), "tvisco=CONST_EQ"),
-    (dict(tboundary=td.TpBoundary.MDBC), "tboundary=MDBC"),
-    (dict(shiftmode=td.TpShifting.NO_BOUND, with_floating=True),
-     "with_floating"),
-    (dict(with_floating=True), "with_floating"),
+    (dict(tboundary=td.TpBoundary.MDBC, symmetry=True), "symmetry"),
+    (dict(shiftmode=td.TpShifting.NO_BOUND, with_floating=True,
+          use_nbrlist=True), "use_nbrlist"),
+    (dict(with_floating=True, tstep=td.TpStep.VERLET), "tstep=VERLET"),
     (dict(symmetry=True), "symmetry"),
     (dict(use_nbrlist=True), "use_nbrlist"),
     (dict(tstep=td.TpStep.VERLET), "tstep=VERLET"),
 ])
 def test_unsupported_configs_raise(kw, name):
-    """Settings outside the port raise, whatever the smoothing kernel (the
-    supported variants: test_torch_variants.py)."""
+    """Settings outside the port raise, whatever the smoothing kernel and
+    with floating bodies or mDBC walls on (the supported variants:
+    test_torch_variants.py, test_torch_floating.py, test_torch_mdbc.py)."""
     for tkernel in (td.TpKernel.WENDLAND, td.TpKernel.CUBIC):
         csp = td.make_ctesph(simulate2d=False, dp=0.05, hswl=0.25,
                              tkernel=tkernel)

@@ -140,11 +140,13 @@ def test_unsupported_step_configs_raise():
     case = small_case()
     with pytest.raises(NotImplementedError, match="VERLET"):
         P.make_step(case.csp, P.SolverOpts(tstep=td.TpStep.VERLET), case.dom)
-    with pytest.raises(NotImplementedError, match="Features"):
-        P.make_step(case.csp, P.SolverOpts(), case.dom, feats=object())
-    with pytest.raises(NotImplementedError, match="MDBC"):
+    with pytest.raises(NotImplementedError, match="Features.motions"):
+        P.make_step(case.csp, P.SolverOpts(), case.dom,
+                    feats=P.Features(motions=(object(),)))
+    with pytest.raises(NotImplementedError, match="use_nbrlist"):
         P.make_carry(case.state, case.csp,
-                     P.SolverOpts(tboundary=td.TpBoundary.MDBC), case.dom)
+                     P.SolverOpts(tboundary=td.TpBoundary.MDBC,
+                                  use_nbrlist=True), case.dom)
     flat = dataclasses.replace(case.dom, scell=case.csp.kernelsize)
     with pytest.raises(ValueError, match="skin"):
         P.make_step(case.csp, P.SolverOpts(), flat)
