@@ -7,7 +7,8 @@ without printing the final result line:
 
 1. device: the CUDA device, and ``nvidia-smi``'s name and power limit;
 2. build: nvcc builds the hand-written kernels from ``csrc/``, one process
-   per library (``cellforce.cu``, ``nnforce.cu``), started together;
+   per library (``cellforce.cu``, ``nnforce.cu``, and the probes'
+   ``probe_fma.cu`` with ``probe_gather.cu``), started together;
 3. cellforce vs plain: one interaction of the 3D dam break (obstacle on)
    at about 50k particles through the CUDA kernel and through its plain
    torch version on the card, compared by the rule of tests/test_forces.py
@@ -86,7 +87,33 @@ without printing the final result line:
     steps, which must launch cellforce and run the mDBC pre-pass exactly
     twice per step each, rebuild at least once, keep the state finite and
     the fluid and wall density within 10% of rho0; then the pre-pass alone,
-    timed with CUDA events (torch ops: no TPU kernel to port).
+    timed with CUDA events (torch ops: no TPU kernel to port);
+15. NN variant instances vs plain: phase 5's case and state through every
+    other instance of ``nnforce.cu`` (``nnforce_p1_kernel<KER,SHIFT>``,
+    ``nnforce_fda_kernel<KER,SHIFT>``, ``nnforce_p3_kernel<KER>``; KER 1
+    cubic, 2 Wendland; SHIFT 1 with a shifting mode): pass 1 and FDA (Morris)
+    with the cubic spline, each shifting mode and the cubic spline with
+    NO_BOUND, pass 3 with the cubic spline, each against its plain pass and
+    timed alike, with its bound and ptxas registers; then the whole
+    interaction for each of those five variants in phase 5's five
+    configurations (rtol 2e-3, 4e-3 with the cubic spline, on ace, ar,
+    visco_eta, tau, gradvel and the shifting sums; 1e-3 on viscdtmax and
+    viscetadtmax; the shifting flags exact);
+16. NN shifting path: phase 6 with ``-shifting:2`` (NO_FIXED): 5 + 50
+    steps, nnforce_p1 and nnforce_p3 twice per step each, the checks of
+    phase 6; then the layout of the last divide must hold every pair a
+    fresh divide finds, and the kernels must match their plain versions on
+    the final state;
+17. NN cubic path: FDA Morris with ``-cubic -shifting:2``: 5 + 20 steps,
+    nnforce_fda twice per step, the same checks;
+18. probes: the two hardware probes of ``tools/probes.py`` (FMA issue,
+    ``csrc/probe_fma.cu``; misaligned window loads, ``csrc/probe_gather.cu``)
+    against their plain versions at rep 2 and 16 window loads (rtol 1e-5,
+    1e-4 for rsqrt and the approximate reciprocal, the card's MUFU forms);
+    then their full tables on the card: each operation at 1, 2, 4 and 8
+    chains (ms, steps per SM per clock at the SM's maximum clock, share of
+    the SM's 128 f32 lanes) and the window loads aligned and not, from
+    global and from shared memory (ns per window load).
 
 Each kernel is timed twice: alone (``ms``: CUDA events around 20
 back-to-back launches of the C launcher on prepared inputs, per launch,
@@ -94,9 +121,12 @@ median of 5) and with its wrapper (channel packing, checks, allocation;
 median of 7).  The last two lines are a JSON record of the kernels (with
 each kernel's bound: the larger of the bytes it must move over 3.35 TB/s
 and the f32 operations of this run's in-support pairs over 67 TFLOP/s,
-the H100 SXM peaks) and the result line ``{"ok": true, "device": {...}}``.
-Every launch count comes from its path's run, counted from 0 just before
-it.  Imports no JAX.
+the H100 SXM peaks; for the FMA probe its steps over the SM's 128 f32
+lanes at the SM's maximum clock; the NN kernels' rows list their cubic
+and shifting instances under ``instances``) and the result line
+``{"ok": true, "device": {...}}``.  Every launch count comes from its
+path's run, counted from 0 just before it (the probes' from their
+tables).  Imports no JAX.
 """
 
 import ctypes
@@ -132,6 +162,8 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
     "nnforce_fda": (PKG + "nnforce.cu", TPU + "nnforce.py:247"),
     "cellforce_cubic": (PKG + "cellforce.cu", TPU + "cellforce.py:672"),
     "cellforce_lamsps": (PKG + "cellforce.cu", TPU + "cellforce.py:427"),
+    "probe_fma": (PKG + "probe_fma.cu", "vputime.py:19"),
+    "probe_gather": (PKG + "probe_gather.cu", "probe_unaligned.py:24"),
 }
 # f32 operations per in-support pair of a fluid-side target, each add,
 # multiply, divide, max, sqrt, exp and pow counted once, from the bodies in
@@ -146,6 +178,13 @@ OPS_PER_PAIR = {"cellforce": 50, "nnforce_p1": 80, "nnforce_p3": 40,
                 "nnforce_fda": 124, "cellforce_cubic": 65,
                 "cellforce_lamsps": 112}
 OPS_SHIFT = 9
+OPS_TENSILE = 15
+# the NN variants of phases 15-17: (label, tkernel, shiftmode)
+NN_VARIANTS = (("cubic", "CUBIC", "NONE"), ("no-bound", "WENDLAND", "NO_BOUND"),
+               ("no-fixed", "WENDLAND", "NO_FIXED"), ("full", "WENDLAND", "FULL"),
+               ("cubic+no-bound", "CUBIC", "NO_BOUND"))
+NN_CONFIGS = (("LAMINAR_SPS", "SPH"), ("CONST_EQ", "SPH"), ("ARTIFICIAL", "SPH"),
+              ("LAMINAR_SPS", "FDA"), ("CONST_EQ", "FDA"))
 
 
 def say(phase, msg):
@@ -229,10 +268,11 @@ def pair_walk(csp, dom, cells, pos, code, inclusive=False):
     return cand, pairs
 
 
-def layout_keeps_pairs(csp, dom, carry):
+def layout_keeps_pairs(csp, dom, carry, inclusive=False):
     """Raise unless the carry's layout holds every pair a fresh divide
     finds, at the positions of the next predictor and one dt beyond;
-    returns the number of pairs at the first."""
+    returns the number of pairs at the first (``inclusive`` as in
+    :func:`pair_walk`)."""
     from dualsphysics_multilayer_tpu_torch.ops import celldiv as cd
     check(not carry.rebuild, "the run ended on a rebuild flag")
     st = carry.st
@@ -241,8 +281,8 @@ def layout_keeps_pairs(csp, dom, carry):
         fresh, code = cd.divide_cells(dom, pos, st.code)
         o = fresh.order
         want = torch.empty_like(o)
-        want[o] = pair_walk(csp, dom, fresh, pos[o], code[o])[1]
-        got = pair_walk(csp, dom, carry.cells, pos, st.code)[1]
+        want[o] = pair_walk(csp, dom, fresh, pos[o], code[o], inclusive)[1]
+        got = pair_walk(csp, dom, carry.cells, pos, st.code, inclusive)[1]
         lost = int((got != want).sum())
         check(lost == 0, f"{lost} targets lost pairs between rebuilds")
         total = total if total is not None else int(got.sum())
@@ -305,17 +345,20 @@ def sorted_args(dom, pos, vel, rho, code):
     return cells, (pos[o], vel[o], rho[o], code[o])
 
 
-def reset_counts():
+def _counters():
     from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
     from dualsphysics_multilayer_tpu_torch.ops.cuda import nnforce as NF
-    CF.launches.update(dict.fromkeys(CF.launches, 0))
-    NF.launches.update(dict.fromkeys(NF.launches, 0))
+    from dualsphysics_multilayer_tpu_torch.tools import probes as PR
+    return CF.launches, NF.launches, PR.launches
+
+
+def reset_counts():
+    for c in _counters():
+        c.update(dict.fromkeys(c, 0))
 
 
 def counts():
-    from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
-    from dualsphysics_multilayer_tpu_torch.ops.cuda import nnforce as NF
-    return dict(**CF.launches, **NF.launches)
+    return {k: v for c in _counters() for k, v in c.items()}
 
 
 def run_steps(step, carry, nwarm, nsteps):
@@ -719,10 +762,12 @@ def kernel_label(mangled):
     return name + (f"<{','.join(args)}>" if args else "")
 
 
-def nn_opts(tvisco, velgrad):
-    from dualsphysics_multilayer_tpu_torch import SolverOpts, TpDensity, TpVelGrad, TpVisco
+def nn_opts(tvisco, velgrad, shiftmode="NONE"):
+    from dualsphysics_multilayer_tpu_torch import (SolverOpts, TpDensity,
+                                                   TpShifting, TpVelGrad, TpVisco)
     return SolverOpts(tvisco=TpVisco[tvisco], velgrad=TpVelGrad[velgrad],
-                      tdensity=TpDensity.FOURTAKAS)
+                      tdensity=TpDensity.FOURTAKAS,
+                      shiftmode=TpShifting[shiftmode])
 
 
 def nn_kernels_vs_plain(case, phases, device, smi):
@@ -774,8 +819,10 @@ def nn_kernels_vs_plain(case, phases, device, smi):
                 for k in outputs}
         errs["viscdtmax"] = close_scalar(
             f"{name} viscdtmax", got.viscdt.amax(), want.viscdt.amax())
+        # the four outputs, and no shifting sums or flags
         outs = [torch.empty_like(got.ace), torch.empty_like(got.ar),
-                torch.empty_like(got.viscdt), torch.empty_like(getattr(got, outputs[-1]))]
+                torch.empty_like(got.viscdt),
+                torch.empty_like(getattr(got, outputs[-1])), None, None]
         record(name, opts, errs, NF.pass1, NN.pass1_plain, run, outs, out_bytes)
 
     morris = nn_opts("LAMINAR_SPS", "SPH")
@@ -826,13 +873,15 @@ def nn_kernels_vs_plain(case, phases, device, smi):
     return records
 
 
-def nn_path(case, phases, opts, device, nwarm, nsteps, label, smi):
-    """Phases 6 and 7: ``nwarm + nsteps`` NN steps from a flowing start;
-    returns (the launch counts, the step, the final carry)."""
+def nn_path(case, phases, opts, device, nwarm, nsteps, label, smi, csp=None):
+    """Phases 6, 7, 16 and 17: ``nwarm + nsteps`` NN steps from a flowing
+    start, under the case's constants or ``csp``; returns (the launch
+    counts, the step, the final carry)."""
     from dualsphysics_multilayer_tpu_torch import make_carry, make_nn_step
-    step = make_nn_step(case.csp, opts, case.dom, phases)
+    csp = csp or case.csp
+    step = make_nn_step(csp, opts, case.dom, phases)
     st = flowing_state(case, device, sim2d=True)
-    carry = make_carry(st, case.csp, opts, case.dom)
+    carry = make_carry(st, csp, opts, case.dom)
     nrebuild0 = carry.nrebuild
     carry, times, launched = run_steps(step, carry, nwarm, nsteps)
     check_state(carry, nwarm + nsteps, nrebuild0)
@@ -848,6 +897,271 @@ def nn_path(case, phases, opts, device, nwarm, nsteps, label, smi):
         + ", ".join(f"phase {k} [{a:.2f}, {b:.2f}]" for k, (a, b) in
                     enumerate(ranges)) + f" ({smi})")
     return launched, step, carry
+
+
+def nn_instance(kernel, csp, opts):
+    """The ptxas name of the instance of ``kernel`` that these constants and
+    options launch."""
+    from dualsphysics_multilayer_tpu_torch import TpShifting
+    ker = csp.tkernel.value
+    if kernel == "nnforce_p3":
+        return f"nnforce_p3_kernel<{ker}>"
+    return f"{kernel}_kernel<{ker},{int(opts.shiftmode != TpShifting.NONE)}>"
+
+
+def nn_result_errors(label, got, want, rtol):
+    """Errors of a kernels' NN interaction against the plain one: arrays
+    within ``rtol``, the scalars within RTOL_SCALAR, the flags exact."""
+    errs = {k: close(f"{label} {k}", g, w, rtol) for k, g, w in (
+        ("ace", got.forces.ace, want.forces.ace),
+        ("ar", got.forces.ar, want.forces.ar),
+        ("visco_eta", got.visco_eta, want.visco_eta),
+        ("tau", got.tau, want.tau),
+        ("gradvel", got.gradvel, want.gradvel),
+        ("shiftposfs", got.forces.shiftposfs, want.forces.shiftposfs))
+        if w is not None}
+    for k in ("viscdtmax", "viscetadtmax"):
+        errs[k] = close_scalar(f"{label} {k}", getattr(got.forces, k),
+                               getattr(want.forces, k))
+    if want.forces.shift_blocked is not None:
+        check(torch.equal(got.forces.shift_blocked, want.forces.shift_blocked),
+              f"{label} shift_blocked disagrees with the plain version")
+    return errs
+
+
+def nn_variant_kernels_vs_plain(case, phases, device, registers, smi):
+    """Phase 15: every new instance of the NN kernels against its plain
+    pass on phase 5's state, then the whole interaction of each variant in
+    phase 5's five configurations.  Returns {instance: record} (without
+    launches)."""
+    from dualsphysics_multilayer_tpu_torch import TpKernel, TpShifting
+    from dualsphysics_multilayer_tpu_torch.ops import forces_nn as NN
+    from dualsphysics_multilayer_tpu_torch.ops.cuda import nnforce as NF
+    csp0, dom = case.csp, case.dom
+    tb = phases.tables(csp0, device)
+    code0 = case.state.code
+    rho0 = tb["rho0"][torch.clamp(code0 & 0xFFFF, 0, phases.count - 1).long()]
+    pos, vel, rho, code = perturbed_state(case, device, rho0, sim2d=True)
+    cells, args = sorted_args(dom, pos, vel, rho, code)
+    spos, svel, srho, scode = args
+    ch = NN.channels(csp0, phases, tb, srho, scode)
+    n = spos.shape[0]
+    pairs = pair_counts(csp0, dom, cells, spos, scode, inclusive=True)[1]
+    state_bytes = n * (16 + 16 + 4 + 4 + 4) + (dom.ncells + 1) * 4
+    rows = [torch.cat([spos, ch.press[:, None]], dim=1).contiguous(),
+            torch.cat([svel, srho[:, None]], dim=1).contiguous(), ch.kind,
+            ch.phase, cells.cell, cells.begin]
+    records = {}
+
+    def record(name, csp, opts, label, errs, kernel_fn, plain_fn, run, outs,
+               out_bytes):
+        instance = nn_instance(name, csp, opts)
+        ms = launch_ms(bare_launcher(
+            "nnforce", f"dsph_{name}", NF.make_params(csp, opts, phases, dom, n),
+            rows + outs))
+        wrapped_ms = cuda_ms(lambda: kernel_fn(*run), reps=5)
+        plain_ms = cuda_ms(lambda: plain_fn(*run), reps=5)
+        ops = OPS_PER_PAIR[name]
+        if csp.tkernel == TpKernel.CUBIC and name != "nnforce_p3":
+            ops += OPS_TENSILE
+        shifting = opts.shiftmode != TpShifting.NONE
+        if shifting:
+            ops += OPS_SHIFT
+            out_bytes += 16 + 1
+        b = bound(state_bytes + n * out_bytes, pairs * ops)
+        records.setdefault(instance, dict(
+            kernel=name, variant=label, max_abs_err=errs["ace"], ms=ms,
+            plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+            registers=registers.get(instance, "?")))
+        say("nn-variant-vs-plain", f"{label} {instance}: max|d| " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items())
+            + f"; kernel alone {ms:.3f} ms, with its wrapper {wrapped_ms:.3f} "
+            f"ms, plain {plain_ms:.3f} ms (CUDA events), bound "
+            f"{b[0] * 1e3:.2f} us by {b[1]}; "
+            f"{registers.get(instance, '?')} ({smi})")
+
+    for label, tkernel, shiftmode in NN_VARIANTS:
+        csp = csp0.replace(tkernel=TpKernel[tkernel])
+        rtol = RTOL_CUBIC if tkernel == "CUBIC" else RTOL
+        for velgrad, name, last, out_bytes in (
+                ("SPH", "nnforce_p1", "gradvel", 44),
+                ("FDA", "nnforce_fda", "etamax", 24)):
+            opts = nn_opts("LAMINAR_SPS", velgrad, shiftmode)
+            run = (csp, opts, phases, dom, cells, spos, svel, srho, ch)
+            got, want = NF.pass1(*run), NN.pass1_plain(*run)
+            torch.cuda.synchronize()
+            errs = {k: close(f"{label} {name} {k}", getattr(got, k),
+                             getattr(want, k), rtol)
+                    for k in ("ace", "ar", last, "shift")
+                    if getattr(want, k) is not None}
+            errs["viscdtmax"] = close_scalar(f"{label} {name} viscdtmax",
+                                             got.viscdt.amax(), want.viscdt.amax())
+            if want.shiftblk is not None:
+                check(torch.equal(got.shiftblk, want.shiftblk),
+                      f"{label} {name} shiftblk disagrees with the plain version")
+            outs = [torch.empty_like(got.ace), torch.empty_like(got.ar),
+                    torch.empty_like(got.viscdt),
+                    torch.empty_like(getattr(got, last)),
+                    None if got.shift is None else torch.empty_like(got.shift),
+                    None if got.shiftblk is None
+                    else torch.empty_like(got.shiftblk)]
+            record(name, csp, opts, label, errs, NF.pass1, NN.pass1_plain, run,
+                   outs, out_bytes)
+        if shiftmode == "NONE":
+            # pass 3 has no shifting sums: its one new instance is the cubic
+            morris = nn_opts("LAMINAR_SPS", "SPH")
+            p1 = NN.pass1_plain(csp, morris, phases, dom, cells, spos, svel,
+                                srho, ch)
+            eta, tau = NN.pass2(morris, tb, ch, scode, p1)
+            run3 = (csp, morris, phases, dom, cells, spos, svel, srho, ch, eta,
+                    tau)
+            got, want = torch.zeros_like(p1.ace), torch.zeros_like(p1.ace)
+            NF.pass3(*run3, got)
+            NN.pass3_plain(*run3, want)
+            torch.cuda.synchronize()
+            errs = dict(ace=close(f"{label} nnforce_p3 ace", got, want, rtol))
+            record("nnforce_p3", csp, morris, label, errs, NF.pass3,
+                   NN.pass3_plain, run3 + (got,), [eta, tau, torch.zeros_like(got)],
+                   4 + 12 + 12)
+
+    # the whole interaction of each variant in the five configurations
+    for label, tkernel, shiftmode in NN_VARIANTS:
+        csp = csp0.replace(tkernel=TpKernel[tkernel])
+        rtol = RTOL_CUBIC if tkernel == "CUBIC" else RTOL
+        worst = {}
+        for tvisco, velgrad in NN_CONFIGS:
+            run = (csp, nn_opts(tvisco, velgrad, shiftmode), phases, dom, cells,
+                   *args)
+            got = NF.interaction_forces_nn_cuda(*run)
+            want = NN.interaction_forces_nn_plain(*run)
+            torch.cuda.synchronize()
+            for k, v in nn_result_errors(f"{label} {velgrad}-{tvisco}", got,
+                                         want, rtol).items():
+                worst[k] = max(worst.get(k, 0.0), v)
+        say("nn-variant-interaction-vs-plain", f"{label}, all five "
+            f"configurations: max|d| " + ", ".join(
+                f"{k} {v:.3e}" for k, v in worst.items()) + f" ({smi})")
+    return records
+
+
+def nn_variant_path(case, phases, csp, opts, nwarm, nsteps, label, kernels,
+                    device, smi):
+    """Phases 16 and 17: the NN path of ``csp`` and ``opts``, whose
+    ``kernels`` must launch twice per step each; then the layout and the
+    kernels against plain on the final state.  Returns the launch counts."""
+    from dualsphysics_multilayer_tpu_torch.ops import forces_nn as NN
+    from dualsphysics_multilayer_tpu_torch.ops.cuda import nnforce as NF
+    launched, step, carry = nn_path(case, phases, opts, device, nwarm, nsteps,
+                                    label, smi, csp=csp)
+    for k in kernels:
+        check(launched[k] == 2 * (nwarm + nsteps),
+              f"{launched} in {nwarm + nsteps} steps, expected {k} 2 per step")
+    others = {k: v for k, v in launched.items() if k not in kernels and v}
+    check(not others, f"{others} launched besides {kernels}")
+    extra = 0
+    while carry.rebuild and extra < 5:
+        carry, extra = step(carry), extra + 1
+    npairs = layout_keeps_pairs(csp, case.dom, carry, inclusive=True)
+    st = carry.st
+    run = (csp, opts, phases, case.dom, carry.cells, st.pos, st.vel, st.rho,
+           st.code)
+    got = NF.interaction_forces_nn_cuda(*run)
+    want = NN.interaction_forces_nn_plain(*run)
+    torch.cuda.synchronize()
+    errs = nn_result_errors(label, got, want,
+                            RTOL_CUBIC if csp.tkernel.name == "CUBIC" else RTOL)
+    say(label, f"after {extra} more steps: the layout of the last divide holds "
+        f"all {npairs} pairs a fresh divide finds; the kernels against their "
+        f"plain versions on the final state: max|d| " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items()) + f" ({smi})")
+    return launched
+
+
+def probes_phase(device, smi):
+    """Phase 18: both probes against their plain versions at a small size,
+    then their full tables, the launches counted from 0.  Returns the
+    probes' records."""
+    from dualsphysics_multilayer_tpu_torch.tools import probes as PR
+    n = PR.full_threads(device)
+    nsm = torch.cuda.get_device_properties(device).multi_processor_count
+    x = PR.fma_input(n, device)
+    worst = {}
+    for op in PR.OPS:
+        rtol = 1e-5 if op in ("fma", "mix") else 1e-4
+        for chains in PR.CHAINS:
+            err = close(f"probe_fma {op} x{chains}", PR.fma(x, op, chains, 2),
+                        PR.fma_plain(x, op, chains, 2), rtol)
+            worst[op] = max(worst.get(op, 0.0), err)
+    say("probes-vs-plain", f"probe_fma, {n} threads, rep 2 x {PR.STEPS} "
+        f"steps, chains 1/2/4/8: max|d| " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items()) + f" ({smi})")
+    buf, offs = PR.gather_inputs(16, device)
+    gerr = {}
+    for aligned in (True, False):
+        want = PR.gather_plain(buf, offs, aligned)
+        for staged in (False, True):
+            got = PR.gather(buf, offs, aligned, staged)
+            gerr[(aligned, staged)] = max(
+                close(f"probe_gather aligned={aligned} staged={staged} "
+                      f"group {g}", got[g], want, 1e-5)
+                for g in range(0, PR.GROUPS, 21))
+    say("probes-vs-plain", f"probe_gather, 16 window loads, {PR.GROUPS} "
+        f"groups: max|d| " + ", ".join(
+            f"aligned={int(a)} staged={int(s)} {v:.3e}"
+            for (a, s), v in gerr.items()) + f" ({smi})")
+
+    # the tables, the launches counted from 0
+    reset_counts()
+    fma_rows = PR.fma_table(device)
+    gather_rows = PR.gather_table(device)
+    launched = dict(PR.launches)
+    for k, v in launched.items():
+        check(v > 0, f"{k} was not launched by its table")
+    clock = PR.sm_clock_hz()
+    for r in fma_rows:
+        say("probe-fma", f"op={r['op']} chains={r['chains']}: {r['ms']:.4f} ms, "
+            f"{r['per_sm_clock']:.2f} steps/SM/clock at {clock / 1e6:.0f} MHz, "
+            f"{r['share'] * 100:.2f}% of {PR.F32_LANES} lanes ({n} threads, "
+            f"rep {PR.REP} x {PR.STEPS}; {smi})")
+    for r in gather_rows:
+        where = "shared" if r["staged"] else "global"
+        if r["niter"] == 0:
+            say("probe-gather", f"staging alone ({where}, {PR.GROUPS} groups): "
+                f"{r['ms'] * 1e3:.2f} us ({smi})")
+            continue
+        say("probe-gather", f"aligned={int(r['aligned'])} {where}: "
+            f"{r['ms'] * 1e3:.2f} us for {PR.GROUPS} x {r['niter']} window "
+            f"loads, {r['ns_per_load']:.3f} ns per load, "
+            f"{r['ns_per_block_load']:.1f} ns per load of one block ({smi})")
+
+    # the records: fma at 8 chains, rep 256; unaligned global windows
+    rep = 256
+    got, want = PR.fma(x, "fma", 8, rep), PR.fma_plain(x, "fma", 8, rep)
+    fma_err = close("probe_fma fma x8 rep 256", got, want, 1e-3)
+    p = PR.FmaParams(op=0, chains=8, rep=rep, n=n)
+    fma_rec = dict(
+        launches=launched["probe_fma"], max_abs_err=fma_err,
+        ms=launch_ms(bare_launcher("probes", "dsph_probe_fma", p,
+                                   [x, torch.empty_like(x)])),
+        plain_ms=cuda_ms(lambda: PR.fma_plain(x, "fma", 8, rep), reps=3),
+        bound_ms=PR.fma_bound_ms(n, rep, nsm, clock), bound_by="operations")
+    buf, offs = PR.gather_inputs(PR.NITER, device)
+    g = PR.GatherParams(niter=PR.NITER, aligned=0, staged=0, groups=PR.GROUPS)
+    gb = PR.gather_bound(PR.NITER, PR.GROUPS)
+    gather_rec = dict(
+        launches=launched["probe_gather"], max_abs_err=gerr[(False, False)],
+        ms=launch_ms(bare_launcher(
+            "probes", "dsph_probe_gather", g,
+            [buf, offs, torch.empty((PR.GROUPS, PR.ROWS, PR.LANES),
+                                    device=device)])),
+        plain_ms=cuda_ms(lambda: PR.gather_plain(buf, offs, False), reps=3),
+        bound_ms=gb[0], bound_by=gb[1])
+    for name, r in (("probe_fma", fma_rec), ("probe_gather", gather_rec)):
+        say("probe-record", f"{name}: {r['launches']} launches, kernel alone "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, max|d| "
+            f"{r['max_abs_err']:.3e} ({smi})")
+    return {"probe_fma": fma_rec, "probe_gather": gather_rec}
 
 
 def trace_steps(step, carry, nsteps, kernels):
@@ -923,7 +1237,8 @@ def main():
 
     # 2. build
     built = build.build_cuda_libraries()
-    say("build", ", ".join(f"{name}.cu built and loaded in {s:.2f} s"
+    say("build", ", ".join(f"{name} ({', '.join(build.LIBRARIES[name][0])}) "
+                           f"built and loaded in {s:.2f} s"
                            for name, s in built.items())
         + " (one nvcc per source, started together)")
     registers = {}   # kernel instance: its ptxas register line
@@ -1044,12 +1359,45 @@ def main():
     # 14. mDBC dam break path: -mdbc
     mdbc_path(device, smi)
 
+    # 15. the other NN instances vs plain on phase 5's state
+    case, phases = NM.wet_dambreak_nn(dp=NN_DP, device=device)
+    instances = nn_variant_kernels_vs_plain(case, phases, device, registers,
+                                            smi)
+
+    # 16. NN shifting path: -shifting:2 on phase 6's options
+    opts = nn_opts("LAMINAR_SPS", "SPH", "NO_FIXED")
+    kernels = ("nnforce_p1", "nnforce_p3")
+    launched = nn_variant_path(case, phases, case.csp, opts, 5, 50,
+                               "nn-shift-path", kernels, device, smi)
+    instances[nn_instance("nnforce_p1", case.csp, opts)]["launches"] = \
+        launched["nnforce_p1"]
+
+    # 17. NN cubic path: FDA Morris with -cubic -shifting:2
+    cubic = case.csp.replace(tkernel=TpKernel.CUBIC)
+    opts = nn_opts("LAMINAR_SPS", "FDA", "NO_FIXED")
+    launched = nn_variant_path(case, phases, cubic, opts, 5, 20,
+                               "nn-cubic-path", ("nnforce_fda",), device, smi)
+    instances[nn_instance("nnforce_fda", cubic, opts)]["launches"] = \
+        launched["nnforce_fda"]
+    for name in ("nnforce_p1", "nnforce_p3", "nnforce_fda"):
+        records[name]["instances"] = [
+            dict(instance=k, variant=r["variant"], launches=r.get("launches", 0),
+                 max_abs_err=r["max_abs_err"], ms=r["ms"],
+                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                 bound_by=r["bound_by"])
+            for k, r in instances.items() if r["kernel"] == name]
+
+    # 18. the two hardware probes
+    records.update(probes_phase(device, smi))
+
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=rep,
         launches=records[name]["launches"],
         max_abs_err=records[name]["max_abs_err"], ms=records[name]["ms"],
         plain_ms=records[name]["plain_ms"], bound_ms=records[name]["bound_ms"],
-        bound_by=records[name]["bound_by"], library_ms=None)
+        bound_by=records[name]["bound_by"], library_ms=None,
+        **({"instances": records[name]["instances"]}
+           if "instances" in records[name] else {}))
         for name, (src, rep) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -4,8 +4,9 @@ The JAX package ``dualsphysics_multilayer_tpu`` beside it is the reference;
 module names here follow it.  This package imports torch and never JAX.
 The pair interactions run in hand-written CUDA kernels for Hopper on CUDA
 tensors (``csrc/cellforce.cu`` single phase, with floating bodies and mDBC
-walls, ``csrc/nnforce.cu`` multiphase non-Newtonian) and in their plain
-torch versions on CPU tensors.
+walls, ``csrc/nnforce.cu`` multiphase non-Newtonian, each with the cubic
+spline and shifting) and in their plain torch versions on CPU tensors;
+``tools/probes.py`` holds the two hardware probes.
 """
 
 from . import typesdef

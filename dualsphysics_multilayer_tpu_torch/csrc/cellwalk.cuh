@@ -1,6 +1,7 @@
 // What the per-target pair bodies (pairbody.cuh, nnbody.cuh) share: the
 // host/device qualifier, the particle kinds, the 16-byte particle rows, the
-// Wendland gradient and the neighbour walk over the cell-sorted layout.
+// two smoothing kernels (the Wendland gradient, the cubic spline with its
+// tensile correction) and the neighbour walk over the cell-sorted layout.
 #pragma once
 
 #include <math.h>
@@ -23,12 +24,64 @@ enum { KIND_DEAD = -1, KIND_FIXED = 0, KIND_MOVING = 1, KIND_FLOATING = 2,
 // read with one vector load on the card.
 struct alignas(16) F4 { float x, y, z, w; };
 
+// Smoothing kernels and shifting modes; values match typesdef.TpKernel and
+// TpShifting.
+enum { KER_CUBIC = 1, KER_WENDLAND = 2 };
+enum { SHIFT_NONE = 0, SHIFT_NO_BOUND = 1, SHIFT_NO_FIXED = 2, SHIFT_FULL = 3 };
+
+// Cubic spline constants (typesdef.KCubicCte, FunSphKernel.h:51-84),
+// embedded in both bodies' launch parameters (CfParams, NnParams) and
+// mirrored by the ctypes Structure CubicCte in ops/cuda/cellforce.py.
+struct CubicCte {
+  float a2, a24, c1, d1, c2, od_wdeltap;
+};
+
 // Wendland C2 (1/r) dW/dr at squared distance rr2 > 0.
 DSPH_HD float wendland_fac(float rr2, float kernelh, float bwen) {
   const float rad = sqrtf(rr2);
   const float qq = rad / kernelh;
   const float wqq1 = 1.f - 0.5f * qq;
   return bwen * qq * wqq1 * wqq1 * wqq1 / rad;
+}
+
+// Cubic spline (1/r) dW/dr and W at squared distance rr2 > 0.
+DSPH_HD float cubic_fac(float rr2, float kernelh, const CubicCte& k) {
+  const float rad = sqrtf(rr2);
+  const float qq = rad / kernelh;
+  const float wqq1 = 2.f - qq;
+  const float f = rad > kernelh ? k.c2 * wqq1 * wqq1 : k.c1 * qq + k.d1 * qq * qq;
+  return f / rad;
+}
+
+DSPH_HD float cubic_wab(float rr2, float kernelh, const CubicCte& k) {
+  const float rad = sqrtf(rr2);
+  const float qq = rad / kernelh;
+  const float wqq1 = 2.f - qq;
+  return rad > kernelh ? k.a24 * (wqq1 * wqq1 * wqq1)
+                       : k.a2 * (1.f + (0.75f * qq - 1.5f) * (qq * qq));
+}
+
+// Tensile correction of the cubic spline (FunSphKernel.h:138-150), added
+// to the pressure term (p1 + p2)/(rho1*rho2).
+DSPH_HD float cubic_tensil(float rr2, float kernelh, const CubicCte& k,
+                           float rho1, float press1, float rho2, float press2) {
+  float fab = cubic_wab(rr2, kernelh, k) * k.od_wdeltap;
+  fab = fab * fab;
+  fab = fab * fab;
+  const float t1 = (press1 / (rho1 * rho1)) * (press1 > 0.f ? 0.01f : -0.2f);
+  const float t2 = (press2 / (rho2 * rho2)) * (press2 > 0.f ? 0.01f : -0.2f);
+  return fab * (t1 + t2);
+}
+
+// (1/r) dW/dr of kernel KER, picked at compile time.
+template <int KER>
+DSPH_HD float kernel_fac(float rr2, float kernelh, float bwen,
+                         const CubicCte& k) {
+  if constexpr (KER == KER_WENDLAND) {
+    return wendland_fac(rr2, kernelh, bwen);
+  } else {
+    return cubic_fac(rr2, kernelh, k);
+  }
 }
 
 // Calls visit(j) for every slot j of the neighbour rows of cell c: the 9

@@ -3,8 +3,7 @@
 // target) and their CPU twins (nnforce_host.cpp, compiled with g++ for tests).
 //
 // Semantics are those of ops/forces_nn.py (the plain torch version) and of
-// the JAX package's ops/forces_nn.py interaction_forces_nn, for the Wendland
-// kernel and DBC walls:
+// the JAX package's ops/forces_nn.py interaction_forces_nn, for DBC walls:
 //   * a pair is j != i, both live, not boundary-boundary, with
 //     ALMOSTZERO <= rr2 <= kernelsize^2;
 //   * a candidate's mass is its phase's (massbound for boundaries); phase
@@ -17,7 +16,15 @@
 //     diffusion term under Molteni and Fourtakas, never under Fourtakas-full;
 //   * the velocity gradient and the viscous forces use the no-slip wall
 //     trick: dv = 2*v_i against a boundary candidate, whose eta or tau is
-//     the target's.
+//     the target's;
+//   * KER (a template parameter of every pass): the Wendland kernel, or the
+//     cubic spline, whose tensile correction passes 1 and FDA add to the
+//     pressure term (nnforce.py:146-158, :329-341);
+//   * SHIFT (passes 1 and FDA): the four shifting sums of a fluid-side
+//     target, over its pairs but those with a lighter candidate of another
+//     fluid phase (the mphase fork's heavy-phase gate: such a pair adds
+//     nothing), and under NO_BOUND the flag of a boundary neighbour in range
+//     (nnforce.py:197-206, :379-388); the NN path blocks no other mode.
 // Exact forms throughout: exact division, Fourtakas' hydrostatic term as
 // rho0*(1 + ddtgz*dz)^(1/gamma) - rho0 with powf, and the HBP power law
 // dm^(n-1) with powf (the TPU kernels used a 3-term series and
@@ -43,6 +50,8 @@ struct NnParams {
   int tdensity;
   int visc;        // VISC_* of the viscous pass (Morris or ConsEq for FDA)
   int gradvel;     // pass 1 accumulates the velocity gradient
+  int tkernel;     // KER_* of the instance the launchers pick
+  int shiftmode;   // typesdef.TpShifting; not NONE picks the SHIFT instance
   float kernelsize2;
   float kernelh;
   float bwen;
@@ -53,6 +62,7 @@ struct NnParams {
   float ovgamma;   // 1/gamma of the system EOS
   float massbound;
   float almostzero;
+  CubicCte cubic;
   // per-phase tables
   float cs0[NN_MAX_PHASES];
   float mass[NN_MAX_PHASES];
@@ -92,11 +102,13 @@ DSPH_HD float eta_effective(const NnParams& p, float magn, int ph, int ppx) {
 // Pass 1 (kFda false: pressure, continuity, diffusion, viscdt and, when
 // p.gradvel, the 6-component velocity gradient) or the fused FDA pass
 // (kFda true: the same without the gradient, plus the per-pair strain ->
-// eta -> Morris or ConsEq force and the per-target eta max) for target i.
+// eta -> Morris or ConsEq force and the per-target eta max) for target i,
+// with kernel KER and, with SHIFT, the shifting sums.
 // Outputs: ace (n,3), ar (n) with diffusion folded in, viscdt (n) the
 // target's max dot/(rr2+eta2) (-3.4e38 without pairs), gradvel (n,6) for
-// pass 1, etamax (n) for FDA; the unused one may be null.
-template <bool kFda>
+// pass 1, etamax (n) for FDA, shift (n,4) and shiftblk (n) with SHIFT; the
+// unused ones may be null.
+template <int KER, bool SHIFT, bool kFda>
 DSPH_HD void nn_pass1_target(int i, const NnParams& p,
                              const F4* __restrict__ pospress,
                              const F4* __restrict__ velrho,
@@ -107,11 +119,16 @@ DSPH_HD void nn_pass1_target(int i, const NnParams& p,
                              float* __restrict__ ace, float* __restrict__ ar,
                              float* __restrict__ viscdt,
                              float* __restrict__ gradvel,
-                             float* __restrict__ etamax) {
+                             float* __restrict__ etamax,
+                             float* __restrict__ shift,
+                             unsigned char* __restrict__ shiftblk) {
   float ax = 0.f, ay = 0.f, az = 0.f, arr = 0.f, dlt = 0.f, emax = 0.f;
   float gxx = 0.f, gxy = 0.f, gxz = 0.f, gyy = 0.f, gyz = 0.f, gzz = 0.f;
   float vmax = -3.4e38f;
   bool blocked = false;
+  // shifting sums and flag
+  float shx = 0.f, shy = 0.f, shz = 0.f, shc = 0.f;
+  bool sblk = false;
   const int ki = kind[i];
   const int c = cell[i];
   if (ki != KIND_DEAD && c < p.ncells) {
@@ -133,7 +150,7 @@ DSPH_HD void nn_pass1_target(int i, const NnParams& p,
       if (rr2 < p.almostzero || rr2 > p.kernelsize2) return;
       const F4 vj = velrho[j];
       const int phj = phase[j];
-      const float fac = wendland_fac(rr2, p.kernelh, p.bwen);
+      const float fac = kernel_fac<KER>(rr2, p.kernelh, p.bwen, p.cubic);
       const float frx = fac * drx, fry = fac * dry, frz = fac * drz;
       const float dvx = vi.x - vj.x, dvy = vi.y - vj.y, dvz = vi.z - vj.z;
       const float dvfr = dvx * frx + dvy * fry + dvz * frz;
@@ -145,12 +162,26 @@ DSPH_HD void nn_pass1_target(int i, const NnParams& p,
       // continuity with per-phase masses
       arr += mass2 * dvfr * (rhoi / rhoj);
       if (bound_t) return;
-      // pressure force, per-phase EOS (pressure comes with the position)
-      const float prs = (pi.w + pj.w) / (rhoi * rhoj);
+      // pressure force, per-phase EOS (pressure comes with the position),
+      // plus the cubic spline's tensile correction
+      float prs = (pi.w + pj.w) / (rhoi * rhoj);
+      if constexpr (KER == KER_CUBIC) {
+        prs += cubic_tensil(rr2, p.kernelh, p.cubic, rhoi, pi.w, rhoj, pj.w);
+      }
       ax -= prs * mass2 * frx;
       ay -= prs * mass2 * fry;
       az -= prs * mass2 * frz;
       const float drfr = drx * frx + dry * fry + drz * frz;
+      if constexpr (SHIFT) {
+        // a lighter candidate of another fluid phase adds nothing
+        const bool heavy = !bound_c && phi != phj && p.mass[phi] > p.mass[phj];
+        const float massrhop = heavy ? 0.f : mass2 / rhoj;
+        shx += massrhop * frx;
+        shy += massrhop * fry;
+        shz += massrhop * frz;
+        shc -= massrhop * drfr;
+        if (p.shiftmode == SHIFT_NO_BOUND) sblk = sblk || bound_c;
+      }
       if (p.tdensity != DDT_NONE) {
         const bool same = !bound_c && phi == phj;
         const float cbar = p.cs0[phj];
@@ -219,6 +250,11 @@ DSPH_HD void nn_pass1_target(int i, const NnParams& p,
   ace[3 * i + 2] = az;
   ar[i] = arr;
   viscdt[i] = vmax;
+  if constexpr (SHIFT) {
+    float* sh = shift + 4 * i;
+    sh[0] = shx; sh[1] = shy; sh[2] = shz; sh[3] = shc;
+    shiftblk[i] = sblk ? 1 : 0;
+  }
   if (kFda) {
     etamax[i] = emax;
   } else {
@@ -234,8 +270,9 @@ DSPH_HD void nn_pass1_target(int i, const NnParams& p,
 // Pass 3, the viscous forces of a fluid-side target i, added into ace:
 // Morris with per-particle eta (eta_i + eta_j), ConsEq with per-particle
 // tau (tau_i + tau_j, rows xx xy xz yy yz zz), or artificial viscosity
-// with the candidate phase's visco and cs0 on approaching pairs.  eta and
-// tau may be null in the modes that do not read them.
+// with the candidate phase's visco and cs0 on approaching pairs, with kernel
+// KER.  eta and tau may be null in the modes that do not read them.
+template <int KER>
 DSPH_HD void nn_pass3_target(int i, const NnParams& p,
                              const F4* __restrict__ pospress,
                              const F4* __restrict__ velrho,
@@ -270,7 +307,7 @@ DSPH_HD void nn_pass3_target(int i, const NnParams& p,
       if (rr2 < p.almostzero || rr2 > p.kernelsize2) return;
       const F4 vj = velrho[j];
       const int phj = phase[j];
-      const float fac = wendland_fac(rr2, p.kernelh, p.bwen);
+      const float fac = kernel_fac<KER>(rr2, p.kernelh, p.bwen, p.cubic);
       const float frx = fac * drx, fry = fac * dry, frz = fac * drz;
       const float rr2e = rr2 + p.eta2;
       const float mass2 = bound_c ? p.massbound : p.mass[phj];

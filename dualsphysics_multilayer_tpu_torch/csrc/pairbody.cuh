@@ -41,11 +41,9 @@
 
 #include "cellwalk.cuh"
 
-// Kernel, viscosity and shifting modes; values match typesdef.TpKernel,
-// TpVisco and TpShifting.
-enum { KER_CUBIC = 1, KER_WENDLAND = 2 };
+// Viscosity modes; values match typesdef.TpVisco (the kernels, KER_*, and
+// the shifting modes, SHIFT_*, are in cellwalk.cuh).
 enum { VISCO_ARTIFICIAL = 1, VISCO_LAMINAR_SPS = 2 };
-enum { SHIFT_NONE = 0, SHIFT_NO_BOUND = 1, SHIFT_NO_FIXED = 2, SHIFT_FULL = 3 };
 // Boundary conditions; values match typesdef.TpBoundary.
 enum { BOUNDARY_DBC = 1, BOUNDARY_MDBC = 2 };
 
@@ -74,46 +72,8 @@ struct CfParams {
   float massfluid;
   float massbound;
   float almostzero;
-  // cubic spline constants (typesdef.KCubicCte, FunSphKernel.h:51-84)
-  float a2, a24, c1, d1, c2, od_wdeltap;
+  CubicCte cubic;
 };
-
-// Cubic spline (1/r) dW/dr and W at squared distance rr2 > 0.
-DSPH_HD float cubic_fac(float rr2, const CfParams& p) {
-  const float rad = sqrtf(rr2);
-  const float qq = rad / p.kernelh;
-  const float wqq1 = 2.f - qq;
-  const float f = rad > p.kernelh ? p.c2 * wqq1 * wqq1 : p.c1 * qq + p.d1 * qq * qq;
-  return f / rad;
-}
-
-DSPH_HD float cubic_wab(float rr2, const CfParams& p) {
-  const float rad = sqrtf(rr2);
-  const float qq = rad / p.kernelh;
-  const float wqq1 = 2.f - qq;
-  return rad > p.kernelh ? p.a24 * (wqq1 * wqq1 * wqq1)
-                         : p.a2 * (1.f + (0.75f * qq - 1.5f) * (qq * qq));
-}
-
-// Tensile correction of the cubic spline (FunSphKernel.h:138-150).
-DSPH_HD float cubic_tensil(float rr2, const CfParams& p, float rho1,
-                           float press1, float rho2, float press2) {
-  float fab = cubic_wab(rr2, p) * p.od_wdeltap;
-  fab = fab * fab;
-  fab = fab * fab;
-  const float t1 = (press1 / (rho1 * rho1)) * (press1 > 0.f ? 0.01f : -0.2f);
-  const float t2 = (press2 / (rho2 * rho2)) * (press2 > 0.f ? 0.01f : -0.2f);
-  return fab * (t1 + t2);
-}
-
-template <int KER>
-DSPH_HD float kernel_fac(float rr2, const CfParams& p) {
-  if constexpr (KER == KER_WENDLAND) {
-    return wendland_fac(rr2, p.kernelh, p.bwen);
-  } else {
-    return cubic_fac(rr2, p);
-  }
-}
 
 // Target i's sums.  tau (n,6) is read and gradvel (n,6) written only with
 // VISCO_LAMINAR_SPS; shift (n,4) and shiftblk (n,) only with SHIFT; ftmass
@@ -169,7 +129,7 @@ DSPH_HD void target_forces(int i, const CfParams& p,
       if (rr2 < p.almostzero || rr2 >= p.kernelsize2) return;
       const F4 vj = velrho[j];
       const bool ft_c = kj == KIND_FLOATING;
-      const float fac = kernel_fac<KER>(rr2, p);
+      const float fac = kernel_fac<KER>(rr2, p.kernelh, p.bwen, p.cubic);
       const float frx = fac * drx, fry = fac * dry, frz = fac * drz;
       const float dvx = vi.x - vj.x, dvy = vi.y - vj.y, dvz = vi.z - vj.z;
       const float dvfr = dvx * frx + dvy * fry + dvz * frz;
@@ -188,7 +148,7 @@ DSPH_HD void target_forces(int i, const CfParams& p,
       // (JSphCpu.cpp:713-716,757-764)
       float prs = (pi.w + pj.w) / (rhoi * rhoj);
       if constexpr (KER == KER_CUBIC) {
-        prs += cubic_tensil(rr2, p, rhoi, pi.w, rhoj, pj.w);
+        prs += cubic_tensil(rr2, p.kernelh, p.cubic, rhoi, pi.w, rhoj, pj.w);
       }
       float cf = prs * mass2;
       if constexpr (VISC == VISCO_ARTIFICIAL) {

@@ -1,16 +1,17 @@
 """Builds the hand-written kernels of ``csrc/`` into shared libraries with a
 plain C interface, at first use, and loads them with ctypes.
 
-* :func:`cuda_library` compiles one ``.cu`` source with ``nvcc`` for
-  sm_90a (Hopper): ``cellforce`` (the three single-phase pair kernels) or
-  ``nnforce`` (the three multiphase non-Newtonian kernels).
+* :func:`cuda_library` compiles a library's ``.cu`` sources with ``nvcc``
+  for sm_90a (Hopper): ``cellforce`` (the three single-phase pair kernels),
+  ``nnforce`` (the three multiphase non-Newtonian kernels) or ``probes``
+  (the two hardware probes of ``tools/probes.py``).
   :func:`build_cuda_libraries` builds them all at once, one nvcc process
-  per source, started together.
+  per library, started together.
 * :func:`host_twin_library` compiles the matching ``*_host.cpp`` with
-  ``g++``: the same per-target bodies in a loop on the CPU, for tests.
+  ``g++``: the same per-thread bodies in a loop on the CPU, for tests.
 
 Each library lands in ``_build/`` inside the package, named by a hash of
-its source, every header of ``csrc/``, its compiler command and the
+its sources, every header of ``csrc/``, its compiler command and the
 compiler's ``--version``, so an edited source or another compiler rebuilds
 and an unchanged one loads at once.  The compiler's messages (with nvcc,
 ``-Xptxas -v``: registers, shared memory and spills per kernel) are kept
@@ -40,15 +41,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
 GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 
-# library -> (CUDA source, host-twin source, {C function: pointer arguments
-# of the CUDA launcher}); each twin takes the same arguments but the stream
+# library -> (CUDA sources, host-twin source, {C function: pointer
+# arguments of the CUDA launcher}); each twin takes the same arguments but
+# the stream
 LIBRARIES = {
-    "cellforce": ("cellforce.cu", "cellforce_host.cpp",
+    "cellforce": (("cellforce.cu",), "cellforce_host.cpp",
                   {"dsph_cellforce": 15, "dsph_cellforce_cubic": 15,
                    "dsph_cellforce_lamsps": 15}),
-    "nnforce": ("nnforce.cu", "nnforce_host.cpp",
-                {"dsph_nnforce_p1": 12, "dsph_nnforce_fda": 12,
+    "nnforce": (("nnforce.cu",), "nnforce_host.cpp",
+                {"dsph_nnforce_p1": 14, "dsph_nnforce_fda": 14,
                  "dsph_nnforce_p3": 11}),
+    "probes": (("probe_fma.cu", "probe_gather.cu"), "probes_host.cpp",
+               {"dsph_probe_fma": 4, "dsph_probe_gather": 5}),
 }
 
 _PTR = ctypes.c_void_p
@@ -79,16 +83,16 @@ def build_key(compiler: list, deps: list) -> str:
     return h.hexdigest()[:16]
 
 
-def _build(name: str, compiler: list, source: str) -> str:
-    """Compile ``source`` (plus every header in csrc/) into
+def _build(name: str, compiler: list, sources: list) -> str:
+    """Compile ``sources`` (plus every header in csrc/) into
     ``_build/<name>-<key>.so`` unless it is there; returns the path."""
-    deps = sorted(glob.glob(os.path.join(CSRC, "*.cuh"))) + [source]
+    deps = sorted(glob.glob(os.path.join(CSRC, "*.cuh"))) + list(sources)
     out = os.path.join(BUILD_DIR, f"{name}-{build_key(compiler, deps)}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = compiler + ["-I", CSRC, "-o", tmp, source]
+    cmd = compiler + ["-I", CSRC, "-o", tmp] + list(sources)
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n"
@@ -111,18 +115,18 @@ def _load(path: str, functions: dict, twin: bool) -> ctypes.CDLL:
 def library_path(name: str) -> str:
     """Where :func:`cuda_library` builds ``name`` (nvcc must be present)."""
     return _build(f"{name}_sm90a", [_find_nvcc()] + NVCC_FLAGS,
-                  os.path.join(CSRC, LIBRARIES[name][0]))
+                  [os.path.join(CSRC, s) for s in LIBRARIES[name][0]])
 
 
 @functools.cache
 def cuda_library(name: str) -> ctypes.CDLL:
     """The nvcc-built kernels of ``LIBRARIES[name]``."""
-    source, _twin, functions = LIBRARIES[name]
+    functions = LIBRARIES[name][2]
     return _load(library_path(name), functions, twin=False)
 
 
 def build_cuda_libraries() -> dict:
-    """Build and load every CUDA library, one nvcc process per source, all
+    """Build and load every CUDA library, one nvcc process per library, all
     started together; returns {name: seconds until it was loaded}."""
     t0 = time.perf_counter()
 
@@ -142,5 +146,5 @@ def host_twin_library(name: str) -> ctypes.CDLL:
     if gxx is None:
         raise RuntimeError("g++ not found: the CPU twin cannot be built")
     _cuda, source, functions = LIBRARIES[name]
-    path = _build(f"{name}_host", [gxx] + GXX_FLAGS, os.path.join(CSRC, source))
+    path = _build(f"{name}_host", [gxx] + GXX_FLAGS, [os.path.join(CSRC, source)])
     return _load(path, functions, twin=True)

@@ -50,6 +50,19 @@ from . import build
 launches = dict(cellforce=0, cellforce_cubic=0, cellforce_lamsps=0)
 
 
+class CubicCte(ctypes.Structure):
+    """Mirror of ``struct CubicCte`` in csrc/cellwalk.cuh, embedded in both
+    kernels' parameters."""
+    _fields_ = [(k, ctypes.c_float) for k in (
+        "a2", "a24", "c1", "d1", "c2", "od_wdeltap")]
+
+    @classmethod
+    def of(cls, csp: CteSph) -> "CubicCte":
+        kc = csp.kcubic
+        return cls(a2=kc.a2, a24=kc.a24, c1=kc.c1, d1=kc.d1, c2=kc.c2,
+                   od_wdeltap=kc.od_wdeltap)
+
+
 class CfParams(ctypes.Structure):
     """Mirror of ``struct CfParams`` in csrc/pairbody.cuh."""
     _fields_ = ([(k, ctypes.c_int) for k in (
@@ -58,8 +71,8 @@ class CfParams(ctypes.Structure):
         + [(k, ctypes.c_float) for k in (
             "kernelsize2", "kernelh", "bwen", "eta2", "cs0", "visco",
             "viscobound", "ddtkh", "ddtgz", "rhopzero", "ovgamma",
-            "massfluid", "massbound", "almostzero",
-            "a2", "a24", "c1", "d1", "c2", "od_wdeltap")])
+            "massfluid", "massbound", "almostzero")]
+        + [("cubic", CubicCte)])
 
 
 def kernel_name(csp: CteSph, opts: SolverOpts) -> str:
@@ -71,7 +84,6 @@ def kernel_name(csp: CteSph, opts: SolverOpts) -> str:
 
 def make_params(csp: CteSph, opts: SolverOpts, dom: Domain, n: int) -> CfParams:
     ncx, ncy, ncz = dom.nc
-    kc = csp.kcubic
     return CfParams(
         n=n, ncx=ncx, ncy=ncy, ncz=ncz, ncells=dom.ncells,
         sim2d=int(csp.simulate2d), tdensity=opts.tdensity.value,
@@ -82,8 +94,7 @@ def make_params(csp: CteSph, opts: SolverOpts, dom: Domain, n: int) -> CfParams:
         viscobound=csp.visco * csp.viscoboundfactor, ddtkh=csp.ddtkh,
         ddtgz=csp.ddtgz, rhopzero=csp.rhopzero, ovgamma=1.0 / csp.gamma,
         massfluid=csp.massfluid, massbound=csp.massbound,
-        almostzero=td.ALMOSTZERO, a2=kc.a2, a24=kc.a24, c1=kc.c1, d1=kc.d1,
-        c2=kc.c2, od_wdeltap=kc.od_wdeltap)
+        almostzero=td.ALMOSTZERO, cubic=CubicCte.of(csp))
 
 
 def channels(csp: CteSph, pos, vel, rho, code):

@@ -12,7 +12,9 @@ Counterpart of `dualsphysics_multilayer_tpu/ops/pallas/nnforce.py`
    the parameter struct's tables;
 2. ``nnforce_p1`` (or ``nnforce_fda``) on torch's current stream, writing
    ace, ar with the density diffusion folded in, the per-target viscdt and
-   the velocity gradient (or the per-target eta max);
+   the velocity gradient (or the per-target eta max), and with a shifting
+   mode the shifting sums and flags; the launcher picks the instance of the
+   smoothing kernel and the shifting mode the parameters name;
 3. pass 2 in plain torch between the launches (``forces_nn.pass2``);
 4. ``nnforce_p3``, adding the viscous forces into ace;
 5. 2D zeroing of ace[:,1], and the viscdt and eta reductions
@@ -32,12 +34,12 @@ import functools
 import torch
 
 from ... import typesdef as td
-from ...typesdef import CteSph, TpVisco
+from ...typesdef import CteSph, TpShifting, TpVisco
 from .. import forces_nn as NN
 from ..celldiv import CellDiv, Domain
 from ..forces import SolverOpts
 from . import build
-from .cellforce import check_inputs, state_inputs
+from .cellforce import CubicCte, check_inputs, state_inputs
 
 # Kernel launches since the last reset, one count per kernel; the only
 # mutable module state.
@@ -53,10 +55,11 @@ class NnParams(ctypes.Structure):
     """Mirror of ``struct NnParams`` in csrc/nnbody.cuh."""
     _fields_ = ([(k, ctypes.c_int) for k in (
         "n", "ncx", "ncy", "ncz", "ncells", "sim2d", "tdensity", "visc",
-        "gradvel")]
+        "gradvel", "tkernel", "shiftmode")]
         + [(k, ctypes.c_float) for k in (
             "kernelsize2", "kernelh", "bwen", "eta2", "ddtkh", "ddtgz",
             "rhopzero", "ovgamma", "massbound", "almostzero")]
+        + [("cubic", CubicCte)]
         + [(k, ctypes.c_float * NN.MAX_PHASES) for k in _TABLES])
 
 
@@ -73,10 +76,12 @@ def make_params(csp: CteSph, opts: SolverOpts, phases: NN.PhaseCfg,
         n=n, ncx=ncx, ncy=ncy, ncz=ncz, ncells=dom.ncells,
         sim2d=int(csp.simulate2d), tdensity=opts.tdensity.value,
         visc=_VISC[opts.tvisco], gradvel=int(NN.uses_gradvel(opts)),
+        tkernel=csp.tkernel.value, shiftmode=opts.shiftmode.value,
         kernelsize2=csp.kernelsize2, kernelh=csp.kernelh, bwen=csp.kwend.bwen,
         eta2=csp.eta2, ddtkh=csp.ddtkh, ddtgz=csp.ddtgz,
         rhopzero=csp.rhopzero, ovgamma=1.0 / csp.gamma,
-        massbound=csp.massbound, almostzero=td.ALMOSTZERO, **tables)
+        massbound=csp.massbound, almostzero=td.ALMOSTZERO,
+        cubic=CubicCte.of(csp), **tables)
 
 
 def _device_type(twin: bool) -> str:
@@ -111,6 +116,10 @@ def _launch(kernel: str, twin: bool, device, *args) -> None:
         launches[kernel] += 1
 
 
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
 def _rows(pos, vel, rho, ch: NN.NnChannels):
     """(pospress (n,4), velrho (n,4)) rows for the kernels."""
     return (torch.cat([pos, ch.press[:, None]], dim=1).contiguous(),
@@ -120,15 +129,20 @@ def _rows(pos, vel, rho, ch: NN.NnChannels):
 def pass1(csp: CteSph, opts: SolverOpts, phases: NN.PhaseCfg, dom: Domain,
           cells: CellDiv, pos, vel, rho, ch: NN.NnChannels,
           twin: bool = False) -> NN.Pass1:
-    """``nnforce_p1``, or ``nnforce_fda`` under ``forces_nn.uses_fda``."""
+    """``nnforce_p1``, or ``nnforce_fda`` under ``forces_nn.uses_fda``,
+    the instance of ``csp.tkernel`` and ``opts.shiftmode``."""
     kernel = "nnforce_fda" if NN.uses_fda(opts) else "nnforce_p1"
     _check(kernel, twin, dom, cells, pos, vel, rho, ch)
     n = pos.shape[0]
     f32 = dict(dtype=torch.float32, device=pos.device)
+    shifting = opts.shiftmode != TpShifting.NONE
     out = NN.Pass1(ace=torch.empty((n, 3), **f32), ar=torch.empty(n, **f32),
                    viscdt=torch.empty(n, **f32),
                    gradvel=torch.zeros((n, 6), **f32),
-                   etamax=torch.zeros(n, **f32))
+                   etamax=torch.zeros(n, **f32),
+                   shift=torch.empty((n, 4), **f32) if shifting else None,
+                   shiftblk=torch.empty(n, dtype=torch.bool, device=pos.device)
+                   if shifting else None)
     pospress, velrho = _rows(pos, vel, rho, ch)
     last = out.etamax if kernel == "nnforce_fda" else out.gradvel
     _launch(kernel, twin, pos.device,
@@ -136,14 +150,15 @@ def pass1(csp: CteSph, opts: SolverOpts, phases: NN.PhaseCfg, dom: Domain,
             pospress.data_ptr(), velrho.data_ptr(), ch.kind.data_ptr(),
             ch.phase.data_ptr(), cells.cell.data_ptr(), cells.begin.data_ptr(),
             out.ace.data_ptr(), out.ar.data_ptr(), out.viscdt.data_ptr(),
-            last.data_ptr())
+            last.data_ptr(), _ptr(out.shift), _ptr(out.shiftblk))
     return out
 
 
 def pass3(csp: CteSph, opts: SolverOpts, phases: NN.PhaseCfg, dom: Domain,
           cells: CellDiv, pos, vel, rho, ch: NN.NnChannels, visco_eta, tau,
           ace, twin: bool = False) -> None:
-    """``nnforce_p3``: adds the viscous forces into ``ace``."""
+    """``nnforce_p3``, the instance of ``csp.tkernel``: adds the viscous
+    forces into ``ace``."""
     n = pos.shape[0]
     _check("nnforce_p3", twin, dom, cells, pos, vel, rho, ch, extra={
         "visco_eta": (visco_eta, torch.float32, (n,)),

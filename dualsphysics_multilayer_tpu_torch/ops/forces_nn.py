@@ -4,11 +4,12 @@ Counterpart of `dualsphysics_multilayer_tpu/ops/forces_nn.py` (the mphase
 fork's `JSphCpu_NN_SPH.cpp:663-695` pipeline) over the port's cell-sorted
 layout:
 
-1. **pass 1** (PressGrad): per-phase pressure force, continuity with
-   per-phase masses, density diffusion on same-phase pairs with the
-   candidate's cs0, viscdt, and for SPH Morris/ConsEq the 6-component
-   velocity gradient with the no-slip wall trick (dv = 2*v1 against a
-   boundary);
+1. **pass 1** (PressGrad): per-phase pressure force (plus the cubic
+   spline's tensile correction), continuity with per-phase masses, density
+   diffusion on same-phase pairs with the candidate's cs0, viscdt, for SPH
+   Morris/ConsEq the 6-component velocity gradient with the no-slip wall
+   trick (dv = 2*v1 against a boundary), and with a shifting mode the
+   shifting sums under the heavy-phase gate;
 2. **pass 2**, elementwise: strain rate -> HBP effective viscosity (active
    fluid only) -> tau = 2*eta*D for ConsEq;
 3. **pass 3**: Morris (eta1 + eta2), ConsEq (tau1 + tau2) or per-phase
@@ -175,15 +176,13 @@ def strain_magn_pair(dvw, dr, rr2):
 
 def check_supported_nn(csp: CteSph, opts: SolverOpts, phases: PhaseCfg) -> None:
     """Raise NotImplementedError for any configuration outside the NN
-    slice (the cubic kernel's tensile branch, shifting, symmetry, floating
-    bodies, mDBC and Verlet among them), ValueError for a phase table the
-    kernels cannot hold."""
+    slices (symmetry, floating bodies, mDBC and Verlet among them; either
+    kernel and every shifting mode are in), ValueError for a phase table
+    the kernels cannot hold."""
     check_supported_step(csp, opts)
     raise_unsupported([
         (opts.tboundary != TpBoundary.DBC, f"tboundary={opts.tboundary.name}"),
-        (opts.with_floating, "with_floating=True"),
-        (opts.shiftmode != TpShifting.NONE, f"shiftmode={opts.shiftmode.name}"),
-        (csp.tkernel != TpKernel.WENDLAND, f"tkernel={csp.tkernel.name}")])
+        (opts.with_floating, "with_floating=True")])
     if opts.tvisco not in _NN_VISCO:
         raise NotImplementedError(f"the torch port does not cover "
                                   f"tvisco={opts.tvisco.name} yet")
@@ -236,6 +235,8 @@ class Pass1:
     viscdt: torch.Tensor      # (n,)  max dot/(rr2+eta2) over the target's pairs
     gradvel: torch.Tensor     # (n,6) SPH Morris/ConsEq, else zeros
     etamax: torch.Tensor      # (n,)  FDA per-target eta max, else zeros
+    shift: torch.Tensor | None = None     # (n,4) shifting sums, with a mode
+    shiftblk: torch.Tensor | None = None  # (n,) bool, set under NO_BOUND
 
 
 @dataclass
@@ -286,7 +287,8 @@ def run_passes(csp: CteSph, opts: SolverOpts, phases: PhaseCfg, dom: Domain,
         ace[:, 1] = 0.0
     fr = Forces(ace=ace, ar=p1.ar,
                 viscdtmax=torch.clamp(p1.viscdt.amax(), min=0.0),
-                viscetadtmax=visco_eta.amax())
+                viscetadtmax=visco_eta.amax(), shiftposfs=p1.shift,
+                shift_blocked=p1.shiftblk)
     return NnResult(forces=fr, visco_eta=visco_eta, tau=tau,
                     gradvel=p1.gradvel)
 
@@ -369,10 +371,14 @@ def pass1_plain(csp: CteSph, opts: SolverOpts, phases: PhaseCfg,
     tb = phases.tables(csp, pos.device)
     n = pos.shape[0]
     f32 = dict(dtype=torch.float32, device=pos.device)
+    shifting = opts.shiftmode != TpShifting.NONE
     out = Pass1(ace=torch.zeros((n, 3), **f32), ar=torch.zeros(n, **f32),
                 viscdt=torch.full((n,), -FLT_MAX, **f32),
                 gradvel=torch.zeros((n, 6), **f32),
-                etamax=torch.zeros(n, **f32))
+                etamax=torch.zeros(n, **f32),
+                shift=torch.zeros((n, 4), **f32) if shifting else None,
+                shiftblk=torch.zeros(n, dtype=torch.bool, device=pos.device)
+                if shifting else None)
     fda, grad = uses_fda(opts), uses_gradvel(opts)
     eta2 = csp.eta2
     for p in _chunks(csp, tb, dom, cells, pos, vel, rho, ch, max_pairs):
@@ -380,6 +386,8 @@ def pass1_plain(csp: CteSph, opts: SolverOpts, phases: PhaseCfg,
         pw = p.pair.to(torch.float32)
         press1, press2 = ch.press[t, None], ch.press[p.j]
         prs = (press1 + press2) / (p.rho1 * p.rho2)
+        if csp.tkernel == TpKernel.CUBIC:
+            prs = prs + K.cubic_tensil(csp, p.rr2, p.rho1, press1, p.rho2, press2)
         ace = -((p.w_mom * prs * p.mass2)[..., None] * p.fr).sum(dim=1)
         dvfr = (p.dv * p.fr).sum(dim=-1)
         dot = (p.dr * p.dv).sum(dim=-1)
@@ -402,6 +410,18 @@ def pass1_plain(csp: CteSph, opts: SolverOpts, phases: PhaseCfg,
                 blocked = ((p.pair & ~p.bound_t & p.bound_c).any(dim=1)
                            & (opts.tdensity == TpDensity.FOURTAKAS))
             ar = ar + torch.where(blocked, 0.0, delta)
+
+        if shifting:
+            # the mphase fork's heavy-phase gate: a pair with a lighter
+            # candidate of another fluid phase adds nothing
+            heavy = ((tb["mass"][p.ph1] > tb["mass"][p.ph2])
+                     & (p.ph1 != p.ph2) & ~p.bound_c)
+            massrhop = torch.where(heavy, 0.0, p.w_mom * p.mass2 / p.rho2)
+            out.shift[t] = torch.cat([
+                (massrhop[..., None] * p.fr).sum(dim=1),
+                -(massrhop * p.drfr).sum(dim=1, keepdim=True)], dim=1)
+            if opts.shiftmode == TpShifting.NO_BOUND:
+                out.shiftblk[t] = (p.pair & ~p.bound_t & p.bound_c).any(dim=1)
 
         if grad:
             g = p.dvw * (-p.w_mom * p.mass2 / p.rho2)[..., None]

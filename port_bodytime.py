@@ -1,69 +1,40 @@
-"""Kernel 1 alone on the main path's case for two forms of the pair body,
-and the parent's, in turns, on one NVIDIA GPU:
+"""Kernel 1 and the default instances of the three NN kernels alone, for
+this checkout and a parent, in turns, on one NVIDIA GPU:
 
     python3 port_bodytime.py [--parent DIR] [--rounds 2]
 
-* ``committed``: this checkout's ``csrc/``, where the floating mass lives
-  in instances of its own (``FT``), so the main path's instance has no
-  floating-mass code;
-* ``runtime-test``: the same body with the floating-mass test in every
-  instance (``if (ft_c && ftmass != nullptr)``, ``FT`` ignored), the form
-  the body had first;
-* ``parent``: the checkout at ``--parent`` (its own package and
-  ``chip_smoke.py``), when given.
-
-Each body runs in a process of its own, from a copy of this checkout's
-package and ``chip_smoke.py`` under ``_build/bodytime/`` for
-``runtime-test``.  The case and the timing are ``chip_smoke.py`` phase 4's:
-the 3D dam break at 267,469 particles in a seeded perturbed state, the
-kernel alone (CUDA events around 20 back-to-back launches, median of 5),
-three times.  Prints one JSON line per run: the body, the three times, and
-the ptxas registers of the main path's instance.  Needs one CUDA device;
-imports no JAX.
+Each checkout (this one, ``committed``; the one at ``--parent``, with its
+own package and ``chip_smoke.py``, ``parent``) runs in a process of its
+own.  The cases and the timing are ``chip_smoke.py``'s: kernel 1 on phase
+4's case (the 3D dam break at 267,469 particles in a seeded perturbed
+state), alone (CUDA events around 20 back-to-back launches, median of 5),
+three times; then phase 5's NN kernels (nnforce_p1, nnforce_p3,
+nnforce_fda, Wendland without shifting) alone on the 2D wet dam break at
+37,143 particles.  Prints one JSON line per run: the checkout, kernel 1's
+three times, the NN kernels' times, and the ptxas registers of kernel 1's
+main-path instances and of the NN kernels' default instances.  Needs one
+CUDA device; imports no JAX.
 """
 
 import argparse
 import json
 import os
 import re
-import shutil
 import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PKG = "dualsphysics_multilayer_tpu_torch"
-FT_LOAD = ("      if constexpr (FT) {\n"
-           "        if (ft_c) mass2 = ftmass[j];\n"
-           "      }\n")
-RUNTIME_LOAD = "      if (ft_c && ftmass != nullptr) mass2 = ftmass[j];\n"
 
 
-def runtime_test_copy() -> str:
-    """A copy of this checkout's package and chip_smoke.py whose body tests
-    for the floating mass in every instance; returns its directory."""
-    dest = os.path.join(ROOT, PKG, "_build", "bodytime", "runtime-test")
-    shutil.rmtree(dest, ignore_errors=True)
-    shutil.copytree(os.path.join(ROOT, PKG), os.path.join(dest, PKG),
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), dest)
-    body = os.path.join(dest, PKG, "csrc", "pairbody.cuh")
-    with open(body) as f:
-        text = f.read()
-    if FT_LOAD not in text:
-        raise RuntimeError("pairbody.cuh has no FT floating-mass block")
-    with open(body, "w") as f:
-        f.write(text.replace(FT_LOAD, RUNTIME_LOAD))
-    return dest
-
-
-def time_kernel1():
-    """In a body's directory: kernel 1 alone on phase 4's case; prints the
-    JSON line."""
+def time_kernels():
+    """In a checkout's directory: kernel 1 on phase 4's case and the NN
+    kernels on phase 5's, alone; prints the JSON line."""
     sys.path.insert(0, os.getcwd())
     import torch
     import chip_smoke as CS
     from dualsphysics_multilayer_tpu_torch import SolverOpts, TpDensity
     from dualsphysics_multilayer_tpu_torch.models import cases
+    from dualsphysics_multilayer_tpu_torch.models import nnewtonian as NM
     from dualsphysics_multilayer_tpu_torch.ops.cuda import build
     dev = torch.device("cuda", 0)
     case = cases.dambreak3d(dp=CS.DP_BENCH, obstacle=True, device=dev)
@@ -72,6 +43,9 @@ def time_kernel1():
     opts = SolverOpts(tdensity=TpDensity.FOURTAKAS)
     alone = [CS.compare_cellforce(case.csp, opts, case.dom, cells, args,
                                   reps=1)[1] for _ in range(3)]
+    nncase, phases = NM.wet_dambreak_nn(dp=CS.NN_DP, device=dev)
+    nn_ms = {k: r["ms"] for k, r in
+             CS.nn_kernels_vs_plain(nncase, phases, dev, "").items()}
     registers = {}   # instance <KER,VISC,SHIFT[,FT]>: ptxas registers
     with open(build.library_path("cellforce") + ".log") as f:
         entry = None
@@ -83,8 +57,21 @@ def time_kernel1():
             m = re.search(r"Used (\d+) registers", line)
             if m and entry and entry.startswith("<2,1,0"):
                 registers[entry] = int(m.group(1))
+    with open(build.library_path("nnforce") + ".log") as f:
+        entry = None
+        for line in f:
+            e = re.search(r"entry function '([^']+)'", line)
+            if e:
+                # the parent's kernels are no templates; the default
+                # instances are <2,0> (p1, FDA) and <2> (p3)
+                entry = CS.kernel_label(e.group(1))
+                entry = entry if entry.endswith(("kernel", "<2,0>", "<2>")) \
+                    else None
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                registers[entry] = int(m.group(1))
     print(json.dumps(dict(dir=os.getcwd(), n=case.np_total, alone_ms=alone,
-                          registers=registers)), flush=True)
+                          nn_ms=nn_ms, registers=registers)), flush=True)
 
 
 def main():
@@ -94,11 +81,11 @@ def main():
     ap.add_argument("--time", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time:
-        return time_kernel1()
+        return time_kernels()
     import torch
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: port_bodytime.py times kernel 1 on a GPU")
-    dirs = {"committed": ROOT, "runtime-test": runtime_test_copy()}
+    dirs = {"committed": ROOT}
     if args.parent:
         dirs["parent"] = os.path.abspath(args.parent)
     order = list(dirs)

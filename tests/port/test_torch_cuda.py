@@ -27,6 +27,7 @@ from dualsphysics_multilayer_tpu_torch.ops import forces as F
 from dualsphysics_multilayer_tpu_torch.ops import forces_nn as NN
 from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
 from dualsphysics_multilayer_tpu_torch.ops.cuda import nnforce as NF
+from dualsphysics_multilayer_tpu_torch.tools import probes as PR
 
 DDT = ["NONE", "MOLTENI", "FOURTAKAS", "FOURTAKAS_FULL"]
 GEOM = dict(dp=0.04, tank=(0.8, 0.4, 0.3), column=(0.2, 0.4, 0.2),
@@ -409,7 +410,8 @@ def nn_perturbed(case, phases, seed, device):
             st.rho + torch.where(fluid, drho, 0.0), st.code)
 
 
-def nn_kernels_vs_plain(csp, opts, phases, dom, pos, vel, rho, code):
+def nn_kernels_vs_plain(csp, opts, phases, dom, pos, vel, rho, code,
+                        rtol=2e-3):
     cells, code = cd.divide_cells(dom, pos, code)
     o = cells.order
     run = (csp, opts, phases, dom, cells, pos[o], vel[o], rho[o], code[o])
@@ -427,13 +429,20 @@ def nn_kernels_vs_plain(csp, opts, phases, dom, pos, vel, rho, code):
                     ("ar", got.forces.ar, want.forces.ar),
                     ("visco_eta", got.visco_eta, want.visco_eta),
                     ("tau", got.tau, want.tau),
-                    ("gradvel", got.gradvel, want.gradvel)):
+                    ("gradvel", got.gradvel, want.gradvel),
+                    ("shiftposfs", got.forces.shiftposfs,
+                     want.forces.shiftposfs)):
+        if w is None:
+            assert g is None, k
+            continue
         scale = float(w.abs().max()) + 1e-6
-        torch.testing.assert_close(g, w, rtol=2e-3, atol=2e-3 * scale, msg=k)
+        torch.testing.assert_close(g, w, rtol=rtol, atol=rtol * scale, msg=k)
     for k in ("viscdtmax", "viscetadtmax"):
         torch.testing.assert_close(getattr(got.forces, k),
                                    getattr(want.forces, k), rtol=1e-3,
                                    atol=1e-5)
+    if want.forces.shift_blocked is not None:
+        assert torch.equal(got.forces.shift_blocked, want.forces.shift_blocked)
 
 
 @pytest.mark.gpu
@@ -498,3 +507,57 @@ def test_cuda_nn_steps_match_cpu_steps(cuda, velgrad):
         pos[carry.st.idp] = carry.st.pos
         out[str(dev)] = pos.cpu()
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=0, atol=1e-4 * dp)
+
+
+NN_VARIANTS = [("CUBIC", "NONE"), ("WENDLAND", "NO_BOUND"),
+               ("WENDLAND", "NO_FIXED"), ("WENDLAND", "FULL"),
+               ("CUBIC", "NO_BOUND")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tvisco,velgrad", [("LAMINAR_SPS", "SPH"),
+                                            ("ARTIFICIAL", "SPH"),
+                                            ("CONST_EQ", "FDA")])
+@pytest.mark.parametrize("tkernel,shiftmode", NN_VARIANTS)
+def test_cuda_nn_variant_kernels_match_plain(cuda, tkernel, shiftmode, tvisco,
+                                             velgrad):
+    """The cubic and shifting instances of nnforce_p1, nnforce_p3 and
+    nnforce_fda (rtol 4e-3 with the cubic spline)."""
+    case, phases = NM.wet_dambreak_nn(dp=0.02, device=cuda)
+    opts = dataclasses.replace(nn_opts(tvisco, velgrad),
+                               shiftmode=td.TpShifting[shiftmode])
+    nn_kernels_vs_plain(case.csp.replace(tkernel=td.TpKernel[tkernel]), opts,
+                        phases, case.dom, *nn_perturbed(case, phases, 6, cuda),
+                        rtol=4e-3 if tkernel == "CUBIC" else 2e-3)
+
+
+# ---------------------------------------------------------------------------
+# hardware probes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", PR.OPS)
+def test_cuda_probe_fma_matches_plain(cuda, op):
+    """rtol 1e-5 (1e-4 for the card's MUFU rsqrt and approximate
+    reciprocal) after rep 2 x 64 steps."""
+    x = PR.fma_input(PR.full_threads(cuda), cuda)
+    before = PR.launches["probe_fma"]
+    for chains in PR.CHAINS:
+        got = PR.fma(x, op, chains, 2)
+        want = PR.fma_plain(x, op, chains, 2)
+        rtol = 1e-5 if op in ("fma", "mix") else 1e-4
+        torch.testing.assert_close(got, want, rtol=rtol,
+                                   atol=rtol * float(want.abs().max()))
+    assert PR.launches["probe_fma"] == before + len(PR.CHAINS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cuda_probe_gather_matches_plain(cuda, aligned, staged):
+    buf, offs = PR.gather_inputs(16, cuda)
+    got = PR.gather(buf, offs, aligned, staged)
+    want = PR.gather_plain(buf, offs, aligned)
+    for g in range(PR.GROUPS):
+        torch.testing.assert_close(got[g], want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))

@@ -245,19 +245,61 @@ def test_plain_matches_jax_3d_cloud(cloud, name):
     assert np.abs(got["ace"][:, 1]).max() > 0
 
 
+@pytest.mark.parametrize("tkernel,shiftmode,name", [
+    ("CUBIC", "NO_BOUND", "sph-morris"), ("WENDLAND", "NO_FIXED", "fda-conseq")])
+def test_variant_matches_jax_3d_cloud(gxx, cloud, tkernel, shiftmode, name):
+    """The cubic spline and shifting on the 3D cloud (the 2D cases are in
+    test_torch_nn_variants.py; these run here, where the cloud's eager JAX
+    operations are compiled already): plain and twin against the bucket
+    path, rtol 4e-3 with the cubic spline, the shifting flags exact."""
+    jopts, opts = opts_of(name)
+    jopts = dataclasses.replace(jopts, shiftmode=jtd.TpShifting[shiftmode])
+    opts = dataclasses.replace(opts, shiftmode=td.TpShifting[shiftmode])
+    case = dict(cloud, jcsp=cloud["jcsp"].replace(tkernel=jtd.TpKernel[tkernel]),
+                csp=cloud["csp"].replace(tkernel=td.TpKernel[tkernel]))
+    a = {k: jnp.asarray(v) for k, v in case["arrays"].items()}
+    div, code = jcd.divide(case["jdom"], a["pos"], a["code"])
+    fr, eta, tau = jNN.interaction_forces_nn(
+        case["jcsp"], jopts, case["jph"], case["jdom"], div, a["pos"],
+        a["vel"], a["rho"], code)
+    want = dict(ace=np.asarray(fr.ace), ar=np.asarray(fr.ar),
+                visco_eta=np.asarray(eta), tau=np.asarray(tau),
+                shift=np.asarray(fr.shiftposfs),
+                blocked=np.asarray(fr.shift_blocked),
+                viscdtmax=float(fr.viscdtmax),
+                viscetadtmax=float(fr.viscetadtmax))
+    assert want["blocked"].any() == (shiftmode == "NO_BOUND")
+    cells, args, order = sorted_inputs(case)
+    run = (case["csp"], opts, case["ph"], case["dom"], cells, *args)
+    rtol = 4e-3 if tkernel == "CUBIC" else 2e-3
+    for r in (NN.interaction_forces_nn_plain(*run),
+              NF.interaction_forces_nn_host_twin(*run)):
+        got = as_dict(r, order)
+        for k, v in (("shift", r.forces.shiftposfs),
+                     ("blocked", r.forces.shift_blocked)):
+            got[k] = np.empty_like(v.numpy())
+            got[k][order] = v.numpy()
+        assert_close(want, got, rtol=rtol, keys=ARRAYS + ("shift",))
+        np.testing.assert_array_equal(got["blocked"], want["blocked"])
+
+
 def test_unsupported_configs_raise(wet):
     csp, ph = wet["csp"], wet["ph"]
     for kw, name in [
             (dict(tboundary=td.TpBoundary.MDBC), "tboundary=MDBC"),
-            (dict(shiftmode=td.TpShifting.NO_BOUND), "shiftmode=NO_BOUND"),
+            (dict(use_nbrlist=True), "use_nbrlist"),
             (dict(with_floating=True), "with_floating"),
             (dict(symmetry=True), "symmetry"),
             (dict(tstep=td.TpStep.VERLET), "tstep=VERLET")]:
         with pytest.raises(NotImplementedError, match=name):
             NN.check_supported_nn(csp, SolverOpts(**kw), ph)
-    with pytest.raises(NotImplementedError, match="CUBIC"):
-        NN.check_supported_nn(csp.replace(tkernel=td.TpKernel.CUBIC),
-                              SolverOpts(), ph)
+    # the cubic spline and shifting are in; what they come with may not be
+    cubic = csp.replace(tkernel=td.TpKernel.CUBIC)
+    with pytest.raises(NotImplementedError, match="with_floating"):
+        NN.check_supported_nn(cubic, SolverOpts(
+            shiftmode=td.TpShifting.NO_BOUND, with_floating=True), ph)
+    for mode in td.TpShifting:
+        NN.check_supported_nn(cubic, SolverOpts(shiftmode=mode), ph)
     many = NN.PhaseCfg(phases=ph.phases * 5)
     with pytest.raises(ValueError, match="10 phases"):
         NN.check_supported_nn(csp, SolverOpts(), many)

@@ -194,14 +194,15 @@ def test_laminar_sps_cubic_shifting_matches():
     (dict(tkernel="CUBIC"), "CUBIC"),
 ] + [(dict(shiftmode=m), f"shiftmode={m}") for m in SHIFTS])
 def test_variant_configs_supported(kw, name):
-    """The settings this slice covers pass the single-phase check; the
-    multiphase non-Newtonian interaction still refuses cubic and shifting."""
+    """The settings this slice covers pass the single-phase check, and the
+    multiphase non-Newtonian one (which takes the cubic spline and every
+    shifting mode as well, and laminar viscosity as Morris's)."""
     csp, _, opts, _, _, _ = variant(**kw)
     F.check_supported(csp, opts)
-    if "tvisco" not in kw:
-        _, phases = NM.wet_dambreak_nn(dp=0.1, device="cpu")
-        with pytest.raises(NotImplementedError, match=name):
-            NN.check_supported_nn(csp, opts, phases)
+    _, phases = NM.wet_dambreak_nn(dp=0.1, device="cpu")
+    NN.check_supported_nn(csp, opts, phases)
+    assert name.split("=")[-1] in (csp.tkernel.name, opts.tvisco.name,
+                                   opts.shiftmode.name)
 
 
 def test_laminar_sps_needs_spstau():
