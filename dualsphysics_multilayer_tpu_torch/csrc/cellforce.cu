@@ -19,20 +19,37 @@
 // row-padded lane windows.  The per-pair arithmetic lives in pairbody.cuh,
 // one template shared with the g++-built CPU twins.
 //
-// What bounds it on the card: gathers of candidate fields through L1/L2.
-// Each target walks 9 neighbour rows of 3 cells, about 27 x (cell occupancy)
-// candidates, of which about a tenth lie inside the kernel support; every
-// candidate costs one 16-byte position load and one kind load before the
-// distance test, and an in-support pair one 16-byte velocity load (plus 24
-// bytes of SPS stress under laminar+SPS).  The sorted layout is what makes
-// this cheap: threads of one warp hold neighbouring targets, in the same or
-// adjacent cells, so they read overlapping contiguous slot ranges and the
-// loads of a warp coalesce and hit in cache.  The variants add registers
+// What bounds it on the card: the candidate walk, not bytes (its bytes
+// bound is ~5 us) and not the pair arithmetic alone.  Each target walks 9
+// neighbour rows of 3 cells, ~967 candidates at 267,469 particles, to find
+// ~129 pairs; the 32 lanes of a warp hold neighbouring targets and walk
+// nearly the same candidates.  Run as one walk with the pair body inline,
+// the warp ran the ~100-line body whenever any lane held a pair, with ~28%
+// of its lanes active, and each candidate's two loads (kind, then
+// position) stood in one dependent chain.  The design here, measured on the
+// H100 against that walk (port_bodytime.py, in turns):
+//   * each lane filters its candidates into a queue of in-support slots and
+//     runs the body over the queue, so the body runs on lanes that hold a
+//     pair;
+//   * the lanes stay in step: they filter kRun candidates per turn with all
+//     their loads in flight together, and the warp drains every queue at
+//     once, when one has no room for another run or when every walk has
+//     ended (a warp vote, so every lane runs the loop, past the last slot
+//     too).  Lanes that drained on their own drifted apart, lost the shared
+//     loads of one cell's lanes and ran up to 26% slower than the inline
+//     walk; one candidate per turn in step was still up to 11% slower, and
+//     runs of 4 with the body inline 8-15% slower;
+//   * the queue is kQueue = 96 slots per thread in local memory: longer
+//     queues mean fewer drains in which lanes wait for the fullest queue
+//     (kernel 1 with 32 slots: -11% time; 64: -20%; 96: -22%; 128: -19%).
+//     At 32 slots, shared and local memory ran within 3% of each other;
+//     96 slots of shared memory would take 48 KB a block.
+// Kernel 1 takes ~22% less time than the inline walk, kernel 2 ~16%,
+// kernel 3 ~21%, with bit-equal outputs.  The variants add registers
 // (6 gradient and 4 shifting sums, 6 stress values of the target), not
 // loads per candidate.  The floating mass is one load per floating
 // candidate in support, in instances of their own (FT): a runtime test in
-// every instance cost the main path's one a register (63 against 62) and
-// 2-3% of its time on the H100.
+// every instance cost the main path's one a register and 2-3% of its time.
 #include <cuda_runtime.h>
 
 #include "pairbody.cuh"
@@ -51,12 +68,15 @@ cellforce_kernel(CfParams p, const F4* __restrict__ pospress,
                  float* __restrict__ ar, float* __restrict__ viscdt,
                  float* __restrict__ gradvel, float* __restrict__ shift,
                  unsigned char* __restrict__ shiftblk) {
+  // the queue is a per-thread array in local memory, which the card lays
+  // out so that entry k of a warp's 32 lanes is one contiguous 128 bytes
+  int q[kQueue];
+  // every lane runs the body, past the last slot too: the queues drain
+  // when the whole warp decides
   const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i < p.n) {
-    target_forces<KER, VISC, SHIFT, FT>(i, p, pospress, velrho, kind, cell,
-                                        begin, tau, ftmass, ace, ar, viscdt,
-                                        gradvel, shift, shiftblk);
-  }
+  target_forces<KER, VISC, SHIFT, FT>(i, p, pospress, velrho, kind, cell,
+                                      begin, tau, ftmass, ace, ar, viscdt,
+                                      gradvel, shift, shiftblk, q);
 }
 
 template <int KER, int VISC, bool SHIFT, bool FT>

@@ -1,7 +1,8 @@
-// CPU twins of cellforce.cu: the same per-target body (pairbody.cuh) run in
-// a loop over targets, one function per CUDA launcher, with its arguments
-// but the stream.  Built with g++ by ops/cuda/build.py so the kernels'
-// arithmetic can be tested on a machine without a GPU.
+// CPU twins of cellforce.cu: the same per-target body (pairbody.cuh), with
+// its queue of in-support slots, run in a loop over targets, one function
+// per CUDA launcher, with its arguments but the stream.  Built with g++ by
+// ops/cuda/build.py so the kernels' arithmetic can be tested on a machine
+// without a GPU.
 #include "pairbody.cuh"
 
 namespace {
@@ -11,6 +12,7 @@ void run_one(const CfParams* p, const void* pospress, const void* velrho,
              const void* kind, const void* cell, const void* begin,
              const void* tau, const void* ftmass, void* ace, void* ar,
              void* viscdt, void* gradvel, void* shift, void* shiftblk) {
+  int q[kQueue];
   for (int i = 0; i < p->n; ++i) {
     target_forces<KER, VISC, SHIFT, FT>(
         i, *p, static_cast<const F4*>(pospress), static_cast<const F4*>(velrho),
@@ -19,7 +21,7 @@ void run_one(const CfParams* p, const void* pospress, const void* velrho,
         static_cast<const float*>(ftmass), static_cast<float*>(ace),
         static_cast<float*>(ar), static_cast<float*>(viscdt),
         static_cast<float*>(gradvel), static_cast<float*>(shift),
-        static_cast<unsigned char*>(shiftblk));
+        static_cast<unsigned char*>(shiftblk), q);
   }
 }
 

@@ -1,7 +1,8 @@
 // What the per-target pair bodies (pairbody.cuh, nnbody.cuh) share: the
 // host/device qualifier, the particle kinds, the 16-byte particle rows, the
 // two smoothing kernels (the Wendland gradient, the cubic spline with its
-// tensile correction) and the neighbour walk over the cell-sorted layout.
+// tensile correction) and the neighbour walk over the cell-sorted layout,
+// as a visitor (walk_neighbours) and as a resumable cursor (NbrCursor).
 #pragma once
 
 #include <math.h>
@@ -110,3 +111,54 @@ DSPH_HD void walk_neighbours(int c, int ncx, int ncy, int ncz, int sim2d,
     }
   }
 }
+
+// The walk of walk_neighbours as a cursor that can stop and resume: each
+// next(j0, n) takes the following run of at most n slots of the open row,
+// j0 .. j0+m-1, and returns m, opening the next row (dz then dy, rows
+// clamped to the grid) when the open one is done, so the runs follow
+// exactly walk_neighbours' order; it returns 0 once every row is done.
+struct NbrCursor {
+  const int* begin;
+  int ncx, ncy, ncz;
+  int cy, cz, x0, x1;
+  int dy, dz, dy0, dy1;  // the next row to open
+  int j, je;             // the open row's next slot and its end
+
+  DSPH_HD void init(int c, int ncx_, int ncy_, int ncz_, int sim2d,
+                    const int* __restrict__ begin_) {
+    begin = begin_;
+    ncx = ncx_;
+    ncy = ncy_;
+    ncz = ncz_;
+    const int cx = c % ncx;
+    cy = (c / ncx) % ncy;
+    cz = c / (ncx * ncy);
+    x0 = cx > 0 ? cx - 1 : 0;
+    x1 = cx + 1 < ncx ? cx + 1 : ncx - 1;
+    dy0 = sim2d ? 0 : -1;
+    dy1 = sim2d ? 0 : 1;
+    dy = dy0;
+    dz = -1;
+    j = je = 0;
+  }
+
+  DSPH_HD int next(int& j0, int n) {
+    while (j >= je) {
+      if (dz > 1) return 0;
+      const int z = cz + dz;
+      const int y = cy + dy;
+      if (++dy > dy1) {
+        dy = dy0;
+        ++dz;
+      }
+      if (z < 0 || z >= ncz || y < 0 || y >= ncy) continue;
+      const int row = (z * ncy + y) * ncx;
+      j = begin[row + x0];
+      je = begin[row + x1 + 1];
+    }
+    const int m = je - j < n ? je - j : n;
+    j0 = j;
+    j += m;
+    return m;
+  }
+};

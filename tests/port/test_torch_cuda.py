@@ -1,7 +1,8 @@
-"""The CUDA kernels on the card against their plain torch versions, and
-steps on the card against the same steps on the CPU (the floating box and
-the mDBC dam break among them).  Imports no JAX, so
-it runs where only torch is installed:
+"""The CUDA kernels on the card against their plain torch versions (and
+kernels 1-3 against their g++ twins on the queue cloud of
+test_torch_pairqueue.py), and steps on the card against the same steps on
+the CPU (the floating box and the mDBC dam break among them).  Imports no
+JAX, so it runs where only torch is installed:
 
     python -m pytest --noconftest tests/port/test_torch_cuda.py -m gpu
 
@@ -189,6 +190,36 @@ def test_cuda_floating_mdbc_kernels_match_plain(cuda, tkernel, tvisco, tdensity)
                                        spstau=tau)
     scale = float(want.ace.abs().max())
     assert float((other.ace - want.ace).abs().max()) > 10 * rtol * scale
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_match_twin_on_queue_cloud(cuda):
+    """Every instance of kernels 1-3 under DBC and mDBC walls, 3D and 2D, on
+    the cloud of test_torch_pairqueue.py (targets whose queue of in-support
+    slots fills more than twice, exactly once and never; boundary targets;
+    dead slots), against the g++ twin of the same body."""
+    import test_torch_pairqueue as PQ
+    for sim2d in (False, True):
+        dom, cells, args, _ = PQ.queue_cloud(sim2d)
+        dcells = cd.CellDiv(*(x.to(cuda) for x in (cells.cell, cells.begin,
+                                                   cells.order)))
+        dargs = tuple(x.to(cuda) for x in args)
+        for tboundary in ("DBC", "MDBC"):
+            for tkernel, tvisco, shift, ft in PQ.INSTANCES:
+                csp, opts, lam, ftomassp = PQ.instance(sim2d, tkernel, tvisco,
+                                                       shift, ft, tboundary)
+                tau = PQ.sps_stress(args[3]) if lam else None
+                want = CF.interaction_forces_host_twin(
+                    csp, opts, dom, cells, *args, tau, ftomassp)
+                launches = dict(CF.launches)
+                launches[CF.kernel_name(csp, opts)] += 1
+                got = F.interaction_forces(
+                    csp, opts, dom, dcells, *dargs,
+                    spstau=None if tau is None else tau.to(cuda),
+                    ftomassp=None if ftomassp is None else ftomassp.to(cuda))
+                torch.cuda.synchronize()
+                assert CF.launches == launches
+                PQ.assert_close(want, got, 4e-3 if tkernel == "CUBIC" else 2e-3)
 
 
 def small_floatingbox(dev):
