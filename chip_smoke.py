@@ -26,7 +26,10 @@ without printing the final result line:
    bench.py's nnmud size (BENCH_NP=60000: dp 3.21 mm, 37,143 particles) in
    a seeded perturbed state (0.5 m/s velocity jitter, 1% density jitter):
    nnforce_p1, nnforce_p3 and nnforce_fda each against its plain pass on
-   the same inputs, timed with CUDA events (median of 7), then the whole
+   the same inputs, timed with CUDA events (median of 7), two launches of
+   nnforce_p1 and of nnforce_fda into separate buffers giving the same
+   sha256 per output, the same for both at a third of the dp (330,781
+   particles), then at 37,143 particles the whole
    interaction for SPH Morris, SPH ConsEq, SPH artificial, FDA Morris and
    FDA ConsEq (all Fourtakas), by the same rule (rtol 2e-3 on ace, ar,
    visco_eta and pass 1's gradvel; 1e-3 on viscdtmax and viscetadtmax);
@@ -94,7 +97,8 @@ without printing the final result line:
     cubic, 2 Wendland; SHIFT 1 with a shifting mode): pass 1 and FDA (Morris)
     with the cubic spline, each shifting mode and the cubic spline with
     NO_BOUND, pass 3 with the cubic spline, each against its plain pass and
-    timed alike, with its bound and ptxas registers; then the whole
+    timed alike, with its bound and ptxas registers, two launches of each
+    pass 1 and FDA instance bit-equal as in phase 5; then the whole
     interaction for each of those five variants in phase 5's five
     configurations (rtol 2e-3, 4e-3 with the cubic spline, on ace, ar,
     visco_eta, tau, gradvel and the shifting sums; 1e-3 on viscdtmax and
@@ -131,6 +135,7 @@ tables).  Imports no JAX.
 
 import ctypes
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -407,6 +412,27 @@ def bare_launcher(library, function, params, tensors):
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
     stream = torch.cuda.current_stream().cuda_stream
     return lambda held=tensors: fn(ctypes.byref(params), *ptrs, stream)
+
+
+def nn_launch_ms(name, params, rows, outs):
+    """NN kernel ``name`` alone (:func:`launch_ms`), after, for kernels 4
+    and 6, two launches on the same inputs into ``outs`` and into fresh
+    copies of it, which must give the same sha256 per output (deterministic
+    sums; pass 3 adds into its output).  Returns (ms, a note for the log)."""
+    if name != "nnforce_p3":
+        hashes = []
+        for bufs in (outs, [None if o is None else torch.empty_like(o)
+                            for o in outs]):
+            check(bare_launcher("nnforce", f"dsph_{name}", params,
+                                rows + bufs)() == 0, f"{name} launch failed")
+            torch.cuda.synchronize()
+            hashes.append([hashlib.sha256(o.cpu().numpy().tobytes()).digest()
+                           for o in bufs if o is not None])
+        check(hashes[0] == hashes[1],
+              f"{name}: two launches on the same inputs differ")
+    note = "" if name == "nnforce_p3" else "; two launches bit-equal"
+    return launch_ms(bare_launcher("nnforce", f"dsph_{name}", params,
+                                   rows + outs)), note
 
 
 def compare_cellforce(csp, opts, dom, cells, args, reps, spstau=None,
@@ -770,10 +796,12 @@ def nn_opts(tvisco, velgrad, shiftmode="NONE"):
                       shiftmode=TpShifting[shiftmode])
 
 
-def nn_kernels_vs_plain(case, phases, device, smi):
+def nn_kernels_vs_plain(case, phases, device, smi, label="nn-kernel-vs-plain",
+                        full=True):
     """Phase 5: each NN kernel against its plain pass on the same inputs,
-    then the whole interaction in five configurations.  Returns the
-    kernels' records (without launches)."""
+    two launches of kernels 4 and 6 bit-equal, then the whole interaction
+    in five configurations (``full``; else only kernels 4 and 6).  Returns
+    the kernels' records (without launches)."""
     from dualsphysics_multilayer_tpu_torch.ops import forces_nn as NN
     from dualsphysics_multilayer_tpu_torch.ops.cuda import nnforce as NF
     csp, dom = case.csp, case.dom
@@ -786,7 +814,7 @@ def nn_kernels_vs_plain(case, phases, device, smi):
     ch = NN.channels(csp, phases, tb, srho, scode)
     n = spos.shape[0]
     cand, pairs = pair_counts(csp, dom, cells, spos, scode, inclusive=True)
-    say("nn-pairs", f"{n} particles: {cand} candidates walked, {pairs} "
+    say(label, f"{n} particles: {cand} candidates walked, {pairs} "
         f"in-support pairs with a fluid-side target per pass "
         f"({cand / n:.1f} and {pairs / n:.1f} per particle)")
     state_bytes = n * (16 + 16 + 4 + 4 + 4) + (dom.ncells + 1) * 4
@@ -797,18 +825,17 @@ def nn_kernels_vs_plain(case, phases, device, smi):
             ch.phase, cells.cell, cells.begin]
 
     def record(name, opts, errs, kernel_fn, plain_fn, run, outs, out_bytes):
-        ms = launch_ms(bare_launcher(
-            "nnforce", f"dsph_{name}", NF.make_params(csp, opts, phases, dom, n),
-            rows + outs))
+        ms, same = nn_launch_ms(name, NF.make_params(csp, opts, phases, dom, n),
+                                rows, outs)
         wrapped_ms = cuda_ms(lambda: kernel_fn(*run))
         plain_ms = cuda_ms(lambda: plain_fn(*run))
         b = bound(state_bytes + n * out_bytes, pairs * OPS_PER_PAIR[name])
         records[name] = dict(max_abs_err=errs["ace"], ms=ms, plain_ms=plain_ms,
                              bound_ms=b[0], bound_by=b[1])
-        say("nn-kernel-vs-plain", f"{name}: max|d| " + ", ".join(
+        say(label, f"{name}: max|d| " + ", ".join(
             f"{k} {v:.3e}" for k, v in errs.items())
-            + f"; kernel alone {ms:.3f} ms, with its wrapper {wrapped_ms:.3f} "
-            f"ms, plain {plain_ms:.3f} ms (CUDA events), bound "
+            + f"{same}; kernel alone {ms:.3f} ms, with its wrapper "
+            f"{wrapped_ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events), bound "
             f"{b[0] * 1e3:.2f} us by {b[1]} ({smi})")
 
     def pass1(name, opts, outputs, out_bytes):
@@ -831,6 +858,8 @@ def nn_kernels_vs_plain(case, phases, device, smi):
     # nnforce_fda: outputs ace, ar, viscdt, etamax
     pass1("nnforce_fda", nn_opts("LAMINAR_SPS", "FDA"), ("ace", "ar", "etamax"),
           24)
+    if not full:
+        return records
 
     # nnforce_p3 (Morris) on pass 2 of the plain pass 1: reads eta, ace in
     # and out
@@ -956,9 +985,8 @@ def nn_variant_kernels_vs_plain(case, phases, device, registers, smi):
     def record(name, csp, opts, label, errs, kernel_fn, plain_fn, run, outs,
                out_bytes):
         instance = nn_instance(name, csp, opts)
-        ms = launch_ms(bare_launcher(
-            "nnforce", f"dsph_{name}", NF.make_params(csp, opts, phases, dom, n),
-            rows + outs))
+        ms, same = nn_launch_ms(name, NF.make_params(csp, opts, phases, dom, n),
+                                rows, outs)
         wrapped_ms = cuda_ms(lambda: kernel_fn(*run), reps=5)
         plain_ms = cuda_ms(lambda: plain_fn(*run), reps=5)
         ops = OPS_PER_PAIR[name]
@@ -975,7 +1003,8 @@ def nn_variant_kernels_vs_plain(case, phases, device, registers, smi):
             registers=registers.get(instance, "?")))
         say("nn-variant-vs-plain", f"{label} {instance}: max|d| " + ", ".join(
             f"{k} {v:.3e}" for k, v in errs.items())
-            + f"; kernel alone {ms:.3f} ms, with its wrapper {wrapped_ms:.3f} "
+            + f"{same}; kernel alone {ms:.3f} ms, with its wrapper "
+            f"{wrapped_ms:.3f} "
             f"ms, plain {plain_ms:.3f} ms (CUDA events), bound "
             f"{b[0] * 1e3:.2f} us by {b[1]}; "
             f"{registers.get(instance, '?')} ({smi})")
@@ -1309,6 +1338,11 @@ def main():
     # 5. NN kernels vs plain at bench.py's nnmud size
     case, phases = NM.wet_dambreak_nn(dp=NN_DP, device=device)
     records.update(nn_kernels_vs_plain(case, phases, device, smi))
+    # kernels 4 and 6 at a third of the dp (330,781 particles), where one
+    # thread per target fills the card too
+    nn_kernels_vs_plain(*NM.wet_dambreak_nn(dp=NN_DP / 3, device=device),
+                        device, smi, label="nn-kernel-vs-plain-large",
+                        full=False)
 
     # 6. NN main path: SPH Morris, Fourtakas
     nwarm, nsteps = 5, 50

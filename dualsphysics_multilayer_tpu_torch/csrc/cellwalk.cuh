@@ -2,7 +2,8 @@
 // host/device qualifier, the particle kinds, the 16-byte particle rows, the
 // two smoothing kernels (the Wendland gradient, the cubic spline with its
 // tensile correction) and the neighbour walk over the cell-sorted layout,
-// as a visitor (walk_neighbours) and as a resumable cursor (NbrCursor).
+// as a visitor (walk_neighbours), as a resumable cursor (NbrCursor) and as
+// runs of a group of lanes that share one target (GroupWalk, group_run).
 #pragma once
 
 #include <math.h>
@@ -162,3 +163,87 @@ struct NbrCursor {
     return m;
   }
 };
+
+// Group helpers: a group of `lanes` lanes (a power of two up to 32, lanes
+// g = 0 .. lanes-1 of one warp) walks one target's rows together, each lane
+// with its own copy of the walk's state.
+
+// NbrCursor's walk (the same rows in the same order) in four registers per
+// lane: the target cell's row coordinates packed in two (cy | cz << 16;
+// x0 | (x1 - x0) << 24 | the next row to open << 26, dz-major, then dy)
+// and the open row's slots; the grid and the begin index come in at each
+// call (launch parameters on the card, so no register holds them).  The
+// grid must have ncx < 2^24 and ncy, ncz < 2^16 (group_walk_fits).
+struct GroupWalk {
+  int yz, xr;
+  int j, je;   // the open row's next slot and its end
+
+  DSPH_HD void init(int c, int ncx, int ncy) {
+    const int cx = c % ncx;
+    const int x0 = cx > 0 ? cx - 1 : 0;
+    const int x1 = cx + 1 < ncx ? cx + 1 : ncx - 1;
+    yz = (c / ncx) % ncy | (c / (ncx * ncy)) << 16;
+    xr = x0 | (x1 - x0) << 24;
+    j = je = 0;
+  }
+
+  // As NbrCursor::next: the following run of at most n slots, j0 ..
+  // j0+m-1; returns m, 0 once every row is done.
+  DSPH_HD int next(int& j0, int n, int ncx, int ncy, int ncz, int sim2d,
+                   const int* __restrict__ begin) {
+    while (j >= je) {
+      const int row = xr >> 26;
+      if (row >= (sim2d ? 3 : 9)) return 0;
+      xr += 1 << 26;
+      const int cy = yz & 0xffff, cz = yz >> 16;
+      const int z = cz + (sim2d ? row : row / 3) - 1;
+      const int y = sim2d ? cy : cy + row % 3 - 1;
+      if (z < 0 || z >= ncz || y < 0 || y >= ncy) continue;
+      const int x0 = xr & 0xffffff;
+      const int r = (z * ncy + y) * ncx;
+      j = begin[r + x0];
+      je = begin[r + x0 + ((xr >> 24) & 3) + 1];
+    }
+    const int m = je - j < n ? je - j : n;
+    j0 = j;
+    j += m;
+    return m;
+  }
+};
+
+// The grid dimensions GroupWalk packs.
+DSPH_HD bool group_walk_fits(int ncx, int ncy, int ncz) {
+  return ncx < (1 << 24) && ncy < (1 << 16) && ncz < (1 << 16);
+}
+
+// The group's next run: up to `lanes` slots in walk order, crossing row
+// ends, lane g taking the g-th as j (when g is below the count returned).
+// The count is below `lanes` only where the walk ends.  Every lane of the
+// group calls it with the same walk state, so all advance alike.
+DSPH_HD int group_run(GroupWalk& w, int lanes, int g, int& j, int ncx,
+                      int ncy, int ncz, int sim2d,
+                      const int* __restrict__ begin) {
+  if (w.je - w.j >= lanes) {   // the open row holds the whole run
+    j = w.j + g;
+    w.j += lanes;
+    return lanes;
+  }
+  int filled = 0;
+  while (filled < lanes) {
+    int j0 = 0;
+    const int m = w.next(j0, lanes - filled, ncx, ncy, ncz, sim2d, begin);
+    if (m == 0) break;
+    if (g >= filled && g < filled + m) j = j0 + g - filled;
+    filled += m;
+  }
+  return filled;
+}
+
+// Set bits of v.
+DSPH_HD int popcount(unsigned v) {
+#if defined(__CUDA_ARCH__)
+  return __popc(v);
+#else
+  return __builtin_popcount(v);
+#endif
+}

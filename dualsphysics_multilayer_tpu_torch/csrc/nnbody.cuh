@@ -1,6 +1,7 @@
 // Per-target multiphase non-Newtonian (HBP) interaction over the
-// cell-sorted layout, shared by the CUDA kernels (nnforce.cu, one thread per
-// target) and their CPU twins (nnforce_host.cpp, compiled with g++ for tests).
+// cell-sorted layout, shared by the CUDA kernels (nnforce.cu: passes 1 and
+// FDA a group of kGroup lanes per target, pass 3 one thread per target) and
+// their CPU twins (nnforce_host.cpp, compiled with g++ for tests).
 //
 // Semantics are those of ops/forces_nn.py (the plain torch version) and of
 // the JAX package's ops/forces_nn.py interaction_forces_nn, for DBC walls:
@@ -28,8 +29,9 @@
 // Exact forms throughout: exact division, Fourtakas' hydrostatic term as
 // rho0*(1 + ddtgz*dz)^(1/gamma) - rho0 with powf, and the HBP power law
 // dm^(n-1) with powf (the TPU kernels used a 3-term series and
-// exp((n-1)*log(dm))).  Sums run in registers in f32, in the fixed order of
-// walk_neighbours.
+// exp((n-1)*log(dm))).  Sums run in registers in f32 in a fixed order: pass
+// 3 in the order of walk_neighbours, passes 1 and FDA in lane partials
+// combined by a fixed butterfly (NnPass1Lane).
 #pragma once
 
 #include "cellwalk.cuh"
@@ -99,122 +101,258 @@ DSPH_HD float eta_effective(const NnParams& p, float magn, int ph, int ppx) {
   return term1 + term2;
 }
 
-// Pass 1 (kFda false: pressure, continuity, diffusion, viscdt and, when
-// p.gradvel, the 6-component velocity gradient) or the fused FDA pass
-// (kFda true: the same without the gradient, plus the per-pair strain ->
-// eta -> Morris or ConsEq force and the per-target eta max) for target i,
-// with kernel KER and, with SHIFT, the shifting sums.
-// Outputs: ace (n,3), ar (n) with diffusion folded in, viscdt (n) the
+// Lanes per target in passes 1 and FDA, the runs of kGroup slots a group
+// filters per round, and the in-support slots its queue holds: a ring with
+// room for a round on top of the runs a group may hold while the others
+// in its warp catch up.
+constexpr int kGroup = 8;
+constexpr int kRuns = 2;
+constexpr int kGroupQueue = 64;
+static_assert(kGroup >= 1 && kGroup <= 32 && (kGroup & (kGroup - 1)) == 0,
+              "a group is a power-of-two share of a warp");
+static_assert(kGroupQueue >= (kRuns + 1) * kGroup
+              && (kGroupQueue & (kGroupQueue - 1)) == 0,
+              "the queue is a power-of-two ring of a round and a run");
+
+// The arrays passes 1 and FDA read, and those they write (the unused ones
+// may be null): ace (n,3), ar (n) with diffusion folded in, viscdt (n) the
 // target's max dot/(rr2+eta2) (-3.4e38 without pairs), gradvel (n,6) for
-// pass 1, etamax (n) for FDA, shift (n,4) and shiftblk (n) with SHIFT; the
-// unused ones may be null.
+// pass 1, etamax (n) for FDA, shift (n,4) and shiftblk (n) with SHIFT.
+struct NnInputs {
+  const F4* pospress;
+  const F4* velrho;
+  const int* kind;
+  const int* phase;
+  const int* cell;
+  const int* begin;
+};
+
+struct NnOutputs {
+  float* ace;
+  float* ar;
+  float* viscdt;
+  float* gradvel;
+  float* etamax;
+  float* shift;
+  unsigned char* shiftblk;
+};
+
+// Read-only loads, through the non-coherent cache on the card.
+DSPH_HD F4 load4(const F4* a, int k) {
+#if defined(__CUDA_ARCH__)
+  const float4 v = __ldg(reinterpret_cast<const float4*>(a) + k);
+  return F4{v.x, v.y, v.z, v.w};
+#else
+  return a[k];
+#endif
+}
+
+DSPH_HD int load1(const int* a, int k) {
+#if defined(__CUDA_ARCH__)
+  return __ldg(a + k);
+#else
+  return a[k];
+#endif
+}
+
+// One lane of the group of kGroup lanes that computes pass 1 (kFda false:
+// pressure, continuity, diffusion, viscdt and, when p.gradvel, the
+// 6-component velocity gradient) or the fused FDA pass (kFda true: the
+// same without the gradient, plus the per-pair strain -> eta -> Morris or
+// ConsEq force and the per-target eta max) for target i, with kernel KER
+// and, with SHIFT, the shifting sums.
+//
+// The group walks the target's rows in rounds of kRuns runs of kGroup slots
+// (group_run), lane g filtering each run's g-th slot; the group's
+// in-support slots go to its queue in walk order (enqueue, a run at a
+// time: each slot at the count of in-support lanes below it), and a drain
+// hands the queue's next kGroup slots to the lanes, one each, through the
+// pair body, again while the queue has no room for another round.  A group
+// takes a drain only with kGroup slots waiting or its walk ended, so the
+// k-th in-support slot of the walk always goes to lane k % kGroup,
+// whenever the drains come: the lanes' partial sums depend on the walk
+// alone.  At the end the group votes its flags (settle, which folds each
+// lane's diffusion term into its continuity sum unless blocked) and the
+// lanes' partials combine by a fixed butterfly (fold, lane g with lane
+// g ^ off for off = kGroup/2 .. 1), so the sums are deterministic.  The
+// caller runs init, then rounds of fill, enqueue (each run) and drain,
+// then settle, the butterfly and write (nnforce.cu on the card,
+// nnforce_host.cpp in the g++ twin).
 template <int KER, bool SHIFT, bool kFda>
-DSPH_HD void nn_pass1_target(int i, const NnParams& p,
-                             const F4* __restrict__ pospress,
-                             const F4* __restrict__ velrho,
-                             const int* __restrict__ kind,
-                             const int* __restrict__ phase,
-                             const int* __restrict__ cell,
-                             const int* __restrict__ begin,
-                             float* __restrict__ ace, float* __restrict__ ar,
-                             float* __restrict__ viscdt,
-                             float* __restrict__ gradvel,
-                             float* __restrict__ etamax,
-                             float* __restrict__ shift,
-                             unsigned char* __restrict__ shiftblk) {
-  float ax = 0.f, ay = 0.f, az = 0.f, arr = 0.f, dlt = 0.f, emax = 0.f;
-  float gxx = 0.f, gxy = 0.f, gxz = 0.f, gyy = 0.f, gyz = 0.f, gzz = 0.f;
-  float vmax = -3.4e38f;
-  bool blocked = false;
-  // shifting sums and flag
-  float shx = 0.f, shy = 0.f, shz = 0.f, shc = 0.f;
-  bool sblk = false;
-  const int ki = kind[i];
-  const int c = cell[i];
-  if (ki != KIND_DEAD && c < p.ncells) {
-    const F4 pi = pospress[i];
-    const F4 vi = velrho[i];
-    const int phi = phase[i];
-    const bool bound_t = ki < KIND_FLOATING;
-    walk_neighbours(c, p.ncx, p.ncy, p.ncz, p.sim2d, begin, [&](int j) {
-      if (j == i) return;
-      const int kj = kind[j];
-      if (kj == KIND_DEAD) return;
-      const bool bound_c = kj < KIND_FLOATING;
-      if (bound_t && bound_c) return;
-      const F4 pj = pospress[j];
-      const float drx = pi.x - pj.x;
-      const float dry = pi.y - pj.y;
-      const float drz = pi.z - pj.z;
+struct NnPass1Lane {
+  // One lane's partial sums.
+  struct Sums {
+    float ax = 0.f, ay = 0.f, az = 0.f, arr = 0.f, dlt = 0.f, emax = 0.f;
+    float vmax = -3.4e38f;
+    float gxx = 0.f, gxy = 0.f, gxz = 0.f, gyy = 0.f, gyz = 0.f, gzz = 0.f;
+    float shx = 0.f, shy = 0.f, shz = 0.f, shc = 0.f;
+    bool blocked = false, sblk = false;
+  };
+
+  int i, g;            // the target and this lane's place in its group
+  bool bound_t;
+  F4 pi, vi;
+  int phi;
+  GroupWalk walk;
+  bool more;           // the walk has slots left
+  int head, tail;      // the queue's slots head .. tail-1 wait (ring indices)
+  Sums s;
+
+  DSPH_HD void init(int i_, int g_, const NnParams& p, const NnInputs& x) {
+    i = i_;
+    g = g_;
+    const bool slot = i < p.n;
+    const int ki = slot ? load1(x.kind, i) : KIND_DEAD;
+    const int c = slot ? load1(x.cell, i) : p.ncells;
+    const bool walks = ki != KIND_DEAD && c < p.ncells;
+    bound_t = ki < KIND_FLOATING;
+    pi = vi = F4{0.f, 0.f, 0.f, 0.f};
+    phi = 0;
+    if (walks) {
+      pi = load4(x.pospress, i);
+      vi = load4(x.velrho, i);
+      phi = load1(x.phase, i);
+    }
+    walk.init(walks ? c : 0, p.ncx, p.ncy);
+    more = walks;
+    head = tail = 0;
+  }
+
+  // The next round: this lane's slot j[r] of each run r, loaded together,
+  // and the filter's verdict in[r] (j != i, both live, not
+  // boundary-boundary, ALMOSTZERO <= rr2 <= kernelsize^2).
+  DSPH_HD void fill(const NnParams& p, const NnInputs& x, int (&j)[kRuns],
+                    bool (&in)[kRuns]) {
+    int m[kRuns];
+    int kj[kRuns];
+    F4 pj[kRuns];
+    for (int r = 0; r < kRuns; ++r) {
+      j[r] = 0;
+      m[r] = more ? group_run(walk, kGroup, g, j[r], p.ncx, p.ncy, p.ncz,
+                              p.sim2d, x.begin)
+                  : 0;
+      more = m[r] == kGroup;
+    }
+    for (int r = 0; r < kRuns; ++r) {
+      if (g < m[r]) {
+        kj[r] = load1(x.kind, j[r]);
+        pj[r] = load4(x.pospress, j[r]);
+      }
+    }
+    for (int r = 0; r < kRuns; ++r) {
+      in[r] = false;
+      if (g >= m[r]) continue;
+      if (j[r] == i || kj[r] == KIND_DEAD
+          || (bound_t && kj[r] < KIND_FLOATING)) {
+        continue;
+      }
+      const float drx = pi.x - pj[r].x;
+      const float dry = pi.y - pj[r].y;
+      const float drz = pi.z - pj[r].z;
       const float rr2 = drx * drx + dry * dry + drz * drz;
-      if (rr2 < p.almostzero || rr2 > p.kernelsize2) return;
-      const F4 vj = velrho[j];
-      const int phj = phase[j];
-      const float fac = kernel_fac<KER>(rr2, p.kernelh, p.bwen, p.cubic);
-      const float frx = fac * drx, fry = fac * dry, frz = fac * drz;
-      const float dvx = vi.x - vj.x, dvy = vi.y - vj.y, dvz = vi.z - vj.z;
-      const float dvfr = dvx * frx + dvy * fry + dvz * frz;
-      const float dot = drx * dvx + dry * dvy + drz * dvz;
-      const float rr2e = rr2 + p.eta2;
-      const float mass2 = bound_c ? p.massbound : p.mass[phj];
-      const float rhoi = vi.w, rhoj = vj.w;
-      vmax = fmaxf(vmax, dot / rr2e);
-      // continuity with per-phase masses
-      arr += mass2 * dvfr * (rhoi / rhoj);
-      if (bound_t) return;
-      // pressure force, per-phase EOS (pressure comes with the position),
-      // plus the cubic spline's tensile correction
-      float prs = (pi.w + pj.w) / (rhoi * rhoj);
-      if constexpr (KER == KER_CUBIC) {
-        prs += cubic_tensil(rr2, p.kernelh, p.cubic, rhoi, pi.w, rhoj, pj.w);
-      }
-      ax -= prs * mass2 * frx;
-      ay -= prs * mass2 * fry;
-      az -= prs * mass2 * frz;
-      const float drfr = drx * frx + dry * fry + drz * frz;
-      if constexpr (SHIFT) {
-        // a lighter candidate of another fluid phase adds nothing
-        const bool heavy = !bound_c && phi != phj && p.mass[phi] > p.mass[phj];
-        const float massrhop = heavy ? 0.f : mass2 / rhoj;
-        shx += massrhop * frx;
-        shy += massrhop * fry;
-        shz += massrhop * frz;
-        shc -= massrhop * drfr;
-        if (p.shiftmode == SHIFT_NO_BOUND) sblk = sblk || bound_c;
-      }
-      if (p.tdensity != DDT_NONE) {
-        const bool same = !bound_c && phi == phj;
-        const float cbar = p.cs0[phj];
-        if (p.tdensity == DDT_MOLTENI) {
-          if (same) dlt += p.ddtkh * cbar * (rhoi / rhoj - 1.f) / rr2e * drfr * mass2;
-          blocked = blocked || bound_c;
-        } else {
-          if (same) {
-            const float rh = 1.f + p.ddtgz * drz;
-            const float drhop = p.rhopzero * powf(rh, p.ovgamma) - p.rhopzero;
-            const float vd = p.ddtkh * cbar * ((rhoj - rhoi) - drhop) / rr2e;
-            dlt -= vd * drfr * mass2 / rhoj;
-          }
-          blocked = blocked || (bound_c && p.tdensity == DDT_FOURTAKAS);
+      in[r] = !(rr2 < p.almostzero || rr2 > p.kernelsize2);
+    }
+  }
+
+  // Queue a run's pairs in walk order: this lane's slot j if `in`; `bits`
+  // holds the group's verdicts, bit g for lane g (a ballot).
+  DSPH_HD void enqueue(int j, bool in, unsigned bits, int* q) {
+    if (in) q[(tail + popcount(bits & ((1u << g) - 1u))) & (kGroupQueue - 1)] = j;
+    tail += popcount(bits);
+  }
+
+  // The group would take a drain (a full run waits, or the walk is over);
+  // it must (no room for another round); it has work left.
+  DSPH_HD bool ready() const { return tail - head >= kGroup || !more; }
+  DSPH_HD bool crowded() const {
+    return tail - head > kGroupQueue - kRuns * kGroup;
+  }
+  DSPH_HD bool busy() const { return more || tail != head; }
+
+  DSPH_HD void drain(const NnParams& p, const NnInputs& x, const int* q) {
+    do {
+      if (!ready()) return;
+      const int take = tail - head < kGroup ? tail - head : kGroup;
+      if (g < take) pair(p, x, q[(head + g) & (kGroupQueue - 1)]);
+      head += take;
+    } while (crowded());
+  }
+
+  // The pair body, on a slot the filter passed.
+  DSPH_HD void pair(const NnParams& p, const NnInputs& x, int j) {
+    const int kj = load1(x.kind, j);
+    const F4 pj = load4(x.pospress, j);
+    const F4 vj = load4(x.velrho, j);
+    const int phj = load1(x.phase, j);
+    const bool bound_c = kj < KIND_FLOATING;
+    const float drx = pi.x - pj.x;
+    const float dry = pi.y - pj.y;
+    const float drz = pi.z - pj.z;
+    const float rr2 = drx * drx + dry * dry + drz * drz;
+    const float fac = kernel_fac<KER>(rr2, p.kernelh, p.bwen, p.cubic);
+    const float frx = fac * drx, fry = fac * dry, frz = fac * drz;
+    const float dvx = vi.x - vj.x, dvy = vi.y - vj.y, dvz = vi.z - vj.z;
+    const float dvfr = dvx * frx + dvy * fry + dvz * frz;
+    const float dot = drx * dvx + dry * dvy + drz * dvz;
+    const float rr2e = rr2 + p.eta2;
+    const float mass2 = bound_c ? p.massbound : p.mass[phj];
+    const float rhoi = vi.w, rhoj = vj.w;
+    s.vmax = fmaxf(s.vmax, dot / rr2e);
+    // continuity with per-phase masses
+    s.arr += mass2 * dvfr * (rhoi / rhoj);
+    if (bound_t) return;
+    // pressure force, per-phase EOS (pressure comes with the position),
+    // plus the cubic spline's tensile correction
+    float prs = (pi.w + pj.w) / (rhoi * rhoj);
+    if constexpr (KER == KER_CUBIC) {
+      prs += cubic_tensil(rr2, p.kernelh, p.cubic, rhoi, pi.w, rhoj, pj.w);
+    }
+    s.ax -= prs * mass2 * frx;
+    s.ay -= prs * mass2 * fry;
+    s.az -= prs * mass2 * frz;
+    const float drfr = drx * frx + dry * fry + drz * frz;
+    if constexpr (SHIFT) {
+      // a lighter candidate of another fluid phase adds nothing
+      const bool heavy = !bound_c && phi != phj && p.mass[phi] > p.mass[phj];
+      const float massrhop = heavy ? 0.f : mass2 / rhoj;
+      s.shx += massrhop * frx;
+      s.shy += massrhop * fry;
+      s.shz += massrhop * frz;
+      s.shc -= massrhop * drfr;
+      if (p.shiftmode == SHIFT_NO_BOUND) s.sblk = s.sblk || bound_c;
+    }
+    if (p.tdensity != DDT_NONE) {
+      const bool same = !bound_c && phi == phj;
+      const float cbar = p.cs0[phj];
+      if (p.tdensity == DDT_MOLTENI) {
+        if (same) s.dlt += p.ddtkh * cbar * (rhoi / rhoj - 1.f) / rr2e * drfr * mass2;
+        s.blocked = s.blocked || bound_c;
+      } else {
+        if (same) {
+          const float rh = 1.f + p.ddtgz * drz;
+          const float drhop = p.rhopzero * powf(rh, p.ovgamma) - p.rhopzero;
+          const float vd = p.ddtkh * cbar * ((rhoj - rhoi) - drhop) / rr2e;
+          s.dlt -= vd * drfr * mass2 / rhoj;
         }
+        s.blocked = s.blocked || (bound_c && p.tdensity == DDT_FOURTAKAS);
       }
-      if (!kFda && !p.gradvel) return;
-      // no-slip wall trick
-      const float dvwx = bound_c ? 2.f * vi.x : dvx;
-      const float dvwy = bound_c ? 2.f * vi.y : dvy;
-      const float dvwz = bound_c ? 2.f * vi.z : dvz;
-      if (!kFda) {
-        // SPH velocity gradient, off-diagonals summed (du/dy + dv/dx)
-        const float volp2 = -mass2 / rhoj;
-        const float gx = dvwx * volp2, gy = dvwy * volp2, gz = dvwz * volp2;
-        gxx += gx * frx;
-        gxy += gx * fry + gy * frx;
-        gxz += gx * frz + gz * frx;
-        gyy += gy * fry;
-        gyz += gy * frz + gz * fry;
-        gzz += gz * frz;
-        return;
-      }
+    }
+    if (!kFda && !p.gradvel) return;
+    // no-slip wall trick
+    const float dvwx = bound_c ? 2.f * vi.x : dvx;
+    const float dvwy = bound_c ? 2.f * vi.y : dvy;
+    const float dvwz = bound_c ? 2.f * vi.z : dvz;
+    if constexpr (!kFda) {
+      // SPH velocity gradient, off-diagonals summed (du/dy + dv/dx)
+      const float volp2 = -mass2 / rhoj;
+      const float gx = dvwx * volp2, gy = dvwy * volp2, gz = dvwz * volp2;
+      s.gxx += gx * frx;
+      s.gxy += gx * fry + gy * frx;
+      s.gxz += gx * frz + gz * frx;
+      s.gyy += gy * fry;
+      s.gyz += gy * frz + gz * fry;
+      s.gzz += gz * frz;
+    } else {
       // FDA: per-pair gradient dvw (outer) dr / rr2, deviatoric strain and
       // its full-matrix magnitude |II1 - II2| (forces_nn.strain_magn_pair)
       const float inv = 1.f / rr2;
@@ -230,42 +368,108 @@ DSPH_HD void nn_pass1_target(int i, const NnParams& p,
       // rheology of the candidate's phase (the target's for a boundary
       // candidate), bi-viscosity constants of the target's
       const float eta = eta_effective(p, fabsf(ii1 - ii2), bound_c ? phi : phj, phi);
-      emax = fmaxf(emax, eta);
+      s.emax = fmaxf(s.emax, eta);
       if (p.visc == VISC_MORRIS) {
         const float vtemp = mass2 * (2.f * eta / (rr2e * rhoj)) * drfr;
-        ax += vtemp * dvwx;
-        ay += vtemp * dvwy;
-        az += vtemp * dvwz;
+        s.ax += vtemp * dvwx;
+        s.ay += vtemp * dvwy;
+        s.az += vtemp * dvwz;
       } else {
         const float m2r = mass2 / rhoj * (2.f * eta);
-        ax += m2r * (sxx * frx + sxy * fry + sxz * frz);
-        ay += m2r * (sxy * frx + syy * fry + syz * frz);
-        az += m2r * (sxz * frx + syz * fry + szz * frz);
+        s.ax += m2r * (sxx * frx + sxy * fry + sxz * frz);
+        s.ay += m2r * (sxy * frx + syy * fry + syz * frz);
+        s.az += m2r * (sxz * frx + syz * fry + szz * frz);
       }
-    });
+    }
   }
-  if (p.tdensity != DDT_NONE && !blocked) arr += dlt;
-  ace[3 * i + 0] = ax;
-  ace[3 * i + 1] = ay;
-  ace[3 * i + 2] = az;
-  ar[i] = arr;
-  viscdt[i] = vmax;
-  if constexpr (SHIFT) {
-    float* sh = shift + 4 * i;
-    sh[0] = shx; sh[1] = shy; sh[2] = shz; sh[3] = shc;
-    shiftblk[i] = sblk ? 1 : 0;
+
+  // Once the walk is over: the group's flags (the OR of its lanes'), and
+  // the diffusion term folded into continuity unless blocked.
+  DSPH_HD void settle(const NnParams& p, bool blocked, bool sblk) {
+    s.blocked = blocked;
+    s.sblk = sblk;
+    if (p.tdensity != DDT_NONE && !blocked) s.arr += s.dlt;
   }
-  if (kFda) {
-    etamax[i] = emax;
-  } else {
-    gradvel[6 * i + 0] = gxx;
-    gradvel[6 * i + 1] = gxy;
-    gradvel[6 * i + 2] = gxz;
-    gradvel[6 * i + 3] = gyy;
-    gradvel[6 * i + 4] = gyz;
-    gradvel[6 * i + 5] = gzz;
+
+  // One butterfly step, after settle: a's sums with b's (the partner
+  // lane's) folded in, own first.
+  DSPH_HD static void fold(Sums& a, const Sums& b) {
+    a.ax = a.ax + b.ax;
+    a.ay = a.ay + b.ay;
+    a.az = a.az + b.az;
+    a.arr = a.arr + b.arr;
+    a.vmax = fmaxf(a.vmax, b.vmax);
+    if constexpr (kFda) {
+      a.emax = fmaxf(a.emax, b.emax);
+    } else {
+      a.gxx = a.gxx + b.gxx;
+      a.gxy = a.gxy + b.gxy;
+      a.gxz = a.gxz + b.gxz;
+      a.gyy = a.gyy + b.gyy;
+      a.gyz = a.gyz + b.gyz;
+      a.gzz = a.gzz + b.gzz;
+    }
+    if constexpr (SHIFT) {
+      a.shx = a.shx + b.shx;
+      a.shy = a.shy + b.shy;
+      a.shz = a.shz + b.shz;
+      a.shc = a.shc + b.shc;
+    }
   }
-}
+
+#if defined(__CUDACC__)
+  // The sums of lane (this lane) ^ off of the warp; every lane of the warp
+  // calls it together.
+  __device__ static Sums partner(const Sums& a, int off) {
+    const auto x = [off](float v) { return __shfl_xor_sync(0xffffffffu, v, off); };
+    Sums o;
+    o.ax = x(a.ax);
+    o.ay = x(a.ay);
+    o.az = x(a.az);
+    o.arr = x(a.arr);
+    o.vmax = x(a.vmax);
+    if constexpr (kFda) {
+      o.emax = x(a.emax);
+    } else {
+      o.gxx = x(a.gxx);
+      o.gxy = x(a.gxy);
+      o.gxz = x(a.gxz);
+      o.gyy = x(a.gyy);
+      o.gyz = x(a.gyz);
+      o.gzz = x(a.gzz);
+    }
+    if constexpr (SHIFT) {
+      o.shx = x(a.shx);
+      o.shy = x(a.shy);
+      o.shz = x(a.shz);
+      o.shc = x(a.shc);
+    }
+    return o;
+  }
+#endif
+
+  // The target's outputs from the combined sums (lane 0 of the group).
+  DSPH_HD void write(const NnParams& p, const NnOutputs& o) const {
+    if (g != 0 || i >= p.n) return;
+    o.ace[3 * i + 0] = s.ax;
+    o.ace[3 * i + 1] = s.ay;
+    o.ace[3 * i + 2] = s.az;
+    o.ar[i] = s.arr;
+    o.viscdt[i] = s.vmax;
+    if constexpr (SHIFT) {
+      float* sh = o.shift + 4 * i;
+      sh[0] = s.shx; sh[1] = s.shy; sh[2] = s.shz; sh[3] = s.shc;
+      o.shiftblk[i] = s.sblk ? 1 : 0;
+    }
+    if constexpr (kFda) {
+      o.etamax[i] = s.emax;
+    } else {
+      float* gv = o.gradvel + 6 * i;
+      gv[0] = s.gxx; gv[1] = s.gxy; gv[2] = s.gxz;
+      gv[3] = s.gyy; gv[4] = s.gyz; gv[5] = s.gzz;
+    }
+  }
+};
 
 // Pass 3, the viscous forces of a fluid-side target i, added into ace:
 // Morris with per-particle eta (eta_i + eta_j), ConsEq with per-particle

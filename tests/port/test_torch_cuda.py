@@ -1,6 +1,7 @@
 """The CUDA kernels on the card against their plain torch versions (and
 kernels 1-3 against their g++ twins on the queue cloud of
-test_torch_pairqueue.py), and steps on the card against the same steps on
+test_torch_pairqueue.py, kernels 4 and 6 on the group cloud of
+test_torch_nngroup.py), and steps on the card against the same steps on
 the CPU (the floating box and the mDBC dam break among them).  Imports no
 JAX, so it runs where only torch is installed:
 
@@ -538,6 +539,41 @@ def test_cuda_nn_steps_match_cpu_steps(cuda, velgrad):
         pos[carry.st.idp] = carry.st.pos
         out[str(dev)] = pos.cpu()
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=0, atol=1e-4 * dp)
+
+
+@pytest.mark.gpu
+def test_cuda_nn_kernels_match_twin_on_group_cloud(cuda):
+    """Every instance of nnforce_p1 and nnforce_fda, 3D and 2D, on the cloud
+    of test_torch_nngroup.py (a target whose queue fills several times,
+    walks that cross row ends mid-run, drains forced by a full queue,
+    boundary targets, dead slots, two phases), against the g++ twin of the
+    same lane groups; two launches on identical inputs are bit-equal."""
+    import test_torch_nngroup as NG
+    for sim2d in (False, True):
+        for inst in NG.INSTANCES:
+            run = NG.run_instance(sim2d, *inst)
+            want = NF.pass1(*run, twin=True)
+            csp, opts, phases, dom, cells, pos, vel, rho, ch = run
+            drun = (csp, opts, phases, dom,
+                    cd.CellDiv(*(x.to(cuda) for x in (cells.cell, cells.begin,
+                                                      cells.order))),
+                    pos.to(cuda), vel.to(cuda), rho.to(cuda),
+                    NN.NnChannels(*(x.to(cuda) for x in (ch.phase, ch.press,
+                                                         ch.kind))))
+            kernel = "nnforce_fda" if NN.uses_fda(opts) else "nnforce_p1"
+            launches = dict(NF.launches)
+            launches[kernel] += 2
+            got, again = NF.pass1(*drun), NF.pass1(*drun)
+            torch.cuda.synchronize()
+            assert NF.launches == launches
+            fields = ("ace", "ar", "viscdt", "gradvel", "etamax", "shift",
+                      "shiftblk")
+            for k in fields:
+                g = getattr(got, k)
+                assert g is None or torch.equal(g, getattr(again, k)), k
+            NG.assert_close(want, dataclasses.replace(got, **{
+                k: None if getattr(got, k) is None else getattr(got, k).cpu()
+                for k in fields}), 4e-3 if inst[1] == "CUBIC" else 2e-3)
 
 
 NN_VARIANTS = [("CUBIC", "NONE"), ("WENDLAND", "NO_BOUND"),
