@@ -27,9 +27,9 @@ without printing the final result line:
    a seeded perturbed state (0.5 m/s velocity jitter, 1% density jitter):
    nnforce_p1, nnforce_p3 and nnforce_fda each against its plain pass on
    the same inputs, timed with CUDA events (median of 7), two launches of
-   nnforce_p1 and of nnforce_fda into separate buffers giving the same
-   sha256 per output, the same for both at a third of the dp (330,781
-   particles), then at 37,143 particles the whole
+   each into separate zeroed buffers giving the same sha256 per output, the
+   same for the three at a third of the dp (330,781 particles), then at
+   37,143 particles the whole
    interaction for SPH Morris, SPH ConsEq, SPH artificial, FDA Morris and
    FDA ConsEq (all Fourtakas), by the same rule (rtol 2e-3 on ace, ar,
    visco_eta and pass 1's gradvel; 1e-3 on viscdtmax and viscetadtmax);
@@ -93,12 +93,12 @@ without printing the final result line:
     timed with CUDA events (torch ops: no TPU kernel to port);
 15. NN variant instances vs plain: phase 5's case and state through every
     other instance of ``nnforce.cu`` (``nnforce_p1_kernel<KER,SHIFT>``,
-    ``nnforce_fda_kernel<KER,SHIFT>``, ``nnforce_p3_kernel<KER>``; KER 1
-    cubic, 2 Wendland; SHIFT 1 with a shifting mode): pass 1 and FDA (Morris)
-    with the cubic spline, each shifting mode and the cubic spline with
-    NO_BOUND, pass 3 with the cubic spline, each against its plain pass and
-    timed alike, with its bound and ptxas registers, two launches of each
-    pass 1 and FDA instance bit-equal as in phase 5; then the whole
+    ``nnforce_fda_kernel<KER,SHIFT>``, ``nnforce_p3_kernel<KER,VISC>``;
+    KER 1 cubic, 2 Wendland; SHIFT 1 with a shifting mode; VISC 0
+    artificial, 1 Morris, 2 ConsEq): pass 1 and FDA (Morris) with the cubic
+    spline, each shifting mode and the cubic spline with NO_BOUND, and pass
+    3 in every kernel and viscous form, each against its plain pass and timed alike, with its bound and ptxas
+    registers, two launches of each bit-equal as in phase 5; then the whole
     interaction for each of those five variants in phase 5's five
     configurations (rtol 2e-3, 4e-3 with the cubic spline, on ace, ar,
     visco_eta, tau, gradvel and the shifting sums; 1e-3 on viscdtmax and
@@ -112,12 +112,18 @@ without printing the final result line:
     nnforce_fda twice per step, the same checks;
 18. probes: the two hardware probes of ``tools/probes.py`` (FMA issue,
     ``csrc/probe_fma.cu``; misaligned window loads, ``csrc/probe_gather.cu``)
-    against their plain versions at rep 2 and 16 window loads (rtol 1e-5,
-    1e-4 for rsqrt and the approximate reciprocal, the card's MUFU forms);
-    then their full tables on the card: each operation at 1, 2, 4 and 8
+    against their plain versions: the FMA probe at rep 2 (rtol 1e-5, 1e-4
+    for rsqrt and the approximate reciprocal, the card's MUFU forms), the
+    window-load probe in its four modes at 37 and 45 window loads (rtol
+    1e-5) and, bit for bit, at the timed 512 loads x 64 windows against the
+    plain loop with the kernel's fused multiply-adds (unfused, the
+    recurrence's rounding differences grow to O(1) there); then their full tables on the card: each operation at 1, 2, 4 and 8
     chains (ms, steps per SM per clock at the SM's maximum clock, share of
     the SM's 128 f32 lanes) and the window loads aligned and not, from
-    global and from shared memory (ns per window load).
+    global and from shared memory (ns per window load), with the window
+    loads' bound: device-memory bytes, the loads' bytes through the SMs'
+    load paths (128 bytes per SM per clock at the maximum clock) and the
+    f32 operations.
 
 Each kernel is timed twice: alone (``ms``: CUDA events around 20
 back-to-back launches of the C launcher on prepared inputs, per launch,
@@ -126,8 +132,10 @@ median of 7).  The last two lines are a JSON record of the kernels (with
 each kernel's bound: the larger of the bytes it must move over 3.35 TB/s
 and the f32 operations of this run's in-support pairs over 67 TFLOP/s,
 the H100 SXM peaks; for the FMA probe its steps over the SM's 128 f32
-lanes at the SM's maximum clock; the NN kernels' rows list their cubic
-and shifting instances under ``instances``) and the result line
+lanes at the SM's maximum clock; for the window-load probe the largest of
+its device-memory bytes, its loads' bytes through the SMs' load paths and
+its operations; the NN kernels' rows list their other instances under
+``instances``) and the result line
 ``{"ok": true, "device": {...}}``.  Every launch count comes from its
 path's run, counted from 0 just before it (the probes' from their
 tables).  Imports no JAX.
@@ -414,25 +422,25 @@ def bare_launcher(library, function, params, tensors):
     return lambda held=tensors: fn(ctypes.byref(params), *ptrs, stream)
 
 
-def nn_launch_ms(name, params, rows, outs):
-    """NN kernel ``name`` alone (:func:`launch_ms`), after, for kernels 4
-    and 6, two launches on the same inputs into ``outs`` and into fresh
-    copies of it, which must give the same sha256 per output (deterministic
-    sums; pass 3 adds into its output).  Returns (ms, a note for the log)."""
-    if name != "nnforce_p3":
-        hashes = []
-        for bufs in (outs, [None if o is None else torch.empty_like(o)
-                            for o in outs]):
-            check(bare_launcher("nnforce", f"dsph_{name}", params,
-                                rows + bufs)() == 0, f"{name} launch failed")
-            torch.cuda.synchronize()
-            hashes.append([hashlib.sha256(o.cpu().numpy().tobytes()).digest()
-                           for o in bufs if o is not None])
-        check(hashes[0] == hashes[1],
-              f"{name}: two launches on the same inputs differ")
-    note = "" if name == "nnforce_p3" else "; two launches bit-equal"
+def nn_launch_ms(name, params, rows, outs, ins=()):
+    """NN kernel ``name`` alone (:func:`launch_ms`) on ``rows`` and ``ins``
+    (pass 3's eta and tau) into ``outs``, after two launches into zeroed
+    copies of ``outs``, which must give the same sha256 per output
+    (deterministic sums; pass 3 adds into its ace).  Returns (ms, a note for
+    the log)."""
+    args = rows + list(ins)
+    hashes = []
+    for _ in range(2):
+        bufs = [None if o is None else torch.zeros_like(o) for o in outs]
+        check(bare_launcher("nnforce", f"dsph_{name}", params,
+                            args + bufs)() == 0, f"{name} launch failed")
+        torch.cuda.synchronize()
+        hashes.append([hashlib.sha256(o.cpu().numpy().tobytes()).digest()
+                       for o in bufs if o is not None])
+    check(hashes[0] == hashes[1],
+          f"{name}: two launches on the same inputs differ")
     return launch_ms(bare_launcher("nnforce", f"dsph_{name}", params,
-                                   rows + outs)), note
+                                   args + outs)), "; two launches bit-equal"
 
 
 def compare_cellforce(csp, opts, dom, cells, args, reps, spstau=None,
@@ -799,9 +807,9 @@ def nn_opts(tvisco, velgrad, shiftmode="NONE"):
 def nn_kernels_vs_plain(case, phases, device, smi, label="nn-kernel-vs-plain",
                         full=True):
     """Phase 5: each NN kernel against its plain pass on the same inputs,
-    two launches of kernels 4 and 6 bit-equal, then the whole interaction
-    in five configurations (``full``; else only kernels 4 and 6).  Returns
-    the kernels' records (without launches)."""
+    two launches of each bit-equal, then the whole interaction in five
+    configurations (``full``).  Returns the kernels' records (without
+    launches)."""
     from dualsphysics_multilayer_tpu_torch.ops import forces_nn as NN
     from dualsphysics_multilayer_tpu_torch.ops.cuda import nnforce as NF
     csp, dom = case.csp, case.dom
@@ -824,9 +832,10 @@ def nn_kernels_vs_plain(case, phases, device, smi, label="nn-kernel-vs-plain",
             torch.cat([svel, srho[:, None]], dim=1).contiguous(), ch.kind,
             ch.phase, cells.cell, cells.begin]
 
-    def record(name, opts, errs, kernel_fn, plain_fn, run, outs, out_bytes):
+    def record(name, opts, errs, kernel_fn, plain_fn, run, outs, out_bytes,
+               ins=()):
         ms, same = nn_launch_ms(name, NF.make_params(csp, opts, phases, dom, n),
-                                rows, outs)
+                                rows, outs, ins)
         wrapped_ms = cuda_ms(lambda: kernel_fn(*run))
         plain_ms = cuda_ms(lambda: plain_fn(*run))
         b = bound(state_bytes + n * out_bytes, pairs * OPS_PER_PAIR[name])
@@ -858,8 +867,6 @@ def nn_kernels_vs_plain(case, phases, device, smi, label="nn-kernel-vs-plain",
     # nnforce_fda: outputs ace, ar, viscdt, etamax
     pass1("nnforce_fda", nn_opts("LAMINAR_SPS", "FDA"), ("ace", "ar", "etamax"),
           24)
-    if not full:
-        return records
 
     # nnforce_p3 (Morris) on pass 2 of the plain pass 1: reads eta, ace in
     # and out
@@ -872,7 +879,9 @@ def nn_kernels_vs_plain(case, phases, device, smi, label="nn-kernel-vs-plain",
     torch.cuda.synchronize()
     errs = dict(ace=close("nnforce_p3 ace", got, want))
     record("nnforce_p3", morris, errs, NF.pass3, NN.pass3_plain, run3 + (got,),
-           [eta, tau, torch.zeros_like(got)], 4 + 12 + 12)
+           [torch.zeros_like(got)], 4 + 12 + 12, ins=(eta, tau))
+    if not full:
+        return records
 
     # the whole interaction in the five configurations
     for tvisco, velgrad in (("LAMINAR_SPS", "SPH"), ("CONST_EQ", "SPH"),
@@ -932,9 +941,10 @@ def nn_instance(kernel, csp, opts):
     """The ptxas name of the instance of ``kernel`` that these constants and
     options launch."""
     from dualsphysics_multilayer_tpu_torch import TpShifting
+    from dualsphysics_multilayer_tpu_torch.ops.cuda import nnforce as NF
     ker = csp.tkernel.value
     if kernel == "nnforce_p3":
-        return f"nnforce_p3_kernel<{ker}>"
+        return f"nnforce_p3_kernel<{ker},{NF.VISC[opts.tvisco]}>"
     return f"{kernel}_kernel<{ker},{int(opts.shiftmode != TpShifting.NONE)}>"
 
 
@@ -983,10 +993,10 @@ def nn_variant_kernels_vs_plain(case, phases, device, registers, smi):
     records = {}
 
     def record(name, csp, opts, label, errs, kernel_fn, plain_fn, run, outs,
-               out_bytes):
+               out_bytes, ins=()):
         instance = nn_instance(name, csp, opts)
         ms, same = nn_launch_ms(name, NF.make_params(csp, opts, phases, dom, n),
-                                rows, outs)
+                                rows, outs, ins)
         wrapped_ms = cuda_ms(lambda: kernel_fn(*run), reps=5)
         plain_ms = cuda_ms(lambda: plain_fn(*run), reps=5)
         ops = OPS_PER_PAIR[name]
@@ -1004,8 +1014,7 @@ def nn_variant_kernels_vs_plain(case, phases, device, registers, smi):
         say("nn-variant-vs-plain", f"{label} {instance}: max|d| " + ", ".join(
             f"{k} {v:.3e}" for k, v in errs.items())
             + f"{same}; kernel alone {ms:.3f} ms, with its wrapper "
-            f"{wrapped_ms:.3f} "
-            f"ms, plain {plain_ms:.3f} ms (CUDA events), bound "
+            f"{wrapped_ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events), bound "
             f"{b[0] * 1e3:.2f} us by {b[1]}; "
             f"{registers.get(instance, '?')} ({smi})")
 
@@ -1036,22 +1045,30 @@ def nn_variant_kernels_vs_plain(case, phases, device, registers, smi):
                     else torch.empty_like(got.shiftblk)]
             record(name, csp, opts, label, errs, NF.pass1, NN.pass1_plain, run,
                    outs, out_bytes)
-        if shiftmode == "NONE":
-            # pass 3 has no shifting sums: its one new instance is the cubic
-            morris = nn_opts("LAMINAR_SPS", "SPH")
-            p1 = NN.pass1_plain(csp, morris, phases, dom, cells, spos, svel,
+
+    # every instance of pass 3 (no shifting sums): each kernel and viscous
+    # form, on pass 2 of the plain pass 1 of its options
+    for tkernel in ("WENDLAND", "CUBIC"):
+        csp = csp0.replace(tkernel=TpKernel[tkernel])
+        rtol = RTOL_CUBIC if tkernel == "CUBIC" else RTOL
+        for tvisco in ("ARTIFICIAL", "LAMINAR_SPS", "CONST_EQ"):
+            opts = nn_opts(tvisco, "SPH")
+            label = f"{tkernel.lower()} {tvisco.lower()}"
+            p1 = NN.pass1_plain(csp, opts, phases, dom, cells, spos, svel,
                                 srho, ch)
-            eta, tau = NN.pass2(morris, tb, ch, scode, p1)
-            run3 = (csp, morris, phases, dom, cells, spos, svel, srho, ch, eta,
+            eta, tau = NN.pass2(opts, tb, ch, scode, p1)
+            run3 = (csp, opts, phases, dom, cells, spos, svel, srho, ch, eta,
                     tau)
             got, want = torch.zeros_like(p1.ace), torch.zeros_like(p1.ace)
             NF.pass3(*run3, got)
             NN.pass3_plain(*run3, want)
             torch.cuda.synchronize()
             errs = dict(ace=close(f"{label} nnforce_p3 ace", got, want, rtol))
-            record("nnforce_p3", csp, morris, label, errs, NF.pass3,
-                   NN.pass3_plain, run3 + (got,), [eta, tau, torch.zeros_like(got)],
-                   4 + 12 + 12)
+            # reads eta (Morris) or tau (ConsEq); ace in and out
+            read = dict(ARTIFICIAL=0, LAMINAR_SPS=4, CONST_EQ=24)[tvisco]
+            record("nnforce_p3", csp, opts, label, errs, NF.pass3,
+                   NN.pass3_plain, run3 + (got,), [torch.zeros_like(got)],
+                   read + 12 + 12, ins=(eta, tau))
 
     # the whole interaction of each variant in the five configurations
     for label, tkernel, shiftmode in NN_VARIANTS:
@@ -1124,20 +1141,46 @@ def probes_phase(device, smi):
     say("probes-vs-plain", f"probe_fma, {n} threads, rep 2 x {PR.STEPS} "
         f"steps, chains 1/2/4/8: max|d| " + ", ".join(
             f"{k} {v:.3e}" for k, v in worst.items()) + f" ({smi})")
-    buf, offs = PR.gather_inputs(16, device)
-    gerr = {}
+    # counts that end the kernel's pipeline inside the first and inside the
+    # second chunk of a pair, every group against the plain loop
+    for niter in (37, 45):
+        buf, offs = PR.gather_inputs(niter, device)
+        gerr = {}
+        for aligned in (True, False):
+            want = PR.gather_plain(buf, offs, aligned).expand(
+                PR.GROUPS, PR.ROWS, PR.LANES)
+            for staged in (False, True):
+                gerr[(aligned, staged)] = close(
+                    f"probe_gather {niter} loads aligned={aligned} "
+                    f"staged={staged}", PR.gather(buf, offs, aligned, staged),
+                    want, 1e-5)
+        say("probes-vs-plain", f"probe_gather, {niter} window loads, "
+            f"{PR.GROUPS} groups: max|d| " + ", ".join(
+                f"aligned={int(a)} staged={int(s)} {v:.3e}"
+                for (a, s), v in gerr.items()) + f" ({smi})")
+    # the timed size, NITER loads: there the recurrence amplifies one
+    # rounding apart into an O(1) difference and overflows in some aligned
+    # lanes, so the kernel is held bit for bit (NaN where the plain loop is
+    # NaN) against the plain loop that rounds as its fused multiply-adds do
+    buf, offs = PR.gather_inputs(PR.NITER, device)
+    gerr, nans = {}, {}
     for aligned in (True, False):
-        want = PR.gather_plain(buf, offs, aligned)
+        want = PR.gather_plain(buf, offs, aligned, fused=True).expand(
+            PR.GROUPS, PR.ROWS, PR.LANES)
         for staged in (False, True):
             got = PR.gather(buf, offs, aligned, staged)
-            gerr[(aligned, staged)] = max(
-                close(f"probe_gather aligned={aligned} staged={staged} "
-                      f"group {g}", got[g], want, 1e-5)
-                for g in range(0, PR.GROUPS, 21))
-    say("probes-vs-plain", f"probe_gather, 16 window loads, {PR.GROUPS} "
-        f"groups: max|d| " + ", ".join(
-            f"aligned={int(a)} staged={int(s)} {v:.3e}"
-            for (a, s), v in gerr.items()) + f" ({smi})")
+            nan = want.isnan()
+            check(torch.equal(got.isnan(), nan)
+                  and torch.equal(got[~nan], want[~nan]),
+                  f"probe_gather {PR.NITER} loads aligned={aligned} "
+                  f"staged={staged} differs from the fused plain loop")
+            gerr[(aligned, staged)] = float((got - want)[~nan].abs().max())
+            nans[(aligned, staged)] = int(nan.sum())
+    say("probes-vs-plain", f"probe_gather, {PR.NITER} window loads, "
+        f"{PR.GROUPS} groups, against the fused plain loop: bit-equal, max|d| "
+        + ", ".join(f"aligned={int(a)} staged={int(s)} {v:.3e} "
+                    f"({nans[(a, s)]} NaN)" for (a, s), v in gerr.items())
+        + f" ({smi})")
 
     # the tables, the launches counted from 0
     reset_counts()
@@ -1174,9 +1217,13 @@ def probes_phase(device, smi):
                                    [x, torch.empty_like(x)])),
         plain_ms=cuda_ms(lambda: PR.fma_plain(x, "fma", 8, rep), reps=3),
         bound_ms=PR.fma_bound_ms(n, rep, nsm, clock), bound_by="operations")
-    buf, offs = PR.gather_inputs(PR.NITER, device)
     g = PR.GatherParams(niter=PR.NITER, aligned=0, staged=0, groups=PR.GROUPS)
-    gb = PR.gather_bound(PR.NITER, PR.GROUPS)
+    gb = PR.gather_bound(PR.NITER, PR.GROUPS, nsm, clock)
+    say("probe-gather", f"bound of {PR.GROUPS} x {PR.NITER} window loads: "
+        + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in PR.gather_bound_terms(
+            PR.NITER, PR.GROUPS, nsm, clock).items())
+        + f" ({PR.SM_LOAD_BYTES} bytes per SM per clock on the load path, "
+        f"{nsm} SMs at {clock / 1e6:.0f} MHz; {smi})")
     gather_rec = dict(
         launches=launched["probe_gather"], max_abs_err=gerr[(False, False)],
         ms=launch_ms(bare_launcher(
@@ -1403,8 +1450,8 @@ def main():
     kernels = ("nnforce_p1", "nnforce_p3")
     launched = nn_variant_path(case, phases, case.csp, opts, 5, 50,
                                "nn-shift-path", kernels, device, smi)
-    instances[nn_instance("nnforce_p1", case.csp, opts)]["launches"] = \
-        launched["nnforce_p1"]
+    for k in kernels:
+        instances[nn_instance(k, case.csp, opts)]["launches"] = launched[k]
 
     # 17. NN cubic path: FDA Morris with -cubic -shifting:2
     cubic = case.csp.replace(tkernel=TpKernel.CUBIC)

@@ -2,8 +2,8 @@
 // host/device qualifier, the particle kinds, the 16-byte particle rows, the
 // two smoothing kernels (the Wendland gradient, the cubic spline with its
 // tensile correction) and the neighbour walk over the cell-sorted layout,
-// as a visitor (walk_neighbours), as a resumable cursor (NbrCursor) and as
-// runs of a group of lanes that share one target (GroupWalk, group_run).
+// as a resumable cursor of one thread (NbrCursor) and as runs of a group of
+// lanes that share one target (GroupWalk, group_run).
 #pragma once
 
 #include <math.h>
@@ -86,38 +86,13 @@ DSPH_HD float kernel_fac(float rr2, float kernelh, float bwen,
   }
 }
 
-// Calls visit(j) for every slot j of the neighbour rows of cell c: the 9
+// The neighbour walk of cell c as a cursor that can stop and resume: the 9
 // (3 in 2D) (dy, dz) rows, dz-major then dy, each the contiguous slot range
-// of its x-cells cx-1..cx+1 clamped to the grid, slots ascending.  The
-// fixed order keeps the callers' f32 sums deterministic.
-template <class Visit>
-DSPH_HD void walk_neighbours(int c, int ncx, int ncy, int ncz, int sim2d,
-                             const int* __restrict__ begin, Visit&& visit) {
-  const int cx = c % ncx;
-  const int cy = (c / ncx) % ncy;
-  const int cz = c / (ncx * ncy);
-  const int x0 = cx > 0 ? cx - 1 : 0;
-  const int x1 = cx + 1 < ncx ? cx + 1 : ncx - 1;
-  const int dy0 = sim2d ? 0 : -1;
-  const int dy1 = sim2d ? 0 : 1;
-  for (int dz = -1; dz <= 1; ++dz) {
-    const int z = cz + dz;
-    if (z < 0 || z >= ncz) continue;
-    for (int dy = dy0; dy <= dy1; ++dy) {
-      const int y = cy + dy;
-      if (y < 0 || y >= ncy) continue;
-      const int row = (z * ncy + y) * ncx;
-      const int je = begin[row + x1 + 1];
-      for (int j = begin[row + x0]; j < je; ++j) visit(j);
-    }
-  }
-}
-
-// The walk of walk_neighbours as a cursor that can stop and resume: each
-// next(j0, n) takes the following run of at most n slots of the open row,
-// j0 .. j0+m-1, and returns m, opening the next row (dz then dy, rows
-// clamped to the grid) when the open one is done, so the runs follow
-// exactly walk_neighbours' order; it returns 0 once every row is done.
+// of its x-cells cx-1..cx+1 clamped to the grid, slots ascending; this
+// fixed order keeps the callers' f32 sums deterministic.  Each next(j0, n)
+// takes the following run of at most n slots of the open row, j0 ..
+// j0+m-1, and returns m, opening the next row when the open one is done;
+// it returns 0 once every row is done.
 struct NbrCursor {
   const int* begin;
   int ncx, ncy, ncz;

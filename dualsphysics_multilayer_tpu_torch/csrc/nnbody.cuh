@@ -1,7 +1,7 @@
 // Per-target multiphase non-Newtonian (HBP) interaction over the
-// cell-sorted layout, shared by the CUDA kernels (nnforce.cu: passes 1 and
-// FDA a group of kGroup lanes per target, pass 3 one thread per target) and
-// their CPU twins (nnforce_host.cpp, compiled with g++ for tests).
+// cell-sorted layout, a group of kGroup lanes per target in every pass,
+// shared by the CUDA kernels (nnforce.cu) and their CPU twins
+// (nnforce_host.cpp, compiled with g++ for tests).
 //
 // Semantics are those of ops/forces_nn.py (the plain torch version) and of
 // the JAX package's ops/forces_nn.py interaction_forces_nn, for DBC walls:
@@ -29,9 +29,8 @@
 // Exact forms throughout: exact division, Fourtakas' hydrostatic term as
 // rho0*(1 + ddtgz*dz)^(1/gamma) - rho0 with powf, and the HBP power law
 // dm^(n-1) with powf (the TPU kernels used a 3-term series and
-// exp((n-1)*log(dm))).  Sums run in registers in f32 in a fixed order: pass
-// 3 in the order of walk_neighbours, passes 1 and FDA in lane partials
-// combined by a fixed butterfly (NnPass1Lane).
+// exp((n-1)*log(dm))).  Sums run in registers in f32 in a fixed order: lane
+// partials that a fixed butterfly combines (NnGroupLane).
 #pragma once
 
 #include "cellwalk.cuh"
@@ -101,8 +100,8 @@ DSPH_HD float eta_effective(const NnParams& p, float magn, int ph, int ppx) {
   return term1 + term2;
 }
 
-// Lanes per target in passes 1 and FDA, the runs of kGroup slots a group
-// filters per round, and the in-support slots its queue holds: a ring with
+// Lanes per target, the runs of kGroup slots a group filters per round,
+// and the in-support slots its queue holds: a ring with
 // room for a round on top of the runs a group may hold while the others
 // in its warp catch up.
 constexpr int kGroup = 8;
@@ -114,10 +113,11 @@ static_assert(kGroupQueue >= (kRuns + 1) * kGroup
               && (kGroupQueue & (kGroupQueue - 1)) == 0,
               "the queue is a power-of-two ring of a round and a run");
 
-// The arrays passes 1 and FDA read, and those they write (the unused ones
-// may be null): ace (n,3), ar (n) with diffusion folded in, viscdt (n) the
-// target's max dot/(rr2+eta2) (-3.4e38 without pairs), gradvel (n,6) for
-// pass 1, etamax (n) for FDA, shift (n,4) and shiftblk (n) with SHIFT.
+// The arrays the passes read, and those they write (the unused ones may be
+// null): eta (n) under Morris and tau (n,6) under ConsEq for pass 3; ace
+// (n,3) (pass 3 adds into it), ar (n) with diffusion folded in, viscdt (n)
+// the target's max dot/(rr2+eta2) (-3.4e38 without pairs), gradvel (n,6)
+// for pass 1, etamax (n) for FDA, shift (n,4) and shiftblk (n) with SHIFT.
 struct NnInputs {
   const F4* pospress;
   const F4* velrho;
@@ -125,7 +125,21 @@ struct NnInputs {
   const int* phase;
   const int* cell;
   const int* begin;
+  const float* eta;
+  const float* tau;
 };
+
+// The launchers' input pointers as NnInputs.
+inline NnInputs nn_inputs(const void* pospress, const void* velrho,
+                          const void* kind, const void* phase,
+                          const void* cell, const void* begin, const void* eta,
+                          const void* tau) {
+  return NnInputs{static_cast<const F4*>(pospress),
+                  static_cast<const F4*>(velrho),
+                  static_cast<const int*>(kind), static_cast<const int*>(phase),
+                  static_cast<const int*>(cell), static_cast<const int*>(begin),
+                  static_cast<const float*>(eta), static_cast<const float*>(tau)};
+}
 
 struct NnOutputs {
   float* ace;
@@ -155,12 +169,17 @@ DSPH_HD int load1(const int* a, int k) {
 #endif
 }
 
-// One lane of the group of kGroup lanes that computes pass 1 (kFda false:
-// pressure, continuity, diffusion, viscdt and, when p.gradvel, the
-// 6-component velocity gradient) or the fused FDA pass (kFda true: the
-// same without the gradient, plus the per-pair strain -> eta -> Morris or
-// ConsEq force and the per-target eta max) for target i, with kernel KER
-// and, with SHIFT, the shifting sums.
+DSPH_HD float load1(const float* a, int k) {
+#if defined(__CUDA_ARCH__)
+  return __ldg(a + k);
+#else
+  return a[k];
+#endif
+}
+
+// One lane of the group of kGroup lanes that walks target i's candidates
+// and queues the in-support ones, for the passes' lanes (NnPass1Lane,
+// NnPass3Lane: each adds its sums, its pair body and its outputs).
 //
 // The group walks the target's rows in rounds of kRuns runs of kGroup slots
 // (group_run), lane g filtering each run's g-th slot; the group's
@@ -171,47 +190,31 @@ DSPH_HD int load1(const int* a, int k) {
 // takes a drain only with kGroup slots waiting or its walk ended, so the
 // k-th in-support slot of the walk always goes to lane k % kGroup,
 // whenever the drains come: the lanes' partial sums depend on the walk
-// alone.  At the end the group votes its flags (settle, which folds each
-// lane's diffusion term into its continuity sum unless blocked) and the
-// lanes' partials combine by a fixed butterfly (fold, lane g with lane
-// g ^ off for off = kGroup/2 .. 1), so the sums are deterministic.  The
-// caller runs init, then rounds of fill, enqueue (each run) and drain,
-// then settle, the butterfly and write (nnforce.cu on the card,
-// nnforce_host.cpp in the g++ twin).
-template <int KER, bool SHIFT, bool kFda>
-struct NnPass1Lane {
-  // One lane's partial sums.
-  struct Sums {
-    float ax = 0.f, ay = 0.f, az = 0.f, arr = 0.f, dlt = 0.f, emax = 0.f;
-    float vmax = -3.4e38f;
-    float gxx = 0.f, gxy = 0.f, gxz = 0.f, gyy = 0.f, gyz = 0.f, gzz = 0.f;
-    float shx = 0.f, shy = 0.f, shz = 0.f, shc = 0.f;
-    bool blocked = false, sblk = false;
-  };
-
+// alone.  At the end the lanes' partials combine by a fixed butterfly (the
+// pass's fold, lane g with lane g ^ off for off = kGroup/2 .. 1), so the
+// sums are deterministic.  The caller runs init, then rounds of fill,
+// enqueue (each run) and drain (through the pass's pair), then the
+// butterfly and write (nnforce.cu on the card, nnforce_host.cpp in the g++
+// twin).
+struct NnGroupLane {
   int i, g;            // the target and this lane's place in its group
   bool bound_t;
   F4 pi, vi;
-  int phi;
   GroupWalk walk;
   bool more;           // the walk has slots left
   int head, tail;      // the queue's slots head .. tail-1 wait (ring indices)
-  Sums s;
 
-  DSPH_HD void init(int i_, int g_, const NnParams& p, const NnInputs& x) {
+  // Target i as lane g, a boundary target if `bound`, walking the rows
+  // around cell c if `walks` (else it has no candidate).
+  DSPH_HD void start(int i_, int g_, bool walks, bool bound, int c,
+                     const NnParams& p, const NnInputs& x) {
     i = i_;
     g = g_;
-    const bool slot = i < p.n;
-    const int ki = slot ? load1(x.kind, i) : KIND_DEAD;
-    const int c = slot ? load1(x.cell, i) : p.ncells;
-    const bool walks = ki != KIND_DEAD && c < p.ncells;
-    bound_t = ki < KIND_FLOATING;
+    bound_t = bound;
     pi = vi = F4{0.f, 0.f, 0.f, 0.f};
-    phi = 0;
     if (walks) {
       pi = load4(x.pospress, i);
       vi = load4(x.velrho, i);
-      phi = load1(x.phase, i);
     }
     walk.init(walks ? c : 0, p.ncx, p.ncy);
     more = walks;
@@ -269,13 +272,47 @@ struct NnPass1Lane {
   }
   DSPH_HD bool busy() const { return more || tail != head; }
 
-  DSPH_HD void drain(const NnParams& p, const NnInputs& x, const int* q) {
+  // Hand the queue's slots to the lanes' pair body `pair(j)`.
+  template <class Pair>
+  DSPH_HD void drain(const int* q, Pair&& pair) {
     do {
       if (!ready()) return;
       const int take = tail - head < kGroup ? tail - head : kGroup;
-      if (g < take) pair(p, x, q[(head + g) & (kGroupQueue - 1)]);
+      if (g < take) pair(q[(head + g) & (kGroupQueue - 1)]);
       head += take;
     } while (crowded());
+  }
+};
+
+// One lane of pass 1 (kFda false: pressure, continuity, diffusion, viscdt
+// and, when p.gradvel, the 6-component velocity gradient) or of the fused
+// FDA pass (kFda true: the same without the gradient, plus the per-pair
+// strain -> eta -> Morris or ConsEq force and the per-target eta max) for
+// target i, with kernel KER and, with SHIFT, the shifting sums.  Every live
+// target walks, boundary targets for their continuity and viscdt.  Before
+// the butterfly the group votes its flags (settle, which folds each lane's
+// diffusion term into its continuity sum unless blocked).
+template <int KER, bool SHIFT, bool kFda>
+struct NnPass1Lane : NnGroupLane {
+  // One lane's partial sums.
+  struct Sums {
+    float ax = 0.f, ay = 0.f, az = 0.f, arr = 0.f, dlt = 0.f, emax = 0.f;
+    float vmax = -3.4e38f;
+    float gxx = 0.f, gxy = 0.f, gxz = 0.f, gyy = 0.f, gyz = 0.f, gzz = 0.f;
+    float shx = 0.f, shy = 0.f, shz = 0.f, shc = 0.f;
+    bool blocked = false, sblk = false;
+  };
+
+  int phi;
+  Sums s;
+
+  DSPH_HD void init(int i_, int g_, const NnParams& p, const NnInputs& x) {
+    const bool slot = i_ < p.n;
+    const int ki = slot ? load1(x.kind, i_) : KIND_DEAD;
+    const int c = slot ? load1(x.cell, i_) : p.ncells;
+    const bool walks = ki != KIND_DEAD && c < p.ncells;
+    start(i_, g_, walks, ki < KIND_FLOATING, c, p, x);
+    phi = walks ? load1(x.phase, i) : 0;
   }
 
   // The pair body, on a slot the filter passed.
@@ -471,79 +508,128 @@ struct NnPass1Lane {
   }
 };
 
-// Pass 3, the viscous forces of a fluid-side target i, added into ace:
-// Morris with per-particle eta (eta_i + eta_j), ConsEq with per-particle
-// tau (tau_i + tau_j, rows xx xy xz yy yz zz), or artificial viscosity
-// with the candidate phase's visco and cs0 on approaching pairs, with kernel
-// KER.  eta and tau may be null in the modes that do not read them.
-template <int KER>
-DSPH_HD void nn_pass3_target(int i, const NnParams& p,
-                             const F4* __restrict__ pospress,
-                             const F4* __restrict__ velrho,
-                             const int* __restrict__ kind,
-                             const int* __restrict__ phase,
-                             const int* __restrict__ cell,
-                             const int* __restrict__ begin,
-                             const float* __restrict__ eta,
-                             const float* __restrict__ tau,
-                             float* __restrict__ ace) {
-  float ax = 0.f, ay = 0.f, az = 0.f;
-  const int ki = kind[i];
-  const int c = cell[i];
-  if (ki >= KIND_FLOATING && c < p.ncells) {
-    const F4 pi = pospress[i];
-    const F4 vi = velrho[i];
-    const float eta1 = p.visc == VISC_MORRIS ? eta[i] : 0.f;
-    float tau1[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (p.visc == VISC_CONSEQ) {
-      for (int k = 0; k < 6; ++k) tau1[k] = tau[6 * i + k];
+// One lane of pass 3, the viscous forces of a fluid-side target i, added
+// into ace: VISC_MORRIS with per-particle eta (eta_i + eta_j), VISC_CONSEQ
+// with per-particle tau (tau_i + tau_j, rows xx xy xz yy yz zz), or
+// VISC_ARTIFICIAL with the candidate phase's visco and cs0 on approaching
+// pairs, with kernel KER; the form is a template parameter, as the TPU
+// kernel picks it statically (nnforce.py:485-487), so no instance carries
+// another form's registers.  Boundary and dead targets do not walk: their
+// groups end at once and add nothing.
+template <int KER, int VISC>
+struct NnPass3Lane : NnGroupLane {
+  static_assert(VISC == VISC_ARTIFICIAL || VISC == VISC_MORRIS
+                || VISC == VISC_CONSEQ, "a viscous form of pass 3");
+
+  // One lane's partial sums.
+  struct Sums {
+    float ax = 0.f, ay = 0.f, az = 0.f;
+  };
+
+  float eta1;          // the target's eta (Morris)
+  float tau1[6];       // the target's tau (ConsEq)
+  Sums s;
+
+  DSPH_HD void init(int i_, int g_, const NnParams& p, const NnInputs& x) {
+    const bool slot = i_ < p.n;
+    const int ki = slot ? load1(x.kind, i_) : KIND_DEAD;
+    const int c = slot ? load1(x.cell, i_) : p.ncells;
+    const bool walks = ki >= KIND_FLOATING && c < p.ncells;
+    start(i_, g_, walks, false, c, p, x);
+    eta1 = 0.f;
+    for (int k = 0; k < 6; ++k) tau1[k] = 0.f;
+    if (!walks) return;
+    if constexpr (VISC == VISC_MORRIS) eta1 = load1(x.eta, i);
+    if constexpr (VISC == VISC_CONSEQ) {
+      for (int k = 0; k < 6; ++k) tau1[k] = load1(x.tau, 6 * i + k);
     }
-    walk_neighbours(c, p.ncx, p.ncy, p.ncz, p.sim2d, begin, [&](int j) {
-      if (j == i) return;
-      const int kj = kind[j];
-      if (kj == KIND_DEAD) return;
-      const bool bound_c = kj < KIND_FLOATING;
-      const F4 pj = pospress[j];
-      const float drx = pi.x - pj.x;
-      const float dry = pi.y - pj.y;
-      const float drz = pi.z - pj.z;
-      const float rr2 = drx * drx + dry * dry + drz * drz;
-      if (rr2 < p.almostzero || rr2 > p.kernelsize2) return;
-      const F4 vj = velrho[j];
-      const int phj = phase[j];
-      const float fac = kernel_fac<KER>(rr2, p.kernelh, p.bwen, p.cubic);
-      const float frx = fac * drx, fry = fac * dry, frz = fac * drz;
-      const float rr2e = rr2 + p.eta2;
-      const float mass2 = bound_c ? p.massbound : p.mass[phj];
-      const float rhoj = vj.w;
-      const float dvx = vi.x - vj.x, dvy = vi.y - vj.y, dvz = vi.z - vj.z;
-      if (p.visc == VISC_MORRIS) {
-        const float eta2 = bound_c ? eta1 : eta[j];
-        const float drfr = drx * frx + dry * fry + drz * frz;
-        const float vtemp = mass2 * ((eta1 + eta2) / (rr2e * rhoj)) * drfr;
-        ax += vtemp * (bound_c ? 2.f * vi.x : dvx);
-        ay += vtemp * (bound_c ? 2.f * vi.y : dvy);
-        az += vtemp * (bound_c ? 2.f * vi.z : dvz);
-      } else if (p.visc == VISC_CONSEQ) {
-        float ts[6];
-        for (int k = 0; k < 6; ++k) ts[k] = tau1[k] + (bound_c ? tau1[k] : tau[6 * j + k]);
-        const float m2r = mass2 / rhoj;
-        ax += m2r * (ts[0] * frx + ts[1] * fry + ts[2] * frz);
-        ay += m2r * (ts[1] * frx + ts[3] * fry + ts[4] * frz);
-        az += m2r * (ts[2] * frx + ts[4] * fry + ts[5] * frz);
-      } else {
-        const float dot = drx * dvx + dry * dvy + drz * dvz;
-        if (dot >= 0.f) return;
-        const float amubar = p.kernelh * (dot / rr2e);
-        const float robar = (vi.w + rhoj) * 0.5f;
-        const float pi_visc = (-p.visco[phj] * p.cs0[phj] * amubar / robar) * mass2;
-        ax -= pi_visc * frx;
-        ay -= pi_visc * fry;
-        az -= pi_visc * frz;
-      }
-    });
   }
-  ace[3 * i + 0] += ax;
-  ace[3 * i + 1] += ay;
-  ace[3 * i + 2] += az;
+
+  // The pair body, on a slot the filter passed, with the no-slip wall
+  // trick: against a boundary candidate dv = 2*v_i and the candidate's eta
+  // or tau is the target's.
+  DSPH_HD void pair(const NnParams& p, const NnInputs& x, int j) {
+    const int kj = load1(x.kind, j);
+    const F4 pj = load4(x.pospress, j);
+    const F4 vj = load4(x.velrho, j);
+    const int phj = load1(x.phase, j);
+    const bool bound_c = kj < KIND_FLOATING;
+    const float drx = pi.x - pj.x;
+    const float dry = pi.y - pj.y;
+    const float drz = pi.z - pj.z;
+    const float rr2 = drx * drx + dry * dry + drz * drz;
+    const float fac = kernel_fac<KER>(rr2, p.kernelh, p.bwen, p.cubic);
+    const float frx = fac * drx, fry = fac * dry, frz = fac * drz;
+    const float rr2e = rr2 + p.eta2;
+    const float mass2 = bound_c ? p.massbound : p.mass[phj];
+    const float rhoj = vj.w;
+    const float dvx = vi.x - vj.x, dvy = vi.y - vj.y, dvz = vi.z - vj.z;
+    if constexpr (VISC == VISC_MORRIS) {
+      const float eta2 = bound_c ? eta1 : load1(x.eta, j);
+      const float drfr = drx * frx + dry * fry + drz * frz;
+      const float vtemp = mass2 * ((eta1 + eta2) / (rr2e * rhoj)) * drfr;
+      s.ax += vtemp * (bound_c ? 2.f * vi.x : dvx);
+      s.ay += vtemp * (bound_c ? 2.f * vi.y : dvy);
+      s.az += vtemp * (bound_c ? 2.f * vi.z : dvz);
+    } else if constexpr (VISC == VISC_CONSEQ) {
+      float ts[6];
+      for (int k = 0; k < 6; ++k) {
+        ts[k] = tau1[k] + (bound_c ? tau1[k] : load1(x.tau, 6 * j + k));
+      }
+      const float m2r = mass2 / rhoj;
+      s.ax += m2r * (ts[0] * frx + ts[1] * fry + ts[2] * frz);
+      s.ay += m2r * (ts[1] * frx + ts[3] * fry + ts[4] * frz);
+      s.az += m2r * (ts[2] * frx + ts[4] * fry + ts[5] * frz);
+    } else {
+      const float dot = drx * dvx + dry * dvy + drz * dvz;
+      if (dot >= 0.f) return;
+      const float amubar = p.kernelh * (dot / rr2e);
+      const float robar = (vi.w + rhoj) * 0.5f;
+      const float pi_visc = (-p.visco[phj] * p.cs0[phj] * amubar / robar) * mass2;
+      s.ax -= pi_visc * frx;
+      s.ay -= pi_visc * fry;
+      s.az -= pi_visc * frz;
+    }
+  }
+
+  // One butterfly step: a's sums with b's (the partner lane's) folded in,
+  // own first.
+  DSPH_HD static void fold(Sums& a, const Sums& b) {
+    a.ax = a.ax + b.ax;
+    a.ay = a.ay + b.ay;
+    a.az = a.az + b.az;
+  }
+
+#if defined(__CUDACC__)
+  // The sums of lane (this lane) ^ off of the warp; every lane of the warp
+  // calls it together.
+  __device__ static Sums partner(const Sums& a, int off) {
+    Sums o;
+    o.ax = __shfl_xor_sync(0xffffffffu, a.ax, off);
+    o.ay = __shfl_xor_sync(0xffffffffu, a.ay, off);
+    o.az = __shfl_xor_sync(0xffffffffu, a.az, off);
+    return o;
+  }
+#endif
+
+  // The combined sums added into the target's ace (lane 0 of the group).
+  DSPH_HD void write(const NnParams& p, const NnOutputs& o) const {
+    if (g != 0 || i >= p.n) return;
+    o.ace[3 * i + 0] += s.ax;
+    o.ace[3 * i + 1] += s.ay;
+    o.ace[3 * i + 2] += s.az;
+  }
+};
+
+// Whether pass 3 has an instance for these parameters and inputs: the
+// Wendland or cubic kernel, a viscous form VISC_*, eta under Morris, tau
+// under ConsEq, and a grid GroupWalk can hold.
+DSPH_HD bool nn_pass3_takes(const NnParams* p, const void* eta,
+                            const void* tau) {
+  return (p->tkernel == KER_WENDLAND || p->tkernel == KER_CUBIC)
+         && (p->visc == VISC_ARTIFICIAL || p->visc == VISC_MORRIS
+             || p->visc == VISC_CONSEQ)
+         && (p->visc != VISC_MORRIS || eta != nullptr)
+         && (p->visc != VISC_CONSEQ || tau != nullptr)
+         && group_walk_fits(p->ncx, p->ncy, p->ncz);
 }

@@ -36,7 +36,7 @@
 //     target with a boundary or floating neighbour, NO_FIXED one with a
 //     fixed neighbour, FULL never.
 // Divisions are exact.  Sums run in registers in f32, in the fixed order of
-// walk_neighbours, so results are deterministic.
+// the neighbour walk (NbrCursor), so results are deterministic.
 // The sum order is the walk order: each target filters its candidates into
 // a queue of in-support slots and drains the queue through the pair body in
 // the order it was filled.

@@ -31,14 +31,26 @@ struct FmaParams {
 constexpr int GATHER_ROWS = 16;
 constexpr int GATHER_LANES = 128;
 constexpr int GATHER_WIDTH = 4096;
-// Rows of a window each block holds: two blocks share a window, so a
-// block's rows of the buffer (128 KB) fit in shared memory.
-constexpr int GATHER_BLOCK_ROWS = 8;
+// Rows of a window one thread carries, one chain each, and the window-load
+// steps of a chunk: a thread has the next chunk's loads in flight while its
+// chains run through one.  The offset table is padded with GATHER_STEPS
+// zero offsets, so the pipeline's loads past the last step stay in the
+// buffer.
+constexpr int GATHER_CHAIN_ROWS = 4;
+constexpr int GATHER_STEPS = 8;
+static_assert(GATHER_ROWS % GATHER_CHAIN_ROWS == 0, "whole rows per block");
+static_assert(GATHER_STEPS % 4 == 0, "offsets read four at a time");
+// Window loads a launch may ask for: a block holds its window offsets in
+// shared memory (64 KB).
+constexpr int GATHER_MAX_NITER = 16384;
+
+// Four window offsets, read with one 16-byte load.
+struct alignas(16) GatherOffsets4 { int v[4]; };
 
 // Launch parameters of probe_gather.cu, mirrored by GatherParams in
 // tools/probes.py.
 struct GatherParams {
-  int niter;     // window loads per block
+  int niter;     // window loads of each chain, at most GATHER_MAX_NITER
   int aligned;   // round each offset down to a multiple of GATHER_LANES
   int staged;    // read the block's rows from shared memory, not global
   int groups;    // windows in flight (probe_unaligned.py's grid G)
@@ -102,30 +114,75 @@ PROBE_HD float fma_chains(float x, int rep) {
   return s;
 }
 
-// One thread of probe_unaligned.py's kern: lane l of GATHER_BLOCK_ROWS
-// rows (rows, row stride GATHER_WIDTH), niter window loads at offs[i]
-// (clamped to [0, GATHER_WIDTH - GATHER_LANES], so no load leaves the
-// buffer, then rounded down to a multiple of GATHER_LANES when ALIGNED),
-// each followed by acc = acc + cw*1.000001 + acc*cw; writes the rows' sums
-// to out (row stride GATHER_LANES).
-template <bool ALIGNED>
-PROBE_HD void gather_lane(const float* rows, const int* __restrict__ offs,
-                          int niter, int l, float* out) {
-  float acc[GATHER_BLOCK_ROWS];
+// The window offset of a load at offs' entry `off`: clamped to [0,
+// GATHER_WIDTH - GATHER_LANES], so no load leaves the buffer, then rounded
+// down to a multiple of GATHER_LANES when `aligned`.
+PROBE_HD int gather_offset(int off, bool aligned) {
+  off = off < 0 ? 0 : (off > GATHER_WIDTH - GATHER_LANES
+                           ? GATHER_WIDTH - GATHER_LANES : off);
+  return aligned ? off / GATHER_LANES * GATHER_LANES : off;
+}
+
+// The window loads of steps i0 .. i0 + GATHER_STEPS - 1 (i0 a multiple of
+// 4) of lane `base` (row stride GATHER_WIDTH) at window offsets woff.
+PROBE_HD void gather_load(const float* base, const int* woff, int i0,
+                          float (&cw)[GATHER_STEPS][GATHER_CHAIN_ROWS]) {
+  const auto* o4 = reinterpret_cast<const GatherOffsets4*>(woff + i0);
 #pragma unroll
-  for (int r = 0; r < GATHER_BLOCK_ROWS; ++r) acc[r] = 0.f;
-#pragma unroll 4
-  for (int i = 0; i < niter; ++i) {
-    int off = offs[i];
-    off = off < 0 ? 0 : (off > GATHER_WIDTH - GATHER_LANES
-                             ? GATHER_WIDTH - GATHER_LANES : off);
-    if (ALIGNED) off = off / GATHER_LANES * GATHER_LANES;
+  for (int q = 0; q < GATHER_STEPS / 4; ++q) {
+    const GatherOffsets4 o = o4[q];
 #pragma unroll
-    for (int r = 0; r < GATHER_BLOCK_ROWS; ++r) {
-      const float cw = rows[r * GATHER_WIDTH + off + l];
-      acc[r] = acc[r] + cw * 1.000001f + acc[r] * cw;
+    for (int t = 0; t < 4; ++t) {
+#pragma unroll
+      for (int r = 0; r < GATHER_CHAIN_ROWS; ++r) {
+        cw[4 * q + t][r] = base[o.v[t] + r * GATHER_WIDTH];
+      }
     }
   }
+}
+
+// The first n steps of a chunk through the chains.
+PROBE_HD void gather_steps(const float (&cw)[GATHER_STEPS][GATHER_CHAIN_ROWS],
+                           int n, float (&acc)[GATHER_CHAIN_ROWS]) {
 #pragma unroll
-  for (int r = 0; r < GATHER_BLOCK_ROWS; ++r) out[r * GATHER_LANES + l] = acc[r];
+  for (int k = 0; k < GATHER_STEPS; ++k) {
+    if (k < n) {
+#pragma unroll
+      for (int r = 0; r < GATHER_CHAIN_ROWS; ++r) {
+        acc[r] = acc[r] + cw[k][r] * 1.000001f + acc[r] * cw[k][r];
+      }
+    }
+  }
+}
+
+// GATHER_CHAIN_ROWS elements of probe_unaligned.py's kern: lane l of the
+// rows at `rows` (row stride GATHER_WIDTH), niter window loads at the
+// window offsets woff[i] (gather_offset's, 16-byte aligned, padded with
+// GATHER_STEPS zeros), each followed by acc = acc + cw*1.000001 + acc*cw.
+// The loads' addresses do not depend on acc, so the next chunk's loads are
+// issued before the chains run through the last chunk's (two chunks in
+// registers, in turns); each chain's operations and their order are the
+// plain loop's.
+PROBE_HD void gather_chains(const float* rows, const int* woff, int niter,
+                            int l, float (&acc)[GATHER_CHAIN_ROWS]) {
+  constexpr int S = GATHER_STEPS;
+  const float* base = rows + l;
+#pragma unroll
+  for (int r = 0; r < GATHER_CHAIN_ROWS; ++r) acc[r] = 0.f;
+  if (niter <= 0) return;
+  float a[S][GATHER_CHAIN_ROWS], b[S][GATHER_CHAIN_ROWS];
+  gather_load(base, woff, 0, a);
+  int i0 = 0;
+  for (; i0 + 2 * S <= niter; i0 += 2 * S) {
+    gather_load(base, woff, i0 + S, b);
+    gather_steps(a, S, acc);
+    gather_load(base, woff, i0 + 2 * S, a);   // into the padding at the end
+    gather_steps(b, S, acc);
+  }
+  // fewer than 2 * S steps left, the first S of them in a
+  gather_steps(a, niter - i0, acc);
+  if (i0 + S < niter) {
+    gather_load(base, woff, i0 + S, b);
+    gather_steps(b, niter - i0 - S, acc);
+  }
 }

@@ -3,6 +3,8 @@
 // arguments but the stream.  Built with g++ by ops/cuda/build.py so the
 // probes' arithmetic can be tested on a machine without a GPU (the twins
 // use exact rsqrt and reciprocal where the card uses its MUFU forms).
+#include <vector>
+
 #include "probebody.cuh"
 
 namespace {
@@ -44,21 +46,28 @@ extern "C" int dsph_probe_fma_host(const FmaParams* p, const void* x,
 
 extern "C" int dsph_probe_gather_host(const GatherParams* p, const void* buf,
                                       const void* offs, void* out) {
-  if (p->niter < 0 || p->groups <= 0) return kInvalidValue;
-  const auto* b = static_cast<const float*>(buf);
+  if (p->niter < 0 || p->niter > GATHER_MAX_NITER || p->groups <= 0) {
+    return kInvalidValue;
+  }
+  const auto* rows = static_cast<const float*>(buf);
   const auto* f = static_cast<const int*>(offs);
   auto* o = static_cast<float*>(out);
-  for (int g = 0; g < p->groups; ++g) {
-    for (int half = 0; half < 2; ++half) {
-      const float* rows = b + half * GATHER_BLOCK_ROWS * GATHER_WIDTH;
-      float* dst = o + g * GATHER_ROWS * GATHER_LANES
-                   + half * GATHER_BLOCK_ROWS * GATHER_LANES;
-      for (int l = 0; l < GATHER_LANES; ++l) {
-        if (p->aligned) {
-          gather_lane<true>(rows, f, p->niter, l, dst);
-        } else {
-          gather_lane<false>(rows, f, p->niter, l, dst);
-        }
+  // the window offsets, padded (probebody.cuh gather_chains)
+  std::vector<GatherOffsets4> woff4((p->niter + GATHER_STEPS + 3) / 4);
+  int* woff = reinterpret_cast<int*>(woff4.data());
+  for (int i = 0; i < 4 * static_cast<int>(woff4.size()); ++i) {
+    woff[i] = i < p->niter ? gather_offset(f[i], p->aligned) : 0;
+  }
+  // block b: rows (b % kGroups) * GATHER_CHAIN_ROWS .. of window b / kGroups
+  constexpr int kGroups = GATHER_ROWS / GATHER_CHAIN_ROWS;
+  for (int b = 0; b < p->groups * kGroups; ++b) {
+    const int row0 = (b % kGroups) * GATHER_CHAIN_ROWS;
+    float* dst = o + ((b / kGroups) * GATHER_ROWS + row0) * GATHER_LANES;
+    for (int l = 0; l < GATHER_LANES; ++l) {
+      float acc[GATHER_CHAIN_ROWS];
+      gather_chains(rows + row0 * GATHER_WIDTH, woff, p->niter, l, acc);
+      for (int r = 0; r < GATHER_CHAIN_ROWS; ++r) {
+        dst[r * GATHER_LANES + l] = acc[r];
       }
     }
   }

@@ -16,7 +16,8 @@ Counterpart of `dualsphysics_multilayer_tpu/ops/pallas/nnforce.py`
    mode the shifting sums and flags; the launcher picks the instance of the
    smoothing kernel and the shifting mode the parameters name;
 3. pass 2 in plain torch between the launches (``forces_nn.pass2``);
-4. ``nnforce_p3``, adding the viscous forces into ace;
+4. ``nnforce_p3``, adding the viscous forces into ace, the instance of
+   the smoothing kernel and the viscous form the parameters name;
 5. 2D zeroing of ace[:,1], and the viscdt and eta reductions
    (``forces_nn.run_passes``).
 
@@ -45,7 +46,9 @@ from .cellforce import CubicCte, check_inputs, state_inputs
 # mutable module state.
 launches = dict(nnforce_p1=0, nnforce_p3=0, nnforce_fda=0)
 
-_VISC = {TpVisco.ARTIFICIAL: 0, TpVisco.LAMINAR_SPS: 1, TpVisco.CONST_EQ: 2}
+# the viscous form of pass 3 (VISC_* of csrc/nnbody.cuh, the VISC of its
+# instances) for each viscosity option
+VISC = {TpVisco.ARTIFICIAL: 0, TpVisco.LAMINAR_SPS: 1, TpVisco.CONST_EQ: 2}
 # NnParams table -> PhaseCfg.tables key
 _TABLES = dict(cs0="cs0", mass="mass", visco="visco", tauy="tau_yield",
                taumax="tau_max", bimul="bi_multi", hbpm="hbp_m", hbpn="hbp_n")
@@ -75,7 +78,7 @@ def make_params(csp: CteSph, opts: SolverOpts, phases: NN.PhaseCfg,
     return NnParams(
         n=n, ncx=ncx, ncy=ncy, ncz=ncz, ncells=dom.ncells,
         sim2d=int(csp.simulate2d), tdensity=opts.tdensity.value,
-        visc=_VISC[opts.tvisco], gradvel=int(NN.uses_gradvel(opts)),
+        visc=VISC[opts.tvisco], gradvel=int(NN.uses_gradvel(opts)),
         tkernel=csp.tkernel.value, shiftmode=opts.shiftmode.value,
         kernelsize2=csp.kernelsize2, kernelh=csp.kernelh, bwen=csp.kwend.bwen,
         eta2=csp.eta2, ddtkh=csp.ddtkh, ddtgz=csp.ddtgz,
@@ -157,8 +160,8 @@ def pass1(csp: CteSph, opts: SolverOpts, phases: NN.PhaseCfg, dom: Domain,
 def pass3(csp: CteSph, opts: SolverOpts, phases: NN.PhaseCfg, dom: Domain,
           cells: CellDiv, pos, vel, rho, ch: NN.NnChannels, visco_eta, tau,
           ace, twin: bool = False) -> None:
-    """``nnforce_p3``, the instance of ``csp.tkernel``: adds the viscous
-    forces into ``ace``."""
+    """``nnforce_p3``, the instance of ``csp.tkernel`` and the viscous form
+    of ``opts.tvisco``: adds the viscous forces into ``ace``."""
     n = pos.shape[0]
     _check("nnforce_p3", twin, dom, cells, pos, vel, rho, ch, extra={
         "visco_eta": (visco_eta, torch.float32, (n,)),

@@ -22,7 +22,10 @@ TPU probes, with their plain torch versions:
   offset that is not a multiple of 128, has no counterpart here: CUDA
   loads from any 4-byte-aligned address.  Its second, what a misaligned
   window costs, does: the pair kernels walk cell ranges that start at
-  arbitrary slots.
+  arbitrary slots.  The kernel spreads the windows' rows over the card,
+  one chain of window loads per element, with the loads issued ahead of
+  the FMAs; its bound counts the loads' bytes through the SMs' load paths
+  (:func:`gather_bound_terms`).
 
 The wrappers :func:`fma` and :func:`gather` launch the kernels on CUDA
 tensors (counted in ``launches``) and run the plain versions on CPU
@@ -57,8 +60,14 @@ F32_LANES = 128       # f32 FMA lanes of a Hopper SM
 # gather probe: probe_unaligned.py's C, CW, W, NITER and G
 ROWS, LANES, WIDTH = 16, 128, 4096
 NITER, GROUPS = 512, 64
+MAX_NITER = 16384     # GATHER_MAX_NITER: a block's window offsets, 64 KB
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_F32 = 67e12      # H100 SXM f32 outside the tensor cores, FLOP/s
+# Bytes an SM's load path (the unified L1 and shared memory) delivers per
+# clock: 32 banks of 32 bits per clock each (CUDA C++ Programming Guide,
+# shared memory of compute capability 5.x on, which 9.0 keeps); the probe's
+# staged aligned mode measures what a stream of window loads achieves.
+SM_LOAD_BYTES = 128
 
 # Kernel launches since the last reset, one count per kernel; the only
 # mutable module state.
@@ -120,15 +129,43 @@ def fma_plain(x, op: str, chains: int, rep: int, steps: int = STEPS):
     return out
 
 
-def gather_plain(buf, offs, aligned: bool):
-    """The gather probe's window loop in torch: (16, 128) f32."""
+def fma32(a, b, c):
+    """a * b + c on f32 tensors, rounded once to f32 (a fused multiply-add):
+    the product is exact in f64 and the f64 sum's rounding error exact
+    (Knuth's two-sum), which settles the one case where rounding the f64
+    sum again to f32 would differ, a sum that lands on the midpoint of two
+    f32 values."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    v = s - p
+    err = (p - (s - v)) + (c - v)
+    r = s.float()
+    # the f32 value on the other side of s, and whether s is their midpoint
+    other = torch.nextafter(r, torch.where(s > r.double(), 1.0, -1.0)
+                            .mul(float("inf")).float())
+    mid = (r.double() + other.double()) * 0.5 == s
+    toward = ((other.double() > s) == (err > 0)) & (err != 0)
+    return torch.where(mid & toward, other, r)
+
+
+def gather_plain(buf, offs, aligned: bool, fused: bool = False):
+    """The gather probe's window loop in torch: (16, 128) f32.  ``fused``:
+    each step as the two fused multiply-adds the kernel's line compiles to
+    with nvcc (t = cw * 1.000001 + acc, then acc = cw * acc + t, each
+    rounded once), so the kernel's output equals it bit for bit; unfused,
+    each product and sum is rounded, as the g++ twin does."""
     acc = torch.zeros((ROWS, LANES), dtype=torch.float32, device=buf.device)
+    k = torch.tensor(1.000001, dtype=torch.float32, device=buf.device)
     for off in offs.tolist():
         off = min(max(off, 0), WIDTH - LANES)
         if aligned:
             off = off // LANES * LANES
         cw = buf[:, off:off + LANES]
-        acc = acc + cw * 1.000001 + acc * cw
+        if fused:
+            acc = fma32(cw, acc, fma32(cw, k, acc))
+        else:
+            acc = acc + cw * 1.000001 + acc * cw
     return acc
 
 
@@ -160,25 +197,37 @@ def _fma_params(x, op, chains, rep) -> FmaParams:
 def _gather_params(buf, offs, aligned, staged, groups) -> GatherParams:
     if groups <= 0:
         raise ValueError(f"probe_gather: groups {groups}, expected > 0")
-    if offs.dim() != 1:
+    if offs.dim() != 1 or offs.shape[0] > MAX_NITER:
         raise ValueError(f"probe_gather: offs is {tuple(offs.shape)}, "
-                         f"expected (niter,)")
+                         f"expected (niter,) with niter <= {MAX_NITER}")
     return GatherParams(niter=offs.shape[0], aligned=int(aligned),
                         staged=int(staged), groups=groups)
 
 
+def _launcher(kernel: str, device, *args):
+    """A call of ``kernel``'s CUDA launcher on ``args`` on torch's current
+    stream of ``device``, counted in ``launches``; a non-zero error code
+    raises."""
+    fn = getattr(build.cuda_library("probes"), f"dsph_{kernel}")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = fn(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{kernel} kernel launch failed: CUDA error "
+                               f"{err}")
+        launches[kernel] += 1
+    return launch
+
+
 def _run(kernel: str, twin: bool, device, *args) -> None:
-    if twin:
-        err = getattr(build.host_twin_library("probes"),
-                      f"dsph_{kernel}_host")(*args)
-    else:
-        fn = getattr(build.cuda_library("probes"), f"dsph_{kernel}")
-        with torch.cuda.device(device):
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if not twin:
+        return _launcher(kernel, device, *args)()
+    fn = getattr(build.host_twin_library("probes"), f"dsph_{kernel}_host")
+    err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
-    if not twin:
-        launches[kernel] += 1
 
 
 def _fma(x, op, chains, rep, twin):
@@ -297,14 +346,28 @@ def fma_bound_ms(n: int, rep: int, nsm: int, clock_hz: float) -> float:
     return n * rep * STEPS / (nsm * F32_LANES * clock_hz) * 1e3
 
 
-def gather_bound(niter: int, groups: int):
-    """(bound_ms, bound_by) of the gather probe: the buffer, offsets and
-    output moved once over the memory rate, or 2 FMA (4 flops) per element
-    of every window load over the f32 peak, whichever is larger."""
+def gather_bound_terms(niter: int, groups: int, nsm: int,
+                       clock_hz: float) -> dict:
+    """The gather probe's least times in ms: ``dram``, the buffer, offsets
+    and output moved once over the memory rate; ``load_path``, every window
+    load's bytes through the SMs' load paths (``SM_LOAD_BYTES`` per SM per
+    clock at ``clock_hz``); ``operations``, 2 FMA (4 flops) per element of
+    every window load over the f32 peak."""
     nbytes = ROWS * WIDTH * 4 + niter * 4 + groups * ROWS * LANES * 4
+    loaded = groups * niter * ROWS * LANES * 4
     flops = groups * niter * ROWS * LANES * 4
-    tb, to = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
+    return dict(dram=nbytes / PEAK_BYTES * 1e3,
+                load_path=loaded / (nsm * SM_LOAD_BYTES * clock_hz) * 1e3,
+                operations=flops / PEAK_F32 * 1e3)
+
+
+def gather_bound(niter: int, groups: int, nsm: int, clock_hz: float):
+    """(bound_ms, bound_by) of the gather probe: the largest of
+    :func:`gather_bound_terms`, bound by "bytes" (device memory or the load
+    path) or "operations"."""
+    t = gather_bound_terms(niter, groups, nsm, clock_hz)
+    by = max(t, key=t.get)
+    return t[by], "operations" if by == "operations" else "bytes"
 
 
 def fma_table(device, rep: int = REP):
@@ -328,17 +391,25 @@ def gather_table(device, niter: int = NITER, groups: int = GROUPS):
     """The gather probe aligned and not, from global and from shared
     memory, and the staging alone (niter 0): rows of (aligned, staged,
     niter, ms, ns per window load over all groups, ns per window load of
-    one block)."""
+    one block: ms over niter, one step of a chain).  Each time is the
+    kernel's through its C launcher on prepared inputs and output (the
+    wrapper's checks and allocation take longer than the kernel)."""
     buf, offs = gather_inputs(niter, device)
+    out = torch.empty((groups, ROWS, LANES), dtype=torch.float32, device=device)
+
+    def launch(offs, aligned, staged):
+        p = _gather_params(buf, offs, aligned, staged, groups)
+        return _launcher("probe_gather", device, ctypes.byref(p),
+                         buf.data_ptr(), offs.data_ptr(), out.data_ptr())
+
     rows = []
     for staged in (False, True):
         for aligned in (True, False):
-            ms = event_ms(lambda: gather(buf, offs, aligned, staged, groups),
-                          count=20)
+            ms = event_ms(launch(offs, aligned, staged), count=20)
             rows.append(dict(aligned=aligned, staged=staged, niter=niter,
                              ms=ms, ns_per_load=ms * 1e6 / (groups * niter),
                              ns_per_block_load=ms * 1e6 / niter))
-    ms = event_ms(lambda: gather(buf, offs[:0], False, True, groups), count=20)
+    ms = event_ms(launch(offs[:0], False, True), count=20)
     rows.append(dict(aligned=False, staged=True, niter=0, ms=ms,
                      ns_per_load=None, ns_per_block_load=None))
     return rows
@@ -362,6 +433,9 @@ def main(argv=None):
         print(f"fma op={r['op']:6s} chains={r['chains']}  {r['ms']:9.4f} ms  "
               f"{r['per_sm_clock']:7.2f} steps/SM/clock  "
               f"{r['share'] * 100:6.2f}% of {F32_LANES} lanes")
+    bound = gather_bound_terms(args.niter, GROUPS, nsm, sm_clock_hz())
+    print("gather bound: " + ", ".join(f"{k} {v * 1e3:.2f} us"
+                                        for k, v in bound.items()))
     for r in gather_table(device, args.niter):
         where = "shared" if r["staged"] else "global"
         if r["niter"] == 0:

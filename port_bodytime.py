@@ -1,8 +1,9 @@
-"""TPU kernels 1-3 and every instance of NN kernels 4 and 6 alone, for this
-checkout and a parent, in turns, on one NVIDIA GPU:
+"""TPU kernels 1-3, every instance of NN kernels 4-6 and the window-load
+probe (kernel 8) alone, for this checkout and a parent, in turns, on one
+NVIDIA GPU:
 
     python3 port_bodytime.py [--parent DIR] [--variant DIR ...] [--rounds 2]
-                             [--only nn]
+                             [--only nn|probe]
 
 Each checkout (this one, ``committed``; the one at ``--parent``, with its
 own package and ``chip_smoke.py``, ``parent``; each ``--variant``, named by
@@ -21,14 +22,23 @@ instance writes them) is taken on these identical inputs, so equal hashes
 across checkouts show bit-equal results (``--only nn`` skips kernels
 1-3).  Then every instance of nnforce_p1 and nnforce_fda
 (``<KER,SHIFT>``: Wendland or cubic, without shifting or with NO_FIXED; SPH
-Morris and FDA Morris, Fourtakas) and of nnforce_p3 (``<KER>``, Morris)
+Morris and FDA Morris, Fourtakas) and of nnforce_p3 (Wendland or cubic, in
+each viscous form: artificial, Morris, ConsEq, on a seeded eta and tau)
 alone on phase 5's perturbed 2D wet dam break at bench.py's nnmud size
 (37,143 particles) and at a third of its dp (330,781 particles), timed as
-above three times, with the sha256 of the p1 and FDA outputs from two
-launches on the same inputs into separate buffers (equal: deterministic).  Prints one JSON line per run: the checkout, the kernels'
-times and hashes, and from ptxas' log the registers, stack frame, spill
-stores and loads and shared memory of every ``cellforce_kernel`` and every
-NN kernel instance.  Needs one CUDA device; imports no JAX.
+above three times, with the sha256 of the outputs from two launches on the
+same inputs into separate buffers (zeroed for pass 3, which adds into
+ace; equal: deterministic); then the window-load probe in its four modes
+(aligned or not, from global or shared memory) at phase 18's 512 loads
+over 64 windows, timed alike, with the sha256 of its output (``--only
+probe``: the probe alone).  A variant to time (another
+``GATHER_CHAIN_ROWS``, say) is a copy of the package and ``chip_smoke.py``
+under ``_scratch/NAME`` with the constant edited, passed as ``--variant
+_scratch/NAME``.  Prints one
+JSON line per run: the checkout, the kernels' times and hashes, and from
+ptxas' log the registers, stack frame, spill stores and loads and shared
+memory of every ``cellforce_kernel``, every NN kernel instance and every
+``probe_gather_kernel``.  Needs one CUDA device; imports no JAX.
 """
 
 import argparse
@@ -114,9 +124,10 @@ def nn_outputs(name, shifting, n, dev):
 
 
 def time_nn(dev):
-    """Every instance of nnforce_p1 and nnforce_fda, and nnforce_p3, alone
-    at 37,143 and 330,781 particles: {"<n> <instance>": {alone_ms, and for
-    p1 and FDA sha256 and repeatable}}."""
+    """Every instance of nnforce_p1, nnforce_fda and nnforce_p3 alone at
+    37,143 and 330,781 particles: {"<n> <instance>": {alone_ms, sha256,
+    repeatable}}."""
+    import numpy as np
     import torch
     import chip_smoke as CS
     from dualsphysics_multilayer_tpu_torch import TpKernel
@@ -137,6 +148,12 @@ def time_nn(dev):
         rows = [torch.cat([spos, ch.press[:, None]], dim=1).contiguous(),
                 torch.cat([svel, srho[:, None]], dim=1).contiguous(), ch.kind,
                 ch.phase, cells.cell, cells.begin]
+        # pass 3's eta and tau, seeded
+        rng = np.random.default_rng(3)
+        eta = torch.tensor(rng.uniform(0.05, 0.15, n), dtype=torch.float32,
+                           device=dev)
+        tau = torch.tensor(rng.normal(0.0, 1.0, (n, 6)), dtype=torch.float32,
+                           device=dev)
         for ker in ("WENDLAND", "CUBIC"):
             csp = case.csp.replace(tkernel=TpKernel[ker])
             for name, velgrad in (("nnforce_p1", "SPH"), ("nnforce_fda", "FDA")):
@@ -157,22 +174,55 @@ def time_nn(dev):
                         f"{int(shift != 'NONE')}>"] = dict(
                         alone_ms=[CS.launch_ms(launch) for _ in range(3)],
                         sha256=sha[0], repeatable=sha[0] == sha[1])
-            # pass 3 (Morris) adds into ace: timed only, on a seeded eta
-            morris = CS.nn_opts("LAMINAR_SPS", "SPH")
-            eta = torch.full((n,), 0.1, device=dev)
+            # pass 3 in each viscous form, on the seeded eta and tau: adds
+            # into ace, so each launch of the hashes starts from zeros
+            for tvisco in ("ARTIFICIAL", "LAMINAR_SPS", "CONST_EQ"):
+                opts = CS.nn_opts(tvisco, "SPH")
+                params = NF.make_params(csp, opts, phases, case.dom, n)
+                sha = []
+                for _ in range(2):
+                    ace = torch.zeros((n, 3), device=dev)
+                    launch = CS.bare_launcher("nnforce", "dsph_nnforce_p3",
+                                              params, rows + [eta, tau, ace])
+                    CS.check(launch() == 0, "nnforce_p3 launch failed")
+                    torch.cuda.synchronize()
+                    sha.append(hashlib.sha256(
+                        ace.cpu().numpy().tobytes()).hexdigest()[:16])
+                out[f"{n} nnforce_p3 {csp.tkernel.value} {tvisco}"] = dict(
+                    alone_ms=[CS.launch_ms(launch) for _ in range(3)],
+                    sha256=sha[0], repeatable=sha[0] == sha[1])
+    return out
+
+
+def time_probe(dev):
+    """The window-load probe alone in its four modes on phase 18's inputs
+    (512 loads, 64 windows): {mode: {alone_ms, sha256}}."""
+    import torch
+    import chip_smoke as CS
+    from dualsphysics_multilayer_tpu_torch.tools import probes as PR
+    buf, offs = PR.gather_inputs(PR.NITER, dev)
+    out = {}
+    for staged in (False, True):
+        for aligned in (True, False):
+            res = torch.empty((PR.GROUPS, PR.ROWS, PR.LANES), device=dev)
             launch = CS.bare_launcher(
-                "nnforce", "dsph_nnforce_p3",
-                NF.make_params(csp, morris, phases, case.dom, n),
-                rows + [eta, torch.zeros((n, 6), device=dev),
-                        torch.zeros((n, 3), device=dev)])
-            out[f"{n} nnforce_p3_kernel<{csp.tkernel.value}>"] = dict(
-                alone_ms=[CS.launch_ms(launch) for _ in range(3)])
+                "probes", "dsph_probe_gather",
+                PR.GatherParams(niter=PR.NITER, aligned=int(aligned),
+                                staged=int(staged), groups=PR.GROUPS),
+                [buf, offs, res])
+            CS.check(launch() == 0, "probe_gather launch failed")
+            torch.cuda.synchronize()
+            out[f"aligned={int(aligned)} staged={int(staged)}"] = dict(
+                alone_ms=[CS.launch_ms(launch) for _ in range(3)],
+                sha256=hashlib.sha256(
+                    res.cpu().numpy().tobytes()).hexdigest()[:16])
     return out
 
 
 def time_kernels(only):
-    """In a checkout's directory: kernels 1-3 (unless ``only`` is "nn") and
-    every instance of NN kernels 4 and 6, alone; prints the JSON line."""
+    """In a checkout's directory, alone: kernels 1-3 (``only`` "all"),
+    every instance of NN kernels 4-6 ("all", "nn"), the window-load probe
+    ("all", "nn", "probe"); prints the JSON line."""
     sys.path.insert(0, os.getcwd())
     import numpy as np
     import torch
@@ -183,8 +233,8 @@ def time_kernels(only):
     from dualsphysics_multilayer_tpu_torch.models import cases
     from dualsphysics_multilayer_tpu_torch.ops.cuda import build
     dev = torch.device("cuda", 0)
-    kernels, ptxas = {}, {}
-    if only != "nn":
+    kernels, ptxas, nn = {}, {}, {}
+    if only == "all":
         case = cases.dambreak3d(dp=CS.DP_BENCH, obstacle=True, device=dev)
         pos, vel, rho, code = CS.perturbed_state(case, dev, case.csp.rhopzero)
         cells, args = CS.sorted_args(case.dom, pos, vel, rho, code)
@@ -205,11 +255,16 @@ def time_kernels(only):
                    for name, (csp, opts, sps) in runs.items()}
         ptxas = ptxas_table(build.library_path("cellforce") + ".log",
                             lambda e: e.startswith("cellforce_kernel"))
-    nn = time_nn(dev)
+    if only in ("all", "nn"):
+        nn = time_nn(dev)
+    probe = time_probe(dev)
     ptxas.update(ptxas_table(build.library_path("nnforce") + ".log",
                              lambda e: e.startswith("nnforce")))
+    ptxas.update(ptxas_table(build.library_path("probes") + ".log",
+                             lambda e: e.startswith("probe_gather")))
     print(json.dumps(dict(dir=os.getcwd(), kernels=kernels, nn=nn,
-                          ptxas=ptxas)), flush=True)
+                          probe_gather=probe, ptxas=ptxas)),
+          flush=True)
 
 
 def main():
@@ -217,7 +272,8 @@ def main():
     ap.add_argument("--parent", default=None)
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--only", choices=("all", "nn"), default="all")
+    ap.add_argument("--only", choices=("all", "nn", "probe"),
+                    default="all")
     ap.add_argument("--time", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time:

@@ -543,25 +543,44 @@ def test_cuda_nn_steps_match_cpu_steps(cuda, velgrad):
 
 @pytest.mark.gpu
 def test_cuda_nn_kernels_match_twin_on_group_cloud(cuda):
-    """Every instance of nnforce_p1 and nnforce_fda, 3D and 2D, on the cloud
-    of test_torch_nngroup.py (a target whose queue fills several times,
-    walks that cross row ends mid-run, drains forced by a full queue,
-    boundary targets, dead slots, two phases), against the g++ twin of the
-    same lane groups; two launches on identical inputs are bit-equal."""
+    """Every instance of nnforce_p1 and nnforce_fda, and nnforce_p3 in each
+    viscous form, 3D and 2D, on the cloud of test_torch_nngroup.py (a
+    target whose queue fills several times, walks that cross row ends
+    mid-run, drains forced by a full queue, boundary targets, dead slots,
+    two phases), against the g++ twin of the same lane groups; two launches
+    on identical inputs are bit-equal."""
     import test_torch_nngroup as NG
+
+    def dev(x):
+        return x.to(cuda)
+
     for sim2d in (False, True):
         for inst in NG.INSTANCES:
             run = NG.run_instance(sim2d, *inst)
-            want = NF.pass1(*run, twin=True)
             csp, opts, phases, dom, cells, pos, vel, rho, ch = run
             drun = (csp, opts, phases, dom,
-                    cd.CellDiv(*(x.to(cuda) for x in (cells.cell, cells.begin,
-                                                      cells.order))),
-                    pos.to(cuda), vel.to(cuda), rho.to(cuda),
-                    NN.NnChannels(*(x.to(cuda) for x in (ch.phase, ch.press,
-                                                         ch.kind))))
-            kernel = "nnforce_fda" if NN.uses_fda(opts) else "nnforce_p1"
+                    cd.CellDiv(*map(dev, (cells.cell, cells.begin,
+                                          cells.order))),
+                    dev(pos), dev(vel), dev(rho),
+                    NN.NnChannels(*map(dev, (ch.phase, ch.press, ch.kind))))
+            rtol = 4e-3 if inst[1] == "CUBIC" else 2e-3
             launches = dict(NF.launches)
+            if inst[0] == "p3":
+                run3, ace1 = NG.pass3_run(sim2d, run)
+                want = torch.zeros_like(ace1)
+                NF.pass3(*run3, want, twin=True)
+                eta_tau = tuple(map(dev, run3[-2:]))
+                got, again = (torch.zeros_like(dev(ace1)) for _ in range(2))
+                NF.pass3(*drun, *eta_tau, got)
+                NF.pass3(*drun, *eta_tau, again)
+                torch.cuda.synchronize()
+                launches["nnforce_p3"] += 2
+                assert NF.launches == launches
+                assert torch.equal(got, again)
+                NG.assert_close_ace(want, got.cpu(), rtol)
+                continue
+            want = NF.pass1(*run, twin=True)
+            kernel = "nnforce_fda" if NN.uses_fda(opts) else "nnforce_p1"
             launches[kernel] += 2
             got, again = NF.pass1(*drun), NF.pass1(*drun)
             torch.cuda.synchronize()
@@ -573,7 +592,7 @@ def test_cuda_nn_kernels_match_twin_on_group_cloud(cuda):
                 assert g is None or torch.equal(g, getattr(again, k)), k
             NG.assert_close(want, dataclasses.replace(got, **{
                 k: None if getattr(got, k) is None else getattr(got, k).cpu()
-                for k in fields}), 4e-3 if inst[1] == "CUBIC" else 2e-3)
+                for k in fields}), rtol)
 
 
 NN_VARIANTS = [("CUBIC", "NONE"), ("WENDLAND", "NO_BOUND"),
@@ -622,9 +641,19 @@ def test_cuda_probe_fma_matches_plain(cuda, op):
 @pytest.mark.parametrize("staged", [False, True])
 @pytest.mark.parametrize("aligned", [True, False])
 def test_cuda_probe_gather_matches_plain(cuda, aligned, staged):
-    buf, offs = PR.gather_inputs(16, cuda)
+    """At 16, 37 and 45 window loads (a pair of chunks, a count that ends
+    the kernel's pipeline inside the first and inside the second chunk of
+    a pair), and at the timed 512 bit for bit against the plain loop with
+    the kernel's fused multiply-adds (NaN where it overflows)."""
+    for niter in (16, 37, 45):
+        buf, offs = PR.gather_inputs(niter, cuda)
+        got = PR.gather(buf, offs, aligned, staged)
+        want = PR.gather_plain(buf, offs, aligned)
+        for g in range(PR.GROUPS):
+            torch.testing.assert_close(got[g], want, rtol=1e-5,
+                                       atol=1e-5 * float(want.abs().max()))
+    buf, offs = PR.gather_inputs(PR.NITER, cuda)
     got = PR.gather(buf, offs, aligned, staged)
-    want = PR.gather_plain(buf, offs, aligned)
-    for g in range(PR.GROUPS):
-        torch.testing.assert_close(got[g], want, rtol=1e-5,
-                                   atol=1e-5 * float(want.abs().max()))
+    want = PR.gather_plain(buf, offs, aligned, fused=True)
+    torch.testing.assert_close(got, want.expand_as(got), rtol=0, atol=0,
+                               equal_nan=True)

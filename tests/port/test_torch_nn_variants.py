@@ -197,9 +197,12 @@ def test_variant_matches_jax_wet_dambreak(wet, jax_result, variant, visco):
 
 
 def test_launchers_refuse_what_they_have_no_instance_for(wet):
-    """A launcher refuses a shifting mode without its shift outputs, and a
-    kernel it has no instance of, with the CUDA launchers' code
-    cudaErrorInvalidValue (1); the twins share the launchers' choice."""
+    """A launcher refuses a shifting mode without its shift outputs, a
+    kernel or (pass 3) a viscous form it has no instance of, pass 3's
+    Morris without eta and ConsEq without tau, and a grid the lane groups'
+    walk cannot hold (2^24 x-cells, 2^16 y- or z-cells), with the CUDA
+    launchers' code cudaErrorInvalidValue (1); the twins share the
+    launchers' choice."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed: the CPU twin cannot be built")
     _, csp, _, opts = configure(wet, "cubic+no-bound", "sph-morris")
@@ -218,17 +221,32 @@ def test_launchers_refuse_what_they_have_no_instance_for(wet):
         return getattr(lib, fn)(ctypes.byref(p), *[
             None if t is None else t.data_ptr() for t in ins + tensors])
 
+    def changed(**fields):
+        other = NF.NnParams.from_buffer_copy(params)
+        for k, v in fields.items():
+            setattr(other, k, v)
+        return other
+
+    too_wide = [dict(ncx=1 << 24), dict(ncy=1 << 16), dict(ncz=1 << 16)]
     for fn in ("dsph_nnforce_p1_host", "dsph_nnforce_fda_host"):
         assert call(fn, params, outs) == 0
         assert call(fn, params, outs[:4] + [None, None]) == 1
-        other = NF.NnParams.from_buffer_copy(params)
-        other.tkernel = 3
-        assert call(fn, other, outs) == 1
-    other = NF.NnParams.from_buffer_copy(params)
-    other.tkernel = 3
-    eta_tau_ace = [torch.zeros(n), torch.zeros((n, 6)), torch.zeros((n, 3))]
-    assert call("dsph_nnforce_p3_host", params, eta_tau_ace) == 0
-    assert call("dsph_nnforce_p3_host", other, eta_tau_ace) == 1
+        assert call(fn, changed(tkernel=3), outs) == 1
+        for grid in too_wide:
+            assert call(fn, changed(**grid), outs) == 1
+    eta, tau, ace = torch.zeros(n), torch.zeros((n, 6)), torch.zeros((n, 3))
+    p3 = "dsph_nnforce_p3_host"
+    for visc in (0, 1, 2):
+        assert call(p3, changed(visc=visc), [eta, tau, ace]) == 0
+    assert call(p3, changed(visc=0), [None, None, ace]) == 0
+    untouched = torch.zeros((n, 3))
+    assert call(p3, changed(tkernel=3), [eta, tau, untouched]) == 1
+    assert call(p3, changed(visc=3), [eta, tau, untouched]) == 1
+    assert call(p3, changed(visc=1), [None, tau, untouched]) == 1
+    assert call(p3, changed(visc=2), [eta, None, untouched]) == 1
+    for grid in too_wide:
+        assert call(p3, changed(**grid), [eta, tau, untouched]) == 1
+    assert ace.any() and not untouched.any()
 
 
 def run_jax_steps(case, jph, jcsp, jopts, arrays, nsteps):

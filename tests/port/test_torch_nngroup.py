@@ -1,29 +1,35 @@
-"""The lane groups of TPU kernels 4 and 6 (csrc/nnbody.cuh ``NnPass1Lane``):
-``kGroup`` lanes share one target, filter its candidates in rounds of
-``kRuns`` runs of ``kGroup`` slots that cross row ends, queue the
-in-support slots in a ring of ``kGroupQueue`` and drain it through the
-pair body, one slot per lane; the lanes' partial sums meet in a
-butterfly.  The CPU twin (g++,
-nnforce_host.cpp) runs that very body in the card's warps of groups, so
-every instance of ``nnforce_p1`` and ``nnforce_fda`` (Wendland or cubic,
-with or without the shifting sums, under the three shifting modes and the
-four diffusion modes) is held here against the plain torch version,
-``forces_nn.pass1_plain``, in 2D and 3D, on a cloud that is first checked
-to hold: a target whose in-support count is several times the queue and
-not a multiple of ``kGroup``; rows whose lengths are not multiples of
-``kGroup``; a target with no candidate; boundary targets; two dead slots
-(one sorted last, one stale in a cell range); two phases of different mass
-with pairs that the heavy-phase shifting gate drops; fluid targets with a
-boundary neighbour in range (NO_BOUND's flag) and without.  The kernels
-themselves are held against the twin on the same cloud on the card
-(test_torch_cuda.py).
+"""The lane groups of TPU kernels 4-6 (csrc/nnbody.cuh ``NnGroupLane``, with
+``NnPass1Lane`` and ``NnPass3Lane``): ``kGroup`` lanes share one target,
+filter its candidates in rounds of ``kRuns`` runs of ``kGroup`` slots that
+cross row ends, queue the in-support slots in a ring of ``kGroupQueue``
+and drain it through the pair body, one slot per lane; the lanes' partial
+sums meet in a butterfly.  The CPU twin (g++, nnforce_host.cpp) runs that
+very body in the card's warps of groups, so every instance of
+``nnforce_p1`` and ``nnforce_fda`` (Wendland or cubic, with or without the
+shifting sums, under the three shifting modes and the four diffusion
+modes) is held here against the plain torch version,
+``forces_nn.pass1_plain``, and ``nnforce_p3`` (Wendland under Morris,
+ConsEq and artificial viscosity, cubic under Morris) against
+``forces_nn.pass3_plain`` on pass 2 of the plain pass 1, in 2D and 3D, on
+a cloud that is first checked to hold: a target whose in-support count is
+several times the queue and not a multiple of ``kGroup``; rows whose
+lengths are not multiples of ``kGroup``; a target with no candidate;
+boundary targets (which walk in passes 1 and FDA and not in pass 3); two
+dead slots (one sorted last, one stale in a cell range); two phases of
+different mass with pairs that the heavy-phase shifting gate drops; fluid
+targets with a boundary neighbour in range (NO_BOUND's flag, pass 3's wall
+trick) and without; drains that a full queue forces, with and without the
+boundary targets' walks.  The kernels themselves are held against the twin
+on the same cloud on the card (test_torch_cuda.py).
 
 Tolerance: the rule of tests/test_forces.py assert_close (rtol 2e-3 with a
 floor of 2e-3 of the largest value on ace, ar, gradvel, etamax and the
 shifting sums; the per-target viscdt rtol 1e-3), rtol 4e-3 where the cubic
 spline runs (tests/test_forces.py:90), the shifting flags exact: the twin
 sums each target's pairs in lane partials, the plain version in chunks.
-Two twin runs on the same inputs are bit-equal.  Imports no JAX.
+Pass 3 is held on the viscous part it adds to a zero ace, by the same
+rule.  Two twin runs on the same inputs are bit-equal, and pass 3 into
+pass 1's ace adds exactly that part.  Imports no JAX.
 """
 
 import functools
@@ -58,8 +64,9 @@ PHASES = NN.PhaseCfg(phases=(
     NN.Phase(mkfluid=1, rho0=1500.0, csound=24.5, visco=0.1,
              tau_yield=0.001, hbp_m=10.0, hbp_n=0.8)))
 
-# every instance of kernels 4 and 6: (pass, tkernel, shiftmode, tvisco,
-# tdensity); each shifting mode, diffusion mode and viscous form runs
+# every instance of kernels 4-6: (pass, tkernel, shiftmode, tvisco,
+# tdensity); each shifting mode, diffusion mode and viscous form runs (pass
+# 3's: LAMINAR_SPS is Morris)
 INSTANCES = [
     ("p1", "WENDLAND", "NONE", "LAMINAR_SPS", "FOURTAKAS"),
     ("p1", "WENDLAND", "NO_BOUND", "CONST_EQ", "MOLTENI"),
@@ -69,6 +76,10 @@ INSTANCES = [
     ("fda", "WENDLAND", "NO_FIXED", "CONST_EQ", "NONE"),
     ("fda", "CUBIC", "NONE", "CONST_EQ", "MOLTENI"),
     ("fda", "CUBIC", "NO_BOUND", "LAMINAR_SPS", "FOURTAKAS"),
+    ("p3", "WENDLAND", "NONE", "LAMINAR_SPS", "FOURTAKAS"),
+    ("p3", "WENDLAND", "NONE", "CONST_EQ", "FOURTAKAS"),
+    ("p3", "WENDLAND", "NONE", "ARTIFICIAL", "FOURTAKAS"),
+    ("p3", "CUBIC", "NONE", "LAMINAR_SPS", "FOURTAKAS"),
 ]
 
 
@@ -197,6 +208,22 @@ def run_instance(sim2d, kernel, tkernel, shiftmode, tvisco, tdensity):
     return run
 
 
+def pass3_run(sim2d, run):
+    """(pass 3's arguments but ace, pass 1's ace): eta and tau from pass 2
+    of the plain pass 1 on ``run``."""
+    code = group_cloud(sim2d)[3][3]
+    p1 = NN.pass1_plain(*run)
+    eta, tau = NN.pass2(run[1], PHASES.tables(run[0], "cpu"), run[-1], code,
+                        p1)
+    return run + (eta, tau), p1.ace
+
+
+def assert_close_ace(want, got, rtol):
+    """Pass 3's viscous part by the rule of :func:`assert_close`."""
+    scale = float(want.abs().max()) + 1e-6
+    torch.testing.assert_close(got, want, rtol=rtol, atol=rtol * scale)
+
+
 @pytest.fixture(scope="module")
 def gxx():
     if shutil.which("g++") is None:
@@ -226,8 +253,11 @@ def test_cloud_holds_every_group_case(sim2d):
     # a target whose rows hold nothing but itself
     assert sum(len(j) == 1 for _, j, _ in walked.values()) == 1
     assert sum(pairs[i] > 0 for i in walked if bound[i]) >= 10
-    # warps where a group's full queue forces a drain
+    # warps where a group's full queue forces a drain, with the boundary
+    # targets' walks (passes 1 and FDA) and without (pass 3)
     assert forced_drains(walked, pos.shape[0]) >= 1
+    assert forced_drains({i: w for i, w in walked.items() if i in fluid},
+                         pos.shape[0]) >= 1
     # one dead slot sorts last, outside every cell; one is a dead candidate
     # in range of live targets, inside its cell's range
     dead = ~td.is_active(code)
@@ -267,17 +297,34 @@ def assert_close(want, got, rtol):
 def test_twin_matches_plain_on_group_cloud(gxx, sim2d, kernel, tkernel,
                                            shiftmode, tvisco, tdensity):
     run = run_instance(sim2d, kernel, tkernel, shiftmode, tvisco, tdensity)
+    rtol = 4e-3 if tkernel == "CUBIC" else 2e-3
     launches = dict(NF.launches)
+    dead = run[-1].kind < 0
+    if kernel == "p3":
+        run3, ace1 = pass3_run(sim2d, run)
+        got, again, want = (torch.zeros_like(ace1) for _ in range(3))
+        NF.pass3(*run3, got, twin=True)
+        NF.pass3(*run3, again, twin=True)
+        NN.pass3_plain(*run3, want)
+        assert_close_ace(want, got, rtol)
+        assert torch.equal(got, again)
+        assert got.any() and not got[dead].any()
+        # boundary targets take no viscous force
+        assert not got[td.code_type(group_cloud(sim2d)[3][3])
+                       < td.TYPE_FLOATING].any()
+        added = ace1.clone()
+        NF.pass3(*run3, added, twin=True)
+        assert torch.equal(added, ace1 + got)
+        assert NF.launches == launches      # the twin is no kernel launch
+        return
     got = NF.pass1(*run, twin=True)
     again = NF.pass1(*run, twin=True)
     assert NF.launches == launches          # the twin is no kernel launch
     want = NN.pass1_plain(*run)
-    assert_close(want, got, 4e-3 if tkernel == "CUBIC" else 2e-3)
+    assert_close(want, got, rtol)
     for k in ("ace", "ar", "viscdt", "gradvel", "etamax", "shift", "shiftblk"):
         g = getattr(got, k)
         assert g is None or torch.equal(g, getattr(again, k)), k
-    code = run[-1].kind
-    dead = code < 0
     assert not got.ace[dead].any() and not got.ar[dead].any()
     if shiftmode == "NO_BOUND":
         assert got.shiftblk.any() and not got.shiftblk.all()

@@ -19,11 +19,14 @@ Tolerance: rtol 1e-5 with a floor of 1e-5 of the largest value, a few ulp
 of the rep * steps (or niter) operations each element goes through, which
 XLA may contract or order otherwise; the twins against the plain version
 the same (the same f32 operations in the same order, exact rsqrt and
-reciprocal on the CPU).
+reciprocal on the CPU).  The multiply-add of the plain loop with the
+card's fused multiply-adds (``probes.fma32``) is held exactly against
+rational arithmetic.
 """
 
 import functools
 import shutil
+from fractions import Fraction
 
 import jax
 import jax.numpy as jnp
@@ -122,12 +125,56 @@ def test_gather_plain_matches_jax_probe(monkeypatch, aligned):
 @pytest.mark.parametrize("staged", [False, True])
 @pytest.mark.parametrize("aligned", [True, False])
 def test_gather_twin_matches_plain(gxx, aligned, staged):
-    buf, offs = PR.gather_inputs(24, "cpu", seed=3)
-    got = PR.gather_twin(buf, offs, aligned, staged, groups=3)
-    want = PR.gather(buf, offs, aligned, staged, groups=3)
-    assert got.shape == want.shape == (3, PR.ROWS, PR.LANES)
-    for g in range(3):
-        assert_close(got[g].numpy(), want[g].numpy())
+    """At window-load counts that end the kernel's pipeline of chunks
+    anywhere: within its first chunk, on a whole chunk after a pair, inside
+    the first and inside the second chunk of a pair."""
+    for niter in (3, 24, 37, 45):
+        buf, offs = PR.gather_inputs(niter, "cpu", seed=3)
+        got = PR.gather_twin(buf, offs, aligned, staged, groups=3)
+        want = PR.gather(buf, offs, aligned, staged, groups=3)
+        assert got.shape == want.shape == (3, PR.ROWS, PR.LANES)
+        for g in range(3):
+            assert_close(got[g].numpy(), want[g].numpy())
+
+
+def exact_fma32(a, b, c):
+    """a * b + c in exact rationals, rounded to the nearest f32, ties to
+    even."""
+    x = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    r = np.float32(float(x))
+    near = [r, np.nextafter(r, np.float32(np.inf)),
+            np.nextafter(r, np.float32(-np.inf))]
+    return min(near, key=lambda y: (abs(Fraction(float(y)) - x),
+                                    int(np.array(y).view(np.uint32)) & 1))
+
+
+def test_fma32_rounds_once():
+    """The fused plain loop's multiply-add against exact rationals: random
+    operands, and sums whose f64 rounding lands on the midpoint of two f32
+    values, where rounding twice would go the other way."""
+    rng = np.random.default_rng(5)
+    a, b, c = (rng.standard_normal(3000).astype(np.float32) for _ in range(3))
+    c[::2] *= np.float32(1e-3)
+    tie_a, tie_b = np.float32(1 + 2 ** -23), np.float32(2 ** -24 * (1 - 2 ** -23))
+    a = np.append(a, [tie_a, -tie_a])
+    b = np.append(b, [tie_b, tie_b])
+    c = np.append(c, [tie_a, -tie_a])
+    got = PR.fma32(*(torch.from_numpy(v) for v in (a, b, c))).numpy()
+    want = np.array([exact_fma32(*v) for v in zip(a, b, c)], dtype=np.float32)
+    np.testing.assert_array_equal(got, want)
+    assert got[-2] == tie_a and got[-1] == -tie_a
+    # rounding the f64 sum again would give the other neighbour
+    twice = (np.float64(tie_a) * np.float64(tie_b) + np.float64(tie_a))
+    assert np.float32(twice) != tie_a
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_gather_plain_fused_matches_unfused(aligned):
+    """The plain loop with the kernel's fused multiply-adds against the
+    plain one at 16 window loads, where their roundings have not grown."""
+    buf, offs = PR.gather_inputs(16, "cpu", seed=4)
+    assert_close(PR.gather_plain(buf, offs, aligned, fused=True).numpy(),
+                 PR.gather_plain(buf, offs, aligned).numpy())
 
 
 def test_probe_wrappers_reject_bad_inputs(gxx):
@@ -152,3 +199,8 @@ def test_probe_wrappers_reject_bad_inputs(gxx):
         PR.gather_twin(buf.double(), offs, True)
     with pytest.raises(ValueError, match="int32"):
         PR.gather_twin(buf, offs.long(), True)
+    # a block holds at most MAX_NITER window offsets
+    many = torch.zeros(PR.MAX_NITER + 1, dtype=torch.int32)
+    for run in (PR.gather, PR.gather_twin):
+        with pytest.raises(ValueError, match="niter"):
+            run(buf, many, True)
