@@ -123,7 +123,32 @@ without printing the final result line:
     global and from shared memory (ns per window load), with the window
     loads' bound: device-memory bytes, the loads' bytes through the SMs'
     load paths (128 bytes per SM per clock at the maximum clock) and the
-    f32 operations.
+    f32 operations;
+19. Verlet path: the dam break of phase 4 built with its M1 state
+    (bench.py's ``BENCH_STEP=verlet``: Verlet steps, an Euler re-anchoring
+    step every 40), flowing as in phase 4 with the M1 velocity the same: 5
+    warm-up and 50 timed steps, which must launch cellforce exactly once
+    per step and no other kernel, rebuild at least once, keep the state and
+    the M1 state finite and the fluid density within 10% of rho0; then the
+    layout check of phase 10, the kernel against its plain version on the
+    final state, and 10 more steps traced as in phase 8;
+20. wave-flume path: bench.py's ``waveflume`` (``waveflume2d`` at
+    BENCH_NP=60000: dp 6.325 mm, 61,467 particles: 59,724 fluid, 1,743
+    walls, 636 of them the piston; Fourtakas; the piston's sinusoid, 0.8 Hz
+    and 0.1 m) from still water: 5 + 50 steps, cellforce exactly twice per
+    step and no other kernel, at least one rebuild, the density within 10%;
+    the piston's particles moved by A sin(w t) within 1e-3 dp in float64,
+    all by the same amount within 1e-3 dp; the layout check, the kernel
+    against its plain version with the moving walls in the state, and a
+    traced breakdown;
+21. full flume: the same flume with ``wavegen.piston_waves(order=2)`` (H
+    0.1 m, T 1.25 s), AWAS and a damping beach over its last metre, its
+    SWL, velocity and MaxZ gauges on their own sub-ticks (a fifth of the
+    run) through ``Simulation.run``: 5 + about 50 steps, cellforce twice
+    per step, every reading finite, the SWL within the depth plus or minus
+    the stroke, the AWAS correction finite; then 5 + 20 steps with a
+    multi-layer piston on mk 10, a regular-wave relaxation zone and an
+    external acceleration of the fluid.
 
 Each kernel is timed twice: alone (``ms``: CUDA events around 20
 back-to-back launches of the C launcher on prepared inputs, per launch,
@@ -138,7 +163,9 @@ its operations; the NN kernels' rows list their other instances under
 ``instances``) and the result line
 ``{"ok": true, "device": {...}}``.  Every launch count comes from its
 path's run, counted from 0 just before it (the probes' from their
-tables).  Imports no JAX.
+tables); cellforce's row adds ``path_launches``, its launches on the dam
+break (phase 4), the Verlet path, the wave flume and the full flume.
+Imports no JAX.
 """
 
 import ctypes
@@ -165,6 +192,7 @@ DP_50K = (0.11 / 5e4) ** (1 / 3)        # bench.py's dp for BENCH_NP=50000
 DP_BENCH = (0.11 / 300000) ** (1 / 3)   # BENCH_NP=300000: 267,469 particles
 DP_FLOAT = (2.0 * 0.5 / 60000) ** 0.5    # bench.py floatingbox: 62,033 particles
 DP_2D = (2.0 / 60000) ** 0.5              # 2D dam break: 61,589 particles
+DP_FLUME = (6.0 * 0.4 / 60000) ** 0.5     # bench.py waveflume: 61,467 particles
 LAMSPS_VISCO = 1e-6   # water's kinematic viscosity, -viscolamsps:1e-6
 PKG = "dualsphysics_multilayer_tpu_torch/csrc/"
 TPU = "dualsphysics_multilayer_tpu/ops/pallas/"
@@ -389,9 +417,12 @@ def run_steps(step, carry, nwarm, nsteps):
 
 
 def check_state(carry, nsteps, nrebuild0):
+    """Raise unless the run made ``nsteps`` steps, re-divided after the
+    ``nrebuild0``-th divide (None: no rebuild required) and kept its state
+    finite."""
     check(carry.nstep == nsteps, f"nstep {carry.nstep}")
-    check(carry.nrebuild > nrebuild0, f"no rebuild inside the steps "
-          f"(nrebuild {carry.nrebuild})")
+    check(nrebuild0 is None or carry.nrebuild > nrebuild0,
+          f"no rebuild inside the steps (nrebuild {carry.nrebuild})")
     check(carry.overflow == 0, f"overflow {carry.overflow}")
     st = carry.st
     for k in ("pos", "vel", "rho", "pose"):
@@ -1291,6 +1322,267 @@ def traced_breakdown(step, carry, nsteps, kernels, smi):
         f"({smi})")
 
 
+def path_breakdown(label, step, carry, times, nsteps_traced, smi):
+    """Phases 19 and 20: the p50 step of the timed steps and a traced
+    breakdown of ``nsteps_traced`` more (:func:`trace_steps`)."""
+    p50 = statistics.median(times)
+    r = trace_steps(step, carry, nsteps_traced, ("cellforce",))
+    if r is None:
+        say(label, f"p50 step {p50 * 1e3:.3f} ms; device breakdown not "
+            f"measured: the trace of {nsteps_traced} steps holds no device "
+            f"activity ({smi})")
+        return
+    say(label, f"p50 step {p50 * 1e3:.3f} ms; {nsteps_traced} traced steps: "
+        f"window {r['window_ms']:.3f} ms per step, device busy "
+        f"{r['busy_ms']:.3f} ms per step, idle share {r['idle_share']:.4f}, "
+        f"{r['ops']:.1f} device operations per step, cellforce "
+        f"{r['kernel_ms']['cellforce']:.4f} ms per step ({smi})")
+
+
+def single_phase_counts(launched, name, per_step, nsteps):
+    """Raise unless ``name`` ran ``per_step`` times a step and no other
+    kernel ran."""
+    want = {**dict.fromkeys(launched, 0), name: per_step * nsteps}
+    check(launched == want, f"{launched} kernel launches in {nsteps} steps, "
+          f"expected {name} {per_step} per step and no other kernel")
+
+
+def verlet_path(device, smi):
+    """Phase 19: 5 + 50 Verlet steps of the dam break at 267,469 particles
+    from a flowing start (its M1 velocity the same), an Euler re-anchoring
+    step among them; then the layout and the kernel checks.  Returns the
+    cellforce launches of the run."""
+    from dualsphysics_multilayer_tpu_torch import SolverOpts, TpDensity, TpStep
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    from dualsphysics_multilayer_tpu_torch.models.wcsph import make_carry, make_step
+    case = cases.dambreak3d(dp=DP_BENCH, obstacle=True, need_verlet=True,
+                            device=device)
+    csp, dom, n = case.csp, case.dom, case.np_total
+    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS, tstep=TpStep.VERLET)
+    st = flowing_state(case, device)
+    st = dataclasses.replace(st, velm1=st.vel.clone())
+    step = make_step(csp, opts, dom)
+    carry = make_carry(st, csp, opts, dom)
+    nrebuild0 = carry.nrebuild
+    nwarm, nsteps = 5, 50
+    check(nwarm + nsteps > opts.verlet_steps, "no Euler step inside the run")
+    carry, times, launched = run_steps(step, carry, nwarm, nsteps)
+    single_phase_counts(launched, "cellforce", 1, nwarm + nsteps)
+    check_state(carry, nwarm + nsteps, nrebuild0)
+    for k in ("velm1", "rhom1"):
+        check(bool(torch.isfinite(getattr(carry.st, k)).all()),
+              f"state {k} not finite")
+    rmin, rmax = fluid_rho_range(carry.st, True, csp.rhopzero)
+    p50 = statistics.median(times)
+    say("verlet-path", f"{n} particles, {nsteps} Verlet steps after {nwarm} "
+        f"warm-up (an Euler step every {opts.verlet_steps}; verlet_count "
+        f"{carry.verlet_count} at the end): p50 step {p50 * 1e3:.3f} ms, "
+        f"{n / p50:.1f} particle-steps/s; {launched['cellforce']} cellforce "
+        f"launches, {carry.nrebuild - nrebuild0} rebuilds inside the steps, t "
+        f"{carry.t_host:.6f} s, dt_pre {float(carry.dt_pre):.4g} s, fluid rho "
+        f"[{rmin:.2f}, {rmax:.2f}] ({smi})")
+    extra = 0
+    while carry.rebuild and extra < 5:
+        carry, extra = step(carry), extra + 1
+    npairs = layout_keeps_pairs(csp, dom, carry)
+    say("verlet-path", f"after {extra} more steps: the layout of the last "
+        f"divide holds all {npairs} pairs a fresh divide finds, at the next "
+        f"interaction's positions and one dt beyond")
+    st = carry.st
+    err, ms, wrapped_ms, plain_ms = compare_cellforce(
+        csp, opts, dom, carry.cells, (st.pos, st.vel, st.rho, st.code), reps=5)
+    say("kernel-vs-plain", f"verlet-path state, {n} particles: max|d| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+        + f"; kernel alone {ms:.3f} ms, with its wrapper {wrapped_ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms (CUDA events; {smi})")
+    path_breakdown("verlet-breakdown", step, carry, times, 10, smi)
+    return launched["cellforce"]
+
+
+def piston_check(case, carry, label):
+    """Raise unless every particle of the piston (mk 10) moved along x by
+    the closed form A sin(w tabs) of ``case.meta["motion"]``, within 1e-3
+    dp, as one body, in float64."""
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    seg = case.meta["motion"].segments[0]
+    freq, amp = seg.params[0], seg.params[2]
+    st = carry.st
+    piston = td.is_moving(st.code) & (td.code_value(st.code) == 10)
+    x0 = case.state.pos[:, 0].double()[st.idp[piston]]
+    disp = st.pos[piston, 0].double() - x0
+    tabs = float(carry.tabs)
+    want = amp * np.sin(2.0 * np.pi * freq * tabs)
+    dev = float((disp - want).abs().max())
+    spread = float(disp.max() - disp.min())
+    dp = case.csp.dp
+    check(dev < 1e-3 * dp, f"piston displacement off the closed form by "
+          f"{dev} m (1e-3 dp = {1e-3 * dp} m)")
+    check(spread < 1e-3 * dp, f"piston particles spread by {spread} m")
+    say(label, f"piston: {int(piston.sum())} particles moved {want:.6e} m at "
+        f"t {tabs:.6f} s (A sin(wt) in float64), max deviation {dev:.3e} m, "
+        f"spread {spread:.3e} m (1e-3 dp = {1e-3 * dp:.3e} m); wall speed "
+        f"{float(st.vel[piston, 0].max()):.4f} m/s")
+
+
+def waveflume_path(device, smi):
+    """Phase 20: 5 + 50 symplectic steps of bench.py's wave flume (its
+    piston's motion only, from still water); then the piston, the layout
+    and the kernel with moving walls in the state.  Returns the cellforce
+    launches of the run."""
+    from dualsphysics_multilayer_tpu_torch import (Features, SolverOpts,
+                                                   TpDensity)
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    from dualsphysics_multilayer_tpu_torch.models.wcsph import make_carry, make_step
+    case = cases.waveflume2d(dp=DP_FLUME, device=device)
+    csp, dom, n = case.csp, case.dom, case.np_total
+    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS)
+    feats = Features(motions=(case.meta["motion"],))
+    step = make_step(csp, opts, dom, feats)
+    carry = make_carry(case.state, csp, opts, dom, feats)
+    nrebuild0 = carry.nrebuild
+    nwarm, nsteps = 5, 50
+    carry, times, launched = run_steps(step, carry, nwarm, nsteps)
+    single_phase_counts(launched, "cellforce", 2, nwarm + nsteps)
+    check_state(carry, nwarm + nsteps, nrebuild0)
+    rmin, rmax = fluid_rho_range(carry.st, True, csp.rhopzero)
+    nmoving = int(td.is_moving(carry.st.code).sum())
+    p50 = statistics.median(times)
+    say("waveflume-path", f"{n} particles ({case.npb} walls, {nmoving} of them "
+        f"the piston), {nsteps} steps after {nwarm} warm-up: p50 step "
+        f"{p50 * 1e3:.3f} ms, {n / p50:.1f} particle-steps/s; "
+        f"{launched['cellforce']} cellforce launches, "
+        f"{carry.nrebuild - nrebuild0} rebuilds inside the steps, t "
+        f"{carry.t_host:.6f} s, dt_pre {float(carry.dt_pre):.4g} s, fluid rho "
+        f"[{rmin:.2f}, {rmax:.2f}] ({smi})")
+    piston_check(case, carry, "waveflume-path")
+    extra = 0
+    while carry.rebuild and extra < 5:
+        carry, extra = step(carry), extra + 1
+    npairs = layout_keeps_pairs(csp, dom, carry)
+    say("waveflume-path", f"after {extra} more steps: the layout of the last "
+        f"divide holds all {npairs} pairs a fresh divide finds (moving walls "
+        f"included), at the next predictor's positions and one dt beyond")
+    st = carry.st
+    moving = td.is_moving(st.code)
+    check(float(st.vel[moving].abs().max()) > 0, "the piston is at rest")
+    err, ms, wrapped_ms, plain_ms = compare_cellforce(
+        csp, opts, dom, carry.cells, (st.pos, st.vel, st.rho, st.code), reps=5)
+    say("kernel-vs-plain", f"waveflume-path state (moving walls at up to "
+        f"{float(st.vel[moving].norm(dim=1).max()):.4f} m/s), {n} particles: "
+        f"max|d| " + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+        + f"; kernel alone {ms:.3f} ms, with its wrapper {wrapped_ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms (CUDA events; {smi})")
+    path_breakdown("waveflume-breakdown", step, carry, times, 10, smi)
+    return launched["cellforce"]
+
+
+def full_flume_path(device, smi):
+    """Phase 21: the flume of phase 20 with a 2nd-order regular-wave piston,
+    AWAS and a damping beach at the far end, its SWL, velocity and MaxZ
+    gauges read on their own sub-ticks through ``Simulation.run`` (5 + about
+    50 steps); then 5 + 20 steps with a multi-layer piston on mk 10, a
+    relaxation zone and an external acceleration.  Returns the cellforce
+    launches of the first run."""
+    from dualsphysics_multilayer_tpu_torch import (Features, SolverOpts,
+                                                   TpDensity)
+    from dualsphysics_multilayer_tpu_torch.features import accinput as ACC
+    from dualsphysics_multilayer_tpu_torch.features import awas as AW
+    from dualsphysics_multilayer_tpu_torch.features import damping as DM
+    from dualsphysics_multilayer_tpu_torch.features import gauges as G
+    from dualsphysics_multilayer_tpu_torch.features import mlpiston as MLP
+    from dualsphysics_multilayer_tpu_torch.features import relaxzone as RZ
+    from dualsphysics_multilayer_tpu_torch.features import wavegen as WG
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    from dualsphysics_multilayer_tpu_torch.models.wcsph import (Simulation,
+                                                                make_carry,
+                                                                make_step)
+    case = cases.waveflume2d(dp=DP_FLUME, device=device)
+    csp, dom, n, dp = case.csp, case.dom, case.np_total, case.csp.dp
+    depth, height, period = 0.4, 0.1, 1.25
+    stroke, _ = WG.biesel_piston(height, period, depth)
+    feats = Features(
+        motions=(WG.piston_waves(10, height=height, period=period, depth=depth,
+                                 order=2),),
+        awas=(AW.AwasZsurf(mk=10, height=height, period=period, depth=depth,
+                           swl=depth, gauge_x=0.1),),
+        damping=(DM.DampingPlane(point=(5.0, 0.0, 0.0),
+                                 limitpoint=(6.0, 0.0, 0.0)),))
+    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS)
+    sim = Simulation(csp, opts, dom, case.state, feats)
+    sim.carry = sim.advance(sim.carry, float("inf"), 5)
+    # the run's clock includes the warm-up: 60 steps of its dt, so about 50
+    # more, with the gauges on a grid of a fifth of that
+    span = 60 * float(sim.carry.dt_pre)
+    gs = G.GaugeSystem(csp, dom, [
+        G.GaugeSwl("swl", (1.0, 0.0, 0.2), (1.0, 0.0, 0.7), 0.5 * dp),
+        G.GaugeVel("vel", (0.3, 0.0, 0.2)),
+        G.GaugeMaxZ("maxz", (0.5, 0.0, 0.0), 0.9, 2.0 * dp)],
+        computedts={"swl": span / 5, "vel": span / 5, "maxz": span / 5})
+    readings = []
+
+    def on_subtick(s, t):
+        cells = None if s.carry.rebuild else s.carry.cells
+        readings.append((t, gs.run(t, s.carry.st, cells, at_save=False)))
+
+    nstep0 = sim.carry.nstep
+    reset_counts()
+    t0 = time.perf_counter()
+    sim.run(tmax=span, tout=span, next_subtick=gs.next_time,
+            on_subtick=on_subtick)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    nsteps = sim.carry.nstep - nstep0
+    single_phase_counts(launched, "cellforce", 2, nsteps)
+    check(len(readings) >= 4, f"{len(readings)} gauge sub-ticks")
+    for t, r in readings:
+        check(set(r) == {"swl", "vel", "maxz"}, f"gauges at {t}: {set(r)}")
+        for k, v in r.items():
+            check(bool(np.isfinite(np.asarray(v, np.float64)).all()),
+                  f"gauge {k} at {t} not finite: {v}")
+        z = float(r["swl"][2])
+        check(abs(z - depth) <= stroke, f"SWL {z} m outside the depth {depth} "
+              f"m +- the stroke {stroke:.4f} m")
+    awas = sim.carry.awas
+    check(bool(torch.isfinite(awas).all()), f"AWAS correction {awas}")
+    rmin, rmax = fluid_rho_range(sim.carry.st, True, csp.rhopzero)
+    last = readings[-1][1]
+    say("full-flume", f"{n} particles, piston_waves(order=2) H {height} m T "
+        f"{period} s (stroke {stroke:.4f} m) + AWAS + damping beach: "
+        f"Simulation.run over {span:.6f} s, {nsteps} steps after 5 warm-up in "
+        f"{wall:.3f} s ({launched['cellforce']} cellforce launches), "
+        f"{len(readings)} gauge sub-ticks; last: SWL z {float(last['swl'][2]):.5f} "
+        f"m, velocity {np.round(np.asarray(last['vel']), 6).tolist()} m/s, MaxZ "
+        f"{last['maxz']:.5f} m; AWAS correction {awas.tolist()} m; fluid rho "
+        f"[{rmin:.2f}, {rmax:.2f}] ({smi})")
+
+    # a multi-layer piston on mk 10 (three layers, 0.6 s of table), a
+    # relaxation zone toward the same regular wave and an external
+    # acceleration of the fluid
+    times = (0.0, 0.2, 0.4, 0.6)
+    vels = np.array([[0.0, 0.0, 0.0], [0.1, 0.08, 0.05], [0.12, 0.1, 0.06],
+                     [0.0, 0.0, 0.0]])
+    feats2 = Features(
+        mlpistons=(MLP.make_piston1d(10, times, vels, 0.0, 1.0),),
+        relaxzones=(RZ.RelaxZoneRegular(center=(3.0, 0.0, 0.0), width=1.0,
+                                        height=0.05, period=period,
+                                        depth=depth, swl=depth),),
+        accinputs=(ACC.AccInput(mkfluid=0, times=(0.0, 1.0),
+                                acclin=(0.2, 0.0, 0.0, 0.2, 0.0, 0.1)),))
+    step = make_step(csp, opts, dom, feats2)
+    carry = make_carry(case.state, csp, opts, dom, feats2)
+    carry, times2, launched2 = run_steps(step, carry, 5, 20)
+    single_phase_counts(launched2, "cellforce", 2, 25)
+    check_state(carry, 25, None)
+    rmin, rmax = fluid_rho_range(carry.st, True, csp.rhopzero)
+    say("full-flume", f"multi-layer piston + relaxation zone + external "
+        f"acceleration: 20 steps after 5 warm-up, p50 step {statistics.median(times2) * 1e3:.3f} ms; "
+        f"{launched2['cellforce']} cellforce launches, fluid rho "
+        f"[{rmin:.2f}, {rmax:.2f}] ({smi})")
+    return launched["cellforce"]
+
+
 def main():
     check(torch.cuda.is_available(), "no CUDA device: the port's smoke run "
           "needs an NVIDIA GPU")
@@ -1471,14 +1763,26 @@ def main():
     # 18. the two hardware probes
     records.update(probes_phase(device, smi))
 
+    # 19. Verlet dam break: BENCH_STEP=verlet at 267,469 particles
+    paths = {"dambreak3d": records["cellforce"]["launches"]}
+    paths["verlet"] = verlet_path(device, smi)
+
+    # 20. bench.py's wave flume: the sinusoidal piston
+    paths["waveflume"] = waveflume_path(device, smi)
+
+    # 21. the full flume: wave generator, AWAS, damping, gauges; then a
+    # multi-layer piston and a relaxation zone
+    paths["full-flume"] = full_flume_path(device, smi)
+    records["cellforce"]["path_launches"] = paths
+
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=rep,
         launches=records[name]["launches"],
         max_abs_err=records[name]["max_abs_err"], ms=records[name]["ms"],
         plain_ms=records[name]["plain_ms"], bound_ms=records[name]["bound_ms"],
         bound_by=records[name]["bound_by"], library_ms=None,
-        **({"instances": records[name]["instances"]}
-           if "instances" in records[name] else {}))
+        **{k: records[name][k] for k in ("instances", "path_launches")
+           if k in records[name]})
         for name, (src, rep) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

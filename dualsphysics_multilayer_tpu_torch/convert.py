@@ -17,27 +17,35 @@ into the port's, so both packages can compute on the same state.
   says otherwise.
 * ``phasecfg(phases)``: a JAX ``PhaseCfg``, read by attribute, as the
   port's ``forces_nn.PhaseCfg`` with plain Python values.
+  The Verlet M1 state (``velm1``, ``rhom1``) comes along when present.
 * ``floatingcfg(cfg)``: a JAX ``FloatingCfg``, read by attribute, as the
   port's ``features.floating.FloatingCfg``.
-
-The JAX-side Verlet M1 state (``velm1``, ``rhom1``) is outside the port and
-raises when present.
+* ``feature(obj)``: a JAX feature configuration, read by attribute and
+  matched by class name, as the port's class of that name: ``MotionDef``
+  (with its ``Segment``s), the damping zones, the relaxation zones (the
+  external zone's ``InOutGridVel`` becomes a ``relaxzone.GridVel``),
+  ``MLPiston1D``/``MLPiston2D``, ``AwasZsurf``, ``AccInput`` and the
+  gauges.  ``features(feats)``: a JAX ``Features`` bundle, each of its
+  tuples converted; the fields the port does not run are kept as they are,
+  so the step still refuses them.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
+from dataclasses import fields
 
 import numpy as np
 import torch
 
 from . import typesdef as td
+from .features import accinput, awas, damping, gauges, mlpiston, motion
+from .features import relaxzone
+from .features.featureset import Features
 from .features.floating import FloatingCfg, FloatingState
 from .models.wcsph import SimState
 from .ops.celldiv import Domain
 from .ops.forces_nn import Phase, PhaseCfg
-
-_UNPORTED_STATE = ("velm1", "rhom1")
 
 
 def _name(v):
@@ -61,10 +69,6 @@ def domain(fields: Mapping) -> Domain:
 
 
 def simstate(arrays: Mapping, device="cuda") -> SimState:
-    for k in _UNPORTED_STATE:
-        if arrays.get(k) is not None:
-            raise NotImplementedError(f"the torch port does not cover "
-                                      f"SimState.{k} yet")
     code = np.asarray(arrays["code"])
     if code.size and int(code.max()) >= 1 << td.CODE_BITS:
         raise ValueError(f"typecode above {td.CODE_BITS} bits: "
@@ -86,7 +90,7 @@ def simstate(arrays: Mapping, device="cuda") -> SimState:
         pose=torch.zeros_like(pos) if arrays.get("pose") is None
         else f32(arrays["pose"]),
         spstau=opt("spstau"), boundnormal=opt("boundnormal"),
-        motionvel=opt("motionvel"),
+        motionvel=opt("motionvel"), velm1=opt("velm1"), rhom1=opt("rhom1"),
         ft=None if ft is None else FloatingState(
             **{k: f32(ft[k]) for k in ("center", "fvel", "fomega", "angles")}))
 
@@ -105,3 +109,47 @@ def floatingcfg(cfg) -> FloatingCfg:
                        **{k: tuple(float(x) for x in getattr(cfg, k)) for k in (
                            "mass", "massp", "inertia0", "translation_dof",
                            "rotation_dof", "mkbound", "scaleforce")})
+
+
+# the port's feature classes by name; the JAX package's have the same names
+# and fields, apart from the external zone's grid (InOutGridVel -> GridVel)
+_FEATURE_CLASSES = {cls.__name__: cls for cls in (
+    motion.MotionDef, motion.Segment, damping.DampingPlane,
+    damping.DampingBox, damping.DampingCylinder, relaxzone.RelaxZoneUniform,
+    relaxzone.RelaxZoneRegular, relaxzone.RelaxZoneSpectrum,
+    relaxzone.RelaxZoneExternal, mlpiston.MLPiston1D, mlpiston.MLPiston2D,
+    awas.AwasZsurf, accinput.AccInput, gauges.GaugeVel, gauges.GaugeSwl,
+    gauges.GaugeMaxZ, gauges.GaugeForce)}
+_FEATURE_CLASSES["InOutGridVel"] = relaxzone.GridVel
+
+
+def feature(obj):
+    """The port's counterpart of the JAX feature configuration ``obj``,
+    field by field (nested configurations converted too)."""
+    cls = _FEATURE_CLASSES.get(type(obj).__name__)
+    if cls is None:
+        raise TypeError(f"no port counterpart for {type(obj).__name__}")
+
+    def value(v):
+        if type(v).__name__ in _FEATURE_CLASSES:
+            return feature(v)
+        if isinstance(v, (tuple, list)):
+            return tuple(value(x) for x in v)
+        return v
+
+    return cls(**{f.name: value(getattr(obj, f.name)) for f in fields(cls)})
+
+
+def features(feats) -> Features:
+    """A JAX ``Features`` bundle as the port's: ``floating`` through
+    :func:`floatingcfg`, the tuples of configurations through
+    :func:`feature`, the rest as it is."""
+    kw = {}
+    for f in fields(Features):
+        v = getattr(feats, f.name)
+        if f.name == "floating" and v is not None:
+            v = floatingcfg(v)
+        elif isinstance(v, tuple):
+            v = tuple(feature(x) for x in v)
+        kw[f.name] = v
+    return Features(**kw)

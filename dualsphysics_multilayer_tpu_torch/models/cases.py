@@ -1,12 +1,15 @@
 """Built-in case construction for the port: the dp-lattice box drawing of
 GenCase (3D, or 2D in the y = 0 plane) with the mDBC normals of its faces,
 the 3D and 2D dam breaks (`examples/main/01_DamBreak/CaseDambreak_Def.xml`,
-`CaseDambreakVal2D_Def.xml`) and the 2D floating box; the 2D wet dam break
-of the multiphase non-Newtonian solver lives in ``models/nnewtonian.py``.
+`CaseDambreakVal2D_Def.xml`), the 2D floating box and the 2D wave flume;
+the 2D wet dam break of the multiphase non-Newtonian solver lives in
+``models/nnewtonian.py``.
 
 Counterpart of `dualsphysics_multilayer_tpu/models/cases.py` (``Draw.box``,
 ``Draw.build``, ``Case``, ``_make_state``, ``_make_domain``,
-``dambreak3d``, ``dambreak2d``, ``floatingbox2d``).  Lattices, ids,
+``dambreak3d``, ``dambreak2d``, ``floatingbox2d``, ``waveflume2d``; the
+bucket capacities of the JAX builders, ``lattice_cellcap`` among them,
+belong to the TPU layouts and have no counterpart here).  Lattices, ids,
 densities, normals and the domain come out equal to the JAX package's,
 which the tests check array for array.  Cases are built on the card unless
 the caller asks for another device.
@@ -23,6 +26,7 @@ import torch
 from .. import typesdef as td
 from ..typesdef import CteSph, make_ctesph
 from ..features import floating as FT
+from ..features import motion as MOT
 from ..ops import celldiv as cd
 from ..ops import eos
 from .wcsph import SimState
@@ -117,12 +121,13 @@ class Case:
     meta: dict
 
 
-def _make_state(csp: CteSph, pos, code, zsurf, *, device, need_sps=False,
-                normals=None):
+def _make_state(csp: CteSph, pos, code, zsurf, *, device, need_verlet=False,
+                need_sps=False, normals=None):
     """Initial state: positions cast from f64 to f32, zero velocity, and
     hydrostatic density for fluid (GenCase ``rhopgradient=2``) evaluated in
     f32 as the JAX package does; boundaries and floating bodies start at
-    rho0.  ``need_sps`` adds a zero SPS stress for laminar+SPS runs;
+    rho0.  ``need_verlet`` adds the Verlet M1 state (the initial velocity
+    and density); ``need_sps`` a zero SPS stress for laminar+SPS runs;
     ``normals`` (np,3) the mDBC normals, with a zero wall velocity."""
     n = pos.shape[0]
     z = torch.tensor(pos[:, 2], dtype=torch.float32)
@@ -136,6 +141,8 @@ def _make_state(csp: CteSph, pos, code, zsurf, *, device, need_sps=False,
         code=torch.tensor(code, dtype=torch.int32, device=device),
         idp=torch.arange(n, dtype=torch.int64, device=device),
         pose=torch.zeros((n, 3), **f32),
+        velm1=torch.zeros((n, 3), **f32) if need_verlet else None,
+        rhom1=torch.tensor(rho, **f32) if need_verlet else None,
         spstau=torch.zeros((n, 6), **f32) if need_sps else None,
         boundnormal=None if normals is None else torch.tensor(normals, **f32),
         motionvel=None if normals is None else torch.zeros((n, 3), **f32),
@@ -159,8 +166,8 @@ def _make_domain(csp: CteSph, pos, headroom=0.5):
 
 
 def dambreak3d(dp=0.02, *, tank=(1.6, 0.67, 0.4), column=(0.4, 0.67, 0.3),
-               obstacle=True, visco=0.1, need_sps=False, mdbc=False,
-               device="cuda") -> Case:
+               obstacle=True, visco=0.1, need_verlet=False, need_sps=False,
+               mdbc=False, device="cuda") -> Case:
     """3D dam break with optional building obstacle (CaseDambreak_Def.xml):
     coefsound 20, free-surface headroom 100% of the lattice height.
     ``visco`` is the viscosity constant (artificial alpha, or the kinematic
@@ -169,7 +176,7 @@ def dambreak3d(dp=0.02, *, tank=(1.6, 0.67, 0.4), column=(0.4, 0.67, 0.3),
     the JAX package, the constants are those of artificial viscosity
     (``spssmag = spsblin = 0``); a laminar+SPS run takes
     ``make_ctesph(..., tvisco=LAMINAR_SPS)`` constants, as an XML case's
-    do."""
+    do.  ``need_verlet`` allocates the M1 state the Verlet step reads."""
     csp = make_ctesph(simulate2d=False, dp=dp, hswl=column[2], coefh=1.0,
                       visco=visco, coefsound=20.0)
     d = Draw(dp=dp)
@@ -182,17 +189,20 @@ def dambreak3d(dp=0.02, *, tank=(1.6, 0.67, 0.4), column=(0.4, 0.67, 0.3),
     pos, code = d.build()
     dom = _make_domain(csp, pos, headroom=1.0)
     st = _make_state(csp, pos, code, zsurf=column[2], device=device,
-                     need_sps=need_sps, normals=d.normals if mdbc else None)
+                     need_verlet=need_verlet, need_sps=need_sps,
+                     normals=d.normals if mdbc else None)
     npb = int(np.sum(td.code_type(code) < td.TYPE_FLOATING))
     return Case(csp=csp, dom=dom, state=st, npb=npb, np_total=pos.shape[0],
                 meta=dict(name="dambreak3d", dp=dp, zsurf=column[2]))
 
 
 def dambreak2d(dp=0.02, *, tank=(4.0, 3.0), column=(1.0, 2.0), visco=0.02,
-               need_sps=False, mdbc=False, device="cuda") -> Case:
+               need_verlet=False, need_sps=False, mdbc=False,
+               device="cuda") -> Case:
     """2D dam break (CaseDambreakVal2D_Def.xml geometry): a column of
     ``column`` (x, z) in a tank with bottom, left and right walls one
-    particle thick; ``mdbc`` gives the walls their normals."""
+    particle thick; ``mdbc`` gives the walls their normals, ``need_verlet``
+    the state its M1 arrays."""
     hswl = column[1]
     csp = make_ctesph(simulate2d=True, dp=dp, hswl=hswl, coefh=1.0,
                       visco=visco, coefsound=20.0)
@@ -203,7 +213,8 @@ def dambreak2d(dp=0.02, *, tank=(4.0, 3.0), column=(1.0, 2.0), visco=0.02,
     pos, code = d.build()
     dom = _make_domain(csp, pos)
     st = _make_state(csp, pos, code, zsurf=column[1], device=device,
-                     need_sps=need_sps, normals=d.normals if mdbc else None)
+                     need_verlet=need_verlet, need_sps=need_sps,
+                     normals=d.normals if mdbc else None)
     npb = int(np.sum(td.code_type(code) < td.TYPE_FLOATING))
     return Case(csp=csp, dom=dom, state=st, npb=npb, np_total=pos.shape[0],
                 meta=dict(name="dambreak2d", dp=dp, zsurf=column[1]))
@@ -237,3 +248,42 @@ def floatingbox2d(dp=0.02, *, tank=(2.0, 1.2), water=0.5,
     return Case(csp=csp, dom=dom, state=st, npb=npb, np_total=pos.shape[0],
                 meta=dict(name="floatingbox2d", dp=dp, zsurf=water,
                           ftcfg=ftcfg))
+
+
+def waveflume2d(dp=0.02, *, flume=(6.0, 1.0), water=0.4, piston_freq=0.8,
+                piston_amp=0.1, visco=0.02, coefsound=20.0, need_verlet=False,
+                mdbc=False, device="cuda") -> Case:
+    """2D wave flume with a sinusoidal piston wavemaker (the JAX package's
+    ``waveflume2d``): still water of depth ``water`` over a bottom, a right
+    wall, and a piston (moving mk 10) at x < 0 as thick as the kernel's
+    support, which ``meta["motion"]`` (``piston_sinusoidal``) drives.  The
+    piston's stroke x = -amp ... amp reaches past the domain's halo of
+    2*kernelsize behind it when amp exceeds it.  ``mdbc`` gives the bottom,
+    the right wall and the piston's face toward the water their normals
+    (the JAX builder has no such option); ``need_verlet`` the state its M1
+    arrays."""
+    csp = make_ctesph(simulate2d=True, dp=dp, hswl=water, coefh=1.0,
+                      visco=visco, coefsound=coefsound)
+    d = Draw(dp=dp, simulate2d=True)
+    d.box((0, 0, 0), (flume[0], 0, water), ptype=td.TYPE_FLUID, mk=0)
+    d.box((0, 0, 0), (flume[0], 0, flume[1]),
+          ptype=td.TYPE_FIXED, mk=0, faces="bottom|right")
+    # the piston: a column of moving wall thick enough to cover the kernel's
+    # support, so that fast strokes do not push fluid through it
+    nlay = max(2, int(math.ceil(csp.kernelsize / dp)) + 1)
+    d.box((-nlay * dp, 0, 0), (-dp, 0, flume[1]), ptype=td.TYPE_MOVING, mk=10)
+    if mdbc:
+        # the piston's face at x = -dp looks along +x, into the water
+        for key, (ptype, mk, _n) in d.points.items():
+            if ptype == td.TYPE_MOVING and key[0] == -1:
+                d.points[key] = (ptype, mk, (dp, 0.0, 0.0))
+    pos, code = d.build()
+    dom = _make_domain(csp, pos)
+    st = _make_state(csp, pos, code, zsurf=water, device=device,
+                     need_verlet=need_verlet,
+                     normals=d.normals if mdbc else None)
+    npb = int(np.sum(td.code_type(code) < td.TYPE_FLOATING))
+    motion = MOT.piston_sinusoidal(10, freq=piston_freq, amplitude=piston_amp)
+    return Case(csp=csp, dom=dom, state=st, npb=npb, np_total=pos.shape[0],
+                meta=dict(name="waveflume2d", dp=dp, zsurf=water,
+                          motion=motion))

@@ -33,7 +33,7 @@ def make_nn_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     JSphCpu_NN_SPH.cpp:663, JSphCpu_NN_FDA.cpp:129)."""
     NN.check_supported_nn(csp, opts, phases)
 
-    def interaction(st: W.SimState, cells: cd.CellDiv):
+    def interaction(st: W.SimState, cells: cd.CellDiv, tabs):
         fr, _eta, _tau = NN.interaction_forces_nn(
             csp, opts, phases, dom, cells, st.pos, st.vel, st.rho, st.code)
         return st, fr

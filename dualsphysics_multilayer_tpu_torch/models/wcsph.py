@@ -1,21 +1,24 @@
-"""WCSPH solver on torch: state, the symplectic step and the host-side run
-loop.
+"""WCSPH solver on torch: state, the symplectic and Verlet steps and the
+host-side run loop.
 
-Counterpart of the symplectic subset of
-`dualsphysics_multilayer_tpu/models/wcsph.py`: ``SimState``, ``StepCarry``,
-``make_carry``, the skin-contract rebuild (``_rowdiv_tick``),
-``_interaction`` with the mDBC pre-pass, ``make_symplectic_step`` with the
-floating-body hooks, ``make_step``, ``make_advance`` and ``Simulation``.
-:func:`symplectic_step` takes the interaction as an argument, so the
-multiphase non-Newtonian step (``models/nnewtonian.py``) shares it.
+Counterpart of `dualsphysics_multilayer_tpu/models/wcsph.py`: ``SimState``,
+``StepCarry``, ``make_carry``, the skin-contract rebuild (``_rowdiv_tick``),
+``_interaction`` with the mDBC pre-pass and the external accelerations,
+``make_symplectic_step`` and ``make_verlet_step`` with the feature hooks
+(floating bodies, damping, relaxation zones, motion, multi-layer pistons,
+AWAS), ``make_step``, ``make_advance`` and ``Simulation`` with its gauge
+sub-ticks.  :func:`symplectic_step` takes the interaction as an argument,
+so the multiphase non-Newtonian step (``models/nnewtonian.py``) shares it.
 
 The state lives in cell-sorted order (``ops.celldiv.divide_cells``) and is
 re-sorted only when the skin contract demands it: with cells of
 ``kernelsize + margin``, one divide finds every pair while
 ``2*max|pos - pos0| + 4*dt*vmax < 0.95*margin``.  The predictor and the
-corrector share one layout.  Shifting needs no term of its own: a step's
-shift enters ``pos`` after the step's two interactions, and the contract
-reads ``pos`` before the next step's first one.
+corrector share one layout; a Verlet step interacts once, at the step's
+start.  Shifting, moving walls, AWAS and the multi-layer pistons need no
+term of their own: they move particles after the step's interactions, and
+the contract reads ``pos`` (walls included) before the next step's first
+one.
 
 Torch has no device-side loop, so the host drives the steps.  Each step
 ends with ONE small device-to-host copy, ``[rebuild flag for the next step,
@@ -32,8 +35,14 @@ import numpy as np
 import torch
 
 from .. import typesdef as td
-from ..typesdef import CteSph, TpBoundary
+from ..typesdef import CteSph, TpBoundary, TpStep
+from ..features import accinput as ACC
+from ..features import awas as AWAS
+from ..features import damping as DMP
 from ..features import floating as FT
+from ..features import mlpiston as MLP
+from ..features import motion as MOT
+from ..features import relaxzone as RZ
 from ..features.featureset import Features
 from ..ops import celldiv as cd
 from ..ops import forces as F
@@ -59,6 +68,9 @@ class SimState:
     ft: FT.FloatingState | None = None   # floating body state, per body
     boundnormal: torch.Tensor | None = None   # (n,3) f32 mDBC normals
     motionvel: torch.Tensor | None = None     # (n,3) f32 mDBC wall velocity
+    # Verlet M1 state: velocity and density of the step before
+    velm1: torch.Tensor | None = None         # (n,3) f32
+    rhom1: torch.Tensor | None = None         # (n,)  f32
 
     @property
     def n(self) -> int:
@@ -90,6 +102,11 @@ class StepCarry:
     overflow: int = 0
     t_host: float = 0.0          # host copy of t, read at the end of a step
     rebuild: bool = False        # the next step starts with a divide
+    # Verlet steps since the last Euler re-anchoring step (VerletStep); it
+    # depends on nstep alone, so it lives on the host
+    verlet_count: int = 0
+    # AWAS: the accumulated correction displacement of each paddle, (P,)
+    awas: torch.Tensor | None = None
 
 
 def _rebuild(dom: cd.Domain, carry: StepCarry) -> StepCarry:
@@ -130,11 +147,17 @@ def _margin(csp: CteSph, dom: cd.Domain) -> float:
 
 
 def make_carry(st: SimState, csp: CteSph, opts: SolverOpts,
-               dom: cd.Domain) -> StepCarry:
-    """Initial carry: the first divide (nrebuild = 1) and dt = DtIni.  It
-    serves the single-phase and the NN steps alike; each step checks its
-    own interaction's settings."""
+               dom: cd.Domain, feats: Features | None = None) -> StepCarry:
+    """Initial carry: the first divide (nrebuild = 1) and dt = DtIni, with
+    a zero AWAS correction per paddle of ``feats``.  It serves the
+    single-phase and the NN steps alike; each step checks its own
+    interaction's settings.  The Verlet step reads the M1 state: ValueError
+    unless the state has it (the case built with ``need_verlet=True``)."""
     F.check_supported_step(csp, opts)
+    if opts.tstep == TpStep.VERLET and (st.velm1 is None or st.rhom1 is None):
+        raise ValueError("the Verlet step needs the M1 state SimState.velm1 "
+                         "and SimState.rhom1: build the case with "
+                         "need_verlet=True")
     dev = st.pos.device
     carry = StepCarry(
         st=st,
@@ -142,7 +165,9 @@ def make_carry(st: SimState, csp: CteSph, opts: SolverOpts,
         dt_pre=torch.tensor(csp.dtini, dtype=torch.float32, device=dev),
         dtmodif=torch.zeros((), dtype=torch.int32, device=dev),
         tabs=torch.zeros((), dtype=torch.float32, device=dev),
-        cells=None, pos0=None)
+        cells=None, pos0=None,
+        awas=(torch.zeros(len(feats.awas), dtype=torch.float32, device=dev)
+              if feats is not None and feats.awas else None))
     carry = _rebuild(dom, carry)
     return _sync_flags(csp, _margin(csp, dom), carry)
 
@@ -164,24 +189,30 @@ def _interaction(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
                                     st.rho, st.code, st.spstau, ftomassp)
 
 
-def make_symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
-                         feats: Features | None = None):
-    """Returns step(carry) -> carry implementing ComputeStep_Sym
-    (JSphCpuSingle.cpp:695-722) over the single-phase interaction, with the
-    floating bodies of ``feats`` moved after the predictor (dt/2) and the
-    corrector (dt), JSphCpuSingle.cpp:707,715."""
+def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
+                  feats: Features | None):
+    """(interaction, rigid) of the single-phase steps: the interaction
+    ``(st, cells, tabs) -> (st, Forces)`` with the floating bodies'
+    particle mass and, after the forces, the external accelerations
+    (`_post_forces`, JAX `wcsph.py:486-492`: they enter AceMax and the dt
+    control); ``rigid(st, ace, t, dt, predictor) -> st``, the floating
+    bodies' update, or None."""
     F.check_supported(csp, opts)
-    floating = None
+    floating = accinputs = None
     if feats is not None:
         feats.check_supported()
-        floating = feats.floating
+        floating, accinputs = feats.floating, feats.accinputs
 
-    def interaction(st, cells):
+    def interaction(st, cells, tabs):
         ftomassp = None
         if floating is not None:
             ftomassp = FT.body_tables(floating, tuple(csp.gravity),
                                       st.pos.device).massp
-        return _interaction(csp, opts, dom, st, cells, ftomassp)
+        st, fr = _interaction(csp, opts, dom, st, cells, ftomassp)
+        if accinputs:
+            fr = replace(fr, ace=ACC.apply_accinput(
+                accinputs, csp, tabs, st.pos, st.vel, st.code, fr.ace))
+        return st, fr
 
     rigid = None
     if floating is not None:
@@ -195,7 +226,108 @@ def make_symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
                                            st.code, ace)
             return replace(st, pos=pos, vel=vel, ft=ft)
 
-    return symplectic_step(csp, opts, dom, interaction, rigid)
+    return interaction, rigid
+
+
+def _after_update(csp: CteSph, feats: Features | None, rigid,
+                  write_motionvel: bool):
+    """after(st, ace, tabs, dt, awas) -> (st, awas): the hooks that run
+    after the step's update, in the JAX package's order (`wcsph.py:
+    610-636`, `:728-750`): the floating bodies over dt, damping,
+    relaxation zones, scripted motion, multi-layer pistons and AWAS.
+    ``write_motionvel``: the motion writes the moving walls' velocity into
+    ``motionvel`` for the mDBC pre-pass, as the JAX symplectic step does
+    (`:621-623`); its Verlet step leaves ``motionvel`` as it is
+    (`:735-738`).  None when there is nothing to run."""
+    if feats is None or not (rigid or feats.damping or feats.relaxzones
+                             or feats.motions or feats.mlpistons or feats.awas):
+        return None
+
+    def after(st, ace, tabs, dt, awas):
+        if rigid is not None:
+            st = rigid(st, ace, tabs, dt, False)
+        if feats.damping:
+            st = replace(st, vel=DMP.apply_damping(feats.damping, dt, st.pos,
+                                                   st.vel, st.code))
+        if feats.relaxzones:
+            st = replace(st, vel=RZ.apply_relaxzones(
+                feats.relaxzones, csp, tabs, st.pos, st.vel, st.code, dt=dt))
+        if feats.motions:
+            pos, vel = MOT.apply_motion(feats.motions, tabs, dt, st.pos,
+                                        st.vel, st.code)
+            st = replace(st, pos=pos, vel=vel)
+            if write_motionvel and st.motionvel is not None:
+                st = replace(st, motionvel=torch.where(
+                    td.is_moving(st.code)[:, None], vel, 0.0))
+        if feats.mlpistons:
+            pos, vel = MLP.apply_mlpistons(feats.mlpistons, tabs, dt, st.pos,
+                                           st.vel, st.code)
+            st = replace(st, pos=pos, vel=vel)
+        if feats.awas:
+            pos, vel, awas = AWAS.apply_awas(feats.awas, csp, awas, tabs, dt,
+                                             st.pos, st.vel, st.code)
+            st = replace(st, pos=pos, vel=vel)
+        return st, awas
+
+    return after
+
+
+def make_symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
+                         feats: Features | None = None):
+    """Returns step(carry) -> carry implementing ComputeStep_Sym
+    (JSphCpuSingle.cpp:695-722) over the single-phase interaction, with the
+    floating bodies of ``feats`` moved after the predictor (dt/2) and the
+    corrector (dt), JSphCpuSingle.cpp:707,715, and the other hooks of
+    ``feats`` after the corrector."""
+    interaction, rigid = _single_phase(csp, opts, dom, feats)
+    return symplectic_step(csp, opts, dom, interaction, rigid,
+                           _after_update(csp, feats, rigid, True))
+
+
+def make_verlet_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
+                     feats: Features | None = None):
+    """Returns step(carry) -> carry implementing ComputeStep_Ver
+    (JSphCpuSingle.cpp:674-690): one interaction on the current layout, dt
+    from it, the leapfrog against the M1 state with an Euler re-anchoring
+    step every ``opts.verlet_steps`` steps (JAX `wcsph.py:662-773`), then
+    the hooks of ``feats``.  The next step's skin-contract lookahead reads
+    this step's dt."""
+    interaction, rigid = _single_phase(csp, opts, dom, feats)
+    after = _after_update(csp, feats, rigid, False)
+    margin = _margin(csp, dom)
+
+    def step(carry: StepCarry) -> StepCarry:
+        if carry.rebuild:
+            carry = _rebuild(dom, carry)
+        st, fr = interaction(carry.st, carry.cells, carry.tabs)
+        velmax = I.velocity_max(csp, st.vel, st.code)
+        acemax = I.ace_max(fr.ace, st.code)
+        dt, bad = I.dt_variable(csp, acemax, velmax, fr.viscdtmax)
+        shiftdisp = None
+        if fr.shiftposfs is not None:
+            shiftdisp = F.apply_shifting(csp, opts, dt, st.vel, st.code,
+                                         fr.shiftposfs, fr.shift_blocked)
+        vcount = carry.verlet_count + 1
+        use_m1 = vcount < opts.verlet_steps
+        out = I.verlet(csp, st.pos, st.vel, st.rho, st.velm1, st.rhom1,
+                       st.code, fr.ace, fr.ar, dt, use_m1, st.pose, shiftdisp)
+        if fr.spsgradvel is not None:
+            st = replace(st, spstau=_sps_tau(csp, st, fr))
+        # the reference swaps Velrhop and VelrhopM1: the new M1 state is
+        # the step's starting one
+        st = replace(st, pos=out[0], vel=out[1], rho=out[2], code=out[3],
+                     pose=out[4], velm1=st.vel, rhom1=st.rho)
+        awas = carry.awas
+        if after is not None:
+            st, awas = after(st, fr.ace, carry.tabs, dt, awas)
+        carry = replace(
+            carry, st=st, t=carry.t + dt, dt_pre=dt, nstep=carry.nstep + 1,
+            verlet_count=vcount if use_m1 else 0,
+            dtmodif=carry.dtmodif + bad.to(torch.int32),
+            tabs=carry.tabs + dt, awas=awas)
+        return _sync_flags(csp, margin, carry)
+
+    return step
 
 
 def _sps_tau(csp: CteSph, st: SimState, fr: F.Forces):
@@ -206,15 +338,17 @@ def _sps_tau(csp: CteSph, st: SimState, fr: F.Forces):
 
 
 def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
-                    interaction, rigid=None):
+                    interaction, rigid=None, after=None):
     """step(carry) -> carry: the symplectic predictor and corrector over
-    ``interaction(st, cells) -> (st, Forces)`` on one layout; the state it
-    returns (the mDBC pre-pass's boundary values) is the one that goes on,
+    ``interaction(st, cells, tabs) -> (st, Forces)`` on one layout; the
+    state it returns (the mDBC pre-pass's boundary values) goes on,
     as in JAX.  What the forces carry switches the rest: ``viscetadtmax``
     the NN dt3 control, ``spsgradvel`` the SPS stress after each
     interaction, ``shiftposfs`` the shifting displacement in the corrector.
     ``rigid(st, ace, t, dt, predictor) -> st`` moves the floating bodies
-    after the predictor (dt/2) and after the corrector (dt)."""
+    after the predictor (dt/2); ``after(st, ace, tabs, dt, awas) -> (st,
+    awas)`` runs the hooks after the corrector (:func:`_after_update`, the
+    bodies over dt among them)."""
     margin = _margin(csp, dom)
 
     def step(carry: StepCarry) -> StepCarry:
@@ -224,7 +358,7 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
         dt = carry.dt_pre
 
         # ---------------- predictor ----------------
-        st, fr1 = interaction(st, carry.cells)
+        st, fr1 = interaction(st, carry.cells, carry.tabs)
         velmax1 = I.velocity_max(csp, st.vel, st.code)
         acemax1 = I.ace_max(fr1.ace, st.code)
         dt_p, bad_p = I.dt_variable(csp, acemax1, velmax1, fr1.viscdtmax,
@@ -239,7 +373,7 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             st = rigid(st, fr1.ace, carry.tabs, dt * 0.5, True)
 
         # ---------------- corrector (same layout) ----------------
-        st, fr2 = interaction(st, carry.cells)
+        st, fr2 = interaction(st, carry.cells, carry.tabs)
         velmax2 = I.velocity_max(csp, st.vel, st.code)
         acemax2 = I.ace_max(fr2.ace, st.code)
         dt_c, bad_c = I.dt_variable(csp, acemax2, velmax2, fr2.viscdtmax,
@@ -256,15 +390,16 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             st = replace(st, spstau=_sps_tau(csp, st, fr2))
         st = replace(st, pos=out[0], vel=out[1], rho=out[2], code=out[3],
                      pose=out[4])
-        if rigid is not None:
-            st = rigid(st, fr2.ace, carry.tabs, dt, False)
+        awas = carry.awas
+        if after is not None:
+            st, awas = after(st, fr2.ace, carry.tabs, dt, awas)
 
         carry = replace(
             carry, st=st, t=carry.t + dt, dt_pre=torch.minimum(dt_p, dt_c),
             nstep=carry.nstep + 1,
             dtmodif=carry.dtmodif + bad_p.to(torch.int32)
             + bad_c.to(torch.int32),
-            tabs=carry.tabs + dt)
+            tabs=carry.tabs + dt, awas=awas)
         return _sync_flags(csp, margin, carry)
 
     return step
@@ -272,10 +407,9 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
 
 def make_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
               feats: Features | None = None):
-    if opts.tstep != td.TpStep.SYMPLECTIC:
-        raise NotImplementedError(f"the torch port does not cover "
-                                  f"tstep={opts.tstep.name} yet")
-    return make_symplectic_step(csp, opts, dom, feats)
+    if opts.tstep == TpStep.SYMPLECTIC:
+        return make_symplectic_step(csp, opts, dom, feats)
+    return make_verlet_step(csp, opts, dom, feats)
 
 
 def make_advance(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
@@ -301,7 +435,7 @@ class Simulation:
     def __init__(self, csp: CteSph, opts: SolverOpts, dom: cd.Domain,
                  state: SimState, feats: Features | None = None, step=None):
         self.csp, self.opts, self.dom = csp, opts, dom
-        self.carry = make_carry(state, csp, opts, dom)
+        self.carry = make_carry(state, csp, opts, dom, feats)
         self.advance = make_advance(csp, opts, dom, feats, step=step)
         self.part = 0
         self.time = 0.0        # global simulation time (host f64 accumulator)
@@ -320,14 +454,33 @@ class Simulation:
                 f"{int(bound_out.sum())} boundary particle(s) excluded from "
                 f"the domain (reference AbortBoundOut, JSph.cpp:2477)")
 
-    def run(self, tmax: float, tout: float, on_save=None):
-        """Run to ``tmax`` saving every ``tout`` seconds of simulation time."""
+    def run(self, tmax: float, tout: float, on_save=None, next_subtick=None,
+            on_subtick=None):
+        """Run to ``tmax`` saving every ``tout`` seconds of simulation time.
+
+        ``next_subtick(t_abs) -> t or None`` and ``on_subtick(sim, t_abs)``
+        are the in-interval hooks of the gauges' own cadence (computedt,
+        JDsGaugeSystem.cpp:447; ``features.gauges.GaugeSystem.next_time``):
+        the steps stop at the first step end at or past the next pending
+        tick inside the save interval, and ``on_subtick`` runs there."""
         t0 = time.time()
         if on_save:
             on_save(self)
         while self.time < tmax - 1e-5 * tout:
             target = min(tout, tmax - self.time)
-            carry = self.advance(self.carry, target, float("inf"))
+            carry = self.carry
+            while True:
+                stgt = target
+                if next_subtick is not None:
+                    nt = next_subtick(self.time + carry.t_host)
+                    if nt is not None and nt - self.time < target - 1e-9:
+                        stgt = min(max(nt - self.time, carry.t_host), target)
+                carry = self.advance(carry, stgt, float("inf"))
+                if stgt >= target:
+                    break
+                self.carry = carry
+                if on_subtick is not None:
+                    on_subtick(self, self.time + carry.t_host)
             # keep the interval clock small so f32 time stays precise; the
             # sub-dt overshoot stays in t for the next interval
             t = carry.t - np.float32(target)

@@ -50,6 +50,8 @@ class SolverOpts:
     velgrad: TpVelGrad = TpVelGrad.SPH
     # NN dt relaxation lamda in dt3 = h^2/(ViscEtaDtMax*lamda)
     relaxationdt: float = 0.2
+    # Verlet: an Euler re-anchoring step every verlet_steps steps
+    verlet_steps: int = 40
 
 
 @dataclass
@@ -70,7 +72,6 @@ def check_supported_step(csp: CteSph, opts: SolverOpts) -> None:
     """Raise NotImplementedError for any setting outside every slice's step:
     what the single-phase and the NN interactions both require."""
     unsupported = [
-        (opts.tstep != TpStep.SYMPLECTIC, f"tstep={opts.tstep.name}"),
         (opts.use_nbrlist, "use_nbrlist=True"),
         (opts.symmetry, "symmetry=True"),
     ]

@@ -34,7 +34,7 @@ import torch
 
 from .. import typesdef as td
 from ..typesdef import (CteSph, TpBoundary, TpDensity, TpKernel, TpShifting,
-                        TpVelGrad, TpVisco)
+                        TpStep, TpVelGrad, TpVisco)
 from . import eos
 from . import kernels as K
 from .celldiv import CellDiv, Domain
@@ -181,6 +181,7 @@ def check_supported_nn(csp: CteSph, opts: SolverOpts, phases: PhaseCfg) -> None:
     the kernels cannot hold."""
     check_supported_step(csp, opts)
     raise_unsupported([
+        (opts.tstep != TpStep.SYMPLECTIC, f"tstep={opts.tstep.name}"),
         (opts.tboundary != TpBoundary.DBC, f"tboundary={opts.tboundary.name}"),
         (opts.with_floating, "with_floating=True")])
     if opts.tvisco not in _NN_VISCO:

@@ -90,22 +90,27 @@ def symplectic_corr(csp: CteSph, pos_pre, vel_pre, rho_pre, rho_now, code,
 
 
 def verlet(csp: CteSph, pos, vel, rho, velm1, rhom1, code, ace, ar, dt,
-           use_m1, pose):
+           use_m1: bool, pose, shiftdisp=None):
     """Verlet step (JSphCpu.cpp:1300-1400): leapfrog (dt2=2dt against the M1
-    state) when ``use_m1``, else the Euler re-anchoring step.  Returns
-    (pos, vel_new, rho_new, code, pose)."""
+    state) when ``use_m1``, else the Euler re-anchoring step (every
+    ``VerletSteps``); ``shiftdisp`` (n,3), the shifting displacement, adds
+    to the step's displacement.  Returns (pos, vel_new, rho_new, code,
+    pose); the caller keeps (vel, rho) as the next M1 state (the
+    reference's array swap)."""
     bound, floating, fluid = _split_masks(code)
     acegr = ace + _gravity(csp, vel)
-    use_m1 = torch.as_tensor(use_m1, device=vel.device)
-    base_v = torch.where(use_m1, velm1, vel)
-    base_r = torch.where(use_m1, rhom1, rho)
-    dt2 = torch.where(use_m1, 2.0 * dt, dt)
+    if use_m1:
+        base_v, base_r, dt2 = velm1, rhom1, 2.0 * dt
+    else:
+        base_v, base_r, dt2 = vel, rho, dt
     rho_new = base_r + dt2 * ar
     rho_new = torch.where((bound | floating) & (rho_new < csp.rhopzero),
                           csp.rhopzero, rho_new)
     vel_new = base_v + acegr * dt2
     vel_new = torch.where(fluid[:, None], vel_new, vel)
     disp = vel * dt + acegr * (0.5 * dt * dt)
+    if shiftdisp is not None:
+        disp = disp + shiftdisp
     code_new = _mark_outrhop(csp, code, rho_new, fluid)
     pos_new, pose_new = comp_pos_update(pos, pose, disp, fluid)
     return pos_new, vel_new, rho_new, code_new, pose_new

@@ -122,8 +122,10 @@ def test_convert_rejects_unported_state():
     st = dict(pos=np.zeros((2, 3)), vel=np.zeros((2, 3)), rho=np.ones(2),
               code=np.zeros(2, np.uint32), idp=np.array([0, 0xFFFFFFFF], np.uint32))
     assert convert.simstate(st, device="cpu").idp.tolist() == [0, 0xFFFFFFFF]
-    with pytest.raises(NotImplementedError, match="velm1"):
-        convert.simstate(dict(st, velm1=np.zeros((2, 3))), device="cpu")
+    # the Verlet M1 state is ported: it passes through
+    m1 = convert.simstate(dict(st, velm1=np.ones((2, 3)), rhom1=np.full(2, 2.0)),
+                          device="cpu")
+    assert m1.velm1.tolist() == [[1.0] * 3] * 2 and m1.rhom1.tolist() == [2.0] * 2
     with pytest.raises(ValueError):
         convert.simstate(dict(st, code=np.array([0, 1 << 27], np.uint32)),
                          device="cpu")

@@ -337,12 +337,11 @@ def test_floatingbox_steps_match_jax():
     assert abs(d1 - d0) < 1e-4 * csp.dp
 
 
-@pytest.mark.parametrize("field", ["motions", "periodic", "chrono",
+@pytest.mark.parametrize("field", ["inout", "periodic", "chrono",
                                    "chcontact", "moorings", "forcepoints"])
 def test_features_outside_the_port_raise(field):
     case = cases.floatingbox2d(**BOX, device="cpu")
-    feats = P.Features(floating=case.meta["ftcfg"],
-                       **{field: (object(),) if field == "motions" else object()})
+    feats = P.Features(floating=case.meta["ftcfg"], **{field: object()})
     with pytest.raises(NotImplementedError, match=f"Features.{field}"):
         P.make_step(case.csp, P.SolverOpts(with_floating=True), case.dom, feats)
 

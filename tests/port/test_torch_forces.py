@@ -135,10 +135,11 @@ def test_plain_skips_inactive_particles():
     (dict(tboundary=td.TpBoundary.MDBC, symmetry=True), "symmetry"),
     (dict(shiftmode=td.TpShifting.NO_BOUND, with_floating=True,
           use_nbrlist=True), "use_nbrlist"),
-    (dict(with_floating=True, tstep=td.TpStep.VERLET), "tstep=VERLET"),
+    (dict(with_floating=True, tstep=td.TpStep.VERLET, symmetry=True),
+     "symmetry"),
     (dict(symmetry=True), "symmetry"),
     (dict(use_nbrlist=True), "use_nbrlist"),
-    (dict(tstep=td.TpStep.VERLET), "tstep=VERLET"),
+    (dict(tstep=td.TpStep.VERLET, use_nbrlist=True), "use_nbrlist"),
 ])
 def test_unsupported_configs_raise(kw, name):
     """Settings outside the port raise, whatever the smoothing kernel and

@@ -138,11 +138,13 @@ def test_diagnostics_abort_on_boundary_out():
 
 def test_unsupported_step_configs_raise():
     case = small_case()
-    with pytest.raises(NotImplementedError, match="VERLET"):
-        P.make_step(case.csp, P.SolverOpts(tstep=td.TpStep.VERLET), case.dom)
-    with pytest.raises(NotImplementedError, match="Features.motions"):
+    # a Verlet run reads the M1 state, which this case was built without
+    with pytest.raises(ValueError, match="need_verlet"):
+        P.make_carry(case.state, case.csp,
+                     P.SolverOpts(tstep=td.TpStep.VERLET), case.dom)
+    with pytest.raises(NotImplementedError, match="Features.periodic"):
         P.make_step(case.csp, P.SolverOpts(), case.dom,
-                    feats=P.Features(motions=(object(),)))
+                    feats=P.Features(motions=(object(),), periodic=object()))
     with pytest.raises(NotImplementedError, match="use_nbrlist"):
         P.make_carry(case.state, case.csp,
                      P.SolverOpts(tboundary=td.TpBoundary.MDBC,
