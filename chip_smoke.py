@@ -148,7 +148,35 @@ without printing the final result line:
     per step, every reading finite, the SWL within the depth plus or minus
     the stroke, the AWAS correction finite; then 5 + 20 steps with a
     multi-layer piston on mk 10, a regular-wave relaxation zone and an
-    external acceleration of the fluid.
+    external acceleration of the fluid;
+22. CLI: ``cli.main`` in-process, ``-builtin dambreak3d`` at 267,469
+    particles from rest with ``-ddtramp:0.004:0.002:0.3 -savedt
+    -sv:binx,info -svtimers -svpips -svres -nortimes``, 4 PARTs of 1.8 ms
+    (about 100 steps): cellforce exactly twice per step and no other
+    kernel; every PART read back with the port's reader (ids a permutation
+    of the case's, finite ``Posd``, fluid density within 10% of rho0),
+    SaveDt.csv one row per step, the other channels present; then
+    ``-partbegin:2`` into a second directory, its first step at its
+    PART's time (the ramp goes on), its Part_0004 within 0.25*dp of the
+    first run's by id; then the ms per PART save on the host clock (binx,
+    median of 5; binx with VTK, once) and the bytes a save copies from the
+    device, counted by ``io.partdata.HostCopy``;
+23. step values: kernels 1-3 at about 50k particles (phase 9's state)
+    under a DDT coefficient and a viscosity other than the constants', each
+    against its plain version under the same values (phase 3's rule) and
+    each moved by them more than ten times that rule away from the
+    constants' forces; then the main path (phase 4's case and flow) with
+    the DDT ramp, a 3-row viscosity table and the SaveDt ring: 5 + 50
+    steps, cellforce twice per step, one finite ring row per step, the
+    launch values changed over the run, one device-to-host copy per step
+    in 10 steps traced with ``torch.profiler`` (a trace without device
+    activity fails), and its p50 step printed beside phase 4's; then the
+    host cost of the values alone: the path without them and with a ramp
+    and a table that give the constants' values (the same flow) plus the
+    SaveDt ring, stepped in alternation from the same flowing start (5 +
+    100 steps each), the quartiles of each path's step and of their
+    step-by-step difference; and ``step_values`` and the SaveDt row alone,
+    per call.
 
 Each kernel is timed twice: alone (``ms``: CUDA events around 20
 back-to-back launches of the C launcher on prepared inputs, per launch,
@@ -164,7 +192,8 @@ its operations; the NN kernels' rows list their other instances under
 ``{"ok": true, "device": {...}}``.  Every launch count comes from its
 path's run, counted from 0 just before it (the probes' from their
 tables); cellforce's row adds ``path_launches``, its launches on the dam
-break (phase 4), the Verlet path, the wave flume and the full flume.
+break (phase 4), the Verlet path, the wave flume, the full flume, the CLI
+(phase 22) and the main path with step values (phase 23).
 Imports no JAX.
 """
 
@@ -194,6 +223,11 @@ DP_FLOAT = (2.0 * 0.5 / 60000) ** 0.5    # bench.py floatingbox: 62,033 particle
 DP_2D = (2.0 / 60000) ** 0.5              # 2D dam break: 61,589 particles
 DP_FLUME = (6.0 * 0.4 / 60000) ** 0.5     # bench.py waveflume: 61,467 particles
 LAMSPS_VISCO = 1e-6   # water's kinematic viscosity, -viscolamsps:1e-6
+# phase 22: 4 PARTs of 1.8 ms at DP_BENCH, ~100 steps (dt ~7e-5 s after the
+# DtIni step), the DDT ramp's two ends inside them
+CLI_TOUT = 0.0018
+CLI_RAMP = "0.004:0.002:0.3"
+STEP_VALUES_PAIRS = 100  # phase 23: timed steps of each path, alternated
 PKG = "dualsphysics_multilayer_tpu_torch/csrc/"
 TPU = "dualsphysics_multilayer_tpu/ops/pallas/"
 KERNELS = {   # name: (source, TPU kernel it replaces)
@@ -475,18 +509,20 @@ def nn_launch_ms(name, params, rows, outs, ins=()):
 
 
 def compare_cellforce(csp, opts, dom, cells, args, reps, spstau=None,
-                      ftomassp=None):
+                      ftomassp=None, ddtkh=None, visco=None):
     """The cellforce kernel of this configuration vs its plain version on
-    the same inputs: errors and the times of the kernel alone, with its
-    wrapper, and of the plain version."""
+    the same inputs (``ddtkh`` and ``visco``: a step's launch values in
+    place of the constants'): errors and the times of the kernel alone,
+    with its wrapper, and of the plain version."""
     from dualsphysics_multilayer_tpu_torch import typesdef as td
     from dualsphysics_multilayer_tpu_torch.ops import forces as F
     from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
     name = CF.kernel_name(csp, opts)
     rtol = RTOL_CUBIC if csp.tkernel == td.TpKernel.CUBIC else RTOL
     run = (csp, opts, dom, cells, *args, spstau, ftomassp)
-    got = CF.interaction_forces_cuda(*run)
-    want = F.interaction_forces_plain(*run)
+    over = dict(ddtkh=ddtkh, visco=visco)
+    got = CF.interaction_forces_cuda(*run, **over)
+    want = F.interaction_forces_plain(*run, **over)
     torch.cuda.synchronize()
     err = {k: close(f"{name} {k}", getattr(got, k), getattr(want, k), rtol)
            for k in ("ace", "ar", "spsgradvel", "shiftposfs")
@@ -503,11 +539,12 @@ def compare_cellforce(csp, opts, dom, cells, args, reps, spstau=None,
         got.shift_blocked)]
     ftmass = CF.floating_mass(csp, opts, args[3], ftomassp)
     ms = launch_ms(bare_launcher(
-        "cellforce", f"dsph_{name}", CF.make_params(csp, opts, dom, n),
+        "cellforce", f"dsph_{name}", CF.make_params(csp, opts, dom, n, **over),
         [pospress, velrho, kind, cells.cell, cells.begin, spstau, ftmass]
         + outs))
-    wrapped_ms = cuda_ms(lambda: CF.interaction_forces_cuda(*run), reps)
-    plain_ms = cuda_ms(lambda: F.interaction_forces_plain(*run), reps)
+    wrapped_ms = cuda_ms(lambda: CF.interaction_forces_cuda(*run, **over),
+                         reps)
+    plain_ms = cuda_ms(lambda: F.interaction_forces_plain(*run, **over), reps)
     return err, ms, wrapped_ms, plain_ms
 
 
@@ -1583,6 +1620,298 @@ def full_flume_path(device, smi):
     return launched["cellforce"]
 
 
+def read_parts(pd, directory, n, rho0):
+    """Every Part_XXXX.bi4 of ``directory`` read back with the port's
+    reader, each checked: its ids a permutation of the case's ``n``, its
+    positions finite, its fluid density within 10% of ``rho0``.  Returns
+    {cpart: the part's dict}."""
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    parts = {}
+    for f in sorted(os.listdir(directory)):
+        if not re.fullmatch(r"Part_\d{4}\.bi4", f):
+            continue
+        d = pd.read_part(os.path.join(directory, f))
+        check(np.array_equal(np.sort(d["idp"]), np.arange(n)),
+              f"{f}: ids are not a permutation of the case's {n}")
+        check(bool(np.isfinite(d["pos"]).all()), f"{f}: Posd not finite")
+        fluid = td.code_type(d["code"].astype(np.int64)) == td.TYPE_FLUID
+        r = d["rhop"][fluid]
+        check(0.9 * rho0 <= r.min() and r.max() <= 1.1 * rho0,
+              f"{f}: fluid density [{r.min()}, {r.max()}] out of +-10% of "
+              f"{rho0}")
+        parts[d["cpart"]] = d
+    return parts
+
+
+def save_ms(sim, directory, reps, **channels):
+    """(milliseconds of one PART save of ``sim`` through an OutputManager
+    with ``channels`` (the device-to-host copies and the files), median of
+    ``reps``; the bytes the last save copied from the device)."""
+    from dualsphysics_multilayer_tpu_torch.io.output import OutputManager
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    om = OutputManager(directory, cases.Case(
+        csp=sim.csp, dom=sim.dom, state=sim.state, npb=0, np_total=sim.state.n,
+        meta=dict(name="dambreak3d")), nortimes=True, **channels)
+    times = []
+    for k in range(reps):
+        sim.part = k
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        om(sim)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), om.last_save_bytes
+
+
+def cli_path(device, smi):
+    """Phase 22: the CLI in-process on the card, ``-builtin dambreak3d`` at
+    267,469 particles from rest with the DDT ramp, ~100 steps over 4 PARTs;
+    every PART read back; then ``-partbegin:2`` into a second directory,
+    its Part_0004 against the first run's; then the ms per PART save.
+    Returns the cellforce launches of the first run."""
+    import shutil
+    import tempfile
+    from dualsphysics_multilayer_tpu_torch import cli
+    from dualsphysics_multilayer_tpu_torch.io import partdata as PD
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    from dualsphysics_multilayer_tpu_torch.models.wcsph import Simulation
+    from dualsphysics_multilayer_tpu_torch import SolverOpts, TpDensity
+    root = tempfile.mkdtemp(prefix="_smoke_cli_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    try:
+        first, again = os.path.join(root, "run"), os.path.join(root, "again")
+        argv = ["-builtin", "dambreak3d", "-dp", repr(DP_BENCH),
+                f"-tmax:{4 * CLI_TOUT!r}", f"-tout:{CLI_TOUT!r}",
+                f"-ddtramp:{CLI_RAMP}", "-savedt", "-sv:binx,info",
+                "-svtimers", "-svpips", "-svres", "-nortimes"]
+        reset_counts()
+        t0 = time.perf_counter()
+        check(cli.main(argv + ["-dirout", first]) == 0, "the CLI failed")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        case = cases.dambreak3d(dp=DP_BENCH, device=device)
+        n, rho0 = case.np_total, case.csp.rhopzero
+        parts = read_parts(PD, first, n, rho0)
+        check(sorted(parts) == [0, 1, 2, 3, 4], f"PARTs {sorted(parts)}")
+        nsteps = parts[4]["nstep"]
+        single_phase_counts(launched, "cellforce", 2, nsteps)
+        with open(os.path.join(first, "SaveDt.csv")) as f:
+            rows = f.read().splitlines()[1:]
+        check([int(r.split(";")[0]) for r in rows] == list(range(nsteps)),
+              f"SaveDt.csv has {len(rows)} rows for {nsteps} steps")
+        for name in ("PartInfo.csv", "Timers.csv", "PIPS.csv", "Run.csv",
+                     "Run.out", "Part_Head.ibi4"):
+            check(os.path.exists(os.path.join(first, name)), f"no {name}")
+        with open(os.path.join(first, "PIPS.csv")) as f:
+            pips = dict(zip(*[line.strip().split(";") for line in f]))
+        say("cli", f"-builtin dambreak3d, {n} particles: {nsteps} steps and "
+            f"5 PARTs in {wall:.3f} s ({launched['cellforce']} cellforce "
+            f"launches), all read back (ids a permutation, finite Posd, fluid "
+            f"rho within 10%), SaveDt.csv {len(rows)} rows; PIPS real pairs "
+            f"{pips['real_pairs']}, checked {pips['checked_pairs']} ({smi})")
+
+        check(cli.main(argv + ["-partbegin:2", first, "-dirout", again]) == 0,
+              "the restarted CLI run failed")
+        rparts = read_parts(PD, again, n, rho0)
+        check(sorted(rparts) == [2, 3, 4], f"restart PARTs {sorted(rparts)}")
+        with open(os.path.join(again, "SaveDt.csv")) as f:
+            t_first = float(f.read().splitlines()[1].split(";")[1])
+        t_part = float(np.float32(parts[2]["timestep"]))
+        check(abs(t_first - t_part) <= 1e-6 * t_part, f"the restart's first "
+              f"step ran at t {t_first}, not at its PART's {t_part}")
+        a, b = parts[4], rparts[4]
+        pa = a["pos"][np.argsort(a["idp"])]
+        pb = b["pos"][np.argsort(b["idp"])]
+        dev = float(np.abs(pa - pb).max())
+        check(dev < 0.25 * DP_BENCH, f"restart Part_0004 {dev} m from the "
+              f"first run's (0.25 dp = {0.25 * DP_BENCH} m)")
+        say("cli", f"-partbegin:2: Part_0002-0004, the first step at the "
+            f"PART's t {t_first:.7e} s (the ramp goes on), Part_0004 within "
+            f"{dev:.3e} m of the first run's by id (0.25 dp = "
+            f"{0.25 * DP_BENCH:.3e} m), {rparts[4]['nstep']} steps after the "
+            f"restart")
+
+        sim = Simulation(case.csp, SolverOpts(tdensity=TpDensity.FOURTAKAS),
+                         case.dom, flowing_state(case, device))
+        sim.carry = sim.advance(sim.carry, float("inf"), 5)
+        saves = os.path.join(root, "saves")
+        binx, nbytes = save_ms(sim, os.path.join(saves, "binx"), 5)
+        vtk, vtk_bytes = save_ms(sim, os.path.join(saves, "vtk"), 1,
+                                 save_vtk=True)
+        check(nbytes == vtk_bytes > 0, f"a save copied {nbytes} bytes, with "
+              f"VTK {vtk_bytes}: each array once")
+        say("cli", f"one PART save at {n} particles (the state in cell "
+            f"order, {nbytes} bytes copied from the device, "
+            f"{nbytes / n:g} per particle): binx {binx:.3f} ms (median of "
+            f"5), binx,vtk {vtk:.3f} ms (once, {vtk_bytes} bytes), host "
+            f"clock ({smi})")
+        return launched["cellforce"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def count_d2h(step, carry, nsteps):
+    """(device-to-host copies per step, the carry) over ``nsteps`` steps
+    traced with ``torch.profiler`` (CUDA activity); copies None when the
+    trace holds no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(nsteps):
+            carry = step(carry)
+        torch.cuda.synchronize()
+    ev = [e.name for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ev:
+        return None, carry
+    return sum("DtoH" in name for name in ev) / nsteps, carry
+
+
+def step_values_path(device, main_p50, smi):
+    """Phase 23: kernels 1-3 against their plain versions under a step's
+    DDT ramp and table viscosity at ~50k particles, and away from the
+    constants' forces; then the main path with the ramp, a viscosity table
+    and the SaveDt ring: launches, one device-to-host copy per step, and
+    its p50 step beside the main path's; then that path with values equal
+    to the constants' against the path without, stepped in alternation."""
+    from dualsphysics_multilayer_tpu_torch import (Features, SolverOpts,
+                                                   TpDensity, TpKernel,
+                                                   TpVisco)
+    from dualsphysics_multilayer_tpu_torch.features.viscoinput import ViscoInput
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    from dualsphysics_multilayer_tpu_torch.models.wcsph import (
+        _record_dt as record_dt, make_carry, make_step, step_values)
+    from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
+    case = cases.dambreak3d(dp=DP_50K, obstacle=True, need_sps=True,
+                            device=device)
+    pos, vel, rho, code = perturbed_state(case, device, case.csp.rhopzero)
+    cells, args = sorted_args(case.dom, pos, vel, rho, code)
+    n = args[0].shape[0]
+    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS)
+    spstau = torch.zeros((n, 6), dtype=torch.float32, device=device)
+    for label, csp, o, tau in (
+            ("cellforce", case.csp, opts, None),
+            ("cellforce_cubic", case.csp.replace(tkernel=TpKernel.CUBIC), opts,
+             None),
+            ("cellforce_lamsps", lamsps_csp(DP_50K, 1e-2),
+             dataclasses.replace(opts, tvisco=TpVisco.LAMINAR_SPS), spstau)):
+        ddtkh, visco = 0.3 * csp.kernelsize, 6.0 * csp.visco
+        err, ms, wrapped_ms, plain_ms = compare_cellforce(
+            csp, o, case.dom, cells, args, reps=3, spstau=tau, ddtkh=ddtkh,
+            visco=visco)
+        run = (csp, o, case.dom, cells, *args, tau, None)
+        over = CF.interaction_forces_cuda(*run, ddtkh=ddtkh, visco=visco)
+        base = CF.interaction_forces_cuda(*run)
+        moved = {}
+        for k in ("ace", "ar"):
+            w = getattr(over, k)
+            moved[k] = float((w - getattr(base, k)).abs().max()
+                             / w.abs().max())
+            check(moved[k] > 10 * RTOL, f"{label}: the launch values moved "
+                  f"{k} by {moved[k]:.3e} of its largest value only")
+        say("step-values", f"{label}, {n} particles, ddtkh {ddtkh:.5g} and "
+            f"visco {visco:.5g} for the constants' {csp.ddtkh:.5g} and "
+            f"{csp.visco:.5g}: max|d| against plain " + ", ".join(
+                f"{k} {v:.3e}" for k, v in err.items())
+            + f"; away from the constants' forces by ace {moved['ace']:.3e}, "
+            f"ar {moved['ar']:.3e} of their largest value; kernel alone "
+            f"{ms:.3f} ms, with its wrapper {wrapped_ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms ({smi})")
+
+    # the main path with the ramp, a viscosity table and the SaveDt ring
+    case = cases.dambreak3d(dp=DP_BENCH, obstacle=True, device=device)
+    csp, n = case.csp, case.np_total
+    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS, savedt=64,
+                      ddtramp=(2e-3, 1e-3, 0.3))
+    feats = Features(viscotime=ViscoInput((0.0, 2e-3, 4e-3),
+                                          (0.1, 0.3, 0.05)))
+    step = make_step(csp, opts, case.dom, feats)
+    carry = make_carry(flowing_state(case, device), csp, opts, case.dom, feats)
+    nrebuild0 = carry.nrebuild
+    nwarm, nsteps = 5, 50
+    carry, times, launched = run_steps(step, carry, nwarm, nsteps)
+    single_phase_counts(launched, "cellforce", 2, nwarm + nsteps)
+    check_state(carry, nwarm + nsteps, nrebuild0)
+    rmin, rmax = fluid_rho_range(carry.st, True, csp.rhopzero)
+    first = step_values(csp, opts, feats, 0.0)
+    last = step_values(csp, opts, feats, carry.tabs_host)
+    check(first != last, "the launch values did not change over the run")
+    check(bool(torch.isfinite(carry.dthist).all())
+          and int((carry.dthist[:, 1] > 0).sum()) == nwarm + nsteps,
+          "the SaveDt ring does not hold one finite row per step")
+    p50 = statistics.median(times)
+    d2h, carry = count_d2h(step, carry, 10)
+    check(d2h is not None, "the profiler's trace of 10 steps holds no device "
+          "activity: device-to-host copies not counted")
+    check(d2h == 1, f"{d2h} device-to-host copies per step, expected 1")
+    note = f"{d2h:g} device-to-host copy per step over 10 traced steps"
+    say("step-values", f"main path with -ddtramp and a viscosity table, {n} "
+        f"particles, {nsteps} steps after {nwarm} warm-up: p50 step "
+        f"{p50 * 1e3:.3f} ms (the main path's {main_p50 * 1e3:.3f} ms in this "
+        f"call); {launched['cellforce']} cellforce launches, "
+        f"{carry.nrebuild - nrebuild0} rebuilds; ddtkh {first[0]:.5g} -> "
+        f"{last[0]:.5g}, visco {first[1]:.5g} -> {last[1]:.5g} at t "
+        f"{carry.tabs_host:.6f} s; {note}; fluid rho [{rmin:.2f}, {rmax:.2f}] "
+        f"({smi})")
+
+    # the host cost of the step values and the SaveDt ring alone: a ramp
+    # and a table that give the constants' values, so both paths run the
+    # same flow, stepped in alternation from the same flowing start (the
+    # order swapped every step), 5 warm-up and STEP_VALUES_PAIRS timed
+    # steps each; then the two host calls alone
+    plain_opts = SolverOpts(tdensity=TpDensity.FOURTAKAS)
+    same_opts = dataclasses.replace(opts, ddtramp=(2e-3, 1e-3, csp.ddtvalue))
+    same_feats = Features(viscotime=ViscoInput((0.0, 4e-3),
+                                               (csp.visco, csp.visco)))
+    paths = {
+        "without": [make_step(csp, plain_opts, case.dom),
+                    make_carry(flowing_state(case, device), csp, plain_opts,
+                               case.dom)],
+        "with": [make_step(csp, same_opts, case.dom, same_feats),
+                 make_carry(flowing_state(case, device), csp, same_opts,
+                            case.dom, same_feats)]}
+    times = {"without": [], "with": []}
+    for k in range(5 + STEP_VALUES_PAIRS):
+        for label in (("without", "with") if k % 2 else ("with", "without")):
+            path = paths[label]
+            t0 = time.perf_counter()
+            path[1] = path[0](path[1])
+            torch.cuda.synchronize()
+            if k >= 5:
+                times[label].append(time.perf_counter() - t0)
+    ends = {k: v[1] for k, v in paths.items()}
+    check(step_values(csp, same_opts, same_feats, ends["with"].tabs_host)
+          [1] == float(np.float32(csp.visco)), "the neutral table moved visco")
+    flow = float((ends["with"].st.pos - ends["without"].st.pos).abs().max())
+    quart = {k: statistics.quantiles(v, n=4) for k, v in times.items()}
+    quart["with - without"] = statistics.quantiles(
+        [a - b for a, b in zip(times["with"], times["without"])], n=4)
+    reps = 2000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step_values(csp, same_opts, same_feats, 1.5e-3)
+    values_us = (time.perf_counter() - t0) / reps * 1e6
+    c = ends["with"]
+    row = [c.tabs, c.dt_pre, c.dt_pre, c.dt_pre, c.dt_pre, c.dt_pre]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        record_dt(c, row)
+    torch.cuda.synchronize()
+    record_us = (time.perf_counter() - t0) / reps * 1e6
+    say("step-values", f"{STEP_VALUES_PAIRS} steps each of the path without "
+        f"and with the values at the constants' (ramp to ddtvalue, table at "
+        f"visco) and the SaveDt ring, in alternation, the same flow "
+        f"({ends['with'].nrebuild} and {ends['without'].nrebuild} divides, "
+        f"positions {flow:.3e} m apart at the end); p25 / p50 / p75 of the "
+        f"step: " + "; ".join(
+            f"{k} " + " / ".join(f"{x * 1e3:.3f}" for x in q) + " ms"
+            for k, q in quart.items())
+        + f"; alone, step_values {values_us:.2f} us and the SaveDt row "
+        f"{record_us:.2f} us per call (mean of {reps}) ({smi})")
+    return launched["cellforce"]
+
+
 def main():
     check(torch.cuda.is_available(), "no CUDA device: the port's smoke run "
           "needs an NVIDIA GPU")
@@ -1648,7 +1977,7 @@ def main():
     check_state(carry, nwarm + nsteps, nrebuild0)
     st = carry.st
     rmin, rmax = fluid_rho_range(st, True, case.csp.rhopzero)
-    p50 = statistics.median(times)
+    p50 = main_p50 = statistics.median(times)
     say("main-path", f"{n} particles, {nsteps} steps after {nwarm} warm-up: "
         f"p50 step {p50 * 1e3:.3f} ms, {n / p50:.1f} particle-steps/s; "
         f"{launched['cellforce']} kernel launches, {carry.nrebuild - nrebuild0} "
@@ -1773,6 +2102,13 @@ def main():
     # 21. the full flume: wave generator, AWAS, damping, gauges; then a
     # multi-layer piston and a relaxation zone
     paths["full-flume"] = full_flume_path(device, smi)
+
+    # 22. the CLI: -builtin dambreak3d with the DDT ramp, PARTs read back,
+    # a restart, the ms per PART save
+    paths["cli"] = cli_path(device, smi)
+
+    # 23. a step's DDT ramp and table viscosity as launch values
+    paths["step-values"] = step_values_path(device, main_p50, smi)
     records["cellforce"]["path_launches"] = paths
 
     print(json.dumps({"kernels": [dict(

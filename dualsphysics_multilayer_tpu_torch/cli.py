@@ -1,0 +1,548 @@
+"""Command-line entry point of the torch port.
+
+Counterpart of `dualsphysics_multilayer_tpu/cli.py` (the reference's
+`main.cpp` + `JSphCfgRun`, flag surface `JSphCfgRun.cpp:85-208`): builds a
+builtin case, merges the command-line overrides, optionally restarts from a
+PART, runs the solver on the card (or on the CPU with ``-cpu``, through the
+kernels' plain versions) and writes bi4/VTK/CSV output and the run resume.
+
+    python -m dualsphysics_multilayer_tpu_torch.cli -builtin dambreak3d \\
+        -dp 0.01 -tmax:1.6 -tout:0.02 -dirout out
+    dsphtorch -cpu -builtin dambreak2d -dp 0.05 -tmax:0.01 -tout:0.005
+    dsphtorch -builtin dambreak3d -partbegin:20 out_prev -dirout out2
+
+Reference colon-form flags (-tmax:1.6, -partbegin:20 dir, -svpips:2) are
+accepted alongside space-separated values, and ``-opt FILE`` reads more
+options from a file.  Options whose setting the port does not run leave
+with a message that names them: ``-case`` (the XML loader is not ported
+yet), ``-builtin channel2d`` (periodic boundaries), ``-shard``,
+``-initnorpla``/``-initnorpart``, ``-restartchrono``, ``-pallas``/
+``-no-pallas`` and ``-cellmode:half``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+
+# flags that take a value and may appear in the reference's colon form
+_COLON_FLAGS = {
+    "gpu",
+    "tmax", "tout", "cfl", "dp", "ddt", "ddtvalue", "shifting", "verlet",
+    "rhopout", "svpips", "ftpause", "domain_fixed", "cellmode",
+    "mdbc_threshold", "csvsep", "createdirs", "nsteps", "partbegin",
+    "viscoart", "viscolamsps", "viscoboundfactor", "sv", "ompthreads",
+    "savedt", "initnorpla", "initnorpart", "ddtramp", "svextraparts",
+    "saveposdouble", "shard",
+}
+# flags that are boolean but may carry :0/:1
+_BOOL_FLAGS = {"svres", "svtimers", "svdomainvtk", "svsteps", "nortimes",
+               "createdirs", "svnormals", "cellfixed", "restartchrono",
+               "mdbc_fast", "stable"}
+
+BUILTINS = ("dambreak2d", "dambreak3d", "floatingbox2d", "waveflume2d")
+VERSION = "0.1.0"
+
+
+def _normalize(argv):
+    """Expand -opt response files and split reference colon-form flags."""
+    out = []
+    i = 0
+    argv = list(argv)
+    while i < len(argv):
+        a = argv[i]
+        if a == "-opt":
+            i += 1
+            with open(argv[i]) as f:
+                argv[i + 1:i + 1] = f.read().split()
+        elif a.startswith("-") and ":" in a[1:]:
+            name, val = a[1:].split(":", 1)
+            if name in _COLON_FLAGS:
+                # "=" form so values starting with "-" (negative domain
+                # coordinates) are not mistaken for options by argparse
+                out.append(f"-{name}={val}")
+            elif name in _BOOL_FLAGS:
+                out.extend([f"-{name}"] if val not in ("0", "false")
+                           else [])
+            else:
+                out.append(a)
+        else:
+            out.append(a)
+        i += 1
+    return out
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        prog="dsphtorch",
+        description="SPH solver on PyTorch with hand-written CUDA kernels "
+                    "(the torch port of dualsphysics_multilayer_tpu)")
+    p.add_argument("-cpu", action="store_true",
+                   help="run on the CPU through the kernels' plain versions "
+                        "(reference -cpu, JSphCfgRun.cpp:93)")
+    p.add_argument("-gpu", nargs="?", const="0", default=None,
+                   help="run on CUDA device [:id] (the default: device 0)")
+    p.add_argument("-case", help="DualSPHysics case XML (not ported yet)")
+    p.add_argument("-builtin", help="built-in case: " + " ".join(BUILTINS))
+    p.add_argument("-dp", type=float, default=0.0, help="override dp (builtin)")
+    p.add_argument("-name", default=None, help="case name override")
+    p.add_argument("-runname", default=None, help="run name (Run.csv)")
+    p.add_argument("-dirout", default="out", help="output directory")
+    p.add_argument("-dirdataout", default="",
+                   help="subdirectory for PART data (empty = directly in "
+                        "dirout)")
+    p.add_argument("-tmax", type=float, default=None)
+    p.add_argument("-tout", type=float, default=None)
+    p.add_argument("-symplectic", action="store_true")
+    p.add_argument("-verlet", type=int, nargs="?", const=40, default=None,
+                   metavar="STEPS")
+    p.add_argument("-wendland", action="store_true")
+    p.add_argument("-cubic", action="store_true")
+    p.add_argument("-viscoart", type=float, default=None, metavar="V")
+    p.add_argument("-viscolamsps", type=float, default=None, metavar="V")
+    p.add_argument("-viscoboundfactor", type=float, default=None)
+    p.add_argument("-ddt", type=int, default=None, choices=[0, 1, 2, 3])
+    p.add_argument("-ddtvalue", type=float, default=None)
+    p.add_argument("-ddtramp", default=None, metavar="TRAMP:TMAX:MAXVALUE",
+                   help="initial DDT ramp: total ramp time, time at "
+                        "maxvalue, maxvalue (reference -ddtramp, "
+                        "RunInitialDDTRamp JSphCpuSingle.cpp:650)")
+    p.add_argument("-shifting", type=int, default=None, choices=[0, 1, 2, 3])
+    p.add_argument("-dbc", action="store_true", help="force classic DBC")
+    p.add_argument("-mdbc", action="store_true")
+    p.add_argument("-mdbc_noslip", action="store_true")
+    p.add_argument("-mdbc_freeslip", action="store_true")
+    p.add_argument("-mdbc_fast", action="store_true",
+                   help="accepted for compatibility (the pre-pass solves "
+                        "in single precision)")
+    p.add_argument("-mdbc_threshold", type=float, default=None)
+    p.add_argument("-cfl", type=float, default=None)
+    p.add_argument("-ftpause", type=float, default=None)
+    p.add_argument("-rhopout", default=None, metavar="MIN:MAX")
+    p.add_argument("-domain_fixed", default=None,
+                   metavar="XMIN:YMIN:ZMIN:XMAX:YMAX:ZMAX",
+                   help="fix the simulation domain limits")
+    p.add_argument("-cellmode", default=None, choices=["full", "half"],
+                   help="cell size 2h (full); half is refused")
+    p.add_argument("-cellfixed", action="store_true",
+                   help="accepted for compatibility: the cell grid is "
+                        "always fixed")
+    p.add_argument("-stable", action="store_true",
+                   help="accepted for compatibility: the kernels sum in a "
+                        "fixed order, with no atomics")
+    p.add_argument("-ompthreads", type=int, default=None,
+                   help="accepted for compatibility (host thread count)")
+    p.add_argument("-sv", default="binx",
+                   help="output formats: binx,info,vtk,csv,none (comma list)")
+    p.add_argument("-svres", action="store_true", default=True,
+                   help="write Run.csv summary (default on)")
+    p.add_argument("-no-svres", dest="svres", action="store_false")
+    p.add_argument("-svtimers", action="store_true",
+                   help="write per-interval timing CSV (Timers.csv)")
+    p.add_argument("-shard", type=int, nargs="?", const=0, default=None,
+                   help="domain decomposition (not ported)")
+    p.add_argument("-svpips", type=int, nargs="?", const=1, default=None,
+                   metavar="MODE", help="compute the PIPS throughput metric")
+    p.add_argument("-svdomainvtk", action="store_true",
+                   help="write the domain box as VTK")
+    p.add_argument("-svnormals", action="store_true",
+                   help="save per-PART boundary-normal VTK "
+                        "(SaveVtkNormals, JSphCpuSingle.cpp:1177)")
+    p.add_argument("-saveposdouble", type=int, nargs="?", const=1, default=1,
+                   metavar="0/1",
+                   help="PART position precision: 1=double (default here; "
+                        "restart-exact), 0=float (the reference default)")
+    p.add_argument("-svextraparts", default="", metavar="N|LIST",
+                   help="PART cadence for extra data (mDBC normals): "
+                        "interval N or a range list '2,10-20' "
+                        "(JDsExtraDataSave::Config)")
+    p.add_argument("-svsteps", action="store_true",
+                   help="debug: save a PART after every step")
+    p.add_argument("-nortimes", action="store_true",
+                   help="strip wall-clock times from bi4 (byte-diffable "
+                        "outputs, reference -nortimes)")
+    p.add_argument("-savedt", type=int, nargs="?", const=4096, default=None,
+                   metavar="CAP", help="record per-dt diagnostics (SaveDt.csv)")
+    p.add_argument("-createdirs", type=int, default=1,
+                   help="accepted for compatibility: directories are "
+                        "always created")
+    p.add_argument("-csvsep", type=int, default=0,
+                   help="CSV separator: 0=semicolon 1=comma")
+    p.add_argument("-partbegin", default=None, metavar="N[:FIRST]",
+                   help="restart from PART N (directory: -restartdir or "
+                        "the next positional token)")
+    p.add_argument("-restartdir", default=None,
+                   help="directory holding the restart PART files")
+    p.add_argument("-restartchrono", action="store_true",
+                   help="restart with Chrono-coupled bodies (not ported)")
+    p.add_argument("-nsteps", type=int, default=None,
+                   help="debug: stop at the first save after N steps")
+    p.add_argument("-pallas", action="store_true", default=None,
+                   help="the JAX package's Pallas switch (refused)")
+    p.add_argument("-no-pallas", dest="pallas", action="store_false")
+    p.add_argument("-initnorpla", action="append", default=[],
+                   help="boundary normals from planes (not ported)")
+    p.add_argument("-initnorpart", action="append", default=[],
+                   help="boundary normals from particles (not ported)")
+    p.add_argument("-ver", action="store_true", help="print version and exit")
+    p.add_argument("-info", action="store_true",
+                   help="print features/hardware JSON and exit")
+    p.add_argument("rest", nargs="*", help=argparse.SUPPRESS)
+    return p
+
+
+def refuse(args):
+    """Leave with a message naming the first option whose setting the port
+    does not run."""
+    if args.case:
+        raise SystemExit("-case: the XML case loader (io/xmlcase.py) is not "
+                         "ported yet; use -builtin")
+    if args.builtin == "channel2d":
+        raise SystemExit("-builtin channel2d: periodic boundaries "
+                         "(Features.periodic) are not ported yet")
+    if args.builtin is not None and args.builtin not in BUILTINS:
+        raise SystemExit(f"-builtin {args.builtin}: unknown case (the port "
+                         f"builds {', '.join(BUILTINS)})")
+    if args.shard is not None:
+        raise SystemExit("-shard: domain decomposition "
+                         "(parallel/sharding.py) is not ported yet")
+    if args.initnorpla or args.initnorpart:
+        raise SystemExit("-initnorpla/-initnorpart: boundary-normal "
+                         "initialisation (features/initialize) is not "
+                         "ported yet")
+    if args.restartchrono:
+        raise SystemExit("-restartchrono: Chrono coupling is not ported")
+    if args.pallas is not None:
+        raise SystemExit("-pallas/-no-pallas: the port has no Pallas path; "
+                         "CUDA tensors always run the hand-written kernels")
+    if args.cellmode == "half":
+        raise SystemExit(
+            "-cellmode:half is not supported: the port's cells are the "
+            "kernel size plus a rebuild skin wide, and its kernels walk 3 "
+            "cells per axis; use -cellmode:full")
+
+
+def _features():
+    return ["wcsph", "dbc", "mdbc", "verlet", "symplectic", "wendland",
+            "cubic", "ddt", "ddtramp", "shifting", "laminar+sps", "floating",
+            "motion", "damping", "accinput", "gauges", "viscotime", "bi4",
+            "vtk", "csv", "restart", "savedt", "cuda"]
+
+
+def _info(torch):
+    cuda = torch.cuda.is_available()
+    return {
+        "name": "dualsphysics_multilayer_tpu_torch", "version": VERSION,
+        "features": {
+            "solvers": ["wcsph", "nnewtonian-multiphase"],
+            "kernels": ["wendland", "cubic"],
+            "steps": ["symplectic", "verlet"],
+            "viscosity": ["artificial", "laminar+sps", "consteq-hbp",
+                          "time-table"],
+            "ddt": ["none", "molteni", "fourtakas", "fourtakas-full",
+                    "initial-ramp"],
+            "boundary": ["dbc", "mdbc(vel0,noslip,freeslip)"],
+            "bodies": ["floating-6dof"],
+            "waves": ["piston", "flap", "irregular", "solitary", "focused",
+                      "relaxation-zones", "multilayer-piston", "awas"],
+            "io": ["bi4", "vtk", "csv", "restart", "savedt", "fbi4", "obi4",
+                   "parthead", "run-csv"],
+            "builtin": list(BUILTINS),
+        },
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "devices": ([torch.cuda.get_device_name(k)
+                     for k in range(torch.cuda.device_count())]
+                    if cuda else ["cpu"]),
+    }
+
+
+def _device(args, torch):
+    if args.cpu:
+        return torch.device("cpu")
+    return torch.device("cuda", int(args.gpu or 0))
+
+
+def _build_case(args, device):
+    """The builtin case with the state the options need: the M1 state
+    under -verlet and a zero SPS stress under -viscolamsps (as the JAX
+    package's XML cases build them), the walls' normals under -mdbc for
+    dambreak2d (the JAX CLI's rule)."""
+    import torch
+    from .models import cases as C
+    kw = dict(device=device)
+    if args.dp:
+        kw["dp"] = args.dp
+    if args.builtin == "dambreak2d" and args.mdbc:
+        kw["mdbc"] = True
+    case = getattr(C, args.builtin)(**kw)
+    st = case.state
+    if args.verlet is not None and st.velm1 is None:
+        st = dataclasses.replace(st, velm1=torch.zeros_like(st.vel),
+                                 rhom1=st.rho.clone())
+    if args.viscolamsps is not None and st.spstau is None:
+        st = dataclasses.replace(st, spstau=torch.zeros(
+            (st.n, 6), dtype=torch.float32, device=st.pos.device))
+    return dataclasses.replace(case, state=st)
+
+
+def _overrides(args, csp, opts):
+    """(csp, opts) with the command line's settings (JSph::
+    LoadConfigCommands analog)."""
+    from .typesdef import (TpBoundary, TpDensity, TpKernel, TpShifting,
+                           TpSlipMode, TpStep, TpVisco)
+    oc = {}
+    if args.verlet is not None:
+        oc.update(tstep=TpStep.VERLET, verlet_steps=args.verlet)
+    if args.symplectic:
+        oc.update(tstep=TpStep.SYMPLECTIC)
+    if args.viscoart is not None:
+        oc.update(tvisco=TpVisco.ARTIFICIAL)
+        csp = csp.replace(visco=args.viscoart)
+    if args.viscolamsps is not None:
+        # the Smagorinsky/Blin constants of make_ctesph(tvisco=LAMINAR_SPS)
+        oc.update(tvisco=TpVisco.LAMINAR_SPS)
+        dim = 2 if csp.simulate2d else 3
+        dp_sps = (csp.dp * csp.dp * dim) ** 0.5 / dim
+        csp = csp.replace(visco=args.viscolamsps,
+                          spssmag=(0.12 * dp_sps) ** 2,
+                          spsblin=(2.0 / 3.0) * 0.0066 * dp_sps * dp_sps)
+    if args.ddt is not None:
+        oc.update(tdensity=TpDensity(args.ddt))
+    if args.shifting is not None:
+        oc.update(shiftmode=TpShifting(args.shifting))
+    if args.dbc:
+        oc.update(tboundary=TpBoundary.DBC)
+    if args.mdbc or args.mdbc_noslip or args.mdbc_freeslip:
+        slip = (TpSlipMode.NO_SLIP if args.mdbc_noslip
+                else TpSlipMode.FREE_SLIP if args.mdbc_freeslip
+                else TpSlipMode.VEL0)
+        oc.update(tboundary=TpBoundary.MDBC, slipmode=slip)
+    if args.mdbc_threshold is not None:
+        oc.update(mdbc_threshold=args.mdbc_threshold)
+    if args.savedt is not None:
+        oc.update(savedt=args.savedt)
+    opts = dataclasses.replace(opts, **oc)
+    if args.wendland:
+        csp = csp.replace(tkernel=TpKernel.WENDLAND)
+    if args.cubic:
+        csp = csp.replace(tkernel=TpKernel.CUBIC)
+    if args.viscoboundfactor is not None:
+        csp = csp.replace(viscoboundfactor=args.viscoboundfactor)
+    if args.cfl is not None:
+        csp = csp.replace(cflnumber=args.cfl)
+    if args.rhopout:
+        lo, hi = args.rhopout.split(":")
+        csp = csp.replace(rhopoutmin=float(lo), rhopoutmax=float(hi))
+    if args.ddtvalue is not None:
+        csp = csp.replace(ddtvalue=args.ddtvalue,
+                          ddtkh=csp.kernelsize * args.ddtvalue)
+    if args.ddtramp:
+        # -ddtramp:tramp:tmax:maxvalue (validation per JSphCfgRun.cpp:349-353)
+        v = [float(x) for x in args.ddtramp.split(":")]
+        tramp, tmaxv, vmax = (v + [0.0, 0.0, 0.0])[:3]
+        if tramp > 0 and vmax > 0:
+            opts = dataclasses.replace(
+                opts, ddtramp=(tramp, min(tmaxv, tramp), vmax))
+    return csp, opts
+
+
+def _domain(args, dom):
+    if not args.domain_fixed:
+        return dom
+    # -domain_fixed:xmin:ymin:zmin:xmax:ymax:zmax (JSphCfgRun.cpp:176): the
+    # cell grid over the fixed box, with the case grid's cell size
+    from .ops import celldiv as cd
+    f = [float(x) for x in args.domain_fixed.split(":")]
+    if len(f) != 6 or any(f[i + 3] <= f[i] for i in range(3)):
+        raise SystemExit("-domain_fixed needs xmin:ymin:zmin:xmax:ymax:"
+                         "zmax with max > min on every axis")
+    return cd.make_domain(tuple(f[:3]), tuple(f[3:6]), dom.scell,
+                          simulate2d=dom.simulate2d)
+
+
+def _write_domain_vtk(dirout, dom):
+    import numpy as np
+    from .io import vtkout
+    lo, hi = np.asarray(dom.posmin), np.asarray(dom.posmax)
+    corners = np.array([[lo[0], lo[1], lo[2]], [hi[0], lo[1], lo[2]],
+                        [hi[0], hi[1], lo[2]], [lo[0], hi[1], lo[2]],
+                        [lo[0], lo[1], hi[2]], [hi[0], lo[1], hi[2]],
+                        [hi[0], hi[1], hi[2]], [lo[0], hi[1], hi[2]]],
+                       np.float32)
+    edges = [(0, 1), (1, 2), (2, 3), (3, 0), (4, 5), (5, 6), (6, 7),
+             (7, 4), (0, 4), (1, 5), (2, 6), (3, 7)]
+    vtkout.write_vtk_mesh(os.path.join(dirout, "Domain.vtk"), corners,
+                          lines=[np.array(e) for e in edges])
+
+
+def _log_config(dirout, case, csp, opts, dom, tmax):
+    """The resolved configuration (JSph::VisuConfig, JSph.cpp:1463-1614)
+    into Run.out."""
+    from .utils.log import RunLog
+    rlog = RunLog(dirout, echo=False)
+    rlog.print("[VisuConfig] resolved run configuration:")
+    for k in ("dp", "kernelh", "kernelsize", "cs0", "cteb", "gamma",
+              "rhopzero", "massfluid", "massbound", "visco",
+              "viscoboundfactor", "cflnumber", "dtini", "dtmin",
+              "ddtvalue", "ddtkh", "eta2", "gravity", "simulate2d",
+              "rhopoutmin", "rhopoutmax", "shiftcoef", "shifttfs"):
+        rlog.print(f"  {k}={getattr(csp, k, None)}")
+    for k in ("tstep", "tvisco", "tdensity", "tboundary", "slipmode",
+              "shiftmode", "with_floating", "verlet_steps", "savedt",
+              "ddtramp"):
+        rlog.print(f"  {k}={getattr(opts, k, None)}")
+    rlog.print(f"  np={case.np_total} npb={case.npb} tmax={tmax:g} "
+               f"domain={dom.posmin}..{dom.posmax} cells={dom.nc}")
+    return rlog
+
+
+def main(argv=None):
+    argv = _normalize(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
+    if args.ver:
+        print(json.dumps({"name": "dualsphysics_multilayer_tpu_torch",
+                          "version": VERSION, "features": _features()}))
+        return 0
+    import torch
+    if args.info:
+        print(json.dumps(_info(torch), indent=1))
+        return 0
+    refuse(args)
+    if not args.builtin:
+        print("error: give -builtin <name>", file=sys.stderr)
+        return 2
+
+    from .features.featureset import Features
+    from .io.output import OutputManager, restart_state
+    from .io.partdata import part_filename
+    from .models.wcsph import Simulation
+    from .ops.forces import SolverOpts
+    from .typesdef import TpDensity
+    from .utils.runinfo import TerminateCheck, save_res
+    from .utils.timers import Timers
+
+    device = _device(args, torch)
+    case = _build_case(args, device)
+    csp, opts = _overrides(args, case.csp,
+                           SolverOpts(tdensity=TpDensity.FOURTAKAS))
+    run = dict(tmax=1.0, tout=0.05)
+    dom = _domain(args, case.dom)
+    tmax = args.tmax if args.tmax is not None else run["tmax"]
+    tout = args.tout if args.tout is not None else run["tout"]
+
+    st = case.state
+    t0 = 0.0
+    part0 = 0
+    if args.partbegin is not None:
+        part0 = int(str(args.partbegin).split(":")[0])
+        pdir = args.restartdir or (args.rest[0] if args.rest else args.dirout)
+        path = os.path.join(pdir, part_filename(part0))
+        st, t0, _ = restart_state(path, st)
+        print(f"restart from {path} at t={t0:.6f}")
+
+    feats = None
+    if "ftcfg" in case.meta or "motion" in case.meta:
+        feats = Features(
+            motions=(case.meta["motion"],) if "motion" in case.meta else (),
+            floating=case.meta.get("ftcfg"))
+    if feats is not None and feats.floating is not None:
+        if args.ftpause is not None:
+            feats = dataclasses.replace(
+                feats, floating=dataclasses.replace(
+                    feats.floating, ftpause=args.ftpause))
+        opts = dataclasses.replace(opts, with_floating=True)
+
+    # a restart goes on with the time (so the DDT ramp, the viscosity table
+    # and the motions too) and the PART numbers of the run it continues, as
+    # the reference's -partbegin does (the JAX CLI starts again at PART 0
+    # and its step clock at 0)
+    sim = Simulation(csp, opts, dom, st, feats=feats, t0=t0)
+    sim.part = part0
+    sim.errdir = args.dirout
+    sv = set(args.sv.split(","))
+    datadir = os.path.join(args.dirout, args.dirdataout) \
+        if args.dirdataout else args.dirout
+    sep = ";" if args.csvsep == 0 else ","
+    on_save = None
+    if sv - {"none"}:
+        on_save = OutputManager(datadir, case, save_vtk="vtk" in sv,
+                                save_info="info" in sv, feats=feats,
+                                casename=args.name, nortimes=args.nortimes,
+                                posdouble=bool(args.saveposdouble),
+                                extraparts=args.svextraparts,
+                                svnormals=args.svnormals,
+                                save_csv="csv" in sv, csvsep=sep)
+    os.makedirs(args.dirout, exist_ok=True)
+    if args.svdomainvtk and on_save is not None:
+        _write_domain_vtk(args.dirout, dom)
+    terminate = TerminateCheck(args.dirout) if on_save is not None else None
+
+    print(f"[dsphtorch] case={case.meta.get('name')} np={case.np_total} "
+          f"dp={csp.dp:g} h={csp.kernelh:g} cs0={csp.cs0:g} "
+          f"device={device}")
+    rlog = _log_config(args.dirout, case, csp, opts, dom, tmax)
+    timers = Timers()
+    timers_rows = [] if args.svtimers else None
+    if timers_rows is not None:
+        inner = on_save
+        last = [0]
+        timers.start("Interval")
+
+        def on_save_timed(s):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            dt = timers.stop("Interval")
+            timers_rows.append([s.part, f"{s.time:.6f}",
+                                s.carry.nstep - last[0], f"{dt:.4f}"])
+            last[0] = s.carry.nstep
+            if inner:
+                timers.start("Save")
+                inner(s)
+                timers.stop("Save")
+            timers.start("Interval")
+
+        on_save = on_save_timed
+    timers.start("Run")
+    sim.run(tmax=tmax, tout=tout, on_save=on_save, max_steps=args.nsteps,
+            terminate=terminate, every_step=args.svsteps)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = timers.stop("Run")
+    nstep = sim.carry.nstep
+    psps = case.np_total * nstep / max(wall, 1e-9)
+    print(f"[dsphtorch] done: t={sim.time:.6g} steps={nstep} "
+          f"wall={wall:.1f}s ({psps:.3g} particle-steps/s) parts={sim.part} "
+          f"dtmodif={int(sim.carry.dtmodif)}")
+    if timers_rows:
+        with open(os.path.join(args.dirout, "Timers.csv"), "w") as f:
+            f.write(sep.join(["Part", "Time", "Steps", "WallSeconds"]) + "\n")
+            for r in timers_rows:
+                f.write(sep.join(str(x) for x in r) + "\n")
+        rlog.print(timers.table())
+    rlog.finish()
+    if args.svpips is not None:
+        from .utils.pips import pips_report
+        rep = pips_report(csp, dom, sim.state, wall / max(nstep, 1))
+        with open(os.path.join(args.dirout, "PIPS.csv"), "w") as f:
+            f.write(sep.join(rep.keys()) + "\n")
+            f.write(sep.join(str(v) for v in rep.values()) + "\n")
+        print(f"[dsphtorch] PIPS: {rep}")
+    if args.svres and sv - {"none"}:
+        save_res(args.dirout,
+                 runname=args.runname or case.meta.get("name", "run"),
+                 appname=f"dsphtorch-{VERSION}", casenp=case.np_total,
+                 tsim=sim.time, ttot=wall, timestep=sim.time, nstep=nstep,
+                 part=sim.part, nout=0, maxparticles=case.np_total,
+                 maxcells=dom.ncells, nbound=case.npb, nfixed=case.npb,
+                 dp=csp.dp, kernelh=csp.kernelh, runmode=device.type,
+                 configinfo=f"tstep={opts.tstep.name}", csvsep=sep,
+                 device=device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

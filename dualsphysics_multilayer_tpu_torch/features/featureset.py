@@ -5,7 +5,8 @@ JSph.cpp:923-1184); the step reads this static bundle when it is made.
 
 The fields are the JAX package's.  The port covers ``floating``,
 ``motions`` (``features/motion.py``), ``damping``, ``relaxzones``,
-``mlpistons``, ``awas`` and ``accinputs``; any other non-empty field raises
+``mlpistons``, ``awas``, ``accinputs`` and ``viscotime``
+(``features/viscoinput.py``); any other non-empty field raises
 ``NotImplementedError`` naming it."""
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from .floating import FloatingCfg
 
 # the fields the port's steps run
 PORTED = ("motions", "damping", "accinputs", "floating", "relaxzones",
-          "mlpistons", "awas")
+          "mlpistons", "awas", "viscotime")
 
 
 @dataclass(frozen=True)

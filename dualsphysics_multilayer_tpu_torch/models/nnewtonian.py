@@ -30,10 +30,14 @@ def make_nn_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
                  phases: NN.PhaseCfg):
     """step(carry) -> carry: the symplectic step over the NN interaction
     (ComputeStep_Sym with the _NN_SPH or _NN_FDA interaction,
-    JSphCpu_NN_SPH.cpp:663, JSphCpu_NN_FDA.cpp:129)."""
+    JSphCpu_NN_SPH.cpp:663, JSphCpu_NN_FDA.cpp:129).  It takes no per-step
+    launch values: the JAX NN step reads neither the DDT ramp nor the
+    viscosity table, and writes no SaveDt row, so ``check_supported_nn``
+    refuses ``savedt``, ``ftmotion`` and ``ddtramp`` rather than fill
+    SaveDt.csv with zeros as JAX does."""
     NN.check_supported_nn(csp, opts, phases)
 
-    def interaction(st: W.SimState, cells: cd.CellDiv, tabs):
+    def interaction(st: W.SimState, cells: cd.CellDiv, tabs, tabs_host):
         fr, _eta, _tau = NN.interaction_forces_nn(
             csp, opts, phases, dom, cells, st.pos, st.vel, st.rho, st.code)
         return st, fr

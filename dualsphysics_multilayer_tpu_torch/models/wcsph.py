@@ -22,12 +22,18 @@ one.
 
 Torch has no device-side loop, so the host drives the steps.  Each step
 ends with ONE small device-to-host copy, ``[rebuild flag for the next step,
-t]``: the flag decides whether the next step starts with a divide, and ``t``
-is what :func:`make_advance` compares with its target.
+t, tabs]``: the flag decides whether the next step starts with a divide,
+``t`` is what :func:`make_advance` compares with its target, and ``tabs``
+gives the next step its launch values on the host (:func:`step_values`:
+the DDT ramp and the viscosity table), so they cost no read of their own.
+With ``SolverOpts.savedt`` / ``ftmotion`` a step also writes one row of its
+diagnostics rings on the device (``StepCarry.dthist`` / ``fthist``), which
+``io.output.OutputManager`` drains at each save.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, replace
 
@@ -107,6 +113,14 @@ class StepCarry:
     verlet_count: int = 0
     # AWAS: the accumulated correction displacement of each paddle, (P,)
     awas: torch.Tensor | None = None
+    tabs_host: float = 0.0       # host copy of tabs, read at the end of a step
+    # SaveDt ring (savedt, 6): [tabs, dt, dt1, dt2, acemax, viscdtmax] of
+    # step k in row k % savedt (reference JDsSaveDt); written in place, so
+    # carries copied with ``replace`` share it
+    dthist: torch.Tensor | None = None
+    # floating-motion ring (ftmotion, 1 + 9B): [t, center, fvel, fomega]
+    # after step k in row k % ftmotion (JFtMotionSave); written in place
+    fthist: torch.Tensor | None = None
 
 
 def _rebuild(dom: cd.Domain, carry: StepCarry) -> StepCarry:
@@ -132,10 +146,39 @@ def _rebuild_needed(csp: CteSph, margin: float, carry: StepCarry):
 
 
 def _sync_flags(csp: CteSph, margin: float, carry: StepCarry) -> StepCarry:
-    """The step's one device-to-host copy: the next rebuild flag and t."""
+    """The step's one device-to-host copy: the next rebuild flag, t and
+    tabs."""
     need = _rebuild_needed(csp, margin, carry)
-    flag, t = torch.stack([need.to(carry.t.dtype), carry.t]).tolist()
-    return replace(carry, rebuild=bool(flag), t_host=t)
+    flag, t, tabs = torch.stack([need.to(carry.t.dtype), carry.t,
+                                 carry.tabs]).tolist()
+    return replace(carry, rebuild=bool(flag), t_host=t, tabs_host=tabs)
+
+
+def step_values(csp: CteSph, opts: SolverOpts, feats: Features | None,
+                tabs: float):
+    """(ddtkh, visco) of a step that starts at absolute time ``tabs`` (a
+    host float): the initial DDT ramp (RunInitialDDTRamp,
+    JSphCpuSingle.cpp:650-663: maxvalue while t <= tmaxvalue, then linear
+    down to ddtvalue at t = tramp) and the viscosity table (JDsViscoInput,
+    JSphCpuSingle.cpp:1092), each None when the run has none.  Evaluated in
+    float32 with the JAX package's arithmetic (`wcsph.py:328-344`, the
+    blend's multiply-add fused as XLA fuses it)."""
+    visco = None
+    if feats is not None and feats.viscotime is not None:
+        visco = float(feats.viscotime.visco_at(tabs))
+    ddtkh = None
+    if opts.ddtramp is not None:
+        tramp, tmaxv, vmax = opts.ddtramp
+        f32 = np.float32
+        t = f32(tabs)
+        trr = f32(max(tramp - tmaxv, 1e-30))
+        q = np.float64((f32(tramp) - t) / trr)
+        blend = f32(q * np.float64(f32(vmax - csp.ddtvalue))
+                    + np.float64(f32(csp.ddtvalue)))
+        val = f32(vmax) if t <= f32(tmaxv) else blend
+        val = val if t < f32(tramp) else f32(csp.ddtvalue)
+        ddtkh = float(f32(csp.kernelsize) * val)
+    return ddtkh, visco
 
 
 def _margin(csp: CteSph, dom: cd.Domain) -> float:
@@ -147,9 +190,14 @@ def _margin(csp: CteSph, dom: cd.Domain) -> float:
 
 
 def make_carry(st: SimState, csp: CteSph, opts: SolverOpts,
-               dom: cd.Domain, feats: Features | None = None) -> StepCarry:
-    """Initial carry: the first divide (nrebuild = 1) and dt = DtIni, with
-    a zero AWAS correction per paddle of ``feats``.  It serves the
+               dom: cd.Domain, feats: Features | None = None,
+               t0: float = 0.0) -> StepCarry:
+    """Initial carry: the first divide (nrebuild = 1) and dt = DtIni at
+    tabs ``t0`` (a restart's PART time, so the DDT ramp, the viscosity
+    table and the motions go on from there; 0 on a fresh run), with a
+    zero AWAS correction per paddle of ``feats`` and the
+    zeroed rings of ``opts.savedt`` / ``opts.ftmotion`` (the latter with
+    floating bodies only).  It serves the
     single-phase and the NN steps alike; each step checks its own
     interaction's settings.  The Verlet step reads the M1 state: ValueError
     unless the state has it (the case built with ``need_verlet=True``)."""
@@ -159,41 +207,51 @@ def make_carry(st: SimState, csp: CteSph, opts: SolverOpts,
                          "and SimState.rhom1: build the case with "
                          "need_verlet=True")
     dev = st.pos.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    nbody = feats.floating.count \
+        if feats is not None and feats.floating is not None else 0
     carry = StepCarry(
         st=st,
-        t=torch.zeros((), dtype=torch.float32, device=dev),
-        dt_pre=torch.tensor(csp.dtini, dtype=torch.float32, device=dev),
+        t=torch.zeros((), **f32),
+        dt_pre=torch.tensor(csp.dtini, **f32),
         dtmodif=torch.zeros((), dtype=torch.int32, device=dev),
-        tabs=torch.zeros((), dtype=torch.float32, device=dev),
+        tabs=torch.tensor(t0, **f32),
         cells=None, pos0=None,
-        awas=(torch.zeros(len(feats.awas), dtype=torch.float32, device=dev)
-              if feats is not None and feats.awas else None))
+        awas=(torch.zeros(len(feats.awas), **f32)
+              if feats is not None and feats.awas else None),
+        dthist=torch.zeros((opts.savedt, 6), **f32) if opts.savedt else None,
+        fthist=(torch.zeros((opts.ftmotion, 1 + 9 * nbody), **f32)
+                if opts.ftmotion and nbody else None))
     carry = _rebuild(dom, carry)
     return _sync_flags(csp, _margin(csp, dom), carry)
 
 
 def _interaction(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
-                 st: SimState, cells: cd.CellDiv, ftomassp=None):
+                 st: SimState, cells: cd.CellDiv, ftomassp=None, ddtkh=None,
+                 visco=None):
     """The mDBC pre-pass and the forces of one interaction on the current
-    layout (the body of `JSphCpuSingle::Interaction_Forces`).  Returns (the
-    state with the pre-pass's boundary velocity and density, Forces).  The
-    pre-pass runs under mDBC walls when the state carries normals (JAX
-    `wcsph.py:443-449`); without normals an mDBC run is a DBC run with the
-    mDBC diffusion rule, as in JAX."""
+    layout (the body of `JSphCpuSingle::Interaction_Forces`), with the
+    step's launch values ``ddtkh`` and ``visco`` (:func:`step_values`).
+    Returns (the state with the pre-pass's boundary velocity and density,
+    Forces).  The pre-pass runs under mDBC walls when the state carries
+    normals (JAX `wcsph.py:443-449`); without normals an mDBC run is a DBC
+    run with the mDBC diffusion rule, as in JAX."""
     if opts.tboundary == TpBoundary.MDBC and st.boundnormal is not None:
         vel, rho = MD.mdbc_correction(csp, opts, dom, cells, st.pos, st.vel,
                                       st.rho, st.code, st.boundnormal,
                                       st.motionvel)
         st = replace(st, vel=vel, rho=rho)
     return st, F.interaction_forces(csp, opts, dom, cells, st.pos, st.vel,
-                                    st.rho, st.code, st.spstau, ftomassp)
+                                    st.rho, st.code, st.spstau, ftomassp,
+                                    ddtkh=ddtkh, visco=visco)
 
 
 def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
                   feats: Features | None):
     """(interaction, rigid) of the single-phase steps: the interaction
-    ``(st, cells, tabs) -> (st, Forces)`` with the floating bodies'
-    particle mass and, after the forces, the external accelerations
+    ``(st, cells, tabs, tabs_host) -> (st, Forces)`` with the floating
+    bodies' particle mass, the launch values of :func:`step_values` at
+    ``tabs_host`` and, after the forces, the external accelerations
     (`_post_forces`, JAX `wcsph.py:486-492`: they enter AceMax and the dt
     control); ``rigid(st, ace, t, dt, predictor) -> st``, the floating
     bodies' update, or None."""
@@ -203,12 +261,14 @@ def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
         feats.check_supported()
         floating, accinputs = feats.floating, feats.accinputs
 
-    def interaction(st, cells, tabs):
+    def interaction(st, cells, tabs, tabs_host):
         ftomassp = None
         if floating is not None:
             ftomassp = FT.body_tables(floating, tuple(csp.gravity),
                                       st.pos.device).massp
-        st, fr = _interaction(csp, opts, dom, st, cells, ftomassp)
+        ddtkh, visco = step_values(csp, opts, feats, tabs_host)
+        st, fr = _interaction(csp, opts, dom, st, cells, ftomassp,
+                              ddtkh=ddtkh, visco=visco)
         if accinputs:
             fr = replace(fr, ace=ACC.apply_accinput(
                 accinputs, csp, tabs, st.pos, st.vel, st.code, fr.ace))
@@ -299,10 +359,13 @@ def make_verlet_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     def step(carry: StepCarry) -> StepCarry:
         if carry.rebuild:
             carry = _rebuild(dom, carry)
-        st, fr = interaction(carry.st, carry.cells, carry.tabs)
+        st, fr = interaction(carry.st, carry.cells, carry.tabs,
+                             carry.tabs_host)
         velmax = I.velocity_max(csp, st.vel, st.code)
         acemax = I.ace_max(fr.ace, st.code)
-        dt, bad = I.dt_variable(csp, acemax, velmax, fr.viscdtmax)
+        dt, bad, dt1, dt2 = I.dt_variable_parts(csp, acemax, velmax,
+                                                fr.viscdtmax)
+        _record_dt(carry, [carry.tabs, dt, dt1, dt2, acemax, fr.viscdtmax])
         shiftdisp = None
         if fr.shiftposfs is not None:
             shiftdisp = F.apply_shifting(csp, opts, dt, st.vel, st.code,
@@ -320,6 +383,7 @@ def make_verlet_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
         awas = carry.awas
         if after is not None:
             st, awas = after(st, fr.ace, carry.tabs, dt, awas)
+        _record_ftmotion(carry, st, carry.tabs + dt)
         carry = replace(
             carry, st=st, t=carry.t + dt, dt_pre=dt, nstep=carry.nstep + 1,
             verlet_count=vcount if use_m1 else 0,
@@ -328,6 +392,25 @@ def make_verlet_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
         return _sync_flags(csp, margin, carry)
 
     return step
+
+
+def _record_dt(carry: StepCarry, row) -> None:
+    """Write the step's SaveDt row into ``carry.dthist`` (JAX `wcsph.py:
+    575-578`, `:691-694`), one indexed copy on the device."""
+    if carry.dthist is not None:
+        carry.dthist[carry.nstep % carry.dthist.shape[0]] = torch.stack(row)
+
+
+def _record_ftmotion(carry: StepCarry, st: SimState, t_next) -> None:
+    """Write one [t, center, fvel, fomega] row into ``carry.fthist`` (the
+    per-dt capture of JFtMotionSave::SaveFtData; JAX ``_record_ftmotion``,
+    `wcsph.py:281-291`)."""
+    if carry.fthist is None or st.ft is None:
+        return
+    ft = st.ft
+    carry.fthist[carry.nstep % carry.fthist.shape[0]] = torch.cat([
+        t_next.reshape(1), ft.center.reshape(-1).float(),
+        ft.fvel.reshape(-1).float(), ft.fomega.reshape(-1).float()])
 
 
 def _sps_tau(csp: CteSph, st: SimState, fr: F.Forces):
@@ -340,7 +423,8 @@ def _sps_tau(csp: CteSph, st: SimState, fr: F.Forces):
 def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
                     interaction, rigid=None, after=None):
     """step(carry) -> carry: the symplectic predictor and corrector over
-    ``interaction(st, cells, tabs) -> (st, Forces)`` on one layout; the
+    ``interaction(st, cells, tabs, tabs_host) -> (st, Forces)`` on one
+    layout (``tabs_host``: the step's start time on the host); the
     state it returns (the mDBC pre-pass's boundary values) goes on,
     as in JAX.  What the forces carry switches the rest: ``viscetadtmax``
     the NN dt3 control, ``spsgradvel`` the SPS stress after each
@@ -358,7 +442,7 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
         dt = carry.dt_pre
 
         # ---------------- predictor ----------------
-        st, fr1 = interaction(st, carry.cells, carry.tabs)
+        st, fr1 = interaction(st, carry.cells, carry.tabs, carry.tabs_host)
         velmax1 = I.velocity_max(csp, st.vel, st.code)
         acemax1 = I.ace_max(fr1.ace, st.code)
         dt_p, bad_p = I.dt_variable(csp, acemax1, velmax1, fr1.viscdtmax,
@@ -373,11 +457,14 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             st = rigid(st, fr1.ace, carry.tabs, dt * 0.5, True)
 
         # ---------------- corrector (same layout) ----------------
-        st, fr2 = interaction(st, carry.cells, carry.tabs)
+        st, fr2 = interaction(st, carry.cells, carry.tabs, carry.tabs_host)
         velmax2 = I.velocity_max(csp, st.vel, st.code)
         acemax2 = I.ace_max(fr2.ace, st.code)
-        dt_c, bad_c = I.dt_variable(csp, acemax2, velmax2, fr2.viscdtmax,
-                                    fr2.viscetadtmax, opts.relaxationdt)
+        dt_c, bad_c, dt1_c, dt2_c = I.dt_variable_parts(
+            csp, acemax2, velmax2, fr2.viscdtmax, fr2.viscetadtmax,
+            opts.relaxationdt)
+        _record_dt(carry, [carry.tabs, dt, dt1_c, dt2_c, acemax2,
+                           fr2.viscdtmax])
         shiftdisp = None
         if fr2.shiftposfs is not None:
             # the predictor's velocity, the step's dt (JAX wcsph.py:580-586)
@@ -393,6 +480,7 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
         awas = carry.awas
         if after is not None:
             st, awas = after(st, fr2.ace, carry.tabs, dt, awas)
+        _record_ftmotion(carry, st, carry.tabs + dt)
 
         carry = replace(
             carry, st=st, t=carry.t + dt, dt_pre=torch.minimum(dt_p, dt_c),
@@ -421,6 +509,8 @@ def make_advance(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     step = step or make_step(csp, opts, dom, feats)
 
     def advance(carry: StepCarry, t_target: float, nstep_max: int):
+        # the target in float32, as the JAX loop compares it with its f32 t
+        t_target = float(np.float32(t_target))
         while carry.t_host < t_target and carry.nstep < nstep_max:
             carry = step(carry)
         return carry
@@ -430,46 +520,116 @@ def make_advance(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
 
 class Simulation:
     """Host-side run loop (`JSphCpuSingle::Run`, JSphCpuSingle.cpp:
-    1049-1202): owns the step, the save schedule and the diagnostics."""
+    1049-1202): owns the step, the save schedule and the diagnostics.
+    JAX's ``steps_per_call`` adaptation guards a TPU launch watchdog around
+    its device loop; the steps here are launched one by one from the host,
+    so it has no counterpart."""
+
+    # excluded-fluid cap: fraction of the initial fluid allowed out before
+    # the run aborts (XML <PartsOutMax>, reference NpfOutMax/NpMinimum check
+    # JSphCpuSingle.cpp:1101-1106); None disables
+    partsoutmax: float | None = None
+    # directory for failure-evidence dumps (Error_BoundaryOut.vtk)
+    errdir: str = "."
 
     def __init__(self, csp: CteSph, opts: SolverOpts, dom: cd.Domain,
-                 state: SimState, feats: Features | None = None, step=None):
+                 state: SimState, feats: Features | None = None, step=None,
+                 log=print, t0: float = 0.0):
+        """``t0``: the start time, a restart's PART time (``io.output.
+        restart_state``); the step's clock ``tabs`` starts there too."""
         self.csp, self.opts, self.dom = csp, opts, dom
-        self.carry = make_carry(state, csp, opts, dom, feats)
+        self.feats = feats
+        self.carry = make_carry(state, csp, opts, dom, feats, t0=t0)
         self.advance = make_advance(csp, opts, dom, feats, step=step)
         self.part = 0
-        self.time = 0.0        # global simulation time (host f64 accumulator)
+        self.time = t0         # global simulation time (host f64 accumulator)
+        self.log = log
+        self._nfluid0 = None
+
+    @property
+    def state(self) -> SimState:
+        return self.carry.st
 
     def check_diagnostics(self):
+        """Raise on boundary particles excluded from the domain, after
+        dumping them to ``errdir``/Error_BoundaryOut.vtk in slot order
+        (reference AbortBoundOut, JSph.cpp:2477), and on excluded fluid
+        beyond ``partsoutmax`` of the initial fluid."""
         if self.carry.overflow:
             raise RuntimeError(f"cell overflow: {self.carry.overflow} "
                                f"particle(s) dropped")
-        code = self.carry.st.code.cpu().numpy()
+        st = self.carry.st
+        code = st.code.cpu().numpy()
         sp = td.code_special(code)
         # OUT_IGNORE marks never-active spare slots, not exclusions
         out = (sp >= td.SPECIAL_OUT_POS) & (sp != td.SPECIAL_OUT_IGNORE)
         bound_out = out & (td.code_type(code) < td.TYPE_FLUID)
         if bound_out.any():
+            from ..io import vtkout
+            p = os.path.join(self.errdir, "Error_BoundaryOut.vtk")
+            try:
+                os.makedirs(self.errdir, exist_ok=True)
+                vtkout.write_vtk_particles(
+                    p, st.pos.cpu().numpy()[bound_out],
+                    {"Idp": st.idp.cpu().numpy()[bound_out]})
+            except OSError:
+                p = "(vtk dump failed)"
             raise RuntimeError(
                 f"{int(bound_out.sum())} boundary particle(s) excluded from "
-                f"the domain (reference AbortBoundOut, JSph.cpp:2477)")
+                f"the domain (evidence: {p}; reference AbortBoundOut, "
+                f"JSph.cpp:2477)")
+        if self.partsoutmax is not None:
+            fluid_out = int((out & (td.code_type(code) == td.TYPE_FLUID)
+                             & ~td.is_floating(code)).sum())
+            if self._nfluid0 is None:
+                act = td.is_active(code) | out
+                self._nfluid0 = int(
+                    (td.code_type(code) == td.TYPE_FLUID)[act].sum())
+            nfluid0 = self._nfluid0
+            if nfluid0 and fluid_out > self.partsoutmax * nfluid0:
+                raise RuntimeError(
+                    f"excluded fluid particles ({fluid_out}) exceed "
+                    f"PartsOutMax={self.partsoutmax:g} of {nfluid0} "
+                    f"(reference NpMinimum check, JSphCpuSingle.cpp:1101)")
 
-    def run(self, tmax: float, tout: float, on_save=None, next_subtick=None,
-            on_subtick=None):
+    def run(self, tmax: float, tout, on_save=None, max_steps=None,
+            terminate=None, next_subtick=None, on_subtick=None,
+            every_step=False):
         """Run to ``tmax`` saving every ``tout`` seconds of simulation time.
+        ``tout`` may be a float or an ``io.output.OutputTime`` schedule
+        (JDsOutputTime).  ``terminate``: a ``utils.runinfo.TerminateCheck``
+        polled between save intervals (JSph::CheckTermination).
+        ``max_steps``: stop after the first save at or past that many steps
+        (the CLI's ``-nsteps``).  ``every_step``: a save after every step,
+        at the step's end time, ``tout`` then bounding nothing but the
+        end test (the CLI's ``-svsteps``; the JAX CLI's tout of 1e-9
+        saves once per 1e-9 s of simulated time instead, ``ROADMAP.md``
+        §3).
 
         ``next_subtick(t_abs) -> t or None`` and ``on_subtick(sim, t_abs)``
         are the in-interval hooks of the gauges' own cadence (computedt,
         JDsGaugeSystem.cpp:447; ``features.gauges.GaugeSystem.next_time``):
         the steps stop at the first step end at or past the next pending
         tick inside the save interval, and ``on_subtick`` runs there."""
+        interval = (tout.interval if hasattr(tout, "interval")
+                    else (lambda t: tout))
         t0 = time.time()
         if on_save:
             on_save(self)
-        while self.time < tmax - 1e-5 * tout:
-            target = min(tout, tmax - self.time)
+        while self.time < tmax - 1e-5 * interval(self.time):
+            if terminate is not None:
+                newmax = terminate.poll()
+                if newmax is not None:
+                    tmax = min(tmax, max(newmax, self.time))
+                    self.log(f"TERMINATE file: tmax -> {tmax:g}")
+                    if self.time >= tmax:
+                        break
+            target = min(interval(self.time), tmax - self.time)
             carry = self.carry
-            while True:
+            if every_step:
+                carry = self.advance(carry, float("inf"), carry.nstep + 1)
+                target = carry.t_host
+            while not every_step:
                 stgt = target
                 if next_subtick is not None:
                     nt = next_subtick(self.time + carry.t_host)
@@ -488,7 +648,32 @@ class Simulation:
             self.time += target
             self.part += 1
             self.check_diagnostics()
+            self._eta_print(tmax, t0)
+            self.walltime = time.time() - t0
             if on_save:
                 on_save(self)
+            if max_steps is not None and self.carry.nstep >= max_steps:
+                break
         self.walltime = time.time() - t0
         return self
+
+    # ETA print schedule in wall-clock seconds (JTimeControl: the reference
+    # prints estimates at 30, 60, 300, 600, ... s, JSphCpuSingle.cpp:1083)
+    _eta_schedule = (30.0, 60.0, 300.0)
+    _eta_next_idx = 0
+    _eta_next = 30.0
+
+    def _eta_print(self, tmax, t0):
+        elapsed = time.time() - t0
+        if elapsed < self._eta_next or self.time <= 0:
+            return
+        frac = min(self.time / tmax, 1.0)
+        eta = elapsed / frac * (1.0 - frac)
+        self.log(f"Part_{self.part:04d}  t={self.time:.6f}  "
+                 f"steps={self.carry.nstep}  "
+                 f"{frac * 100:.1f}% done, estimated {eta:.0f}s left")
+        if self._eta_next_idx + 1 < len(self._eta_schedule):
+            self._eta_next_idx += 1
+            self._eta_next = self._eta_schedule[self._eta_next_idx]
+        else:
+            self._eta_next = elapsed + self._eta_schedule[-1]

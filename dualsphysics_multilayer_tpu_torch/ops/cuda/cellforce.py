@@ -82,16 +82,20 @@ def kernel_name(csp: CteSph, opts: SolverOpts) -> str:
     return "cellforce_cubic" if csp.tkernel == TpKernel.CUBIC else "cellforce"
 
 
-def make_params(csp: CteSph, opts: SolverOpts, dom: Domain, n: int) -> CfParams:
+def make_params(csp: CteSph, opts: SolverOpts, dom: Domain, n: int,
+                ddtkh=None, visco=None) -> CfParams:
+    """The launch parameters, built per launch: ``ddtkh`` and ``visco``
+    override the constants of ``csp`` (``pairphys.launch_values``)."""
     ncx, ncy, ncz = dom.nc
+    visco, viscobound, ddtkh = PP.launch_values(csp, ddtkh, visco)
     return CfParams(
         n=n, ncx=ncx, ncy=ncy, ncz=ncz, ncells=dom.ncells,
         sim2d=int(csp.simulate2d), tdensity=opts.tdensity.value,
         tkernel=csp.tkernel.value, shiftmode=opts.shiftmode.value,
         tboundary=opts.tboundary.value,
         kernelsize2=csp.kernelsize2, kernelh=csp.kernelh, bwen=csp.kwend.bwen,
-        eta2=csp.eta2, cs0=csp.cs0, visco=csp.visco,
-        viscobound=csp.visco * csp.viscoboundfactor, ddtkh=csp.ddtkh,
+        eta2=csp.eta2, cs0=csp.cs0, visco=visco, viscobound=viscobound,
+        ddtkh=ddtkh,
         ddtgz=csp.ddtgz, rhopzero=csp.rhopzero, ovgamma=1.0 / csp.gamma,
         massfluid=csp.massfluid, massbound=csp.massbound,
         almostzero=td.ALMOSTZERO, cubic=CubicCte.of(csp))
@@ -164,7 +168,7 @@ def _prepare(csp, opts, dom, cells, pos, vel, rho, code, spstau, ftomassp,
 
 
 def _run(fn, name, csp, opts, dom, cells, pos, vel, rho, code, spstau,
-         ftomassp, extra=()):
+         ftomassp, ddtkh, visco, extra=()):
     n = pos.shape[0]
     dev = pos.device
     use_sps = opts.tvisco == TpVisco.LAMINAR_SPS
@@ -184,7 +188,7 @@ def _run(fn, name, csp, opts, dom, cells, pos, vel, rho, code, spstau,
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    params = make_params(csp, opts, dom, n)
+    params = make_params(csp, opts, dom, n, ddtkh, visco)
     err = fn(ctypes.byref(params), pospress.data_ptr(), velrho.data_ptr(),
              kind.data_ptr(), cells.cell.data_ptr(), cells.begin.data_ptr(),
              ptr(spstau if use_sps else None), ptr(ftmass), ace.data_ptr(),
@@ -199,26 +203,29 @@ def _run(fn, name, csp, opts, dom, cells, pos, vel, rho, code, spstau,
 
 def interaction_forces_cuda(csp: CteSph, opts: SolverOpts, dom: Domain,
                             cells: CellDiv, pos, vel, rho, code,
-                            spstau=None, ftomassp=None) -> Forces:
+                            spstau=None, ftomassp=None, ddtkh=None,
+                            visco=None) -> Forces:
     """One interaction through the CUDA kernel of this configuration (CUDA
-    tensors only), counted in ``launches``."""
+    tensors only), counted in ``launches``; ``ddtkh`` and ``visco``
+    override the constants of ``csp`` (:func:`make_params`)."""
     name = _prepare(csp, opts, dom, cells, pos, vel, rho, code, spstau,
                     ftomassp, "cuda")
     fn = getattr(build.cuda_library("cellforce"), f"dsph_{name}")
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream().cuda_stream
         fr = _run(fn, name, csp, opts, dom, cells, pos, vel, rho, code, spstau,
-                  ftomassp, extra=(stream,))
+                  ftomassp, ddtkh, visco, extra=(stream,))
     launches[name] += 1
     return fr
 
 
 def interaction_forces_host_twin(csp: CteSph, opts: SolverOpts, dom: Domain,
                                  cells: CellDiv, pos, vel, rho, code,
-                                 spstau=None, ftomassp=None) -> Forces:
+                                 spstau=None, ftomassp=None, ddtkh=None,
+                                 visco=None) -> Forces:
     """The kernel's body compiled by g++, on CPU tensors (for tests)."""
     name = _prepare(csp, opts, dom, cells, pos, vel, rho, code, spstau,
                     ftomassp, "cpu")
     fn = getattr(build.host_twin_library("cellforce"), f"dsph_{name}_host")
     return _run(fn, name, csp, opts, dom, cells, pos, vel, rho, code, spstau,
-                ftomassp)
+                ftomassp, ddtkh, visco)

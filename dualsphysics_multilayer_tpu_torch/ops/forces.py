@@ -52,6 +52,18 @@ class SolverOpts:
     relaxationdt: float = 0.2
     # Verlet: an Euler re-anchoring step every verlet_steps steps
     verlet_steps: int = 40
+    # per-dt diagnostics ring capacity (the JDsSaveDt channel; 0 = off):
+    # StepCarry.dthist, drained to SaveDt.csv at each save, so it must
+    # cover the steps between two saves
+    savedt: int = 0
+    # per-dt floating-motion ring capacity (JFtMotionSave,
+    # PartFloatMotion.fbi4; 0 = off): StepCarry.fthist, same contract
+    ftmotion: int = 0
+    # initial DDT ramp (tramp, tmaxvalue, maxvalue): while t < tramp the DDT
+    # constant is maxvalue (t <= tmaxvalue), then blends linearly down to
+    # csp.ddtvalue at t = tramp (CLI -ddtramp, RunInitialDDTRamp
+    # JSphCpuSingle.cpp:650-663); a launch parameter of each step
+    ddtramp: tuple | None = None
 
 
 @dataclass
@@ -108,19 +120,25 @@ def check_spstau(opts: SolverOpts, spstau) -> None:
 
 def interaction_forces(csp: CteSph, opts: SolverOpts, dom: Domain,
                        cells: CellDiv, pos, vel, rho, code,
-                       spstau=None, ftomassp=None) -> Forces:
+                       spstau=None, ftomassp=None, ddtkh=None,
+                       visco=None) -> Forces:
     """One interaction on state arrays in ``cells`` order: the CUDA kernels
     for CUDA tensors, the plain version for CPU tensors.  ``spstau`` (n,6)
     is read by laminar+SPS viscosity only; ``ftomassp`` (B,), the particle
-    mass of each floating body, under ``opts.with_floating`` only."""
+    mass of each floating body, under ``opts.with_floating`` only.
+    ``ddtkh`` and ``visco``, host floats, replace ``csp.ddtkh`` and
+    ``csp.visco`` for this interaction (the DDT ramp and the viscosity
+    table, JAX `ops/forces.py:106-118`); the wall viscosity is then
+    ``visco * viscoboundfactor`` in float32."""
     if pos.device.type == "cuda":
         from .cuda import cellforce as CF
         return CF.interaction_forces_cuda(csp, opts, dom, cells, pos, vel,
-                                          rho, code, spstau, ftomassp)
+                                          rho, code, spstau, ftomassp,
+                                          ddtkh=ddtkh, visco=visco)
     if pos.device.type != "cpu":
         raise ValueError(f"interaction_forces: no path for device {pos.device}")
     return interaction_forces_plain(csp, opts, dom, cells, pos, vel, rho, code,
-                                    spstau, ftomassp)
+                                    spstau, ftomassp, ddtkh=ddtkh, visco=visco)
 
 
 def neighbour_ranges(dom: Domain, cells: CellDiv, live):
@@ -139,9 +157,11 @@ def candidate_chunks(dom: Domain, cells: CellDiv, live, max_pairs: int):
 
 def interaction_forces_plain(csp: CteSph, opts: SolverOpts, dom: Domain,
                              cells: CellDiv, pos, vel, rho, code, spstau=None,
-                             ftomassp=None, max_pairs: int = 1 << 21) -> Forces:
+                             ftomassp=None, max_pairs: int = 1 << 21,
+                             ddtkh=None, visco=None) -> Forces:
     """Plain torch version of the cellforce kernels, over
-    :func:`candidate_chunks`."""
+    :func:`candidate_chunks`; ``ddtkh`` and ``visco`` as in
+    :func:`interaction_forces`."""
     check_supported(csp, opts)
     check_spstau(opts, spstau)
     n = pos.shape[0]
@@ -176,7 +196,7 @@ def interaction_forces_plain(csp: CteSph, opts: SolverOpts, dom: Domain,
             ft_t=floating[t, None], ft_c=floating[j], fixed_c=fixed[j],
             tau_t=tau[t, None, :] if use_sps else None,
             tau_c=tau[j] if use_sps else None)
-        terms = PP.pair_terms(csp, opts, p)
+        terms = PP.pair_terms(csp, opts, p, ddtkh=ddtkh, visco=visco)
         ace[t] = terms.ace.sum(dim=1)
         art = terms.ar.sum(dim=1)
         ft_live = floating[t] & live[t]

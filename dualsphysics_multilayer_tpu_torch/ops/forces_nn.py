@@ -176,14 +176,20 @@ def strain_magn_pair(dvw, dr, rr2):
 
 def check_supported_nn(csp: CteSph, opts: SolverOpts, phases: PhaseCfg) -> None:
     """Raise NotImplementedError for any configuration outside the NN
-    slices (symmetry, floating bodies, mDBC and Verlet among them; either
+    slices (symmetry, floating bodies, mDBC, Verlet, the SaveDt and
+    floating-motion rings and the DDT ramp among them; either
     kernel and every shifting mode are in), ValueError for a phase table
     the kernels cannot hold."""
     check_supported_step(csp, opts)
     raise_unsupported([
         (opts.tstep != TpStep.SYMPLECTIC, f"tstep={opts.tstep.name}"),
         (opts.tboundary != TpBoundary.DBC, f"tboundary={opts.tboundary.name}"),
-        (opts.with_floating, "with_floating=True")])
+        (opts.with_floating, "with_floating=True"),
+        # the JAX NN step reads no DDT ramp and never writes the SaveDt or
+        # floating-motion rings (its SaveDt.csv fills with zero rows)
+        (opts.savedt, "savedt on the NN step"),
+        (opts.ftmotion, "ftmotion on the NN step"),
+        (opts.ddtramp is not None, "ddtramp on the NN step")])
     if opts.tvisco not in _NN_VISCO:
         raise NotImplementedError(f"the torch port does not cover "
                                   f"tvisco={opts.tvisco.name} yet")

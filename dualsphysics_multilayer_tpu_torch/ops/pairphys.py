@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .. import typesdef as td
@@ -61,12 +62,32 @@ class PairTerms:
 FLT_MAX = 3.4e38
 
 
-def pair_terms(csp: CteSph, opts, p: PairInputs) -> PairTerms:
+def launch_values(csp: CteSph, ddtkh=None, visco=None):
+    """(visco, viscobound, ddtkh) of one interaction: the constants of
+    ``csp``, or a step's DDT coefficient and table viscosity when given,
+    the wall viscosity then ``visco * viscoboundfactor`` in float32 (JAX
+    `pairphys.py:145`).  The kernels take the same three as launch
+    parameters."""
+    if visco is None:
+        visco, viscobound = csp.visco, csp.visco * csp.viscoboundfactor
+    else:
+        visco = np.float32(visco)
+        viscobound = float(visco * np.float32(csp.viscoboundfactor))
+        visco = float(visco)
+    return visco, viscobound, csp.ddtkh if ddtkh is None else float(ddtkh)
+
+
+def pair_terms(csp: CteSph, opts, p: PairInputs, ddtkh=None,
+               visco=None) -> PairTerms:
+    """``ddtkh`` and ``visco`` (host floats) replace ``csp.ddtkh`` and
+    ``csp.visco``: the DDT ramp and the viscosity table of a step (JAX
+    `pairphys.py:69-77`); the wall viscosity is then ``visco *
+    viscoboundfactor`` in float32 (`:145`)."""
     if opts.tvisco not in (TpVisco.ARTIFICIAL, TpVisco.LAMINAR_SPS):
         raise NotImplementedError(f"pair_terms: tvisco={opts.tvisco.name}")
     f32 = p.dr.dtype
     cbar = csp.cs0
-    ddtkh = csp.ddtkh
+    visco, viscobound, ddtkh = launch_values(csp, ddtkh, visco)
     pw = p.pair.to(f32)
     rr2s = torch.where(p.pair, p.rr2, csp.kernelsize2)
     fac = K.kernel_fac(csp, rr2s)
@@ -130,8 +151,7 @@ def pair_terms(csp: CteSph, opts, p: PairInputs) -> PairTerms:
 
     # viscdt and viscosity (JSphCpu.cpp:757-791)
     visc = torch.where(w_comp > 0, dot_rr2, -FLT_MAX)
-    visco_eff = torch.where(p.bound_c, csp.visco * csp.viscoboundfactor,
-                            csp.visco)
+    visco_eff = torch.where(p.bound_c, viscobound, visco)
     gradvel = None
     if opts.tvisco == TpVisco.ARTIFICIAL:
         amubar = csp.kernelh * dot_rr2

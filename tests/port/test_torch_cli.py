@@ -1,0 +1,209 @@
+"""The port's command line against the JAX package's.
+
+* ``cli.main`` on the CPU with the same options as JAX's ``cli.main``
+  (``-builtin dambreak2d -dp 0.05``, the DDT ramp crossing both of its ends,
+  ``-savedt``, ``-nsteps``, ``-sv:binx,info,csv -nortimes``): the same file
+  names; each ``Part_XXXX.bi4`` with equal ``Npok``, ``Nout`` and ``Step``,
+  ``TimeStep`` at rtol 1e-6 and the particles by id at 1e-4*dp (positions)
+  and rtol 2e-3 of the largest value (velocity, density: the force rule);
+  ``SaveDt.csv`` and ``PartInfo.csv`` row for row (numbers at rtol 2e-3);
+  JAX's ``tools.partvtk`` reads the port's series.  The PART interval
+  holds a few steps: JAX's ``-svsteps`` (a tout of 1e-9 s) saves once per
+  1e-9 s of simulated time, thousands of PARTs between two steps
+  (``ROADMAP.md`` §3), so the port's ``-svsteps``, a PART after every
+  step, is checked on its own.
+* ``python -m dualsphysics_multilayer_tpu_torch.cli -cpu -builtin
+  dambreak2d -dp 0.05 -tmax:0.01 -tout:0.005`` writes Part_0000-0002,
+  which JAX's ``read_part`` reads; ``-partbegin:1`` from there goes on
+  with Part_0001-0002, the last within 0.25*dp of the first run's by id.
+* Every option the port refuses leaves with a message naming it.
+* A fresh interpreter importing the CLI and the output modules loads
+  neither JAX nor the JAX package.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from dualsphysics_multilayer_tpu import cli as jcli
+from dualsphysics_multilayer_tpu.io import jbinary as jJB
+from dualsphysics_multilayer_tpu.io import partdata as jPD
+from dualsphysics_multilayer_tpu_torch import cli
+from dualsphysics_multilayer_tpu_torch.io import partdata as PD
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+# the subprocesses' torch threads, as this process's
+ENV = {**os.environ, "OMP_NUM_THREADS": "2"}
+DP = 0.05
+OPTIONS = ["-cpu", "-builtin", "dambreak2d", "-dp", str(DP), "-tmax:0.002",
+           "-tout:0.0005", "-nsteps:6", "-savedt", "-ddtramp:0.0015:0.001:0.3",
+           "-nortimes", "-sv:binx,info,csv"]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("cli")
+    os.environ["DSPH_COMPCACHE"] = "0"     # no JAX compile cache under HOME
+    try:
+        assert jcli.main(OPTIONS + ["-dirout", str(d / "jax")]) == 0
+    finally:
+        del os.environ["DSPH_COMPCACHE"]
+    assert cli.main(OPTIONS + ["-dirout", str(d / "port")]) == 0
+    return d / "port", d / "jax"
+
+
+def by_id(part):
+    order = np.argsort(part["idp"])
+    return {k: part[k][order] for k in ("idp", "pos", "vel", "rhop", "code")}
+
+
+def close(got, want, rtol):
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * scale)
+
+
+def test_cli_parts_match_jax(runs):
+    port, jax_ = runs
+    names = sorted(os.listdir(jax_))
+    assert sorted(os.listdir(port)) == names
+    parts = [f for f in names if f.startswith("Part_0")]
+    assert len(parts) >= 4
+    steps = []
+    for f in parts:
+        mine, theirs = jPD.read_part(port / f), jPD.read_part(jax_ / f)
+        assert (mine["npok"], mine["nstep"]) == (theirs["npok"], theirs["nstep"])
+        steps.append(mine["nstep"])
+        nout = [jJB.read_file(d / f).items[0].get("Nout") for d in runs]
+        assert nout == [0, 0]
+        np.testing.assert_allclose(mine["timestep"], theirs["timestep"],
+                                   rtol=1e-6)
+        a, b = by_id(mine), by_id(theirs)
+        np.testing.assert_array_equal(a["idp"], b["idp"])
+        np.testing.assert_array_equal(a["code"], b["code"])
+        np.testing.assert_allclose(a["pos"], b["pos"], rtol=0, atol=1e-4 * DP)
+        close(a["vel"], b["vel"], 2e-3)
+        close(a["rhop"], b["rhop"], 2e-3)
+    assert steps[-1] >= 6 and len(set(steps)) == len(steps)
+
+
+def read_rows(path):
+    with open(path) as f:
+        head, *rows = [line.strip().split(";") for line in f]
+    return head, rows
+
+
+@pytest.mark.parametrize("name", ["SaveDt.csv", "PartInfo.csv"])
+def test_cli_tables_match_jax(runs, name):
+    port, jax_ = runs
+    (h1, r1), (h2, r2) = read_rows(port / name), read_rows(jax_ / name)
+    assert h1 == h2 and len(r1) == len(r2) >= 4
+    for a, b in zip(r1, r2):
+        assert a[0] == b[0]
+        np.testing.assert_allclose(np.asarray(a[1:], float),
+                                   np.asarray(b[1:], float), rtol=2e-3)
+
+
+def test_jax_partvtk_reads_the_port_series(runs, tmp_path):
+    from dualsphysics_multilayer_tpu.tools import partvtk
+    port, _ = runs
+    assert partvtk.main(["-dirin", str(port), "-savecsv",
+                         str(tmp_path / "pv.csv")]) == 0
+    nparts = len([f for f in os.listdir(port) if f.startswith("Part_0")])
+    for k in range(nparts):
+        assert (tmp_path / f"pv_{k:04d}.csv").exists()
+
+
+def test_svsteps_saves_every_step(tmp_path):
+    d = tmp_path / "steps"
+    assert cli.main(["-cpu", "-builtin", "dambreak2d", "-dp", "0.1",
+                     "-svsteps", "-nsteps:3", "-savedt", "-nortimes",
+                     "-no-svres", "-dirout", str(d)]) == 0
+    parts = [PD.read_part(d / PD.part_filename(k)) for k in range(4)]
+    assert not (d / PD.part_filename(4)).exists()
+    assert [p["nstep"] for p in parts] == [0, 1, 2, 3]
+    _, rows = read_rows(d / "SaveDt.csv")
+    times = np.asarray([r[1] for r in rows], float)
+    dts = np.asarray([r[2] for r in rows], float)
+    # each PART at its step's end time: the next step's start
+    np.testing.assert_allclose([p["timestep"] for p in parts[1:3]], times[1:],
+                               rtol=1e-6)
+    np.testing.assert_allclose(parts[3]["timestep"], times[2] + dts[2],
+                               rtol=1e-6)
+
+
+def test_module_run_writes_parts_jax_reads_and_restarts(tmp_path):
+    subprocess.run([sys.executable, "-m", "dualsphysics_multilayer_tpu_torch.cli",
+                    "-cpu", "-builtin", "dambreak2d", "-dp", "0.05",
+                    "-tmax:0.01", "-tout:0.005", "-dirout", str(tmp_path)],
+                   check=True, cwd=ROOT, capture_output=True, env=ENV)
+    for k in range(3):
+        d = jPD.read_part(tmp_path / f"Part_{k:04d}.bi4")
+        assert d["cpart"] == k and d["npok"] == 1001
+        assert abs(d["timestep"] - 0.005 * k) < 1e-9
+    assert not (tmp_path / "Part_0003.bi4").exists()
+    # a restart from Part_0001 goes on with its numbers and reaches the
+    # first run's Part_0002 within 0.25*dp by id (tests/test_io.py:76)
+    again = tmp_path / "again"
+    assert cli.main(["-cpu", "-builtin", "dambreak2d", "-dp", "0.05",
+                     "-tmax:0.01", "-tout:0.005", "-partbegin:1",
+                     str(tmp_path), "-dirout", str(again)]) == 0
+    assert sorted(f for f in os.listdir(again) if f.startswith("Part_0")) \
+        == ["Part_0001.bi4", "Part_0002.bi4"]
+    a = by_id(PD.read_part(again / "Part_0002.bi4"))
+    b = by_id(PD.read_part(tmp_path / "Part_0002.bi4"))
+    np.testing.assert_array_equal(a["idp"], b["idp"])
+    assert np.abs(a["pos"] - b["pos"]).max() < 0.25 * DP
+
+
+@pytest.mark.parametrize("argv,name", [
+    (["-case", "x.xml"], "-case"),
+    (["-builtin", "channel2d"], "channel2d"),
+    (["-builtin", "dambreak2d", "-shard"], "-shard"),
+    (["-builtin", "dambreak2d", "-initnorpla", "mkbound=0:normal=0:0:1"],
+     "-initnorpla"),
+    (["-builtin", "dambreak2d", "-initnorpart", "mkbound=0"], "-initnorpart"),
+    (["-builtin", "dambreak2d", "-restartchrono"], "-restartchrono"),
+    (["-builtin", "dambreak2d", "-pallas"], "-pallas"),
+    (["-builtin", "dambreak2d", "-no-pallas"], "-no-pallas"),
+    (["-builtin", "dambreak2d", "-cellmode:half"], "-cellmode:half"),
+])
+def test_refused_options_name_themselves(argv, name, tmp_path):
+    with pytest.raises(SystemExit, match=name) as e:
+        cli.main(["-cpu", "-dirout", str(tmp_path)] + argv)
+    assert "TPU" not in str(e.value) and "lane" not in str(e.value)
+    assert not os.listdir(tmp_path)
+
+
+def test_cli_and_output_modules_import_no_jax():
+    code = ("import sys\n"
+            "import dualsphysics_multilayer_tpu_torch.cli\n"
+            "import dualsphysics_multilayer_tpu_torch.io.output\n"
+            "import dualsphysics_multilayer_tpu_torch.io.jbinary\n"
+            "import dualsphysics_multilayer_tpu_torch.tools.common\n"
+            "import dualsphysics_multilayer_tpu_torch.utils.runinfo\n"
+            "import dualsphysics_multilayer_tpu_torch.utils.log\n"
+            "import dualsphysics_multilayer_tpu_torch.utils.timers\n"
+            "import dualsphysics_multilayer_tpu_torch.utils.pips\n"
+            "import dualsphysics_multilayer_tpu_torch.features.viscoinput\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
+            "('jax.', 'jaxlib', 'dualsphysics_multilayer_tpu.'))"
+            " or m == 'dualsphysics_multilayer_tpu']\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
+                   env=ENV)
+
+
+def test_ver_and_info(capsys):
+    import json
+    assert cli.main(["-ver"]) == 0
+    assert "ddtramp" in json.loads(capsys.readouterr().out)["features"]
+    assert cli.main(["-info"]) == 0
+    info = json.loads(capsys.readouterr().out)
+    assert info["features"]["builtin"] == list(cli.BUILTINS)

@@ -218,7 +218,7 @@ def test_piston_displacement_matches_closed_form():
                * math.cos(2 * math.pi * 0.8 * float(tabs))) < 1e-5
 
 
-def test_piston_leaves_the_domain_in_its_back_stroke():
+def test_piston_leaves_the_domain_in_its_back_stroke(tmp_path):
     """bench.py's flume (the JAX builder's geometry, dp 6.325 mm): the
     piston's 0.1 m stroke exceeds the 2*kernelsize halo (35.8 mm) behind
     its back column, so in the back half-stroke (from T/2 = 0.625 s) that
@@ -242,11 +242,13 @@ def test_piston_leaves_the_domain_in_its_back_stroke():
     moved = st.pos.clone()
     moved[piston] = pos
     sim = P.Simulation(case.csp, P.SolverOpts(), dom, case.state)
+    sim.errdir = str(tmp_path)
     sim.check_diagnostics()
     sim.carry = W._rebuild(dom, dataclasses.replace(
         sim.carry, st=dataclasses.replace(st, pos=moved)))
     with pytest.raises(RuntimeError, match="boundary particle"):
         sim.check_diagnostics()
+    assert (tmp_path / "Error_BoundaryOut.vtk").exists()
 
 
 # ---------------------------------------------------------------------------
@@ -699,7 +701,7 @@ def test_run_stops_at_gauge_subticks():
 def test_unported_features_raise():
     case = cases.waveflume2d(**FLUME, device="cpu")
     for name in ("periodic", "inout", "dem", "moorings", "forcepoints",
-                 "viscotime", "chrono", "chcontact"):
+                 "chrono", "chcontact"):
         with pytest.raises(NotImplementedError, match=f"Features.{name}"):
             P.make_step(case.csp, P.SolverOpts(), case.dom,
                         P.Features(**{name: object()}))

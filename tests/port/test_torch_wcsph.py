@@ -122,9 +122,10 @@ def test_simulation_run_and_advance():
     assert float(rho.min()) > 900 and float(rho.max()) < 1100
 
 
-def test_diagnostics_abort_on_boundary_out():
+def test_diagnostics_abort_on_boundary_out(tmp_path):
     case = small_case()
     sim = P.Simulation(case.csp, P.SolverOpts(), case.dom, case.state)
+    sim.errdir = str(tmp_path)
     sim.check_diagnostics()
     st = sim.carry.st
     k = int(torch.nonzero(td.is_bound(st.code))[0])
@@ -134,6 +135,7 @@ def test_diagnostics_abort_on_boundary_out():
                                     st=dataclasses.replace(st, code=code))
     with pytest.raises(RuntimeError, match="boundary particle"):
         sim.check_diagnostics()
+    assert (tmp_path / "Error_BoundaryOut.vtk").exists()
 
 
 def test_unsupported_step_configs_raise():
