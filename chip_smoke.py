@@ -158,9 +158,16 @@ without printing the final result line:
     SaveDt.csv one row per step, the other channels present; then
     ``-partbegin:2`` into a second directory, its first step at its
     PART's time (the ramp goes on), its Part_0004 within 0.25*dp of the
-    first run's by id; then the ms per PART save on the host clock (binx,
-    median of 5; binx with VTK, once) and the bytes a save copies from the
-    device, counted by ``io.partdata.HostCopy``;
+    first run's by id; the same two runs under ``-verlet`` without the
+    ramp, whose restart takes its M1 state from its PART: every PART read
+    back, Part_0004 within 0.25*dp of the uninterrupted run's (the
+    velocities' distance printed beside max|vel|); a ``-verlet`` run with
+    the ramp from rest to 2.4 ms, its fluid density range per PART printed
+    (the leapfrog leaves +-10% under the ramp's DDT of 0.3, as JAX's does:
+    ``tests/port/test_torch_runloop.py``); then the ms per PART
+    save on the
+    host clock (binx, median of 5; binx with VTK, once) and the bytes a
+    save copies from the device, counted by ``io.partdata.HostCopy``;
 23. step values: kernels 1-3 at about 50k particles (phase 9's state)
     under a DDT coefficient and a viscosity other than the constants', each
     against its plain version under the same values (phase 3's rule) and
@@ -176,7 +183,23 @@ without printing the final result line:
     SaveDt ring, stepped in alternation from the same flowing start (5 +
     100 steps each), the quartiles of each path's step and of their
     step-by-step difference; and ``step_values`` and the SaveDt row alone,
-    per call.
+    per call;
+24. XML dam break: an inline ``*_Def.xml`` drawing the three boxes of
+    ``cases.dambreak3d(obstacle=True)`` at bench.py's dp for
+    BENCH_NP=300000 (DensityDT=2, Visco=0.1, symplectic), loaded with
+    ``io.xmlcase.load_case`` (its host seconds printed) and run through
+    ``cli.main(["-case", ...])``, the entry point of ``python -m
+    dualsphysics_multilayer_tpu_torch.cli -case``: its 267,469 particles'
+    sorted positions and codes equal to the builtin's (else how many
+    differ), PARTs 0-3 of 1.2 ms read back with the fluid density within
+    10%, cellforce exactly twice per step and no other kernel; then 5 + 20
+    steps of the loaded case from rest for the step's p50;
+25. XML NN wet dam break: an inline XML with the two ``<nnphases>`` of
+    ``wet_dambreak_nn`` at bench.py's nnmud size (37,143 particles; SPH
+    Morris and Fourtakas), through ``-case`` twice: VelocityGradientType=2
+    (nnforce_p1 and nnforce_p3 exactly twice per step) and 1 (nnforce_fda
+    twice per step), no other kernel; PARTs 0-3 of 0.2 ms read back, each
+    phase's fluid density within 10% of its rest density.
 
 Each kernel is timed twice: alone (``ms``: CUDA events around 20
 back-to-back launches of the C launcher on prepared inputs, per launch,
@@ -193,7 +216,9 @@ its operations; the NN kernels' rows list their other instances under
 path's run, counted from 0 just before it (the probes' from their
 tables); cellforce's row adds ``path_launches``, its launches on the dam
 break (phase 4), the Verlet path, the wave flume, the full flume, the CLI
-(phase 22) and the main path with step values (phase 23).
+(phase 22), the main path with step values (phase 23) and the XML dam
+break (phase 24); the NN kernels' rows add theirs on phases 6-7 and the
+XML runs of phase 25.
 Imports no JAX.
 """
 
@@ -1671,6 +1696,7 @@ def cli_path(device, smi):
     import shutil
     import tempfile
     from dualsphysics_multilayer_tpu_torch import cli
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
     from dualsphysics_multilayer_tpu_torch.io import partdata as PD
     from dualsphysics_multilayer_tpu_torch.models import cases
     from dualsphysics_multilayer_tpu_torch.models.wcsph import Simulation
@@ -1731,6 +1757,49 @@ def cli_path(device, smi):
             f"{0.25 * DP_BENCH:.3e} m), {rparts[4]['nstep']} steps after the "
             f"restart")
 
+        # the same under -verlet, without the DDT ramp (a leapfrog with
+        # the ramp's DDT of 0.3 leaves +-10% in ~25 steps from rest, and
+        # loses 15k particles by 3 ms): the restart's M1 state is its PART's
+        vfirst, vagain = (os.path.join(root, "verlet"),
+                          os.path.join(root, "verlet_again"))
+        vargv = [a for a in argv if not a.startswith("-ddtramp")] \
+            + ["-verlet"]
+        check(cli.main(vargv + ["-dirout", vfirst]) == 0,
+              "the -verlet CLI run failed")
+        check(cli.main(vargv + ["-partbegin:2", vfirst, "-dirout", vagain])
+              == 0, "the restarted -verlet CLI run failed")
+        a = read_parts(PD, vfirst, n, rho0)[4]
+        b = read_parts(PD, vagain, n, rho0)[4]
+        oa, ob = np.argsort(a["idp"]), np.argsort(b["idp"])
+        dev = float(np.abs(a["pos"][oa] - b["pos"][ob]).max())
+        dvel = float(np.abs(a["vel"][oa] - b["vel"][ob]).max())
+        vmax = float(np.abs(a["vel"]).max())
+        check(dev < 0.25 * DP_BENCH, f"-verlet restart Part_0004 {dev} m "
+              f"from the first run's (0.25 dp = {0.25 * DP_BENCH} m)")
+        say("cli", f"-verlet, then -partbegin:2: Part_0004 within {dev:.3e} m "
+            f"(0.25 dp = {0.25 * DP_BENCH:.3e} m) and {dvel:.3e} m/s of the "
+            f"uninterrupted run's by id (max|vel| {vmax:.3e} m/s), "
+            f"{a['nstep']} and {b['nstep']} steps, PARTs read back (fluid rho "
+            f"within 10%)")
+
+        # -verlet with the ramp from rest to 2.4 ms, printed and not held
+        # to the density gate: the leapfrog swings the density out of
+        # +-10% under the ramp's 0.3, in the JAX package as in the port
+        # (test_torch_runloop.py::test_verlet_under_a_strong_ddt_leaves_rest_as_jax_does)
+        vramp = os.path.join(root, "verlet_ramp")
+        check(cli.main(vargv + [f"-ddtramp:{CLI_RAMP}", "-tmax:0.0024",
+                                "-tout:0.0006", "-dirout", vramp]) == 0,
+              "the -verlet -ddtramp CLI run failed")
+        rows = []
+        for k in range(5):
+            d = PD.read_part(os.path.join(vramp, PD.part_filename(k)))
+            fl = td.code_type(d["code"].astype(np.int64)) == td.TYPE_FLUID
+            r = d["rhop"][fl]
+            rows.append(f"{d['timestep'] * 1e3:.1f} ms step {d['nstep']} "
+                        f"[{r.min():.1f}, {r.max():.1f}] {len(d['idp'])} live")
+        say("cli", f"-verlet -ddtramp:{CLI_RAMP} from rest, fluid rho: "
+            + "; ".join(rows))
+
         sim = Simulation(case.csp, SolverOpts(tdensity=TpDensity.FOURTAKAS),
                          case.dom, flowing_state(case, device))
         sim.carry = sim.advance(sim.carry, float("inf"), 5)
@@ -1746,6 +1815,238 @@ def cli_path(device, smi):
             f"5), binx,vtk {vtk:.3f} ms (once, {vtk_bytes} bytes), host "
             f"clock ({smi})")
         return launched["cellforce"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# phase 24: the dam break of CaseDambreak_Def.xml, the three boxes of
+# cases.dambreak3d(obstacle=True), at the dp of DP_BENCH
+DAMBREAK_XML = """<?xml version="1.0"?>
+<case><casedef>
+ <constantsdef>
+  <gravity x="0" y="0" z="-9.81"/><rhop0 value="1000"/>
+  <hswl value="0.3" auto="false"/><gamma value="7"/>
+  <speedsystem value="0" auto="true"/><coefsound value="20"/>
+  <speedsound value="0" auto="true"/><coefh value="1.0"/>
+  <cflnumber value="0.2"/>
+ </constantsdef>
+ <geometry>
+  <definition dp="{dp!r}">
+   <pointmin x="-0.05" y="-0.05" z="-0.05"/><pointmax x="2" y="1" z="1"/>
+  </definition>
+  <commands><mainlist>
+   <setmkfluid mk="0"/><drawbox><boxfill>solid</boxfill>
+    <point x="0" y="0" z="0"/><size x="0.4" y="0.67" z="0.3"/></drawbox>
+   <setmkbound mk="0"/><drawbox><boxfill>bottom|left|right|front|back</boxfill>
+    <point x="0" y="0" z="0"/><size x="1.6" y="0.67" z="0.4"/></drawbox>
+   <setmkbound mk="1"/><drawbox><boxfill>top|left|right|front|back</boxfill>
+    <point x="0.9" y="0.24" z="0"/><size x="0.12" y="0.12" z="0.45"/></drawbox>
+  </mainlist></commands>
+ </geometry>
+</casedef>
+<execution>
+ <parameters>
+  <parameter key="StepAlgorithm" value="2"/><parameter key="Kernel" value="2"/>
+  <parameter key="ViscoTreatment" value="1"/><parameter key="Visco" value="0.1"/>
+  <parameter key="DensityDT" value="2"/>
+  <parameter key="TimeMax" value="{tmax!r}"/><parameter key="TimeOut" value="{tout!r}"/>
+ </parameters>
+ <simulationdomain><posmin x="default" y="default" z="default"/>
+  <posmax x="default" y="default" z="default + 100%"/></simulationdomain>
+</execution>
+</case>
+"""
+XML_TOUT = 0.0012     # phase 24: 3 intervals of 1.2 ms (~50 steps)
+# phase 25: the 2D wet dam break of wet_dambreak_nn (01_WetDambreak): a
+# water layer, the mud column over it, the tank; the two phases
+NN_XML = """<?xml version="1.0"?>
+<case><casedef>
+ <constantsdef>
+  <gravity x="0" y="0" z="-9.81"/><rhop0 value="1000"/>
+  <hswl value="0.3" auto="false"/><gamma value="7"/>
+  <speedsystem value="0" auto="true"/><coefsound value="20"/>
+  <speedsound value="0" auto="true"/><coefh value="1.0"/>
+  <cflnumber value="0.2"/>
+ </constantsdef>
+ <geometry>
+  <definition dp="{dp!r}">
+   <pointmin x="-0.05" y="0" z="-0.05"/><pointmax x="2.1" y="0" z="1.1"/>
+  </definition>
+  <commands><mainlist>
+   <setmkfluid mk="0"/><drawbox><boxfill>solid</boxfill>
+    <point x="0" y="0" z="0"/><size x="2" y="0" z="0.15"/></drawbox>
+   <setmkfluid mk="1"/><drawbox><boxfill>solid</boxfill>
+    <point x="0" y="0" z="0"/><size x="0.5" y="0" z="0.3"/></drawbox>
+   <setmkbound mk="0"/><drawbox><boxfill>bottom|left|right</boxfill>
+    <point x="0" y="0" z="0"/><size x="2" y="0" z="1"/></drawbox>
+  </mainlist></commands>
+ </geometry>
+</casedef>
+<execution>
+ <special>
+  <nnphases>
+   <phase mkfluid="0"><rhop value="1000"/><csound value="{cs_w!r}"/>
+    <visco value="0.05"/><tau_yield value="0.0005"/><HBP_m value="0"/>
+    <HBP_n value="1"/></phase>
+   <phase mkfluid="1"><rhop value="1500"/><csound value="{cs_m!r}"/>
+    <visco value="0.1"/><tau_yield value="0.001"/><HBP_m value="10"/>
+    <HBP_n value="1"/></phase>
+  </nnphases>
+ </special>
+ <parameters>
+  <parameter key="StepAlgorithm" value="2"/><parameter key="Kernel" value="2"/>
+  <parameter key="ViscoTreatment" value="2"/><parameter key="DensityDT" value="2"/>
+  <parameter key="VelocityGradientType" value="{velgrad}"/>
+  <parameter key="TimeMax" value="{tmax!r}"/><parameter key="TimeOut" value="{tout!r}"/>
+ </parameters>
+</execution>
+</case>
+"""
+NN_XML_TOUT = 2e-4    # phase 25: 3 intervals of 0.2 ms (~25 steps)
+
+
+def xml_dambreak_path(device, smi):
+    """Phase 24: the dam break's XML through ``load_case`` (timed on the
+    host) and through ``cli.main`` with ``-case``, as ``python -m
+    dualsphysics_multilayer_tpu_torch.cli -case`` runs it: its particles
+    against ``cases.dambreak3d``'s, PARTs 0-3 read back, cellforce twice
+    per step; then 5 + 20 steps of the loaded case for the step's p50.
+    Returns the cellforce launches of the CLI run."""
+    import shutil
+    import tempfile
+    from dualsphysics_multilayer_tpu_torch import cli
+    from dualsphysics_multilayer_tpu_torch.io import partdata as PD
+    from dualsphysics_multilayer_tpu_torch.io.xmlcase import load_case
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    from dualsphysics_multilayer_tpu_torch.models.wcsph import (make_carry,
+                                                                make_step)
+    root = tempfile.mkdtemp(prefix="_smoke_xml_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    try:
+        path = os.path.join(root, "Dambreak_Def.xml")
+        with open(path, "w") as f:
+            f.write(DAMBREAK_XML.format(dp=DP_BENCH, tmax=3 * XML_TOUT,
+                                        tout=XML_TOUT))
+        t0 = time.perf_counter()
+        case, opts, _run = load_case(path, device=device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        ref = cases.dambreak3d(dp=DP_BENCH, obstacle=True, device=device)
+        n = case.np_total
+
+        def rows(st):
+            r = np.column_stack([st.pos.cpu().numpy(),
+                                 st.code.cpu().numpy()])
+            return r[np.lexsort(r.T[::-1])]
+
+        same = n == ref.np_total and np.array_equal(rows(case.state),
+                                                    rows(ref.state))
+        if not same:
+            a, b = rows(case.state), rows(ref.state)
+            extra = len({tuple(x) for x in a} - {tuple(x) for x in b})
+            missing = len({tuple(x) for x in b} - {tuple(x) for x in a})
+            say("xml-dambreak", f"{n} particles against the builtin's "
+                f"{ref.np_total}: {extra} not in the builtin, {missing} of "
+                f"the builtin's missing")
+        check(same, "the XML dam break's particles differ from "
+              "cases.dambreak3d's")
+        out = os.path.join(root, "out")
+        reset_counts()
+        t0 = time.perf_counter()
+        check(cli.main(["-case", path, "-sv:binx", "-nortimes",
+                        "-dirout", out]) == 0, "the -case run failed")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        parts = read_parts(PD, out, n, case.csp.rhopzero)
+        check(sorted(parts) == [0, 1, 2, 3], f"PARTs {sorted(parts)}")
+        nsteps = parts[3]["nstep"]
+        single_phase_counts(launched, "cellforce", 2, nsteps)
+        step = make_step(case.csp, opts, case.dom)
+        _carry, times, _ = run_steps(
+            step, make_carry(case.state, case.csp, opts, case.dom), 5, 20)
+        p50 = statistics.median(times)
+        say("xml-dambreak", f"-case with the dam break's three boxes at dp "
+            f"{DP_BENCH:.6g}: {n} particles, the builtin's {ref.np_total} "
+            f"(sorted positions and codes equal); load_case {load_s:.3f} s "
+            f"on the host; the CLI run {nsteps} steps and 4 PARTs in "
+            f"{wall:.3f} s ({launched['cellforce']} cellforce launches), all "
+            f"read back (fluid rho within 10%); 20 steps from rest after 5: "
+            f"p50 {p50 * 1e3:.3f} ms ({smi})")
+        return launched["cellforce"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def xml_nn_path(device, smi):
+    """Phase 25: the NN wet dam break's XML through ``cli.main`` with
+    ``-case``, once with VelocityGradientType=2 (SPH: nnforce_p1 and
+    nnforce_p3 twice per step) and once with 1 (FDA: nnforce_fda twice per
+    step): PARTs 0-3 of each read back, each phase's fluid density within
+    10% of its rest density.  Returns {path: {kernel: launches}}."""
+    import shutil
+    import tempfile
+    from dualsphysics_multilayer_tpu_torch import cli
+    from dualsphysics_multilayer_tpu_torch.io import partdata as PD
+    from dualsphysics_multilayer_tpu_torch.io.xmlcase import load_case
+    from dualsphysics_multilayer_tpu_torch.models import nnewtonian as NM
+    _case, phases = NM.wet_dambreak_nn(dp=NN_DP, device=device)
+    root = tempfile.mkdtemp(prefix="_smoke_xmlnn_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    out = {}
+    try:
+        for velgrad, label, kernels in ((2, "SPH", ("nnforce_p1", "nnforce_p3")),
+                                        (1, "FDA", ("nnforce_fda",))):
+            path = os.path.join(root, f"WetDambreak{label}_Def.xml")
+            with open(path, "w") as f:
+                f.write(NN_XML.format(
+                    dp=NN_DP, cs_w=phases.phases[0].csound,
+                    cs_m=phases.phases[1].csound, velgrad=velgrad,
+                    tmax=3 * NN_XML_TOUT, tout=NN_XML_TOUT))
+            t0 = time.perf_counter()
+            case, _opts, _run = load_case(path, device=device)
+            load_s = time.perf_counter() - t0
+            n = case.np_total
+            check(case.meta["phases"] == phases, f"phases {case.meta['phases']}"
+                  f" against wet_dambreak_nn's {phases}")
+            d = os.path.join(root, label)
+            reset_counts()
+            t0 = time.perf_counter()
+            check(cli.main(["-case", path, "-sv:binx", "-nortimes",
+                            "-dirout", d]) == 0, f"the {label} -case run failed")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = counts()
+            parts = {}
+            for k in range(4):
+                p = PD.read_part(os.path.join(d, PD.part_filename(k)))
+                check(np.array_equal(np.sort(p["idp"]), np.arange(n)),
+                      f"{label} Part_{k:04d}: ids not the case's")
+                check(bool(np.isfinite(p["pos"]).all()),
+                      f"{label} Part_{k:04d}: Posd not finite")
+                parts[k] = p
+            ranges = []
+            code = parts[3]["code"].astype(np.int64)
+            fluid = (code >> 16) & 3 == 3
+            for i, ph in enumerate(phases.phases):
+                r = parts[3]["rhop"][fluid & ((code & 0xFFFF) == i)]
+                check(r.size > 0 and 0.9 * ph.rho0 <= r.min()
+                      and r.max() <= 1.1 * ph.rho0, f"{label} phase {i} "
+                      f"density out of +-10% of {ph.rho0}")
+                ranges.append((float(r.min()), float(r.max())))
+            nsteps = parts[3]["nstep"]
+            want = {**dict.fromkeys(launched, 0),
+                    **{k: 2 * nsteps for k in kernels}}
+            check(launched == want, f"{label}: {launched} in {nsteps} steps, "
+                  f"expected {kernels} twice per step and no other kernel")
+            out[f"xml-nn-{label.lower()}"] = {k: launched[k] for k in kernels}
+            say("xml-nn", f"-case {label} (VelocityGradientType={velgrad}), "
+                f"{n} particles (wet_dambreak_nn's {_case.np_total}), "
+                f"load_case {load_s:.3f} s: {nsteps} steps and 4 PARTs in "
+                f"{wall:.3f} s, launches {launched}; PARTs read back, phase "
+                + ", ".join(f"{i} rho [{a:.2f}, {b:.2f}]"
+                            for i, (a, b) in enumerate(ranges)) + f" ({smi})")
+        return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2109,7 +2410,22 @@ def main():
 
     # 23. a step's DDT ramp and table viscosity as launch values
     paths["step-values"] = step_values_path(device, main_p50, smi)
+
+    # 24. the dam break from its XML through -case
+    paths["xml-dambreak"] = xml_dambreak_path(device, smi)
     records["cellforce"]["path_launches"] = paths
+
+    # 25. the NN wet dam break from its XML through -case, SPH and FDA
+    nn_paths = xml_nn_path(device, smi)
+    records["nnforce_p1"]["path_launches"] = {
+        "nn": records["nnforce_p1"]["launches"],
+        "xml-nn-sph": nn_paths["xml-nn-sph"]["nnforce_p1"]}
+    records["nnforce_p3"]["path_launches"] = {
+        "nn": records["nnforce_p3"]["launches"],
+        "xml-nn-sph": nn_paths["xml-nn-sph"]["nnforce_p3"]}
+    records["nnforce_fda"]["path_launches"] = {
+        "nn-fda": records["nnforce_fda"]["launches"],
+        "xml-nn-fda": nn_paths["xml-nn-fda"]["nnforce_fda"]}
 
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=rep,

@@ -6,9 +6,10 @@ The pair interactions run in hand-written CUDA kernels for Hopper on CUDA
 tensors (``csrc/cellforce.cu`` single phase, with floating bodies and mDBC
 walls, ``csrc/nnforce.cu`` multiphase non-Newtonian, each with the cubic
 spline and shifting) and in their plain torch versions on CPU tensors;
-``tools/probes.py`` holds the two hardware probes.  ``io/`` writes and
-reads the run's output (PART .bi4 files, VTK, CSV, restart), ``utils/``
-keeps its bookkeeping, and ``cli.py`` is the command line
+``tools/probes.py`` holds the two hardware probes.  ``io/`` loads case
+XMLs (``io/xmlcase.py``) and writes and reads the run's output (PART .bi4
+files, VTK, CSV, restart), ``utils/`` keeps its bookkeeping, and
+``cli.py`` is the command line
 (``python -m dualsphysics_multilayer_tpu_torch.cli``).
 """
 

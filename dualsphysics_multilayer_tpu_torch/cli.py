@@ -1,11 +1,16 @@
 """Command-line entry point of the torch port.
 
 Counterpart of `dualsphysics_multilayer_tpu/cli.py` (the reference's
-`main.cpp` + `JSphCfgRun`, flag surface `JSphCfgRun.cpp:85-208`): builds a
-builtin case, merges the command-line overrides, optionally restarts from a
+`main.cpp` + `JSphCfgRun`, flag surface `JSphCfgRun.cpp:85-208`): loads a
+case XML (``io/xmlcase.py``) or builds a builtin case, merges the
+command-line overrides over the case's settings, optionally restarts from a
 PART, runs the solver on the card (or on the CPU with ``-cpu``, through the
 kernels' plain versions) and writes bi4/VTK/CSV output and the run resume.
+A case with ``<special><nnphases>`` runs the multiphase non-Newtonian step
+(``models/nnewtonian.make_nn_step``).
 
+    python -m dualsphysics_multilayer_tpu_torch.cli -case Dambreak_Def.xml \\
+        -dirout out
     python -m dualsphysics_multilayer_tpu_torch.cli -builtin dambreak3d \\
         -dp 0.01 -tmax:1.6 -tout:0.02 -dirout out
     dsphtorch -cpu -builtin dambreak2d -dp 0.05 -tmax:0.01 -tout:0.005
@@ -14,10 +19,10 @@ kernels' plain versions) and writes bi4/VTK/CSV output and the run resume.
 Reference colon-form flags (-tmax:1.6, -partbegin:20 dir, -svpips:2) are
 accepted alongside space-separated values, and ``-opt FILE`` reads more
 options from a file.  Options whose setting the port does not run leave
-with a message that names them: ``-case`` (the XML loader is not ported
-yet), ``-builtin channel2d`` (periodic boundaries), ``-shard``,
-``-initnorpla``/``-initnorpart``, ``-restartchrono``, ``-pallas``/
-``-no-pallas`` and ``-cellmode:half``.
+with a message that names them: ``-builtin channel2d`` (periodic
+boundaries), ``-shard``, ``-initnorpla``/``-initnorpart``,
+``-restartchrono``, ``-pallas``/``-no-pallas`` and ``-cellmode:half``; so
+do the XML nodes the loader refuses and the options the NN step refuses.
 """
 
 from __future__ import annotations
@@ -85,7 +90,7 @@ def build_parser():
                         "(reference -cpu, JSphCfgRun.cpp:93)")
     p.add_argument("-gpu", nargs="?", const="0", default=None,
                    help="run on CUDA device [:id] (the default: device 0)")
-    p.add_argument("-case", help="DualSPHysics case XML (not ported yet)")
+    p.add_argument("-case", help="DualSPHysics case XML (*_Def.xml)")
     p.add_argument("-builtin", help="built-in case: " + " ".join(BUILTINS))
     p.add_argument("-dp", type=float, default=0.0, help="override dp (builtin)")
     p.add_argument("-name", default=None, help="case name override")
@@ -197,9 +202,8 @@ def build_parser():
 def refuse(args):
     """Leave with a message naming the first option whose setting the port
     does not run."""
-    if args.case:
-        raise SystemExit("-case: the XML case loader (io/xmlcase.py) is not "
-                         "ported yet; use -builtin")
+    if args.case and not os.path.isfile(args.case):
+        raise SystemExit(f"-case {args.case}: no such file")
     if args.builtin == "channel2d":
         raise SystemExit("-builtin channel2d: periodic boundaries "
                          "(Features.periodic) are not ported yet")
@@ -229,7 +233,8 @@ def _features():
     return ["wcsph", "dbc", "mdbc", "verlet", "symplectic", "wendland",
             "cubic", "ddt", "ddtramp", "shifting", "laminar+sps", "floating",
             "motion", "damping", "accinput", "gauges", "viscotime", "bi4",
-            "vtk", "csv", "restart", "savedt", "cuda"]
+            "vtk", "csv", "restart", "savedt", "xmlcase", "nnphases",
+            "cuda"]
 
 
 def _info(torch):
@@ -249,7 +254,7 @@ def _info(torch):
             "waves": ["piston", "flap", "irregular", "solitary", "focused",
                       "relaxation-zones", "multilayer-piston", "awas"],
             "io": ["bi4", "vtk", "csv", "restart", "savedt", "fbi4", "obi4",
-                   "parthead", "run-csv"],
+                   "parthead", "run-csv", "case-xml"],
             "builtin": list(BUILTINS),
         },
         "torch": torch.__version__,
@@ -267,26 +272,36 @@ def _device(args, torch):
 
 
 def _build_case(args, device):
-    """The builtin case with the state the options need: the M1 state
-    under -verlet and a zero SPS stress under -viscolamsps (as the JAX
-    package's XML cases build them), the walls' normals under -mdbc for
-    dambreak2d (the JAX CLI's rule)."""
+    """(case, opts, run values): the case XML through ``io.xmlcase``, or
+    the builtin case (Fourtakas DDT, tmax 1, tout 0.05), with the state the
+    options need: the M1 state under -verlet (the initial velocity and
+    density; a restart takes them from its PART) and a zero SPS stress
+    under -viscolamsps, as the XML loader builds them, and the walls'
+    normals under -mdbc for dambreak2d (the JAX CLI's rule)."""
     import torch
     from .models import cases as C
-    kw = dict(device=device)
-    if args.dp:
-        kw["dp"] = args.dp
-    if args.builtin == "dambreak2d" and args.mdbc:
-        kw["mdbc"] = True
-    case = getattr(C, args.builtin)(**kw)
+    from .ops.forces import SolverOpts
+    from .typesdef import TpDensity
+    if args.case:
+        from .io.xmlcase import load_case
+        case, opts, run = load_case(args.case, mdbc=args.mdbc, device=device)
+    else:
+        kw = dict(device=device)
+        if args.dp:
+            kw["dp"] = args.dp
+        if args.builtin == "dambreak2d" and args.mdbc:
+            kw["mdbc"] = True
+        case = getattr(C, args.builtin)(**kw)
+        opts = SolverOpts(tdensity=TpDensity.FOURTAKAS)
+        run = dict(tmax=1.0, tout=0.05)
     st = case.state
     if args.verlet is not None and st.velm1 is None:
-        st = dataclasses.replace(st, velm1=torch.zeros_like(st.vel),
+        st = dataclasses.replace(st, velm1=st.vel.clone(),
                                  rhom1=st.rho.clone())
     if args.viscolamsps is not None and st.spstau is None:
         st = dataclasses.replace(st, spstau=torch.zeros(
             (st.n, 6), dtype=torch.float32, device=st.pos.device))
-    return dataclasses.replace(case, state=st)
+    return dataclasses.replace(case, state=st), opts, run
 
 
 def _overrides(args, csp, opts):
@@ -412,27 +427,30 @@ def main(argv=None):
         print(json.dumps(_info(torch), indent=1))
         return 0
     refuse(args)
-    if not args.builtin:
-        print("error: give -builtin <name>", file=sys.stderr)
+    if not args.case and not args.builtin:
+        print("error: give -case <xml> or -builtin <name>", file=sys.stderr)
         return 2
 
     from .features.featureset import Features
-    from .io.output import OutputManager, restart_state
+    from .io.output import OutputManager, OutputTime, restart_state
     from .io.partdata import part_filename
     from .models.wcsph import Simulation
-    from .ops.forces import SolverOpts
-    from .typesdef import TpDensity
     from .utils.runinfo import TerminateCheck, save_res
     from .utils.timers import Timers
 
     device = _device(args, torch)
-    case = _build_case(args, device)
-    csp, opts = _overrides(args, case.csp,
-                           SolverOpts(tdensity=TpDensity.FOURTAKAS))
-    run = dict(tmax=1.0, tout=0.05)
+    try:
+        case, opts, run = _build_case(args, device)
+    except NotImplementedError as e:
+        # an XML node of a feature the port does not run
+        raise SystemExit(f"-case {args.case}: {e}") from None
+    csp, opts = _overrides(args, case.csp, opts)
     dom = _domain(args, case.dom)
     tmax = args.tmax if args.tmax is not None else run["tmax"]
     tout = args.tout if args.tout is not None else run["tout"]
+    if args.tout is None and run.get("tout_table") is not None:
+        # <special><timeout> (JDsOutputTime)
+        tout = OutputTime(run["tout_table"])
 
     st = case.state
     t0 = 0.0
@@ -444,8 +462,8 @@ def main(argv=None):
         st, t0, _ = restart_state(path, st)
         print(f"restart from {path} at t={t0:.6f}")
 
-    feats = None
-    if "ftcfg" in case.meta or "motion" in case.meta:
+    feats = case.meta.get("features")
+    if feats is None and ("ftcfg" in case.meta or "motion" in case.meta):
         feats = Features(
             motions=(case.meta["motion"],) if "motion" in case.meta else (),
             floating=case.meta.get("ftcfg"))
@@ -460,9 +478,31 @@ def main(argv=None):
     # and the motions too) and the PART numbers of the run it continues, as
     # the reference's -partbegin does (the JAX CLI starts again at PART 0
     # and its step clock at 0)
-    sim = Simulation(csp, opts, dom, st, feats=feats, t0=t0)
+    step = None
+    phases = case.meta.get("phases")
+    if phases is not None:
+        # a multiphase NN case (<special><nnphases>): the NN step, which
+        # refuses what it does not run (forces_nn.check_supported_nn) and
+        # every feature of the case, naming its XML node
+        from .models.nnewtonian import make_nn_step
+        try:
+            step = make_nn_step(csp, opts, dom, phases, feats)
+        except (NotImplementedError, ValueError) as e:
+            raise SystemExit(f"-case {args.case}: {e}") from None
+    sim = Simulation(csp, opts, dom, st, feats=feats, step=step, t0=t0)
     sim.part = part0
     sim.errdir = args.dirout
+    pom = run.get("partsoutmax")
+    if pom is not None and pom < 1.0:
+        sim.partsoutmax = pom
+    gsys = None
+    if case.meta.get("gauges"):
+        # <special><gauges>, written to Gauge_*.csv at each save; a gauge's
+        # <computedt> ticks inside the save interval (JDsGaugeSystem.cpp:447)
+        from .features.gauges import GaugeSystem
+        gsys = GaugeSystem(csp, dom, case.meta["gauges"],
+                           windows=case.meta.get("gauge_windows"),
+                           computedts=case.meta.get("gauge_computedts"))
     sv = set(args.sv.split(","))
     datadir = os.path.join(args.dirout, args.dirdataout) \
         if args.dirdataout else args.dirout
@@ -474,8 +514,10 @@ def main(argv=None):
                                 casename=args.name, nortimes=args.nortimes,
                                 posdouble=bool(args.saveposdouble),
                                 extraparts=args.svextraparts,
-                                svnormals=args.svnormals,
+                                svnormals=args.svnormals, gauges=gsys,
                                 save_csv="csv" in sv, csvsep=sep)
+        if run.get("ftmotion_tout") is not None:
+            on_save.ftmotion_tout = run["ftmotion_tout"]
     os.makedirs(args.dirout, exist_ok=True)
     if args.svdomainvtk and on_save is not None:
         _write_domain_vtk(args.dirout, dom)
@@ -506,9 +548,18 @@ def main(argv=None):
             timers.start("Interval")
 
         on_save = on_save_timed
+    next_subtick = on_subtick = None
+    if gsys is not None and gsys.computedts:
+        next_subtick = gsys.next_time
+
+        def on_subtick(s, t_abs):
+            cells = None if s.carry.rebuild else s.carry.cells
+            gsys.run(t_abs, s.state, cells, at_save=False)
+
     timers.start("Run")
     sim.run(tmax=tmax, tout=tout, on_save=on_save, max_steps=args.nsteps,
-            terminate=terminate, every_step=args.svsteps)
+            terminate=terminate, every_step=args.svsteps,
+            next_subtick=next_subtick, on_subtick=on_subtick)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = timers.stop("Run")

@@ -20,6 +20,16 @@ from .floating import FloatingCfg
 PORTED = ("motions", "damping", "accinputs", "floating", "relaxzones",
           "mlpistons", "awas", "viscotime")
 
+# the case XML's node behind each ported field, for refusals that name it
+XML_NODES = {"motions": "<motion> or <special><wavepaddles>",
+             "damping": "<special><damping>",
+             "accinputs": "<special><accinputs>",
+             "floating": "<floatings>",
+             "relaxzones": "<special><relaxationzones>",
+             "mlpistons": "<special><mlayerpistons>",
+             "awas": "<special><wavepaddles> AWAS",
+             "viscotime": "<parameter key=\"ViscoTime\">"}
+
 
 @dataclass(frozen=True)
 class Features:
@@ -39,11 +49,34 @@ class Features:
     chrono: object = None
     chcontact: object = None
 
+    @property
+    def any(self):
+        """Whether any feature is set (the JAX ``Features.any``)."""
+        return bool(self.motions or self.damping or self.accinputs
+                    or self.floating or self.periodic or self.inout
+                    or self.dem or self.relaxzones or self.mlpistons
+                    or self.moorings or self.forcepoints or self.awas
+                    or self.viscotime)
+
+    def set_fields(self) -> list:
+        """The names of the fields that are set (neither None nor empty)."""
+        return [f.name for f in fields(self)
+                if getattr(self, f.name) is not None
+                and getattr(self, f.name) != ()]
+
     def check_supported(self) -> None:
         """Raise NotImplementedError naming the first feature the port does
         not cover."""
-        for f in fields(self):
-            value = getattr(self, f.name)
-            if f.name not in PORTED and value is not None and value != ():
+        for name in self.set_fields():
+            if name not in PORTED:
                 raise NotImplementedError(f"the torch port does not cover "
-                                          f"Features.{f.name} yet")
+                                          f"Features.{name} yet")
+
+    def check_none_set(self, what: str) -> None:
+        """Raise NotImplementedError naming the first set feature and its
+        XML node: for a step (``what``) that runs no feature hook."""
+        for name in self.set_fields():
+            node = XML_NODES.get(name)
+            raise NotImplementedError(
+                f"the torch port does not cover Features.{name}"
+                + (f" ({node})" if node else "") + f" on {what}")

@@ -324,6 +324,46 @@ class GridVel:
         return outx, outz
 
 
+def load_gridvel(path, posmin=(0.0, 0.0), velcorr=0.0) -> GridVel:
+    """Read a gridveldata CSV (JSphInOutGridData::LoadDataCsv; the JAX
+    package's ``inout.load_inout_gridvel``): header rows fmtversion /
+    grid_dpx;grid_dpz;grid_nx;grid_nz;vars, then one row per time:
+    t;velx[nx*nz]...(;velz[nx*nz]...)."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            line = line.split("#", 1)[0].strip()
+            if line:
+                rows.append([p for p in line.replace(";", " ").replace(
+                    ",", " ").split() if p])
+    head = {k.lower(): i for i, k in enumerate(rows[0])}
+    if "fmtversion" not in head:
+        raise ValueError(f"{path}: fmtversion header missing")
+    vals = rows[1]
+    dpx = float(vals[head["grid_dpx"]])
+    dpz = float(vals[head["grid_dpz"]])
+    nx = int(float(vals[head["grid_nx"]]))
+    nz = int(float(vals[head["grid_nz"]]))
+    # vars may take the remaining columns ("velx velz" splits in two)
+    varcols = rows[0][head["vars"]:]
+    usevelz = any("velz" in " ".join(r[head["vars"]:]).lower()
+                  for r in rows[:2]) or "velz" in " ".join(varcols).lower()
+    npt = nx * nz
+    times, vxs, vzs = [], [], []
+    for r in rows[2:]:
+        if len(r) < 1 + npt * (2 if usevelz else 1):
+            continue
+        times.append(float(r[0]))
+        vxs.extend(float(x) for x in r[1:1 + npt])
+        if usevelz:
+            vzs.extend(float(x) for x in r[1 + npt:1 + 2 * npt])
+    if not times:
+        raise ValueError(f"{path}: no time rows parsed")
+    return GridVel(times=tuple(times), nx=nx, nz=nz, dpx=dpx, dpz=dpz,
+                   posmin=tuple(posmin), velx=tuple(vxs), velz=tuple(vzs),
+                   velcorr=velcorr)
+
+
 @dataclass(frozen=True)
 class RelaxZoneExternal:
     """Blend toward external (SWASH) velocity data on a (t, x, z) grid

@@ -15,6 +15,7 @@ the bytes), never per step.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import re
 
@@ -243,11 +244,16 @@ class OutputManager:
 
     _savedt_last = 0
     _ftmot_last = 0
+    _ftmot_tnext = 0.0
+    # the record's own cadence (<parameter key="FtSaveMotion">, tout2 of
+    # JFtMotionSave); 0 = every recorded step
+    ftmotion_tout = 0.0
 
     def drain_ftmotion(self, sim, h):
         """Append the per-dt floating motion ring to PartFloatMotion.fbi4
-        (JFtMotionSave's dt-level record), every row recorded since the
-        last save."""
+        (JFtMotionSave's dt-level record, `JSphCpuSingle.cpp:1000-1003`):
+        the rows recorded since the last save, one per ``ftmotion_tout``
+        of simulated time when that is set."""
         if self.feats is None or self.feats.floating is None:
             return
         if self.ftmotw is None:
@@ -257,8 +263,14 @@ class OutputManager:
         cur = sim.carry.nstep
         for s in range(max(self._ftmot_last, cur - cap), cur):
             r = hist[s % cap]
+            t = float(r[0])
+            if self.ftmotion_tout:
+                if t < self._ftmot_tnext:
+                    continue
+                while self._ftmot_tnext <= t:
+                    self._ftmot_tnext += self.ftmotion_tout
             self.ftmotw.save_part(
-                s, float(r[0]), step=s,
+                s, t, step=s,
                 center=r[1:1 + 3 * b].reshape(b, 3),
                 fvel=r[1 + 3 * b:1 + 6 * b].reshape(b, 3),
                 fomega=r[1 + 6 * b:1 + 9 * b].reshape(b, 3), flush=False)
@@ -290,13 +302,80 @@ class OutputManager:
         self._savedt_last = cur
 
 
+def _body_angles(a, b, planar):
+    """Accumulated rotation angles (``FloatingState.angles``) of a body
+    whose particle offsets from its centre went from ``a`` (t = 0) to
+    ``b``: the least-squares rotation Q with b = Q a (Kabsch), as the
+    angles whose ``floating._euler_rot`` (Rz Ry Rx) is Q.  A ``planar`` (2D)
+    body turns about y alone, and its angle is exact modulo 2 pi; in 3D
+    these are the Euler angles of the body's orientation."""
+    u, _s, vt = np.linalg.svd(b.T @ a)
+    d = np.sign(np.linalg.det(u @ vt)) or 1.0
+    q = u @ np.diag([1.0, 1.0, d]) @ vt
+    if planar:
+        return np.array([0.0, math.atan2(q[0, 2], q[0, 0]), 0.0])
+    return np.array([math.atan2(q[2, 1], q[2, 2]),
+                     math.atan2(-q[2, 0], math.hypot(q[0, 0], q[1, 0])),
+                     math.atan2(q[1, 0], q[0, 0])])
+
+
+def _restart_floating(path, cpart, template_state, pos, idp, code):
+    """The floating bodies' state at PART ``cpart``: ``center``, ``fvel``
+    and ``fomega`` from that row of the PartFloat.fbi4 beside the PART
+    (the reference's `-partbegin` restores them from it, SURVEY §5.4), and
+    ``angles``, which the file does not hold, from the bodies' particles
+    (``_body_angles``).  A missing file or row is an error naming it."""
+    fpath = os.path.join(os.path.dirname(path) or ".", "PartFloat.fbi4")
+    if not os.path.exists(fpath):
+        raise FileNotFoundError(
+            f"restart of a case with floating bodies needs {fpath} (the "
+            f"bodies' state at PART {cpart})")
+    _head, rows = floatdata.read_floatbi4(fpath)
+    row = next((r for r in rows if r["cpart"] == cpart), None)
+    if row is None:
+        raise ValueError(f"{fpath} holds no row for PART {cpart} (Cpart "
+                         f"{[r['cpart'] for r in rows]})")
+    ft0 = template_state.ft
+    nb = ft0.center.shape[0]
+    if len(row["center"]) != nb:
+        raise ValueError(f"{fpath} holds {len(row['center'])} bodies, the "
+                         f"case {nb}")
+    # the template's positions by id: the bodies' t = 0 lattice
+    tid = host(template_state.idp)
+    tpos = host(template_state.pos).astype(np.float64)
+    pos0 = np.zeros((int(tid.max()) + 1, 3))
+    pos0[tid] = tpos
+    planar = bool(np.ptp(tpos[:, 1]) == 0.0)
+    center0 = host(ft0.center).astype(np.float64)
+    center = np.asarray(row["center"], np.float64)
+    isft = td.code_type(code) == td.TYPE_FLOATING
+    angles = np.zeros((nb, 3))
+    for b in range(nb):
+        k = np.where(isft & (td.code_value(code) == b))[0]
+        if len(k) >= 2:
+            angles[b] = _body_angles(pos0[idp[k]] - center0[b],
+                                     pos[k] - center[b], planar)
+    dev = ft0.center.device
+
+    def dev32(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
+
+    return dataclasses.replace(
+        ft0, center=dev32(center), fvel=dev32(row["fvel"]),
+        fomega=dev32(row["fomega"]), angles=dev32(angles))
+
+
 def restart_state(path, template_state):
     """Rebuild a SimState from a PART file (the `-partbegin` contract,
     JPartsLoad4::LoadParticles + JSph::InitRun) on the template's device.
-    The template provides the capacity and the optional fields, which it
-    keeps as they are, as the JAX package does; particles take slots in the
-    file's id order and spare slots are OUT_IGNORE.  The PART holds no
-    Kahan residual, so ``pose`` restarts at zero.  Returns (state,
+    The template provides the capacity and the optional fields; particles
+    take slots in the file's id order and spare slots are OUT_IGNORE.
+    Where the template carries them, the Verlet M1 state starts from the
+    PART's velocity and density (InitRun copies Velrhop into VelrhopM1),
+    and the floating bodies' state from ``_restart_floating`` (the JAX
+    package keeps the template's M1 and body state, that is t = 0's).  The
+    other optional fields stay as the template has them.  The PART holds
+    no Kahan residual, so ``pose`` restarts at zero.  Returns (state,
     timestep, nstep)."""
     d = partdata.read_part(path)
     cap = template_state.n
@@ -335,9 +414,15 @@ def restart_state(path, template_state):
         idp=torch.tensor(idp, device=dev),
         code=torch.tensor(code, device=dev),
         pose=torch.zeros((cap, 3), dtype=torch.float32, device=dev))
+    if template_state.velm1 is not None:
+        st = dataclasses.replace(st, velm1=dev32(vel), rhom1=dev32(rho))
+    m = re.search(r"Part_?(\d+)\.bi4$", os.path.basename(path))
+    cpart = int(m.group(1)) if m is not None else d["cpart"]
+    if template_state.ft is not None:
+        st = dataclasses.replace(st, ft=_restart_floating(
+            path, cpart, template_state, pos, idp, code))
     # mDBC normals from the PartExtra channel (JDsExtraDataLoad::LoadNormals;
     # without it an mDBC restart would run with zero normals)
-    m = re.search(r"Part_?(\d+)\.bi4$", os.path.basename(path))
     if m is not None:
         extra = extradata.load_extradata(os.path.dirname(path) or ".",
                                          int(m.group(1)))

@@ -5,8 +5,9 @@ the 3D and 2D dam breaks (`examples/main/01_DamBreak/CaseDambreak_Def.xml`,
 the 2D wet dam break of the multiphase non-Newtonian solver lives in
 ``models/nnewtonian.py``.
 
-Counterpart of `dualsphysics_multilayer_tpu/models/cases.py` (``Draw.box``,
-``Draw.build``, ``Case``, ``_make_state``, ``_make_domain``,
+Counterpart of `dualsphysics_multilayer_tpu/models/cases.py` (``Draw``
+with every GenCase command the XML loader ``io/xmlcase.py`` draws through,
+``prism_pred``, ``Case``, ``_make_state``, ``_make_domain``,
 ``dambreak3d``, ``dambreak2d``, ``floatingbox2d``, ``waveflume2d``; the
 bucket capacities of the JAX builders, ``lattice_cellcap`` among them,
 belong to the TPU layouts and have no counterpart here).  Lattices, ids,
@@ -18,6 +19,7 @@ the caller asks for another device.
 from __future__ import annotations
 
 import math
+from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -37,14 +39,53 @@ from .wcsph import SimState
 DOMAIN_SKIN = 1.0 / 16.0
 
 _EPS = 1e-6
+# the six axis directions of GenCase's <dirfilter> (redrawnear)
+_DIRVECS = {"right": (1, 0, 0), "left": (-1, 0, 0), "back": (0, 1, 0),
+            "front": (0, -1, 0), "top": (0, 0, 1), "bottom": (0, 0, -1)}
+
+
+def prism_pred(base, extrude):
+    """Point-in-extruded-polygon predicate ((m,3) -> bool): the even-odd
+    test in the base plane and the extrusion interval (``Draw.prism`` and
+    GenCase ``<fillprism>``)."""
+    base = np.asarray(base, np.float64)
+    ev = np.asarray(extrude, np.float64)
+    m = len(base)
+    eL = np.linalg.norm(ev)
+    ez = ev / max(eL, _EPS)
+    u0 = base[1] - base[0]
+    u0 = u0 - np.dot(u0, ez) * ez
+    u0 = u0 / max(np.linalg.norm(u0), _EPS)
+    v0 = np.cross(ez, u0)
+    b2 = np.stack([(base - base[0]) @ u0, (base - base[0]) @ v0], axis=1)
+
+    def pred(pts):
+        rel = np.asarray(pts) - base[0][None, :]
+        t = rel @ ez
+        px = rel @ u0
+        py = rel @ v0
+        inside = np.zeros(len(rel), bool)
+        jm = m - 1
+        for i in range(m):
+            xi, yi = b2[i]
+            xj, yj = b2[jm]
+            crossed = ((yi > py) != (yj > py)) & (
+                px < (xj - xi) * (py - yi) / (yj - yi + 1e-300) + xi)
+            inside ^= crossed
+            jm = i
+        return inside & (t >= -_EPS) & (t <= eL + _EPS)
+
+    return pred
 
 
 @dataclass
 class Draw:
     """dp-lattice drawing canvas anchored at the origin, with
     last-draw-wins overwrite (GenCase ``setmkfluid``/``setmkbound`` +
-    ``drawbox``).  With ``simulate2d`` every point lies in the y = 0 plane
-    and boxes have no front/back faces."""
+    the draw, fill and redraw commands).  With ``simulate2d`` every point
+    lies in the y = 0 plane and boxes have no front/back faces.  A point
+    carries its mDBC normal (inward, length dp) where the command gives
+    one, else zero."""
     dp: float
     simulate2d: bool = False
     points: dict = field(default_factory=dict)   # (i,j,k) -> (ptype, mk, normal)
@@ -53,6 +94,49 @@ class Draw:
         i0 = int(math.ceil(lo / self.dp - _EPS))
         i1 = int(math.floor(hi / self.dp + _EPS))
         return list(range(i0, i1 + 1))
+
+    def _ranges(self, lo, hi):
+        """Lattice indices per axis over [lo, hi] (y = [0] in 2D)."""
+        return (self._irange(lo[0], hi[0]),
+                [0] if self.simulate2d else self._irange(lo[1], hi[1]),
+                self._irange(lo[2], hi[2]))
+
+    def _frange(self, lo, hi):
+        """Indices of a fill region, half-open at its far limit: a lattice
+        point exactly on ``hi`` lies outside (GenCase fill semantics)."""
+        idx = self._irange(lo, hi)
+        if idx and abs(idx[-1] * self.dp - hi) < _EPS:
+            idx = idx[:-1]
+        return idx
+
+    def _steps(self):
+        steps = [(1, 0, 0), (-1, 0, 0), (0, 0, 1), (0, 0, -1)]
+        if not self.simulate2d:
+            steps += [(0, 1, 0), (0, -1, 0)]
+        return steps
+
+    def _seed(self, seed):
+        s0 = tuple(int(round(seed[a] / self.dp)) for a in range(3))
+        return (s0[0], 0, s0[2]) if self.simulate2d else s0
+
+    def _flood(self, s0, lo, hi, ptype, mk, ok=None):
+        """Breadth-first fill of the empty sites connected to ``s0`` inside
+        the index box [lo, hi] (and where ``ok``)."""
+        seen = {s0}
+        q = deque([s0])
+        while q:
+            node = q.popleft()
+            self.points[node] = (ptype, mk, (0.0, 0.0, 0.0))
+            for dx, dy, dz in self._steps():
+                nb = (node[0] + dx, node[1] + dy, node[2] + dz)
+                if nb in seen or nb in self.points:
+                    continue
+                if not all(lo[a] <= nb[a] <= hi[a] for a in range(3)):
+                    continue
+                if ok is not None and not ok(nb):
+                    continue
+                seen.add(nb)
+                q.append(nb)
 
     def box(self, pmin, pmax, *, ptype, mk, faces="solid"):
         """Draw a box: ``faces`` is 'solid' or a '|'-joined subset of
@@ -91,6 +175,306 @@ class Draw:
                     v = v / nn * self.dp if nn else np.zeros(3)
                     self.points[(i, j, k)] = (ptype, mk,
                                               tuple(float(x) for x in v))
+
+    def sphere(self, center, radius, *, ptype, mk, solid=True):
+        """GenCase ``<drawsphere>``: lattice points within ``radius`` of
+        ``center`` (solid) or within a dp-thick shell (face mode), with
+        inward radial normals."""
+        c = np.asarray(center, np.float64)
+        xs, ys, zs = self._ranges(c - radius - self.dp, c + radius + self.dp)
+        for k in zs:
+            for j in ys:
+                for i in xs:
+                    p = np.array([i * self.dp, j * self.dp, k * self.dp])
+                    if self.simulate2d:
+                        p[1] = c[1]
+                    d = np.linalg.norm(p - c)
+                    inside = d <= radius + _EPS if solid \
+                        else (radius - self.dp - _EPS <= d <= radius + _EPS)
+                    if not inside:
+                        continue
+                    nv = (c - p) / d * self.dp if d > _EPS else np.zeros(3)
+                    self.points[(i, j, k)] = (
+                        ptype, mk, (float(nv[0]), float(nv[1]), float(nv[2])))
+
+    def cylinder(self, p1, p2, radius, *, ptype, mk, solid=True):
+        """GenCase ``<drawcylinder>``: lattice points within ``radius`` of
+        the p1->p2 axis between the end planes (solid) or on the dp-thick
+        lateral shell (face mode), with inward radial normals."""
+        a = np.asarray(p1, np.float64)
+        b = np.asarray(p2, np.float64)
+        ax = b - a
+        L = np.linalg.norm(ax)
+        if L < _EPS:
+            return self.sphere(p1, radius, ptype=ptype, mk=mk, solid=solid)
+        ax = ax / L
+        xs, ys, zs = self._ranges(np.minimum(a, b) - radius - self.dp,
+                                  np.maximum(a, b) + radius + self.dp)
+        for k in zs:
+            for j in ys:
+                for i in xs:
+                    p = np.array([i * self.dp, j * self.dp, k * self.dp])
+                    if self.simulate2d:
+                        p[1] = a[1]
+                    t = np.dot(p - a, ax)
+                    if t < -_EPS or t > L + _EPS:
+                        continue
+                    rad_v = (p - a) - t * ax
+                    d = np.linalg.norm(rad_v)
+                    inside = d <= radius + _EPS if solid \
+                        else (radius - self.dp - _EPS <= d <= radius + _EPS)
+                    if not inside:
+                        continue
+                    nv = -rad_v / d * self.dp if d > _EPS else np.zeros(3)
+                    self.points[(i, j, k)] = (
+                        ptype, mk, (float(nv[0]), float(nv[1]), float(nv[2])))
+
+    def voidbox(self, pmin, pmax):
+        """GenCase ``setmkvoid`` + drawbox: erase the points in the box."""
+        xs, ys, zs = (set(r) for r in self._ranges(pmin, pmax))
+        for key in [k for k in self.points
+                    if k[0] in xs and k[1] in ys and k[2] in zs]:
+            del self.points[key]
+
+    def fillbox(self, seed, pmin, pmax, *, ptype, mk):
+        """GenCase ``<fillbox>``: flood-fill the empty lattice region
+        connected to ``seed``, bounded by the box (half-open at its far
+        limit) and by the points already drawn."""
+        xs = self._frange(pmin[0], pmax[0])
+        ys = [0] if self.simulate2d else self._frange(pmin[1], pmax[1])
+        zs = self._frange(pmin[2], pmax[2])
+        if not xs or not ys or not zs:
+            return
+        lo = (xs[0], ys[0], zs[0])
+        hi = (xs[-1], ys[-1], zs[-1])
+        s0 = self._seed(seed)
+        if not all(lo[a] <= s0[a] <= hi[a] for a in range(3)) \
+                or s0 in self.points:
+            return
+        self._flood(s0, lo, hi, ptype, mk)
+
+    def fill_domain(self, pmin, pmax, *, ptype, mk):
+        """Paint every lattice site of [pmin, pmax), void included (the
+        filterless GenCase ``<redraw/>``)."""
+        xs = self._frange(pmin[0], pmax[0])
+        ys = [0] if self.simulate2d else self._frange(pmin[1], pmax[1])
+        zs = self._frange(pmin[2], pmax[2])
+        for k in zs:
+            for j in ys:
+                for i in xs:
+                    self.points[(i, j, k)] = (ptype, mk, (0.0, 0.0, 0.0))
+
+    def _snap(self, p):
+        return (int(round(p[0] / self.dp)),
+                0 if self.simulate2d else int(round(p[1] / self.dp)),
+                int(round(p[2] / self.dp)))
+
+    def pointmark(self, p, *, ptype, mk, normal=(0.0, 0.0, 0.0)):
+        """GenCase ``<drawpoint(s)>``: the lattice point nearest ``p``."""
+        self.points[self._snap(p)] = (ptype, mk, tuple(normal))
+
+    def segment(self, p1, p2, *, ptype, mk):
+        """GenCase ``<drawline(s)/lineto>``: samples every dp/4 along the
+        segment, each snapped to its nearest lattice point."""
+        a = np.asarray(p1, np.float64)
+        b = np.asarray(p2, np.float64)
+        L = np.linalg.norm(b - a)
+        step = self.dp * 0.25
+        ts = [min(k * step / L, 1.0)
+              for k in range(int(math.floor(L / step)) + 1)] if L else [0.0]
+        if ts[-1] < 1.0:
+            ts.append(1.0)
+        for t in ts:
+            self.pointmark(a + t * (b - a), ptype=ptype, mk=mk)
+
+    def tri_surface(self, tris, *, ptype, mk, normals=True):
+        """Rasterize a triangle soup (GenCase ``<drawtriangle(s)/quadri/
+        figure>`` and the mesh imports): each triangle sampled on a
+        barycentric grid at dp/2, the nearest lattice points marked, with
+        the inward (minus the face) normal scaled to dp."""
+        tris = np.asarray(tris, np.float64).reshape(-1, 3, 3)
+        for a, b, c in tris:
+            e1, e2 = b - a, c - a
+            nrm = np.cross(e1, e2)
+            nl = np.linalg.norm(nrm)
+            nv = (-nrm / nl * self.dp) if (normals and nl > _EPS) \
+                else np.zeros(3)
+            n1 = max(1, int(math.ceil(np.linalg.norm(e1) / (self.dp * 0.5))))
+            n2 = max(1, int(math.ceil(np.linalg.norm(e2) / (self.dp * 0.5))))
+            for iu in range(n1 + 1):
+                u = iu / n1
+                for iv in range(n2 + 1):
+                    v = iv / n2
+                    if u + v > 1.0 + 1e-9:
+                        continue
+                    self.points[self._snap(a + u * e1 + v * e2)] = (
+                        ptype, mk, (float(nv[0]), float(nv[1]), float(nv[2])))
+
+    def solid_pred(self, pred, bbox, *, ptype, mk):
+        """Fill every lattice point of ``bbox`` where ``pred((m,3) points)``
+        holds (rotated boxes, prisms, ellipsoids, the solitary wave)."""
+        xs, ys, zs = self._ranges(np.asarray(bbox[0]), np.asarray(bbox[1]))
+        if not xs or not ys or not zs:
+            return
+        gi, gj, gk = np.meshgrid(xs, ys, zs, indexing="ij")
+        keys = np.stack([gi.ravel(), gj.ravel(), gk.ravel()], axis=1)
+        sel = np.asarray(pred(keys * self.dp), bool)
+        for (i, j, k) in keys[sel]:
+            self.points[(int(i), int(j), int(k))] = (ptype, mk,
+                                                     (0.0, 0.0, 0.0))
+
+    def prism(self, base, extrude, *, ptype, mk, solid=True):
+        """GenCase ``<drawprism>``/``<drawpolygon>``: the planar loop
+        ``base`` extruded along ``extrude``, solid or its walls and caps."""
+        base = np.asarray(base, np.float64)
+        ev = np.asarray(extrude, np.float64)
+        m = len(base)
+        if not solid:
+            for i in range(m):
+                a, b = base[i], base[(i + 1) % m]
+                self.tri_surface([[a, b, b + ev], [a, b + ev, a + ev]],
+                                 ptype=ptype, mk=mk)
+            for loop in (base, base + ev):
+                ctr = loop.mean(axis=0)
+                self.tri_surface(
+                    [[ctr, loop[i], loop[(i + 1) % m]] for i in range(m)],
+                    ptype=ptype, mk=mk)
+            return
+        lo = np.minimum(base.min(0), (base + ev).min(0)) - self.dp
+        hi = np.maximum(base.max(0), (base + ev).max(0)) + self.dp
+        self.solid_pred(prism_pred(base, ev), (lo, hi), ptype=ptype, mk=mk)
+
+    def ellipsoid(self, p1, p2, radius=1.0, *, ptype, mk, solid=True):
+        """GenCase ``<drawellipsoid>``: centred between the two points,
+        semi-axes half the per-axis extents times ``radius`` (``radius``
+        itself on a degenerate axis); solid or a dp-thick shell."""
+        a = np.asarray(p1, np.float64)
+        b = np.asarray(p2, np.float64)
+        c = 0.5 * (a + b)
+        semi = np.abs(b - a) * 0.5 * radius
+        semi = np.where(semi < _EPS, radius, semi)
+        if self.simulate2d:
+            semi[1] = 1.0
+
+        def pred(pts):
+            u = (pts - c[None, :]) / semi[None, :]
+            r2 = np.sum(u * u, axis=1)
+            if solid:
+                return r2 <= 1.0 + _EPS
+            inner = (np.abs(pts - c[None, :]) / np.maximum(
+                semi[None, :] - self.dp, _EPS))
+            return (r2 <= 1.0 + _EPS) & (np.sum(inner * inner, axis=1)
+                                         >= 1.0 - _EPS)
+
+        self.solid_pred(pred, (c - semi - self.dp, c + semi + self.dp),
+                        ptype=ptype, mk=mk)
+
+    def fillpoint(self, seed, bounds, *, ptype, mk):
+        """GenCase ``<fillpoint>``: ``fillbox`` over the definition box."""
+        self.fillbox(seed, bounds[0], bounds[1], ptype=ptype, mk=mk)
+
+    def fillpred(self, seed, bounds, pred, *, ptype, mk):
+        """``fillbox`` also bounded by a region predicate (GenCase
+        ``<fillprism>``/``<fillfigure>``)."""
+        xs, ys, zs = self._ranges(np.asarray(bounds[0]),
+                                  np.asarray(bounds[1]))
+        if not xs or not ys or not zs:
+            return
+        lo = (xs[0], ys[0], zs[0])
+        hi = (xs[-1], ys[-1], zs[-1])
+
+        def ok(n):
+            w = np.array([n[a] * self.dp for a in range(3)])
+            return bool(np.asarray(pred(w[None, :])).ravel()[0])
+
+        s0 = self._seed(seed)
+        if not all(lo[a] <= s0[a] <= hi[a] for a in range(3)) \
+                or s0 in self.points or not ok(s0):
+            return
+        self._flood(s0, lo, hi, ptype, mk, ok)
+
+    def _inbox(self, ijk, box):
+        return box is None or all(
+            box[0][a] - _EPS <= ijk[a] * self.dp <= box[1][a] + _EPS
+            for a in range(3))
+
+    def redraw(self, *, ptype, mk, filter_type=None, filter_mk=None,
+               box=None):
+        """GenCase ``<redraw>``/``<redrawbox>``: give the current type/mk
+        to the points matching the (type, mk) filter and the box;
+        ``ptype=None`` (setmkvoid) deletes them."""
+        out = [ijk for ijk, (t, m, _n) in self.points.items()
+               if (filter_type is None or t == filter_type)
+               and (filter_mk is None or m == filter_mk)
+               and self._inbox(ijk, box)]
+        for ijk in out:
+            if ptype is None:
+                del self.points[ijk]
+            else:
+                self.points[ijk] = (ptype, mk, self.points[ijk][2])
+
+    def redrawnear(self, *, ptype, mk, times=1, targettp="fluid",
+                   targetmk=None, bordertp="bound", bordermk=None,
+                   dirs=None, box=None):
+        """GenCase ``<redrawnear>``/``<redrawnearbox>``: repaint target
+        sites (``targettp='void'``: empty sites) lying in an allowed
+        direction from a border site, one layer per pass for ``times``
+        passes, painted sites joining the border.  ``dirs``: the
+        <dirfilter> subset of top/bottom/left/right/front/back, else the
+        full neighbourhood with diagonals."""
+        if dirs:
+            use = [_DIRVECS[d] for d in dirs
+                   if not (self.simulate2d and d in ("front", "back"))]
+        else:
+            js = (0,) if self.simulate2d else (-1, 0, 1)
+            use = [(di, dj, dk) for di in (-1, 0, 1) for dj in js
+                   for dk in (-1, 0, 1) if (di, dj, dk) != (0, 0, 0)]
+
+        def match(entry, tp, mkf):
+            if tp == "void":
+                return entry is None
+            if entry is None:
+                return False
+            t, m, _n = entry
+            if tp == "fluid" and t != td.TYPE_FLUID:
+                return False
+            if tp == "bound" and t == td.TYPE_FLUID:
+                return False
+            return mkf is None or m == mkf
+
+        border = {ijk for ijk, e in self.points.items()
+                  if match(e, bordertp, bordermk) and self._inbox(ijk, box)}
+        if bordertp == "void":
+            # empty sites next to an occupied one, inside the box
+            border = set()
+            for ijk in self.points:
+                for d in use:
+                    nb = (ijk[0] - d[0], ijk[1] - d[1], ijk[2] - d[2])
+                    if nb not in self.points and self._inbox(nb, box):
+                        border.add(nb)
+        for _ in range(max(int(times), 1)):
+            paint = set()
+            for b in border:
+                for d in use:
+                    t = (b[0] + d[0], b[1] + d[1], b[2] + d[2])
+                    if t in paint or not self._inbox(t, box):
+                        continue
+                    if match(self.points.get(t), targettp, targetmk):
+                        paint.add(t)
+            if not paint:
+                break
+            for t in paint:
+                old = self.points.get(t)
+                if ptype is None:
+                    self.points.pop(t, None)
+                else:
+                    self.points[t] = (ptype, mk,
+                                      old[2] if old else (0.0, 0.0, 0.0))
+            border |= paint
+
+    def cell_mks(self):
+        """{(i,j,k): (ptype, mk)}: the lattice (GenCase ``<cellsout>``)."""
+        return {ijk: (t, m) for ijk, (t, m, _n) in self.points.items()}
 
     def build(self):
         """Assign canonical ids (fixed < moving < floating < fluid; within a

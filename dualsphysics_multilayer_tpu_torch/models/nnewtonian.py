@@ -19,6 +19,7 @@ import torch
 
 from .. import typesdef as td
 from ..typesdef import CteSph, make_ctesph
+from ..features.featureset import Features
 from ..ops import celldiv as cd
 from ..ops import forces_nn as NN
 from ..ops.forces import SolverOpts
@@ -27,14 +28,19 @@ from . import wcsph as W
 
 
 def make_nn_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
-                 phases: NN.PhaseCfg):
+                 phases: NN.PhaseCfg, feats: Features | None = None):
     """step(carry) -> carry: the symplectic step over the NN interaction
     (ComputeStep_Sym with the _NN_SPH or _NN_FDA interaction,
     JSphCpu_NN_SPH.cpp:663, JSphCpu_NN_FDA.cpp:129).  It takes no per-step
     launch values: the JAX NN step reads neither the DDT ramp nor the
     viscosity table, and writes no SaveDt row, so ``check_supported_nn``
     refuses ``savedt``, ``ftmotion`` and ``ddtramp`` rather than fill
-    SaveDt.csv with zeros as JAX does."""
+    SaveDt.csv with zeros as JAX does.  It runs no feature hook either
+    (JAX's NN step has none), so any set field of ``feats`` (motions,
+    damping, the viscosity table, ...) raises NotImplementedError naming
+    its XML node, where JAX would run the case with it ignored."""
+    if feats is not None:
+        feats.check_none_set("the NN step")
     NN.check_supported_nn(csp, opts, phases)
 
     def interaction(st: W.SimState, cells: cd.CellDiv, tabs, tabs_host):

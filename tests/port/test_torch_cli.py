@@ -181,9 +181,156 @@ def test_refused_options_name_themselves(argv, name, tmp_path):
     assert not os.listdir(tmp_path)
 
 
+# a coarse 2D wet dam break (dp 0.05, 126 particles): two phases, the SPH
+# velocity gradient, a first step of DtIni = 1 ms, a two-row timeout table
+# and PartsOutMax
+NN_XML = """<?xml version="1.0"?>
+<case>
+ <casedef>
+  <constantsdef>
+   <gravity x="0" y="0" z="-9.81"/><rhop0 value="1000"/>
+   <hswl value="0" auto="true"/><gamma value="7"/>
+   <speedsystem value="0" auto="true"/><coefsound value="20"/>
+   <speedsound value="0" auto="true"/><coefh value="1.0"/>
+   <cflnumber value="0.2"/>
+  </constantsdef>
+  <geometry>
+   <definition dp="0.05"><pointmin x="0" y="0" z="0"/>
+    <pointmax x="2" y="0" z="1"/></definition>
+   <commands><mainlist>
+    <setmkbound mk="0"/><drawbox><boxfill>bottom|left|right</boxfill>
+     <point x="0" y="0" z="0"/><size x="1" y="0" z="0.6"/></drawbox>
+    <setmkfluid mk="0"/><drawbox><boxfill>solid</boxfill>
+     <point x="0.05" y="0" z="0.05"/><size x="0.9" y="0" z="0.1"/></drawbox>
+    <setmkfluid mk="1"/><drawbox><boxfill>solid</boxfill>
+     <point x="0.05" y="0" z="0.05"/><size x="0.25" y="0" z="0.3"/></drawbox>
+   </mainlist></commands>
+  </geometry>
+ </casedef>
+ <execution>
+  <special>
+   <nnphases>
+    <phase mkfluid="0"><rhop value="1000"/><visco value="0.001"/></phase>
+    <phase mkfluid="1"><rhop value="1500"/><visco value="0.1"/>
+     <tau_yield value="0.001"/><HBP_m value="10"/><HBP_n value="1"/></phase>
+   </nnphases>
+   <timeout><tout time="0" timeout="0.0005"/>
+    <tout time="0.001" timeout="0.0003"/></timeout>
+  </special>
+  <parameters>
+   <parameter key="TimeMax" value="0.1"/><parameter key="TimeOut" value="0.01"/>
+   <parameter key="StepAlgorithm" value="2"/>
+   <parameter key="VelocityGradientType" value="2"/>
+   <parameter key="ViscoTreatment" value="3"/>
+   <parameter key="DensityDT" value="2"/>
+   <parameter key="PartsOutMax" value="0.5"/>
+   <parameter key="DtIni" value="0.001"/>
+  </parameters>
+ </execution>
+</case>
+"""
+
+
+def test_case_runs_an_nn_xml_through_the_nn_step(tmp_path, monkeypatch):
+    """``-cpu -case`` on an ``<nnphases>`` XML: two symplectic steps of
+    ``make_nn_step`` (four NN interactions), the PARTs at the times of its
+    ``<timeout>`` table (every 0.5 ms, from 1 ms every 0.3 ms; TimeOut
+    alone would save at 0.01 s), the phases' densities in the PARTs, and
+    the run's ``PartsOutMax``."""
+    from dualsphysics_multilayer_tpu_torch.models import wcsph as W
+    from dualsphysics_multilayer_tpu_torch.ops import forces_nn as NN
+    xmlp = tmp_path / "WetDambreak_Def.xml"
+    xmlp.write_text(NN_XML)
+    sims, calls = [], []
+    inner = NN.interaction_forces_nn
+
+    def counted(*a, **k):
+        calls.append(1)
+        return inner(*a, **k)
+
+    class Recorded(W.Simulation):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            sims.append(self)
+
+    monkeypatch.setattr(NN, "interaction_forces_nn", counted)
+    monkeypatch.setattr(W, "Simulation", Recorded)
+    d = tmp_path / "out"
+    assert cli.main(["-cpu", "-case", str(xmlp), "-nsteps:2", "-nortimes",
+                     "-dirout", str(d)]) == 0
+    assert len(calls) == 4 and sims[0].carry.nstep == 2
+    assert sims[0].partsoutmax == 0.5
+    parts = [PD.read_part(d / PD.part_filename(k)) for k in range(4)]
+    assert not (d / PD.part_filename(4)).exists()
+    assert [p["nstep"] for p in parts] == [0, 1, 1, 2]
+    np.testing.assert_allclose([p["timestep"] for p in parts],
+                               [0.0, 5e-4, 1e-3, 1.3e-3], rtol=1e-9)
+    code = parts[0]["code"]
+    fluid = (code >> 16) & 3 == 3
+    heavy = fluid & ((code & 0xFFFF) == 1)
+    assert heavy.any() and (fluid & ~heavy).any()
+    for p in parts:
+        rho = p["rhop"]
+        assert np.all(np.abs(rho[heavy] / 1500.0 - 1) < 0.1)
+        assert np.all(np.abs(rho[fluid & ~heavy] / 1000.0 - 1) < 0.1)
+
+
+@pytest.mark.parametrize("option", ["-verlet", "-mdbc", "-savedt",
+                                    "-ddtramp:0.01:0.005:0.3"])
+def test_nn_case_leaves_with_the_nn_steps_refusal(option, tmp_path):
+    """The NN step's refusals (forces_nn.check_supported_nn) leave the CLI
+    with their message."""
+    xmlp = tmp_path / "WetDambreak_Def.xml"
+    xmlp.write_text(NN_XML)
+    with pytest.raises(SystemExit, match="torch port") as e:
+        cli.main(["-cpu", "-case", str(xmlp), option,
+                  "-dirout", str(tmp_path / "out")])
+    assert str(xmlp) in str(e.value)
+
+
+# a feature the NN step runs no hook for: a moving tank (<motion>), the
+# time-varying viscosity table (ViscoTime and its CSV beside the XML)
+_NN_FEATURES = {
+    "motion": (("</geometry>", """</geometry>
+  <motion><objreal ref="0"><begin mov="1" start="0"/>
+   <mvrect id="1" duration="1"><vel x="0.1" y="0" z="0"/></mvrect>
+  </objreal></motion>"""), "<motion>"),
+    "viscotime": (("<parameters>", """<parameters>
+   <parameter key="ViscoTime" value="visco.csv"/>"""), "ViscoTime"),
+}
+
+
+@pytest.mark.parametrize("feature", sorted(_NN_FEATURES))
+def test_nn_case_refuses_the_features_its_step_does_not_run(feature,
+                                                            tmp_path):
+    """An ``<nnphases>`` case that also sets a feature leaves before the
+    run, naming the feature's XML node: the NN step has no feature hook,
+    and JAX's would run the case with the feature ignored."""
+    (old, new), node = _NN_FEATURES[feature]
+    xmlp = tmp_path / "WetDambreak_Def.xml"
+    xmlp.write_text(NN_XML.replace(old, new))
+    (tmp_path / "visco.csv").write_text("0.0 0.001\n0.5 0.002\n")
+    d = tmp_path / "out"
+    with pytest.raises(SystemExit, match="on the NN step") as e:
+        cli.main(["-cpu", "-case", str(xmlp), "-dirout", str(d)])
+    assert node in str(e.value) and str(xmlp) in str(e.value)
+    assert not d.exists()
+
+
+def test_case_leaves_naming_a_refused_node(tmp_path):
+    xmlp = tmp_path / "Inout_Def.xml"
+    xmlp.write_text(NN_XML.replace("<special>",
+                                   "<special><inout><inoutzone/></inout>"))
+    with pytest.raises(SystemExit, match="<special><inout>"):
+        cli.main(["-cpu", "-case", str(xmlp), "-dirout", str(tmp_path)])
+
+
 def test_cli_and_output_modules_import_no_jax():
     code = ("import sys\n"
             "import dualsphysics_multilayer_tpu_torch.cli\n"
+            "import dualsphysics_multilayer_tpu_torch.io.xmlcase\n"
+            "import dualsphysics_multilayer_tpu_torch.io.meshfile\n"
+            "import dualsphysics_multilayer_tpu_torch.utils.numex\n"
             "import dualsphysics_multilayer_tpu_torch.io.output\n"
             "import dualsphysics_multilayer_tpu_torch.io.jbinary\n"
             "import dualsphysics_multilayer_tpu_torch.tools.common\n"

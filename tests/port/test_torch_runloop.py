@@ -7,6 +7,9 @@
   within 1e-4*dp by particle id, density rtol 1e-5 (the step tests'
   contract); the SaveDt rows against JAX's at rtol 2e-3, the force
   tolerance (dt, AceMax and ViscDtMax follow the forces).
+* 30 Verlet steps from rest under a DDT of 0.3 swing the density out of
+  +-10% in JAX and in the port alike (density rtol 1e-3, positions
+  1e-4*dp by id), and stay within 1% without it.
 * The g++ twin of kernels 1-3 against the plain version under the
   overridden ``ddtkh``/``visco``, rtol 2e-3 (the force rule), and both
   differ from the forces at the constants' values.
@@ -15,7 +18,10 @@
   test_torch_floating.py).
 * Restart continuity as tests/test_io.py:76 (0.25*dp, by id); a flume
   restarted mid-stroke and mid-ramp goes on with the step values and the
-  piston of its PART's time.
+  piston of its PART's time; a Verlet dam break restarted mid-flow takes
+  its M1 state from the PART, and a falling, turning floating box its body
+  state from PartFloat.fbi4 and its particles (each against a mutant that
+  keeps the template's, as the JAX package does, and fails).
 * ``partsoutmax`` and the boundary-out abort as tests/test_simulation.py:
   129-175, the Error_BoundaryOut.vtk dump compared with JAX's as a set of
   (idp, pos) rows (the port's slots are permuted).
@@ -53,6 +59,7 @@ from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
 torch.set_num_threads(2)
 
 DP = 0.05
+FDP = 0.025   # the floating restart's
 NSTEPS = 5
 # (tramp, tmaxvalue, maxvalue) of the DDT ramp and the viscosity table's
 # (times, values) per step kind.  The symplectic steps start at 0, 7.98e-4
@@ -131,6 +138,50 @@ def test_steps_with_ramp_and_viscosity_table_match_jax(tstep):
     np.testing.assert_allclose(carry.dthist.numpy()[:NSTEPS],
                                np.asarray(jcarry.dthist)[:NSTEPS], rtol=2e-3)
     assert not carry.dthist[NSTEPS:].any()
+
+
+def test_verlet_under_a_strong_ddt_leaves_rest_as_jax_does():
+    """30 Verlet steps of ``dambreak2d(dp=0.05)`` from rest (1,001
+    particles, no Euler step) with the DDT held at the ramp's 0.3: the
+    leapfrog carries the diffusion term from step n-1 to n+1 and the fluid
+    density swings out of +-10% in both packages (882.8-1129.5 in JAX
+    here), the port's by id within rtol 1e-3 of JAX's (0.58 apart at most
+    here: the swing amplifies float32 rounding about 1.4x a step) and its
+    positions within 1e-4*dp.  The same run without the ramp stays within
+    1% of rest.  So the swing is the scheme's, not the port's."""
+    jcase = jcases.dambreak2d(dp=DP, need_verlet=True)
+    ramp = (1.0, 1.0, 0.3)
+    jopts = jF.SolverOpts(tdensity=jtd.TpDensity.FOURTAKAS, use_pallas=False,
+                          tstep=jtd.TpStep.VERLET, ddtramp=ramp)
+    jstep = jax.jit(jW.make_step(jcase.csp, jopts, jcase.dom))
+    jcarry = jW.make_carry(jcase.state, jcase.csp, jopts, dom=jcase.dom)
+    arrays = {k: np.asarray(getattr(jcase.state, k)) for k in
+              ("pos", "vel", "rho", "code", "idp", "velm1", "rhom1")}
+    csp = convert.ctesph(dataclasses.asdict(jcase.csp))
+    dom = convert.domain(dataclasses.asdict(jcase.dom))
+    fluid = jtd.code_type(arrays["code"]) == jtd.TYPE_FLUID
+    carries = {}
+    for r in (ramp, None):
+        opts = P.SolverOpts(tdensity=td.TpDensity.FOURTAKAS,
+                            tstep=td.TpStep.VERLET, ddtramp=r)
+        step = P.make_step(csp, opts, dom)
+        carry = P.make_carry(convert.simstate(arrays, device="cpu"), csp,
+                             opts, dom)
+        for _ in range(30):
+            carry = step(carry)
+        carries[r] = carry
+    for _ in range(30):
+        jcarry = jstep(jcarry)
+    assert opts.verlet_steps > 30
+    jrho = np.asarray(jcarry.st.rho)[fluid]
+    rho = by_id(carries[ramp].st, "rho")[fluid]
+    assert jrho.min() < 900 and jrho.max() > 1100, (jrho.min(), jrho.max())
+    np.testing.assert_allclose(rho, jrho, rtol=1e-3)
+    np.testing.assert_allclose(by_id(carries[ramp].st, "pos"),
+                               np.asarray(jcarry.st.pos), rtol=0,
+                               atol=1e-4 * DP)
+    calm = by_id(carries[None].st, "rho")[fluid]
+    assert np.abs(calm / 1000.0 - 1).max() < 0.01, (calm.min(), calm.max())
 
 
 @pytest.fixture(scope="module")
@@ -268,6 +319,137 @@ def test_restart_continues_the_ramp_and_the_piston(tmp_path):
     live = td.is_active(torch.tensor(by_id(sim.state, "code"))).numpy()
     err = np.abs(by_id(sim.state, "pos") - by_id(sim2.state, "pos"))[live]
     assert err.max() < 0.25 * DP, err.max()
+
+
+@pytest.fixture(scope="module")
+def verlet_run(tmp_path_factory):
+    """A 2D Verlet dam break (a 0.6 x 1 m column in a 2 x 1.5 m tank, 341
+    particles) to 0.08 s with a PART every 0.02 s."""
+    d = tmp_path_factory.mktemp("verlet")
+    case = cases.dambreak2d(dp=DP, tank=(2.0, 1.5), column=(0.6, 1.0),
+                            need_verlet=True, device="cpu")
+    opts = P.SolverOpts(tstep=td.TpStep.VERLET)
+    sim = P.Simulation(case.csp, opts, case.dom, case.state,
+                       log=lambda m: None)
+    sim.run(tmax=0.08, tout=0.02, on_save=OutputManager(str(d), case))
+    return case, opts, d, sim.state
+
+
+@pytest.mark.parametrize("m1", ["part", "template"])
+def test_verlet_restart_takes_its_m1_state_from_the_part(verlet_run, m1):
+    """Restarted from Part_0002 (t = 0.04 s, mid-flow), the Verlet run
+    ends within 0.25*dp of the uninterrupted one by id (0.04 of the bound
+    here); its M1 state is the PART's velocity and density.  The mutant
+    keeps the template's (zero velocity: the first leapfrog step loses the
+    flow) and ends more than 1.5x the bound away (2.1x here)."""
+    case, opts, d, ref = verlet_run
+    st2, tstep, _ = restart_state(str(d / "Part_0002.bi4"), case.state)
+    assert torch.equal(st2.velm1, st2.vel) and torch.equal(st2.rhom1, st2.rho)
+    if m1 == "template":
+        st2 = dataclasses.replace(st2, velm1=case.state.velm1,
+                                  rhom1=case.state.rhom1)
+    sim2 = P.Simulation(case.csp, opts, case.dom, st2, t0=tstep,
+                        log=lambda m: None)
+    sim2.run(tmax=0.08, tout=0.02)
+    live = td.is_active(torch.tensor(by_id(ref, "code"))).numpy()
+    err = np.abs(by_id(ref, "pos") - by_id(sim2.state, "pos"))[live].max()
+    if m1 == "part":
+        assert err < 0.25 * DP, err
+    else:
+        assert err > 1.5 * 0.25 * DP, err
+
+
+@pytest.fixture(scope="module")
+def floating_run(tmp_path_factory):
+    """A box falling into water and turning at 3 rad/s (dp 0.025, 464
+    particles), to 0.04 s with a PART every 0.01 s; the body state of each
+    PART in PartFloat.fbi4."""
+    d = tmp_path_factory.mktemp("floating")
+    case = cases.floatingbox2d(dp=FDP, tank=(0.8, 0.5), water=0.25,
+                               box=(0.2, 0.2), box_pos=(0.3, 0.3),
+                               device="cpu")
+    st = case.state
+    omega = torch.tensor([[0.0, 3.0, 0.0]])
+    body = td.is_floating(st.code)
+    vel = torch.where(body[:, None], torch.linalg.cross(
+        omega.expand_as(st.pos), st.pos - st.ft.center, dim=-1), st.vel)
+    case = dataclasses.replace(case, state=dataclasses.replace(
+        st, vel=vel, ft=dataclasses.replace(st.ft, fomega=omega)))
+    feats = P.Features(floating=case.meta["ftcfg"])
+    opts = P.SolverOpts(with_floating=True)
+    sim = P.Simulation(case.csp, opts, case.dom, case.state, feats,
+                       log=lambda m: None)
+    angles = {}
+
+    def on_save(s):
+        out(s)
+        angles[s.part] = s.state.ft.angles.numpy().copy()
+
+    out = OutputManager(str(d), case, feats=feats)
+    sim.run(tmax=0.04, tout=0.01, on_save=on_save)
+    return case, feats, opts, d, sim.state, angles
+
+
+@pytest.mark.parametrize("ft", ["partfloat", "template"])
+def test_floating_restart_takes_the_bodies_from_partfloat(floating_run, ft):
+    """Restarted from Part_0002 (t = 0.02 s, the box falling and turned by
+    ~0.06 rad), the body starts at PartFloat.fbi4's row of
+    that PART with the angles of the uninterrupted run (recovered from its
+    particles), and at 0.04 s its row of Part_0004 and its particles match
+    the uninterrupted run's: centre within 1e-2*dp, velocity within
+    1e-2 m/s and angular velocity within 0.05 rad/s (the restart re-derives
+    dt and drops the sub-dt overshoot of its PART's time: 1.7e-3*dp,
+    1.3e-4 m/s and 0.010 rad/s here), particles within 0.25*dp.  The
+    mutant keeps the template's t = 0 body and is off by more than
+    0.05 m/s and 0.2 rad/s (0.11 and 0.50 here)."""
+    from dualsphysics_multilayer_tpu_torch.io import floatdata
+    case, feats, opts, d, ref, angles = floating_run
+    _, rows = floatdata.read_floatbi4(str(d / "PartFloat.fbi4"))
+    row = {r["cpart"]: r for r in rows}
+    st2, tstep, _ = restart_state(str(d / "Part_0002.bi4"), case.state)
+    for k in ("center", "fvel", "fomega"):
+        np.testing.assert_array_equal(getattr(st2.ft, k).numpy(),
+                                      np.float32(row[2][k]))
+    # the particles' orientation, which the accumulated sum of fomega*dt
+    # follows within 9.2e-4 of the angle here
+    np.testing.assert_allclose(st2.ft.angles.numpy(), angles[2], rtol=2e-3)
+    assert abs(angles[2][0, 1]) > 0.03
+    if ft == "template":
+        st2 = dataclasses.replace(st2, ft=case.state.ft)
+    sim2 = P.Simulation(case.csp, opts, case.dom, st2, feats, t0=tstep,
+                        log=lambda m: None)
+    sim2.run(tmax=0.04, tout=0.02)
+    got = sim2.state.ft
+    err = {"center": np.abs(got.center.numpy() - row[4]["center"]).max(),
+           "fvel": np.abs(got.fvel.numpy() - row[4]["fvel"]).max(),
+           "fomega": np.abs(got.fomega.numpy() - row[4]["fomega"]).max()}
+    live = td.is_active(torch.tensor(by_id(ref, "code"))).numpy()
+    perr = np.abs(by_id(ref, "pos") - by_id(sim2.state, "pos"))[live].max()
+    if ft == "partfloat":
+        assert err["center"] < 1e-2 * FDP and err["fvel"] < 1e-2 \
+            and err["fomega"] < 0.05, err
+        assert perr < 0.25 * FDP, perr
+    else:
+        assert err["fvel"] > 0.05 and err["fomega"] > 0.2, err
+
+
+@pytest.mark.parametrize("planar", [True, False])
+def test_body_angles_recover_a_rotation(planar):
+    """``output._body_angles`` gives the angles whose rotation matrix
+    (``floating._euler_rot``) turned the offsets: about y alone in 2D
+    (beyond pi/2 too), any orientation in 3D."""
+    from dualsphysics_multilayer_tpu_torch.features.floating import _euler_rot
+    from dualsphysics_multilayer_tpu_torch.io.output import _body_angles
+    rng = np.random.default_rng(5)
+    a = rng.normal(size=(40, 3))
+    ang = np.array([0.0, 2.5, 0.0]) if planar else np.array([0.3, -1.1, 2.0])
+    if planar:
+        a[:, 1] = 0.0
+    q = _euler_rot(torch.tensor(ang)).numpy()
+    got = _body_angles(a, a @ q.T, planar)
+    np.testing.assert_allclose(_euler_rot(torch.tensor(got)).numpy(), q,
+                               atol=1e-12)
+    np.testing.assert_allclose(got, ang, atol=1e-12)
 
 
 def read_vtk_points(path):
