@@ -73,8 +73,8 @@ without printing the final result line:
     (Fourtakas, mDBC walls), cellforce with Molteni under mDBC walls, and
     cellforce_cubic and cellforce_lamsps with the box's mass, each against
     its plain version and timed alike, with its bound and its instance's
-    ptxas registers (``cellforce_kernel<KER,VISC,SHIFT,FT>``, FT = 1 with
-    floating bodies);
+    ptxas registers (``cellforce_kernel<KER,VISC,SHIFT,FT,SYM>``, FT = 1
+    with floating bodies, SYM = 1 with the symmetry plane);
 13. floating box path: the same case with bench.py's floatingbox options
     (Fourtakas, ``with_floating``, mDBC walls with NO_SLIP; the case has no
     normals, so no mDBC pre-pass, as in the JAX package), its fluid flowing
@@ -199,7 +199,36 @@ without printing the final result line:
     Morris and Fourtakas), through ``-case`` twice: VelocityGradientType=2
     (nnforce_p1 and nnforce_p3 exactly twice per step) and 1 (nnforce_fda
     twice per step), no other kernel; PARTs 0-3 of 0.2 ms read back, each
-    phase's fluid density within 10% of its rest density.
+    phase's fluid density within 10% of its rest density;
+26. symmetry: phase 24's dam break cut at its tank's mid-plane, which
+    moves to y = 0, under ``Symmetry=1`` (no front wall; the obstacle's
+    half, 0.06 m, centred on the plane), at phase 24's dp (about half
+    of its 267,469 particles), through ``-case``: PARTs
+    0-3 read back, cellforce's SYM instance exactly twice per step
+    (counted as ``cellforce_sym``) and no other kernel, the fluid front
+    beside the full case's of phase 24 at the same time (printed, not
+    gated), 5 + 20 steps from rest for the p50; then the four SYM
+    instances (Wendland and cubic, with and without NO_FIXED shifting)
+    against the plain mirror pass on a flowing state (rtol as in phase 9),
+    with their bound (the pairs and the image pairs of this state) and
+    registers, and 10 steps of each from that state;
+27. ``<initialize>``: phase 24's dam break with a linear ``fluidvelocity``
+    profile (0 to 0.5 m/s over the column) and a ``boundnormal_plane`` per
+    wall face, through ``-case``: mDBC walls, every wall with a normal,
+    cellforce and the mDBC pre-pass exactly twice per step each, PARTs
+    read back with the wall density within 10%; then ``-builtin
+    dambreak2d -mdbc -initnorpla:...`` at phase 14's size, whose normals
+    must equal those of the same plane in an ``<initialize>`` node, with
+    the same counts;
+28. NN under mDBC: phase 25's XML with ``<initialize><boundnormal_parts>``
+    on its tank, through ``-case`` for SPH (nnforce_p1, nnforce_p3) and FDA
+    (nnforce_fda), each under the case's Fourtakas diffusion and under
+    ``-ddt:1`` (Molteni): mDBC walls, the run's line that its step runs no
+    mDBC pre-pass, the kernels exactly twice per step and no other, PART 3
+    read back with each phase's density within 10%; then kernels 4 and 6
+    under mDBC walls with Molteni against their plain versions, each timed
+    alone under DBC and under mDBC walls, and the count of targets whose
+    continuity the walls' rule changes (must be above 0).
 
 Each kernel is timed twice: alone (``ms``: CUDA events around 20
 back-to-back launches of the C launcher on prepared inputs, per launch,
@@ -210,15 +239,17 @@ and the f32 operations of this run's in-support pairs over 67 TFLOP/s,
 the H100 SXM peaks; for the FMA probe its steps over the SM's 128 f32
 lanes at the SM's maximum clock; for the window-load probe the largest of
 its device-memory bytes, its loads' bytes through the SMs' load paths and
-its operations; the NN kernels' rows list their other instances under
-``instances``) and the result line
+its operations; the rows of kernels 1, 2, 4 and 6 list their other
+instances under ``instances``: the SYM instances of phase 26, the mDBC runs
+of kernels 4 and 6 with their DBC time as ``dbc_ms``) and the result line
 ``{"ok": true, "device": {...}}``.  Every launch count comes from its
 path's run, counted from 0 just before it (the probes' from their
 tables); cellforce's row adds ``path_launches``, its launches on the dam
 break (phase 4), the Verlet path, the wave flume, the full flume, the CLI
 (phase 22), the main path with step values (phase 23) and the XML dam
-break (phase 24); the NN kernels' rows add theirs on phases 6-7 and the
-XML runs of phase 25.
+break (phase 24), and the ``<initialize>`` and ``-initnorpla`` runs
+(phase 27); the NN kernels' rows add theirs on phases 6-7, the XML runs
+of phase 25 and the mDBC runs of phase 28.
 Imports no JAX.
 """
 
@@ -226,6 +257,7 @@ import ctypes
 import dataclasses
 import hashlib
 import json
+import math
 import os
 import re
 import statistics
@@ -730,14 +762,15 @@ def floating_kernels_vs_plain(device, registers, smi):
     cand, pairs = pair_counts(csp, case.dom, cells, args[0], args[3],
                               inclusive=False)
     for label, c, opts, instance in (
-            ("floating", csp, SolverOpts(tdensity=fourtakas, **walls), "<2,1,0,1>"),
+            ("floating", csp, SolverOpts(tdensity=fourtakas, **walls),
+             "<2,1,0,1,0>"),
             ("floating+molteni-mdbc", csp,
-             SolverOpts(tdensity=TpDensity.MOLTENI, **walls), "<2,1,0,1>"),
+             SolverOpts(tdensity=TpDensity.MOLTENI, **walls), "<2,1,0,1,0>"),
             ("floating-cubic", csp.replace(tkernel=TpKernel.CUBIC),
-             SolverOpts(tdensity=fourtakas, **walls), "<1,1,0,1>"),
+             SolverOpts(tdensity=fourtakas, **walls), "<1,1,0,1,0>"),
             ("floating-lamsps", lam,
              SolverOpts(tvisco=TpVisco.LAMINAR_SPS, tdensity=fourtakas,
-                        **walls), "<2,2,0,1>")):
+                        **walls), "<2,2,0,1,0>")):
         err, ms, wrapped_ms, plain_ms = compare_cellforce(
             c, opts, case.dom, cells, args, reps=5,
             spstau=tau if opts.tvisco == TpVisco.LAMINAR_SPS else None,
@@ -1911,7 +1944,8 @@ def xml_dambreak_path(device, smi):
     dualsphysics_multilayer_tpu_torch.cli -case`` runs it: its particles
     against ``cases.dambreak3d``'s, PARTs 0-3 read back, cellforce twice
     per step; then 5 + 20 steps of the loaded case for the step's p50.
-    Returns the cellforce launches of the CLI run."""
+    Returns (the cellforce launches of the CLI run, (t, the fluid front x)
+    of its last PART)."""
     import shutil
     import tempfile
     from dualsphysics_multilayer_tpu_torch import cli
@@ -1973,7 +2007,8 @@ def xml_dambreak_path(device, smi):
             f"{wall:.3f} s ({launched['cellforce']} cellforce launches), all "
             f"read back (fluid rho within 10%); 20 steps from rest after 5: "
             f"p50 {p50 * 1e3:.3f} ms ({smi})")
-        return launched["cellforce"]
+        return launched["cellforce"], (parts[3]["timestep"],
+                                       fluid_front(parts[3]))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2047,6 +2082,528 @@ def xml_nn_path(device, smi):
                 + ", ".join(f"{i} rho [{a:.2f}, {b:.2f}]"
                             for i, (a, b) in enumerate(ranges)) + f" ({smi})")
         return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# phase 26: the dam break of phase 24 cut at its tank's mid-plane (y =
+# 0.335 m), which moves to y = 0 under Symmetry=1: the tank without its
+# front wall, the fluid column from the plane on, and the obstacle (0.12 m
+# wide, 0.035 m off the mid-plane in the full case) as a half of 0.06 m
+# centred on the plane
+HALF_XML = DAMBREAK_XML.replace(
+    '<pointmax x="2" y="1" z="1"/>', '<pointmax x="2" y="0.5" z="1"/>').replace(
+    '<size x="0.4" y="0.67" z="0.3"/>', '<size x="0.4" y="0.335" z="0.3"/>').replace(
+    '<boxfill>bottom|left|right|front|back</boxfill>\n'
+    '    <point x="0" y="0" z="0"/><size x="1.6" y="0.67" z="0.4"/>',
+    '<boxfill>bottom|left|right|back</boxfill>\n'
+    '    <point x="0" y="0" z="0"/><size x="1.6" y="0.335" z="0.4"/>').replace(
+    '<boxfill>top|left|right|front|back</boxfill>\n'
+    '    <point x="0.9" y="0.24" z="0"/><size x="0.12" y="0.12" z="0.45"/>',
+    '<boxfill>top|left|right|back</boxfill>\n'
+    '    <point x="0.9" y="0" z="0"/><size x="0.12" y="0.06" z="0.45"/>').replace(
+    '<parameter key="DensityDT" value="2"/>',
+    '<parameter key="DensityDT" value="2"/>'
+    '<parameter key="Symmetry" value="1"/>')
+# phase 27: the faces of phase 24's tank (mk 0) and obstacle (mk 1):
+# (mk, axis, the box's limits along it, which limit, the normal's sign
+# into the fluid)
+DAMBREAK_FACES = (
+    (0, "z", (0.0, 0.4), 0, 1), (0, "x", (0.0, 1.6), 0, 1),
+    (0, "x", (0.0, 1.6), 1, -1), (0, "y", (0.0, 0.67), 0, 1),
+    (0, "y", (0.0, 0.67), 1, -1), (1, "z", (0.0, 0.45), 1, 1),
+    (1, "x", (0.9, 1.02), 0, -1), (1, "x", (0.9, 1.02), 1, 1),
+    (1, "y", (0.24, 0.36), 0, -1), (1, "y", (0.24, 0.36), 1, 1))
+
+
+def init_xml(dp):
+    """Phase 27's case: phase 24's dam break with an ``<initialize>`` of a
+    linear fluid velocity profile along x and one ``<boundnormal_plane>``
+    per wall face (the tank is one mk), each restricted by ``onlypos`` to
+    its face's layer of the dp lattice, its plane half a dp into the fluid
+    (``point auto``)."""
+    ops = []
+    for mk, axis, (lo, hi), end, sign in DAMBREAK_FACES:
+        c = (math.floor(hi / dp + 1e-6) if end else math.ceil(lo / dp - 1e-6)) * dp
+        normal = " ".join(f'{a}="{sign if a == axis else 0}"' for a in "xyz")
+        ops.append(f'<boundnormal_plane mkbound="{mk}"><point auto="true"/>'
+                   f'<normal {normal}/><onlypos><posmin {axis}="{c - dp / 2!r}"/>'
+                   f'<posmax {axis}="{c + dp / 2!r}"/></onlypos>'
+                   f'</boundnormal_plane>')
+    special = ("""<special><initialize>
+  <fluidvelocity mkfluid="0"><direction x="1" y="0" z="0"/>
+   <velocity2 v="0" v2="0.5" z="0" z2="0.3"/></fluidvelocity>
+  """ + "\n  ".join(ops) + """
+ </initialize></special>
+ <parameters>""").replace("{", "{{").replace("}", "}}")
+    return DAMBREAK_XML.replace(" <parameters>", " " + special)
+INIT_PLANE = ("mkbound=0:normal=0:0:1:point=auto", """<initialize>
+ <boundnormal_plane mkbound="0"><point auto="true"/><normal x="0" y="0" z="1"/>
+ </boundnormal_plane></initialize>""")
+# phase 28: the NN wet dam break of phase 25 with its tank's normals from
+# <initialize>
+NN_INIT_XML = NN_XML.replace(" <special>", """ <special>
+  <initialize><boundnormal_parts mkbound="0"/></initialize>""")
+
+
+def recording_simulations():
+    """(restore, made): ``wcsph.Simulation`` replaced by a subclass that
+    keeps (state, opts, csp, dom) of every simulation built, as the CLI
+    builds it;
+    ``restore()`` puts the class back."""
+    from dualsphysics_multilayer_tpu_torch.models import wcsph as W
+    made, original = [], W.Simulation
+
+    class Recorded(original):
+        def __init__(self, csp, opts, dom, st, *a, **k):
+            super().__init__(csp, opts, dom, st, *a, **k)
+            made.append((st, opts, csp, dom))
+
+    W.Simulation = Recorded
+    return (lambda: setattr(W, "Simulation", original)), made
+
+
+def counted_prepass():
+    """(restore, calls): ``mdbc.mdbc_correction`` counted."""
+    from dualsphysics_multilayer_tpu_torch.ops import mdbc as MD
+    calls, original = [0], MD.mdbc_correction
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return original(*a, **k)
+
+    MD.mdbc_correction = counted
+    return (lambda: setattr(MD, "mdbc_correction", original)), calls
+
+
+def image_pairs(csp, dom, cells, pos, code):
+    """In-support pairs of fluid-side targets with the candidates' mirror
+    images in the plane y = 0 (targets with y <= kernelsize, the target's
+    own image included): the pair work the symmetry plane adds."""
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.ops import forces as F
+    live = td.is_active(code) & (cells.cell < dom.ncells)
+    fluidside = td.code_type(code) >= td.TYPE_FLOATING
+    total = 0
+    for t, j, valid in F.candidate_chunks(dom, cells, live, 1 << 22):
+        dr = pos[t, None, :] - pos[j]
+        dr[..., 1] = pos[t, None, 1] + pos[j, 1]
+        rr2 = (dr * dr).sum(dim=-1)
+        near = (pos[t, 1] <= csp.kernelsize) & fluidside[t]
+        total += int((valid & live[j] & near[:, None] & (rr2 >= td.ALMOSTZERO)
+                      & (rr2 < csp.kernelsize2)).sum())
+    return total
+
+
+def fluid_front(part):
+    """The largest x of the fluid in a PART."""
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    fluid = td.code_type(part["code"].astype(np.int64)) == td.TYPE_FLUID
+    return float(part["pos"][fluid, 0].max())
+
+
+def symmetry_path(device, registers, full_front, smi):
+    """Phase 26: half of phase 24's dam break under Symmetry=1 through
+    ``cli.main(["-case", ...])``: PARTs read back, cellforce's SYM instance
+    twice per step and no other kernel, the fluid front against the full
+    case's (``full_front``: (t, x) of phase 24's last PART), not gated;
+    5 + 20 steps from rest for the p50; then each SYM instance (Wendland,
+    cubic, each with and without NO_FIXED shifting) against the plain
+    mirror pass on a flowing state, with its bound, and 10 steps of each
+    from there.  Returns {instance: record}."""
+    import shutil
+    import tempfile
+    from dualsphysics_multilayer_tpu_torch import (SolverOpts, TpDensity,
+                                                   TpKernel, TpShifting)
+    from dualsphysics_multilayer_tpu_torch import cli
+    from dualsphysics_multilayer_tpu_torch.io import partdata as PD
+    from dualsphysics_multilayer_tpu_torch.io.xmlcase import load_case
+    from dualsphysics_multilayer_tpu_torch.models.wcsph import (make_carry,
+                                                                make_step)
+    from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
+    root = tempfile.mkdtemp(prefix="_smoke_xmlsym_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    try:
+        path = os.path.join(root, "DambreakHalf_Def.xml")
+        with open(path, "w") as f:
+            f.write(HALF_XML.format(dp=DP_BENCH, tmax=3 * XML_TOUT,
+                                    tout=XML_TOUT))
+        t0 = time.perf_counter()
+        case, opts, _run = load_case(path, device=device)
+        load_s = time.perf_counter() - t0
+        n = case.np_total
+        check(opts.symmetry and opts.tdensity == TpDensity.FOURTAKAS,
+              f"the half case's options {opts}")
+        ymin = float(case.state.pos[:, 1].min())
+        check(ymin >= 0.0, f"a particle at y = {ymin} < 0")
+        out = os.path.join(root, "out")
+        reset_counts()
+        t0 = time.perf_counter()
+        check(cli.main(["-case", path, "-sv:binx", "-nortimes",
+                        "-dirout", out]) == 0, "the symmetry -case run failed")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        parts = read_parts(PD, out, n, case.csp.rhopzero)
+        check(sorted(parts) == [0, 1, 2, 3], f"PARTs {sorted(parts)}")
+        nsteps = parts[3]["nstep"]
+        single_phase_counts(launched, "cellforce_sym", 2, nsteps)
+        front = fluid_front(parts[3])
+        tfull, xfull = full_front
+        step = make_step(case.csp, opts, case.dom)
+        _carry, times, rest = run_steps(
+            step, make_carry(case.state, case.csp, opts, case.dom), 5, 20)
+        single_phase_counts(rest, "cellforce_sym", 2, 25)
+        p50 = statistics.median(times)
+        say("symmetry", f"-case with Symmetry=1, half of phase 24's dam break "
+            f"at dp {DP_BENCH:.6g}: {n} particles ({n / 267469:.4f} of the "
+            f"full case's 267,469), load_case {load_s:.3f} s on the host; the "
+            f"CLI run {nsteps} steps and 4 PARTs in {wall:.3f} s, launches "
+            f"{ {k: v for k, v in launched.items() if v} }, all read back "
+            f"(fluid rho within 10%); fluid front x {front:.6f} m at t "
+            f"{parts[3]['timestep']:.6f} s, the full case's {xfull:.6f} m at "
+            f"t {tfull:.6f} s (not gated); 20 steps from rest after 5: p50 "
+            f"{p50 * 1e3:.3f} ms, cellforce_sym {rest['cellforce_sym']} "
+            f"launches ({smi})")
+
+        # the SYM instances against the plain mirror pass
+        st = flowing_state(case, device, seed=5)
+        cells, args = sorted_args(case.dom, st.pos, st.vel, st.rho, st.code)
+        cand, pairs = pair_counts(case.csp, case.dom, cells, args[0], args[3],
+                                  inclusive=False)
+        images = image_pairs(case.csp, case.dom, cells, args[0], args[3])
+        near = int((args[0][:, 1] <= case.csp.kernelsize).sum())
+        records = {}
+        nofixed = TpShifting.NO_FIXED
+        for label, ker, shift in (("wendland", TpKernel.WENDLAND, TpShifting.NONE),
+                                  ("wendland+shift", TpKernel.WENDLAND, nofixed),
+                                  ("cubic", TpKernel.CUBIC, TpShifting.NONE),
+                                  ("cubic+shift", TpKernel.CUBIC, nofixed)):
+            csp = case.csp.replace(tkernel=ker)
+            o = SolverOpts(tdensity=TpDensity.FOURTAKAS, symmetry=True,
+                           shiftmode=shift)
+            name = CF.kernel_name(csp, o)
+            err, ms, wrapped_ms, plain_ms = compare_cellforce(
+                csp, o, case.dom, cells, args, reps=5)
+            # the instance without the plane, alone on the same state
+            pospress, velrho, kind = CF.channels(csp, *args)
+            flat = dataclasses.replace(o, symmetry=False)
+            outs = [torch.empty((n, 3), device=device)] + [
+                torch.empty(n, device=device) for _ in range(2)] + [None] + (
+                [torch.empty((n, 4), device=device),
+                 torch.empty(n, dtype=torch.bool, device=device)]
+                if shift != TpShifting.NONE else [None, None])
+            flat_ms = launch_ms(bare_launcher(
+                "cellforce", f"dsph_{name}",
+                CF.make_params(csp, flat, case.dom, n),
+                [pospress, velrho, kind, cells.cell, cells.begin, None, None]
+                + outs))
+            b = bound(cellforce_bytes(n, case.dom.ncells, o),
+                      (pairs + images) * ops_per_pair(name, o))
+            instance = (f"cellforce_kernel<{ker.value},1,"
+                        f"{int(shift != TpShifting.NONE)},0,1>")
+            step = make_step(csp, o, case.dom)
+            carry, _times, ran = run_steps(
+                step, make_carry(st, csp, o, case.dom), 0, 10)
+            check_state(carry, 10, None)
+            single_phase_counts(ran, CF.counter_name(csp, o), 2, 10)
+            launches = (launched["cellforce_sym"] + rest["cellforce_sym"]
+                        if label == "wendland" else 0) + ran[CF.counter_name(csp, o)]
+            records[instance] = dict(
+                kernel=name, variant=f"symmetry {label}", launches=launches,
+                max_abs_err=err["ace"], ms=ms, plain_ms=plain_ms,
+                bound_ms=b[0], bound_by=b[1], flat_ms=flat_ms)
+            say("symmetry-vs-plain", f"{label}, {n} particles ({near} within "
+                f"the kernel size of the plane): max|d| "
+                + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+                + f"; kernel alone {ms:.3f} ms (the instance without the plane "
+                f"{flat_ms:.3f} ms), with its wrapper "
+                f"{wrapped_ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events); "
+                f"{cand} candidates, {pairs} in-support pairs with a "
+                f"fluid-side target plus {images} with images; bound "
+                f"{b[0] * 1e3:.2f} us by {b[1]}; {instance}: "
+                f"{registers.get(instance, '?')}; 10 steps from there: "
+                f"{ran[CF.counter_name(csp, o)]} launches, {launches} on "
+                f"phase 26 ({smi})")
+        return records
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def initialize_path(device, smi):
+    """Phase 27: phase 24's dam break with ``<initialize>`` (a linear fluid
+    velocity profile, the walls' normals from a plane per face) through
+    ``cli.main(["-case", ...])``: mDBC walls with their normals, cellforce
+    and the mDBC pre-pass twice per step, PARTs read back; then ``dsphtorch
+    -builtin dambreak2d -mdbc -initnorpla:...`` at phase 14's size, whose
+    normals must equal those of the same plane in an ``<initialize>``
+    node.  Returns {path: cellforce launches}."""
+    import shutil
+    import tempfile
+    import xml.etree.ElementTree as ET
+    from dualsphysics_multilayer_tpu_torch import TpBoundary
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch import cli
+    from dualsphysics_multilayer_tpu_torch.features import initialize as INI
+    from dualsphysics_multilayer_tpu_torch.io import partdata as PD
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    from dualsphysics_multilayer_tpu_torch.ops import mdbc as MD
+    root = tempfile.mkdtemp(prefix="_smoke_xmlinit_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    out = {}
+    try:
+        path = os.path.join(root, "DambreakInit_Def.xml")
+        with open(path, "w") as f:
+            f.write(init_xml(DP_BENCH).format(dp=DP_BENCH, tmax=3 * XML_TOUT,
+                                              tout=XML_TOUT))
+        restore_sim, made = recording_simulations()
+        restore_pre, prepasses = counted_prepass()
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            check(cli.main(["-case", path, "-sv:binx", "-nortimes", "-dirout",
+                            os.path.join(root, "out")]) == 0,
+                  "the <initialize> -case run failed")
+            torch.cuda.synchronize()
+        finally:
+            restore_sim()
+            restore_pre()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        st, opts, csp, dom = made[0]
+        n = st.n
+        check(opts.tboundary == TpBoundary.MDBC and st.boundnormal is not None,
+              f"tboundary {opts.tboundary}, normals {st.boundnormal is not None}")
+        walls = td.is_bound(st.code)
+        nrm = st.boundnormal.norm(dim=1)
+        with_normal = int((nrm[walls] > 0).sum())
+        check(with_normal == int(walls.sum()),
+              f"{int(walls.sum()) - with_normal} walls without a normal")
+        fluid = td.is_fluid(st.code)
+        vx = st.vel[fluid, 0]
+        check(float(vx.min()) >= -1e-6 and float(vx.max()) <= 0.5 + 1e-6
+              and float(vx.max()) > 0.4, f"fluid vx [{float(vx.min())}, "
+              f"{float(vx.max())}] outside the profile's [0, 0.5]")
+        parts = read_parts(PD, os.path.join(root, "out"), n, 1000.0)
+        check(sorted(parts) == [0, 1, 2, 3], f"PARTs {sorted(parts)}")
+        nsteps = parts[3]["nstep"]
+        single_phase_counts(launched, "cellforce", 2, nsteps)
+        check(prepasses[0] == 2 * nsteps,
+              f"{prepasses[0]} mDBC pre-passes in {nsteps} steps")
+        wr = parts[3]["rhop"][(parts[3]["code"].astype(np.int64) >> 16) & 3 < 2]
+        check(900.0 <= wr.min() and wr.max() <= 1100.0,
+              f"wall density [{wr.min()}, {wr.max()}] out of +-10% of rho0")
+        out["initialize"] = launched["cellforce"]
+        # the pre-pass alone on the run's first state (torch ops, as in
+        # phase 14)
+        cells, args = sorted_args(dom, st.pos, st.vel, st.rho, st.code)
+        order = cells.order
+        run = (csp, opts, dom, cells, *args, st.boundnormal[order],
+               None if st.motionvel is None else st.motionvel[order])
+        prepass_ms = cuda_ms(lambda: MD.mdbc_correction(*run), reps=3)
+        say("initialize", f"-case with <initialize> (linear fluidvelocity, "
+            f"a boundnormal_plane per face of mk 0 and 1), {n} particles, "
+            f"{with_normal} "
+            f"walls with normals (|n| {float(nrm[walls].min()):.4g}-"
+            f"{float(nrm[walls].max()):.4g} m), tboundary {opts.tboundary.name}, "
+            f"fluid vx [{float(vx.min()):.3f}, {float(vx.max()):.3f}] m/s: "
+            f"{nsteps} steps and 4 PARTs in {wall:.3f} s (load and normals "
+            f"included), launches { {k: v for k, v in launched.items() if v} }, "
+            f"{prepasses[0]} mDBC pre-passes; PARTs read back, wall rho "
+            f"[{wr.min():.2f}, {wr.max():.2f}]; the pre-pass alone "
+            f"{prepass_ms:.3f} ms on the first state (CUDA events, median of "
+            f"3; torch ops) ({smi})")
+
+        # -initnorpla on the builtin 2D dam break against <initialize>
+        spec, node = INIT_PLANE
+        restore_sim, made = recording_simulations()
+        restore_pre, prepasses = counted_prepass()
+        reset_counts()
+        try:
+            check(cli.main(["-builtin", "dambreak2d", "-dp", repr(DP_2D),
+                            "-mdbc", f"-initnorpla:{spec}", "-tmax:0.002",
+                            "-tout:0.001", "-sv:binx", "-nortimes", "-dirout",
+                            os.path.join(root, "out2d")]) == 0,
+                  "the -initnorpla run failed")
+            torch.cuda.synchronize()
+        finally:
+            restore_sim()
+            restore_pre()
+        launched = counts()
+        st, opts = made[0][:2]
+        case = cases.dambreak2d(dp=DP_2D, mdbc=True, device=device)
+        want = INI.apply_initialize(INI.parse_initialize_xml(ET.fromstring(node)),
+                                    case.csp, case.state)
+        check(opts.tboundary == TpBoundary.MDBC, f"tboundary {opts.tboundary}")
+        check(torch.equal(st.boundnormal, want.boundnormal),
+              "-initnorpla's normals differ from <initialize>'s")
+        changed = int((want.boundnormal != case.state.boundnormal).any(dim=1).sum())
+        check(changed > 0, "the plane changed no normal")
+        parts = read_parts(PD, os.path.join(root, "out2d"), st.n, 1000.0)
+        nsteps = parts[max(parts)]["nstep"]
+        single_phase_counts(launched, "cellforce", 2, nsteps)
+        check(prepasses[0] == 2 * nsteps,
+              f"{prepasses[0]} mDBC pre-passes in {nsteps} steps")
+        out["initnorpla"] = launched["cellforce"]
+        say("initialize", f"-builtin dambreak2d -mdbc -initnorpla:{spec}, "
+            f"{st.n} particles: normals equal to the same plane's in "
+            f"<initialize> ({changed} walls changed from the drawn faces'), "
+            f"{nsteps} steps, {launched['cellforce']} cellforce launches, "
+            f"{prepasses[0]} mDBC pre-passes ({smi})")
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def nn_mdbc_path(device, registers, smi):
+    """Phase 28: the NN wet dam break of phase 25 with its tank's normals
+    from ``<initialize>``, through ``cli.main(["-case", ...])``: SPH
+    (nnforce_p1 and nnforce_p3) and FDA (nnforce_fda), each under the
+    case's Fourtakas diffusion and under ``-ddt:1`` (Molteni, whose wall
+    rule mDBC changes); then kernels 4 and 6 under mDBC walls with Molteni
+    against their plain versions, and each timed alone under DBC and mDBC
+    walls.  Returns ({path: {kernel: launches}}, {instance: record})."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from dualsphysics_multilayer_tpu_torch import (SolverOpts, TpBoundary,
+                                                   TpDensity, TpVelGrad,
+                                                   TpVisco)
+    from dualsphysics_multilayer_tpu_torch import cli
+    from dualsphysics_multilayer_tpu_torch.io import partdata as PD
+    from dualsphysics_multilayer_tpu_torch.io.xmlcase import load_case
+    from dualsphysics_multilayer_tpu_torch.models import nnewtonian as NM
+    from dualsphysics_multilayer_tpu_torch.ops import forces_nn as NN
+    from dualsphysics_multilayer_tpu_torch.ops.cuda import nnforce as NF
+    _case, phases = NM.wet_dambreak_nn(dp=NN_DP, device=device)
+    root = tempfile.mkdtemp(prefix="_smoke_xmlnnmdbc_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    out = {}
+    try:
+        for velgrad, label, kernels in ((2, "SPH", ("nnforce_p1", "nnforce_p3")),
+                                        (1, "FDA", ("nnforce_fda",))):
+            path = os.path.join(root, f"WetDambreakInit{label}_Def.xml")
+            with open(path, "w") as f:
+                f.write(NN_INIT_XML.format(
+                    dp=NN_DP, cs_w=phases.phases[0].csound,
+                    cs_m=phases.phases[1].csound, velgrad=velgrad,
+                    tmax=3 * NN_XML_TOUT, tout=NN_XML_TOUT))
+            for ddt in ("fourtakas", "molteni"):
+                d = os.path.join(root, f"{label}-{ddt}")
+                restore_sim, made = recording_simulations()
+                reset_counts()
+                text = io.StringIO()
+                t0 = time.perf_counter()
+                try:
+                    with contextlib.redirect_stdout(text):
+                        rc = cli.main(["-case", path, "-sv:binx", "-nortimes",
+                                       "-dirout", d]
+                                      + (["-ddt:1"] if ddt == "molteni" else []))
+                    torch.cuda.synchronize()
+                finally:
+                    restore_sim()
+                print(text.getvalue(), end="", flush=True)
+                check(rc == 0, f"the {label} {ddt} -case run failed")
+                wall = time.perf_counter() - t0
+                launched = counts()
+                st, opts = made[0][:2]
+                check(opts.tboundary == TpBoundary.MDBC
+                      and st.boundnormal is not None
+                      and opts.tdensity == (TpDensity.MOLTENI if ddt == "molteni"
+                                            else TpDensity.FOURTAKAS),
+                      f"{label} {ddt}: options {opts}")
+                check(NM.MDBC_NOTE in text.getvalue(),
+                      f"{label} {ddt}: the run did not say it runs no pre-pass")
+                n = st.n
+                p3 = PD.read_part(os.path.join(d, PD.part_filename(3)))
+                check(np.array_equal(np.sort(p3["idp"]), np.arange(n))
+                      and bool(np.isfinite(p3["pos"]).all()),
+                      f"{label} {ddt}: Part_0003 ids or positions")
+                code = p3["code"].astype(np.int64)
+                fluid = (code >> 16) & 3 == 3
+                ranges = []
+                for i, ph in enumerate(phases.phases):
+                    r = p3["rhop"][fluid & ((code & 0xFFFF) == i)]
+                    check(r.size > 0 and 0.9 * ph.rho0 <= r.min()
+                          and r.max() <= 1.1 * ph.rho0, f"{label} {ddt} phase "
+                          f"{i} density out of +-10% of {ph.rho0}")
+                    ranges.append((float(r.min()), float(r.max())))
+                nsteps = p3["nstep"]
+                want = {**dict.fromkeys(launched, 0),
+                        **{k: 2 * nsteps for k in kernels}}
+                check(launched == want, f"{label} {ddt}: {launched} in {nsteps} "
+                      f"steps, expected {kernels} twice per step and no other")
+                out[f"xml-nn-mdbc-{label.lower()}-{ddt}"] = {
+                    k: launched[k] for k in kernels}
+                say("nn-mdbc", f"-case {label} with <initialize> normals, "
+                    f"{ddt} diffusion, {n} particles, mDBC walls without a "
+                    f"pre-pass (said so): {nsteps} steps and 4 PARTs in "
+                    f"{wall:.3f} s, launches "
+                    f"{ {k: v for k, v in launched.items() if v} }; phase "
+                    + ", ".join(f"{i} rho [{a:.2f}, {b:.2f}]"
+                                for i, (a, b) in enumerate(ranges)) + f" ({smi})")
+
+        # kernels 4 and 6 under mDBC walls (Molteni) against their plain
+        # versions, and alone under DBC and mDBC walls
+        case, _opts, _run = load_case(path, device=device)
+        tb = phases.tables(case.csp, device)
+        rho0 = tb["rho0"][torch.clamp(case.state.code & 0xFFFF, 0,
+                                      phases.count - 1).long()]
+        pos, vel, rho, code = perturbed_state(case, device, rho0, sim2d=True)
+        cells, args = sorted_args(case.dom, pos, vel, rho, code)
+        ch = NN.channels(case.csp, phases, tb, args[2], args[3])
+        n = args[0].shape[0]
+        rows = [torch.cat([args[0], ch.press[:, None]], dim=1).contiguous(),
+                torch.cat([args[1], args[2][:, None]], dim=1).contiguous(),
+                ch.kind, ch.phase, cells.cell, cells.begin]
+        cand, pairs = pair_counts(case.csp, case.dom, cells, args[0], args[3],
+                                  inclusive=True)
+        state_bytes = n * (16 + 16 + 4 + 4 + 4) + (case.dom.ncells + 1) * 4
+        records = {}
+        for name, velgrad, outputs, out_bytes in (
+                ("nnforce_p1", TpVelGrad.SPH, ("ace", "ar", "gradvel"), 44),
+                ("nnforce_fda", TpVelGrad.FDA, ("ace", "ar", "etamax"), 24)):
+            times, plain_ar = {}, {}
+            for walls in (TpBoundary.MDBC, TpBoundary.DBC):
+                o = SolverOpts(tvisco=TpVisco.LAMINAR_SPS, velgrad=velgrad,
+                               tdensity=TpDensity.MOLTENI, tboundary=walls)
+                run = (case.csp, o, phases, case.dom, cells, *args[:3], ch)
+                got, want = NF.pass1(*run), NN.pass1_plain(*run)
+                torch.cuda.synchronize()
+                plain_ar[walls.name] = want.ar
+                errs = {k: close(f"{name} {walls.name} {k}", getattr(got, k),
+                                 getattr(want, k)) for k in outputs}
+                outs = [torch.empty_like(got.ace), torch.empty_like(got.ar),
+                        torch.empty_like(got.viscdt),
+                        torch.empty_like(getattr(got, outputs[-1])), None, None]
+                times[walls.name], same = nn_launch_ms(
+                    name, NF.make_params(case.csp, o, phases, case.dom, n),
+                    rows, outs)
+                if walls == TpBoundary.MDBC:
+                    plain_ms = cuda_ms(lambda: NN.pass1_plain(*run))
+                    b = bound(state_bytes + n * out_bytes,
+                              pairs * OPS_PER_PAIR[name])
+                    instance = nn_instance(name, case.csp, o)
+                    records[f"{instance} mdbc"] = dict(
+                        kernel=name, variant="mdbc molteni",
+                        max_abs_err=errs["ace"], ms=times["MDBC"],
+                        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1])
+                    say("nn-mdbc-vs-plain", f"{name} under mDBC walls, Molteni, "
+                        f"{n} particles: max|d| " + ", ".join(
+                            f"{k} {v:.3e}" for k, v in errs.items())
+                        + f"{same}; plain {plain_ms:.3f} ms; bound "
+                        f"{b[0] * 1e3:.2f} us by {b[1]}; {instance}: "
+                        f"{registers.get(instance, '?')} ({smi})")
+            changed = int((plain_ar["MDBC"] != plain_ar["DBC"]).sum())
+            check(changed > 0, f"{name}: mDBC walls changed no target's ar")
+            say("nn-mdbc-vs-plain", f"{name} alone, Molteni: {times['DBC']:.4f} "
+                f"ms under DBC walls, {times['MDBC']:.4f} ms under mDBC walls "
+                f"(CUDA events, median of 5 x 20 launches); the walls' rule "
+                f"changes the continuity of {changed} targets ({smi})")
+            records[f"{nn_instance(name, case.csp, o)} mdbc"]["dbc_ms"] = \
+                times["DBC"]
+        return out, records
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2412,7 +2969,7 @@ def main():
     paths["step-values"] = step_values_path(device, main_p50, smi)
 
     # 24. the dam break from its XML through -case
-    paths["xml-dambreak"] = xml_dambreak_path(device, smi)
+    paths["xml-dambreak"], full_front = xml_dambreak_path(device, smi)
     records["cellforce"]["path_launches"] = paths
 
     # 25. the NN wet dam break from its XML through -case, SPH and FDA
@@ -2426,6 +2983,32 @@ def main():
     records["nnforce_fda"]["path_launches"] = {
         "nn-fda": records["nnforce_fda"]["launches"],
         "xml-nn-fda": nn_paths["xml-nn-fda"]["nnforce_fda"]}
+
+    # 26. half the dam break under Symmetry=1 through -case, and the SYM
+    # instances of kernels 1 and 2 against the plain mirror pass
+    sym = symmetry_path(device, registers, full_front, smi)
+    for name in ("cellforce", "cellforce_cubic"):
+        records[name]["instances"] = [
+            dict(instance=k, **{f: r[f] for f in (
+                "variant", "launches", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "flat_ms")})
+            for k, r in sym.items() if r["kernel"] == name]
+
+    # 27. <initialize> normals and velocity through -case, -initnorpla
+    paths.update(initialize_path(device, smi))
+
+    # 28. the NN wet dam break under mDBC walls from <initialize>
+    nn_mdbc, nn_mdbc_records = nn_mdbc_path(device, registers, smi)
+    for path, launched in nn_mdbc.items():
+        for name, k in launched.items():
+            records[name]["path_launches"][path] = k
+    for key, r in nn_mdbc_records.items():
+        name = r["kernel"]
+        records[name]["instances"].append(dict(
+            instance=key, launches=sum(
+                v.get(name, 0) for v in nn_mdbc.values()),
+            **{f: r[f] for f in ("variant", "max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "dbc_ms")}))
 
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=rep,

@@ -7,7 +7,9 @@ command-line overrides over the case's settings, optionally restarts from a
 PART, runs the solver on the card (or on the CPU with ``-cpu``, through the
 kernels' plain versions) and writes bi4/VTK/CSV output and the run resume.
 A case with ``<special><nnphases>`` runs the multiphase non-Newtonian step
-(``models/nnewtonian.make_nn_step``).
+(``models/nnewtonian.make_nn_step``).  ``-initnorpla``/``-initnorpart``
+give the walls normals (``features/initialize.py``) after any restart and
+make the run an mDBC run, as the JAX CLI does.
 
     python -m dualsphysics_multilayer_tpu_torch.cli -case Dambreak_Def.xml \\
         -dirout out
@@ -20,9 +22,9 @@ Reference colon-form flags (-tmax:1.6, -partbegin:20 dir, -svpips:2) are
 accepted alongside space-separated values, and ``-opt FILE`` reads more
 options from a file.  Options whose setting the port does not run leave
 with a message that names them: ``-builtin channel2d`` (periodic
-boundaries), ``-shard``, ``-initnorpla``/``-initnorpart``,
-``-restartchrono``, ``-pallas``/``-no-pallas`` and ``-cellmode:half``; so
-do the XML nodes the loader refuses and the options the NN step refuses.
+boundaries), ``-shard``, ``-restartchrono``, ``-pallas``/``-no-pallas``
+and ``-cellmode:half``; so do the XML nodes the loader refuses and the
+options the NN step refuses.
 """
 
 from __future__ import annotations
@@ -189,9 +191,12 @@ def build_parser():
                    help="the JAX package's Pallas switch (refused)")
     p.add_argument("-no-pallas", dest="pallas", action="store_false")
     p.add_argument("-initnorpla", action="append", default=[],
-                   help="boundary normals from planes (not ported)")
+                   help="mDBC wall normals from a plane: mkbound=LIST:"
+                        "normal=x:y:z[:point=x:y:z|point=auto][:maxdisth=H]"
+                        "[:limitdist=D] (JSphCfgRun.cpp:162)")
     p.add_argument("-initnorpart", action="append", default=[],
-                   help="boundary normals from particles (not ported)")
+                   help="mDBC wall normals from the particles: "
+                        "mkbound=LIST[:maxdisth=H] (JSphCfgRun.cpp:166)")
     p.add_argument("-ver", action="store_true", help="print version and exit")
     p.add_argument("-info", action="store_true",
                    help="print features/hardware JSON and exit")
@@ -213,10 +218,6 @@ def refuse(args):
     if args.shard is not None:
         raise SystemExit("-shard: domain decomposition "
                          "(parallel/sharding.py) is not ported yet")
-    if args.initnorpla or args.initnorpart:
-        raise SystemExit("-initnorpla/-initnorpart: boundary-normal "
-                         "initialisation (features/initialize) is not "
-                         "ported yet")
     if args.restartchrono:
         raise SystemExit("-restartchrono: Chrono coupling is not ported")
     if args.pallas is not None:
@@ -234,7 +235,8 @@ def _features():
             "cubic", "ddt", "ddtramp", "shifting", "laminar+sps", "floating",
             "motion", "damping", "accinput", "gauges", "viscotime", "bi4",
             "vtk", "csv", "restart", "savedt", "xmlcase", "nnphases",
-            "cuda"]
+            "symmetry", "initialize", "initnorpla", "initnorpart",
+            "nn-mdbc", "cuda"]
 
 
 def _info(torch):
@@ -249,7 +251,12 @@ def _info(torch):
                           "time-table"],
             "ddt": ["none", "molteni", "fourtakas", "fourtakas-full",
                     "initial-ramp"],
-            "boundary": ["dbc", "mdbc(vel0,noslip,freeslip)"],
+            "boundary": ["dbc", "mdbc(vel0,noslip,freeslip)",
+                         "symmetry(y=0)"],
+            "initialize": ["fluidvelocity", "boundnormal_set",
+                           "boundnormal_plane", "boundnormal_sphere",
+                           "boundnormal_cylinder", "boundnormal_parts",
+                           "-initnorpla", "-initnorpart"],
             "bodies": ["floating-6dof"],
             "waves": ["piston", "flap", "irregular", "solitary", "focused",
                       "relaxation-zones", "multilayer-piston", "awas"],
@@ -407,8 +414,8 @@ def _log_config(dirout, case, csp, opts, dom, tmax):
               "rhopoutmin", "rhopoutmax", "shiftcoef", "shifttfs"):
         rlog.print(f"  {k}={getattr(csp, k, None)}")
     for k in ("tstep", "tvisco", "tdensity", "tboundary", "slipmode",
-              "shiftmode", "with_floating", "verlet_steps", "savedt",
-              "ddtramp"):
+              "shiftmode", "symmetry", "with_floating", "verlet_steps",
+              "savedt", "ddtramp"):
         rlog.print(f"  {k}={getattr(opts, k, None)}")
     rlog.print(f"  np={case.np_total} npb={case.npb} tmax={tmax:g} "
                f"domain={dom.posmin}..{dom.posmax} cells={dom.nc}")
@@ -435,6 +442,7 @@ def main(argv=None):
     from .io.output import OutputManager, OutputTime, restart_state
     from .io.partdata import part_filename
     from .models.wcsph import Simulation
+    from .typesdef import TpBoundary
     from .utils.runinfo import TerminateCheck, save_res
     from .utils.timers import Timers
 
@@ -461,6 +469,16 @@ def main(argv=None):
         path = os.path.join(pdir, part_filename(part0))
         st, t0, _ = restart_state(path, st)
         print(f"restart from {path} at t={t0:.6f}")
+    if args.initnorpla or args.initnorpart:
+        # wall normals from the command line, after a restart and before
+        # the run, with mDBC walls (the JAX CLI's rule, cli.py:413-421)
+        from .features.initialize import apply_initialize, parse_initnor_cli
+        ops = [op for spec in args.initnorpla
+               for op in parse_initnor_cli(spec, kind="plane")]
+        ops += [op for spec in args.initnorpart
+                for op in parse_initnor_cli(spec, kind="parts")]
+        st = apply_initialize(ops, csp, st)
+        opts = dataclasses.replace(opts, tboundary=TpBoundary.MDBC)
 
     feats = case.meta.get("features")
     if feats is None and ("ftcfg" in case.meta or "motion" in case.meta):
@@ -484,11 +502,13 @@ def main(argv=None):
         # a multiphase NN case (<special><nnphases>): the NN step, which
         # refuses what it does not run (forces_nn.check_supported_nn) and
         # every feature of the case, naming its XML node
-        from .models.nnewtonian import make_nn_step
+        from .models.nnewtonian import MDBC_NOTE, make_nn_step
         try:
             step = make_nn_step(csp, opts, dom, phases, feats)
         except (NotImplementedError, ValueError) as e:
             raise SystemExit(f"-case {args.case}: {e}") from None
+        if opts.tboundary == TpBoundary.MDBC:
+            print(f"[dsphtorch] {MDBC_NOTE}")
     sim = Simulation(csp, opts, dom, st, feats=feats, step=step, t0=t0)
     sim.part = part0
     sim.errdir = args.dirout

@@ -11,7 +11,10 @@
 // Each takes the shifting sums when the launch parameters name a shifting
 // mode, the floating bodies' particle masses (the TPU kernels' ftomassp
 // channel) when given them, and the mDBC form of the Molteni diffusion when
-// the parameters name mDBC walls.  The outputs are the TPU kernels':
+// the parameters name mDBC walls; the first two also take the lateral
+// symmetry plane y = 0 (SYM instances, with or without shifting, no
+// floating bodies) when the parameters' symmetry field is set.  The TPU
+// kernels had no symmetry: the JAX package ran it on its bucket path only.  The outputs are the TPU kernels':
 // momentum, continuity with the density diffusion folded in, viscdt, and
 // the SPS gradient and shifting sums where asked, over the GPU layout of
 // the original DualSPHysics solver
@@ -50,6 +53,10 @@
 // loads per candidate.  The floating mass is one load per floating
 // candidate in support, in instances of their own (FT): a runtime test in
 // every instance cost the main path's one a register and 2-3% of its time.
+// The symmetry plane is a template parameter (SYM) for the same reason: a
+// target near y = 0 queues each candidate's image beside the candidate, a
+// flag bit in the queued slot, and the body takes the image's dr_y and
+// dv_y; the other instances compile as they did.
 #include <cuda_runtime.h>
 
 #include "pairbody.cuh"
@@ -58,7 +65,7 @@ namespace {
 
 constexpr int kBlock = 128;
 
-template <int KER, int VISC, bool SHIFT, bool FT>
+template <int KER, int VISC, bool SHIFT, bool FT, bool SYM>
 __global__ void __launch_bounds__(kBlock)
 cellforce_kernel(CfParams p, const F4* __restrict__ pospress,
                  const F4* __restrict__ velrho, const int* __restrict__ kind,
@@ -74,19 +81,20 @@ cellforce_kernel(CfParams p, const F4* __restrict__ pospress,
   // every lane runs the body, past the last slot too: the queues drain
   // when the whole warp decides
   const int i = blockIdx.x * kBlock + threadIdx.x;
-  target_forces<KER, VISC, SHIFT, FT>(i, p, pospress, velrho, kind, cell,
-                                      begin, tau, ftmass, ace, ar, viscdt,
-                                      gradvel, shift, shiftblk, q);
+  target_forces<KER, VISC, SHIFT, FT, SYM>(i, p, pospress, velrho, kind,
+                                           cell, begin, tau, ftmass, ace, ar,
+                                           viscdt, gradvel, shift, shiftblk,
+                                           q);
 }
 
-template <int KER, int VISC, bool SHIFT, bool FT>
+template <int KER, int VISC, bool SHIFT, bool FT, bool SYM = false>
 void launch_one(const CfParams* p, const void* pospress, const void* velrho,
                 const void* kind, const void* cell, const void* begin,
                 const void* tau, const void* ftmass, void* ace, void* ar,
                 void* viscdt, void* gradvel, void* shift, void* shiftblk,
                 void* stream) {
   const int nblocks = (p->n + kBlock - 1) / kBlock;
-  cellforce_kernel<KER, VISC, SHIFT, FT>
+  cellforce_kernel<KER, VISC, SHIFT, FT, SYM>
       <<<nblocks, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
           *p, static_cast<const F4*>(pospress), static_cast<const F4*>(velrho),
           static_cast<const int*>(kind), static_cast<const int*>(cell),
@@ -98,7 +106,10 @@ void launch_one(const CfParams* p, const void* pospress, const void* velrho,
 }
 
 // The SHIFT instance when the parameters name a shifting mode, the FT one
-// when ftmass is not null; returns cudaGetLastError() (0 on success).
+// when ftmass is not null, the SYM one (artificial viscosity without
+// floating bodies only) when the parameters' symmetry field is set;
+// returns cudaGetLastError() (0 on success), cudaErrorInvalidValue for a
+// symmetry plane with another viscosity or with floating bodies.
 template <int KER, int VISC>
 int launch(const CfParams* p, const void* pospress, const void* velrho,
            const void* kind, const void* cell, const void* begin,
@@ -107,10 +118,19 @@ int launch(const CfParams* p, const void* pospress, const void* velrho,
            void* stream) {
   const bool shifting = p->shiftmode != SHIFT_NONE;
   const bool floating = ftmass != nullptr;
+  if (p->symmetry && (VISC != VISCO_ARTIFICIAL || floating)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   auto* one = shifting ? (floating ? launch_one<KER, VISC, true, true>
                                    : launch_one<KER, VISC, true, false>)
                        : (floating ? launch_one<KER, VISC, false, true>
                                    : launch_one<KER, VISC, false, false>);
+  if constexpr (VISC == VISCO_ARTIFICIAL) {
+    if (p->symmetry) {
+      one = shifting ? launch_one<KER, VISC, true, false, true>
+                     : launch_one<KER, VISC, false, false, true>;
+    }
+  }
   one(p, pospress, velrho, kind, cell, begin, tau, ftmass, ace, ar, viscdt,
       gradvel, shift, shiftblk, stream);
   return static_cast<int>(cudaGetLastError());

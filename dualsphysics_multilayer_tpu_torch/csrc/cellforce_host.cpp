@@ -7,14 +7,17 @@
 
 namespace {
 
-template <int KER, int VISC, bool SHIFT, bool FT>
+// cudaErrorInvalidValue, as the CUDA launchers return it
+constexpr int kInvalidValue = 1;
+
+template <int KER, int VISC, bool SHIFT, bool FT, bool SYM = false>
 void run_one(const CfParams* p, const void* pospress, const void* velrho,
              const void* kind, const void* cell, const void* begin,
              const void* tau, const void* ftmass, void* ace, void* ar,
              void* viscdt, void* gradvel, void* shift, void* shiftblk) {
   int q[kQueue];
   for (int i = 0; i < p->n; ++i) {
-    target_forces<KER, VISC, SHIFT, FT>(
+    target_forces<KER, VISC, SHIFT, FT, SYM>(
         i, *p, static_cast<const F4*>(pospress), static_cast<const F4*>(velrho),
         static_cast<const int*>(kind), static_cast<const int*>(cell),
         static_cast<const int*>(begin), static_cast<const float*>(tau),
@@ -32,17 +35,23 @@ int run(const CfParams* p, const void* pospress, const void* velrho,
         void* shift, void* shiftblk) {
   const bool shifting = p->shiftmode != SHIFT_NONE;
   const bool floating = ftmass != nullptr;
+  if (p->symmetry && (VISC != VISCO_ARTIFICIAL || floating)) {
+    return kInvalidValue;
+  }
   auto* one = shifting ? (floating ? run_one<KER, VISC, true, true>
                                    : run_one<KER, VISC, true, false>)
                        : (floating ? run_one<KER, VISC, false, true>
                                    : run_one<KER, VISC, false, false>);
+  if constexpr (VISC == VISCO_ARTIFICIAL) {
+    if (p->symmetry) {
+      one = shifting ? run_one<KER, VISC, true, false, true>
+                     : run_one<KER, VISC, false, false, true>;
+    }
+  }
   one(p, pospress, velrho, kind, cell, begin, tau, ftmass, ace, ar, viscdt,
       gradvel, shift, shiftblk);
   return 0;
 }
-
-// cudaErrorInvalidValue, as the CUDA launchers return it
-constexpr int kInvalidValue = 1;
 
 }  // namespace
 

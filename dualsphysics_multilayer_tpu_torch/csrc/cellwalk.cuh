@@ -30,6 +30,8 @@ struct alignas(16) F4 { float x, y, z, w; };
 // TpShifting.
 enum { KER_CUBIC = 1, KER_WENDLAND = 2 };
 enum { SHIFT_NONE = 0, SHIFT_NO_BOUND = 1, SHIFT_NO_FIXED = 2, SHIFT_FULL = 3 };
+// Boundary conditions; values match typesdef.TpBoundary.
+enum { BOUNDARY_DBC = 1, BOUNDARY_MDBC = 2 };
 
 // Cubic spline constants (typesdef.KCubicCte, FunSphKernel.h:51-84),
 // embedded in both bodies' launch parameters (CfParams, NnParams) and

@@ -4,7 +4,8 @@
 // (nnforce_host.cpp, compiled with g++ for tests).
 //
 // Semantics are those of ops/forces_nn.py (the plain torch version) and of
-// the JAX package's ops/forces_nn.py interaction_forces_nn, for DBC walls:
+// the JAX package's ops/forces_nn.py interaction_forces_nn (its bucket path:
+// the TPU kernels took DBC walls only), under DBC or mDBC walls:
 //   * a pair is j != i, both live, not boundary-boundary, with
 //     ALMOSTZERO <= rr2 <= kernelsize^2;
 //   * a candidate's mass is its phase's (massbound for boundaries); phase
@@ -14,7 +15,10 @@
 //   * boundary targets take continuity and viscdt only;
 //   * density diffusion acts on same-phase fluid pairs with the candidate's
 //     cs0 as cbar; a boundary neighbour in range blocks a target's whole
-//     diffusion term under Molteni and Fourtakas, never under Fourtakas-full;
+//     diffusion term under Fourtakas and, with DBC walls, under Molteni
+//     (JAX forces_nn.py:276), never under Fourtakas-full; that block is the
+//     only term in which the pass-1 bodies tell mDBC walls from DBC (the NN
+//     step runs no mDBC pre-pass, as in JAX);
 //   * the velocity gradient and the viscous forces use the no-slip wall
 //     trick: dv = 2*v_i against a boundary candidate, whose eta or tau is
 //     the target's;
@@ -53,6 +57,7 @@ struct NnParams {
   int gradvel;     // pass 1 accumulates the velocity gradient
   int tkernel;     // KER_* of the instance the launchers pick
   int shiftmode;   // typesdef.TpShifting; not NONE picks the SHIFT instance
+  int tboundary;   // BOUNDARY_*: Molteni's wall block under DBC only
   float kernelsize2;
   float kernelh;
   float bwen;
@@ -363,7 +368,7 @@ struct NnPass1Lane : NnGroupLane {
       const float cbar = p.cs0[phj];
       if (p.tdensity == DDT_MOLTENI) {
         if (same) s.dlt += p.ddtkh * cbar * (rhoi / rhoj - 1.f) / rr2e * drfr * mass2;
-        s.blocked = s.blocked || bound_c;
+        s.blocked = s.blocked || (bound_c && p.tboundary == BOUNDARY_DBC);
       } else {
         if (same) {
           const float rh = 1.f + p.ddtgz * drz;

@@ -3,7 +3,7 @@
 // (cellforce_host.cpp, a loop over targets, compiled with g++ for tests).
 //
 // Semantics are those of ops/pairphys.py pair_terms (reference
-// JSphCpu.cpp:631-822).  One body, four template parameters:
+// JSphCpu.cpp:631-822).  One body, five template parameters:
 //   * KER: the Wendland C2 kernel, or the cubic spline with its tensile
 //     correction added to the pressure term (FunSphKernel.h:104-150);
 //   * VISC: artificial viscosity, or the laminar operator with the SPS
@@ -16,6 +16,15 @@
 //     picks FT when ftmass is not null.  Without FT the body is the one
 //     without floating bodies, so the runs that have none keep its
 //     registers and time.
+//   * SYM: the lateral symmetry plane y = 0 (the Symmetry parameter,
+//     JSphCpu.cpp:638/682; the JAX bucket path's mirror pass, ops/forces.py
+//     :204-219).  A target with y <= kernelsize also meets the image of each
+//     candidate in the plane, itself included: dr_y = y_i + y_j and dv_y =
+//     vy_i + vy_j, every other term as for the candidate.  Images in support
+//     lie within one cell in y of the target, so the walk is the same.  The
+//     launcher picks SYM from the parameters' symmetry field, for artificial
+//     viscosity without floating bodies (the reference's restrictions,
+//     JSph.cpp:1174-1179); without SYM the body compiles as before.
 // Rules every instance keeps:
 //   * boundary targets get only continuity and viscdt;
 //   * boundary-boundary pairs contribute nothing, not even to viscdt;
@@ -44,16 +53,18 @@
 
 #include "cellwalk.cuh"
 
-// Viscosity modes; values match typesdef.TpVisco (the kernels, KER_*, and
-// the shifting modes, SHIFT_*, are in cellwalk.cuh).
+// Viscosity modes; values match typesdef.TpVisco (the kernels, KER_*, the
+// shifting modes, SHIFT_*, and the boundary conditions, BOUNDARY_*, are in
+// cellwalk.cuh).
 enum { VISCO_ARTIFICIAL = 1, VISCO_LAMINAR_SPS = 2 };
-// Boundary conditions; values match typesdef.TpBoundary.
-enum { BOUNDARY_DBC = 1, BOUNDARY_MDBC = 2 };
 
 // In-support slots a target queues before it runs the pair body over them,
 // and the candidates it filters at a time.
 constexpr int kQueue = 96;
 constexpr int kRun = 4;
+// A queued slot whose pair is with the candidate's mirror image (SYM
+// instances) carries this bit; the launchers take fewer slots than it.
+constexpr int kMirror = 1 << 30;
 
 // True when v holds on any lane of the calling warp; every lane of the warp
 // calls it together.  On the host a thread is a warp of one.
@@ -91,15 +102,18 @@ struct CfParams {
   float massbound;
   float almostzero;
   CubicCte cubic;
+  // last, so the other instances read their fields where they did before
+  int symmetry;      // picks the SYM instance
+  float kernelsize;  // SYM: targets with y <= kernelsize meet the images
 };
 
 // Target i's sums.  tau (n,6) is read and gradvel (n,6) written only with
 // VISCO_LAMINAR_SPS; shift (n,4) and shiftblk (n,) only with SHIFT; ftmass
 // (n,) only with FT, at floating candidates.  q is the caller's queue of
-// kQueue slots.  On the card every lane of a warp calls it, i >= n
-// included (such a lane walks nothing and writes nothing), as the drains
-// are decided by the whole warp.
-template <int KER, int VISC, bool SHIFT, bool FT>
+// kQueue slots; with SYM a queued image slot carries kMirror.  On the card
+// every lane of a warp calls it, i >= n included (such a lane walks nothing
+// and writes nothing), as the drains are decided by the whole warp.
+template <int KER, int VISC, bool SHIFT, bool FT, bool SYM>
 DSPH_HD void target_forces(int i, const CfParams& p,
                            const F4* __restrict__ pospress,
                            const F4* __restrict__ velrho,
@@ -133,6 +147,8 @@ DSPH_HD void target_forces(int i, const CfParams& p,
   }
   const bool bound_t = ki < KIND_FLOATING;
   const bool ft_t = ki == KIND_FLOATING;
+  // SYM: the target meets the candidates' images (absolute y)
+  const bool ysym = SYM && walks && pi.y <= p.kernelsize;
   // the target's SPS stress, read once (fluid-side targets only)
   float ti0 = 0.f, ti1 = 0.f, ti2 = 0.f, ti3 = 0.f, ti4 = 0.f, ti5 = 0.f;
   if constexpr (VISC == VISCO_LAMINAR_SPS) {
@@ -152,20 +168,35 @@ DSPH_HD void target_forces(int i, const CfParams& p,
     const float rr2 = drx * drx + dry * dry + drz * drz;
     return rr2 >= p.almostzero && rr2 < p.kernelsize2;
   };
-  // the pair body, on a pair the filter passed
-  auto pair = [&](int j) {
+  // the filter of the image of candidate j in the plane y = 0: the target's
+  // own image is a pair too
+  auto image_in_support = [&](int kj, const F4& pj) {
+    if (kj == KIND_DEAD) return false;
+    if (bound_t && kj < KIND_FLOATING) return false;
+    const float drx = pi.x - pj.x;
+    const float dry = pi.y + pj.y;
+    const float drz = pi.z - pj.z;
+    const float rr2 = drx * drx + dry * dry + drz * drz;
+    return rr2 >= p.almostzero && rr2 < p.kernelsize2;
+  };
+  // the pair body, on a pair the filter passed: with candidate j, or with
+  // its image (SYM only: without SYM `mirror` is the constant false)
+  auto pair = [&](int j, bool image) {
+    const bool mirror = SYM && image;
     const int kj = kind[j];
     const bool bound_c = kj < KIND_FLOATING;
     const F4 pj = pospress[j];
     const float drx = pi.x - pj.x;
-    const float dry = pi.y - pj.y;
+    const float dry = mirror ? pi.y + pj.y : pi.y - pj.y;
     const float drz = pi.z - pj.z;
     const float rr2 = drx * drx + dry * dry + drz * drz;
     const F4 vj = velrho[j];
     const bool ft_c = kj == KIND_FLOATING;
     const float fac = kernel_fac<KER>(rr2, p.kernelh, p.bwen, p.cubic);
     const float frx = fac * drx, fry = fac * dry, frz = fac * drz;
-    const float dvx = vi.x - vj.x, dvy = vi.y - vj.y, dvz = vi.z - vj.z;
+    const float dvx = vi.x - vj.x;
+    const float dvy = mirror ? vi.y + vj.y : vi.y - vj.y;
+    const float dvz = vi.z - vj.z;
     const float dvfr = dvx * frx + dvy * fry + dvz * frz;
     const float dot = drx * dvx + dry * dvy + drz * dvz;
     const float dot_rr2 = dot / (rr2 + p.eta2);
@@ -263,7 +294,9 @@ DSPH_HD void target_forces(int i, const CfParams& p,
   // same slots at once; each lane queues its in-support slots, and the
   // warp drains every queue through the pair body, in the order it was
   // filled, when one of them has no room for another run or when every
-  // walk has ended.
+  // walk has ended.  With SYM a run queues up to twice its slots: each
+  // candidate, then its image.
+  constexpr int kFill = SYM ? 2 * kRun : kRun;
   NbrCursor cur;
   cur.init(walks ? c : 0, p.ncx, p.ncy, p.ncz, p.sim2d, begin);
   bool more = walks;
@@ -282,10 +315,21 @@ DSPH_HD void target_forces(int i, const CfParams& p,
     }
     for (int u = 0; u < kRun; ++u) {
       if (u < m && in_support(j0 + u, kj[u], pj[u])) q[cnt++] = j0 + u;
+      if constexpr (SYM) {
+        if (u < m && ysym && image_in_support(kj[u], pj[u])) {
+          q[cnt++] = (j0 + u) | kMirror;
+        }
+      }
     }
     const bool going = warp_any(more);
-    if (!going || warp_any(cnt > kQueue - kRun)) {
-      for (int k = 0; k < cnt; ++k) pair(q[k]);
+    if (!going || warp_any(cnt > kQueue - kFill)) {
+      for (int k = 0; k < cnt; ++k) {
+        if constexpr (SYM) {
+          pair(q[k] & ~kMirror, (q[k] & kMirror) != 0);
+        } else {
+          pair(q[k], false);
+        }
+      }
       cnt = 0;
       if (!going) break;
     }

@@ -12,22 +12,26 @@ for another device, its ``SolverOpts`` and the run values:
   ``models.cases.Draw`` (mesh files through ``io/meshfile.py``), and the
   id blocks reordered after the retypes;
 * ``<parameters>`` into ``CteSph``/``SolverOpts``, ``<special><savedt>``,
-  ``FtSaveMotion`` and ``ViscoTime``;
+  ``FtSaveMotion``, ``ViscoTime`` and ``Symmetry`` (the lateral symmetry
+  plane y = 0; ValueError in 2D, with floating bodies or with another
+  viscosity than artificial, the reference's restrictions);
 * ``<floatings>``, ``<motion>`` and the ``<special>`` nodes the port runs:
   damping, wave paddles, multi-layer pistons, relaxation zones,
   accinputs, gauges, ``<timeout>`` and ``<nnphases>`` (the multiphase
   non-Newtonian phases, whose case the CLI runs through
-  ``models/nnewtonian.make_nn_step``).
+  ``models/nnewtonian.make_nn_step``);
+* ``<special><initialize>`` (``features/initialize.py``), applied to the
+  built state: fluid velocity profiles and wall normals, which make the
+  run an mDBC run, as in JAX.
 
 The domain is the port's ``celldiv.make_domain`` over the particles'
 bounds and ``<simulationdomain>``; the JAX loader's bucket capacities
 (``cellcap``, ``maxcells``) belong to the TPU layouts and have no
 counterpart.  Nodes of features the port does not run raise
 ``NotImplementedError`` naming the node: ``<special><inout>``,
-``<initialize>``, ``<chrono>`` and ``<moorings>`` before anything is
-built (``refuse``), ``Symmetry=1`` and ``RigidAlgorithm=2`` (DEM) on a
-case with floatings once the parameters are read; none of their
-configurations is built.  The ``<properties>`` material table feeds only
+``<chrono>`` and ``<moorings>`` before anything is built (``refuse``),
+``RigidAlgorithm=2`` (DEM) on a case with floatings once the parameters
+are read; none of their configurations is built.  The ``<properties>`` material table feeds only
 DEM and Chrono contact, so the port does not read it.
 """
 
@@ -47,6 +51,7 @@ from .. import typesdef as td
 from ..typesdef import (TpBoundary, TpDensity, TpKernel, TpShifting,
                         TpSlipMode, TpStep, TpVelGrad, TpVisco, make_ctesph)
 from ..features.featureset import Features
+from ..features.initialize import apply_initialize, parse_initialize_xml
 from ..models import cases as C
 from ..ops import celldiv as cd
 from ..ops.forces import SolverOpts
@@ -264,7 +269,7 @@ def refuse(root):
     sp = _special(root)
     if sp is None:
         return
-    for tag in ("inout", "initialize", "chrono"):
+    for tag in ("inout", "chrono"):
         if sp.find(tag) is not None:
             raise NotImplementedError(f"<special><{tag}>: the torch port "
                                       f"does not run this feature yet")
@@ -1627,9 +1632,6 @@ def load_case(path, *, mdbc=False, device="cuda"):
         return float(v)
 
     # the parameters of features the port does not run
-    if int(pf("Symmetry", 0)) == 1:
-        raise NotImplementedError("<parameter key=\"Symmetry\" value=1>: "
-                                  "the torch port does not run symmetry yet")
     if ftcfg is not None and int(pf("RigidAlgorithm", 1)) == 2:
         raise NotImplementedError("<parameter key=\"RigidAlgorithm\" "
                                   "value=2>: the torch port does not run DEM "
@@ -1672,11 +1674,21 @@ def load_case(path, *, mdbc=False, device="cuda"):
         ftmotion=(8192 if ftcfg is not None
                   and pf("FtSaveMotion", -1.0) >= 0 else 0),
         with_floating=ftstate is not None,
+        symmetry=bool(int(pf("Symmetry", 0))),
     )
     # <special><savedt>: the per-dt diagnostics ring (JDsSaveDt), as -savedt
     sdnode = root.find(".//special/savedt")
     if sdnode is not None and _active(sdnode):
         opts = dataclasses.replace(opts, savedt=8192)
+    if opts.symmetry:
+        # the reference's restrictions (JSph.cpp:1174-1179)
+        if sim2d:
+            raise ValueError("Symmetry is not allowed with 2-D simulations")
+        if ftcfg is not None:
+            raise ValueError("Symmetry is not allowed with floating bodies")
+        if opts.tvisco != TpVisco.ARTIFICIAL:
+            raise ValueError("Symmetry is only allowed with artificial "
+                             "viscosity")
 
     # ---- domain + state
     ks = csp.kernelsize
@@ -1723,6 +1735,16 @@ def load_case(path, *, mdbc=False, device="cuda"):
             rhopoutmax=max(csp.rhopoutmax, 1.5 * rmax))
     if ftstate is not None:
         st = dataclasses.replace(st, ft=ftstate)
+    # <special><initialize>: applied once to the built state, as the
+    # reference's ConfigDomain runs them (JSphCpuSingle.cpp:135); wall
+    # normals make the run an mDBC run
+    init_node = root.find(".//special/initialize")
+    if init_node is not None:
+        init_ops = parse_initialize_xml(init_node)
+        if init_ops:
+            st = apply_initialize(init_ops, csp, st)
+            if st.boundnormal is not None:
+                opts = dataclasses.replace(opts, tboundary=TpBoundary.MDBC)
     # the time-varying viscosity table (ViscoTime: a CSV beside the XML,
     # JDsViscoInput)
     viscotime = None

@@ -8,6 +8,13 @@ the corrector, re-divided only when the skin contract demands it) over the
 NN interaction of ``ops/forces_nn.py``, whose ``viscetadtmax`` adds the
 viscous dt3 control.  The port's single layout plays the part of the JAX
 package's ``nn_rowdiv_ok`` path.
+
+Under mDBC walls (normals from ``<initialize>``, ``-initnorpla`` or
+``Boundary=2``) the step stays JAX's: it runs no mDBC pre-pass (JAX
+`models/nnewtonian.py:41-104`), so the walls keep their own velocity and
+density, and the walls change one rule of the interaction, Molteni's
+diffusion, which a wall neighbour no longer blocks.  The CLI prints
+:data:`MDBC_NOTE` at the start of such a run.
 """
 
 from __future__ import annotations
@@ -26,6 +33,9 @@ from ..ops.forces import SolverOpts
 from . import cases as C
 from . import wcsph as W
 
+MDBC_NOTE = ("NN step under mDBC walls: no mDBC pre-pass runs (as in the "
+             "JAX package); the walls change only the Molteni diffusion "
+             "rule")
 
 def make_nn_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
                  phases: NN.PhaseCfg, feats: Features | None = None):

@@ -235,7 +235,9 @@ def _interaction(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     Returns (the state with the pre-pass's boundary velocity and density,
     Forces).  The pre-pass runs under mDBC walls when the state carries
     normals (JAX `wcsph.py:443-449`); without normals an mDBC run is a DBC
-    run with the mDBC diffusion rule, as in JAX."""
+    run with the mDBC diffusion rule, as in JAX.  Under ``opts.symmetry``
+    only the interaction meets the mirror images: the pre-pass has no
+    symmetry term, as JAX's `ops/mdbc.py` has none."""
     if opts.tboundary == TpBoundary.MDBC and st.boundnormal is not None:
         vel, rho = MD.mdbc_correction(csp, opts, dom, cells, st.pos, st.vel,
                                       st.rho, st.code, st.boundnormal,

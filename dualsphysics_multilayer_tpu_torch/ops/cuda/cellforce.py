@@ -13,7 +13,10 @@ kernel and the viscosity,
 
 each with the shifting sums when ``opts.shiftmode`` names a mode, the
 floating bodies' particle masses under ``opts.with_floating`` and the mDBC
-form of the Molteni diffusion under ``opts.tboundary == MDBC``.  A call:
+form of the Molteni diffusion under ``opts.tboundary == MDBC``; the first
+two with the lateral symmetry plane y = 0 under ``opts.symmetry`` (their
+SYM instances, counted as ``cellforce_sym`` and ``cellforce_cubic_sym``).
+A call:
 
 1. per-particle channel prep, the `_fast_channels` analog: position with
    pressure and velocity with density packed as 16-byte rows, the particle
@@ -45,9 +48,14 @@ from ..celldiv import CellDiv, Domain
 from ..forces import Forces, SolverOpts, check_spstau, check_supported
 from . import build
 
-# Kernel launches since the last reset, one count per kernel; the only
-# mutable module state.
-launches = dict(cellforce=0, cellforce_cubic=0, cellforce_lamsps=0)
+# Kernel launches since the last reset, one count per kernel and one for
+# the symmetry-plane instances of each of the first two; the only mutable
+# module state.
+launches = dict(cellforce=0, cellforce_cubic=0, cellforce_lamsps=0,
+                cellforce_sym=0, cellforce_cubic_sym=0)
+# queued image slots carry this bit (kMirror in csrc/pairbody.cuh), so a
+# symmetry launch takes fewer slots
+MIRROR_BIT = 1 << 30
 
 
 class CubicCte(ctypes.Structure):
@@ -72,7 +80,8 @@ class CfParams(ctypes.Structure):
             "kernelsize2", "kernelh", "bwen", "eta2", "cs0", "visco",
             "viscobound", "ddtkh", "ddtgz", "rhopzero", "ovgamma",
             "massfluid", "massbound", "almostzero")]
-        + [("cubic", CubicCte)])
+        + [("cubic", CubicCte), ("symmetry", ctypes.c_int),
+           ("kernelsize", ctypes.c_float)])
 
 
 def kernel_name(csp: CteSph, opts: SolverOpts) -> str:
@@ -80,6 +89,12 @@ def kernel_name(csp: CteSph, opts: SolverOpts) -> str:
     if opts.tvisco == TpVisco.LAMINAR_SPS:
         return "cellforce_lamsps"
     return "cellforce_cubic" if csp.tkernel == TpKernel.CUBIC else "cellforce"
+
+
+def counter_name(csp: CteSph, opts: SolverOpts) -> str:
+    """The ``launches`` entry of this configuration: the kernel's, or
+    under ``opts.symmetry`` that of its symmetry-plane instances."""
+    return kernel_name(csp, opts) + ("_sym" if opts.symmetry else "")
 
 
 def make_params(csp: CteSph, opts: SolverOpts, dom: Domain, n: int,
@@ -98,7 +113,8 @@ def make_params(csp: CteSph, opts: SolverOpts, dom: Domain, n: int,
         ddtkh=ddtkh,
         ddtgz=csp.ddtgz, rhopzero=csp.rhopzero, ovgamma=1.0 / csp.gamma,
         massfluid=csp.massfluid, massbound=csp.massbound,
-        almostzero=td.ALMOSTZERO, cubic=CubicCte.of(csp))
+        almostzero=td.ALMOSTZERO, cubic=CubicCte.of(csp),
+        symmetry=int(opts.symmetry), kernelsize=csp.kernelsize)
 
 
 def channels(csp: CteSph, pos, vel, rho, code):
@@ -164,6 +180,9 @@ def _prepare(csp, opts, dom, cells, pos, vel, rho, code, spstau, ftomassp,
     if ftomassp is not None:
         want["ftomassp"] = (ftomassp, torch.float32, (ftomassp.shape[0],))
     check_inputs(name, device_type, want)
+    if opts.symmetry and pos.shape[0] >= MIRROR_BIT:
+        raise ValueError(f"{name}: {pos.shape[0]} slots, the symmetry "
+                         f"instances take fewer than {MIRROR_BIT}")
     return name
 
 
@@ -215,7 +234,7 @@ def interaction_forces_cuda(csp: CteSph, opts: SolverOpts, dom: Domain,
         stream = torch.cuda.current_stream().cuda_stream
         fr = _run(fn, name, csp, opts, dom, cells, pos, vel, rho, code, spstau,
                   ftomassp, ddtkh, visco, extra=(stream,))
-    launches[name] += 1
+    launches[counter_name(csp, opts)] += 1
     return fr
 
 

@@ -58,7 +58,7 @@ class NnParams(ctypes.Structure):
     """Mirror of ``struct NnParams`` in csrc/nnbody.cuh."""
     _fields_ = ([(k, ctypes.c_int) for k in (
         "n", "ncx", "ncy", "ncz", "ncells", "sim2d", "tdensity", "visc",
-        "gradvel", "tkernel", "shiftmode")]
+        "gradvel", "tkernel", "shiftmode", "tboundary")]
         + [(k, ctypes.c_float) for k in (
             "kernelsize2", "kernelh", "bwen", "eta2", "ddtkh", "ddtgz",
             "rhopzero", "ovgamma", "massbound", "almostzero")]
@@ -80,6 +80,7 @@ def make_params(csp: CteSph, opts: SolverOpts, phases: NN.PhaseCfg,
         sim2d=int(csp.simulate2d), tdensity=opts.tdensity.value,
         visc=VISC[opts.tvisco], gradvel=int(NN.uses_gradvel(opts)),
         tkernel=csp.tkernel.value, shiftmode=opts.shiftmode.value,
+        tboundary=opts.tboundary.value,
         kernelsize2=csp.kernelsize2, kernelh=csp.kernelh, bwen=csp.kwend.bwen,
         eta2=csp.eta2, ddtkh=csp.ddtkh, ddtgz=csp.ddtgz,
         rhopzero=csp.rhopzero, ovgamma=1.0 / csp.gamma,

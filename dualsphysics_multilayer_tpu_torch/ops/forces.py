@@ -6,14 +6,16 @@ Counterpart of `dualsphysics_multilayer_tpu/ops/forces.py`.
 (`ops/cuda/cellforce.py`) and CPU tensors to :func:`interaction_forces_plain`,
 the plain torch version of the same function: it walks the same 9 (3 in 2D)
 contiguous neighbour ranges per target as the kernel, gathers them padded to
-the longest range, and evaluates :func:`pairphys.pair_terms`.
+the longest range, and evaluates :func:`pairphys.pair_terms`; under
+``opts.symmetry`` it evaluates the same candidates' images in the plane
+y = 0 too, for the targets within the kernel size of it.
 
 Acceleration excludes gravity (added by the integrator), as in the reference.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -44,6 +46,9 @@ class SolverOpts:
     # its ghost node's Shepard sum reaches it (0 = always)
     mdbc_threshold: float = 0.0
     use_nbrlist: bool = False
+    # the lateral symmetry plane y = 0 (<parameter key="Symmetry">): targets
+    # within kernelsize of it also meet each candidate's mirror image (3D,
+    # artificial viscosity, no floating bodies: JSph.cpp:1174-1179)
     symmetry: bool = False
     # NN velocity-gradient formulation: SPH = accumulated per-particle
     # gradients (3 passes), FDA = per-pair finite differences (1 pass)
@@ -83,11 +88,7 @@ class Forces:
 def check_supported_step(csp: CteSph, opts: SolverOpts) -> None:
     """Raise NotImplementedError for any setting outside every slice's step:
     what the single-phase and the NN interactions both require."""
-    unsupported = [
-        (opts.use_nbrlist, "use_nbrlist=True"),
-        (opts.symmetry, "symmetry=True"),
-    ]
-    raise_unsupported(unsupported)
+    raise_unsupported([(opts.use_nbrlist, "use_nbrlist=True")])
 
 
 def raise_unsupported(unsupported) -> None:
@@ -102,11 +103,18 @@ def check_supported(csp: CteSph, opts: SolverOpts) -> None:
     """Raise NotImplementedError for any configuration outside the
     single-phase interaction: Wendland or cubic, artificial or laminar+SPS
     viscosity, every density diffusion and shifting mode, DBC or mDBC
-    walls, with or without floating bodies."""
+    walls, with or without floating bodies; the symmetry plane in 3D with
+    artificial viscosity and no floating bodies (the reference's rule,
+    JSph.cpp:1174-1179, which the case loaders enforce as ValueError)."""
     check_supported_step(csp, opts)
-    raise_unsupported([(opts.tvisco not in (TpVisco.ARTIFICIAL,
-                                            TpVisco.LAMINAR_SPS),
-                        f"tvisco={opts.tvisco.name}")])
+    raise_unsupported([
+        (opts.tvisco not in (TpVisco.ARTIFICIAL, TpVisco.LAMINAR_SPS),
+         f"tvisco={opts.tvisco.name}"),
+        (opts.symmetry and opts.tvisco != TpVisco.ARTIFICIAL,
+         f"symmetry=True with tvisco={opts.tvisco.name}"),
+        (opts.symmetry and opts.with_floating,
+         "symmetry=True with floating bodies"),
+        (opts.symmetry and csp.simulate2d, "symmetry=True in 2D")])
 
 
 def check_spstau(opts: SolverOpts, spstau) -> None:
@@ -161,7 +169,11 @@ def interaction_forces_plain(csp: CteSph, opts: SolverOpts, dom: Domain,
                              ddtkh=None, visco=None) -> Forces:
     """Plain torch version of the cellforce kernels, over
     :func:`candidate_chunks`; ``ddtkh`` and ``visco`` as in
-    :func:`interaction_forces`."""
+    :func:`interaction_forces`.  Under ``opts.symmetry`` each chunk's
+    candidates are taken a second time as their images in the plane y = 0
+    (the JAX bucket path's mirror pass, `ops/forces.py:204-219`): for
+    targets with y <= kernelsize, dr_y = y_t + y_j and dv_y = vy_t + vy_j,
+    the target's own image included, folded into the same sums."""
     check_supported(csp, opts)
     check_spstau(opts, spstau)
     n = pos.shape[0]
@@ -196,25 +208,51 @@ def interaction_forces_plain(csp: CteSph, opts: SolverOpts, dom: Domain,
             ft_t=floating[t, None], ft_c=floating[j], fixed_c=fixed[j],
             tau_t=tau[t, None, :] if use_sps else None,
             tau_c=tau[j] if use_sps else None)
-        terms = PP.pair_terms(csp, opts, p, ddtkh=ddtkh, visco=visco)
-        ace[t] = terms.ace.sum(dim=1)
-        art = terms.ar.sum(dim=1)
+        terms = [PP.pair_terms(csp, opts, p, ddtkh=ddtkh, visco=visco)]
+        if opts.symmetry:
+            terms.append(PP.pair_terms(csp, opts, _mirrored(csp, p, pos, vel,
+                                                            t, j, valid & act[j]),
+                                       ddtkh=ddtkh, visco=visco))
+        ace[t] = sum(x.ace.sum(dim=1) for x in terms)
+        art = sum(x.ar.sum(dim=1) for x in terms)
         ft_live = floating[t] & live[t]
         if opts.tdensity != TpDensity.NONE:
-            blocked = terms.delta_blocked.any(dim=1) | ft_live
-            art = art + torch.where(blocked, 0.0, terms.delta.sum(dim=1))
+            blocked = ft_live
+            for x in terms:
+                blocked = blocked | x.delta_blocked.any(dim=1)
+            art = art + torch.where(blocked, 0.0,
+                                    sum(x.delta.sum(dim=1) for x in terms))
         ar[t] = art
-        visc[t] = terms.visc.amax(dim=1)
+        visc[t] = torch.stack([x.visc.amax(dim=1) for x in terms]).amax(dim=0)
         if use_shift:
-            shift[t] = terms.shift.sum(dim=1)
-            shift_blocked[t] = terms.shift_blocked.any(dim=1) | ft_live
+            shift[t] = sum(x.shift.sum(dim=1) for x in terms)
+            blocked = ft_live
+            for x in terms:
+                blocked = blocked | x.shift_blocked.any(dim=1)
+            shift_blocked[t] = blocked
         if use_sps:
-            gradvel[t] = terms.gradvel.sum(dim=1)
+            gradvel[t] = sum(x.gradvel.sum(dim=1) for x in terms)
     if csp.simulate2d:
         ace[:, 1] = 0.0
     viscdtmax = torch.clamp(visc.amax(), min=0.0)
     return Forces(ace=ace, ar=ar, viscdtmax=viscdtmax, shiftposfs=shift,
                   shift_blocked=shift_blocked, spsgradvel=gradvel)
+
+
+def _mirrored(csp: CteSph, p: PP.PairInputs, pos, vel, t, j, live_pair):
+    """The pair inputs of ``p`` with each candidate replaced by its image
+    in the plane y = 0, for targets with y <= kernelsize: no ``j != t``
+    exclusion (a target meets its own image), the kernels' support test
+    on the image's distance."""
+    dr = p.dr.clone()
+    dr[..., 1] = pos[t, None, 1] + pos[j, 1]
+    dv = p.dv.clone()
+    dv[..., 1] = vel[t, None, 1] + vel[j, 1]
+    rr2 = (dr * dr).sum(dim=-1)
+    near = pos[t, 1] <= csp.kernelsize
+    pair = (live_pair & near[:, None] & (rr2 >= td.ALMOSTZERO)
+            & (rr2 < csp.kernelsize2))
+    return replace(p, dr=dr, rr2=rr2, pair=pair, dv=dv)
 
 
 def compute_sps_tau(csp: CteSph, rho, gradvel):

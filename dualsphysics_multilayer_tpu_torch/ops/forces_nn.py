@@ -19,6 +19,11 @@ With ``velgrad=FDA`` and Morris or ConsEq, pass 1 also evaluates the
 per-pair FDA strain -> eta -> viscous force and no pass 3 runs; the
 per-target eta max is the ``visco_eta`` that feeds dt3.
 
+Under mDBC walls the passes differ from DBC in one rule, as the JAX bucket
+path does: a wall neighbour does not block a target's Molteni diffusion
+(JAX `forces_nn.py:276`).  The NN step runs no mDBC pre-pass (JAX
+`models/nnewtonian.py`), so the walls keep their own velocity and density.
+
 :func:`interaction_forces_nn` sends CUDA tensors to the hand-written kernels
 (`ops/cuda/nnforce.py`: ``nnforce_p1``, ``nnforce_p3``, ``nnforce_fda``) and
 CPU tensors to :func:`interaction_forces_nn_plain`, the plain torch version
@@ -176,14 +181,15 @@ def strain_magn_pair(dvw, dr, rr2):
 
 def check_supported_nn(csp: CteSph, opts: SolverOpts, phases: PhaseCfg) -> None:
     """Raise NotImplementedError for any configuration outside the NN
-    slices (symmetry, floating bodies, mDBC, Verlet, the SaveDt and
-    floating-motion rings and the DDT ramp among them; either
-    kernel and every shifting mode are in), ValueError for a phase table
-    the kernels cannot hold."""
+    slices (symmetry, floating bodies, Verlet, the SaveDt and
+    floating-motion rings and the DDT ramp among them; either kernel,
+    every shifting mode and DBC or mDBC walls are in), ValueError for a
+    phase table the kernels cannot hold.  The JAX NN step runs a symmetry
+    case without the mirror; the port refuses it instead."""
     check_supported_step(csp, opts)
     raise_unsupported([
         (opts.tstep != TpStep.SYMPLECTIC, f"tstep={opts.tstep.name}"),
-        (opts.tboundary != TpBoundary.DBC, f"tboundary={opts.tboundary.name}"),
+        (opts.symmetry, "symmetry=True on the NN step"),
         (opts.with_floating, "with_floating=True"),
         # the JAX NN step reads no DDT ramp and never writes the SaveDt or
         # floating-motion rings (its SaveDt.csv fills with zero rows)
@@ -407,7 +413,10 @@ def pass1_plain(csp: CteSph, opts: SolverOpts, phases: PhaseCfg,
             if opts.tdensity == TpDensity.MOLTENI:
                 vd = csp.ddtkh * cbar * (p.rho1 / p.rho2 - 1.0) / (p.rr2 + eta2)
                 delta = (p.w_mom * torch.where(same, vd * p.drfr * p.mass2, 0.0)).sum(dim=1)
-                blocked = (p.pair & ~p.bound_t & p.bound_c).any(dim=1)
+                # a wall neighbour blocks the term under DBC walls only (JAX
+                # forces_nn.py:276); boundary candidates add no term
+                blocked = ((p.pair & ~p.bound_t & p.bound_c).any(dim=1)
+                           & (opts.tboundary == TpBoundary.DBC))
             else:
                 rh = 1.0 + csp.ddtgz * p.dr[..., 2]
                 drhop = csp.rhopzero * rh ** (1.0 / csp.gamma) - csp.rhopzero

@@ -16,7 +16,10 @@
   dambreak2d -dp 0.05 -tmax:0.01 -tout:0.005`` writes Part_0000-0002,
   which JAX's ``read_part`` reads; ``-partbegin:1`` from there goes on
   with Part_0001-0002, the last within 0.25*dp of the first run's by id.
-* Every option the port refuses leaves with a message naming it.
+* Every option the port refuses leaves with a message naming it;
+  ``-initnorpla``/``-initnorpart`` give the run's state JAX's normals
+  under mDBC walls, and an NN case under ``-mdbc`` runs and says that its
+  step runs no mDBC pre-pass.
 * A fresh interpreter importing the CLI and the output modules loads
   neither JAX nor the JAX package.
 """
@@ -166,9 +169,12 @@ def test_module_run_writes_parts_jax_reads_and_restarts(tmp_path):
     (["-case", "x.xml"], "-case"),
     (["-builtin", "channel2d"], "channel2d"),
     (["-builtin", "dambreak2d", "-shard"], "-shard"),
-    (["-builtin", "dambreak2d", "-initnorpla", "mkbound=0:normal=0:0:1"],
-     "-initnorpla"),
-    (["-builtin", "dambreak2d", "-initnorpart", "mkbound=0"], "-initnorpart"),
+    # -initnorpla/-initnorpart run (test_initnor_options_give_jax_normals):
+    # the refusal named is the next option's
+    (["-builtin", "dambreak2d", "-initnorpla", "mkbound=0:normal=0:0:1",
+      "-cellmode:half"], "-cellmode:half"),
+    (["-builtin", "dambreak2d", "-initnorpart", "mkbound=0",
+      "-restartchrono"], "-restartchrono"),
     (["-builtin", "dambreak2d", "-restartchrono"], "-restartchrono"),
     (["-builtin", "dambreak2d", "-pallas"], "-pallas"),
     (["-builtin", "dambreak2d", "-no-pallas"], "-no-pallas"),
@@ -275,7 +281,7 @@ def test_case_runs_an_nn_xml_through_the_nn_step(tmp_path, monkeypatch):
         assert np.all(np.abs(rho[fluid & ~heavy] / 1000.0 - 1) < 0.1)
 
 
-@pytest.mark.parametrize("option", ["-verlet", "-mdbc", "-savedt",
+@pytest.mark.parametrize("option", ["-verlet", "-savedt",
                                     "-ddtramp:0.01:0.005:0.3"])
 def test_nn_case_leaves_with_the_nn_steps_refusal(option, tmp_path):
     """The NN step's refusals (forces_nn.check_supported_nn) leave the CLI
@@ -286,6 +292,67 @@ def test_nn_case_leaves_with_the_nn_steps_refusal(option, tmp_path):
         cli.main(["-cpu", "-case", str(xmlp), option,
                   "-dirout", str(tmp_path / "out")])
     assert str(xmlp) in str(e.value)
+
+
+def record_simulations(monkeypatch):
+    """[(state, opts)] of every Simulation the CLI builds from now on."""
+    from dualsphysics_multilayer_tpu_torch.models import wcsph as W
+    made = []
+
+    class Recorded(W.Simulation):
+        def __init__(self, csp, opts, dom, st, *a, **k):
+            super().__init__(csp, opts, dom, st, *a, **k)
+            made.append((st, opts))
+
+    monkeypatch.setattr(W, "Simulation", Recorded)
+    return made
+
+
+def test_nn_case_runs_under_mdbc_and_says_so(tmp_path, monkeypatch, capsys):
+    """``-mdbc`` on an ``<nnphases>`` case: the NN step under mDBC walls
+    (the builtin faces' normals), one line saying that it runs no mDBC
+    pre-pass, and two steps."""
+    xmlp = tmp_path / "WetDambreak_Def.xml"
+    xmlp.write_text(NN_XML)
+    made = record_simulations(monkeypatch)
+    assert cli.main(["-cpu", "-case", str(xmlp), "-mdbc", "-nsteps:2",
+                     "-sv:none", "-dirout", str(tmp_path / "out")]) == 0
+    from dualsphysics_multilayer_tpu_torch.models.nnewtonian import MDBC_NOTE
+    assert MDBC_NOTE in capsys.readouterr().out
+    st, opts = made[0]
+    assert opts.tboundary.name == "MDBC" and st.boundnormal is not None
+
+
+@pytest.mark.parametrize("argv", [
+    ["-initnorpla:mkbound=0:normal=0:0:1:point=auto"],
+    ["-initnorpla", "mkbound=0:normal=1:0:0:point=0:0:0:maxdisth=3",
+     "-initnorpart:mkbound=0:maxdisth=2"],
+])
+def test_initnor_options_give_jax_normals(argv, tmp_path, monkeypatch):
+    """``-initnorpla``/``-initnorpart`` on the builtin 2D dam break: the
+    run's state carries the normals (and velocity) that JAX's
+    ``apply_initialize`` gives the JAX builtin from the same specs (the
+    JAX CLI's rule, cli.py:413-421), under mDBC walls."""
+    from dualsphysics_multilayer_tpu.features import initialize as jI
+    from dualsphysics_multilayer_tpu.models import cases as jC
+    made = record_simulations(monkeypatch)
+    assert cli.main(["-cpu", "-builtin", "dambreak2d", "-dp", str(DP)]
+                    + argv + ["-tmax:0.0002", "-tout:0.0002", "-sv:none",
+                              "-dirout", str(tmp_path)]) == 0
+    st, opts = made[0]
+    assert opts.tboundary.name == "MDBC"
+    args = cli.build_parser().parse_args(cli._normalize(argv))
+    ops = [op for s in args.initnorpla
+           for op in jI.parse_initnor_cli(s, kind="plane")]
+    ops += [op for s in args.initnorpart
+            for op in jI.parse_initnor_cli(s, kind="parts")]
+    jcase = jC.dambreak2d(dp=DP)
+    want = jI.apply_initialize(ops, jcase.csp, jcase.state)
+    np.testing.assert_array_equal(st.idp.numpy(), np.asarray(want.idp))
+    np.testing.assert_allclose(st.boundnormal.numpy(),
+                               np.asarray(want.boundnormal), rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(st.vel.numpy(), np.asarray(want.vel))
+    assert float(st.boundnormal.abs().max()) > 0
 
 
 # a feature the NN step runs no hook for: a moving tank (<motion>), the
@@ -339,6 +406,9 @@ def test_cli_and_output_modules_import_no_jax():
             "import dualsphysics_multilayer_tpu_torch.utils.timers\n"
             "import dualsphysics_multilayer_tpu_torch.utils.pips\n"
             "import dualsphysics_multilayer_tpu_torch.features.viscoinput\n"
+            "import dualsphysics_multilayer_tpu_torch.features.initialize\n"
+            "from dualsphysics_multilayer_tpu_torch.tools.common import (\n"
+            "    pair_indices, parse_range_filter, wendland_wab)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'jaxlib', 'dualsphysics_multilayer_tpu.'))"
             " or m == 'dualsphysics_multilayer_tpu']\n"
@@ -350,7 +420,11 @@ def test_cli_and_output_modules_import_no_jax():
 def test_ver_and_info(capsys):
     import json
     assert cli.main(["-ver"]) == 0
-    assert "ddtramp" in json.loads(capsys.readouterr().out)["features"]
+    features = json.loads(capsys.readouterr().out)["features"]
+    assert {"ddtramp", "symmetry", "initialize", "initnorpla",
+            "initnorpart", "nn-mdbc"} <= set(features)
     assert cli.main(["-info"]) == 0
     info = json.loads(capsys.readouterr().out)
     assert info["features"]["builtin"] == list(cli.BUILTINS)
+    assert "symmetry(y=0)" in info["features"]["boundary"]
+    assert "-initnorpla" in info["features"]["initialize"]

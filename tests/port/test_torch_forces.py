@@ -132,19 +132,22 @@ def test_plain_skips_inactive_particles():
 
 @pytest.mark.parametrize("kw,name", [
     (dict(tvisco=td.TpVisco.CONST_EQ), "tvisco=CONST_EQ"),
-    (dict(tboundary=td.TpBoundary.MDBC, symmetry=True), "symmetry"),
+    (dict(tboundary=td.TpBoundary.MDBC, symmetry=True, with_floating=True),
+     "symmetry"),
     (dict(shiftmode=td.TpShifting.NO_BOUND, with_floating=True,
           use_nbrlist=True), "use_nbrlist"),
     (dict(with_floating=True, tstep=td.TpStep.VERLET, symmetry=True),
      "symmetry"),
-    (dict(symmetry=True), "symmetry"),
+    (dict(symmetry=True, tvisco=td.TpVisco.LAMINAR_SPS), "symmetry"),
     (dict(use_nbrlist=True), "use_nbrlist"),
     (dict(tstep=td.TpStep.VERLET, use_nbrlist=True), "use_nbrlist"),
 ])
 def test_unsupported_configs_raise(kw, name):
     """Settings outside the port raise, whatever the smoothing kernel and
     with floating bodies or mDBC walls on (the supported variants:
-    test_torch_variants.py, test_torch_floating.py, test_torch_mdbc.py)."""
+    test_torch_variants.py, test_torch_floating.py, test_torch_mdbc.py,
+    test_torch_symmetry.py); the symmetry plane with floating bodies or
+    laminar+SPS viscosity raises naming it."""
     for tkernel in (td.TpKernel.WENDLAND, td.TpKernel.CUBIC):
         csp = td.make_ctesph(simulate2d=False, dp=0.05, hswl=0.25,
                              tkernel=tkernel)

@@ -9,6 +9,10 @@ interaction by the rule of tests/test_forces.py assert_close, rtol 2e-3
 with an absolute floor of 2e-3 of the largest value; the twins at rtol
 1e-4 with the same kind of floor.
 
+Under mDBC walls the plain version and the twins meet the bucket path in
+four configurations (Molteni and Fourtakas, SPH and FDA); only Molteni's
+wall block tells the walls apart, which a mutant keeping it shows.
+
 The JAX reference runs eagerly.  Under ``jax.jit`` XLA fuses the per-pair
 FDA viscosity and rounds the ill-conditioned 1 - exp(-m*dm) of small
 strain rates otherwise, which moves the FDA per-target eta max by up to
@@ -286,10 +290,10 @@ def test_variant_matches_jax_3d_cloud(gxx, cloud, tkernel, shiftmode, name):
 def test_unsupported_configs_raise(wet):
     csp, ph = wet["csp"], wet["ph"]
     for kw, name in [
-            (dict(tboundary=td.TpBoundary.MDBC), "tboundary=MDBC"),
             (dict(use_nbrlist=True), "use_nbrlist"),
             (dict(with_floating=True), "with_floating"),
-            (dict(symmetry=True), "symmetry"),
+            (dict(symmetry=True), "symmetry=True on the NN step"),
+            (dict(symmetry=True, tboundary=td.TpBoundary.MDBC), "symmetry"),
             (dict(tstep=td.TpStep.VERLET), "tstep=VERLET")]:
         with pytest.raises(NotImplementedError, match=name):
             NN.check_supported_nn(csp, SolverOpts(**kw), ph)
@@ -300,9 +304,47 @@ def test_unsupported_configs_raise(wet):
             shiftmode=td.TpShifting.NO_BOUND, with_floating=True), ph)
     for mode in td.TpShifting:
         NN.check_supported_nn(cubic, SolverOpts(shiftmode=mode), ph)
+    # mDBC walls are in (test_mdbc_matches_jax_wet_dambreak)
+    NN.check_supported_nn(csp, SolverOpts(tboundary=td.TpBoundary.MDBC), ph)
     many = NN.PhaseCfg(phases=ph.phases * 5)
     with pytest.raises(ValueError, match="10 phases"):
         NN.check_supported_nn(csp, SolverOpts(), many)
+
+
+# name: (tvisco, velgrad, tdensity) under mDBC walls
+MDBC_CONFIGS = {
+    "sph-morris-molteni": ("LAMINAR_SPS", "SPH", "MOLTENI"),
+    "sph-morris-fourtakas": ("LAMINAR_SPS", "SPH", "FOURTAKAS"),
+    "fda-morris-molteni": ("LAMINAR_SPS", "FDA", "MOLTENI"),
+    "fda-conseq-fourtakas": ("CONST_EQ", "FDA", "FOURTAKAS"),
+}
+
+
+@pytest.mark.parametrize("name", list(MDBC_CONFIGS))
+def test_mdbc_matches_jax_wet_dambreak(gxx, wet, name):
+    """NN under mDBC walls (no pre-pass on the NN step, as in JAX): the
+    plain version and the g++ twins of kernels 4-6 against the bucket
+    path, rtol 2e-3; under Molteni a mutant that keeps the DBC wall block
+    (the same passes told DBC) fails that comparison."""
+    tvisco, velgrad, tdensity = MDBC_CONFIGS[name]
+    jopts, opts = (
+        cls(tvisco=m.TpVisco[tvisco], velgrad=m.TpVelGrad[velgrad],
+            tdensity=m.TpDensity[tdensity], tboundary=m.TpBoundary.MDBC)
+        for cls, m in ((JOpts, jtd), (SolverOpts, td)))
+    want = jax_forces(wet, jopts)
+    cells, args, order = sorted_inputs(wet)
+    run = (wet["csp"], opts, wet["ph"], wet["dom"], cells, *args)
+    for impl in (NN.interaction_forces_nn_plain,
+                 NF.interaction_forces_nn_host_twin):
+        assert_close(want, as_dict(impl(*run), order))
+    dbc = dataclasses.replace(opts, tboundary=td.TpBoundary.DBC)
+    kept = as_dict(NN.interaction_forces_nn_plain(wet["csp"], dbc, *run[2:]),
+                   order)
+    if tdensity == "MOLTENI":
+        with pytest.raises(AssertionError):
+            assert_close(want, kept)
+    else:
+        assert_close(want, kept)        # Fourtakas knows no wall type
 
 
 # ---------------------------------------------------------------------------

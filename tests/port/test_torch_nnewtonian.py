@@ -152,3 +152,58 @@ def test_simulation_runs_the_nn_step():
         rho = st.rho[fluid & (mk == m)]
         assert 0.9 * rho0 < float(rho.min()) and float(rho.max()) < 1.1 * rho0
     assert bool(torch.isfinite(st.pos).all())
+
+
+def test_nn_steps_under_initialize_normals_match_jax(tmp_path):
+    """An ``<nnphases>`` case with wall normals from ``<initialize>``
+    (``<boundnormal_parts>`` on its tank) and Molteni diffusion, whose
+    wall rule is the one mDBC changes: both loaders give equal loads under
+    mDBC walls, then 2 steps of ``make_nn_step`` (no mDBC pre-pass, as in
+    JAX) from a flowing start agree with jitted JAX's by the contract
+    above."""
+    from dualsphysics_multilayer_tpu.io import xmlcase as jX
+    from dualsphysics_multilayer_tpu_torch.io import xmlcase as X
+    from test_torch_xmlcase import FIXTURES, assert_loads_equal
+    # the fixture's wet dam break in a smaller tank
+    text = FIXTURES["nnphases"][0]
+    for old, new in (('<size x="2" y="0" z="1"/>', '<size x="0.8" y="0" z="0.4"/>'),
+                     ('<size x="1.9" y="0" z="0.15"/>',
+                      '<size x="0.7" y="0" z="0.1"/>'),
+                     ('<size x="0.5" y="0" z="0.3"/>',
+                      '<size x="0.2" y="0" z="0.2"/>')):
+        assert old in text
+        text = text.replace(old, new)
+    text = text.replace("<nnphases>", '<initialize><boundnormal_parts '
+                        'mkbound="0"/></initialize><nnphases>')
+    text = text.replace('<parameter key="DensityDT" value="2"/>',
+                        '<parameter key="DensityDT" value="1"/>'
+                        '<parameter key="StepAlgorithm" value="2"/>')
+    path = tmp_path / "WetDambreakNormals_Def.xml"
+    path.write_text(text)
+    jres, pres = jX.load_case(str(path)), X.load_case(str(path), device="cpu")
+    assert_loads_equal(jres, pres)
+    (jc, jopts, _), (case, opts, _) = jres, pres
+    assert opts.tboundary == td.TpBoundary.MDBC
+    assert opts.tdensity == td.TpDensity.MOLTENI
+    assert case.state.boundnormal is not None
+    st = case.state
+    fluid = td.is_fluid(st.code)
+    vel = torch.where(fluid[:, None], torch.tensor([1.0, 0.0, -0.2]), st.vel)
+    jstep = jax.jit(jNM.make_nn_step(jc.csp, dataclasses.replace(
+        jopts, use_pallas=False), jc.dom, jc.meta["phases"]))
+    jcarry = jW.make_carry(dataclasses.replace(
+        jc.state, vel=jnp.asarray(vel.numpy())), jc.csp, jopts)
+    carry = P.make_carry(dataclasses.replace(st, vel=vel), case.csp, opts,
+                         case.dom)
+    step = P.make_nn_step(case.csp, opts, case.dom, case.meta["phases"])
+    for _ in range(2):
+        jcarry, carry = jstep(jcarry), step(carry)
+    st = carry.st
+    idp = st.idp.numpy()
+    pos = np.empty((st.n, 3), np.float32)
+    pos[idp] = st.pos.numpy()
+    rho = np.empty(st.n, np.float32)
+    rho[idp] = st.rho.numpy()
+    np.testing.assert_allclose(pos, np.asarray(jcarry.st.pos), rtol=0,
+                               atol=1e-4 * case.csp.dp)
+    np.testing.assert_allclose(rho, np.asarray(jcarry.st.rho), rtol=1e-5)

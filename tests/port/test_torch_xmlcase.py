@@ -14,7 +14,8 @@ an ``<nnphases>`` case.  Loading compiles no JAX step.
 
 The XML dam break draws the builtin ``cases.dambreak3d``'s particles, and
 every node of a feature the port does not run raises
-``NotImplementedError`` naming the node.
+``NotImplementedError`` naming the node (``Symmetry=1`` in 2D a
+ValueError, as in JAX).
 """
 
 import dataclasses
@@ -541,6 +542,17 @@ FIXTURES = {
    <parameter key="ViscoTime" value="visco.csv"/>
    <parameter key="RigidAlgorithm" value="1"/>"""),
         {"visco.csv": "0.0 0.001\n0.5 0.002\n"}),
+    # <special><initialize>: a linear velocity profile and wall normals
+    # from a plane and from the particles, which make the walls mDBC
+    "initialize": (xml(_TANK.format(w=1, f=0.35), special="""
+   <initialize>
+    <fluidvelocity mkfluid="0"><direction x="1" y="0" z="0"/>
+     <velocity2 v="0.2" v2="0.6" z="0.05" z2="0.35"/></fluidvelocity>
+    <boundnormal_plane mkbound="0"><point auto="true"/>
+     <normal x="0" y="0" z="1"/></boundnormal_plane>
+    <boundnormal_parts mkbound="0"><onlypos><posmin x="0.8" y="-1" z="-1"/>
+     </onlypos></boundnormal_parts>
+   </initialize>"""), {}),
     # two phases with the NN keys (the mphase examples' 01_WetDambreak)
     "nnphases": (xml("""
     <setmkbound mk="0"/><drawbox><boxfill>bottom|left|right</boxfill>
@@ -693,13 +705,14 @@ def test_xml_dambreak_draws_the_builtin(tmp_path):
 
 _REFUSED = {
     "inout": ("<special><inout>", dict(special="<inout/>")),
-    "initialize": ("<special><initialize>", dict(special="<initialize/>")),
     "chrono": ("<special><chrono>", dict(special="<chrono/>")),
     "moorings": ("<special><moorings>", dict(special="<moorings/>")),
     "dem": ("RigidAlgorithm", dict(
         casedef='<floatings><floating mkbound="0"/></floatings>',
         params='<parameter key="RigidAlgorithm" value="2"/>' + _TIMES)),
-    "symmetry": ("Symmetry", dict(
+    # the symmetry plane runs in 3D only (test_torch_symmetry.py): this
+    # tank is 2D, which the loader refuses as JAX's does
+    "symmetry": ("Symmetry is not allowed with 2-D", dict(
         params='<parameter key="Symmetry" value="1"/>' + _TIMES)),
 }
 
@@ -709,5 +722,22 @@ def test_refused_nodes_name_themselves(name, tmp_path):
     node, kw = _REFUSED[name]
     p = tmp_path / "refused_Def.xml"
     p.write_text(xml(_TANK.format(w=1, f=0.35), **kw))
-    with pytest.raises(NotImplementedError, match=node):
+    error = ValueError if name == "symmetry" else NotImplementedError
+    with pytest.raises(error, match=node):
         X.load_case(str(p), device="cpu")
+
+
+def test_initialize_gives_velocity_normals_and_mdbc(tmp_path):
+    """The ``initialize`` fixture's operations reach the state: the fluid
+    moves at 0.2-0.6 m/s along x and the walls carry normals, so the
+    walls are mDBC (the loads equal JAX's: test_loader_matches_jax)."""
+    case, opts, _ = X.load_case(write_case(tmp_path, "initialize"),
+                                device="cpu")
+    st = case.state
+    fluid = td.is_fluid(st.code)
+    vx = st.vel[fluid, 0]
+    assert float(vx.min()) >= 0.2 - 1e-6 and float(vx.max()) <= 0.6 + 1e-6
+    assert not st.vel[fluid, 1:].any()
+    assert opts.tboundary == td.TpBoundary.MDBC
+    walls = td.is_bound(st.code)
+    assert bool((st.boundnormal[walls].norm(dim=1) > 0).all())
