@@ -228,7 +228,29 @@ without printing the final result line:
     read back with each phase's density within 10%; then kernels 4 and 6
     under mDBC walls with Molteni against their plain versions, each timed
     alone under DBC and under mDBC walls, and the count of targets whose
-    continuity the walls' rule changes (must be above 0).
+    continuity the walls' rule changes (must be above 0);
+29. channel2d: ``-builtin channel2d -dp 0.0014`` through ``cli.main``
+    (64,120 live particles, two PARTs of 4 ms, ~200 steps), each step
+    recorded by id: conversions, spawns, captures and destructions
+    printed, the live count exactly the start plus the spawns less the
+    destructions, a rebuild after every step that spawned and only then or
+    when the skin contract asks, cellforce exactly twice per step and no
+    other kernel, overflow 0, the fluid density within 15% (the zones'
+    start from rest, ``CHANNEL_RHO_TOL``), the PARTs read back; then 5 +
+    20 steps for the p50, one device-to-host copy per step
+    over 10 traced steps, a traced breakdown, and kernel 1 against its
+    plain version on the final state (rtol 2e-3) with its bound;
+30. an inout duct through ``-case`` (``duct_xml``: 0.6 m long, 0.2 x 0.2
+    m, DBC walls, ~270k particles at dp 0.005, a ``<zone3d><box>`` inlet
+    imposing 0.5 m/s and an outlet whose velocity and density are
+    extrapolated): phase 29's checks, and the extrapolated members finite
+    and within 10% of rest density;
+31. periodic: the x-periodic channel (``cases.periodic_channel2d``, ~61.6k
+    particles at dp 0.002, ghost_cap 1024) through the library API, all
+    fluid at 1 m/s: no normal particle lost, wraps > 0, the spread of the
+    fluid's vx bounded, the fluid density within 1%, cellforce and the
+    periodic divide twice per step, overflow 0; the timing of phase 29,
+    and kernel 1 against its plain version on a state with its ghost rows.
 
 Each kernel is timed twice: alone (``ms``: CUDA events around 20
 back-to-back launches of the C launcher on prepared inputs, per launch,
@@ -248,8 +270,11 @@ tables); cellforce's row adds ``path_launches``, its launches on the dam
 break (phase 4), the Verlet path, the wave flume, the full flume, the CLI
 (phase 22), the main path with step values (phase 23) and the XML dam
 break (phase 24), and the ``<initialize>`` and ``-initnorpla`` runs
-(phase 27); the NN kernels' rows add theirs on phases 6-7, the XML runs
-of phase 25 and the mDBC runs of phase 28.
+(phase 27), the channel, the duct and the periodic channel (phases
+29-31), with ``open_states``, kernel 1 against its plain version on the
+final states of phases 29-31 and their step's p50 and trace; the NN
+kernels' rows add theirs on phases 6-7, the XML runs of phase 25 and the
+mDBC runs of phase 28.
 Imports no JAX.
 """
 
@@ -2770,6 +2795,486 @@ def step_values_path(device, main_p50, smi):
     return launched["cellforce"]
 
 
+# ---- phases 29-31: open boundaries -------------------------------------
+CHANNEL_DP = 0.0014    # phase 29: 64,120 live particles, ~200 steps
+CHANNEL_TOUT = 0.004   # two PARTs of 4 ms (dt ~3e-5 s)
+# phase 29's fluid density bound: the zones start pushing fluid at rest at
+# 0.5 m/s with cs0 = 10 m/s, a water hammer of v/c = 5% that doubles where
+# it meets a wall; the inlet's wall corners peak at 11.7% at dp 0.0014
+# (the JAX package's channel2d at dp 0.004 peaks where the port does, at
+# 1064.69), so the bound is 2 v/c + 5%
+CHANNEL_RHO_TOL = 0.15
+DUCT_DP = 0.005        # phase 30: ~190k fluid, ~270k particles in all
+DUCT_TMAX = 0.014      # ~80 steps of ~1.7e-4 s: one layer crosses at each zone
+PERIODIC_DP = 0.002    # phase 31: ~61.6k particles, ~460 ghosts a side
+PERIODIC_STEPS = 150   # the lattice's last column sits 1e-4 m below the edge
+# phase 31's Galilean check: the spread (max - min) of vx in the stream's
+# core after the steps; this phase on the CPU through the g++ twins (dp
+# 0.004 and 0.01, 150 steps) gives 1e-5 m/s, the bound is 100 times that
+PERIODIC_VX_SPREAD = 1e-3
+
+
+def duct_xml(dp, tmax):
+    """Phase 30's case: a duct 0.6 m long with a 0.2 x 0.2 m cross-section,
+    DBC walls three particles thick on its four sides reaching past both
+    zones, zero gravity, a speed of sound of 10 m/s, the fluid moving at
+    0.5 m/s (``<initialize>``); a ``<zone3d><box>`` inlet at x = 0
+    imposing 0.5 m/s and one at x = 0.6 whose velocity and density are
+    extrapolated (mode 2) and which captures fluid (inputtreatment 1)."""
+    def v(x):
+        return repr(round(x, 10))
+    L, W, lay = 0.6, 0.2, 4
+    w = (lay + 2) * dp
+    t = 3 * dp
+    return f"""<?xml version="1.0"?>
+<case><casedef>
+ <constantsdef>
+  <gravity x="0" y="0" z="0"/><rhop0 value="1000"/>
+  <hswl value="{v(W)}" auto="false"/><gamma value="7"/>
+  <speedsystem value="0" auto="true"/><coefsound value="20"/>
+  <speedsound value="10" auto="false"/><coefh value="1.0"/>
+  <cflnumber value="0.2"/>
+ </constantsdef>
+ <geometry>
+  <definition dp="{v(dp)}">
+   <pointmin x="{v(-w - dp)}" y="{v(-t - dp)}" z="{v(-t - dp)}"/>
+   <pointmax x="{v(L + w + dp)}" y="{v(W + t + dp)}" z="{v(W + t + dp)}"/>
+  </definition>
+  <commands><mainlist>
+   <setmkfluid mk="0"/><drawbox><boxfill>solid</boxfill>
+    <point x="{v(dp)}" y="0" z="0"/><size x="{v(L - 2 * dp)}" y="{v(W)}" z="{v(W)}"/></drawbox>
+   <setmkbound mk="0"/>
+   <drawbox><boxfill>solid</boxfill>
+    <point x="{v(-w)}" y="{v(-t)}" z="{v(-t)}"/><size x="{v(L + 2 * w)}" y="{v(W + 2 * t)}" z="{v(2 * dp)}"/></drawbox>
+   <drawbox><boxfill>solid</boxfill>
+    <point x="{v(-w)}" y="{v(-t)}" z="{v(W + dp)}"/><size x="{v(L + 2 * w)}" y="{v(W + 2 * t)}" z="{v(2 * dp)}"/></drawbox>
+   <drawbox><boxfill>solid</boxfill>
+    <point x="{v(-w)}" y="{v(-t)}" z="0"/><size x="{v(L + 2 * w)}" y="{v(2 * dp)}" z="{v(W)}"/></drawbox>
+   <drawbox><boxfill>solid</boxfill>
+    <point x="{v(-w)}" y="{v(W + dp)}" z="0"/><size x="{v(L + 2 * w)}" y="{v(2 * dp)}" z="{v(W)}"/></drawbox>
+  </mainlist></commands>
+ </geometry>
+</casedef>
+<execution>
+ <special>
+  <initialize>
+   <fluidvelocity mkfluid="0"><direction x="1" y="0" z="0"/>
+    <velocity v="0.5"/></fluidvelocity>
+  </initialize>
+  <inout>
+   <inoutzone>
+    <layers value="{lay}"/>
+    <zone3d><box><point x="0" y="0" z="0"/><size x="0" y="{v(W)}" z="{v(W)}"/>
+     <direction x="1" y="0" z="0"/></box></zone3d>
+    <imposevelocity mode="0"><velocity v="0.5"/></imposevelocity>
+    <imposerhop mode="0"/>
+    <inputtreatment value="0"/>
+   </inoutzone>
+   <inoutzone>
+    <layers value="{lay}"/>
+    <zone3d><box><point x="{v(L)}" y="0" z="0"/><size x="0" y="{v(W)}" z="{v(W)}"/>
+     <direction x="-1" y="0" z="0"/></box></zone3d>
+    <imposevelocity mode="2"/>
+    <imposerhop mode="2"/>
+    <inputtreatment value="1"/>
+   </inoutzone>
+  </inout>
+ </special>
+ <parameters>
+  <parameter key="StepAlgorithm" value="2"/><parameter key="Kernel" value="2"/>
+  <parameter key="ViscoTreatment" value="1"/><parameter key="Visco" value="0.02"/>
+  <parameter key="DensityDT" value="1"/>
+  <parameter key="TimeMax" value="{v(tmax)}"/><parameter key="TimeOut" value="{v(tmax / 2)}"/>
+ </parameters>
+</execution>
+</case>
+"""
+
+
+def transitions(code0, code1):
+    """[conversions, spawns, captures, destructions, other exclusions, live
+    before, live after] between two typecode arrays indexed by id (a
+    tensor, on the device)."""
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    a0, a1 = td.is_active(code0), td.is_active(code1)
+    io0, io1 = td.is_inout(code0), td.is_inout(code1)
+    destroyed = a0 & io0 & (td.code_special(code1) == td.SPECIAL_OUT_MOVE)
+    return torch.stack([
+        (a0 & io0 & a1 & ~io1).sum(), (~a0 & a1).sum(),
+        (a0 & td.is_fluid(code0) & ~io0 & a1 & io1).sum(), destroyed.sum(),
+        (a0 & ~a1 & ~destroyed).sum(), a0.sum(), a1.sum()])
+
+
+def by_id(values, idp):
+    out = torch.empty_like(values)
+    out[idp] = values
+    return out
+
+
+def open_runs():
+    """(restore, sims, log): ``wcsph.Simulation`` replaced by a subclass
+    whose steps record, for each step, whether it started with a rebuild,
+    [conversions, spawns, captures, destructions, other exclusions, live
+    before, live after] by id, the skin contract's verdict and the flag
+    the step left for the next one (a read per step: for the checks, not
+    for timing); ``sims`` the simulations built."""
+    from dualsphysics_multilayer_tpu_torch.models import wcsph as W
+    sims, log, original = [], [], W.Simulation
+
+    class Recorded(original):
+        def __init__(self, csp, opts, dom, st, feats=None, step=None, **k):
+            super().__init__(csp, opts, dom, st, feats=feats, step=step, **k)
+            inner = step or W.make_step(csp, opts, dom, feats)
+            margin = W._margin(csp, dom)
+
+            def recorded(carry):
+                st0 = carry.st
+                code0 = by_id(st0.code, st0.idp)
+                nreb = carry.nrebuild
+                carry = inner(carry)
+                st1 = carry.st
+                vals = torch.cat([
+                    transitions(code0, by_id(st1.code, st1.idp)).float(),
+                    W._rebuild_needed(csp, margin, carry).float()[None]])
+                log.append((carry.nrebuild - nreb, vals.tolist(),
+                            carry.rebuild))
+                return carry
+
+            self.advance = W.make_advance(csp, opts, dom, feats,
+                                          step=recorded)
+            sims.append(self)
+
+    W.Simulation = Recorded
+    return (lambda: setattr(W, "Simulation", original)), sims, log
+
+
+def check_open_log(label, log):
+    """The totals of :func:`open_runs`' log, checked: the live count of
+    each step is the last one's plus its spawns less its destructions, no
+    other particle left, and a step starts with a rebuild exactly when the
+    step before spawned or its skin contract asked."""
+    tot = np.zeros(5, np.int64)
+    rebuilds = forced = 0
+    for k, (rebuilt, v, flag) in enumerate(log):
+        conv, spawn, capt, destr, other, live0, live1 = (int(x) for x in v[:7])
+        check(other == 0, f"{label}: step {k}: {other} particle(s) left the "
+              f"run other than through an outlet")
+        check(live1 == live0 + spawn - destr, f"{label}: step {k}: live "
+              f"{live1} != {live0} + {spawn} spawned - {destr} destroyed")
+        check(flag == (spawn > 0 or v[7] > 0), f"{label}: step {k} left the "
+              f"rebuild flag {flag} with {spawn} spawns and the skin "
+              f"contract's {bool(v[7])}")
+        if k:
+            check(rebuilt == int(log[k - 1][2]), f"{label}: step {k} "
+                  f"rebuilt {rebuilt} time(s) after the flag "
+                  f"{log[k - 1][2]}")
+        tot += [conv, spawn, capt, destr, other]
+        rebuilds += rebuilt
+        forced += int(spawn > 0 and not v[7] > 0)
+    live0, live1 = int(log[0][1][5]), int(log[-1][1][6])
+    check(live1 == live0 + tot[1] - tot[3], f"{label}: live {live1} != "
+          f"{live0} + {tot[1]} - {tot[3]}")
+    return dict(conversions=int(tot[0]), spawns=int(tot[1]),
+                captures=int(tot[2]), destructions=int(tot[3]),
+                live0=live0, live1=live1, rebuilds=rebuilds,
+                forced=forced)
+
+
+def read_open_parts(pd, directory, rho0, tol):
+    """Every Part_XXXX.bi4 of an open-boundary run read back: ids unique,
+    positions finite, fluid density within ``tol`` of ``rho0``.  Returns
+    {cpart: the part's dict}."""
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    parts = {}
+    for f in sorted(os.listdir(directory)):
+        if not re.fullmatch(r"Part_\d{4}\.bi4", f):
+            continue
+        d = pd.read_part(os.path.join(directory, f))
+        check(len(np.unique(d["idp"])) == len(d["idp"]),
+              f"{f}: repeated ids")
+        check(bool(np.isfinite(d["pos"]).all()), f"{f}: Posd not finite")
+        fluid = td.code_type(d["code"].astype(np.int64)) == td.TYPE_FLUID
+        r = d["rhop"][fluid]
+        check((1 - tol) * rho0 <= r.min() and r.max() <= (1 + tol) * rho0,
+              f"{f}: fluid density [{r.min()}, {r.max()}] out of +-{tol:g} "
+              f"of {rho0}")
+        parts[d["cpart"]] = d
+    return parts
+
+
+def open_kernel_vs_plain(label, csp, opts, dom, st, smi, cells=None):
+    """Kernel 1 against its plain version on ``st`` (divided afresh unless
+    ``cells`` is its layout), rtol 2e-3, with its bound there; returns
+    the record's numbers."""
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    if cells is None:
+        cells, args = sorted_args(dom, st.pos, st.vel, st.rho, st.code)
+    else:
+        args = (st.pos, st.vel, st.rho, st.code)
+    err, ms, wrapped_ms, plain_ms = compare_cellforce(csp, opts, dom, cells,
+                                                      args, reps=5)
+    n = args[0].shape[0]
+    cand, pairs = pair_counts(csp, dom, cells, args[0], args[3],
+                              inclusive=False)
+    b = bound(cellforce_bytes(n, dom.ncells, opts),
+              pairs * OPS_PER_PAIR["cellforce"])
+    live = int(td.is_active(args[3]).sum())
+    say(label, f"kernel 1 vs plain on {n} rows ({live} active): max|d ace| "
+        f"{err['ace']:.3e}, max|d ar| {err['ar']:.3e}; kernel alone "
+        f"{ms:.4f} ms, with its wrapper {wrapped_ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms (CUDA events); {cand} candidates, {pairs} "
+        f"in-support pairs with a fluid-side target; bound "
+        f"{b[0] * 1e3:.2f} us by {b[1]} ({smi})")
+    return dict(max_abs_err=err["ace"], ms=ms, wrapped_ms=wrapped_ms,
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], rows=n)
+
+
+def open_timing(label, step, carry, smi, nwarm=5, nsteps=20):
+    """The p50 of ``nsteps`` steps after ``nwarm`` (cellforce exactly twice
+    per step, no other kernel), the device-to-host copies per step over 10
+    traced steps (must be 1) and a traced breakdown of 10 more."""
+    carry, times, launched = run_steps(step, carry, nwarm, nsteps)
+    single_phase_counts(launched, "cellforce", 2, nwarm + nsteps)
+    check(carry.overflow == 0, f"{label}: overflow {carry.overflow}")
+    p50 = statistics.median(times)
+    d2h, carry = count_d2h(step, carry, 10)
+    check(d2h is not None, f"{label}: the profiler's trace of 10 steps holds "
+          f"no device activity")
+    check(d2h == 1, f"{label}: {d2h} device-to-host copies per step, "
+          f"expected 1")
+    r = trace_steps(step, carry, 10, ("cellforce",))
+    check(r is not None, f"{label}: the trace holds no device activity")
+    say(label, f"{nsteps} steps after {nwarm}: p50 {p50 * 1e3:.3f} ms; "
+        f"{d2h:g} device-to-host copy per step; 10 traced steps: window "
+        f"{r['window_ms']:.3f} ms per step, device busy {r['busy_ms']:.3f} "
+        f"ms, idle share {r['idle_share']:.4f}, {r['ops']:.1f} device "
+        f"operations per step, cellforce {r['kernel_ms']['cellforce']:.4f} "
+        f"ms per step ({smi})")
+    return carry, dict(p50_ms=p50 * 1e3, busy_ms=r["busy_ms"],
+                       ops=r["ops"], idle_share=r["idle_share"],
+                       cellforce_ms=r["kernel_ms"]["cellforce"])
+
+
+def open_cli_path(label, argv, device, smi, extrap=False, rho_tol=0.1):
+    """Phases 29 and 30: ``cli.main(argv)`` in-process on the card with
+    the steps recorded (:func:`open_runs`), checked as
+    :func:`check_open_log` says, cellforce exactly twice per step and no
+    other kernel, overflow 0, the fluid density within ``rho_tol`` of
+    rest, the PARTs read back (the last one's particles the live count);
+    with ``extrap`` the extrapolated members finite and within 10% of rest
+    density.  Then
+    the timing of the final state and kernel 1 against its plain version
+    on it.  Returns (the CLI run's cellforce launches, the record)."""
+    import shutil
+    import tempfile
+    from dualsphysics_multilayer_tpu_torch import cli
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.io import partdata as PD
+    from dualsphysics_multilayer_tpu_torch.models.wcsph import make_step
+    root = tempfile.mkdtemp(prefix="_smoke_open_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    restore, sims, log = open_runs()
+    try:
+        argv = [a.replace("{root}", root) for a in argv]
+        out = os.path.join(root, "out")
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            check(cli.main(argv + ["-sv:binx", "-nortimes", "-dirout", out])
+                  == 0, f"{label}: the CLI run failed")
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        sim, = sims
+        carry = sim.carry
+        nsteps = carry.nstep
+        check(len(log) == nsteps, f"{label}: {len(log)} recorded steps")
+        single_phase_counts(launched, "cellforce", 2, nsteps)
+        check(carry.overflow == 0, f"{label}: overflow {carry.overflow} "
+              f"(ghosts {carry.overflow_ghosts}, inout "
+              f"{carry.overflow_inout})")
+        tally = check_open_log(label, log)
+        check(tally["conversions"] > 0 and tally["spawns"] > 0
+              and tally["destructions"] > 0, f"{label}: {tally}")
+        st = carry.st
+        rho0 = sim.csp.rhopzero
+        fluid = td.is_fluid(st.code) & td.is_active(st.code)
+        rmin, rmax = float(st.rho[fluid].min()), float(st.rho[fluid].max())
+        check((1 - rho_tol) * rho0 <= rmin and rmax <= (1 + rho_tol) * rho0,
+              f"{label}: fluid density [{rmin}, {rmax}] out of "
+              f"+-{rho_tol:g} of {rho0}")
+        parts = read_open_parts(PD, out, rho0, rho_tol)
+        last = parts[max(parts)]
+        check(len(last["idp"]) == tally["live1"], f"{label}: the last PART "
+              f"holds {len(last['idp'])} particles, the run "
+              f"{tally['live1']}")
+        note = ""
+        if extrap:
+            io = td.is_inout(st.code) & td.is_active(st.code)
+            ok = (torch.isfinite(st.vel[io]).all()
+                  & torch.isfinite(st.rho[io]).all()
+                  & ((st.rho[io] - rho0).abs() <= 0.1 * rho0).all())
+            check(bool(ok), f"{label}: extrapolated members out of range")
+            note = (f"; members' rho [{float(st.rho[io].min()):.2f}, "
+                    f"{float(st.rho[io].max()):.2f}], vx "
+                    f"[{float(st.vel[io, 0].min()):.4f}, "
+                    f"{float(st.vel[io, 0].max()):.4f}]")
+        say(label, f"{' '.join(argv[:4])}: {tally['live0']} live particles "
+            f"in {st.n} slots, {nsteps} steps, {sorted(parts)} PARTs read "
+            f"back in {wall:.3f} s: {tally['conversions']} conversions, "
+            f"{tally['spawns']} spawns, {tally['captures']} captures, "
+            f"{tally['destructions']} destructions, live {tally['live0']} -> "
+            f"{tally['live1']} (= start + spawns - destructions); "
+            f"{tally['rebuilds']} rebuilds inside the steps ({tally['forced']} "
+            f"forced by a spawn alone); {launched['cellforce']} cellforce "
+            f"launches; overflow 0; fluid rho [{rmin:.2f}, {rmax:.2f}]"
+            f"{note} ({smi})")
+        step = make_step(sim.csp, sim.opts, sim.dom, sim.feats)
+        carry, rec = open_timing(label, step, carry, smi)
+        rec.update(open_kernel_vs_plain(label, sim.csp, sim.opts, sim.dom,
+                                        carry.st, smi))
+        rec.update(live=tally["live1"], slots=st.n, nsteps=nsteps, **tally)
+        return launched["cellforce"], rec
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def channel_path(device, smi):
+    """Phase 29: ``dsphtorch -builtin channel2d -dp 0.0014`` (the inlet at
+    0.5 m/s, the outlet at the far end; two PARTs of 4 ms, ~200 steps)."""
+    return open_cli_path("channel2d", [
+        "-builtin", "channel2d", "-dp", repr(CHANNEL_DP),
+        f"-tmax:{2 * CHANNEL_TOUT!r}", f"-tout:{CHANNEL_TOUT!r}"], device, smi,
+        rho_tol=CHANNEL_RHO_TOL)
+
+
+def duct_path(device, smi):
+    """Phase 30: :func:`duct_xml` at dp 0.005 through ``-case``."""
+    from dualsphysics_multilayer_tpu_torch import cli  # noqa: F401
+    import tempfile
+    d = tempfile.mkdtemp(prefix="_smoke_duct_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    path = os.path.join(d, "Duct_Def.xml")
+    with open(path, "w") as f:
+        f.write(duct_xml(DUCT_DP, DUCT_TMAX))
+    try:
+        return open_cli_path("duct-inout", ["-case", path], device, smi,
+                             extrap=True)
+    finally:
+        import shutil
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def counted_divides():
+    """(restore, calls): ``celldiv.divide_cells`` counted where the step
+    and the periodic interaction call it."""
+    from dualsphysics_multilayer_tpu_torch.features import periodic as PER
+    from dualsphysics_multilayer_tpu_torch.models import wcsph as W
+    from dualsphysics_multilayer_tpu_torch.ops import celldiv as cd
+    calls, original = [0], cd.divide_cells
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return original(*a, **k)
+
+    cd.divide_cells = counted
+
+    def restore():
+        cd.divide_cells = original
+
+    assert W.cd is cd and PER.cd is cd
+    return restore, calls
+
+
+def periodic_path(device, smi):
+    """Phase 31: the x-periodic channel of the JAX package's tests
+    (``cases.periodic_channel2d``) at dp 0.002 through the library API,
+    ghost_cap 1024: all fluid at 1 m/s along x, the lattice shifted so its
+    last column sits 1e-4 m below the edge, ``PERIODIC_STEPS`` steps.  No
+    normal particle lost, wraps > 0, the spread of the fluid's vx under
+    ``PERIODIC_VX_SPREAD`` (a uniform stream stays uniform), the fluid
+    density within 1%, cellforce twice and the periodic divide twice per
+    step, overflow 0; then timing, and kernel 1 against its plain version
+    on the final state with its ghost rows."""
+    from dualsphysics_multilayer_tpu_torch import Features, SolverOpts, TpDensity
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.features import periodic as PER
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    from dualsphysics_multilayer_tpu_torch.models.wcsph import (make_carry,
+                                                                make_step)
+    case = cases.periodic_channel2d(dp=PERIODIC_DP, ghost_cap=1024,
+                                    device=device)
+    cfg = case.meta["periodic"]
+    st = case.state
+    fl = td.is_fluid(st.code)
+    pos = st.pos.clone()
+    pos[fl, 0] += PERIODIC_DP - 1e-4
+    st = dataclasses.replace(st, pos=pos, vel=torch.where(
+        fl[:, None], torch.tensor([1.0, 0.0, 0.0], device=device), 0.0))
+    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS)
+    feats = Features(periodic=cfg)
+    step = make_step(case.csp, opts, case.dom, feats)
+    carry = make_carry(st, case.csp, opts, case.dom, feats)
+    normal0 = int((td.is_active(st.code) & td.is_normal(st.code)).sum())
+    x0 = by_id(carry.st.pos[:, 0], carry.st.idp)
+    _rows, ghosts0 = PER.ghost_rows(cfg, case.csp, carry.st)
+    nghost0 = int(td.is_periodic(_rows["code"]).sum())
+    restore, divides = counted_divides()
+    nreb = carry.nrebuild
+    try:
+        carry, times, launched = run_steps(step, carry, 0, PERIODIC_STEPS)
+    finally:
+        restore()
+    single_phase_counts(launched, "cellforce", 2, PERIODIC_STEPS)
+    rebuilt = carry.nrebuild - nreb
+    check(divides[0] == 2 * PERIODIC_STEPS + rebuilt, f"{divides[0]} divides "
+          f"in {PERIODIC_STEPS} steps with {rebuilt} rebuilds, expected 2 "
+          f"per step and one per rebuild")
+    check(carry.overflow == 0, f"periodic: overflow {carry.overflow}")
+    s = carry.st
+    normal1 = int((td.is_active(s.code) & td.is_normal(s.code)).sum())
+    check(normal1 == normal0, f"periodic: {normal0} normal particles -> "
+          f"{normal1}")
+    x1 = by_id(s.pos[:, 0], s.idp)
+    wraps = int((x1 < x0 - 0.5 * cfg.hi[0]).sum())
+    check(wraps > 0, "periodic: no particle wrapped")
+    fluid = td.is_fluid(s.code) & td.is_active(s.code)
+    vx = s.vel[fluid, 0]
+    # the bed's friction and the free surface shape the stream near them:
+    # the check reads the core, 4 kernel sizes from both
+    ks = case.csp.kernelsize
+    z = s.pos[:, 2]
+    core = fluid & (z > 4 * ks) & (z < case.meta["zsurf"] - 4 * ks)
+    spread = float(s.vel[core, 0].max() - s.vel[core, 0].min())
+    check(spread < PERIODIC_VX_SPREAD, f"periodic: the core's vx spread "
+          f"{spread}")
+    rmin, rmax = fluid_rho_range(s, True, case.csp.rhopzero)
+    rho0 = case.csp.rhopzero
+    check(0.99 * rho0 <= rmin and rmax <= 1.01 * rho0,
+          f"periodic: fluid density [{rmin}, {rmax}] out of +-1%")
+    say("periodic", f"x-periodic channel at dp {PERIODIC_DP}: {case.np_total} "
+        f"particles, {nghost0} ghost rows at the start (cap 2x{cfg.ghost_cap}"
+        f"), {PERIODIC_STEPS} steps: {launched['cellforce']} cellforce "
+        f"launches, {divides[0]} divides ({rebuilt} skin-contract rebuilds), "
+        f"{wraps} wraps, normal particles {normal0} -> {normal1}, fluid vx "
+        f"mean {float(vx.mean()):.5f} in [{float(vx.min()):.5f}, "
+        f"{float(vx.max()):.5f}], the core's spread {spread:.5f} m/s, "
+        f"fluid rho "
+        f"[{rmin:.2f}, {rmax:.2f}], overflow 0 ({smi})")
+    carry, rec = open_timing("periodic", step, carry, smi)
+    rows, _ov = PER.ghost_rows(cfg, case.csp, dataclasses.replace(
+        carry.st, pos=PER.wrap(cfg, carry.st.pos, carry.st.code)))
+    gst = dataclasses.replace(carry.st, pos=rows["pos"], vel=rows["vel"],
+                              rho=rows["rho"], code=rows["code"])
+    rec.update(open_kernel_vs_plain("periodic", case.csp, opts, case.dom,
+                                    gst, smi))
+    rec.update(launches=launched["cellforce"], wraps=wraps, vx_spread=spread,
+               ghosts=int(td.is_periodic(rows["code"]).sum()))
+    return launched["cellforce"], rec
+
+
 def main():
     check(torch.cuda.is_available(), "no CUDA device: the port's smoke run "
           "needs an NVIDIA GPU")
@@ -3010,13 +3515,26 @@ def main():
             **{f: r[f] for f in ("variant", "max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "dbc_ms")}))
 
+    # 29-31. open boundaries: channel2d through -builtin, the duct's
+    # <special><inout> through -case, the periodic channel through the API
+    paths["channel2d"], open_records = channel_path(device, smi)
+    paths["duct-inout"], rec = duct_path(device, smi)
+    open_records = {"channel2d": open_records, "duct-inout": rec}
+    paths["periodic"], open_records["periodic"] = periodic_path(device, smi)
+    records["cellforce"]["open_states"] = {
+        k: {f: r[f] for f in ("rows", "max_abs_err", "ms", "plain_ms",
+                              "bound_ms", "bound_by", "p50_ms", "busy_ms",
+                              "ops", "idle_share")}
+        for k, r in open_records.items()}
+
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=rep,
         launches=records[name]["launches"],
         max_abs_err=records[name]["max_abs_err"], ms=records[name]["ms"],
         plain_ms=records[name]["plain_ms"], bound_ms=records[name]["bound_ms"],
         bound_by=records[name]["bound_by"], library_ms=None,
-        **{k: records[name][k] for k in ("instances", "path_launches")
+        **{k: records[name][k] for k in ("instances", "path_launches",
+                                          "open_states")
            if k in records[name]})
         for name, (src, rep) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

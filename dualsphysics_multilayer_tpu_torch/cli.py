@@ -7,7 +7,10 @@ command-line overrides over the case's settings, optionally restarts from a
 PART, runs the solver on the card (or on the CPU with ``-cpu``, through the
 kernels' plain versions) and writes bi4/VTK/CSV output and the run resume.
 A case with ``<special><nnphases>`` runs the multiphase non-Newtonian step
-(``models/nnewtonian.make_nn_step``).  ``-initnorpla``/``-initnorpart``
+(``models/nnewtonian.make_nn_step``); a case with ``<special><inout>`` and
+``-builtin channel2d`` run their inlet/outlet zones (``features/inout.py``;
+the JAX CLI builds no ``Features`` for ``channel2d`` and runs its zone
+particles as inert fluid), and refuse a restart, as the reference does.  ``-initnorpla``/``-initnorpart``
 give the walls normals (``features/initialize.py``) after any restart and
 make the run an mDBC run, as the JAX CLI does.
 
@@ -17,14 +20,14 @@ make the run an mDBC run, as the JAX CLI does.
         -dp 0.01 -tmax:1.6 -tout:0.02 -dirout out
     dsphtorch -cpu -builtin dambreak2d -dp 0.05 -tmax:0.01 -tout:0.005
     dsphtorch -builtin dambreak3d -partbegin:20 out_prev -dirout out2
+    dsphtorch -builtin channel2d -dp 0.0014 -tmax:0.008 -dirout out
 
 Reference colon-form flags (-tmax:1.6, -partbegin:20 dir, -svpips:2) are
 accepted alongside space-separated values, and ``-opt FILE`` reads more
 options from a file.  Options whose setting the port does not run leave
-with a message that names them: ``-builtin channel2d`` (periodic
-boundaries), ``-shard``, ``-restartchrono``, ``-pallas``/``-no-pallas``
-and ``-cellmode:half``; so do the XML nodes the loader refuses and the
-options the NN step refuses.
+with a message that names them: ``-shard``, ``-restartchrono``,
+``-pallas``/``-no-pallas`` and ``-cellmode:half``; so do the XML nodes the
+loader refuses and the options the NN step refuses.
 """
 
 from __future__ import annotations
@@ -50,7 +53,8 @@ _BOOL_FLAGS = {"svres", "svtimers", "svdomainvtk", "svsteps", "nortimes",
                "createdirs", "svnormals", "cellfixed", "restartchrono",
                "mdbc_fast", "stable"}
 
-BUILTINS = ("dambreak2d", "dambreak3d", "floatingbox2d", "waveflume2d")
+BUILTINS = ("dambreak2d", "dambreak3d", "floatingbox2d", "waveflume2d",
+            "channel2d")
 VERSION = "0.1.0"
 
 
@@ -209,9 +213,6 @@ def refuse(args):
     does not run."""
     if args.case and not os.path.isfile(args.case):
         raise SystemExit(f"-case {args.case}: no such file")
-    if args.builtin == "channel2d":
-        raise SystemExit("-builtin channel2d: periodic boundaries "
-                         "(Features.periodic) are not ported yet")
     if args.builtin is not None and args.builtin not in BUILTINS:
         raise SystemExit(f"-builtin {args.builtin}: unknown case (the port "
                          f"builds {', '.join(BUILTINS)})")
@@ -236,7 +237,7 @@ def _features():
             "motion", "damping", "accinput", "gauges", "viscotime", "bi4",
             "vtk", "csv", "restart", "savedt", "xmlcase", "nnphases",
             "symmetry", "initialize", "initnorpla", "initnorpart",
-            "nn-mdbc", "cuda"]
+            "nn-mdbc", "inout", "periodic", "cuda"]
 
 
 def _info(torch):
@@ -252,7 +253,7 @@ def _info(torch):
             "ddt": ["none", "molteni", "fourtakas", "fourtakas-full",
                     "initial-ramp"],
             "boundary": ["dbc", "mdbc(vel0,noslip,freeslip)",
-                         "symmetry(y=0)"],
+                         "symmetry(y=0)", "inout", "periodic(library)"],
             "initialize": ["fluidvelocity", "boundnormal_set",
                            "boundnormal_plane", "boundnormal_sphere",
                            "boundnormal_cylinder", "boundnormal_parts",
@@ -284,7 +285,9 @@ def _build_case(args, device):
     options need: the M1 state under -verlet (the initial velocity and
     density; a restart takes them from its PART) and a zero SPS stress
     under -viscolamsps, as the XML loader builds them, and the walls'
-    normals under -mdbc for dambreak2d (the JAX CLI's rule)."""
+    normals under -mdbc for dambreak2d (the JAX CLI's rule).  channel2d's
+    spare slots cover its inflow up to the run's tmax (the JAX CLI's
+    builder sizes them for 2 s)."""
     import torch
     from .models import cases as C
     from .ops.forces import SolverOpts
@@ -298,6 +301,8 @@ def _build_case(args, device):
             kw["dp"] = args.dp
         if args.builtin == "dambreak2d" and args.mdbc:
             kw["mdbc"] = True
+        if args.builtin == "channel2d":
+            kw["t_horizon"] = args.tmax if args.tmax is not None else 1.0
         case = getattr(C, args.builtin)(**kw)
         opts = SolverOpts(tdensity=TpDensity.FOURTAKAS)
         run = dict(tmax=1.0, tout=0.05)
@@ -463,7 +468,17 @@ def main(argv=None):
     st = case.state
     t0 = 0.0
     part0 = 0
+    feats = case.meta.get("features")
+    if feats is None and "inout" in case.meta:
+        # channel2d runs its zones
+        feats = Features(inout=case.meta["inout"])
     if args.partbegin is not None:
+        if feats is not None and feats.inout is not None:
+            # the reference's restriction (JSphCpuSingle_InOut.cpp:76)
+            source = (f"-case {args.case}" if args.case
+                      else f"-builtin {args.builtin}")
+            raise SystemExit(f"{source}: Restart with inlet/outlet "
+                             f"conditions is not allowed.")
         part0 = int(str(args.partbegin).split(":")[0])
         pdir = args.restartdir or (args.rest[0] if args.rest else args.dirout)
         path = os.path.join(pdir, part_filename(part0))
@@ -480,7 +495,6 @@ def main(argv=None):
         st = apply_initialize(ops, csp, st)
         opts = dataclasses.replace(opts, tboundary=TpBoundary.MDBC)
 
-    feats = case.meta.get("features")
     if feats is None and ("ftcfg" in case.meta or "motion" in case.meta):
         feats = Features(
             motions=(case.meta["motion"],) if "motion" in case.meta else (),

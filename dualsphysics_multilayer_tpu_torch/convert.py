@@ -24,10 +24,13 @@ into the port's, so both packages can compute on the same state.
   matched by class name, as the port's class of that name: ``MotionDef``
   (with its ``Segment``s), the damping zones, the relaxation zones (the
   external zone's ``InOutGridVel`` becomes a ``relaxzone.GridVel``),
-  ``MLPiston1D``/``MLPiston2D``, ``AwasZsurf``, ``AccInput`` and the
-  gauges.  ``features(feats)``: a JAX ``Features`` bundle, each of its
-  tuples converted; the fields the port does not run are kept as they are,
-  so the step still refuses them.
+  ``MLPiston1D``/``MLPiston2D``, ``AwasZsurf``, ``AccInput``, the
+  gauges, ``PeriodicCfg`` and the inlet/outlet ``InOutCfg`` with its
+  ``InOutZone``s and ``InOutAwas`` (a zone's ``InOutGridVel`` becomes a
+  ``relaxzone.GridVel`` too).  ``features(feats)``: a JAX ``Features``
+  bundle, each of its tuples, ``periodic`` and ``inout`` converted; the
+  fields the port does not run are kept as they are, so the step still
+  refuses them.
 """
 
 from __future__ import annotations
@@ -39,8 +42,8 @@ import numpy as np
 import torch
 
 from . import typesdef as td
-from .features import accinput, awas, damping, gauges, mlpiston, motion
-from .features import relaxzone
+from .features import accinput, awas, damping, gauges, inout, mlpiston
+from .features import motion, periodic, relaxzone
 from .features.featureset import Features
 from .features.floating import FloatingCfg, FloatingState
 from .models.wcsph import SimState
@@ -119,7 +122,8 @@ _FEATURE_CLASSES = {cls.__name__: cls for cls in (
     relaxzone.RelaxZoneRegular, relaxzone.RelaxZoneSpectrum,
     relaxzone.RelaxZoneExternal, mlpiston.MLPiston1D, mlpiston.MLPiston2D,
     awas.AwasZsurf, accinput.AccInput, gauges.GaugeVel, gauges.GaugeSwl,
-    gauges.GaugeMaxZ, gauges.GaugeForce)}
+    gauges.GaugeMaxZ, gauges.GaugeForce, periodic.PeriodicCfg,
+    inout.InOutZone, inout.InOutAwas, inout.InOutCfg)}
 _FEATURE_CLASSES["InOutGridVel"] = relaxzone.GridVel
 
 
@@ -149,6 +153,8 @@ def features(feats) -> Features:
         v = getattr(feats, f.name)
         if f.name == "floating" and v is not None:
             v = floatingcfg(v)
+        elif f.name in ("periodic", "inout") and v is not None:
+            v = feature(v)
         elif isinstance(v, tuple):
             v = tuple(feature(x) for x in v)
         kw[f.name] = v

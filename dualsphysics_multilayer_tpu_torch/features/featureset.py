@@ -5,8 +5,10 @@ JSph.cpp:923-1184); the step reads this static bundle when it is made.
 
 The fields are the JAX package's.  The port covers ``floating``,
 ``motions`` (``features/motion.py``), ``damping``, ``relaxzones``,
-``mlpistons``, ``awas``, ``accinputs`` and ``viscotime``
-(``features/viscoinput.py``); any other non-empty field raises
+``mlpistons``, ``awas``, ``accinputs``, ``viscotime``
+(``features/viscoinput.py``), ``periodic`` (``features/periodic.py``,
+reached through the library only, as in JAX: no XML node sets it) and
+``inout`` (``features/inout.py``); any other non-empty field raises
 ``NotImplementedError`` naming it."""
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from .floating import FloatingCfg
 
 # the fields the port's steps run
 PORTED = ("motions", "damping", "accinputs", "floating", "relaxzones",
-          "mlpistons", "awas", "viscotime")
+          "mlpistons", "awas", "viscotime", "periodic", "inout")
 
 # the case XML's node behind each ported field, for refusals that name it
 XML_NODES = {"motions": "<motion> or <special><wavepaddles>",
@@ -28,7 +30,8 @@ XML_NODES = {"motions": "<motion> or <special><wavepaddles>",
              "relaxzones": "<special><relaxationzones>",
              "mlpistons": "<special><mlayerpistons>",
              "awas": "<special><wavepaddles> AWAS",
-             "viscotime": "<parameter key=\"ViscoTime\">"}
+             "viscotime": "<parameter key=\"ViscoTime\">",
+             "inout": "<special><inout>"}
 
 
 @dataclass(frozen=True)
@@ -66,11 +69,22 @@ class Features:
 
     def check_supported(self) -> None:
         """Raise NotImplementedError naming the first feature the port does
-        not cover."""
+        not cover: a field outside ``PORTED``, or ``periodic`` / ``inout``
+        given as anything but the port's configuration (the JAX package's
+        go through ``convert.feature`` first)."""
+        from .inout import InOutCfg
+        from .periodic import PeriodicCfg
+        kinds = {"periodic": PeriodicCfg, "inout": InOutCfg}
         for name in self.set_fields():
             if name not in PORTED:
                 raise NotImplementedError(f"the torch port does not cover "
                                           f"Features.{name} yet")
+            if name in kinds and not isinstance(getattr(self, name),
+                                                kinds[name]):
+                raise NotImplementedError(
+                    f"the torch port does not cover Features.{name} given "
+                    f"as {type(getattr(self, name)).__name__}: it runs "
+                    f"features.{name}.{kinds[name].__name__}")
 
     def check_none_set(self, what: str) -> None:
         """Raise NotImplementedError naming the first set feature and its

@@ -22,14 +22,18 @@ for another device, its ``SolverOpts`` and the run values:
   ``models/nnewtonian.make_nn_step``);
 * ``<special><initialize>`` (``features/initialize.py``), applied to the
   built state: fluid velocity profiles and wall normals, which make the
-  run an mDBC run, as in JAX.
+  run an mDBC run, as in JAX;
+* ``<special><inout>`` (``features/inout.py``): the zones, with spare
+  slots for the zones and their inflow up to ``TimeMax`` (the drawn
+  particles, ``inout.slots_required`` and 256, as in JAX) and the zones'
+  members placed by ``init_inout``.
 
 The domain is the port's ``celldiv.make_domain`` over the particles'
 bounds and ``<simulationdomain>``; the JAX loader's bucket capacities
 (``cellcap``, ``maxcells``) belong to the TPU layouts and have no
 counterpart.  Nodes of features the port does not run raise
-``NotImplementedError`` naming the node: ``<special><inout>``,
-``<chrono>`` and ``<moorings>`` before anything is built (``refuse``),
+``NotImplementedError`` naming the node: ``<chrono>`` and
+``<moorings>`` before anything is built (``refuse``),
 ``RigidAlgorithm=2`` (DEM) on a case with floatings once the parameters
 are read; none of their configurations is built.  The ``<properties>`` material table feeds only
 DEM and Chrono contact, so the port does not read it.
@@ -269,10 +273,9 @@ def refuse(root):
     sp = _special(root)
     if sp is None:
         return
-    for tag in ("inout", "chrono"):
-        if sp.find(tag) is not None:
-            raise NotImplementedError(f"<special><{tag}>: the torch port "
-                                      f"does not run this feature yet")
+    if sp.find("chrono") is not None:
+        raise NotImplementedError("<special><chrono>: the torch port "
+                                  "does not run this feature yet")
     mo = sp.find("moorings")
     if mo is not None and _active(mo):
         raise NotImplementedError("<special><moorings>: the torch port "
@@ -573,9 +576,11 @@ def _parse_special(root, csp, code, zsurf, pos, casedir="."):
     damping, motions, awas = [], [], []
     mlpistons, relaxzones, accinputs = [], [], []
     gauges, gauge_windows, gauge_computedts = [], {}, {}
+    iocfg = None
 
     def done():
         return code, dict(damping=tuple(damping), motions=tuple(motions),
+                          inout=iocfg,
                           awas=tuple(awas), mlpistons=tuple(mlpistons),
                           relaxzones=tuple(relaxzones),
                           accinputs=tuple(accinputs), gauges=tuple(gauges),
@@ -1031,7 +1036,251 @@ def _parse_special(root, csp, code, zsurf, pos, casedir="."):
                 mkbound=int(float(tg.get("mkbound", 0)))
                 if tg is not None else 0))
             _window(el, name)
+    io_node = sp.find("inout")
+    if io_node is not None:
+        code, iocfg = _parse_inout(io_node, csp, code, zsurf, pos, casedir)
     return done()
+
+
+_DIRV = {"right": (1, 0, 0), "left": (-1, 0, 0), "top": (0, 0, 1),
+         "bottom": (0, 0, -1), "back": (0, 1, 0), "front": (0, -1, 0)}
+
+
+def _perp(d):
+    """A unit vector perpendicular to d."""
+    d = np.asarray(d, np.float64)
+    a = np.array([0.0, 0.0, 1.0]) if abs(d[2]) < 0.9 \
+        else np.array([1.0, 0.0, 0.0])
+    t = np.cross(d, a)
+    return t / np.linalg.norm(t)
+
+
+def _inout_frame(zn, csp, code, pos):
+    """(code, zone geometry keywords, layers) of an ``<inoutzone>``;
+    (code, None, 0) for a ``<particles>`` zone with no particles of its mk
+    (skipped, as in JAX) and (code, False, 0) for a geometry not read
+    (point sets).  Read: ``<particles mkfluid=N>`` (the mk block's extent,
+    its particles freed for the lattice; _FmtXML_InOut.xml:88-144),
+    ``<zone3d><circle>`` with ``<rotateaxis>``, ``<zone2d><line>`` with
+    ``<rotate>`` and ``<zone3d><box>`` with ``<rotateaxis>``
+    (JSphInOutPoints)."""
+    layers = int(_fget(zn, "layers", default=4))
+    z2, z3 = zn.find("zone2d"), zn.find("zone3d")
+    zpart = z2.find("particles") if z2 is not None else None
+    if zpart is None and z3 is not None:
+        zpart = z3.find("particles")
+    geo = dict(shape="rect", radius=0.0, tangent2=(0.0, 1.0, 0.0), size2=0.0)
+    if zpart is not None:
+        mkf = int(float(zpart.get("mkfluid", "0")))
+        d3 = np.asarray(_DIRV.get(zpart.get("direction", "right"),
+                                  (1.0, 0.0, 0.0)), np.float64)
+        mask = ((td.code_type(code) == td.TYPE_FLUID)
+                & (td.code_value(code) == mkf))
+        if not mask.any():
+            return code, None, 0
+        P = np.asarray(pos)[mask]
+        s = P @ d3
+        layers = max(1, int(round((s.max() - s.min()) / csp.dp)) + 1)
+        plane_s = s.max() + csp.dp
+        t1 = _perp(d3)
+        u1 = P @ t1
+        if not csp.simulate2d:
+            t2v = np.cross(d3, t1)
+            u2 = P @ t2v
+            geo.update(tangent2=tuple(t2v),
+                       size2=float(u2.max() - u2.min()) + csp.dp)
+        cen = P.mean(axis=0)
+        geo.update(p0=tuple(cen + (plane_s - cen @ d3) * d3),
+                   direction=tuple(d3), tangent1=tuple(t1),
+                   size1=float(u1.max() - u1.min()) + csp.dp)
+        code = np.asarray(code).copy()
+        code[mask] = td.code_set_special(td.code_make(td.TYPE_FLUID, mkf),
+                                         td.SPECIAL_OUT_IGNORE)
+    elif z3 is not None and z3.find("circle") is not None:
+        cn = z3.find("circle")
+        p0 = np.array(_xyz(cn.find("point")))
+        radius = _fget(cn, "radius", attr="v", default=0.0)
+        d3 = np.asarray(_xyz(cn.find("direction"), (1.0, 0.0, 0.0)),
+                        np.float64)
+        d3 = d3 / np.linalg.norm(d3)
+        t1v = _perp(d3)
+        t2v = np.cross(d3, t1v)
+        rot = cn.find("rotateaxis")
+        if rot is not None:
+            R, a1 = _read_rotateaxis(rot)
+            p0 = a1 + R @ (p0 - a1)
+            d3, t1v, t2v = R @ d3, R @ t1v, R @ t2v
+        geo.update(p0=tuple(p0), direction=tuple(d3), tangent1=tuple(t1v),
+                   tangent2=tuple(t2v), shape="circle", radius=radius,
+                   size1=2.0 * radius + csp.dp, size2=2.0 * radius + csp.dp)
+    elif z2 is not None and z2.find("line") is not None:
+        ln = z2.find("line")
+        p1 = np.array([float(ln.find("point").get("x")), 0.0,
+                       float(ln.find("point").get("z"))])
+        p2 = np.array([float(ln.find("point2").get("x")), 0.0,
+                       float(ln.find("point2").get("z"))])
+        dnode = ln.find("direction")
+        dirv = np.array([float(dnode.get("x", 0)), 0.0,
+                         float(dnode.get("z", 0))])
+        rot = ln.find("rotate")
+        if rot is not None:
+            R, _ = _read_rotateaxis(rot)
+            p2 = p1 + R @ (p2 - p1)
+            dirv = R @ dirv
+        t1 = p2 - p1
+        geo.update(p0=tuple(0.5 * (p1 + p2)), direction=tuple(dirv),
+                   tangent1=tuple(t1 / np.linalg.norm(t1)),
+                   size1=float(np.linalg.norm(t1)) + csp.dp)
+    elif z3 is not None and z3.find("box") is not None:
+        # a planar patch (one zero extent) and the inflow direction
+        bx = z3.find("box")
+        bp = np.array(_xyz(bx.find("point")))
+        bs = np.array(_xyz(bx.find("size")))
+        dirv = _xyz(bx.find("direction"), (1.0, 0.0, 0.0))
+        p0 = bp + 0.5 * bs
+        axes = [i for i in range(3) if bs[i] > 0]
+        if len(axes) != 2:
+            axes = list(np.argsort(bs)[-2:])
+        e1 = np.zeros(3)
+        e1[axes[0]] = 1.0
+        e2 = np.zeros(3)
+        e2[axes[1]] = 1.0
+        t1, t2v = tuple(e1), tuple(e2)
+        rot = bx.find("rotateaxis")
+        if rot is not None:
+            R, a1 = _read_rotateaxis(rot)
+            p0 = a1 + R @ (p0 - a1)
+            dirv = tuple(R @ np.asarray(dirv, np.float64))
+            t1 = tuple(R @ np.asarray(t1, np.float64))
+            t2v = tuple(R @ np.asarray(t2v, np.float64))
+        geo.update(p0=tuple(p0), direction=dirv, tangent1=t1,
+                   size1=float(bs[axes[0]]) + csp.dp, tangent2=t2v,
+                   size2=float(bs[axes[1]]) + csp.dp)
+    else:
+        return code, False, 0   # drawline point sets: not read
+    return code, geo, layers
+
+
+def _parse_inout(io_node, csp, code, zsurf, pos, casedir):
+    """``<special><inout>`` -> (code, ``features.inout.InOutCfg`` or None),
+    the JAX loader's parse (`xmlcase.py:1379-1646`): the zone geometry
+    (:func:`_inout_frame`), ``imposevelocity`` modes 0-3 (uniform with
+    ``velocity2``/``velocity3`` profiles, the time series, extrapolated,
+    ``gridveldata``) with ``<awas>``, ``imposerhop`` modes 0-2,
+    ``imposezsurf`` modes 0-2 (``zsurftimes``/``zsurffile``),
+    ``refilling``, ``refillingrate``, ``inputtreatment`` and
+    ``determlimit``."""
+    from ..features.inout import InOutAwas, InOutCfg, InOutZone
+    from ..features.relaxzone import load_gridvel
+    zones = []
+    for k, zn in enumerate(io_node.findall("inoutzone")):
+        treat = int(_fget(zn, "inputtreatment", default=0))
+        code, geo, layers = _inout_frame(zn, csp, code, pos)
+        if geo is False:
+            # the JAX loader drops such a zone and runs without it
+            raise NotImplementedError(
+                f"<special><inout>: inoutzone {k} has no zone geometry the "
+                f"torch port reads (zone2d line or particles, zone3d box, "
+                f"circle or particles)")
+        if geo is None:
+            continue
+        p0 = geo["p0"]
+        iv = zn.find("imposevelocity")
+        vmode = int(iv.get("mode", 0)) if iv is not None else 0
+        vel_times, vel_grid = (), None
+        c0 = c1 = c2 = 0.0
+        if vmode == 0 and iv is not None:
+            c0 = _fget(iv, "velocity", attr="v", default=0.0)
+            v2n, v3n = iv.find("velocity2"), iv.find("velocity3")
+            if v2n is not None:
+                # linear through (z, v), (z2, v2) (InVelP_Linear)
+                va, vb = float(v2n.get("v")), float(v2n.get("v2"))
+                za, zb = float(v2n.get("z")), float(v2n.get("z2"))
+                c1 = (vb - va) / (zb - za)
+                c0 = va - c1 * za
+            elif v3n is not None:
+                # parabolic through 3 (z, v) points (InVelP_Parabolic)
+                vs3 = [float(v3n.get(a)) for a in ("v", "v2", "v3")]
+                zs3 = [float(v3n.get(a)) for a in ("z", "z2", "z3")]
+                c2, c1, c0 = np.polyfit(zs3, vs3, 2)
+        elif vmode == 1 and iv is not None:
+            vel_times = tuple((float(t.get("time")), float(t.get("v")))
+                              for t in iv.iter("timevalue"))
+            c0 = 1.0
+        elif vmode == 3 and iv is not None:
+            gn = iv.find("gridveldata")
+            if gn is not None:
+                pz = iv.find("gridposzero")
+                org = ((float(pz.get("x", 0)), float(pz.get("z", 0)))
+                       if pz is not None else (p0[0], 0.0))
+                vel_grid = load_gridvel(os.path.join(casedir, gn.get("file")),
+                                        posmin=org)
+        io_awas = None
+        an = iv.find("awas") if iv is not None else None
+        if an is not None:
+            # JSphInOutVelAwas::ReadXml (JSphInOutVelAwas.cpp:84-110)
+            depth = _fget(an, "depth", default=1.0)
+            zf = an.find("zsurffile")
+            if zf is not None:
+                rows = np.loadtxt(os.path.join(casedir, zf.get("file")),
+                                  comments="#", delimiter=None, ndmin=2)
+                zts, zvs = tuple(rows[:, 0]), tuple(rows[:, 1])
+            else:
+                zts, zvs = (0.0,), (zsurf,)
+            gxel = an.find("gaugex")
+            gx = p0[0] + 5.0 * csp.dp
+            if gxel is not None:
+                if gxel.get("value") is not None:
+                    gx = float(gxel.get("value"))
+                elif gxel.get("valueh") is not None:
+                    gx = p0[0] + float(gxel.get("valueh")) * csp.kernelh
+                elif gxel.get("valuedp") is not None:
+                    gx = p0[0] + float(gxel.get("valuedp")) * csp.dp
+            imv = _sget(an, "inletmode", default="true")
+            io_awas = InOutAwas(
+                inletmode=str(imv).lower() in ("true", "1"),
+                startawas=_fget(an, "startawas", default=0.0), depth=depth,
+                zsurf_t=zts, zsurf_v=zvs, gauge_x=gx,
+                gauge_y=_fget(an, "gaugey", default=p0[1]),
+                z0=(zvs[0] if zvs else zsurf) - depth)
+        ir = zn.find("imposerhop")
+        rmode = int(ir.get("mode", 0)) if ir is not None else 0
+        zzs = zn.find("imposezsurf")
+        zone_zsurf, zsurf_times, zsurf_calc = zsurf, (), False
+        if zzs is not None:
+            zmode = int(zzs.get("mode", 0))
+            zone_zsurf = _fget(zzs, "zsurf", default=zsurf)
+            if zmode == 1:
+                ztn = zzs.find("zsurftimes")
+                if ztn is not None:
+                    zsurf_times = tuple(
+                        (float(t.get("time")), float(t.get("zsurf")))
+                        for t in ztn.iter("timevalue"))
+                else:
+                    zf = zzs.find("zsurffile")
+                    if zf is not None:
+                        rows = np.loadtxt(os.path.join(casedir,
+                                                       zf.get("file")),
+                                          comments="#", delimiter=None,
+                                          ndmin=2)
+                        zsurf_times = tuple(map(tuple, rows[:, :2]))
+            elif zmode == 2:
+                zsurf_calc = True
+        refill = {0: "simplefull", 1: "simplezsurf", 2: "advanced"}.get(
+            int(_fget(zn, "refilling", default=0)), "simplefull")
+        zones.append(InOutZone(
+            layers=layers, vel_profile=(c0, c1, c2), vel_times=vel_times,
+            vel_grid=vel_grid, vel_extrap=vmode == 2,
+            rho_mode="hydrostatic" if rmode == 1 else "constant",
+            zsurf=zone_zsurf, rho_extrap=rmode == 2,
+            zsurf_times=zsurf_times, zsurf_calc=zsurf_calc,
+            capture_fluid=treat != 0, refill=refill,
+            refillrate=int(_fget(io_node, "refillingrate", default=10)),
+            awas=io_awas, **geo))
+    if not zones:
+        return code, None
+    return code, InOutCfg(zones=tuple(zones), determlimit=float(
+        _fget(io_node, "determlimit", default=1e3)))
 
 
 def _parse_xml(path):
@@ -1699,10 +1948,17 @@ def load_case(path, *, mdbc=False, device="cuda"):
         pmin[1], pmax[1] = pos[0, 1] - ks / 2, pos[0, 1] + ks / 2
     dom = cd.make_domain(tuple(pmin), tuple(pmax), ks, simulate2d=sim2d,
                          skin=C.DOMAIN_SKIN)
+    iocfg = specials["inout"]
+    capacity = None
+    if iocfg is not None:
+        # spare slots for the zones and their inflow up to TimeMax
+        from ..features.inout import slots_required
+        capacity = pos.shape[0] + slots_required(
+            iocfg, csp, t_horizon=pf("TimeMax", 1.0)) + 256
     st = C._make_state(csp, pos, code, zsurf=zfluid_max, device=device,
                        need_verlet=(opts.tstep == TpStep.VERLET),
                        need_sps=(tvisco == TpVisco.LAMINAR_SPS),
-                       normals=normals if mdbc else None)
+                       normals=normals if mdbc else None, capacity=capacity)
     phases = _parse_nnphases(root, csp)
     if phases is not None:
         # JSph::InitMultiPhase: fluid of a phase starts at its rest density
@@ -1710,9 +1966,10 @@ def load_case(path, *, mdbc=False, device="cuda"):
         isfl = td.code_type(code) == td.TYPE_FLUID
         codev = td.code_value(code)
         rho = st.rho.cpu().numpy().copy()
-        newcode = code.astype(np.int32)
+        newcode = st.code.cpu().numpy().copy()
         for i, p in enumerate(phases.phases):
-            sel = isfl & (codev == p.mkfluid)
+            sel = np.zeros(st.n, bool)
+            sel[:len(code)] = isfl & (codev == p.mkfluid)
             if abs(p.rho0 - csp.rhopzero) > 1e-9:
                 rho[sel] = p.rho0
             if i != p.mkfluid:
@@ -1735,6 +1992,10 @@ def load_case(path, *, mdbc=False, device="cuda"):
             rhopoutmax=max(csp.rhopoutmax, 1.5 * rmax))
     if ftstate is not None:
         st = dataclasses.replace(st, ft=ftstate)
+    if iocfg is not None:
+        # the zones' members in the spare slots (JAX `xmlcase.py:2437-2439`)
+        from ..features.inout import init_inout
+        st = init_inout(iocfg, csp, st)
     # <special><initialize>: applied once to the built state, as the
     # reference's ConfigDomain runs them (JSphCpuSingle.cpp:135); wall
     # normals make the run an mDBC run
@@ -1756,7 +2017,8 @@ def load_case(path, *, mdbc=False, device="cuda"):
                      damping=specials["damping"], floating=ftcfg,
                      awas=specials["awas"], mlpistons=specials["mlpistons"],
                      relaxzones=specials["relaxzones"],
-                     accinputs=specials["accinputs"], viscotime=viscotime)
+                     accinputs=specials["accinputs"], viscotime=viscotime,
+                     inout=iocfg)
     npb = int(np.sum(td.code_type(code) < td.TYPE_FLOATING))
     case = C.Case(csp=csp, dom=dom, state=st, npb=npb, np_total=pos.shape[0],
                   meta=dict(name=P.get("CaseName", "xmlcase"), dp=dp,

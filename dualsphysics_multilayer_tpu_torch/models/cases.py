@@ -8,7 +8,9 @@ the 2D wet dam break of the multiphase non-Newtonian solver lives in
 Counterpart of `dualsphysics_multilayer_tpu/models/cases.py` (``Draw``
 with every GenCase command the XML loader ``io/xmlcase.py`` draws through,
 ``prism_pred``, ``Case``, ``_make_state``, ``_make_domain``,
-``dambreak3d``, ``dambreak2d``, ``floatingbox2d``, ``waveflume2d``; the
+``dambreak3d``, ``dambreak2d``, ``floatingbox2d``, ``channel2d``,
+``waveflume2d``, and the periodic channel of its tests as
+``periodic_channel2d``; the
 bucket capacities of the JAX builders, ``lattice_cellcap`` among them,
 belong to the TPU layouts and have no counterpart here).  Lattices, ids,
 densities, normals and the domain come out equal to the JAX package's,
@@ -506,30 +508,45 @@ class Case:
 
 
 def _make_state(csp: CteSph, pos, code, zsurf, *, device, need_verlet=False,
-                need_sps=False, normals=None):
+                need_sps=False, normals=None, capacity=None):
     """Initial state: positions cast from f64 to f32, zero velocity, and
     hydrostatic density for fluid (GenCase ``rhopgradient=2``) evaluated in
     f32 as the JAX package does; boundaries and floating bodies start at
     rho0.  ``need_verlet`` adds the Verlet M1 state (the initial velocity
     and density); ``need_sps`` a zero SPS stress for laminar+SPS runs;
-    ``normals`` (np,3) the mDBC normals, with a zero wall velocity."""
+    ``normals`` (np,3) the mDBC normals, with a zero wall velocity.
+    ``capacity`` (> np) adds spare slots after the drawn particles, the
+    free pool of the inlet/outlet zones: FLUID | OUT_IGNORE at -1e6, rho0,
+    ids np..capacity-1 (JAX `cases.py:604-640`)."""
     n = pos.shape[0]
+    cap = capacity or n
+    posf = np.full((cap, 3), -1e6, np.float64)
+    posf[:n] = pos
+    codef = np.full((cap,), td.code_make(td.TYPE_FLUID, 0,
+                                         td.SPECIAL_OUT_IGNORE), np.int32)
+    codef[:n] = code
     z = torch.tensor(pos[:, 2], dtype=torch.float32)
     rho_hyd = eos.hydrostatic_rho(csp, z, zsurf).numpy()
-    rho = np.where(td.code_type(code) == td.TYPE_FLUID, rho_hyd, csp.rhopzero)
+    rho = np.full((cap,), csp.rhopzero, np.float64)
+    rho[:n] = np.where(td.code_type(code) == td.TYPE_FLUID, rho_hyd,
+                       csp.rhopzero)
     f32 = dict(dtype=torch.float32, device=device)
+    nrm = None
+    if normals is not None:
+        nrm = np.zeros((cap, 3), np.float64)
+        nrm[:n] = normals
     return SimState(
-        pos=torch.tensor(pos, **f32),
-        vel=torch.zeros((n, 3), **f32),
+        pos=torch.tensor(posf, **f32),
+        vel=torch.zeros((cap, 3), **f32),
         rho=torch.tensor(rho, **f32),
-        code=torch.tensor(code, dtype=torch.int32, device=device),
-        idp=torch.arange(n, dtype=torch.int64, device=device),
-        pose=torch.zeros((n, 3), **f32),
-        velm1=torch.zeros((n, 3), **f32) if need_verlet else None,
+        code=torch.tensor(codef, dtype=torch.int32, device=device),
+        idp=torch.arange(cap, dtype=torch.int64, device=device),
+        pose=torch.zeros((cap, 3), **f32),
+        velm1=torch.zeros((cap, 3), **f32) if need_verlet else None,
         rhom1=torch.tensor(rho, **f32) if need_verlet else None,
-        spstau=torch.zeros((n, 6), **f32) if need_sps else None,
-        boundnormal=None if normals is None else torch.tensor(normals, **f32),
-        motionvel=None if normals is None else torch.zeros((n, 3), **f32),
+        spstau=torch.zeros((cap, 6), **f32) if need_sps else None,
+        boundnormal=None if nrm is None else torch.tensor(nrm, **f32),
+        motionvel=None if nrm is None else torch.zeros((cap, 3), **f32),
     )
 
 
@@ -632,6 +649,70 @@ def floatingbox2d(dp=0.02, *, tank=(2.0, 1.2), water=0.5,
     return Case(csp=csp, dom=dom, state=st, npb=npb, np_total=pos.shape[0],
                 meta=dict(name="floatingbox2d", dp=dp, zsurf=water,
                           ftcfg=ftcfg))
+
+
+def channel2d(dp=0.02, *, length=0.6, height=0.2, vel=0.5, layers=3,
+              t_horizon=2.0, device="cuda") -> Case:
+    """2D open channel between an inlet at x = 0 and an outlet at x =
+    ``length`` (the JAX package's ``channel2d``, the inlet/outlet family of
+    the reference's examples/inletoutlet): zero gravity, a uniform inlet
+    velocity, walls above and below that reach past both zones.  The fluid
+    starts one dp inside each zone plane (the first member layer sits ON
+    the plane).  The state's slots are the drawn particles,
+    ``features.inout.slots_required`` over ``t_horizon`` and 256 more;
+    ``meta["inout"]`` holds the zones, whose members ``init_inout``
+    placed in the spare slots."""
+    from ..features.inout import (InOutCfg, InOutZone, init_inout,
+                                  slots_required)
+    csp = make_ctesph(simulate2d=True, dp=dp, gravity=(0.0, 0.0, 0.0),
+                      speedsound=20.0 * vel, visco=0.02)
+    w = (layers + 2) * dp
+    d = Draw(dp=dp, simulate2d=True)
+    d.box((dp, 0, 0), (length - dp, 0, height), ptype=td.TYPE_FLUID, mk=0)
+    d.box((-w, 0, -3 * dp), (length + w, 0, -dp), ptype=td.TYPE_FIXED, mk=0)
+    d.box((-w, 0, height + dp), (length + w, 0, height + 3 * dp),
+          ptype=td.TYPE_FIXED, mk=0)
+    pos, code = d.build()
+    inlet = InOutZone(p0=(0.0, 0.0, height / 2), direction=(1, 0, 0),
+                      layers=layers, tangent1=(0, 0, 1), size1=height + dp,
+                      vel_profile=(vel, 0.0, 0.0), rho_mode="constant")
+    outlet = InOutZone(p0=(length, 0.0, height / 2), direction=(-1, 0, 0),
+                       layers=layers, tangent1=(0, 0, 1), size1=height + dp,
+                       vel_profile=(-vel, 0.0, 0.0), rho_mode="constant")
+    iocfg = InOutCfg(zones=(inlet, outlet))
+    cap = pos.shape[0] + slots_required(iocfg, csp, t_horizon) + 256
+    dom = _make_domain(csp, pos)
+    st = _make_state(csp, pos, code, zsurf=0.0, device=device, capacity=cap)
+    st = init_inout(iocfg, csp, st)
+    npb = int(np.sum(td.code_type(code) < td.TYPE_FLOATING))
+    return Case(csp=csp, dom=dom, state=st, npb=npb, np_total=pos.shape[0],
+                meta=dict(name="channel2d", dp=dp, inout=iocfg, vel=vel))
+
+
+def periodic_channel2d(dp=0.04, *, length=0.8, depth=0.3, height=0.8,
+                       ghost_cap=256, device="cuda") -> Case:
+    """2D x-periodic channel: ``depth`` of water over a solid bed three
+    particles thick, both ``length`` long, with no side walls (the JAX
+    package's periodic geometry, `tests/test_periodic.py:19-34`; it has no
+    builder).  ``meta["periodic"]`` holds the ``PeriodicCfg`` (period
+    ``length``, ``ghost_cap`` ghosts a side); the state needs no ghost
+    slots (``features/periodic.py``)."""
+    from ..features.periodic import PeriodicCfg
+    csp = make_ctesph(simulate2d=True, dp=dp, hswl=depth, coefh=1.0,
+                      visco=0.05, coefsound=20.0)
+    d = Draw(dp=dp, simulate2d=True)
+    d.box((0, 0, 0), (length - dp, 0, depth), ptype=td.TYPE_FLUID, mk=0)
+    d.box((0, 0, -3 * dp), (length - dp, 0, -dp), ptype=td.TYPE_FIXED, mk=0,
+          faces="solid")
+    pos, code = d.build()
+    dom = _make_domain(csp, pos, headroom=height / depth)
+    st = _make_state(csp, pos, code, zsurf=depth, device=device)
+    npb = int(np.sum(td.code_type(code) < td.TYPE_FLOATING))
+    pcfg = PeriodicCfg(axes=(True, False, False), lo=(0.0, 0.0, 0.0),
+                       hi=(length, 0.0, 0.0), ghost_cap=ghost_cap)
+    return Case(csp=csp, dom=dom, state=st, npb=npb, np_total=pos.shape[0],
+                meta=dict(name="periodic_channel2d", dp=dp, zsurf=depth,
+                          periodic=pcfg))
 
 
 def waveflume2d(dp=0.02, *, flume=(6.0, 1.0), water=0.4, piston_freq=0.8,

@@ -6,7 +6,8 @@ Counterpart of `dualsphysics_multilayer_tpu/models/wcsph.py`: ``SimState``,
 ``_interaction`` with the mDBC pre-pass and the external accelerations,
 ``make_symplectic_step`` and ``make_verlet_step`` with the feature hooks
 (floating bodies, damping, relaxation zones, motion, multi-layer pistons,
-AWAS), ``make_step``, ``make_advance`` and ``Simulation`` with its gauge
+AWAS, and the open boundaries: periodic ghosts and inlet/outlet zones),
+``make_step``, ``make_advance`` and ``Simulation`` with its gauge
 sub-ticks.  :func:`symplectic_step` takes the interaction as an argument,
 so the multiphase non-Newtonian step (``models/nnewtonian.py``) shares it.
 
@@ -18,11 +19,17 @@ corrector share one layout; a Verlet step interacts once, at the step's
 start.  Shifting, moving walls, AWAS and the multi-layer pistons need no
 term of their own: they move particles after the step's interactions, and
 the contract reads ``pos`` (walls included) before the next step's first
-one.
+one.  Open boundaries change the population: under periodic boundaries
+each interaction divides the state's rows with their ghost rows afresh
+(``features/periodic.py``), as JAX divides at both; inlet/outlet
+conversions, captures and destructions change codes only, and a spawn
+into a spare slot (the layout's dead tail) forces the next step's
+rebuild.
 
 Torch has no device-side loop, so the host drives the steps.  Each step
 ends with ONE small device-to-host copy, ``[rebuild flag for the next step,
-t, tabs]``: the flag decides whether the next step starts with a divide,
+t, tabs]`` (with open boundaries, the step's overflow counts too): the
+flag decides whether the next step starts with a divide,
 ``t`` is what :func:`make_advance` compares with its target, and ``tabs``
 gives the next step its launch values on the host (:func:`step_values`:
 the DDT ramp and the viscosity table), so they cost no read of their own.
@@ -46,8 +53,10 @@ from ..features import accinput as ACC
 from ..features import awas as AWAS
 from ..features import damping as DMP
 from ..features import floating as FT
+from ..features import inout as IO
 from ..features import mlpiston as MLP
 from ..features import motion as MOT
+from ..features import periodic as PER
 from ..features import relaxzone as RZ
 from ..features.featureset import Features
 from ..ops import celldiv as cd
@@ -102,10 +111,16 @@ class StepCarry:
     pos0: torch.Tensor           # (n,3) positions at the last rebuild
     nstep: int = 0
     nrebuild: int = 0
-    # the GPU layout has no per-cell capacity, so nothing is ever dropped
-    # and overflow stays 0; the field keeps the JAX carry's diagnostic for
-    # the benchmark, which fails a run on overflow
+    # particles a step could not place, the largest count of any step so
+    # far (JAX's carry diagnostic, which fails a run): periodic edge
+    # particles beyond the ghost cap and inout spawn requests that found no
+    # free slot (with members beyond the extrapolation's static sizes); the
+    # GPU layout has no per-cell capacity, so a cell never drops one.  Read
+    # in the step's one device-to-host copy; ``overflow_ghosts`` and
+    # ``overflow_inout`` keep each kind's largest count
     overflow: int = 0
+    overflow_ghosts: int = 0
+    overflow_inout: int = 0
     t_host: float = 0.0          # host copy of t, read at the end of a step
     rebuild: bool = False        # the next step starts with a divide
     # Verlet steps since the last Euler re-anchoring step (VerletStep); it
@@ -145,13 +160,31 @@ def _rebuild_needed(csp: CteSph, margin: float, carry: StepCarry):
         >= np.float32(0.95 * margin)
 
 
-def _sync_flags(csp: CteSph, margin: float, carry: StepCarry) -> StepCarry:
+def _sync_flags(csp: CteSph, margin: float, carry: StepCarry, filled=None,
+                ghosts=None, inout=None) -> StepCarry:
     """The step's one device-to-host copy: the next rebuild flag, t and
-    tabs."""
+    tabs, and with open boundaries the step's overflow counts (0-d int32
+    ``ghosts``, ``inout``).  ``filled`` (0-d bool), an inout slot filled in
+    the layout's dead tail, forces the next rebuild: the skin contract
+    cannot see a reused slot (its stale ``pos0`` may lie near the spawn
+    point)."""
     need = _rebuild_needed(csp, margin, carry)
-    flag, t, tabs = torch.stack([need.to(carry.t.dtype), carry.t,
-                                 carry.tabs]).tolist()
-    return replace(carry, rebuild=bool(flag), t_host=t, tabs_host=tabs)
+    if filled is not None:
+        need = need | filled
+    zero = torch.zeros((), dtype=carry.t.dtype, device=carry.t.device)
+    vals = [need.to(carry.t.dtype), carry.t, carry.tabs]
+    if ghosts is not None or inout is not None:
+        vals += [zero if x is None else x.to(carry.t.dtype)
+                 for x in (ghosts, inout)]
+    out = torch.stack(vals).tolist()
+    carry = replace(carry, rebuild=bool(out[0]), t_host=out[1],
+                    tabs_host=out[2])
+    if len(out) > 3:
+        og, oi = int(out[3]), int(out[4])
+        carry = replace(carry, overflow=max(carry.overflow, og + oi),
+                        overflow_ghosts=max(carry.overflow_ghosts, og),
+                        overflow_inout=max(carry.overflow_inout, oi))
+    return carry
 
 
 def step_values(csp: CteSph, opts: SolverOpts, feats: Features | None,
@@ -200,8 +233,18 @@ def make_carry(st: SimState, csp: CteSph, opts: SolverOpts,
     floating bodies only).  It serves the
     single-phase and the NN steps alike; each step checks its own
     interaction's settings.  The Verlet step reads the M1 state: ValueError
-    unless the state has it (the case built with ``need_verlet=True``)."""
+    unless the state has it (the case built with ``need_verlet=True``);
+    periodic and inout boundaries rank particles by id: ValueError unless
+    the ids are a permutation of 0..n-1 (one read at setup)."""
     F.check_supported_step(csp, opts)
+    if feats is not None and (feats.periodic is not None
+                              or feats.inout is not None):
+        # ghost and spawn choices rank the particles by id (slot order in
+        # the JAX package)
+        if not torch.equal(torch.sort(st.idp).values,
+                           torch.arange(st.n, device=st.idp.device)):
+            raise ValueError("periodic and inout boundaries need the ids "
+                             "to be a permutation of 0..n-1")
     if opts.tstep == TpStep.VERLET and (st.velm1 is None or st.rhom1 is None):
         raise ValueError("the Verlet step needs the M1 state SimState.velm1 "
                          "and SimState.rhom1: build the case with "
@@ -258,10 +301,11 @@ def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     control); ``rigid(st, ace, t, dt, predictor) -> st``, the floating
     bodies' update, or None."""
     F.check_supported(csp, opts)
-    floating = accinputs = None
+    floating = accinputs = periodic = None
     if feats is not None:
         feats.check_supported()
         floating, accinputs = feats.floating, feats.accinputs
+        periodic = feats.periodic
 
     def interaction(st, cells, tabs, tabs_host):
         ftomassp = None
@@ -269,8 +313,18 @@ def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             ftomassp = FT.body_tables(floating, tuple(csp.gravity),
                                       st.pos.device).massp
         ddtkh, visco = step_values(csp, opts, feats, tabs_host)
-        st, fr = _interaction(csp, opts, dom, st, cells, ftomassp,
-                              ddtkh=ddtkh, visco=visco)
+
+        def interact(st, cells):
+            return _interaction(csp, opts, dom, st, cells, ftomassp,
+                                ddtkh=ddtkh, visco=visco)
+
+        if periodic is not None:
+            # the wrap, the ghost rows and a divide of their own at every
+            # interaction (JAX applies periodic at each one)
+            st, fr = PER.periodic_interaction(periodic, csp, dom, st,
+                                              interact)
+        else:
+            st, fr = interact(st, cells)
         if accinputs:
             fr = replace(fr, ace=ACC.apply_accinput(
                 accinputs, csp, tabs, st.pos, st.vel, st.code, fr.ace))
@@ -334,6 +388,34 @@ def _after_update(csp: CteSph, feats: Features | None, rigid,
     return after
 
 
+def _inout_hook(csp: CteSph, dom: cd.Domain, feats: Features | None):
+    """inout(st, cells, tabs, nstep) -> (st, overflow, filled): the
+    inlet/outlet pass after the step's other hooks (JAX `wcsph.py:638-641`,
+    `:752-755`), reading the step's layout for the extrapolated modes; None
+    without zones.  Conversions, captures and destructions change codes
+    only, which kernel 1 reads at every launch; a filled slot forces the
+    next rebuild (:func:`_sync_flags`)."""
+    if feats is None or feats.inout is None:
+        return None
+
+    def inout(st, cells, tabs, nstep):
+        return IO.inout_step(feats.inout, csp, st, tabs, nstep=nstep,
+                             dom=dom, cells=cells)
+
+    return inout
+
+
+def _ghost_overflow(frs):
+    """The step's periodic ghost overflow: the largest of its
+    interactions' (None without periodic boundaries)."""
+    out = None
+    for fr in frs:
+        if fr.overflow is not None:
+            out = fr.overflow if out is None \
+                else torch.maximum(out, fr.overflow)
+    return out
+
+
 def make_symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
                          feats: Features | None = None):
     """Returns step(carry) -> carry implementing ComputeStep_Sym
@@ -343,7 +425,8 @@ def make_symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     ``feats`` after the corrector."""
     interaction, rigid = _single_phase(csp, opts, dom, feats)
     return symplectic_step(csp, opts, dom, interaction, rigid,
-                           _after_update(csp, feats, rigid, True))
+                           _after_update(csp, feats, rigid, True),
+                           _inout_hook(csp, dom, feats))
 
 
 def make_verlet_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
@@ -356,6 +439,7 @@ def make_verlet_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     this step's dt."""
     interaction, rigid = _single_phase(csp, opts, dom, feats)
     after = _after_update(csp, feats, rigid, False)
+    inout = _inout_hook(csp, dom, feats)
     margin = _margin(csp, dom)
 
     def step(carry: StepCarry) -> StepCarry:
@@ -385,13 +469,18 @@ def make_verlet_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
         awas = carry.awas
         if after is not None:
             st, awas = after(st, fr.ace, carry.tabs, dt, awas)
+        ovf_io = filled = None
+        if inout is not None:
+            st, ovf_io, filled = inout(st, carry.cells, carry.tabs,
+                                       carry.nstep)
         _record_ftmotion(carry, st, carry.tabs + dt)
         carry = replace(
             carry, st=st, t=carry.t + dt, dt_pre=dt, nstep=carry.nstep + 1,
             verlet_count=vcount if use_m1 else 0,
             dtmodif=carry.dtmodif + bad.to(torch.int32),
             tabs=carry.tabs + dt, awas=awas)
-        return _sync_flags(csp, margin, carry)
+        return _sync_flags(csp, margin, carry, filled,
+                           _ghost_overflow((fr,)), ovf_io)
 
     return step
 
@@ -423,7 +512,7 @@ def _sps_tau(csp: CteSph, st: SimState, fr: F.Forces):
 
 
 def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
-                    interaction, rigid=None, after=None):
+                    interaction, rigid=None, after=None, inout=None):
     """step(carry) -> carry: the symplectic predictor and corrector over
     ``interaction(st, cells, tabs, tabs_host) -> (st, Forces)`` on one
     layout (``tabs_host``: the step's start time on the host); the
@@ -434,7 +523,8 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     ``rigid(st, ace, t, dt, predictor) -> st`` moves the floating bodies
     after the predictor (dt/2); ``after(st, ace, tabs, dt, awas) -> (st,
     awas)`` runs the hooks after the corrector (:func:`_after_update`, the
-    bodies over dt among them)."""
+    bodies over dt among them); ``inout(st, cells, tabs, nstep) -> (st,
+    overflow, filled)`` the inlet/outlet pass last (:func:`_inout_hook`)."""
     margin = _margin(csp, dom)
 
     def step(carry: StepCarry) -> StepCarry:
@@ -482,6 +572,10 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
         awas = carry.awas
         if after is not None:
             st, awas = after(st, fr2.ace, carry.tabs, dt, awas)
+        ovf_io = filled = None
+        if inout is not None:
+            st, ovf_io, filled = inout(st, carry.cells, carry.tabs,
+                                       carry.nstep)
         _record_ftmotion(carry, st, carry.tabs + dt)
 
         carry = replace(
@@ -490,7 +584,8 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             dtmodif=carry.dtmodif + bad_p.to(torch.int32)
             + bad_c.to(torch.int32),
             tabs=carry.tabs + dt, awas=awas)
-        return _sync_flags(csp, margin, carry)
+        return _sync_flags(csp, margin, carry, filled,
+                           _ghost_overflow((fr1, fr2)), ovf_io)
 
     return step
 
@@ -557,9 +652,21 @@ class Simulation:
         dumping them to ``errdir``/Error_BoundaryOut.vtk in slot order
         (reference AbortBoundOut, JSph.cpp:2477), and on excluded fluid
         beyond ``partsoutmax`` of the initial fluid."""
-        if self.carry.overflow:
-            raise RuntimeError(f"cell overflow: {self.carry.overflow} "
-                               f"particle(s) dropped")
+        c = self.carry
+        if c.overflow:
+            kinds = []
+            if c.overflow_ghosts:
+                kinds.append(f"{c.overflow_ghosts} periodic edge "
+                             f"particle(s) beyond the ghost cap (raise "
+                             f"PeriodicCfg.ghost_cap)")
+            if c.overflow_inout:
+                kinds.append(f"{c.overflow_inout} inout spawn request(s) "
+                             f"with no free slot or extrapolated member(s) "
+                             f"beyond the pass's sizes (raise the state "
+                             f"capacity; reference analog: "
+                             f"ResizeParticlesSize)")
+            raise RuntimeError(f"overflow: {c.overflow} particle(s) not "
+                               f"placed in one step: " + "; ".join(kinds))
         st = self.carry.st
         code = st.code.cpu().numpy()
         sp = td.code_special(code)

@@ -83,6 +83,9 @@ class Forces:
     # () max effective viscosity for the NN dt3 control; None on the
     # single-phase path
     viscetadtmax: torch.Tensor | None = None
+    # () int32 periodic edge particles beyond the ghost cap at this
+    # interaction (features/periodic.py); None without periodic boundaries
+    overflow: torch.Tensor | None = None
 
 
 def check_supported_step(csp: CteSph, opts: SolverOpts) -> None:

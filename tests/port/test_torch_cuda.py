@@ -657,3 +657,72 @@ def test_cuda_probe_gather_matches_plain(cuda, aligned, staged):
     want = PR.gather_plain(buf, offs, aligned, fused=True)
     torch.testing.assert_close(got, want.expand_as(got), rtol=0, atol=0,
                                equal_nan=True)
+
+
+def open_steps(case, feats, st, dev, nsteps=4):
+    """(positions and codes by id, the carry) after ``nsteps`` steps of
+    ``case`` with ``feats`` from ``st`` on ``dev``."""
+    opts = P.SolverOpts(tdensity=td.TpDensity.MOLTENI)
+    carry = P.make_carry(st, case.csp, opts, case.dom, feats)
+    step = P.make_step(case.csp, opts, case.dom, feats)
+    launches = CF.launches["cellforce"]
+    for _ in range(nsteps):
+        carry = step(carry)
+    if st.pos.device.type == "cuda":
+        assert CF.launches["cellforce"] == launches + 2 * nsteps
+    pos = torch.empty_like(carry.st.pos)
+    pos[carry.st.idp] = carry.st.pos
+    code = torch.empty_like(carry.st.code)
+    code[carry.st.idp] = carry.st.code
+    return pos.cpu(), code.cpu(), carry
+
+
+@pytest.mark.gpu
+def test_cuda_channel2d_steps_match_cpu_steps(cuda):
+    """Steps of channel2d on the card and on the CPU: the same codes
+    (conversions, spawns) by id, positions within 1e-4*dp, overflow 0."""
+    out = {}
+    for dev in ("cpu", cuda):
+        case = cases.channel2d(dp=0.02, length=0.5, height=0.16, vel=0.4,
+                               device=dev)
+        out[str(dev)] = open_steps(case, P.Features(inout=case.meta["inout"]),
+                                   case.state, dev)
+    (pc, cc, carry_c), (pg, cg, carry_g) = out["cpu"], out["cuda"]
+    assert torch.equal(cg, cc)
+    live = td.is_active(cc)
+    torch.testing.assert_close(pg[live], pc[live], rtol=0, atol=1e-4 * 0.02)
+    assert carry_g.overflow == 0 == carry_c.overflow
+
+
+@pytest.mark.gpu
+def test_cuda_periodic_steps_match_cpu_steps(cuda):
+    """Steps of the x-periodic channel streaming at 1 m/s on the card and
+    on the CPU: positions within 1e-4*dp by id (wrapped alike), overflow 0,
+    and kernel 1 on a state with its ghost rows within the plain rule."""
+    from dualsphysics_multilayer_tpu_torch.features import periodic as PER
+    out = {}
+    for dev in ("cpu", cuda):
+        case = cases.periodic_channel2d(ghost_cap=64, device=dev)
+        st = case.state
+        fl = td.is_fluid(st.code)
+        pos = st.pos.clone()
+        pos[fl, 0] += 0.04 - 1e-4
+        st = dataclasses.replace(st, pos=pos, vel=torch.where(
+            fl[:, None], torch.tensor([1.0, 0.0, 0.0], device=dev), 0.0))
+        out[str(dev)] = open_steps(
+            case, P.Features(periodic=case.meta["periodic"]), st, dev)
+    (pc, cc, carry_c), (pg, cg, carry_g) = out["cpu"], out["cuda"]
+    assert torch.equal(cg, cc)
+    torch.testing.assert_close(pg, pc, rtol=0, atol=1e-4 * 0.04)
+    assert carry_g.overflow == 0 == carry_c.overflow
+    rows, _ = PER.ghost_rows(case.meta["periodic"], case.csp, carry_g.st)
+    cells, code = cd.divide_cells(case.dom, rows["pos"], rows["code"])
+    o = cells.order
+    args = (rows["pos"][o], rows["vel"][o], rows["rho"][o], code[o])
+    opts = P.SolverOpts(tdensity=td.TpDensity.MOLTENI)
+    got = CF.interaction_forces_cuda(case.csp, opts, case.dom, cells, *args)
+    want = F.interaction_forces_plain(case.csp, opts, case.dom, cells, *args)
+    for k in ("ace", "ar"):
+        w = getattr(want, k)
+        torch.testing.assert_close(getattr(got, k), w, rtol=2e-3,
+                                   atol=2e-3 * float(w.abs().max()))
