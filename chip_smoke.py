@@ -250,7 +250,35 @@ without printing the final result line:
     fluid at 1 m/s: no normal particle lost, wraps > 0, the spread of the
     fluid's vx bounded, the fluid density within 1%, cellforce and the
     periodic divide twice per step, overflow 0; the timing of phase 29,
-    and kernel 1 against its plain version on a state with its ghost rows.
+    and kernel 1 against its plain version on a state with its ghost rows;
+32. DEM in 3D through ``-case`` (``dem_xml``): phase 24's dam break at
+    DP_BENCH with two floating 0.1 m boxes (rhopbody 800) downstream of
+    the obstacle, ``RigidAlgorithm=2`` and ``<properties>``; box 52 moved
+    0.1 dp towards box 51 (nearest particles 0.9 dp apart) in a PART 0
+    the CLI starts from (``-partbegin:0``), ~50 steps: box-box contacts
+    from the first step, box-wall contacts within the run, no box particle
+    within 0.5 dp of the other box or a wall, both boxes rigid, finite;
+    then the timing (one device-to-host copy per step, DEM's pass alone)
+    and kernel 1's floating instance (FT = 1) in 3D against its plain
+    version on the final state with its bound;
+33. the moored box through ``-case`` (``moored_xml``, the XML twin of
+    ``floatingbox2d`` at DP_FLOAT, 62,033 particles, with
+    examples/03_floating_moored.py's two MoorDyn lines in a file beside
+    it): each step's fairlead nodes within 1e-5 m of the body's fairleads,
+    finite tensions, a MooringsLines file and two MooringsPoints.csv rows
+    per save, the lines' relaxation's host seconds; the timing with the
+    rigid update and the lines' substep alone; then 20 steps through
+    ``Features`` of a quasi-static ``MooringCfg`` and a ``ForcePointsCfg``;
+34. Chrono in 3D through ``-case`` (``chrono_xml``): phase 24's dam break
+    with a floating flap (0.02 x 0.5 x 0.2 m) hinged to the ground at its
+    lower edge (axis y) and held by a linear spring, and a collision box
+    (``box.obj``) on a fixed floor mesh (``floor.obj``, a patch under
+    it), ~50 steps: the
+    hinge point within 1.5% of its arm of ``rotpoint``, off-axis angles
+    under 0.02 rad, the box above the floor mesh; the timing with the
+    rigid update (KKT solve, mesh contact) alone, kernel 1's floating
+    instance against its plain version; a restart from PART 1 refused
+    without ``-restartchrono`` (JAX's message) and run with it.
 
 Each kernel is timed twice: alone (``ms``: CUDA events around 20
 back-to-back launches of the C launcher on prepared inputs, per launch,
@@ -271,8 +299,11 @@ break (phase 4), the Verlet path, the wave flume, the full flume, the CLI
 (phase 22), the main path with step values (phase 23) and the XML dam
 break (phase 24), and the ``<initialize>`` and ``-initnorpla`` runs
 (phase 27), the channel, the duct and the periodic channel (phases
-29-31), with ``open_states``, kernel 1 against its plain version on the
-final states of phases 29-31 and their step's p50 and trace; the NN
+29-31) and the couplings (phases 32-34), with ``open_states``, kernel 1
+against its plain version on the final states of phases 29-31 and their
+step's p50 and trace, and ``coupling_states``, the same for phases 32-34
+with the couplings' pieces alone (DEM's pass, the rigid update with the
+lines, the lines' substep, the rigid update with Chrono); the NN
 kernels' rows add theirs on phases 6-7, the XML runs of phase 25 and the
 mDBC runs of phase 28.
 Imports no JAX.
@@ -3275,6 +3306,783 @@ def periodic_path(device, smi):
     return launched["cellforce"], rec
 
 
+# ---------------------------------------------------------------------------
+# phases 32-34: the floating bodies' couplings
+# ---------------------------------------------------------------------------
+
+COUPLING_TOUT = 0.0012   # phases 32 and 34: 3 intervals of 1.2 ms (~50 steps)
+MOORED_TOUT = 0.00065    # phase 33: 2 intervals of 0.65 ms (~50 steps)
+MOORED_TMAXIC = 0.25     # phase 33: seconds of the lines' relaxation
+BOX_SIDE = 0.1           # phase 32: the DEM boxes' side
+FLAP = (0.02, 0.5, 0.2)  # phase 34: the flap's size (x, y, z)
+COLBOX = 0.06            # phase 34: the collision box's side
+# the boxes' and the walls' materials (<properties>): soft plastic boxes on
+# stiffer walls
+BOX_PROPS = dict(young=1e6, poisson=0.3, kfric=0.3, restitu=0.6)
+WALL_PROPS = dict(young=1e7, poisson=0.3, kfric=0.4, restitu=0.6)
+
+
+def _property(name, p):
+    return (f'<property name="{name}"><Young_Modulus value="{p["young"]!r}"/>'
+            f'<PoissonRatio value="{p["poisson"]!r}"/>'
+            f'<Kfric value="{p["kfric"]!r}"/>'
+            f'<Restitution_Coefficient value="{p["restitu"]!r}"/></property>')
+
+
+def _dambreak_with(dp, tmax, tout, draw="", casedef="", special="",
+                   params=""):
+    """Phase 24's dam break with more geometry (``draw``), casedef nodes,
+    ``<special>`` nodes and parameters."""
+    xml = DAMBREAK_XML.format(dp=dp, tmax=tmax, tout=tout)
+    xml = xml.replace("  </mainlist></commands>",
+                      draw + "\n  </mainlist></commands>")
+    xml = xml.replace("</casedef>", casedef + "\n</casedef>")
+    xml = xml.replace(" <parameters>", f" <special>{special}</special>\n"
+                      " <parameters>")
+    return xml.replace(" </parameters>", params + "\n </parameters>")
+
+
+def _lattice_box(mk, i0, n, dp):
+    """A solid ``<drawbox>`` of mk ``mk`` over the lattice indices ``i0`` to
+    ``i0 + n`` (each a triple) of spacing ``dp``."""
+    p = [repr(i * dp) for i in i0]
+    s = [repr(k * dp) for k in n]
+    return (f'<setmkbound mk="{mk}"/><drawbox><boxfill>solid</boxfill>'
+            f'<point x="{p[0]}" y="{p[1]}" z="{p[2]}"/>'
+            f'<size x="{s[0]}" y="{s[1]}" z="{s[2]}"/></drawbox>')
+
+
+def dem_boxes(dp):
+    """Phase 32's boxes: lattice indices (start, count) of box 51 resting on
+    the floor downstream of the obstacle and of box 52 beside it, one
+    lattice step away along x (the script moves it 0.1 dp closer)."""
+    n = int(round(BOX_SIDE / dp))
+    i1 = (int(round(1.12 / dp)), int(round(0.2 / dp)), 1)
+    i2 = (i1[0] + n + 1, i1[1], 1)
+    return (i1, (n, n, n)), (i2, (n, n, n))
+
+
+def dem_xml(dp, tmax, tout):
+    """Phase 32's case: the dam break with the two 0.1 m boxes (rhopbody
+    800) and ``RigidAlgorithm=2``, ``<properties>`` for the boxes and the
+    walls."""
+    (i1, n1), (i2, n2) = dem_boxes(dp)
+    draw = _lattice_box(51, i1, n1, dp) + "\n" + _lattice_box(52, i2, n2, dp)
+    casedef = (
+        '<floatings><floating mkbound="51" rhopbody="800" property="box"/>'
+        '<floating mkbound="52" rhopbody="800" property="box"/></floatings>'
+        f'<properties>{_property("box", BOX_PROPS)}'
+        f'{_property("wall", WALL_PROPS)}<links><link mkbound="0,1" '
+        'property="wall"/></links></properties>')
+    return _dambreak_with(dp, tmax, tout, draw, casedef, params=(
+        '<parameter key="RigidAlgorithm" value="2"/>'))
+
+
+def stepping_runs(on_step):
+    """(restore, sims): ``wcsph.Simulation`` replaced by a subclass whose
+    steps call ``on_step(carry)`` after each step (a read per step: for
+    the checks, not for timing); ``sims`` the simulations built."""
+    from dualsphysics_multilayer_tpu_torch.models import wcsph as W
+    sims, original = [], W.Simulation
+
+    class Recorded(original):
+        def __init__(self, csp, opts, dom, st, feats=None, step=None, **k):
+            super().__init__(csp, opts, dom, st, feats=feats, step=step, **k)
+            inner = step or W.make_step(csp, opts, dom, feats)
+
+            def recorded(carry):
+                carry = inner(carry)
+                on_step(carry)
+                return carry
+
+            self.advance = W.make_advance(csp, opts, dom, feats,
+                                          step=recorded)
+            self.inner_step = inner
+            sims.append(self)
+
+    W.Simulation = Recorded
+    return (lambda: setattr(W, "Simulation", original)), sims
+
+
+def piece_ms(label, fn, reps=7):
+    """A piece of a step alone: (CUDA-event ms per call, device operations
+    per call, device busy ms per call) over one traced call."""
+    from torch.profiler import ProfilerActivity, profile
+    ms = cuda_ms(fn, reps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = sorted((e.time_range.start, e.time_range.end)
+                for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(bool(ev), f"{label}: the trace holds no device activity")
+    busy, cur_s, cur_e = 0.0, ev[0][0], ev[0][1]
+    for s0, e0 in ev[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy = (busy + cur_e - cur_s) * 1e-3
+    return ms, len(ev), busy
+
+
+def coupling_timing(label, step, carry, smi, pieces):
+    """The p50 of 20 steps after 5 (cellforce exactly twice per step), one
+    device-to-host copy per step over 10 traced steps, a traced breakdown
+    of 10 more, and each of ``pieces`` ({name: (calls per step, fn)})
+    alone (:func:`piece_ms`)."""
+    carry, times, launched = run_steps(step, carry, 5, 20)
+    single_phase_counts(launched, "cellforce", 2, 25)
+    p50 = statistics.median(times)
+    d2h, carry = count_d2h(step, carry, 10)
+    check(d2h is not None, f"{label}: the profiler's trace of 10 steps holds "
+          f"no device activity")
+    check(d2h == 1, f"{label}: {d2h} device-to-host copies per step, "
+          f"expected 1")
+    r = trace_steps(step, carry, 10, ("cellforce",))
+    check(r is not None, f"{label}: the trace holds no device activity")
+    rec = dict(p50_ms=p50 * 1e3, busy_ms=r["busy_ms"], ops=r["ops"],
+               idle_share=r["idle_share"],
+               cellforce_ms=r["kernel_ms"]["cellforce"], pieces={})
+    parts = []
+    for name, (per_step, fn) in pieces.items():
+        ms, ops, busy = piece_ms(f"{label} {name}", fn)
+        rec["pieces"][name] = dict(per_step=per_step, ms=ms, ops=ops,
+                                   busy_ms=busy)
+        parts.append(f"{name} {per_step} per step: {ms:.4f} ms a call "
+                     f"(CUDA events), {ops} device operations, device busy "
+                     f"{busy:.4f} ms")
+    say(label, f"20 steps after 5: p50 {p50 * 1e3:.3f} ms; {d2h:g} "
+        f"device-to-host copy per step; 10 traced steps: window "
+        f"{r['window_ms']:.3f} ms per step, device busy {r['busy_ms']:.3f} "
+        f"ms, idle share {r['idle_share']:.4f}, {r['ops']:.1f} device "
+        f"operations per step, cellforce {r['kernel_ms']['cellforce']:.4f} "
+        f"ms per step; alone: " + "; ".join(parts) + f" ({smi})")
+    return carry, rec
+
+
+def floating_kernel_vs_plain(label, csp, opts, dom, carry, ftcfg, smi):
+    """Kernel 1's floating instance (FT = 1) against its plain version on
+    the final state, rtol 2e-3, timed alone, with its bound."""
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.features import floating as FT
+    from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
+    st = carry.st
+    ftomassp = FT.body_tables(ftcfg, tuple(csp.gravity), st.pos.device).massp
+    args = (st.pos, st.vel, st.rho, st.code)
+    err, ms, wrapped_ms, plain_ms = compare_cellforce(
+        csp, opts, dom, carry.cells, args, reps=5, ftomassp=ftomassp)
+    n = st.n
+    cand, pairs = pair_counts(csp, dom, carry.cells, st.pos, st.code,
+                              inclusive=False)
+    name = CF.kernel_name(csp, opts)
+    b = bound(cellforce_bytes(n, dom.ncells, opts) + 4 * n,
+              pairs * ops_per_pair(name, opts))
+    nft = int(td.is_floating(st.code).sum())
+    say(label, f"kernel 1's floating instance ({name}, FT = 1) vs plain on "
+        f"the final state, {n} particles ({nft} floating): max|d ace| "
+        f"{err['ace']:.3e}, max|d ar| {err['ar']:.3e}; kernel alone "
+        f"{ms:.4f} ms, with its wrapper {wrapped_ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms (CUDA events); {cand} candidates, {pairs} "
+        f"in-support pairs with a fluid-side target; bound "
+        f"{b[0] * 1e3:.2f} us by {b[1]} ({smi})")
+    return dict(rows=n, floating=nft, max_abs_err=err["ace"], ms=ms,
+                wrapped_ms=wrapped_ms, plain_ms=plain_ms, bound_ms=b[0],
+                bound_by=b[1])
+
+
+def _by_id_rows(st, ids):
+    """The slots of the particles ``ids`` (a device tensor) in ``st``."""
+    slot = torch.empty_like(st.idp)
+    slot[st.idp] = torch.arange(st.n, device=st.idp.device)
+    return slot[ids]
+
+
+def _min_dist(a, b):
+    return float(torch.cdist(a.double(), b.double()).min()) if len(a) and \
+        len(b) else float("inf")
+
+
+def dem_path(device, smi):
+    """Phase 32: DEM contact in 3D through ``-case``: phase 24's dam break at
+    DP_BENCH with two floating boxes (0.1 m, rhopbody 800) downstream of
+    the obstacle, box 51 resting on the floor and box 52 beside it, its
+    nearest particles 0.9 dp from box 51's, ``RigidAlgorithm=2`` and
+    ``<properties>``.  The GenCase lattice holds no two particles closer
+    than dp, so the script loads the case, moves box 52 0.1 dp towards box
+    51 and writes that state as PART 0 (with its PartFloat.fbi4); the CLI
+    runs the case from it with ``-partbegin:0`` (~50 steps).  Each step is
+    recorded: box-box contacts (overlap > 0) from the first step, box-wall
+    contacts within the run, no particle of a box within 0.5 dp of the
+    other box or a wall, each box rigid, the state and the bodies finite;
+    cellforce twice per step.  Then the timing with DEM's pass alone, one
+    device-to-host copy per step, and kernel 1's floating instance against
+    its plain version on the final state."""
+    import shutil
+    import tempfile
+    from dualsphysics_multilayer_tpu_torch import cli
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.features import dem as DEM
+    from dualsphysics_multilayer_tpu_torch.io import partdata as PD
+    from dualsphysics_multilayer_tpu_torch.io.output import OutputManager
+    from dualsphysics_multilayer_tpu_torch.io.xmlcase import load_case
+    from dualsphysics_multilayer_tpu_torch.models import wcsph as W
+    dp = DP_BENCH
+    root = tempfile.mkdtemp(prefix="_smoke_dem_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    try:
+        path = os.path.join(root, "Dem_Def.xml")
+        with open(path, "w") as f:
+            f.write(dem_xml(dp, 3 * COUPLING_TOUT, COUPLING_TOUT))
+        case, opts, _run = load_case(path, device=device)
+        feats = case.meta["features"]
+        check(feats is not None and feats.dem is not None
+              and feats.floating.count == 2, "the DEM case's features")
+        st = case.state
+        body = td.code_value(st.code)
+        isft = td.is_floating(st.code)
+        box2 = isft & (body == 1)
+        pos = st.pos.clone()
+        pos[box2, 0] -= 0.1 * dp
+        center = st.ft.center.clone()
+        center[1, 0] -= 0.1 * dp
+        st = dataclasses.replace(st, pos=pos, ft=dataclasses.replace(
+            st.ft, center=center))
+        prep = os.path.join(root, "prep")
+        sim0 = W.Simulation(case.csp, opts, case.dom, st, feats=feats)
+        OutputManager(prep, dataclasses.replace(case, state=st),
+                      feats=feats)(sim0)
+        ids = [st.idp[isft & (body == b)] for b in (0, 1)]
+        gap = _min_dist(st.pos[isft & (body == 0)], st.pos[box2])
+        check(abs(gap - 0.9 * dp) < 1e-3 * dp, f"the boxes' nearest "
+              f"particles {gap / dp:.4f} dp apart, expected 0.9")
+        lo = st.pos[isft].min(0).values - 0.05
+        hi = st.pos[isft].max(0).values + 0.05
+        near = ((td.code_type(st.code) < td.TYPE_FLOATING)
+                & (st.pos >= lo).all(1) & (st.pos <= hi).all(1))
+        wall_ids = st.idp[near]
+        spans0 = [float((st.pos[isft & (body == b)][0]
+                         - st.pos[isft & (body == b)][-1]).norm())
+                  for b in (0, 1)]
+        end_ids = [torch.stack([ids[b][0], ids[b][-1]]) for b in (0, 1)]
+        log = []
+
+        def on_step(carry):
+            s = carry.st
+            b = [s.pos[_by_id_rows(s, ids[k])] for k in (0, 1)]
+            w = s.pos[_by_id_rows(s, wall_ids)]
+            d12 = torch.cdist(b[0], b[1])
+            dw = torch.cdist(torch.cat(b), w)
+            span = [float((s.pos[_by_id_rows(s, end_ids[k])][0]
+                           - s.pos[_by_id_rows(s, end_ids[k])][1]).norm())
+                    for k in (0, 1)]
+            fin = all(bool(torch.isfinite(getattr(s, k)).all())
+                      for k in ("pos", "vel", "rho")) and all(
+                bool(torch.isfinite(getattr(s.ft, k)).all())
+                for k in ("center", "fvel", "fomega", "angles"))
+            log.append(dict(bb=int((d12 < dp).sum()),
+                            bw=int((dw < dp).sum()),
+                            dbb=float(d12.min()), dbw=float(dw.min()),
+                            span=span, finite=fin))
+
+        out = os.path.join(root, "out")
+        restore, sims = stepping_runs(on_step)
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            check(cli.main(["-case", path, "-partbegin:0", prep, "-sv:binx",
+                            "-nortimes", "-dirout", out]) == 0,
+                  "the -case run of the DEM boxes failed")
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        nsteps = len(log)
+        check(nsteps >= 30, f"the DEM run made {nsteps} steps")
+        single_phase_counts(launched, "cellforce", 2, nsteps)
+        check(log[0]["bb"] > 0, "no box-box DEM contact at the first step")
+        first_bw = next((k for k, r in enumerate(log) if r["bw"] > 0), None)
+        check(first_bw is not None, "no box-wall DEM contact in the run")
+        dbb = min(r["dbb"] for r in log)
+        dbw = min(r["dbw"] for r in log)
+        check(dbb >= 0.5 * dp and dbw >= 0.5 * dp, f"a box particle came "
+              f"within {min(dbb, dbw) / dp:.3f} dp of the other box or a wall")
+        dspan = max(abs(s - s0) for r in log for s, s0 in zip(r["span"],
+                                                               spans0))
+        check(dspan < 1e-3 * dp, f"a box deformed by {dspan / dp:.2e} dp")
+        check(all(r["finite"] for r in log), "the state or the bodies went "
+              "non-finite")
+        sim = sims[0]
+        carry = sim.carry
+        check(carry.overflow == 0, f"DEM: overflow {carry.overflow}")
+        parts = read_parts(PD, out, case.np_total, case.csp.rhopzero)
+        ft = carry.st.ft
+        say("dem-3d", f"-case -partbegin:0 with two {BOX_SIDE} m boxes at dp "
+            f"{dp:.6g}: {case.np_total} particles ({int(isft.sum())} "
+            f"floating), {nsteps} steps and PARTs {sorted(parts)} in "
+            f"{wall:.3f} s ({launched['cellforce']} cellforce launches); "
+            f"box-box contacts at step 1: {log[0]['bb']} (max "
+            f"{max(r['bb'] for r in log)}), box-wall contacts from step "
+            f"{first_bw + 1} (max {max(r['bw'] for r in log)}); nearest "
+            f"box-box {dbb / dp:.4f} dp, box-wall {dbw / dp:.4f} dp; spans "
+            f"kept within {dspan / dp:.2e} dp; body fvel "
+            f"{ft.fvel.tolist()}, overflow 0 ({smi})")
+        csp, dom = sim.csp, sim.dom
+        step = sim.inner_step
+        layout = DEM.DemLayout()
+
+        def dem_pass():
+            s = carry.st
+            return DEM.apply_dem(feats.dem, csp, dom, carry.cells, s.pos,
+                                 s.vel, s.code, s.idp, carry.dt_pre,
+                                 layout=layout)
+
+        dem_pass()
+        carry, rec = coupling_timing("dem-3d", step, carry, smi, {
+            "dem pass": (2, dem_pass)})
+        rec.update(floating_kernel_vs_plain("dem-3d", csp, sim.opts, dom,
+                                            carry, feats.floating, smi))
+        rec.update(launches=launched["cellforce"], steps=nsteps,
+                   contacts_bb_step1=log[0]["bb"], first_bw_step=first_bw + 1)
+        return launched["cellforce"], rec
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def moored_xml(dp, tmax, tout):
+    """Phase 33's case: the XML twin of ``cases.floatingbox2d(dp)`` (a 2 x
+    1.2 m tank, water 0.5 m deep, a 0.2 m box of rhopbody 500 at (0.9,
+    0.42)) with ``<special><moorings>`` reading MOORED_MOORDYN beside it."""
+    return f"""<?xml version="1.0"?>
+<case><casedef>
+ <constantsdef>
+  <gravity x="0" y="0" z="-9.81"/><rhop0 value="1000"/>
+  <hswl value="0.5" auto="false"/><gamma value="7"/>
+  <speedsystem value="0" auto="true"/><coefsound value="20"/>
+  <speedsound value="0" auto="true"/><coefh value="1.0"/>
+  <cflnumber value="0.2"/>
+ </constantsdef>
+ <geometry>
+  <definition dp="{dp!r}">
+   <pointmin x="-0.05" y="0" z="-0.05"/><pointmax x="2.1" y="0" z="1.3"/>
+  </definition>
+  <commands><mainlist>
+   <setmkfluid mk="0"/><drawbox><boxfill>solid</boxfill>
+    <point x="0" y="0" z="0"/><size x="2" y="0" z="0.5"/></drawbox>
+   <setmkbound mk="0"/><drawbox><boxfill>bottom|left|right</boxfill>
+    <point x="0" y="0" z="0"/><size x="2" y="0" z="1.2"/></drawbox>
+   <setmkbound mk="45"/><drawbox><boxfill>solid</boxfill>
+    <point x="0.9" y="0" z="0.42"/><size x="0.2" y="0" z="0.2"/></drawbox>
+  </mainlist></commands>
+ </geometry>
+ <floatings><floating mkbound="45" rhopbody="500"/></floatings>
+</casedef>
+<execution>
+ <special>
+  <moorings>
+   <mooredfloatings><floating mkbound="45"/></mooredfloatings>
+   <moordyn file="moordyn.xml"/>
+  </moorings>
+ </special>
+ <parameters>
+  <parameter key="StepAlgorithm" value="2"/><parameter key="Kernel" value="2"/>
+  <parameter key="ViscoTreatment" value="1"/><parameter key="Visco" value="0.05"/>
+  <parameter key="DensityDT" value="2"/>
+  <parameter key="TimeMax" value="{tmax!r}"/><parameter key="TimeOut" value="{tout!r}"/>
+ </parameters>
+</execution>
+</case>
+"""
+
+
+def moored_moordyn(center):
+    """examples/03_floating_moored.py's two lines as a MoorDyn+ file: each
+    0.45 m, EA 2.9e3 N, 10 segments, 3.7 mm, 0.06 kg/m, from the floor 0.4
+    m either side of the box's centre to fairleads 0.1 m either side of it
+    and 0.05 m below; the seabed at z = 0."""
+    cx, _cy, cz = (float(c) for c in center)
+    lines = "".join(f"""
+  <line><vesselconnection bodyref="45" x="{cx + s * 0.1!r}" y="0" z="{cz - 0.05!r}"/>
+   <fixconnection x="{cx + s * 0.4!r}" y="0" z="0"/>
+   <length value="0.45"/><segments value="10"/></line>""" for s in (-1, 1))
+    return f"""<?xml version="1.0"?>
+<moordyn>
+ <solverOptions><freesurface value="0.5"/><waterDepth value="0.5"/>
+  <tmaxIC value="{MOORED_TMAXIC!r}"/></solverOptions>
+ <bodies><body ref="45"/></bodies>
+ <lines>
+  <linedefault><ea value="2.9e3"/><diameter value="3.7e-3"/>
+   <massDenInAir value="0.06"/><ba value="-0.8"/></linedefault>{lines}
+ </lines>
+</moordyn>
+"""
+
+
+def moored_path(device, smi):
+    """Phase 33: the moored box through ``-case``: ``moored_xml`` at
+    DP_FLOAT (62,033 particles) with its MoorDyn file (the XML twin of
+    ``floatingbox2d`` and examples/03_floating_moored.py's two lines),
+    ~50 steps.  After each step each line's fairlead node sits on the
+    body's fairlead point within 1e-5 m and the fairlead tensions are
+    finite; each save writes a MooringsLines file and one
+    MooringsPoints.csv row per line; the lines' relaxation's host seconds.
+    Then the timing with the rigid update and the lines' substep alone,
+    and 20 steps through ``Features`` of the quasi-static ``MooringCfg``
+    with a ``ForcePointsCfg``."""
+    import shutil
+    import tempfile
+    from dualsphysics_multilayer_tpu_torch import Features, cli
+    from dualsphysics_multilayer_tpu_torch.features import floating as FT
+    from dualsphysics_multilayer_tpu_torch.features import moorings as MO
+    from dualsphysics_multilayer_tpu_torch.io.xmlcase import load_case
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    from dualsphysics_multilayer_tpu_torch.models.wcsph import (make_carry,
+                                                                make_step)
+    root = tempfile.mkdtemp(prefix="_smoke_moor_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    try:
+        ref = cases.floatingbox2d(dp=DP_FLOAT, device=device)
+        path = os.path.join(root, "Moored_Def.xml")
+        with open(path, "w") as f:
+            f.write(moored_xml(DP_FLOAT, 2 * MOORED_TOUT, MOORED_TOUT))
+        with open(os.path.join(root, "moordyn.xml"), "w") as f:
+            f.write(moored_moordyn(ref.state.ft.center[0].tolist()))
+        case, opts, _run = load_case(path, device=device)
+        check(case.np_total == ref.np_total, f"the XML twin draws "
+              f"{case.np_total} particles, floatingbox2d {ref.np_total}")
+        feats = case.meta["features"]
+        cfg = feats.moorings
+        check(cfg is not None and len(cfg.lines) == 2, "the moorings' lines")
+        log = []
+
+        def on_step(carry):
+            pf, _ = cfg._fairlead_kin(carry.st.ft)
+            node = torch.stack([carry.moor.pos[k, ln.nseg]
+                                for k, ln in enumerate(cfg.lines)])
+            tens = cfg.fairlead_tensions(carry.moor)
+            log.append((float((node - pf).norm(dim=1).max()),
+                        bool(torch.isfinite(tens).all()),
+                        tens.norm(dim=1).tolist()))
+
+        out = os.path.join(root, "out")
+        restore, sims = stepping_runs(on_step)
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            check(cli.main(["-case", path, "-sv:binx", "-nortimes",
+                            "-dirout", out]) == 0,
+                  "the -case run of the moored box failed")
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        sim = sims[0]
+        nsteps = len(log)
+        check(nsteps >= 30, f"the moored run made {nsteps} steps")
+        single_phase_counts(launched, "cellforce", 2, nsteps)
+        off = max(r[0] for r in log)
+        check(off < 1e-5, f"a fairlead node {off:.3e} m off its fairlead")
+        check(all(r[1] for r in log), "a fairlead tension went non-finite")
+        vtk = sorted(os.listdir(os.path.join(out, "MooringsVtk")))
+        check(vtk == [f"MooringsLines_{k:04d}.vtk" for k in range(3)],
+              f"MooringsVtk holds {vtk}")
+        with open(os.path.join(out, "MooringsPoints.csv")) as f:
+            rows = f.read().splitlines()
+        check(len(rows) == 1 + 3 * 2, f"MooringsPoints.csv holds "
+              f"{len(rows) - 1} rows, expected 2 per save")
+        carry = sim.carry
+        tens = log[-1][2]
+        say("moored-box", f"-case with two MoorDyn lines at dp "
+            f"{DP_FLOAT:.6g}: {case.np_total} particles, {nsteps} steps and "
+            f"3 PARTs in {wall:.3f} s ({launched['cellforce']} cellforce "
+            f"launches); the lines' relaxation ({MOORED_TMAXIC} s at "
+            f"{cfg.stable_dtm():.3e} s substeps) {carry.moor_init_s:.3f} s "
+            f"on the host, {cfg.nsub} substep(s) per step; fairlead nodes "
+            f"within {off:.2e} m of their fairleads; fairlead tensions "
+            f"{[round(t, 4) for t in tens]} N; 3 MooringsLines files, "
+            f"{len(rows) - 1} MooringsPoints rows; body center "
+            f"{carry.st.ft.center[0].tolist()} ({smi})")
+        csp, dom = sim.csp, sim.dom
+        st = carry.st
+        fts = st.ft
+        ace = torch.zeros_like(st.vel)
+
+        def rigid():
+            face, fom = cfg.forces(fts, carry.moor, tabs=carry.tabs)
+            return FT.run_floating(feats.floating, csp, fts, carry.tabs,
+                                   carry.dt_pre, False, st.pos, st.vel,
+                                   st.code, ace, ext_face=face,
+                                   ext_fomegaace=fom)
+
+        def substeps():
+            return cfg.advance(carry.moor, fts, carry.dt_pre)
+
+        carry, rec = coupling_timing("moored-box", sim.inner_step, carry, smi,
+                                     {"rigid update with the lines": (2, rigid),
+                                      "lines' advance": (1, substeps)})
+        rec.update(floating_kernel_vs_plain("moored-box", csp, sim.opts, dom,
+                                            carry, feats.floating, smi))
+        rec.update(launches=launched["cellforce"], steps=nsteps,
+                   moor_init_s=carry.moor_init_s, nsub=cfg.nsub)
+        # the quasi-static lines and a force point through Features
+        c0 = tuple(float(x) for x in case.state.ft.center[0].tolist())
+        qs = MO.MooringCfg(nbodies=1, lines=tuple(
+            MO.MooringLine(0, (c0[0] + s * 0.4, 0.0, 0.0),
+                           (s * 0.1, 0.0, -0.05), 0.55, 2.9e3, 2.0)
+            for s in (-1, 1)))
+        fp = MO.ForcePointsCfg(nbodies=1, points=(MO.ForcePoint(
+            0, (0.1, 0.0, 0.1), times=(0.0, 0.001), forces=(0, 0, 0,
+                                                            2.0, 0, -1.0)),))
+        qfeats = Features(floating=feats.floating, moorings=qs,
+                          forcepoints=fp)
+        qstep = make_step(csp, opts, dom, qfeats)
+        qcarry = make_carry(case.state, csp, opts, dom, qfeats)
+        qcarry, times, launched2 = run_steps(qstep, qcarry, 0, 20)
+        single_phase_counts(launched2, "cellforce", 2, 20)
+        qft = qcarry.st.ft
+        check(all(bool(torch.isfinite(getattr(qft, k)).all())
+                  for k in ("center", "fvel", "fomega", "angles")),
+              "the quasi-static moored box went non-finite")
+        d2h, qcarry = count_d2h(qstep, qcarry, 5)
+        check(d2h == 1, f"quasi-static lines: {d2h} device-to-host copies "
+              f"per step")
+        face, fom = qs.forces(qft)
+        say("moored-box", f"20 steps of the quasi-static MooringCfg (2 taut "
+            f"lines) and a ForcePointsCfg through Features: p50 "
+            f"{statistics.median(times) * 1e3:.3f} ms, {d2h:g} "
+            f"device-to-host copy per step, the lines' force on the body "
+            f"{face[0].tolist()} N, fvel {qft.fvel[0].tolist()} ({smi})")
+        rec.update(quasi_static_p50_ms=statistics.median(times) * 1e3)
+        return launched["cellforce"] + launched2["cellforce"], rec
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _obj_box(lo, hi):
+    """An ``.obj`` of the box [lo, hi] (6 quads)."""
+    v = [(float(x), float(y), float(z)) for x in (lo[0], hi[0])
+         for y in (lo[1], hi[1]) for z in (lo[2], hi[2])]
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6),
+             (0, 2, 6, 4), (1, 5, 7, 3)]
+    return "\n".join(["v %r %r %r" % p for p in v]
+                     + ["f %d %d %d %d" % tuple(i + 1 for i in q)
+                        for q in quads]) + "\n"
+
+
+def chrono_geometry(dp):
+    """Phase 34's bodies in lattice indices: the flap (mk 51) downstream of
+    the column and the collision box (mk 52) downstream of the obstacle,
+    each one lattice step above the floor; and the flap's hinge point (its
+    bottom layer's centre) and spring ends."""
+    nf = tuple(int(round(s / dp)) for s in FLAP)
+    i_flap = (int(round(0.6 / dp)), int(round(0.085 / dp)), 1)
+    nb = int(round(COLBOX / dp))
+    i_box = (int(round(1.2 / dp)), int(round(0.3 / dp)), 1)
+    lo = np.array(i_flap) * dp
+    size = np.array(nf) * dp
+    rot = (float(lo[0] + size[0] / 2), float(lo[1] + size[1] / 2),
+           float(lo[2]))
+    top = (rot[0], rot[1], float(lo[2] + size[2]))
+    return (i_flap, nf), (i_box, (nb, nb, nb)), rot, top
+
+
+def chrono_xml(dp, tmax, tout):
+    """Phase 34's case: the dam break with a floating flap (rhopbody 800)
+    hinged to the ground at its lower edge (axis y), turning about it at 2
+    rad/s, and held by a linear spring, and a collision box (rhopbody 800, ``box.obj``) on the fixed
+    floor mesh (``floor.obj``), ``<collision>`` on."""
+    (i_flap, nf), (i_box, nb), rot, top = chrono_geometry(dp)
+    draw = (_lattice_box(51, i_flap, nf, dp) + "\n"
+            + _lattice_box(52, i_box, nb, dp))
+    # the flap turns at 2 rad/s about its hinge from the start
+    arm = float(nf[2]) * dp / 2
+    casedef = (
+        '<floatings><floating mkbound="51" rhopbody="800">'
+        f'<linearvelini x="{2.0 * arm!r}" y="0" z="0"/>'
+        '<angularvelini x="0" y="2" z="0"/></floating>'
+        '<floating mkbound="52" rhopbody="800" property="box"/></floatings>'
+        f'<properties>{_property("box", BOX_PROPS)}'
+        f'{_property("wall", WALL_PROPS)}<links><link mkbound="0" '
+        'property="wall"/></links></properties>')
+
+    def p(tag, x):
+        return f'<{tag} x="{x[0]!r}" y="{x[1]!r}" z="{x[2]!r}"/>'
+
+    special = f"""<chrono>
+   <collision activate="true"><distancedp value="0.5"/></collision>
+   <bodyfixed id="ground" mkbound="0" modelfile="floor.obj"/>
+   <bodyfloating id="flap" mkbound="51"/>
+   <bodyfloating id="box" mkbound="52" modelfile="box.obj"/>
+   <link_hinge idbody1="flap" idbody2="ground">{p("rotpoint", rot)}
+    <rotvector x="0" y="1" z="0"/></link_hinge>
+   <link_linearspring idbody1="flap" idbody2="ground">{p("point_fb1", top)}
+    {p("point_fb2", (top[0] + 0.3, top[1], top[2]))}
+    <stiffness value="50"/><damping value="1"/><rest_length value="0.3"/>
+   </link_linearspring>
+  </chrono>"""
+    return _dambreak_with(dp, tmax, tout, draw, casedef, special)
+
+
+def chrono_meshes(dp):
+    """(box.obj, floor.obj): the box's faces dp/2 outside its particles;
+    a 0.5 x 0.5 m floor patch under it, 0.497 dp below its bottom face:
+    the contact distance is 0.5 dp, so the box starts in contact with an
+    overlap of 0.003 dp, where the contact about carries its weight."""
+    _flap, (i_box, nb), _rot, _top = chrono_geometry(dp)
+    lo = np.array(i_box) * dp - dp / 2
+    hi = (np.array(i_box) + np.array(nb)) * dp + dp / 2
+    zf = float(lo[2] - 0.497 * dp)
+    cx, cy = (float(x) for x in (lo[:2] + hi[:2]) / 2)
+    corners = [(cx + sx * 0.25, cy + sy * 0.25)
+               for sx, sy in ((-1, -1), (1, -1), (1, 1), (-1, 1))]
+    floor = "".join(f"v {x!r} {y!r} {zf!r}\n" for x, y in corners) \
+        + "f 1 2 3 4\n"
+    return _obj_box(lo, hi), floor
+
+
+def chrono_path(device, smi):
+    """Phase 34: Chrono in 3D through ``-case``: ``chrono_xml`` at DP_BENCH
+    (~50 steps): the flap's hinge point stays within 1.5% of its arm of
+    ``rotpoint`` and its off-axis angles under 0.02 rad
+    (tests/test_chrono.py:79, :83), the collision box stays above the floor
+    mesh, cellforce twice per step; then the timing with the rigid update
+    (the KKT solve and the mesh contact) alone, one device-to-host copy per
+    step, kernel 1's floating instance against its plain version; then a
+    restart from PART 1 that leaves with JAX's message without
+    ``-restartchrono`` and runs with it."""
+    import shutil
+    import tempfile
+    from dualsphysics_multilayer_tpu_torch import cli
+    from dualsphysics_multilayer_tpu_torch.features import floating as FT
+    from dualsphysics_multilayer_tpu_torch.io import partdata as PD
+    dp = DP_BENCH
+    root = tempfile.mkdtemp(prefix="_smoke_chrono_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    try:
+        path = os.path.join(root, "Chrono_Def.xml")
+        with open(path, "w") as f:
+            f.write(chrono_xml(dp, 3 * COUPLING_TOUT, COUPLING_TOUT))
+        box_obj, floor_obj = chrono_meshes(dp)
+        with open(os.path.join(root, "box.obj"), "w") as f:
+            f.write(box_obj)
+        with open(os.path.join(root, "floor.obj"), "w") as f:
+            f.write(floor_obj)
+        _flap, _box, rot, _top = chrono_geometry(dp)
+        rot_t = torch.tensor(rot, dtype=torch.float32, device=device)
+        log, ctx = [], {}
+
+        def on_step(carry):
+            ft = carry.st.ft
+            if "c0" not in ctx:
+                # the flap's initial centre: rotpoint less the hinge's
+                # body-local anchor
+                local = ctx["sims"][0].feats.chrono.local1[0]
+                ctx["c0"] = rot_t - torch.tensor(local, dtype=torch.float32,
+                                                 device=device)
+            c0 = ctx["c0"]
+            R = FT._euler_rot(ft.angles)[0]
+            hinge = ft.center[0] + R @ (rot_t - c0)
+            log.append((float((hinge - rot_t).norm()),
+                        float(ft.angles[0, [0, 2]].abs().max()),
+                        float(ft.center[1, 2]),
+                        all(bool(torch.isfinite(getattr(ft, k)).all())
+                            for k in ("center", "fvel", "fomega",
+                                      "angles"))))
+
+        out = os.path.join(root, "out")
+        restore, sims = stepping_runs(on_step)
+        ctx["sims"] = sims
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            check(cli.main(["-case", path, "-sv:binx", "-nortimes",
+                            "-dirout", out]) == 0,
+                  "the -case run of the Chrono bodies failed")
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        sim = sims[0]
+        nsteps = len(log)
+        check(nsteps >= 30, f"the Chrono run made {nsteps} steps")
+        single_phase_counts(launched, "cellforce", 2, nsteps)
+        arm = float((rot_t - ctx["c0"]).norm())
+        drift = max(r[0] for r in log)
+        tilt = max(r[1] for r in log)
+        check(drift < 0.015 * arm, f"the flap's hinge point drifted "
+              f"{drift:.3e} m, {drift / arm:.2%} of its arm")
+        check(tilt < 0.02, f"the flap's off-axis angle reached {tilt:.4f} rad")
+        check(all(r[3] for r in log), "the bodies went non-finite")
+        feats = sim.feats
+        cc = feats.chcontact
+        zbox0 = float(cc.center0[1][2])
+        zmin = min(r[2] for r in log)
+        check(zmin > zbox0 - 0.5 * dp, f"the collision box sank "
+              f"{(zbox0 - zmin) / dp:.3f} dp into the floor mesh")
+        parts = read_parts(PD, out, sim.state.n, sim.csp.rhopzero)
+        ft = sim.carry.st.ft
+        say("chrono-3d", f"-case with a hinged flap ({FLAP} m) and a "
+            f"collision box at dp {dp:.6g}: {sim.state.n} particles, "
+            f"{nsteps} steps and PARTs {sorted(parts)} in {wall:.3f} s "
+            f"({launched['cellforce']} cellforce launches); hinge point "
+            f"within {drift:.3e} m of rotpoint ({drift / arm:.3%} of the "
+            f"{arm:.4f} m arm), off-axis angles <= {tilt:.2e} rad; the box's "
+            f"centre z from {zbox0:.6f} to {float(ft.center[1, 2]):.6f} (its "
+            f"lowest {zmin:.6f}); flap fomega {ft.fomega[0].tolist()} ({smi})")
+        carry = sim.carry
+        csp, dom = sim.csp, sim.dom
+        st = carry.st
+        ace = torch.zeros_like(st.vel)
+
+        def rigid():
+            return FT.run_floating(feats.floating, csp, st.ft, carry.tabs,
+                                   carry.dt_pre, False, st.pos, st.vel,
+                                   st.code, ace, chrono=feats.chrono,
+                                   chcontact=feats.chcontact)
+
+        def rigid_plain():
+            return FT.run_floating(feats.floating, csp, st.ft, carry.tabs,
+                                   carry.dt_pre, False, st.pos, st.vel,
+                                   st.code, ace)
+
+        carry, rec = coupling_timing("chrono-3d", sim.inner_step, carry, smi,
+                                     {"rigid update with Chrono": (2, rigid),
+                                      "rigid update alone": (2, rigid_plain)})
+        rec.update(floating_kernel_vs_plain("chrono-3d", csp, sim.opts, dom,
+                                            carry, feats.floating, smi))
+        rec.update(launches=launched["cellforce"], steps=nsteps,
+                   hinge_drift=drift / arm, tilt=tilt)
+        # a restart from PART 1: JAX's gate, then the run with the flag
+        again = ["-case", path, "-partbegin:1", out, "-sv:binx", "-nortimes",
+                 f"-tmax:{2 * COUPLING_TOUT!r}", "-dirout",
+                 os.path.join(root, "again")]
+        try:
+            cli.main(again)
+            refused = None
+        except SystemExit as e:
+            refused = str(e)
+        check(refused is not None and "-restartchrono" in refused,
+              f"a restart of the Chrono case without -restartchrono: "
+              f"{refused!r}")
+        reset_counts()
+        check(cli.main(again + ["-restartchrono"]) == 0,
+              "the restart with -restartchrono failed")
+        launched2 = counts()
+        check(os.path.exists(os.path.join(root, "again", "Part_0002.bi4")),
+              "the restart wrote no PART 2")
+        say("chrono-3d", f"restart from PART 1: without -restartchrono "
+            f"\"{refused}\"; with it, PART 2 written "
+            f"({launched2['cellforce']} cellforce launches) ({smi})")
+        return launched["cellforce"] + launched2["cellforce"], rec
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     check(torch.cuda.is_available(), "no CUDA device: the port's smoke run "
           "needs an NVIDIA GPU")
@@ -3527,6 +4335,19 @@ def main():
                               "ops", "idle_share")}
         for k, r in open_records.items()}
 
+    # 32-34. the floating bodies' couplings: DEM in 3D, the moored box,
+    # Chrono links and mesh contact in 3D, each through -case
+    coupling_records = {}
+    for name, path_fn in (("dem-3d", dem_path), ("moored-box", moored_path),
+                          ("chrono-3d", chrono_path)):
+        paths[name], coupling_records[name] = path_fn(device, smi)
+    records["cellforce"]["coupling_states"] = {
+        k: {f: r[f] for f in ("rows", "floating", "max_abs_err", "ms",
+                              "wrapped_ms", "plain_ms", "bound_ms",
+                              "bound_by", "p50_ms", "busy_ms", "ops",
+                              "idle_share", "pieces")}
+        for k, r in coupling_records.items()}
+
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=rep,
         launches=records[name]["launches"],
@@ -3534,7 +4355,7 @@ def main():
         plain_ms=records[name]["plain_ms"], bound_ms=records[name]["bound_ms"],
         bound_by=records[name]["bound_by"], library_ms=None,
         **{k: records[name][k] for k in ("instances", "path_launches",
-                                          "open_states")
+                                          "open_states", "coupling_states")
            if k in records[name]})
         for name, (src, rep) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

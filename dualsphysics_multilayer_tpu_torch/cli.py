@@ -10,9 +10,14 @@ A case with ``<special><nnphases>`` runs the multiphase non-Newtonian step
 (``models/nnewtonian.make_nn_step``); a case with ``<special><inout>`` and
 ``-builtin channel2d`` run their inlet/outlet zones (``features/inout.py``;
 the JAX CLI builds no ``Features`` for ``channel2d`` and runs its zone
-particles as inert fluid), and refuse a restart, as the reference does.  ``-initnorpla``/``-initnorpart``
-give the walls normals (``features/initialize.py``) after any restart and
-make the run an mDBC run, as the JAX CLI does.
+particles as inert fluid), and refuse a restart, as the reference does.
+``-initnorpla``/``-initnorpart`` give the walls normals
+(``features/initialize.py``) after any restart and make the run an mDBC
+run, as the JAX CLI does.  A case's floating-body couplings (DEM, Chrono
+links and mesh contact, moorings) run through its ``Features``; a restart
+of a Chrono case needs ``-restartchrono``, as the reference's does, and a
+restart of a moored case starts its lines from their relaxed state at the
+restored bodies.
 
     python -m dualsphysics_multilayer_tpu_torch.cli -case Dambreak_Def.xml \\
         -dirout out
@@ -25,8 +30,8 @@ make the run an mDBC run, as the JAX CLI does.
 Reference colon-form flags (-tmax:1.6, -partbegin:20 dir, -svpips:2) are
 accepted alongside space-separated values, and ``-opt FILE`` reads more
 options from a file.  Options whose setting the port does not run leave
-with a message that names them: ``-shard``, ``-restartchrono``,
-``-pallas``/``-no-pallas`` and ``-cellmode:half``; so do the XML nodes the
+with a message that names them: ``-shard``, ``-pallas``/``-no-pallas``
+and ``-cellmode:half``; so do the XML nodes the
 loader refuses and the options the NN step refuses.
 """
 
@@ -188,7 +193,7 @@ def build_parser():
     p.add_argument("-restartdir", default=None,
                    help="directory holding the restart PART files")
     p.add_argument("-restartchrono", action="store_true",
-                   help="restart with Chrono-coupled bodies (not ported)")
+                   help="allow a restart of a case with Chrono links")
     p.add_argument("-nsteps", type=int, default=None,
                    help="debug: stop at the first save after N steps")
     p.add_argument("-pallas", action="store_true", default=None,
@@ -219,8 +224,6 @@ def refuse(args):
     if args.shard is not None:
         raise SystemExit("-shard: domain decomposition "
                          "(parallel/sharding.py) is not ported yet")
-    if args.restartchrono:
-        raise SystemExit("-restartchrono: Chrono coupling is not ported")
     if args.pallas is not None:
         raise SystemExit("-pallas/-no-pallas: the port has no Pallas path; "
                          "CUDA tensors always run the hand-written kernels")
@@ -237,7 +240,8 @@ def _features():
             "motion", "damping", "accinput", "gauges", "viscotime", "bi4",
             "vtk", "csv", "restart", "savedt", "xmlcase", "nnphases",
             "symmetry", "initialize", "initnorpla", "initnorpart",
-            "nn-mdbc", "inout", "periodic", "cuda"]
+            "nn-mdbc", "inout", "periodic", "dem", "moorings",
+            "forcepoints", "chrono", "chcontact", "cuda"]
 
 
 def _info(torch):
@@ -258,11 +262,13 @@ def _info(torch):
                            "boundnormal_plane", "boundnormal_sphere",
                            "boundnormal_cylinder", "boundnormal_parts",
                            "-initnorpla", "-initnorpart"],
-            "bodies": ["floating-6dof"],
+            "bodies": ["floating-6dof", "dem(RigidAlgorithm=2)",
+                       "moorings(moordyn)", "forcepoints(library)",
+                       "chrono-links", "chrono-mesh-contact"],
             "waves": ["piston", "flap", "irregular", "solitary", "focused",
                       "relaxation-zones", "multilayer-piston", "awas"],
             "io": ["bi4", "vtk", "csv", "restart", "savedt", "fbi4", "obi4",
-                   "parthead", "run-csv", "case-xml"],
+                   "parthead", "run-csv", "case-xml", "moorings-vtk-csv"],
             "builtin": list(BUILTINS),
         },
         "torch": torch.__version__,
@@ -479,6 +485,13 @@ def main(argv=None):
                       else f"-builtin {args.builtin}")
             raise SystemExit(f"{source}: Restart with inlet/outlet "
                              f"conditions is not allowed.")
+        if feats is not None and feats.chrono is not None \
+                and not args.restartchrono:
+            # the reference's -restartchrono gate (JSph RestartCheckData;
+            # JAX cli.py:400-405)
+            raise SystemExit("Restart with active Chrono coupling needs "
+                             "-restartchrono:1 (contact state is not saved "
+                             "in the PART files).")
         part0 = int(str(args.partbegin).split(":")[0])
         pdir = args.restartdir or (args.rest[0] if args.rest else args.dirout)
         path = os.path.join(pdir, part_filename(part0))

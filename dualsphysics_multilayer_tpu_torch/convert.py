@@ -27,10 +27,16 @@ into the port's, so both packages can compute on the same state.
   ``MLPiston1D``/``MLPiston2D``, ``AwasZsurf``, ``AccInput``, the
   gauges, ``PeriodicCfg`` and the inlet/outlet ``InOutCfg`` with its
   ``InOutZone``s and ``InOutAwas`` (a zone's ``InOutGridVel`` becomes a
-  ``relaxzone.GridVel`` too).  ``features(feats)``: a JAX ``Features``
-  bundle, each of its tuples, ``periodic`` and ``inout`` converted; the
-  fields the port does not run are kept as they are, so the step still
-  refuses them.
+  ``relaxzone.GridVel`` too), the moorings (``MooringCfg``,
+  ``MooringLine``, ``ForcePointsCfg``, ``ForcePoint``, ``MoorDynCfg``,
+  ``MoorDynLine``) and the Chrono links (``ChronoCfg``, ``ChLink``).
+* ``demcfg(cfg, idp)``: a JAX ``DemCfg`` (tables by canonical slot) as
+  the port's, keyed by id through ``idp``, the ids of the template's slots.
+* ``chcontactcfg(cfg)``: a JAX ``ChContactCfg`` as the port's.
+* ``moorstate(ms, device)``: a JAX ``MoorState`` as the port's.
+* ``features(feats, idp=None)``: a JAX ``Features`` bundle, each field
+  converted (``dem`` through ``demcfg`` with ``idp``, by default the
+  slots); the port's step runs every field.
 """
 
 from __future__ import annotations
@@ -42,8 +48,9 @@ import numpy as np
 import torch
 
 from . import typesdef as td
-from .features import accinput, awas, damping, gauges, inout, mlpiston
-from .features import motion, periodic, relaxzone
+from .features import accinput, awas, chcollision, chrono, damping, dem
+from .features import gauges, inout, mlpiston, moorings, motion, periodic
+from .features import relaxzone
 from .features.featureset import Features
 from .features.floating import FloatingCfg, FloatingState
 from .models.wcsph import SimState
@@ -123,7 +130,10 @@ _FEATURE_CLASSES = {cls.__name__: cls for cls in (
     relaxzone.RelaxZoneExternal, mlpiston.MLPiston1D, mlpiston.MLPiston2D,
     awas.AwasZsurf, accinput.AccInput, gauges.GaugeVel, gauges.GaugeSwl,
     gauges.GaugeMaxZ, gauges.GaugeForce, periodic.PeriodicCfg,
-    inout.InOutZone, inout.InOutAwas, inout.InOutCfg)}
+    inout.InOutZone, inout.InOutAwas, inout.InOutCfg, moorings.MooringLine,
+    moorings.MooringCfg, moorings.ForcePoint, moorings.ForcePointsCfg,
+    moorings.MoorDynLine, moorings.MoorDynCfg, chrono.ChLink,
+    chrono.ChronoCfg)}
 _FEATURE_CLASSES["InOutGridVel"] = relaxzone.GridVel
 
 
@@ -144,18 +154,52 @@ def feature(obj):
     return cls(**{f.name: value(getattr(obj, f.name)) for f in fields(cls)})
 
 
-def features(feats) -> Features:
+def demcfg(cfg, idp=None) -> dem.DemCfg:
+    """The JAX ``DemCfg`` ``cfg`` (tables indexed by canonical slot) keyed
+    by particle id: slot k holds id ``idp[k]`` (by default k)."""
+    n = len(cfg.c_tau)
+    ids = np.arange(n) if idp is None else np.asarray(idp)
+    return dem.by_slot(*(np.asarray(getattr(cfg, k)) for k in (
+        "ft_idx", "c_tau", "c_kfric", "c_restitu", "c_mass", "c_massp",
+        "c_group", "c_isbound")), ids)
+
+
+def chcontactcfg(cfg) -> chcollision.ChContactCfg:
+    def value(name):
+        v = getattr(cfg, name)
+        return float(v) if name in ("ddp", "dp") else np.asarray(v)
+    return chcollision.ChContactCfg(**{
+        f.name: value(f.name) for f in fields(chcollision.ChContactCfg)})
+
+
+def moorstate(ms, device="cuda") -> moorings.MoorState:
+    return moorings.MoorState(
+        pos=torch.tensor(np.asarray(ms.pos), dtype=torch.float32,
+                         device=device),
+        vel=torch.tensor(np.asarray(ms.vel), dtype=torch.float32,
+                         device=device),
+        broken=torch.tensor(np.asarray(ms.broken), device=device))
+
+
+def features(feats, idp=None) -> Features:
     """A JAX ``Features`` bundle as the port's: ``floating`` through
-    :func:`floatingcfg`, the tuples of configurations through
-    :func:`feature`, the rest as it is."""
+    :func:`floatingcfg`, ``dem`` through :func:`demcfg` (ids ``idp``),
+    ``chcontact`` through :func:`chcontactcfg`, the other configurations
+    through :func:`feature`."""
     kw = {}
     for f in fields(Features):
         v = getattr(feats, f.name)
-        if f.name == "floating" and v is not None:
+        if v is None:
+            pass
+        elif f.name == "floating":
             v = floatingcfg(v)
-        elif f.name in ("periodic", "inout") and v is not None:
-            v = feature(v)
+        elif f.name == "dem":
+            v = demcfg(v, idp)
+        elif f.name == "chcontact":
+            v = chcontactcfg(v)
         elif isinstance(v, tuple):
             v = tuple(feature(x) for x in v)
+        elif type(v).__name__ in _FEATURE_CLASSES:
+            v = feature(v)
         kw[f.name] = v
     return Features(**kw)

@@ -3,13 +3,17 @@
 attaches a feature object when its XML node exists (`JSph::LoadCaseConfig`,
 JSph.cpp:923-1184); the step reads this static bundle when it is made.
 
-The fields are the JAX package's.  The port covers ``floating``,
+The fields are the JAX package's, and the port covers each: ``floating``,
 ``motions`` (``features/motion.py``), ``damping``, ``relaxzones``,
 ``mlpistons``, ``awas``, ``accinputs``, ``viscotime``
 (``features/viscoinput.py``), ``periodic`` (``features/periodic.py``,
-reached through the library only, as in JAX: no XML node sets it) and
-``inout`` (``features/inout.py``); any other non-empty field raises
-``NotImplementedError`` naming it."""
+reached through the library only, as in JAX: no XML node sets it),
+``inout`` (``features/inout.py``), ``dem`` (``features/dem.py``),
+``moorings`` and ``forcepoints`` (``features/moorings.py``; force points
+through the library only, as in JAX), ``chrono`` (``features/chrono.py``)
+and ``chcontact`` (``features/chcollision.py``).  A field given as
+anything but the port's configuration raises ``NotImplementedError``
+naming it (the JAX package's go through ``convert.features`` first)."""
 
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ from .floating import FloatingCfg
 
 # the fields the port's steps run
 PORTED = ("motions", "damping", "accinputs", "floating", "relaxzones",
-          "mlpistons", "awas", "viscotime", "periodic", "inout")
+          "mlpistons", "awas", "viscotime", "periodic", "inout", "dem",
+          "moorings", "forcepoints", "chrono", "chcontact")
 
 # the case XML's node behind each ported field, for refusals that name it
 XML_NODES = {"motions": "<motion> or <special><wavepaddles>",
@@ -31,7 +36,11 @@ XML_NODES = {"motions": "<motion> or <special><wavepaddles>",
              "mlpistons": "<special><mlayerpistons>",
              "awas": "<special><wavepaddles> AWAS",
              "viscotime": "<parameter key=\"ViscoTime\">",
-             "inout": "<special><inout>"}
+             "inout": "<special><inout>",
+             "dem": "<parameter key=\"RigidAlgorithm\" value=\"2\">",
+             "moorings": "<special><moorings>",
+             "chrono": "<special><chrono>",
+             "chcontact": "<special><chrono><collision>"}
 
 
 @dataclass(frozen=True)
@@ -69,22 +78,21 @@ class Features:
 
     def check_supported(self) -> None:
         """Raise NotImplementedError naming the first feature the port does
-        not cover: a field outside ``PORTED``, or ``periodic`` / ``inout``
-        given as anything but the port's configuration (the JAX package's
-        go through ``convert.feature`` first)."""
-        from .inout import InOutCfg
-        from .periodic import PeriodicCfg
-        kinds = {"periodic": PeriodicCfg, "inout": InOutCfg}
+        not cover: a field outside ``PORTED``, or a configuration given as
+        another class than the port's (the JAX package's go through
+        ``convert.features`` first)."""
         for name in self.set_fields():
             if name not in PORTED:
                 raise NotImplementedError(f"the torch port does not cover "
                                           f"Features.{name} yet")
-            if name in kinds and not isinstance(getattr(self, name),
-                                                kinds[name]):
+            kinds = _kinds().get(name)
+            value = getattr(self, name)
+            if kinds is not None and not isinstance(value, kinds):
                 raise NotImplementedError(
                     f"the torch port does not cover Features.{name} given "
-                    f"as {type(getattr(self, name)).__name__}: it runs "
-                    f"features.{name}.{kinds[name].__name__}")
+                    f"as {type(value).__name__}: it runs "
+                    + " or ".join(f"features.{k.__module__.rsplit('.', 1)[-1]}"
+                                  f".{k.__name__}" for k in kinds))
 
     def check_none_set(self, what: str) -> None:
         """Raise NotImplementedError naming the first set feature and its
@@ -94,3 +102,16 @@ class Features:
             raise NotImplementedError(
                 f"the torch port does not cover Features.{name}"
                 + (f" ({node})" if node else "") + f" on {what}")
+
+
+def _kinds():
+    """The port's configuration classes of the fields that name one class
+    (the others are tuples of the port's feature objects, converted by
+    ``convert.features``)."""
+    from . import chcollision, chrono, dem, inout, moorings, periodic
+    return {"periodic": (periodic.PeriodicCfg,), "inout": (inout.InOutCfg,),
+            "dem": (dem.DemCfg,),
+            "moorings": (moorings.MooringCfg, moorings.MoorDynCfg),
+            "forcepoints": (moorings.ForcePointsCfg,),
+            "chrono": (chrono.ChronoCfg,),
+            "chcontact": (chcollision.ChContactCfg,)}

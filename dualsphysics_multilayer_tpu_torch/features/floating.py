@@ -17,6 +17,11 @@ the same order of operations:
   velocity vel = fvel + fomega x (pos - center);
 * the body state commits on the corrector only (``predictor=False``).
 
+The moorings, force points and the Chrono couplings attach here as in
+JAX: external forces join the sums, mesh contact joins them too, and
+Chrono's links replace the per-body solve with the constrained one
+(``features/chrono.py``).
+
 The sums are masked reductions over a (bodies, particles) membership, not
 ``index_add_``: a CUDA scatter-add is atomic and its order changes from run
 to run, and two runs from one state must give the same bodies bit for bit.
@@ -111,18 +116,22 @@ def _body_sum(member, x):
 
 
 def run_floating(cfg: FloatingCfg, csp: CteSph, fts: FloatingState, t, dt,
-                 predictor: bool, pos, vel, code, ace, chrono=None,
-                 chcontact=None, psum_axis=None):
+                 predictor: bool, pos, vel, code, ace, ext_face=None,
+                 ext_fomegaace=None, chrono=None, chcontact=None,
+                 psum_axis=None):
     """One floating update at time ``t`` over ``dt``.  Returns (pos, vel,
-    new_state).  ``chrono``, ``chcontact`` and ``psum_axis`` (the Chrono
-    couplings and the sharded sums of the JAX package) are not ported and
-    raise; the external forces the JAX package adds here come from
-    moorings and force points, which the port's ``Features`` refuses."""
-    for name, value in (("chrono", chrono), ("chcontact", chcontact),
-                        ("psum_axis", psum_axis)):
-        if value is not None:
-            raise NotImplementedError(f"the torch port does not cover "
-                                      f"run_floating({name}=...) yet")
+    new_state).  ``ext_face``/``ext_fomegaace`` (B,3): external forces and
+    torques (moorings, force points) added to the sums.  ``chcontact``: a
+    ``features.chcollision.ChContactCfg``, whose mesh-contact forces join
+    the sums (its dt term is dropped, as in JAX).  ``chrono``: a
+    ``features.chrono.ChronoCfg``, whose springs and hinge torsion join the
+    sums and whose constrained solve replaces the per-body one (the
+    attachment point of libdsphchrono, JSphCpuSingle.cpp:930-945).
+    ``psum_axis`` (the JAX package's sharded sums) is not ported and
+    raises."""
+    if psum_axis is not None:
+        raise NotImplementedError("the torch port does not cover "
+                                  "run_floating(psum_axis=...) yet")
     B = cfg.count
     tb = body_tables(cfg, tuple(csp.gravity), vel.device)
     floating = td.is_floating(code) & td.is_active(code)
@@ -141,12 +150,33 @@ def run_floating(cfg: FloatingCfg, csp: CteSph, fts: FloatingState, t, dt,
     face_sum = _body_sum(member, force)
     dist = pos - fts.center[body]
     fomegaace_sum = _body_sum(member, torch.linalg.cross(dist, force, dim=-1))
+    if ext_face is not None:
+        face_sum = face_sum + ext_face
+    if ext_fomegaace is not None:
+        fomegaace_sum = fomegaace_sum + ext_fomegaace
 
     # ---- body accelerations (FtCalcForces)
     R = _euler_rot(fts.angles)
     inert = R @ tb.inertia0 @ R.transpose(-1, -2)
-    omegaace = torch.linalg.solve_ex(inert, fomegaace_sum[..., None])[0][..., 0]
-    face = (face_sum + tb.mass[:, None] * tb.gravity) / tb.mass[:, None]
+    if chcontact is not None:
+        from . import chcollision as CC
+        cface, ctq, _ = CC.contact_forces(chcontact, B, R, fts.center,
+                                          fts.fvel, fts.fomega, dt)
+        face_sum = face_sum + cface
+        fomegaace_sum = fomegaace_sum + ctq
+    weight = tb.mass[:, None] * tb.gravity
+    if chrono is not None:
+        from . import chrono as CH
+        sf, stq = CH.spring_forces(chrono, R, fts.center, fts.fvel,
+                                   fts.fomega)
+        tq_tor = CH.hinge_torsion(chrono, R, fts.fomega, fts.angles)
+        face, omegaace = CH.solve_constrained(
+            chrono, tb.mass, inert, R, fts.center, fts.fvel, fts.fomega,
+            face_sum + sf + weight, fomegaace_sum + stq + tq_tor, dt)
+    else:
+        omegaace = torch.linalg.solve_ex(
+            inert, fomegaace_sum[..., None])[0][..., 0]
+        face = (face_sum + weight) / tb.mass[:, None]
 
     # ---- result integration (FtCalcForcesRes)
     fomega = fts.fomega + dt * omegaace

@@ -299,15 +299,6 @@ def extrap_cap(cfg: InOutCfg, csp: CteSph) -> int:
     return int(math.ceil(1.5 * m)) + 64
 
 
-def row_cap(csp: CteSph, dom: cd.Domain) -> int:
-    """Slots of one neighbour row (3 cells along x) one pass reads per
-    candidate row: a dp lattice squeezed to 0.85 dp.  Longer rows count
-    into the step's inout overflow."""
-    q = dom.scell / (0.85 * csp.dp)
-    return int(math.ceil(3 * q + 1)) * int(math.ceil(q + 1)) ** (
-        1 if csp.simulate2d else 2)
-
-
 def inout_extrapolate(cfg: InOutCfg, csp: CteSph, dom: cd.Domain,
                       cells: cd.CellDiv, st, max_pairs: int = 1 << 22):
     """Ghost-node extrapolation of the zones with extrapolated velocity or
@@ -322,7 +313,7 @@ def inout_extrapolate(cfg: InOutCfg, csp: CteSph, dom: cd.Domain,
     The candidates come from the neighbour rows of the step's layout
     (``celldiv.point_ranges``, valid under the skin contract, as the mDBC
     pre-pass reads them; the JAX package divides afresh).  Sizes are
-    static (:func:`extrap_cap` members, :func:`row_cap` slots a row), so
+    static (:func:`extrap_cap` members, ``celldiv.row_cap`` slots a row), so
     nothing is read to the host.  Returns (vel, rho, overflow): members
     beyond the cap plus members with a longer row."""
     pos, vel, rho, code = st.pos, st.vel, st.rho, st.code
@@ -348,7 +339,7 @@ def inout_extrapolate(cfg: InOutCfg, csp: CteSph, dom: cd.Domain,
         if zone.rho_extrap:
             wantr = wantr | member
     cap = extrap_cap(cfg, csp)
-    L = row_cap(csp, dom)
+    L = cd.row_cap(csp, dom)
     # the members, compacted in slot order into ``cap`` rows
     rank = torch.cumsum(sel, 0) - 1
     idx = torch.full((cap + 1,), n, dtype=torch.long, device=dev)

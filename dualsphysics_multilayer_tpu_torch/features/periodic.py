@@ -38,8 +38,8 @@ from ..typesdef import CteSph
 from ..ops import celldiv as cd
 
 # the per-row fields a ghost row carries (the interaction's inputs)
-GHOST_FIELDS = ("pos", "vel", "rho", "code", "spstau", "boundnormal",
-                "motionvel")
+GHOST_FIELDS = ("pos", "vel", "rho", "code", "idp", "spstau",
+                "boundnormal", "motionvel")
 
 
 @dataclass(frozen=True)
@@ -160,8 +160,9 @@ def periodic_interaction(cfg: PeriodicCfg, csp: CteSph, dom: cd.Domain, st,
 
 def _rows_state(st, rows, code, order):
     """The rows as a state in cell order: the interaction's fields, the
-    body state, and no ids, residuals or M1 state (the interaction reads
-    none of them)."""
+    ids (a ghost row carries its source's, which DEM's id-keyed tables
+    read), the body state, and no residuals or M1 state (the interaction
+    reads none of them)."""
     kw = {k: None for k in vars(st)}
     kw.update({k: v[order] for k, v in rows.items()})
     kw["code"] = code[order]

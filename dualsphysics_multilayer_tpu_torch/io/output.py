@@ -3,9 +3,10 @@
 Counterpart of `dualsphysics_multilayer_tpu/io/output.py`: the per-PART
 output channels the reference writes from `JSph::SaveData` (JSph.cpp:2717):
 bi4 PART snapshots (full checkpoints), VTK and CSV particle dumps, gauges,
-the SaveDt and floating-motion rings, the run info, extra data and the
-excluded-particle stream; and the `-partbegin` restart contract (SURVEY
-§5.4): any PART file restores the particle state, time and step counter.
+the SaveDt and floating-motion rings, the mooring lines, the run info,
+extra data and the excluded-particle stream; and the `-partbegin` restart
+contract (SURVEY §5.4): any PART file restores the particle state, time
+and step counter.
 
 Everything runs on the host at save time: each array the channels read is
 copied from the device once per save (``partdata.HostCopy``, which counts
@@ -146,6 +147,8 @@ class OutputManager:
             self.drain_savedt(sim, h)
         if sim.carry.fthist is not None:
             self.drain_ftmotion(sim, h)
+        if sim.carry.moor is not None:
+            self.save_moorings(sim, h)
         if self.save_info:
             self.write_info(sim, h)
         save_extra = st.boundnormal is not None and self._nbound
@@ -277,11 +280,45 @@ class OutputManager:
         self.ftmotw._flush()
         self._ftmot_last = cur
 
-    def save_moorings(self, sim):
-        """Per-PART mooring output: the port does not run
-        ``Features.moorings``."""
-        raise NotImplementedError("the torch port does not cover "
-                                  "Features.moorings yet")
+    def save_moorings(self, sim, h):
+        """Per-PART mooring output (the reference's savevtk_lines and
+        savecsv_points, `_FmtXML_MoorDyn.xml`; JAX ``save_moorings``): the
+        line nodes as polylines in MooringsVtk/MooringsLines_XXXX.vtk and
+        one MooringsPoints.csv row per line with its fairlead node's
+        position, velocity and tension."""
+        moor = sim.carry.moor
+        cfg = self.feats.moorings if self.feats is not None else None
+        if moor is None or cfg is None:
+            return
+        P = h.get(moor.pos)                    # (L, NM+1, 3)
+        V = h.get(moor.vel)
+        brk = h.get(moor.broken)
+        tens = h.get(cfg.fairlead_tensions(moor))
+        nseg = [ln.nseg for ln in cfg.lines]
+        mdir = os.path.join(self.dirout, "MooringsVtk")
+        os.makedirs(mdir, exist_ok=True)
+        pts, lines = [], []
+        off = 0
+        for k, ns in enumerate(nseg):
+            pts.append(P[k, :ns + 1])
+            lines.append(np.arange(off, off + ns + 1))
+            off += ns + 1
+        vtkout.write_vtk_mesh(
+            os.path.join(mdir, f"MooringsLines_{sim.part:04d}.vtk"),
+            np.concatenate(pts, axis=0), lines=lines)
+        path = os.path.join(self.dirout, "MooringsPoints.csv")
+        newfile = not os.path.exists(path)
+        with open(path, "a") as f:
+            if newfile:
+                f.write("time;line;broken;posx;posy;posz;velx;vely;velz;"
+                        "tenx;teny;tenz;tension\n")
+            for k, ns in enumerate(nseg):
+                p, v, tv = P[k, ns], V[k, ns], tens[k]
+                f.write(f"{sim.time:.6f};{k};{int(brk[k])};"
+                        f"{p[0]:.6g};{p[1]:.6g};{p[2]:.6g};"
+                        f"{v[0]:.6g};{v[1]:.6g};{v[2]:.6g};"
+                        f"{tv[0]:.6g};{tv[1]:.6g};{tv[2]:.6g};"
+                        f"{np.linalg.norm(tv):.6g}\n")
 
     def drain_savedt(self, sim, h):
         """Append the per-dt diagnostics recorded since the last save to

@@ -26,17 +26,20 @@ for another device, its ``SolverOpts`` and the run values:
 * ``<special><inout>`` (``features/inout.py``): the zones, with spare
   slots for the zones and their inflow up to ``TimeMax`` (the drawn
   particles, ``inout.slots_required`` and 256, as in JAX) and the zones'
-  members placed by ``init_inout``.
+  members placed by ``init_inout``;
+* the floating bodies' couplings: the ``<properties>`` material table
+  (with ``<propertyfile>`` and ``<links>``) and ``RigidAlgorithm=2``
+  into DEM contact (``features/dem.py``, tables keyed by the state's ids),
+  ``<special><chrono>`` into the Chrono links, ``<scaleforce>`` and the
+  ``<collision>`` meshes (``features/chrono.py``,
+  ``features/chcollision.py``; ``modelfile`` meshes through
+  ``io/meshfile.py``), and ``<special><moorings>`` with its MoorDyn+ file
+  beside the case into the lumped-mass lines (``features/moorings.py``).
 
 The domain is the port's ``celldiv.make_domain`` over the particles'
 bounds and ``<simulationdomain>``; the JAX loader's bucket capacities
 (``cellcap``, ``maxcells``) belong to the TPU layouts and have no
-counterpart.  Nodes of features the port does not run raise
-``NotImplementedError`` naming the node: ``<chrono>`` and
-``<moorings>`` before anything is built (``refuse``),
-``RigidAlgorithm=2`` (DEM) on a case with floatings once the parameters
-are read; none of their configurations is built.  The ``<properties>`` material table feeds only
-DEM and Chrono contact, so the port does not read it.
+counterpart.
 """
 
 from __future__ import annotations
@@ -266,33 +269,76 @@ def _bathy_surface(xyz, gdp):
     return np.asarray(tris, np.float64)
 
 
-def refuse(root):
-    """Raise ``NotImplementedError`` naming the first ``<special>`` node of
-    a feature the port does not run (each a ``Features`` field the port
-    refuses), before anything is built."""
-    sp = _special(root)
-    if sp is None:
-        return
-    if sp.find("chrono") is not None:
-        raise NotImplementedError("<special><chrono>: the torch port "
-                                  "does not run this feature yet")
-    mo = sp.find("moorings")
-    if mo is not None and _active(mo):
-        raise NotImplementedError("<special><moorings>: the torch port "
-                                  "does not run moorings yet")
+def _mk_list(text):
+    """The mkbound values of "1,3-5"."""
+    out = []
+    for part in str(text or "").split(","):
+        part = part.strip()
+        if "-" in part:
+            lo, hi = part.split("-")
+            out += list(range(int(lo), int(hi) + 1))
+        elif part:
+            out.append(int(part))
+    return out
 
 
-def _parse_floatings(cdef, pos, code, csp, device):
+def _parse_properties(cdef, casedir):
+    """`<casedef><properties>`: the DEM material table (JCaseProperties,
+    read by `JSph::LoadDemData`, JSph.cpp:1189-1227).  Returns ``(by_name,
+    mk_links)``: property dicts by name, and {mkbound: name} from
+    ``<links>``."""
+    node = cdef.find("properties")
+    by_name, links = {}, {}
+    if node is None:
+        return by_name, links
+
+    def read_props(parent):
+        for pr in parent.findall("property"):
+            d = {}
+            for tag, key in (("Young_Modulus", "young"),
+                             ("PoissonRatio", "poisson"),
+                             ("Kfric", "kfric"),
+                             ("Restitution_Coefficient", "restitu")):
+                v = _fget(pr, tag)
+                if v is not None:
+                    d[key] = v
+            by_name[pr.get("name")] = d
+
+    pf_node = node.find("propertyfile")
+    if pf_node is not None:
+        proot = ET.parse(os.path.join(casedir, pf_node.get("file"))).getroot()
+        sub = proot
+        for part in (pf_node.get("path") or "").split("."):
+            if part and sub is not None and sub.tag != part:
+                nxt = sub.find(part)
+                sub = nxt if nxt is not None else sub
+        read_props(sub if sub is not None else proot)
+    read_props(node)
+    ln = node.find("links")
+    if ln is not None:
+        for link in ln.findall("link"):
+            for mk in _mk_list(link.get("mkbound")):
+                links[mk] = link.get("property")
+    return by_name, links
+
+
+# the DEM material of a body or wall without a <properties> entry
+_DEM_DEFAULT = dict(young=1e8, poisson=0.3, kfric=0.5, restitu=0.6)
+
+
+def _parse_floatings(cdef, pos, code, csp, device, casedir="."):
     """`<floatings>` blocks: retype the drawn bound particles of each
     mkbound to TYPE_FLOATING with a body index and build the rigid bodies
     (GenCase floating properties -> JCaseParts).  Returns (code, cfg,
-    state)."""
+    state, dem_info), dem_info = (per-body materials, {mk: material} of
+    the walls) for DEM and mesh contact."""
     from ..features import floating as FTmod
     fl = cdef.find("floatings")
+    by_name, links = _parse_properties(cdef, casedir)
     if fl is None:
-        return code, None, None
+        return code, None, None, None
     dim = csp.dim
-    bodies, rhos, mklist = [], [], []
+    bodies, rhos, mklist, fprops = [], [], [], []
     vel0, omega0, tdofs, rdofs = [], [], [], []
     mkv = td.code_value(code)
     ctype = td.code_type(code)
@@ -319,13 +365,16 @@ def _parse_floatings(cdef, pos, code, csp, device):
         bodies.append(pos[sel])
         rhos.append(rho_b)
         mklist.append(mk)
+        # the DEM material: the floating's property attribute
+        fprops.append({**_DEM_DEFAULT, **by_name.get(node.get("property"),
+                                                     {})})
         # initial velocities + DOF restrictions (CaseTemplate.xml:682-687)
         vel0.append(_xyz(node.find("linearvelini")))
         omega0.append(_xyz(node.find("angularvelini")))
         tdofs.append(_xyz(node.find("translationDOF"), (1.0, 1.0, 1.0)))
         rdofs.append(_xyz(node.find("rotationDOF"), (1.0, 1.0, 1.0)))
     if not bodies:
-        return code, None, None
+        return code, None, None, None
     use_tdof = any(t != (1.0, 1.0, 1.0) for t in tdofs)
     use_rdof = any(r != (1.0, 1.0, 1.0) for r in rdofs)
     cfg, state = FTmod.make_floating(
@@ -338,7 +387,9 @@ def _parse_floatings(cdef, pos, code, csp, device):
         state = dataclasses.replace(
             state, fvel=torch.tensor(np.array(vel0), **f32),
             fomega=torch.tensor(np.array(omega0), **f32))
-    return code, cfg, state
+    bound_props = {mk: {**_DEM_DEFAULT, **by_name.get(name, {})}
+                   for mk, name in links.items()}
+    return code, cfg, state, (fprops, bound_props)
 
 
 def _retype_moving(code, mk):
@@ -536,6 +587,255 @@ def _parse_motion(cdef, code, casedir="."):
     return code, tuple(out)
 
 
+def _parse_chrono(root, ftcfg, ftstate, casedir=".", dp=0.0, dem_info=None):
+    """`<special><chrono>` -> (ChronoCfg or None, ChContactCfg or None,
+    scaleforce or None), JAX `_parse_chrono` (JChronoObjects::LoadXml,
+    `_FmtXML_Chrono.xml`): ``bodyfloating`` ids map to bodies by mkbound,
+    ``bodyfixed`` ids are the ground; the ``link_*`` elements become the
+    links; ``<scaleforce>`` scales each body's SPH force; ``<collision
+    activate="true">`` with the bodies' ``modelfile`` meshes becomes the
+    mesh-contact tables, with the materials of ``<properties>``."""
+    sp = _special(root)
+    ch = sp.find("chrono") if sp is not None else None
+    if ch is None or ftcfg is None:
+        return None, None, None
+    from ..features import chrono as CH
+    from ..features.chcollision import make_chcontact
+    from .meshfile import load_mesh
+    mk2body = {mk: b for b, mk in enumerate(ftcfg.mkbound)}
+    centers = ftstate.center.cpu().numpy()
+    ids = {}
+    bodyels = []
+    for el in ch:
+        if el.tag in ("bodyfloating", "bodymoving"):
+            mk = int(float(el.get("mkbound", "0")))
+            ids[el.get("id")] = mk2body.get(mk, -1)
+            bodyels.append((el, mk, ids[el.get("id")]))
+        elif el.tag == "bodyfixed":
+            ids[el.get("id")] = -1
+            bodyels.append((el, int(float(el.get("mkbound", "0"))), -1))
+
+    scaleforce = None
+    sfn = ch.find("scaleforce")
+    if sfn is not None:
+        sf = np.ones((ftcfg.count, 3), np.float64)
+        for bel in sfn.findall("body"):
+            for mk in _mk_list(bel.get("mkbound")):
+                if mk in mk2body:
+                    sf[mk2body[mk]] = [float(bel.get(a, 1.0)) for a in "xyz"]
+        scaleforce = tuple(float(x) for x in sf.reshape(-1))
+
+    chcontact = None
+    col = ch.find("collision")
+    if col is not None and dp > 0 and col.get(
+            "activate", "true").lower() not in ("false", "0"):
+        distancedp = _fget(col, "distancedp", default=0.5)
+        fprops, bprops = dem_info if dem_info is not None else ([], {})
+        bodies = []
+        for el, mk, ft in bodyels:
+            mf = el.get("modelfile")
+            if not mf:
+                continue
+            tris = load_mesh(os.path.join(casedir, mf))
+            if ft >= 0:
+                props = fprops[ft] if ft < len(fprops) else {}
+                bd = dict(ft=ft, tris=tris, center0=centers[ft],
+                          mass=ftcfg.mass[ft])
+            else:
+                props = (bprops or {}).get(mk, {})
+                bd = dict(ft=-1, tris=tris)
+            bd.update({k: props[k] for k in
+                       ("young", "poisson", "kfric", "restitu") if k in props})
+            bodies.append(bd)
+        chcontact = make_chcontact(bodies, dp=dp, distancedp=distancedp)
+
+    def fv(el, name, d=0.0):
+        return _fget(el, name, default=d)
+
+    links = []
+    for el in ch:
+        tag = el.tag
+        if not tag.startswith("link_") or len(el) == 0 or not _active(el):
+            continue
+        b1 = ids.get(el.get("idbody1"), -1)
+        b2 = ids.get(el.get("idbody2"), -1)
+        if b1 < 0:
+            b1, b2 = b2, b1        # the real body in slot 1
+        if b1 < 0:
+            continue
+
+        def xyz(name, d=(0.0, 0.0, 0.0)):
+            return _xyz(el.find(name), d)
+
+        if tag == "link_hinge":
+            links.append(CH.ChLink(
+                "hinge", b1, b2, rotpoint=xyz("rotpoint"),
+                rotvector=xyz("rotvector", (0.0, 0.0, 1.0)),
+                stiffness=fv(el, "stiffness"), damping=fv(el, "damping")))
+        elif tag == "link_spheric":
+            links.append(CH.ChLink(
+                "spheric", b1, b2, rotpoint=xyz("rotpoint"),
+                stiffness=fv(el, "stiffness"), damping=fv(el, "damping")))
+        elif tag == "link_pointline":
+            links.append(CH.ChLink(
+                "pointline", b1, b2, rotpoint=xyz("rotpoint"),
+                slidevector=xyz("slidingvector", (0.0, 0.0, 1.0)),
+                stiffness=fv(el, "stiffness"), damping=fv(el, "damping")))
+        elif tag == "link_linearspring":
+            links.append(CH.ChLink(
+                "spring", b1, b2, pt1=xyz("point_fb1"), pt2=xyz("point_fb2"),
+                stiffness=fv(el, "stiffness"), damping=fv(el, "damping"),
+                restlength=fv(el, "rest_length")))
+        elif tag == "link_coulombdamping":
+            links.append(CH.ChLink(
+                "coulomb", b1, b2, pt1=xyz("point_fb1"), pt2=xyz("point_fb2"),
+                restlength=fv(el, "rest_length"),
+                coulomb=fv(el, "damping")))
+        elif tag == "link_pulley":
+            links.append(CH.ChLink(
+                "pulley", b1, b2, rotpoint=xyz("rotpoint"),
+                rotvector=xyz("rotvector", (0.0, 0.0, 1.0)),
+                radius=fv(el, "radius", 1.0), radius2=fv(el, "radius2", 1.0)))
+    chrono = CH.make_chrono(links, centers) if links else None
+    return chrono, chcontact, scaleforce
+
+
+def _parse_moorings(root, ftcfg, ftstate, casedir=".", csp=None):
+    """`<special><moorings>` and its MoorDyn+ file -> MoorDynCfg or None
+    (JAX `_parse_moorings`; reference `JDsMooredFloatings` with
+    `libdsphmoordyn`, `_FmtXML_MoorDyn.xml`): each line between a body's
+    ``vesselconnection`` and a fixed end (``fixconnection``, or a
+    ``connect`` held at its initial position) becomes a lumped-mass line;
+    the substep count covers the largest SPH dt at the stable substep."""
+    sp = _special(root)
+    mo = sp.find("moorings") if sp is not None else None
+    if mo is None or not _active(mo):
+        return None
+    if ftcfg is None:
+        raise ValueError("<moorings> needs floating bodies")
+    from ..features.moorings import MoorDynCfg, MoorDynLine
+    mk2body = {mk: b for b, mk in enumerate(ftcfg.mkbound)}
+    stt = mo.find("start")
+    start = float(stt.get("value", 0)) if stt is not None else 0.0
+    ramptime = float(stt.get("ramptime", 0)) if stt is not None else 0.0
+    md = mo.find("moordyn")
+    lines = []
+    sol = {}
+    dtm, dtm_auto = 1e-4, True
+    if md is not None and _active(md) and md.get("file"):
+        fn = md.get("file")
+        if not os.path.splitext(fn)[1]:
+            fn += ".xml"
+        mdroot = ET.parse(os.path.join(casedir, fn)).getroot()
+        centers = ftstate.center.cpu().numpy()
+
+        def sopt(name, default):
+            el = mdroot.find(f".//solverOptions/{name}")
+            return float(el.get("value")) if el is not None else default
+        freesurface = sopt("freesurface", 0.0)
+        waterdepth = sopt("waterDepth", 0.0)
+        sol = dict(kbot=sopt("kBot", 3.0e6), cbot=sopt("cBot", 3.0e5),
+                   fric=sopt("frictionCoefficient", 0.0),
+                   fricdamp=sopt("fricDamp", 200.0),
+                   cdscale_ic=sopt("cdScaleIC", 5.0),
+                   t_ic=min(sopt("tmaxIC", 1.0), 5.0))
+        dtm_el = mdroot.find(".//solverOptions/dtM")
+        if dtm_el is not None:
+            dtm = float(dtm_el.get("value"))
+            dtm_auto = dtm_el.get("auto", "true").lower() not in ("false",
+                                                                   "0")
+        # per-body water depths (<bodies><body ref=N><depth>)
+        bodydepth = {}
+        for bn in mdroot.findall(".//bodies/body"):
+            dn = bn.find("depth")
+            if dn is not None:
+                bodydepth[int(float(bn.get("ref")))] = float(dn.get("value"))
+        dflt = dict(ea=0.0, diameter=0.0, massden=0.0, ba=-0.8, can=1.0,
+                    cat=0.0, cdn=1.6, cdt=0.05, breaktension=0.0, e=0.0)
+        keys = dict(ea="ea", diameter="diameter", massdeninair="massden",
+                    ba="ba", can="can", cat="cat", cdn="cdn", cdt="cdt",
+                    breaktension="breaktension", e="e")
+
+        def line_props(el, base):
+            out = dict(base)
+            for sub in el:
+                k = keys.get(sub.tag.lower())
+                if k is not None and sub.get("value") is not None:
+                    out[k] = float(sub.get("value"))
+            if not out["ea"] and out["e"] and out["diameter"]:
+                # E given instead of EA: EA = E pi d^2/4
+                out["ea"] = out["e"] * math.pi * out["diameter"] ** 2 / 4.0
+            return out
+        ld = mdroot.find(".//lines/linedefault")
+        if ld is not None:
+            dflt = line_props(ld, dflt)
+        connects = {cn.get("conref"): (float(cn.get("x", 0)),
+                                       float(cn.get("y", 0)),
+                                       float(cn.get("z", 0)))
+                    for cn in mdroot.findall(".//connects/connect")}
+
+        def end(ln, tag):
+            el = ln.find(tag)
+            if el is None:
+                return None
+            if tag == "connect":
+                return ("fix", connects[el.get("conref")])
+            p = (float(el.get("x", 0)), float(el.get("y", 0)),
+                 float(el.get("z", 0)))
+            br = el.get("bodyref")
+            if br is not None and tag == "vesselconnection":
+                return ("body", int(float(br)), p)
+            return ("fix", p)
+
+        for ln in mdroot.findall(".//lines/line"):
+            pr = line_props(ln, dflt)
+            L0 = float(ln.find("length").get("value")) \
+                if ln.find("length") is not None else 1.0
+            segs = int(float(ln.find("segments").get("value"))) \
+                if ln.find("segments") is not None else 20
+            ends = [e for e in (end(ln, "vesselconnection"),
+                                end(ln, "fixconnection"),
+                                end(ln, "connect")) if e is not None]
+            bodyend = next((e for e in ends if e[0] == "body"), None)
+            fixend = next((e for e in ends if e[0] == "fix"), None)
+            if bodyend is None or fixend is None:
+                continue        # a connect-to-connect line moves no body
+            mk = bodyend[1]
+            if mk not in mk2body:
+                raise ValueError(f"moordyn line bodyref={mk} is not a "
+                                 f"floating mkbound")
+            b = mk2body[mk]
+            depth = waterdepth
+            if ln.find("depth") is not None:
+                depth = float(ln.find("depth").get("value"))
+            elif mk in bodydepth:
+                depth = bodydepth[mk]
+            lines.append(MoorDynLine(
+                body=b, anchor=tuple(fixend[1]),
+                fairlead=tuple(np.asarray(bodyend[2]) - centers[b]),
+                length0=L0, ea=pr["ea"], nseg=segs,
+                diameter=pr["diameter"], massden=pr["massden"],
+                ba=pr["ba"], can=pr["can"], cat=pr["cat"], cdn=pr["cdn"],
+                cdt=pr["cdt"], breaktension=pr["breaktension"],
+                zbot=freesurface - depth))
+    if not lines:
+        return None
+    # the substep: dtM auto -> the chain's stable bound; nsub covers the
+    # largest SPH dt (cfl h / cs0), and a coarse explicit dtM is clamped
+    # for the count
+    cfg = MoorDynCfg(lines=tuple(lines), nbodies=len(ftcfg.mkbound),
+                     g=abs(csp.gravity[2]) if csp is not None else 9.81,
+                     rho_w=csp.rhopzero if csp is not None else 1000.0,
+                     start=start, ramptime=ramptime, **sol)
+    stable = cfg.stable_dtm()
+    if dtm_auto:
+        dtm = max(min(stable, 1e-2), 1e-6)
+    dtbound = (csp.cflnumber * csp.kernelh / csp.cs0) if csp is not None \
+        else 16 * dtm
+    nsub = int(min(max(math.ceil(dtbound / min(dtm, stable)), 1), 500))
+    return dataclasses.replace(cfg, nsub=nsub, dtm=dtm)
+
+
 def _parse_nnphases(root, csp):
     """`<special><nnphases>` -> forces_nn.PhaseCfg (JSph::InitMultiPhase,
     src_mphase JSph.cpp:3137-3216): per-phase rhop/visco/tau_yield/HBP_m/
@@ -568,7 +868,8 @@ def _parse_nnphases(root, csp):
 
 def _parse_special(root, csp, code, zsurf, pos, casedir="."):
     """`<execution><special>` feature blocks -> Features pieces and the
-    gauges (the nodes ``refuse`` lets through)."""
+    gauges (``<chrono>``, ``<moorings>``, ``<initialize>`` and
+    ``<nnphases>`` have parsers of their own)."""
     from ..features import wavegen as WG
     from ..features.awas import AwasZsurf
     from ..features.damping import DampingBox, DampingCylinder, DampingPlane
@@ -1817,7 +2118,6 @@ def load_case(path, *, mdbc=False, device="cuda"):
     ``FtSaveMotion`` and floating bodies) and ``tout_table`` (with
     ``<special><timeout>``)."""
     root = _parse_xml(path)
-    refuse(root)
     casedir = os.path.dirname(os.path.abspath(path))
     cdef = root.find("casedef")
     ctes = cdef.find("constantsdef")
@@ -1853,7 +2153,8 @@ def load_case(path, *, mdbc=False, device="cuda"):
 
     # ---- feature blocks: floatings, motion, <special>
     code = np.array(code)
-    code, ftcfg, ftstate = _parse_floatings(cdef, pos, code, csp, device)
+    code, ftcfg, ftstate, dem_info = _parse_floatings(
+        cdef, pos, code, csp, device, casedir=casedir)
     code, motions = _parse_motion(cdef, code, casedir=casedir)
     code, specials = _parse_special(root, csp, code, zfluid_max, pos,
                                     casedir=casedir)
@@ -1880,11 +2181,6 @@ def load_case(path, *, mdbc=False, device="cuda"):
             return nux.compute(v.strip()[1:])
         return float(v)
 
-    # the parameters of features the port does not run
-    if ftcfg is not None and int(pf("RigidAlgorithm", 1)) == 2:
-        raise NotImplementedError("<parameter key=\"RigidAlgorithm\" "
-                                  "value=2>: the torch port does not run DEM "
-                                  "contact yet")
     csp = csp.replace(
         visco=pf("Visco", 0.01),
         viscoboundfactor=pf("ViscoBoundFactor", 1.0),
@@ -2013,12 +2309,28 @@ def load_case(path, *, mdbc=False, device="cuda"):
     if fvisco:
         from ..features.viscoinput import load_viscoinput
         viscotime = load_viscoinput(os.path.join(casedir, fvisco))
+    # DEM contact under RigidAlgorithm=2 (JSph::LoadDemData: the materials
+    # of <properties> and the floatings' property attributes), its tables
+    # keyed by the state's ids
+    demcfg = None
+    if ftcfg is not None and dem_info is not None \
+            and int(pf("RigidAlgorithm", 1)) == 2:
+        from ..features.dem import make_dem
+        demcfg = make_dem(csp, st.code, ftcfg, float_props=dem_info[0],
+                          bound_props=dem_info[1], idp=st.idp)
+    chrono, chcontact, scaleforce = _parse_chrono(
+        root, ftcfg, ftstate, casedir=casedir, dp=dp, dem_info=dem_info)
+    moorings = _parse_moorings(root, ftcfg, ftstate, casedir=casedir,
+                               csp=csp)
+    if scaleforce is not None:
+        ftcfg = dataclasses.replace(ftcfg, scaleforce=scaleforce)
     feats = Features(motions=tuple(motions) + specials["motions"],
                      damping=specials["damping"], floating=ftcfg,
                      awas=specials["awas"], mlpistons=specials["mlpistons"],
                      relaxzones=specials["relaxzones"],
                      accinputs=specials["accinputs"], viscotime=viscotime,
-                     inout=iocfg)
+                     inout=iocfg, dem=demcfg, moorings=moorings,
+                     chrono=chrono, chcontact=chcontact)
     npb = int(np.sum(td.code_type(code) < td.TYPE_FLOATING))
     case = C.Case(csp=csp, dom=dom, state=st, npb=npb, np_total=pos.shape[0],
                   meta=dict(name=P.get("CaseName", "xmlcase"), dp=dp,

@@ -53,7 +53,7 @@ def make_nn_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
         feats.check_none_set("the NN step")
     NN.check_supported_nn(csp, opts, phases)
 
-    def interaction(st: W.SimState, cells: cd.CellDiv, tabs, tabs_host):
+    def interaction(st: W.SimState, cells: cd.CellDiv, tabs, tabs_host, dt):
         fr, _eta, _tau = NN.interaction_forces_nn(
             csp, opts, phases, dom, cells, st.pos, st.vel, st.rho, st.code)
         return st, fr

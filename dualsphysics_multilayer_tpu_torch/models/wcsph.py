@@ -8,7 +8,11 @@ Counterpart of `dualsphysics_multilayer_tpu/models/wcsph.py`: ``SimState``,
 (floating bodies, damping, relaxation zones, motion, multi-layer pistons,
 AWAS, and the open boundaries: periodic ghosts and inlet/outlet zones),
 ``make_step``, ``make_advance`` and ``Simulation`` with its gauge
-sub-ticks.  :func:`symplectic_step` takes the interaction as an argument,
+sub-ticks.  The floating bodies' couplings attach where JAX attaches them:
+DEM contact after the forces of each interaction, the moorings' and force
+points' forces and Chrono's links and mesh contact in each rigid update,
+and the dynamic mooring lines (``StepCarry.moor``) advanced after the
+corrector's.  :func:`symplectic_step` takes the interaction as an argument,
 so the multiphase non-Newtonian step (``models/nnewtonian.py``) shares it.
 
 The state lives in cell-sorted order (``ops.celldiv.divide_cells``) and is
@@ -52,6 +56,7 @@ from ..typesdef import CteSph, TpBoundary, TpStep
 from ..features import accinput as ACC
 from ..features import awas as AWAS
 from ..features import damping as DMP
+from ..features import dem as DEM
 from ..features import floating as FT
 from ..features import inout as IO
 from ..features import mlpiston as MLP
@@ -121,6 +126,8 @@ class StepCarry:
     overflow: int = 0
     overflow_ghosts: int = 0
     overflow_inout: int = 0
+    # floating rows with a neighbour row longer than DEM's static row cap
+    overflow_dem: int = 0
     t_host: float = 0.0          # host copy of t, read at the end of a step
     rebuild: bool = False        # the next step starts with a divide
     # Verlet steps since the last Euler re-anchoring step (VerletStep); it
@@ -136,6 +143,9 @@ class StepCarry:
     # floating-motion ring (ftmotion, 1 + 9B): [t, center, fvel, fomega]
     # after step k in row k % ftmotion (JFtMotionSave); written in place
     fthist: torch.Tensor | None = None
+    # the dynamic mooring lines' nodes (features.moorings.MoorState)
+    moor: object = None
+    moor_init_s: float = 0.0     # host seconds of the lines' relaxation
 
 
 def _rebuild(dom: cd.Domain, carry: StepCarry) -> StepCarry:
@@ -161,29 +171,30 @@ def _rebuild_needed(csp: CteSph, margin: float, carry: StepCarry):
 
 
 def _sync_flags(csp: CteSph, margin: float, carry: StepCarry, filled=None,
-                ghosts=None, inout=None) -> StepCarry:
+                ghosts=None, inout=None, dem=None) -> StepCarry:
     """The step's one device-to-host copy: the next rebuild flag, t and
-    tabs, and with open boundaries the step's overflow counts (0-d int32
-    ``ghosts``, ``inout``).  ``filled`` (0-d bool), an inout slot filled in
-    the layout's dead tail, forces the next rebuild: the skin contract
-    cannot see a reused slot (its stale ``pos0`` may lie near the spawn
-    point)."""
+    tabs, and with open boundaries or DEM the step's overflow counts (0-d
+    int32 ``ghosts``, ``inout``, ``dem``).  ``filled`` (0-d bool), an
+    inout slot filled in the layout's dead tail, forces the next rebuild:
+    the skin contract cannot see a reused slot (its stale ``pos0`` may lie
+    near the spawn point)."""
     need = _rebuild_needed(csp, margin, carry)
     if filled is not None:
         need = need | filled
     zero = torch.zeros((), dtype=carry.t.dtype, device=carry.t.device)
     vals = [need.to(carry.t.dtype), carry.t, carry.tabs]
-    if ghosts is not None or inout is not None:
+    if ghosts is not None or inout is not None or dem is not None:
         vals += [zero if x is None else x.to(carry.t.dtype)
-                 for x in (ghosts, inout)]
+                 for x in (ghosts, inout, dem)]
     out = torch.stack(vals).tolist()
     carry = replace(carry, rebuild=bool(out[0]), t_host=out[1],
                     tabs_host=out[2])
     if len(out) > 3:
-        og, oi = int(out[3]), int(out[4])
-        carry = replace(carry, overflow=max(carry.overflow, og + oi),
+        og, oi, od = int(out[3]), int(out[4]), int(out[5])
+        carry = replace(carry, overflow=max(carry.overflow, og + oi + od),
                         overflow_ghosts=max(carry.overflow_ghosts, og),
-                        overflow_inout=max(carry.overflow_inout, oi))
+                        overflow_inout=max(carry.overflow_inout, oi),
+                        overflow_dem=max(carry.overflow_dem, od))
     return carry
 
 
@@ -230,21 +241,25 @@ def make_carry(st: SimState, csp: CteSph, opts: SolverOpts,
     table and the motions go on from there; 0 on a fresh run), with a
     zero AWAS correction per paddle of ``feats`` and the
     zeroed rings of ``opts.savedt`` / ``opts.ftmotion`` (the latter with
-    floating bodies only).  It serves the
+    floating bodies only) and, with dynamic mooring lines, their nodes
+    relaxed at the state's bodies (``MoorDynCfg.init_state``, host seconds
+    in ``StepCarry.moor_init_s``).  It serves the
     single-phase and the NN steps alike; each step checks its own
     interaction's settings.  The Verlet step reads the M1 state: ValueError
     unless the state has it (the case built with ``need_verlet=True``);
-    periodic and inout boundaries rank particles by id: ValueError unless
-    the ids are a permutation of 0..n-1 (one read at setup)."""
+    periodic and inout boundaries rank particles by id and DEM keys its
+    tables by id: ValueError unless the ids are a permutation of 0..n-1
+    (one read at setup)."""
     F.check_supported_step(csp, opts)
     if feats is not None and (feats.periodic is not None
-                              or feats.inout is not None):
+                              or feats.inout is not None
+                              or feats.dem is not None):
         # ghost and spawn choices rank the particles by id (slot order in
         # the JAX package)
         if not torch.equal(torch.sort(st.idp).values,
                            torch.arange(st.n, device=st.idp.device)):
-            raise ValueError("periodic and inout boundaries need the ids "
-                             "to be a permutation of 0..n-1")
+            raise ValueError("periodic and inout boundaries and DEM need "
+                             "the ids to be a permutation of 0..n-1")
     if opts.tstep == TpStep.VERLET and (st.velm1 is None or st.rhom1 is None):
         raise ValueError("the Verlet step needs the M1 state SimState.velm1 "
                          "and SimState.rhom1: build the case with "
@@ -265,6 +280,11 @@ def make_carry(st: SimState, csp: CteSph, opts: SolverOpts,
         dthist=torch.zeros((opts.savedt, 6), **f32) if opts.savedt else None,
         fthist=(torch.zeros((opts.ftmotion, 1 + 9 * nbody), **f32)
                 if opts.ftmotion and nbody else None))
+    moorings = feats.moorings if feats is not None else None
+    if getattr(moorings, "dynamic", False) and st.ft is not None:
+        t0_init = time.perf_counter()
+        carry.moor = moorings.init_state(st.ft)
+        carry.moor_init_s = time.perf_counter() - t0_init
     carry = _rebuild(dom, carry)
     return _sync_flags(csp, _margin(csp, dom), carry)
 
@@ -294,20 +314,23 @@ def _interaction(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
 def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
                   feats: Features | None):
     """(interaction, rigid) of the single-phase steps: the interaction
-    ``(st, cells, tabs, tabs_host) -> (st, Forces)`` with the floating
+    ``(st, cells, tabs, tabs_host, dt) -> (st, Forces)`` with the floating
     bodies' particle mass, the launch values of :func:`step_values` at
-    ``tabs_host`` and, after the forces, the external accelerations
+    ``tabs_host``, DEM contact after the forces (JAX `wcsph.py:454-463`,
+    with the step's dt) and then the external accelerations
     (`_post_forces`, JAX `wcsph.py:486-492`: they enter AceMax and the dt
-    control); ``rigid(st, ace, t, dt, predictor) -> st``, the floating
-    bodies' update, or None."""
+    control); ``rigid(st, ace, t, dt, predictor, moor) -> st``, the floating
+    bodies' update with the moorings' and force points' forces (the lines'
+    nodes ``moor``) and the Chrono couplings, or None."""
     F.check_supported(csp, opts)
-    floating = accinputs = periodic = None
+    floating = accinputs = periodic = dem = None
     if feats is not None:
         feats.check_supported()
         floating, accinputs = feats.floating, feats.accinputs
-        periodic = feats.periodic
+        periodic, dem = feats.periodic, feats.dem
+    dem_layout = DEM.DemLayout()
 
-    def interaction(st, cells, tabs, tabs_host):
+    def interaction(st, cells, tabs, tabs_host, dt):
         ftomassp = None
         if floating is not None:
             ftomassp = FT.body_tables(floating, tuple(csp.gravity),
@@ -315,8 +338,18 @@ def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
         ddtkh, visco = step_values(csp, opts, feats, tabs_host)
 
         def interact(st, cells):
-            return _interaction(csp, opts, dom, st, cells, ftomassp,
-                                ddtkh=ddtkh, visco=visco)
+            st, fr = _interaction(csp, opts, dom, st, cells, ftomassp,
+                                  ddtkh=ddtkh, visco=visco)
+            if dem is not None:
+                # after the forces, on the interaction's rows (under
+                # periodic boundaries the ghost rows are candidates)
+                ace, demdt, ovf = DEM.apply_dem(
+                    dem, csp, dom, cells, st.pos, st.vel, st.code, st.idp,
+                    dt, layout=dem_layout)
+                fr = replace(fr, ace=fr.ace + ace,
+                             viscdtmax=torch.maximum(fr.viscdtmax, demdt),
+                             dem_overflow=ovf)
+            return st, fr
 
         if periodic is not None:
             # the wrap, the ghost rows and a divide of their own at every
@@ -332,36 +365,60 @@ def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
 
     rigid = None
     if floating is not None:
-        def rigid(st, ace, t, dt, predictor):
+        def rigid(st, ace, t, dt, predictor, moor):
             if st.ft is None:
                 raise ValueError("floating bodies need the body state "
                                  "SimState.ft (features.floating."
                                  "make_floating)")
-            pos, vel, ft = FT.run_floating(floating, csp, st.ft, t, dt,
-                                           predictor, st.pos, st.vel,
-                                           st.code, ace)
+            eface, efom = _ext_body_forces(feats, st.ft, t, moor)
+            pos, vel, ft = FT.run_floating(
+                floating, csp, st.ft, t, dt, predictor, st.pos, st.vel,
+                st.code, ace, ext_face=eface, ext_fomegaace=efom,
+                chrono=feats.chrono, chcontact=feats.chcontact)
             return replace(st, pos=pos, vel=vel, ft=ft)
 
     return interaction, rigid
 
 
+def _ext_body_forces(feats: Features, fts, tabs, moor):
+    """(face, fomegaace) of the moorings and force points, or Nones (JAX
+    ``_ext_body_forces``, `wcsph.py:470-483`: the analog of folding
+    JDsFtForcePoints into FtoForces, JSphCpuSingle.cpp:903-913)."""
+    face = fom = None
+    if feats.moorings is not None:
+        if getattr(feats.moorings, "dynamic", False):
+            face, fom = feats.moorings.forces(fts, moor, tabs=tabs)
+        else:
+            face, fom = feats.moorings.forces(fts)
+    if feats.forcepoints is not None:
+        f2, m2 = feats.forcepoints.forces(fts, tabs)
+        face = f2 if face is None else face + f2
+        fom = m2 if fom is None else fom + m2
+    return face, fom
+
+
 def _after_update(csp: CteSph, feats: Features | None, rigid,
                   write_motionvel: bool):
-    """after(st, ace, tabs, dt, awas) -> (st, awas): the hooks that run
-    after the step's update, in the JAX package's order (`wcsph.py:
-    610-636`, `:728-750`): the floating bodies over dt, damping,
-    relaxation zones, scripted motion, multi-layer pistons and AWAS.
-    ``write_motionvel``: the motion writes the moving walls' velocity into
-    ``motionvel`` for the mDBC pre-pass, as the JAX symplectic step does
-    (`:621-623`); its Verlet step leaves ``motionvel`` as it is
-    (`:735-738`).  None when there is nothing to run."""
+    """after(st, ace, tabs, dt, awas, moor) -> (st, awas, moor): the hooks
+    that run after the step's update, in the JAX package's order
+    (`wcsph.py:610-636`, `:728-750`): the floating bodies over dt and the
+    dynamic mooring lines to their new state, damping, relaxation zones,
+    scripted motion, multi-layer pistons and AWAS.  ``write_motionvel``:
+    the motion writes the moving walls' velocity into ``motionvel`` for the
+    mDBC pre-pass, as the JAX symplectic step does (`:621-623`); its Verlet
+    step leaves ``motionvel`` as it is (`:735-738`).  None when there is
+    nothing to run."""
     if feats is None or not (rigid or feats.damping or feats.relaxzones
                              or feats.motions or feats.mlpistons or feats.awas):
         return None
 
-    def after(st, ace, tabs, dt, awas):
+    def after(st, ace, tabs, dt, awas, moor):
         if rigid is not None:
-            st = rigid(st, ace, tabs, dt, False)
+            st = rigid(st, ace, tabs, dt, False, moor)
+            if moor is not None:
+                # the lines to the step's end state of the bodies (the
+                # MoorDyn_FairleadsCalc coupling, JSphCpuSingle.cpp:1009)
+                moor = feats.moorings.advance(moor, st.ft, dt, tabs=tabs)
         if feats.damping:
             st = replace(st, vel=DMP.apply_damping(feats.damping, dt, st.pos,
                                                    st.vel, st.code))
@@ -383,7 +440,7 @@ def _after_update(csp: CteSph, feats: Features | None, rigid,
             pos, vel, awas = AWAS.apply_awas(feats.awas, csp, awas, tabs, dt,
                                              st.pos, st.vel, st.code)
             st = replace(st, pos=pos, vel=vel)
-        return st, awas
+        return st, awas, moor
 
     return after
 
@@ -405,15 +462,24 @@ def _inout_hook(csp: CteSph, dom: cd.Domain, feats: Features | None):
     return inout
 
 
+def _largest(values):
+    out = None
+    for v in values:
+        if v is not None:
+            out = v if out is None else torch.maximum(out, v)
+    return out
+
+
 def _ghost_overflow(frs):
     """The step's periodic ghost overflow: the largest of its
     interactions' (None without periodic boundaries)."""
-    out = None
-    for fr in frs:
-        if fr.overflow is not None:
-            out = fr.overflow if out is None \
-                else torch.maximum(out, fr.overflow)
-    return out
+    return _largest(fr.overflow for fr in frs)
+
+
+def _dem_overflow(frs):
+    """The step's DEM row overflow: the largest of its interactions'
+    (None without DEM)."""
+    return _largest(fr.dem_overflow for fr in frs)
 
 
 def make_symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
@@ -446,7 +512,7 @@ def make_verlet_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
         if carry.rebuild:
             carry = _rebuild(dom, carry)
         st, fr = interaction(carry.st, carry.cells, carry.tabs,
-                             carry.tabs_host)
+                             carry.tabs_host, carry.dt_pre)
         velmax = I.velocity_max(csp, st.vel, st.code)
         acemax = I.ace_max(fr.ace, st.code)
         dt, bad, dt1, dt2 = I.dt_variable_parts(csp, acemax, velmax,
@@ -466,9 +532,9 @@ def make_verlet_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
         # the step's starting one
         st = replace(st, pos=out[0], vel=out[1], rho=out[2], code=out[3],
                      pose=out[4], velm1=st.vel, rhom1=st.rho)
-        awas = carry.awas
+        awas, moor = carry.awas, carry.moor
         if after is not None:
-            st, awas = after(st, fr.ace, carry.tabs, dt, awas)
+            st, awas, moor = after(st, fr.ace, carry.tabs, dt, awas, moor)
         ovf_io = filled = None
         if inout is not None:
             st, ovf_io, filled = inout(st, carry.cells, carry.tabs,
@@ -478,9 +544,10 @@ def make_verlet_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             carry, st=st, t=carry.t + dt, dt_pre=dt, nstep=carry.nstep + 1,
             verlet_count=vcount if use_m1 else 0,
             dtmodif=carry.dtmodif + bad.to(torch.int32),
-            tabs=carry.tabs + dt, awas=awas)
+            tabs=carry.tabs + dt, awas=awas, moor=moor)
         return _sync_flags(csp, margin, carry, filled,
-                           _ghost_overflow((fr,)), ovf_io)
+                           _ghost_overflow((fr,)), ovf_io,
+                           _dem_overflow((fr,)))
 
     return step
 
@@ -514,16 +581,18 @@ def _sps_tau(csp: CteSph, st: SimState, fr: F.Forces):
 def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
                     interaction, rigid=None, after=None, inout=None):
     """step(carry) -> carry: the symplectic predictor and corrector over
-    ``interaction(st, cells, tabs, tabs_host) -> (st, Forces)`` on one
-    layout (``tabs_host``: the step's start time on the host); the
+    ``interaction(st, cells, tabs, tabs_host, dt) -> (st, Forces)`` on one
+    layout (``tabs_host``: the step's start time on the host; ``dt`` the
+    step's, on the device); the
     state it returns (the mDBC pre-pass's boundary values) goes on,
     as in JAX.  What the forces carry switches the rest: ``viscetadtmax``
     the NN dt3 control, ``spsgradvel`` the SPS stress after each
     interaction, ``shiftposfs`` the shifting displacement in the corrector.
-    ``rigid(st, ace, t, dt, predictor) -> st`` moves the floating bodies
-    after the predictor (dt/2); ``after(st, ace, tabs, dt, awas) -> (st,
-    awas)`` runs the hooks after the corrector (:func:`_after_update`, the
-    bodies over dt among them); ``inout(st, cells, tabs, nstep) -> (st,
+    ``rigid(st, ace, t, dt, predictor, moor) -> st`` moves the floating
+    bodies after the predictor (dt/2); ``after(st, ace, tabs, dt, awas,
+    moor) -> (st, awas, moor)`` runs the hooks after the corrector
+    (:func:`_after_update`, the bodies over dt and the mooring lines among
+    them); ``inout(st, cells, tabs, nstep) -> (st,
     overflow, filled)`` the inlet/outlet pass last (:func:`_inout_hook`)."""
     margin = _margin(csp, dom)
 
@@ -534,7 +603,8 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
         dt = carry.dt_pre
 
         # ---------------- predictor ----------------
-        st, fr1 = interaction(st, carry.cells, carry.tabs, carry.tabs_host)
+        st, fr1 = interaction(st, carry.cells, carry.tabs, carry.tabs_host,
+                              dt)
         velmax1 = I.velocity_max(csp, st.vel, st.code)
         acemax1 = I.ace_max(fr1.ace, st.code)
         dt_p, bad_p = I.dt_variable(csp, acemax1, velmax1, fr1.viscdtmax,
@@ -546,10 +616,11 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             st = replace(st, spstau=_sps_tau(csp, st, fr1))
         st = replace(st, pos=pos1, vel=vel1, rho=rho1, code=code1)
         if rigid is not None:
-            st = rigid(st, fr1.ace, carry.tabs, dt * 0.5, True)
+            st = rigid(st, fr1.ace, carry.tabs, dt * 0.5, True, carry.moor)
 
         # ---------------- corrector (same layout) ----------------
-        st, fr2 = interaction(st, carry.cells, carry.tabs, carry.tabs_host)
+        st, fr2 = interaction(st, carry.cells, carry.tabs, carry.tabs_host,
+                              dt)
         velmax2 = I.velocity_max(csp, st.vel, st.code)
         acemax2 = I.ace_max(fr2.ace, st.code)
         dt_c, bad_c, dt1_c, dt2_c = I.dt_variable_parts(
@@ -569,9 +640,9 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             st = replace(st, spstau=_sps_tau(csp, st, fr2))
         st = replace(st, pos=out[0], vel=out[1], rho=out[2], code=out[3],
                      pose=out[4])
-        awas = carry.awas
+        awas, moor = carry.awas, carry.moor
         if after is not None:
-            st, awas = after(st, fr2.ace, carry.tabs, dt, awas)
+            st, awas, moor = after(st, fr2.ace, carry.tabs, dt, awas, moor)
         ovf_io = filled = None
         if inout is not None:
             st, ovf_io, filled = inout(st, carry.cells, carry.tabs,
@@ -583,9 +654,10 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             nstep=carry.nstep + 1,
             dtmodif=carry.dtmodif + bad_p.to(torch.int32)
             + bad_c.to(torch.int32),
-            tabs=carry.tabs + dt, awas=awas)
+            tabs=carry.tabs + dt, awas=awas, moor=moor)
         return _sync_flags(csp, margin, carry, filled,
-                           _ghost_overflow((fr1, fr2)), ovf_io)
+                           _ghost_overflow((fr1, fr2)), ovf_io,
+                           _dem_overflow((fr1, fr2)))
 
     return step
 
@@ -659,6 +731,10 @@ class Simulation:
                 kinds.append(f"{c.overflow_ghosts} periodic edge "
                              f"particle(s) beyond the ghost cap (raise "
                              f"PeriodicCfg.ghost_cap)")
+            if c.overflow_dem:
+                kinds.append(f"{c.overflow_dem} DEM floating row(s) with a "
+                             f"neighbour row beyond celldiv.row_cap "
+                             f"(a state denser than 0.85 dp)")
             if c.overflow_inout:
                 kinds.append(f"{c.overflow_inout} inout spawn request(s) "
                              f"with no free slot or extrapolated member(s) "

@@ -139,6 +139,16 @@ def point_ranges(dom: Domain, cells: CellDiv, points):
     return row_ranges(dom, cells, cxyz[:, 0], cxyz[:, 1], cxyz[:, 2], inside)
 
 
+def row_cap(csp, dom: Domain) -> int:
+    """Slots of one neighbour row (3 cells along x) a pass with static
+    sizes reads per candidate row: a dp lattice squeezed to 0.85 dp
+    (``features/inout.py`` extrapolation, ``features/dem.py``).  The
+    callers count longer rows into the step's overflow."""
+    q = dom.scell / (0.85 * csp.dp)
+    return int(math.ceil(3 * q + 1)) * int(math.ceil(q + 1)) ** (
+        1 if csp.simulate2d else 2)
+
+
 def range_chunks(starts, lens, max_pairs: int):
     """Yield ``(t, j, valid)`` for chunks of rows of ``starts``/``lens``
     (m, R): ``t`` (b,) row numbers, ``j`` (b, R*L) the slots of their R

@@ -86,6 +86,9 @@ class Forces:
     # () int32 periodic edge particles beyond the ghost cap at this
     # interaction (features/periodic.py); None without periodic boundaries
     overflow: torch.Tensor | None = None
+    # () int32 floating rows with a neighbour row beyond DEM's static row
+    # cap (features/dem.py); None without DEM
+    dem_overflow: torch.Tensor | None = None
 
 
 def check_supported_step(csp: CteSph, opts: SolverOpts) -> None:

@@ -174,18 +174,24 @@ def test_module_run_writes_parts_jax_reads_and_restarts(tmp_path):
     # the refusal named is the next option's
     (["-builtin", "dambreak2d", "-initnorpla", "mkbound=0:normal=0:0:1",
       "-cellmode:half"], "-cellmode:half"),
-    (["-builtin", "dambreak2d", "-initnorpart", "mkbound=0",
-      "-restartchrono"], "-restartchrono"),
-    (["-builtin", "dambreak2d", "-restartchrono"], "-restartchrono"),
+    # -restartchrono runs: a restart of a Chrono case needs it
+    (["-case", "CHRONO_CASE", "-initnorpart", "mkbound=0", "-partbegin:1",
+      "prev"], "-restartchrono"),
+    (["-case", "CHRONO_CASE", "-partbegin:1", "prev"], "-restartchrono"),
     (["-builtin", "dambreak2d", "-pallas"], "-pallas"),
     (["-builtin", "dambreak2d", "-no-pallas"], "-no-pallas"),
     (["-builtin", "dambreak2d", "-cellmode:half"], "-cellmode:half"),
 ])
 def test_refused_options_name_themselves(argv, name, tmp_path):
+    if "CHRONO_CASE" in argv:
+        from test_torch_couplings import write_case
+        case = write_case(tmp_path / "case", "chrono")
+        argv = [case if a == "CHRONO_CASE" else a for a in argv]
+    out = tmp_path / "out"
     with pytest.raises(SystemExit, match=name) as e:
-        cli.main(["-cpu", "-dirout", str(tmp_path)] + argv)
+        cli.main(["-cpu", "-dirout", str(out)] + argv)
     assert "TPU" not in str(e.value) and "lane" not in str(e.value)
-    assert not os.listdir(tmp_path)
+    assert not out.exists()
 
 
 # a coarse 2D wet dam break (dp 0.05, 126 particles): two phases, the SPH

@@ -726,3 +726,93 @@ def test_cuda_periodic_steps_match_cpu_steps(cuda):
         w = getattr(want, k)
         torch.testing.assert_close(getattr(got, k), w, rtol=2e-3,
                                    atol=2e-3 * float(w.abs().max()))
+
+
+def coupled_box(dev, kind):
+    """The small floating box resting 0.1 dp into the tank floor (dense
+    box, fluid at 0.5 m/s) with DEM contact and ``kind``: "moordyn" (a
+    lumped-mass line to the floor) or "chrono" (a hinge at its foot, a
+    spring and a box mesh on a floor mesh).  Returns (case, state,
+    Features)."""
+    from dualsphysics_multilayer_tpu_torch.features import chcollision as CC
+    from dualsphysics_multilayer_tpu_torch.features import chrono as CH
+    from dualsphysics_multilayer_tpu_torch.features import dem as DEM
+    from dualsphysics_multilayer_tpu_torch.features import floating as FT
+    from dualsphysics_multilayer_tpu_torch.features import moorings as MO
+    dp = 0.04
+    case = cases.floatingbox2d(dp=dp, tank=(0.8, 0.6), water=0.3,
+                               box=(0.16, 0.16), box_pos=(0.32, dp),
+                               box_rho=1500.0, device=dev)
+    st = case.state
+    isft = td.is_floating(st.code)
+    pos = st.pos.clone()
+    pos[isft, 2] -= 0.1 * dp
+    ftcfg, ft = FT.make_floating([pos[isft].cpu().numpy()], [1500.0],
+                                 case.csp, device=dev)
+    vel = torch.where(td.is_fluid(st.code)[:, None],
+                      torch.tensor([0.5, 0.0, 0.0], device=dev), 0.0)
+    st = dataclasses.replace(st, pos=pos, vel=vel, ft=ft)
+    dem = DEM.make_dem(case.csp, st.code, ftcfg, idp=st.idp, float_props=[
+        dict(young=1e6, poisson=0.3, kfric=0.45, restitu=0.2)])
+    c0 = ft.center[0].cpu().numpy().astype(float)
+    if kind == "moordyn":
+        moor = MO.MoorDynCfg(nbodies=1, t_ic=0.01, nsub=4, lines=(
+            MO.MoorDynLine(0, (c0[0] - 0.3, 0.0, 0.0), (-0.08, 0.0, 0.04),
+                           length0=0.31, ea=2.9e3, nseg=5, diameter=3.7e-3,
+                           massden=0.06),))
+        return case, st, P.Features(floating=ftcfg, dem=dem, moorings=moor)
+    links = [CH.ChLink("hinge", 0, -1, rotpoint=(c0[0] - 0.08, 0.0, c0[2] - 0.08),
+                       rotvector=(0.0, 1.0, 0.0)),
+             CH.ChLink("spring", 0, -1, pt1=(c0[0] + 0.08, 0.0, c0[2]),
+                       pt2=(c0[0] + 0.08, 0.0, 0.6), stiffness=300.0,
+                       restlength=0.3)]
+    lo, hi = c0 - 0.08 - 0.1 * dp, c0 + 0.08
+    box = np.array([[[lo[0], -0.1, lo[2]], [hi[0], -0.1, lo[2]],
+                     [hi[0], 0.1, lo[2]]],
+                    [[lo[0], -0.1, lo[2]], [hi[0], 0.1, lo[2]],
+                     [lo[0], 0.1, lo[2]]]])
+    floor = np.array([[[0.0, -1.0, 0.0], [0.8, -1.0, 0.0], [0.8, 1.0, 0.0]],
+                      [[0.0, -1.0, 0.0], [0.8, 1.0, 0.0], [0.0, 1.0, 0.0]]])
+    cc = CC.make_chcontact([dict(ft=0, tris=box, center0=c0,
+                                 mass=ftcfg.mass[0]),
+                            dict(ft=-1, tris=floor)], dp=dp)
+    return case, st, P.Features(floating=ftcfg, dem=dem,
+                                chrono=CH.make_chrono(links, c0[None]),
+                                chcontact=cc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["moordyn", "chrono"])
+def test_cuda_coupled_box_steps_match_cpu_steps(cuda, kind):
+    """4 steps of the box with DEM and a MoorDyn line, or with Chrono links
+    and mesh contact, on the card and on the CPU: positions by id and the
+    body centre within 1e-4*dp, its velocities within rtol 1e-3 (floor
+    1e-3 of the largest value), the line's nodes within 1e-4*dp, overflow
+    0; cellforce twice per step on the card."""
+    opts = P.SolverOpts(**FLOATINGBOX_OPTS)
+    out = {}
+    for dev in ("cpu", cuda):
+        case, st, feats = coupled_box(dev, kind)
+        carry = P.make_carry(st, case.csp, opts, case.dom, feats)
+        step = P.make_step(case.csp, opts, case.dom, feats)
+        launches = CF.launches["cellforce"]
+        for _ in range(4):
+            carry = step(carry)
+        if dev != "cpu":
+            assert CF.launches["cellforce"] == launches + 8
+        assert carry.overflow == 0
+        pos = torch.empty_like(carry.st.pos)
+        pos[carry.st.idp] = carry.st.pos
+        out[str(dev)] = (pos.cpu(), {k: getattr(carry.st.ft, k).cpu() for k in
+                                     ("center", "fvel", "fomega")},
+                         None if carry.moor is None else carry.moor.pos.cpu())
+    (pos_c, ft_c, moor_c), (pos_g, ft_g, moor_g) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(pos_g, pos_c, rtol=0, atol=1e-4 * 0.04)
+    torch.testing.assert_close(ft_g["center"], ft_c["center"], rtol=0,
+                               atol=1e-4 * 0.04)
+    for k in ("fvel", "fomega"):
+        w = ft_c[k]
+        torch.testing.assert_close(ft_g[k], w, rtol=1e-3,
+                                   atol=1e-3 * float(w.abs().max()))
+    if moor_c is not None:
+        torch.testing.assert_close(moor_g, moor_c, rtol=0, atol=1e-4 * 0.04)

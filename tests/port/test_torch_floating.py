@@ -152,15 +152,24 @@ def test_run_floating_matches_jax(name):
 
 
 def test_run_floating_external_couplings_raise():
+    """The sharded sums (``psum_axis``) still raise; the Chrono couplings
+    run (tests/port/test_torch_couplings.py), and a ``ChronoCfg`` with no
+    link reduces to the per-body solve."""
+    from dualsphysics_multilayer_tpu_torch.features import chrono as CH
     csp, jcsp = csps(False)
     r = random_bodies(False, 3)
     cfg, fts = FT.make_floating(r["bodies"], [500.0, 800.0], csp, device="cpu")
     args = (torch.tensor(r["pos"]), torch.tensor(r["vel"]),
             torch.tensor(r["code"].astype(np.int32)), torch.tensor(r["ace"]))
-    for kw in (dict(chrono=object()), dict(chcontact=object()),
-               dict(psum_axis="x")):
-        with pytest.raises(NotImplementedError, match=next(iter(kw))):
-            FT.run_floating(cfg, csp, fts, 0.0, 1e-3, False, *args, **kw)
+    with pytest.raises(NotImplementedError, match="psum_axis"):
+        FT.run_floating(cfg, csp, fts, 0.0, 1e-3, False, *args,
+                        psum_axis="x")
+    plain = FT.run_floating(cfg, csp, fts, 0.0, 1e-3, False, *args)
+    linked = FT.run_floating(cfg, csp, fts, 0.0, 1e-3, False, *args,
+                             chrono=CH.make_chrono([], fts.center.numpy()))
+    for a, b in zip(plain[:2], linked[:2]):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-5,
+                                   atol=1e-6 * a.abs().max().item())
 
 
 # ---------------------------------------------------------------------------

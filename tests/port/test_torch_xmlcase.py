@@ -12,10 +12,11 @@ XML (tests/test_gencase_geo.py, test_io.py, test_features.py,
 test_wavegen_full.py, test_relaxzone_mlpiston.py) plus a floating box and
 an ``<nnphases>`` case.  Loading compiles no JAX step.
 
-The XML dam break draws the builtin ``cases.dambreak3d``'s particles, and
-every node of a feature the port does not run raises
-``NotImplementedError`` naming the node (``Symmetry=1`` in 2D a
-ValueError, as in JAX).
+The XML dam break draws the builtin ``cases.dambreak3d``'s particles, an
+``<inout>`` zone the loader cannot read raises ``NotImplementedError``
+naming the node, ``Symmetry=1`` in 2D and ``<moorings>`` without floating
+bodies raise JAX's ValueError, and ``<chrono>`` and ``RigidAlgorithm=2``,
+once refused, load as JAX's loader loads them.
 """
 
 import dataclasses
@@ -708,9 +709,14 @@ _REFUSED = {
     # it and runs without it)
     "inout": ("<special><inout>", dict(
         special="<inout><inoutzone/></inout>")),
-    "chrono": ("<special><chrono>", dict(special="<chrono/>")),
-    "moorings": ("<special><moorings>", dict(special="<moorings/>")),
-    "dem": ("RigidAlgorithm", dict(
+    # <chrono> without floating bodies builds nothing, as in JAX (the
+    # couplings: test_torch_couplings.py)
+    "chrono": (None, dict(special="<chrono/>")),
+    # <moorings> needs floating bodies: JAX's ValueError
+    "moorings": ("<moorings> needs floating bodies",
+                 dict(special="<moorings/>")),
+    # RigidAlgorithm=2 runs DEM contact on the floating floor
+    "dem": (None, dict(
         casedef='<floatings><floating mkbound="0"/></floatings>',
         params='<parameter key="RigidAlgorithm" value="2"/>' + _TIMES)),
     # the symmetry plane runs in 3D only (test_torch_symmetry.py): this
@@ -722,10 +728,26 @@ _REFUSED = {
 
 @pytest.mark.parametrize("name", list(_REFUSED))
 def test_refused_nodes_name_themselves(name, tmp_path):
+    """The nodes the loader refuses name themselves (``<inout>`` zones it
+    cannot read, JAX's ValueErrors); the nodes it once refused load as
+    JAX's loader loads them."""
     node, kw = _REFUSED[name]
     p = tmp_path / "refused_Def.xml"
     p.write_text(xml(_TANK.format(w=1, f=0.35), **kw))
-    error = ValueError if name == "symmetry" else NotImplementedError
+    if node is None:
+        jres, pres = jX.load_case(str(p)), X.load_case(str(p), device="cpu")
+        jf, pf = jres[0].meta["features"], pres[0].meta["features"]
+        if name == "dem":
+            assert pf.dem is not None
+            want = convert.demcfg(jf.dem, np.asarray(jres[0].state.idp))
+            for f in dataclasses.fields(want):
+                np.testing.assert_array_equal(getattr(pf.dem, f.name),
+                                              getattr(want, f.name))
+            jres[0].meta["features"] = dataclasses.replace(jf, dem=None)
+            pres[0].meta["features"] = dataclasses.replace(pf, dem=None)
+        assert_loads_equal(jres, pres)
+        return
+    error = NotImplementedError if name == "inout" else ValueError
     with pytest.raises(error, match=node):
         X.load_case(str(p), device="cpu")
 
