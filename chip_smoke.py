@@ -278,7 +278,26 @@ without printing the final result line:
     under 0.02 rad, the box above the floor mesh; the timing with the
     rigid update (KKT solve, mesh contact) alone, kernel 1's floating
     instance against its plain version; a restart from PART 1 refused
-    without ``-restartchrono`` (JAX's message) and run with it.
+    without ``-restartchrono`` (JAX's message) and run with it;
+35. the neighbour-list mode (``SolverOpts(use_nbrlist=True)``, ``auto_m``,
+    ``nbr_skin`` 0.5) on the dam break at DP_BENCH beside the default
+    layout from phase 4's flowing state: 55 default steps, then the
+    list's steps to the same time; step counts within 2, positions by id
+    within 0.05 dp, overflow 0, cellforce exactly twice per step and no
+    other kernel, one device-to-host copy per step, the rebuilds, each
+    layout's p50 and mean step and candidates per in-support pair, the
+    overflow count's ms per rebuild, kernel 1 against its plain version
+    on the list's layout with its bound; then ``nbr_m=8``, which must leave
+    through ``check_diagnostics`` naming the list's capacity;
+36. the tools (``tools.main``, ``dsphtorchtools``) over PARTs 0-2 of the
+    dam break at DP_BENCH from ``cli.main`` and phase 32's PartFloat.fbi4:
+    partvtk, measuretool (10^4 points, then 200 -elevation columns),
+    isosurface (the default 2 dp node grid; triangles in every PART),
+    computeforces on the obstacle (mk 12) and the tank (mk 11),
+    floatinginfo, flowtool, tracerparts and bifileinfo; each device tool a
+    second time with
+    ``-cpu``, the files agreeing within rtol 1e-6 (abs 1e-9), none empty;
+    host seconds per PART and the pairs each sum visited.
 
 Each kernel is timed twice: alone (``ms``: CUDA events around 20
 back-to-back launches of the C launcher on prepared inputs, per launch,
@@ -299,19 +318,26 @@ break (phase 4), the Verlet path, the wave flume, the full flume, the CLI
 (phase 22), the main path with step values (phase 23) and the XML dam
 break (phase 24), and the ``<initialize>`` and ``-initnorpla`` runs
 (phase 27), the channel, the duct and the periodic channel (phases
-29-31) and the couplings (phases 32-34), with ``open_states``, kernel 1
+29-31), the couplings (phases 32-34) and the neighbour-list mode (phase
+35), with ``open_states``, kernel 1
 against its plain version on the final states of phases 29-31 and their
 step's p50 and trace, and ``coupling_states``, the same for phases 32-34
 with the couplings' pieces alone (DEM's pass, the rigid update with the
-lines, the lines' substep, the rigid update with Chrono); the NN
+lines, the lines' substep, the rigid update with Chrono), and
+``nbrlist_state``, the same for phase 35 on the list's layout with its
+p50 step beside the default layout's, the overflow count's ms and each
+layout's candidates per pair; the NN
 kernels' rows add theirs on phases 6-7, the XML runs of phase 25 and the
 mDBC runs of phase 28.
 Imports no JAX.
 """
 
+import atexit
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
+import io
 import json
 import math
 import os
@@ -319,6 +345,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2664,21 +2691,31 @@ def nn_mdbc_path(device, registers, smi):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def count_d2h(step, carry, nsteps):
+def count_d2h(step, carry, nsteps, tries=3):
     """(device-to-host copies per step, the carry) over ``nsteps`` steps
     traced with ``torch.profiler`` (CUDA activity); copies None when the
-    trace holds no device activity."""
+    trace holds no device activity.  Every step copies at least once (its
+    ``_sync_flags``), so a trace with fewer copies than steps has dropped
+    events: it is taken again over the next ``nsteps``, up to ``tries``
+    traces, and the last one's count is returned."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(nsteps):
-            carry = step(carry)
+    for _ in range(tries):
         torch.cuda.synchronize()
-    ev = [e.name for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not ev:
-        return None, carry
-    return sum("DtoH" in name for name in ev) / nsteps, carry
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(nsteps):
+                carry = step(carry)
+            torch.cuda.synchronize()
+        ev = [e.name for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not ev:
+            return None, carry
+        copies = sum("DtoH" in name for name in ev)
+        if copies >= nsteps:
+            break
+        say("profiler", f"a trace of {nsteps} steps held {copies} "
+            f"device-to-host copies and {len(ev)} device events: dropped "
+            f"events, traced again")
+    return copies / nsteps, carry
 
 
 def step_values_path(device, main_p50, smi):
@@ -3619,6 +3656,11 @@ def dem_path(device, smi):
         carry = sim.carry
         check(carry.overflow == 0, f"DEM: overflow {carry.overflow}")
         parts = read_parts(PD, out, case.np_total, case.csp.rhopzero)
+        # the bodies' history for phase 36's floatinginfo
+        KEPT["float"] = tempfile.mkdtemp(prefix="_smoke_keep_",
+                                         dir=os.path.dirname(root))
+        atexit.register(shutil.rmtree, KEPT["float"], True)
+        shutil.copy(os.path.join(out, "PartFloat.fbi4"), KEPT["float"])
         ft = carry.st.ft
         say("dem-3d", f"-case -partbegin:0 with two {BOX_SIDE} m boxes at dp "
             f"{dp:.6g}: {case.np_total} particles ({int(isft.sum())} "
@@ -4083,6 +4125,323 @@ def chrono_path(device, smi):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---- phases 35-36: the neighbour-list mode and the tools ---------------------
+NBR_STEPS = 50           # phase 35: steps of each layout after NBR_WARM
+NBR_WARM = 5
+NBR_TINY_M = 8           # phase 35: a capacity every target overflows
+TOOL_POINTS = (40, 10, 25)   # phase 36: MeasureTool's -points grid (10^4)
+TOOL_COLUMNS = (40, 5)       # phase 36: -elevation columns along x, y
+KEPT = {}                # files an earlier phase keeps for phase 36
+
+
+def by_id_pos(st):
+    out = torch.empty_like(st.pos)
+    out[st.idp] = st.pos
+    return out
+
+
+def nbrlist_path(device, smi):
+    """Phase 35: the 3D dam break at DP_BENCH under ``SolverOpts(
+    use_nbrlist=True)`` (``auto_m``, ``nbr_skin`` 0.5) beside the default
+    layout, both from :func:`flowing_state`: the default layout's
+    NBR_WARM + NBR_STEPS steps, then the list's steps to the same time.
+    Step counts within 2, positions by id within 0.05 dp, overflow 0,
+    cellforce exactly twice per step and no other kernel, one
+    device-to-host copy per step, the rebuilds; the p50 step of each, the
+    overflow count's ms per rebuild and the candidates per in-support pair
+    of each layout; kernel 1 against its plain version on the list's
+    final layout with its bound; then a run with ``nbr_m`` NBR_TINY_M that
+    must leave through ``check_diagnostics`` with the overflow message.
+    Returns (cellforce launches of the list's run, its record)."""
+    from dualsphysics_multilayer_tpu_torch import SolverOpts, TpDensity
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    from dualsphysics_multilayer_tpu_torch.models import wcsph as W
+    from dualsphysics_multilayer_tpu_torch.ops import nbrlist as NB
+    case = cases.dambreak3d(dp=DP_BENCH, obstacle=True, device=device)
+    csp, n = case.csp, case.np_total
+    base = SolverOpts(tdensity=TpDensity.FOURTAKAS)
+    listed = dataclasses.replace(base, use_nbrlist=True)
+    st0 = flowing_state(case, device)
+    runs = {}
+    target = None
+    for label, opts in (("default", base), ("nbrlist", listed)):
+        step = W.make_step(csp, opts, case.dom)
+        carry = W.make_carry(st0, csp, opts, case.dom)
+        nrebuild0 = carry.nrebuild
+        reset_counts()
+        times = []
+        while (carry.nstep < NBR_WARM + NBR_STEPS if target is None
+               else carry.t_host < target and carry.nstep < 2 * NBR_STEPS):
+            t0 = time.perf_counter()
+            carry = step(carry)
+            torch.cuda.synchronize()
+            if carry.nstep > NBR_WARM:
+                times.append(time.perf_counter() - t0)
+        launched = counts()
+        single_phase_counts(launched, "cellforce", 2, carry.nstep)
+        check_state(carry, carry.nstep, nrebuild0)
+        target = carry.t_host if target is None else target
+        cand, pairs = pair_counts(csp, carry.dom, carry.cells, carry.st.pos,
+                                  carry.st.code, inclusive=False)
+        runs[label] = dict(step=step, carry=carry, launched=launched,
+                           p50=statistics.median(times),
+                           mean=statistics.fmean(times), cand=cand,
+                           pairs=pairs)
+    a, b = runs["default"]["carry"], runs["nbrlist"]["carry"]
+    check(abs(a.nstep - b.nstep) <= 2, f"the list made {b.nstep} steps to "
+          f"t = {target:.6g} s, the default layout {a.nstep}")
+    live = td_active(a.st) & td_active(b.st)
+    dpos = float((by_id_pos(a.st) - by_id_pos(b.st))[live].abs().max())
+    check(dpos < 0.05 * csp.dp, f"max |d pos| {dpos:.3e} m between the "
+          f"layouts, over 0.05 dp")
+    spec = NB.layout(csp, listed, case.dom)[1]
+    check(b.dom == NB.list_domain(case.dom, csp, listed)
+          and b.nbr_overflow is not None and int(b.nbr_overflow) == 0,
+          "the list's run is not on the list's grid or counts an overflow")
+    step = runs["nbrlist"]["step"]
+    d2h, b = count_d2h(step, b, 10)
+    check(d2h == 1, f"nbrlist: {d2h} device-to-host copies per step, "
+          f"expected 1")
+    count_ms = cuda_ms(lambda: NB.overflow_count(b.dom, b.cells, b.st.pos,
+                                                 spec), reps=5)
+    for label, r in runs.items():
+        c = r["carry"]
+        say("nbrlist", f"{label}: {c.nstep} steps to t {c.t_host:.6f} s, "
+            f"p50 step {r['p50'] * 1e3:.3f} ms (mean {r['mean'] * 1e3:.3f}, "
+            f"the divides included), {c.nrebuild} divides, "
+            f"cells of {c.dom.scell * 1e3:.3f} mm ({c.dom.ncells} cells), "
+            f"{r['cand']} candidates for {r['pairs']} in-support pairs "
+            f"({r['cand'] / r['pairs']:.2f} per pair), cellforce "
+            f"{r['launched']['cellforce']} launches ({smi})")
+    say("nbrlist", f"{n} particles: max |d pos| by id {dpos:.3e} m "
+        f"({dpos / csp.dp:.2e} dp) after {runs['nbrlist']['carry'].nstep} "
+        f"list steps; capacity "
+        f"{spec.m} (auto_m), row cap {spec.row_cap}, overflow 0; the "
+        f"overflow count {count_ms:.3f} ms per rebuild (CUDA events); "
+        f"{d2h:g} device-to-host copy per step ({smi})")
+    rec = open_kernel_vs_plain("nbrlist", csp, listed, b.dom, b.st, smi,
+                               cells=b.cells)
+    rec.update(launches=runs["nbrlist"]["launched"]["cellforce"],
+               steps=runs["nbrlist"]["carry"].nstep,
+               p50_ms=runs["nbrlist"]["p50"] * 1e3,
+               default_p50_ms=runs["default"]["p50"] * 1e3,
+               mean_ms=runs["nbrlist"]["mean"] * 1e3,
+               default_mean_ms=runs["default"]["mean"] * 1e3,
+               count_ms=count_ms,
+               cand_per_pair=runs["nbrlist"]["cand"] / runs["nbrlist"]["pairs"],
+               default_cand_per_pair=(runs["default"]["cand"]
+                                      / runs["default"]["pairs"]),
+               rebuilds=b.nrebuild, max_dpos=dpos)
+
+    tiny = dataclasses.replace(listed, nbr_m=NBR_TINY_M)
+    sim = W.Simulation(csp, tiny, case.dom, st0, log=lambda *_: None)
+    sim.errdir = tempfile.gettempdir()
+    try:
+        sim.run(tmax=2 * float(csp.dtini), tout=2 * float(csp.dtini))
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    check(refused is not None and "neighbour list's capacity" in refused,
+          f"a run with nbr_m={NBR_TINY_M} left with {refused!r}")
+    say("nbrlist", f"nbr_m={NBR_TINY_M}: check_diagnostics raised \""
+        f"{refused}\" after {sim.carry.nstep} steps ({smi})")
+    return rec["launches"], rec
+
+
+def td_active(st):
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    out = torch.empty_like(st.code, dtype=torch.bool)
+    out[st.idp] = td.is_active(st.code)
+    return out
+
+
+def vtk_sections(buf):
+    """The sections of a legacy binary VTK file of ``io/vtkout.py``:
+    (header line, big-endian array or None) pairs."""
+    out, i, npts, scalar = [], 0, 0, "float"
+    while i < len(buf):
+        j = buf.index(b"\n", i)
+        line, i = buf[i:j].decode(), j + 1
+        w = line.split()
+        if not w:
+            continue
+        size = dtype = None
+        if w[0] == "POINTS":
+            npts, size, dtype = int(w[1]), 3 * int(w[1]), ">f4"
+        elif w[0] in ("VERTICES", "POLYGONS", "LINES"):
+            size, dtype = int(w[2]), ">i4"
+        elif w[0] == "POINT_DATA":
+            npts = int(w[1])
+        elif w[0] == "VECTORS":
+            size, dtype = 3 * npts, ">f4"
+        elif w[0] == "SCALARS":
+            scalar = w[2]
+        elif w[0] == "LOOKUP_TABLE":
+            size, dtype = npts, ">i4" if scalar == "int" else ">f4"
+        arr = None
+        if size is not None:
+            arr = np.frombuffer(buf, dtype, size, i)
+            i += 4 * size
+        out.append((line, arr))
+    return out
+
+
+NUMBER = re.compile(r"^[-+]?(\d+\.?\d*|\.\d+)([eE][-+]?\d+)?$")
+
+
+def same_outputs(label, want_dir, got_dir):
+    """Raise unless the two directories hold the same files, none empty,
+    with the same text and every number within rtol 1e-6 (abs 1e-9);
+    VTK files section by section.  Returns the number of files."""
+    names = sorted(os.listdir(want_dir))
+    check(names and sorted(os.listdir(got_dir)) == names,
+          f"{label}: files {names} on the card, "
+          f"{sorted(os.listdir(got_dir))} on the CPU")
+    for name in names:
+        a = open(os.path.join(want_dir, name), "rb").read()
+        b = open(os.path.join(got_dir, name), "rb").read()
+        check(len(a) > 0, f"{label}: {name} is empty")
+        if name.endswith(".vtk"):
+            sa, sb = vtk_sections(a), vtk_sections(b)
+            check([h for h, _ in sa] == [h for h, _ in sb],
+                  f"{label}: {name} sections differ")
+            pairs = [(x, y) for (_, x), (_, y) in zip(sa, sb)
+                     if x is not None]
+        else:
+            ta, tb = (re.split(r"([;,\s]+)", f.decode()) for f in (a, b))
+            check(len(ta) == len(tb), f"{label}: {name} differs in length")
+            diff = [(x, y) for x, y in zip(ta, tb) if x != y]
+            check(all(NUMBER.match(x) and NUMBER.match(y) for x, y in diff),
+                  f"{label}: {name} differs outside its numbers")
+            pairs = [(np.array([float(x) for x, _ in diff]),
+                      np.array([float(y) for _, y in diff]))]
+        for x, y in pairs:
+            ok = np.array_equal(x, y) if x.dtype.kind == "i" else bool(
+                np.all(np.abs(y - x) <= 1e-9 + 1e-6 * np.abs(x)))
+            check(ok, f"{label}: {name} disagrees beyond rtol 1e-6")
+    return len(names)
+
+
+def tools_path(device, smi):
+    """Phase 36: the tools over PARTs of the 3D dam break at DP_BENCH
+    written by ``cli.main`` (PARTs 0-2, ~50 steps) and phase 32's
+    PartFloat.fbi4: partvtk, measuretool (a -points grid of 10^4 points,
+    then -elevation columns), isosurface (its default 2 dp node grid),
+    computeforces on the obstacle (mk 12, which the water has not reached
+    yet) and on the tank (mk 11), floatinginfo, flowtool, tracerparts and
+    bifileinfo.  Each device tool runs on the card, then
+    with -cpu on the same files: the files must agree (:func:
+    `same_outputs`), none empty, and the iso-surface must hold triangles.
+    Prints each run's host seconds per PART and the pairs its sums
+    visited."""
+    import shutil
+    from dualsphysics_multilayer_tpu_torch import cli, tools
+    from dualsphysics_multilayer_tpu_torch.tools import common as TC
+    root = tempfile.mkdtemp(prefix="_smoke_tools_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    try:
+        parts = os.path.join(root, "parts")
+        check(cli.main(["-builtin", "dambreak3d", "-dp", repr(DP_BENCH),
+                        f"-tmax:{2 * CLI_TOUT!r}", f"-tout:{CLI_TOUT!r}",
+                        "-sv:binx", "-nortimes", "-dirout", parts]) == 0,
+              "the CLI run for the tools failed")
+        nparts = len([f for f in os.listdir(parts)
+                      if re.fullmatch(r"Part_\d{4}\.bi4", f)])
+        check(nparts == 3, f"{nparts} PARTs for the tools")
+        boxes = os.path.join(root, "boxes.txt")
+        with open(boxes, "w") as f:
+            f.write("BOX @Column\n0 0 0\n0.4 0 0\n0.4 0.67 0\n0 0.67 0\n"
+                    "0 0 0.4\n0.4 0 0.4\n0.4 0.67 0.4\n0 0.67 0.4\n"
+                    "BOX @Ahead\n0.4 0 0\n1.6 0 0\n1.6 0.67 0\n0.4 0.67 0\n"
+                    "0.4 0 0.4\n1.6 0 0.4\n1.6 0.67 0.4\n0.4 0.67 0.4\n")
+        nx, ny, nz = TOOL_POINTS
+        grid = (f"-pointsdef:ptls[x=0.01:{0.6 / nx!r}:{nx},"
+                f"y=0.01:{0.65 / ny!r}:{ny},z=0.005:{0.35 / nz!r}:{nz}]")
+        cx, cy = TOOL_COLUMNS
+        columns = (f"-pointsdef:ptls[x=0.01:{0.6 / cx!r}:{cx},"
+                   f"y=0.05:{0.6 / cy!r}:{cy}]")
+        runs = [
+            ("partvtk", ["-dirin", parts, "-savevtk", "OUT/fluid.vtk",
+                         "-onlytype:-all,+fluid", "-vars:+press,+vol"]),
+            ("measuretool", ["-dirin", parts, grid,
+                             "-vars:+rhop,+vel,+press", "-savecsv",
+                             "OUT/probe", "-onlytype:-all,+fluid"]),
+            ("measuretool", ["-dirin", parts, columns, "-elevation",
+                             "-savecsv", "OUT/eta.csv",
+                             "-onlytype:-all,+fluid"]),
+            ("isosurface", ["-dirin", parts, "-saveiso", "OUT/iso.vtk"]),
+            ("computeforces", ["-dirin", parts, "-onlymk:12", "-viscoart:0.1",
+                               "-savecsv", "OUT/forces",
+                               "-momentex_xyz:0.9:0.3:0"]),
+            ("computeforces", ["-dirin", parts, "-onlymk:11", "-viscoart:0.1",
+                               "-savecsv", "OUT/forces",
+                               "-momentex_xyz:0.2:0.3:0"]),
+            ("floatinginfo", ["-dirin", KEPT["float"], "-savemotion",
+                              "OUT/motion"]),
+            ("flowtool", ["-dirin", parts, "-fileboxes", boxes, "-savecsv",
+                          "OUT/flow.csv"]),
+            ("tracerparts", ["-dirin", parts, "-savevtk", "OUT/traj.vtk",
+                             "-maxparts:200"]),
+            ("bifileinfo", [os.path.join(parts, "Part_0001.bi4")]),
+        ]
+        rec = {}
+        for k, (name, argv) in enumerate(runs):
+            label = f"{name}-{k}"
+            dirs = {}
+            for where in ("card", "cpu"):
+                if where == "cpu" and name not in DEVICE_TOOLS:
+                    break
+                out = os.path.join(root, f"{label}-{where}")
+                os.makedirs(out)
+                args = [a.replace("OUT", out) for a in argv]
+                TC.PAIR_STATS["visited"] = 0
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()) as said:
+                    rc = tools.main([name] + args + (
+                        ["-cpu"] if where == "cpu" else []))
+                if where == "card":
+                    torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                check(rc in (0, None), f"{label} returned {rc}")
+                check(name != "bifileinfo" or "ARRAY Posd" in said.getvalue(),
+                      f"bifileinfo printed no Posd array")
+                dirs[where] = out
+                rec.setdefault(label, {})[where] = dict(
+                    s_per_part=secs / (1 if name == "bifileinfo" else
+                                       nparts),
+                    pairs=TC.PAIR_STATS["visited"])
+            if name != "bifileinfo":
+                files = same_outputs(label, dirs["card"], dirs.get("cpu",
+                                                                   dirs["card"]))
+            else:
+                files = 0
+            r = rec[label]
+            say("tools", f"{label}: " + ", ".join(
+                f"{w} {v['s_per_part']:.3f} s per PART ({v['pairs']} pairs "
+                f"summed)" for w, v in r.items())
+                + (f"; {files} files, card and -cpu within rtol 1e-6"
+                   if "cpu" in r else f"; {files} files") + f" ({smi})")
+        iso = [f for f in os.listdir(dirs_of(root, "isosurface"))]
+        tris = [sum(int(h.split()[1]) for h, _ in vtk_sections(open(
+            os.path.join(dirs_of(root, "isosurface"), f), "rb").read())
+            if h.startswith("POLYGONS")) for f in sorted(iso)]
+        check(len(tris) == nparts and min(tris) > 0,
+              f"the fluid's iso-surface triangles per PART: {tris}")
+        say("tools", f"isosurface of the fluid at half its particle mass: "
+            f"{tris} triangles per PART ({smi})")
+        return rec
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+DEVICE_TOOLS = ("measuretool", "isosurface", "computeforces")
+
+
+def dirs_of(root, name):
+    return next(os.path.join(root, d) for d in sorted(os.listdir(root))
+                if d.startswith(f"{name}-") and d.endswith("-card"))
+
+
 def main():
     check(torch.cuda.is_available(), "no CUDA device: the port's smoke run "
           "needs an NVIDIA GPU")
@@ -4348,6 +4707,13 @@ def main():
                               "idle_share", "pieces")}
         for k, r in coupling_records.items()}
 
+    # 35. the neighbour-list mode at full size beside the default layout
+    paths["nbrlist"], records["cellforce"]["nbrlist_state"] = \
+        nbrlist_path(device, smi)
+
+    # 36. the post-processing tools over PARTs at full size, card and -cpu
+    tools_path(device, smi)
+
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=rep,
         launches=records[name]["launches"],
@@ -4355,7 +4721,8 @@ def main():
         plain_ms=records[name]["plain_ms"], bound_ms=records[name]["bound_ms"],
         bound_by=records[name]["bound_by"], library_ms=None,
         **{k: records[name][k] for k in ("instances", "path_launches",
-                                          "open_states", "coupling_states")
+                                          "open_states", "coupling_states",
+                                          "nbrlist_state")
            if k in records[name]})
         for name, (src, rep) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,9 +23,12 @@ scatter (no sort, no read to the host).  The candidates of each floating
 row are the neighbour rows of its cell (``celldiv.point_ranges``, valid
 under the skin contract: the contact range dp lies far inside the kernel
 size), each read to a static ``celldiv.row_cap`` slots; a longer row
-counts into the step's overflow.  The pairs are one dense masked block per
-chunk of targets, as in JAX; the sums over a target's candidates run in
-row order.
+counts into the step's overflow.  Under the neighbour-list mode the
+candidates are the list's rows (JAX ``apply_dem_nbr``): the same block,
+read around the target's build-time position, masked to the slots whose
+build-time positions lie within the list's radius of it.  The pairs are
+one dense masked block per chunk of targets, as in JAX; the sums over a
+target's candidates run in row order.
 """
 
 from __future__ import annotations
@@ -173,14 +176,18 @@ def _layout_rows(cfg: DemCfg, idp, code):
 
 def apply_dem(cfg: DemCfg, csp: CteSph, dom: cd.Domain, cells: cd.CellDiv,
               pos, vel, code, idp, dt, layout: DemLayout | None = None,
-              max_pairs: int = 1 << 23):
+              max_pairs: int = 1 << 23, ref=None, rcut2=None):
     """DEM contact accelerations on the layout ``cells`` (slots in cell
     order with ids ``idp``).  Returns ``(ace_add (n,3), demdtmax (),
     overflow ())``: ``ace_add`` is zero outside the floating rows,
     ``demdtmax`` joins the viscdt max, ``overflow`` (int32) counts the
     floating rows with a neighbour row longer than ``celldiv.row_cap``.
     ``dt`` is the step's dt (a 0-d tensor or a float).  ``max_pairs``
-    bounds the padded pairs of one chunk of targets."""
+    bounds the padded pairs of one chunk of targets.  ``ref`` (n,3) and
+    ``rcut2``: the neighbour list's build-time positions (the layout's
+    ``pos0``) and squared radius (float32); the candidates are then the
+    list's rows, j with |ref_i - ref_j|^2 <= rcut2 (JAX `nbrlist.py:160`,
+    ``apply_dem_nbr``)."""
     n = pos.shape[0]
     f32, dev = pos.dtype, pos.device
     if layout is None:
@@ -192,7 +199,8 @@ def apply_dem(cfg: DemCfg, csp: CteSph, dom: cd.Domain, cells: cd.CellDiv,
     fcode = code[rows]
     p1valid = (found & td.is_floating(fcode) & td.is_active(fcode)
                & td.is_normal(fcode))
-    starts, lens = cd.point_ranges(dom, cells, pos[rows])
+    starts, lens = cd.point_ranges(dom, cells,
+                                   (pos if ref is None else ref)[rows])
     L = cd.row_cap(csp, dom)
     R = starts.shape[1]
     overflow = ((lens > L).any(dim=1) & p1valid).sum(dtype=torch.int32)
@@ -219,6 +227,10 @@ def apply_dem(cfg: DemCfg, csp: CteSph, dom: cd.Domain, cells: cd.CellDiv,
         pair = (ok & (cgroup >= 0) & (cgroup != p1[:, None, _GROUP])
                 & td.is_active(ccode) & ~td.is_fluid(ccode)
                 & (rr2 >= td.ALMOSTZERO))
+        if ref is not None:
+            e = ref[r1][:, None, :] - ref[j]
+            pair = pair & (e[..., 0] * e[..., 0] + e[..., 1] * e[..., 1]
+                           + e[..., 2] * e[..., 2] <= rcut2)
         m1 = p1[:, None, _MASS]
         cmass = cp[..., _MASS]
         nu_mass = torch.where(cp[..., _ISBOUND] > 0, 0.5 * m1,

@@ -48,14 +48,18 @@ def make_nn_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     SaveDt.csv with zeros as JAX does.  It runs no feature hook either
     (JAX's NN step has none), so any set field of ``feats`` (motions,
     damping, the viscosity table, ...) raises NotImplementedError naming
-    its XML node, where JAX would run the case with it ignored."""
+    its XML node, where JAX would run the case with it ignored.  It
+    ignores ``opts.use_nbrlist``, as JAX's does: it walks ``dom``, and a
+    carry made on the neighbour list's grid is divided afresh on its first
+    step."""
     if feats is not None:
         feats.check_none_set("the NN step")
     NN.check_supported_nn(csp, opts, phases)
 
-    def interaction(st: W.SimState, cells: cd.CellDiv, tabs, tabs_host, dt):
+    def interaction(st: W.SimState, carry: W.StepCarry, dt):
         fr, _eta, _tau = NN.interaction_forces_nn(
-            csp, opts, phases, dom, cells, st.pos, st.vel, st.rho, st.code)
+            csp, opts, phases, dom, carry.cells, st.pos, st.vel, st.rho,
+            st.code)
         return st, fr
 
     return W.symplectic_step(csp, opts, dom, interaction)

@@ -28,7 +28,14 @@ each interaction divides the state's rows with their ghost rows afresh
 (``features/periodic.py``), as JAX divides at both; inlet/outlet
 conversions, captures and destructions change codes only, and a spawn
 into a spare slot (the layout's dead tail) forces the next step's
-rebuild.
+rebuild.  Under ``SolverOpts.use_nbrlist`` the single-phase steps divide
+on the neighbour list's grid (``ops/nbrlist.py``: cells of kernelsize +
+nbr_skin*dp, so the margin is the list's skin) and count each rebuild's
+neighbours beyond the list's capacity into the step's overflow; DEM then
+reads the list's rows.  The carry records the domain of its layout
+(``StepCarry.dom``): a step that walks another divides afresh, so the
+NN step, which ignores the option as JAX's does, runs from a carry made
+under it.
 
 Torch has no device-side loop, so the host drives the steps.  Each step
 ends with ONE small device-to-host copy, ``[rebuild flag for the next step,
@@ -68,6 +75,7 @@ from ..ops import celldiv as cd
 from ..ops import forces as F
 from ..ops import integrators as I
 from ..ops import mdbc as MD
+from ..ops import nbrlist as NB
 from ..ops.forces import SolverOpts
 
 
@@ -128,6 +136,13 @@ class StepCarry:
     overflow_inout: int = 0
     # floating rows with a neighbour row longer than DEM's static row cap
     overflow_dem: int = 0
+    # neighbour-list mode: neighbours beyond the list's capacity at the
+    # last rebuild (``nbr_overflow``, 0-d on the device, read in each
+    # step's one copy; None otherwise) and the largest read so far
+    overflow_nbr: int = 0
+    nbr_overflow: torch.Tensor | None = None
+    # the domain ``cells`` divides: a step on another divides afresh
+    dom: cd.Domain | None = None
     t_host: float = 0.0          # host copy of t, read at the end of a step
     rebuild: bool = False        # the next step starts with a divide
     # Verlet steps since the last Euler re-anchoring step (VerletStep); it
@@ -148,13 +163,20 @@ class StepCarry:
     moor_init_s: float = 0.0     # host seconds of the lines' relaxation
 
 
-def _rebuild(dom: cd.Domain, carry: StepCarry) -> StepCarry:
+def _rebuild(dom: cd.Domain, carry: StepCarry,
+             spec: NB.ListSpec | None = None) -> StepCarry:
     """Divide and permute the state into the fresh cell order (RunCellDivide
-    + SortArray, JSphCpuSingle.cpp:450-467, run only when needed)."""
+    + SortArray, JSphCpuSingle.cpp:450-467, run only when needed); under
+    the neighbour-list mode (``spec``) count the list's overflow on the
+    fresh layout."""
     st = carry.st
     cells, code = cd.divide_cells(dom, st.pos, st.code)
     st = replace(st, code=code).permuted(cells.order)
-    return replace(carry, st=st, cells=cells, pos0=st.pos,
+    nbr_overflow = None
+    if spec is not None:
+        nbr_overflow = NB.overflow_count(dom, cells, st.pos, spec)
+    return replace(carry, st=st, cells=cells, pos0=st.pos, dom=dom,
+                   nbr_overflow=nbr_overflow,
                    nrebuild=carry.nrebuild + 1, rebuild=False)
 
 
@@ -171,30 +193,27 @@ def _rebuild_needed(csp: CteSph, margin: float, carry: StepCarry):
 
 
 def _sync_flags(csp: CteSph, margin: float, carry: StepCarry, filled=None,
-                ghosts=None, inout=None, dem=None) -> StepCarry:
+                ghosts=None, inout=None, dem=None, nbr=None) -> StepCarry:
     """The step's one device-to-host copy: the next rebuild flag, t and
-    tabs, and with open boundaries or DEM the step's overflow counts (0-d
-    int32 ``ghosts``, ``inout``, ``dem``).  ``filled`` (0-d bool), an
-    inout slot filled in the layout's dead tail, forces the next rebuild:
-    the skin contract cannot see a reused slot (its stale ``pos0`` may lie
-    near the spawn point)."""
+    tabs, and with open boundaries, DEM or the neighbour list the step's
+    overflow counts (0-d ``ghosts``, ``inout``, ``dem``, ``nbr``).
+    ``filled`` (0-d bool), an inout slot filled in the layout's dead tail,
+    forces the next rebuild: the skin contract cannot see a reused slot
+    (its stale ``pos0`` may lie near the spawn point)."""
     need = _rebuild_needed(csp, margin, carry)
     if filled is not None:
         need = need | filled
-    zero = torch.zeros((), dtype=carry.t.dtype, device=carry.t.device)
+    kinds = [(k, v) for k, v in (("ghosts", ghosts), ("inout", inout),
+                                 ("dem", dem), ("nbr", nbr)) if v is not None]
     vals = [need.to(carry.t.dtype), carry.t, carry.tabs]
-    if ghosts is not None or inout is not None or dem is not None:
-        vals += [zero if x is None else x.to(carry.t.dtype)
-                 for x in (ghosts, inout, dem)]
+    vals += [v.to(carry.t.dtype) for _, v in kinds]
     out = torch.stack(vals).tolist()
     carry = replace(carry, rebuild=bool(out[0]), t_host=out[1],
                     tabs_host=out[2])
-    if len(out) > 3:
-        og, oi, od = int(out[3]), int(out[4]), int(out[5])
-        carry = replace(carry, overflow=max(carry.overflow, og + oi + od),
-                        overflow_ghosts=max(carry.overflow_ghosts, og),
-                        overflow_inout=max(carry.overflow_inout, oi),
-                        overflow_dem=max(carry.overflow_dem, od))
+    if kinds:
+        got = {f"overflow_{k}": int(x) for (k, _), x in zip(kinds, out[3:])}
+        carry = replace(carry, overflow=max(carry.overflow, sum(got.values())),
+                        **{k: max(getattr(carry, k), x) for k, x in got.items()})
     return carry
 
 
@@ -249,8 +268,9 @@ def make_carry(st: SimState, csp: CteSph, opts: SolverOpts,
     unless the state has it (the case built with ``need_verlet=True``);
     periodic and inout boundaries rank particles by id and DEM keys its
     tables by id: ValueError unless the ids are a permutation of 0..n-1
-    (one read at setup)."""
-    F.check_supported_step(csp, opts)
+    (one read at setup).  Under ``opts.use_nbrlist`` the first divide is
+    on the neighbour list's grid, with its overflow count (read by the
+    first step's copy)."""
     if feats is not None and (feats.periodic is not None
                               or feats.inout is not None
                               or feats.dem is not None):
@@ -285,7 +305,8 @@ def make_carry(st: SimState, csp: CteSph, opts: SolverOpts,
         t0_init = time.perf_counter()
         carry.moor = moorings.init_state(st.ft)
         carry.moor_init_s = time.perf_counter() - t0_init
-    carry = _rebuild(dom, carry)
+    dom, spec = NB.layout(csp, opts, dom)
+    carry = _rebuild(dom, carry, spec)
     return _sync_flags(csp, _margin(csp, dom), carry)
 
 
@@ -312,12 +333,14 @@ def _interaction(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
 
 
 def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
-                  feats: Features | None):
+                  feats: Features | None, spec: NB.ListSpec | None = None):
     """(interaction, rigid) of the single-phase steps: the interaction
-    ``(st, cells, tabs, tabs_host, dt) -> (st, Forces)`` with the floating
-    bodies' particle mass, the launch values of :func:`step_values` at
-    ``tabs_host``, DEM contact after the forces (JAX `wcsph.py:454-463`,
-    with the step's dt) and then the external accelerations
+    ``(st, carry, dt) -> (st, Forces)`` on the carry's layout with the
+    floating bodies' particle mass, the launch values of
+    :func:`step_values` at the carry's ``tabs_host``, DEM contact after
+    the forces (JAX `wcsph.py:454-463`, with the step's dt; under the
+    neighbour list ``spec`` over the list's rows, JAX `:363`) and then
+    the external accelerations
     (`_post_forces`, JAX `wcsph.py:486-492`: they enter AceMax and the dt
     control); ``rigid(st, ace, t, dt, predictor, moor) -> st``, the floating
     bodies' update with the moorings' and force points' forces (the lines'
@@ -330,12 +353,12 @@ def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
         periodic, dem = feats.periodic, feats.dem
     dem_layout = DEM.DemLayout()
 
-    def interaction(st, cells, tabs, tabs_host, dt):
+    def interaction(st, carry, dt):
         ftomassp = None
         if floating is not None:
             ftomassp = FT.body_tables(floating, tuple(csp.gravity),
                                       st.pos.device).massp
-        ddtkh, visco = step_values(csp, opts, feats, tabs_host)
+        ddtkh, visco = step_values(csp, opts, feats, carry.tabs_host)
 
         def interact(st, cells):
             st, fr = _interaction(csp, opts, dom, st, cells, ftomassp,
@@ -345,7 +368,9 @@ def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
                 # periodic boundaries the ghost rows are candidates)
                 ace, demdt, ovf = DEM.apply_dem(
                     dem, csp, dom, cells, st.pos, st.vel, st.code, st.idp,
-                    dt, layout=dem_layout)
+                    dt, layout=dem_layout,
+                    ref=None if spec is None else carry.pos0,
+                    rcut2=None if spec is None else spec.rcut2)
                 fr = replace(fr, ace=fr.ace + ace,
                              viscdtmax=torch.maximum(fr.viscdtmax, demdt),
                              dem_overflow=ovf)
@@ -357,10 +382,10 @@ def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             st, fr = PER.periodic_interaction(periodic, csp, dom, st,
                                               interact)
         else:
-            st, fr = interact(st, cells)
+            st, fr = interact(st, carry.cells)
         if accinputs:
             fr = replace(fr, ace=ACC.apply_accinput(
-                accinputs, csp, tabs, st.pos, st.vel, st.code, fr.ace))
+                accinputs, csp, carry.tabs, st.pos, st.vel, st.code, fr.ace))
         return st, fr
 
     rigid = None
@@ -488,11 +513,13 @@ def make_symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     (JSphCpuSingle.cpp:695-722) over the single-phase interaction, with the
     floating bodies of ``feats`` moved after the predictor (dt/2) and the
     corrector (dt), JSphCpuSingle.cpp:707,715, and the other hooks of
-    ``feats`` after the corrector."""
-    interaction, rigid = _single_phase(csp, opts, dom, feats)
+    ``feats`` after the corrector; under ``opts.use_nbrlist`` on the
+    neighbour list's layout."""
+    dom, spec = NB.layout(csp, opts, dom)
+    interaction, rigid = _single_phase(csp, opts, dom, feats, spec)
     return symplectic_step(csp, opts, dom, interaction, rigid,
                            _after_update(csp, feats, rigid, True),
-                           _inout_hook(csp, dom, feats))
+                           _inout_hook(csp, dom, feats), spec)
 
 
 def make_verlet_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
@@ -502,17 +529,18 @@ def make_verlet_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     from it, the leapfrog against the M1 state with an Euler re-anchoring
     step every ``opts.verlet_steps`` steps (JAX `wcsph.py:662-773`), then
     the hooks of ``feats``.  The next step's skin-contract lookahead reads
-    this step's dt."""
-    interaction, rigid = _single_phase(csp, opts, dom, feats)
+    this step's dt; under ``opts.use_nbrlist`` on the neighbour list's
+    layout."""
+    dom, spec = NB.layout(csp, opts, dom)
+    interaction, rigid = _single_phase(csp, opts, dom, feats, spec)
     after = _after_update(csp, feats, rigid, False)
     inout = _inout_hook(csp, dom, feats)
     margin = _margin(csp, dom)
 
     def step(carry: StepCarry) -> StepCarry:
-        if carry.rebuild:
-            carry = _rebuild(dom, carry)
-        st, fr = interaction(carry.st, carry.cells, carry.tabs,
-                             carry.tabs_host, carry.dt_pre)
+        if carry.rebuild or carry.dom != dom:
+            carry = _rebuild(dom, carry, spec)
+        st, fr = interaction(carry.st, carry, carry.dt_pre)
         velmax = I.velocity_max(csp, st.vel, st.code)
         acemax = I.ace_max(fr.ace, st.code)
         dt, bad, dt1, dt2 = I.dt_variable_parts(csp, acemax, velmax,
@@ -547,7 +575,7 @@ def make_verlet_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             tabs=carry.tabs + dt, awas=awas, moor=moor)
         return _sync_flags(csp, margin, carry, filled,
                            _ghost_overflow((fr,)), ovf_io,
-                           _dem_overflow((fr,)))
+                           _dem_overflow((fr,)), carry.nbr_overflow)
 
     return step
 
@@ -579,11 +607,13 @@ def _sps_tau(csp: CteSph, st: SimState, fr: F.Forces):
 
 
 def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
-                    interaction, rigid=None, after=None, inout=None):
+                    interaction, rigid=None, after=None, inout=None,
+                    spec: NB.ListSpec | None = None):
     """step(carry) -> carry: the symplectic predictor and corrector over
-    ``interaction(st, cells, tabs, tabs_host, dt) -> (st, Forces)`` on one
-    layout (``tabs_host``: the step's start time on the host; ``dt`` the
-    step's, on the device); the
+    ``interaction(st, carry, dt) -> (st, Forces)`` on one layout of
+    ``dom`` (the carry's ``cells``, ``pos0``, ``tabs`` and ``tabs_host``,
+    the step's start time on the host; ``dt`` the step's, on the device),
+    divided afresh when the carry's is another domain's; the
     state it returns (the mDBC pre-pass's boundary values) goes on,
     as in JAX.  What the forces carry switches the rest: ``viscetadtmax``
     the NN dt3 control, ``spsgradvel`` the SPS stress after each
@@ -593,18 +623,18 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     moor) -> (st, awas, moor)`` runs the hooks after the corrector
     (:func:`_after_update`, the bodies over dt and the mooring lines among
     them); ``inout(st, cells, tabs, nstep) -> (st,
-    overflow, filled)`` the inlet/outlet pass last (:func:`_inout_hook`)."""
+    overflow, filled)`` the inlet/outlet pass last (:func:`_inout_hook`).
+    ``spec``: the neighbour list's, whose overflow each rebuild counts."""
     margin = _margin(csp, dom)
 
     def step(carry: StepCarry) -> StepCarry:
-        if carry.rebuild:
-            carry = _rebuild(dom, carry)
+        if carry.rebuild or carry.dom != dom:
+            carry = _rebuild(dom, carry, spec)
         st = carry.st
         dt = carry.dt_pre
 
         # ---------------- predictor ----------------
-        st, fr1 = interaction(st, carry.cells, carry.tabs, carry.tabs_host,
-                              dt)
+        st, fr1 = interaction(st, carry, dt)
         velmax1 = I.velocity_max(csp, st.vel, st.code)
         acemax1 = I.ace_max(fr1.ace, st.code)
         dt_p, bad_p = I.dt_variable(csp, acemax1, velmax1, fr1.viscdtmax,
@@ -619,8 +649,7 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             st = rigid(st, fr1.ace, carry.tabs, dt * 0.5, True, carry.moor)
 
         # ---------------- corrector (same layout) ----------------
-        st, fr2 = interaction(st, carry.cells, carry.tabs, carry.tabs_host,
-                              dt)
+        st, fr2 = interaction(st, carry, dt)
         velmax2 = I.velocity_max(csp, st.vel, st.code)
         acemax2 = I.ace_max(fr2.ace, st.code)
         dt_c, bad_c, dt1_c, dt2_c = I.dt_variable_parts(
@@ -657,13 +686,20 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             tabs=carry.tabs + dt, awas=awas, moor=moor)
         return _sync_flags(csp, margin, carry, filled,
                            _ghost_overflow((fr1, fr2)), ovf_io,
-                           _dem_overflow((fr1, fr2)))
+                           _dem_overflow((fr1, fr2)), carry.nbr_overflow)
 
     return step
 
 
 def make_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
               feats: Features | None = None):
+    """The single-phase step of ``opts.tstep``; the neighbour-list mode
+    refuses what changes the population mid-run, with JAX's words
+    (`wcsph.py:778-784`)."""
+    if opts.use_nbrlist and feats is not None and (
+            feats.periodic is not None or feats.inout is not None):
+        raise NotImplementedError("nbrlist mode does not support periodic "
+                                  "ghosts or inlet/outlet zones")
     if opts.tstep == TpStep.SYMPLECTIC:
         return make_symplectic_step(csp, opts, dom, feats)
     return make_verlet_step(csp, opts, dom, feats)
@@ -735,14 +771,19 @@ class Simulation:
                 kinds.append(f"{c.overflow_dem} DEM floating row(s) with a "
                              f"neighbour row beyond celldiv.row_cap "
                              f"(a state denser than 0.85 dp)")
+            if c.overflow_nbr:
+                kinds.append(f"{c.overflow_nbr} neighbour(s) beyond the "
+                             f"neighbour list's capacity of "
+                             f"{NB.capacity(self.csp, self.opts)} (raise "
+                             f"SolverOpts.nbr_m)")
             if c.overflow_inout:
                 kinds.append(f"{c.overflow_inout} inout spawn request(s) "
                              f"with no free slot or extrapolated member(s) "
                              f"beyond the pass's sizes (raise the state "
                              f"capacity; reference analog: "
                              f"ResizeParticlesSize)")
-            raise RuntimeError(f"overflow: {c.overflow} particle(s) not "
-                               f"placed in one step: " + "; ".join(kinds))
+            raise RuntimeError(f"overflow: {c.overflow} in one step: "
+                               + "; ".join(kinds))
         st = self.carry.st
         code = st.code.cpu().numpy()
         sp = td.code_special(code)

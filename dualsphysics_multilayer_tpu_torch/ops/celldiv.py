@@ -30,6 +30,9 @@ class Domain:
     scell: float             # cell width
     nc: tuple                # (ncx, ncy, ncz) cell counts
     simulate2d: bool = False
+    # a grid whose map limits a divide also keeps (the neighbour list's
+    # coarser grid over the case's domain, ``ops/nbrlist.list_domain``)
+    within: "Domain | None" = None
 
     @property
     def ncells(self) -> int:
@@ -63,6 +66,11 @@ def cell_coords(dom: Domain, pos):
     return torch.floor(rel).to(torch.int32)
 
 
+def _inside(dom: Domain, cxyz):
+    nc = torch.tensor(dom.nc, dtype=torch.int32, device=cxyz.device)
+    return ((cxyz >= 0) & (cxyz < nc)).all(dim=1)
+
+
 @dataclass
 class CellDiv:
     """A divide in the GPU layout, valid for state arrays permuted by
@@ -78,12 +86,14 @@ class CellDiv:
 def divide_cells(dom: Domain, pos, code):
     """Sort particles by linear cell id (x fastest).  Returns ``(CellDiv,
     new_code)`` where ``new_code`` (in the input order) marks formerly active
-    particles that left the map as OUT_POS, as the JAX divides do."""
+    particles that left the map (``dom``'s grid, and ``dom.within``'s when
+    set) as OUT_POS, as the JAX divides do."""
     ncx, ncy, ncz = dom.nc
     ncells = dom.ncells
     cxyz = cell_coords(dom, pos)
-    nc = torch.tensor(dom.nc, dtype=torch.int32, device=pos.device)
-    inside = ((cxyz >= 0) & (cxyz < nc)).all(dim=1)
+    inside = _inside(dom, cxyz)
+    if dom.within is not None:
+        inside = inside & _inside(dom.within, cell_coords(dom.within, pos))
     active = td.is_active(code)
     newly_out = active & ~inside
     new_code = torch.where(newly_out,

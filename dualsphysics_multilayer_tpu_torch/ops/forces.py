@@ -45,7 +45,13 @@ class SolverOpts:
     # mDBC kernel-completeness gate: a wall particle is corrected only where
     # its ghost node's Shepard sum reaches it (0 = always)
     mdbc_threshold: float = 0.0
+    # the neighbour-list mode (ops/nbrlist.py): the single-phase step
+    # divides on the list's grid (cells of kernelsize + nbr_skin*dp) and
+    # counts each rebuild's neighbours beyond nbr_m (0 = nbrlist.auto_m);
+    # the NN step ignores it, as the JAX package's does
     use_nbrlist: bool = False
+    nbr_m: int = 0
+    nbr_skin: float = 0.5
     # the lateral symmetry plane y = 0 (<parameter key="Symmetry">): targets
     # within kernelsize of it also meet each candidate's mirror image (3D,
     # artificial viscosity, no floating bodies: JSph.cpp:1174-1179)
@@ -91,12 +97,6 @@ class Forces:
     dem_overflow: torch.Tensor | None = None
 
 
-def check_supported_step(csp: CteSph, opts: SolverOpts) -> None:
-    """Raise NotImplementedError for any setting outside every slice's step:
-    what the single-phase and the NN interactions both require."""
-    raise_unsupported([(opts.use_nbrlist, "use_nbrlist=True")])
-
-
 def raise_unsupported(unsupported) -> None:
     """Raise NotImplementedError naming the first ``(bad, name)`` pair that
     is bad."""
@@ -112,7 +112,6 @@ def check_supported(csp: CteSph, opts: SolverOpts) -> None:
     walls, with or without floating bodies; the symmetry plane in 3D with
     artificial viscosity and no floating bodies (the reference's rule,
     JSph.cpp:1174-1179, which the case loaders enforce as ValueError)."""
-    check_supported_step(csp, opts)
     raise_unsupported([
         (opts.tvisco not in (TpVisco.ARTIFICIAL, TpVisco.LAMINAR_SPS),
          f"tvisco={opts.tvisco.name}"),

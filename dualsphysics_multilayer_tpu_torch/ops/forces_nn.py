@@ -44,7 +44,7 @@ from . import eos
 from . import kernels as K
 from .celldiv import CellDiv, Domain
 from .forces import (FLT_MAX, Forces, SolverOpts, candidate_chunks,
-                     check_supported_step, raise_unsupported)
+                     raise_unsupported)
 
 # Largest phase table the CUDA kernels take (csrc/nnbody.cuh NN_MAX_PHASES).
 MAX_PHASES = 8
@@ -185,8 +185,8 @@ def check_supported_nn(csp: CteSph, opts: SolverOpts, phases: PhaseCfg) -> None:
     floating-motion rings and the DDT ramp among them; either kernel,
     every shifting mode and DBC or mDBC walls are in), ValueError for a
     phase table the kernels cannot hold.  The JAX NN step runs a symmetry
-    case without the mirror; the port refuses it instead."""
-    check_supported_step(csp, opts)
+    case without the mirror; the port refuses it instead.  The
+    neighbour-list mode passes: the NN step ignores it, as JAX's does."""
     raise_unsupported([
         (opts.tstep != TpStep.SYMPLECTIC, f"tstep={opts.tstep.name}"),
         (opts.symmetry, "symmetry=True on the NN step"),

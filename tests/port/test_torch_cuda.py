@@ -816,3 +816,64 @@ def test_cuda_coupled_box_steps_match_cpu_steps(cuda, kind):
                                    atol=1e-3 * float(w.abs().max()))
     if moor_c is not None:
         torch.testing.assert_close(moor_g, moor_c, rtol=0, atol=1e-4 * 0.04)
+
+
+@pytest.mark.gpu
+def test_nbrlist_steps_on_the_card_match_the_cpu(cuda):
+    """The 2D dam break under ``use_nbrlist`` on the card and on the CPU:
+    5 flowing steps on the list's grid, positions by id within 1e-4*dp,
+    cellforce twice per step, overflow 0."""
+    opts = P.SolverOpts(tdensity=td.TpDensity.FOURTAKAS, use_nbrlist=True)
+    out = {}
+    for dev in ("cpu", cuda):
+        case = cases.dambreak2d(dp=0.02, device=dev)
+        st = case.state
+        fluid = td.is_fluid(st.code)
+        vel = torch.where(fluid[:, None],
+                          torch.tensor([2.0, 0.0, 0.0], device=st.pos.device),
+                          0.0)
+        carry = P.make_carry(dataclasses.replace(st, vel=vel), case.csp,
+                             opts, case.dom)
+        step = P.make_step(case.csp, opts, case.dom)
+        launches = CF.launches["cellforce"]
+        for _ in range(5):
+            carry = step(carry)
+        if dev != "cpu":
+            assert CF.launches["cellforce"] == launches + 10
+        assert carry.overflow == 0 and carry.dom.within == case.dom
+        pos = torch.empty_like(carry.st.pos)
+        pos[carry.st.idp] = carry.st.pos
+        out[str(dev)] = pos.cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=0,
+                               atol=1e-4 * 0.02)
+
+
+@pytest.mark.gpu
+def test_tool_sums_on_the_card_match_the_cpu(cuda, tmp_path):
+    """MeasureTool's interpolation and elevation and ComputeForces' fluid
+    forces on a PART of the 3D dam break, on the card and with the CPU's
+    torch: within rtol 1e-6."""
+    from dualsphysics_multilayer_tpu_torch.io import partdata
+    from dualsphysics_multilayer_tpu_torch.tools import common as TC
+    from dualsphysics_multilayer_tpu_torch.tools import computeforces as TF
+    from dualsphysics_multilayer_tpu_torch.tools import measuretool as TM
+    case = cases.dambreak3d(dp=0.02, device="cpu")
+    partdata.PartWriter(str(tmp_path), case.csp).save(0, 0.0, case.state)
+    d = partdata.read_part(str(tmp_path / "Part_0000.bi4"))
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(d["pos"].min(0), d["pos"].max(0), (2000, 3))
+    sel = np.where(TC.type_of(d) != td.TYPE_FLUID)[0]
+    res = {}
+    for dev in (torch.device("cpu"), cuda):
+        res[dev.type] = (
+            TM.interpolate(d, pts, ["rhop", "vel", "press"], device=dev),
+            TM.elevation(d, pts[:50, :2], device=dev),
+            TF.fluid_forces(d, sel, visco=0.1, device=dev))
+    (ic, ec, fc), (ig, eg, fg) = res["cpu"], res["cuda"]
+    for k in ("kcorr", "rhop", "vel", "press"):
+        np.testing.assert_allclose(ig[k], ic[k], rtol=1e-6, atol=1e-9,
+                                   err_msg=k)
+    np.testing.assert_allclose(eg, ec, rtol=1e-6, atol=1e-9)
+    assert np.abs(fc).max() > 0
+    np.testing.assert_allclose(fg, fc, rtol=1e-6,
+                               atol=1e-9 * np.abs(fc).max())

@@ -134,13 +134,9 @@ def test_plain_skips_inactive_particles():
     (dict(tvisco=td.TpVisco.CONST_EQ), "tvisco=CONST_EQ"),
     (dict(tboundary=td.TpBoundary.MDBC, symmetry=True, with_floating=True),
      "symmetry"),
-    (dict(shiftmode=td.TpShifting.NO_BOUND, with_floating=True,
-          use_nbrlist=True), "use_nbrlist"),
     (dict(with_floating=True, tstep=td.TpStep.VERLET, symmetry=True),
      "symmetry"),
     (dict(symmetry=True, tvisco=td.TpVisco.LAMINAR_SPS), "symmetry"),
-    (dict(use_nbrlist=True), "use_nbrlist"),
-    (dict(tstep=td.TpStep.VERLET, use_nbrlist=True), "use_nbrlist"),
 ])
 def test_unsupported_configs_raise(kw, name):
     """Settings outside the port raise, whatever the smoothing kernel and

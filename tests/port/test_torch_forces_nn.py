@@ -290,7 +290,6 @@ def test_variant_matches_jax_3d_cloud(gxx, cloud, tkernel, shiftmode, name):
 def test_unsupported_configs_raise(wet):
     csp, ph = wet["csp"], wet["ph"]
     for kw, name in [
-            (dict(use_nbrlist=True), "use_nbrlist"),
             (dict(with_floating=True), "with_floating"),
             (dict(symmetry=True), "symmetry=True on the NN step"),
             (dict(symmetry=True, tboundary=td.TpBoundary.MDBC), "symmetry"),
@@ -304,6 +303,8 @@ def test_unsupported_configs_raise(wet):
             shiftmode=td.TpShifting.NO_BOUND, with_floating=True), ph)
     for mode in td.TpShifting:
         NN.check_supported_nn(cubic, SolverOpts(shiftmode=mode), ph)
+    # the neighbour-list mode passes: the NN step ignores it, as JAX's does
+    NN.check_supported_nn(csp, SolverOpts(use_nbrlist=True), ph)
     # mDBC walls are in (test_mdbc_matches_jax_wet_dambreak)
     NN.check_supported_nn(csp, SolverOpts(tboundary=td.TpBoundary.MDBC), ph)
     many = NN.PhaseCfg(phases=ph.phases * 5)

@@ -147,10 +147,12 @@ def test_unsupported_step_configs_raise():
     with pytest.raises(NotImplementedError, match="Features.periodic"):
         P.make_step(case.csp, P.SolverOpts(), case.dom,
                     feats=P.Features(motions=(object(),), periodic=object()))
-    with pytest.raises(NotImplementedError, match="use_nbrlist"):
-        P.make_carry(case.state, case.csp,
-                     P.SolverOpts(tboundary=td.TpBoundary.MDBC,
-                                  use_nbrlist=True), case.dom)
+    # mDBC walls run under the neighbour-list mode, as in JAX
+    listed = P.SolverOpts(tboundary=td.TpBoundary.MDBC, use_nbrlist=True)
+    carry = P.make_step(case.csp, listed, case.dom)(
+        P.make_carry(case.state, case.csp, listed, case.dom))
+    assert carry.nstep == 1 and carry.overflow == 0
+    assert carry.dom.within == case.dom
     flat = dataclasses.replace(case.dom, scell=case.csp.kernelsize)
     with pytest.raises(ValueError, match="skin"):
         P.make_step(case.csp, P.SolverOpts(), flat)
