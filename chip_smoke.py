@@ -297,7 +297,36 @@ without printing the final result line:
     floatinginfo, flowtool, tracerparts and bifileinfo; each device tool a
     second time with
     ``-cpu``, the files agreeing within rtol 1e-6 (abs 1e-9), none empty;
-    host seconds per PART and the pairs each sum visited.
+    host seconds per PART and the pairs each sum visited;
+37. domain decomposition (``parallel/sharding.py``): the dam break at
+    DP_BENCH from rest on one device until its front is 5 cm past the
+    2-rank slab edge (x = 0.82 m; about t = 0.27 s); then from that state
+    20 one-device steps against 2 ranks on ``cuda:0`` over gloo
+    (``ShardedSimulation(..., backend="gloo")``; gloo takes the CUDA
+    tensors as they are): positions by id within 1e-4 dp after 20 steps,
+    t within rtol 1e-5; after 200, overflow 0, the fluid density within
+    10% of rho0, particles migrated and fluid ghost rows on both ranks;
+    then 10 more steps, rank 0's traced with ``torch.profiler`` for its
+    device-to-host copies (the step's flag copy and gloo's inside its
+    collectives); each kernel's launches on each rank, counted there,
+    against the one-device run's per step; rows and bytes exchanged per
+    step, migrants per rebuild, rebuilds, each step's p50 against the
+    one-device p50 (one card shared: a check, not a speed), the
+    exchange's ms per interaction (CUDA events); the ranks run
+    ``shard_job``, this script's own job of counted, timed and traced
+    steps; then one rank over NCCL (world 1: its group start and
+    all_reduce on the card) within 1e-6 dp of the one-device run;
+38. the other sharded paths, 2 ranks on ``cuda:0`` over gloo, 20 steps
+    (and 10 traced) each from one start of the ranks, against their
+    one-device runs
+    (positions by id within 1e-4 dp): the NN wet dam break at 37,143
+    particles from rest (kernels 4-6 on both ranks; its wet bed crosses
+    x = 1.0 m, so fluid ghosts from the first step), the 2D floating box
+    at 62,033 (body centre within 1e-6 m) and the 2D mDBC dam break at
+    61,589 (the pre-pass between two refreshes, a 2-cell halo); then
+    ``dsphtorch -builtin dambreak3d -shard:1`` through ``cli.main``, its
+    PARTs read back and equal by id, within 1e-6 dp, to the unsharded
+    CLI's.
 
 Each kernel is timed twice: alone (``ms``: CUDA events around 20
 back-to-back launches of the C launcher on prepared inputs, per launch,
@@ -326,7 +355,9 @@ with the couplings' pieces alone (DEM's pass, the rigid update with the
 lines, the lines' substep, the rigid update with Chrono), and
 ``nbrlist_state``, the same for phase 35 on the list's layout with its
 p50 step beside the default layout's, the overflow count's ms and each
-layout's candidates per pair; the NN
+layout's candidates per pair, and ``shard_launches``, each rank's
+launches of that kernel on the sharded paths of phases 37-38, counted in
+the rank; the NN
 kernels' rows add theirs on phases 6-7, the XML runs of phase 25 and the
 mDBC runs of phase 28.
 Imports no JAX.
@@ -4441,6 +4472,376 @@ def dirs_of(root, name):
     return next(os.path.join(root, d) for d in sorted(os.listdir(root))
                 if d.startswith(f"{name}-") and d.endswith("-card"))
 
+SHARD_TMAX = 0.4       # phase 37: the one-device run's cap (s); it stops
+SHARD_PAST = 0.05      # once the front is this far (m) past the slab edge
+SHARD_COMPARE = 20     # phases 37-38: steps held against the one-device run
+SHARD_STEPS = 200      # phase 37: steps of the density and migration checks
+SHARD_TRACE = 10       # phases 37-38: further steps, rank 0's traced
+SHARD_LIMIT = 600.0    # seconds: each start of the ranks
+
+
+def live_by_id(st):
+    """(ids, positions) of the particles still in the run that a rank
+    owns (no ghost rows), ordered by id."""
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    m = td.is_active(st.code) & ~td.is_periodic(st.code)
+    idp, pos = st.idp[m], st.pos[m]
+    o = torch.argsort(idp)
+    return idp[o], pos[o]
+
+
+def shard_error(label, got, want):
+    """Max |d pos| by id between a sharded carry and a one-device one,
+    which must hold the same ids."""
+    gi, gp = live_by_id(got.st)
+    wi, wp = live_by_id(want.st)
+    check(torch.equal(gi, wi), f"{label}: the sharded run holds other ids")
+    return float((gp - wp).abs().max())
+
+
+def timed_steps(step, carry, nsteps):
+    """(carry, host seconds of each step, launch counts)."""
+    reset_counts()
+    times = []
+    for _ in range(nsteps):
+        t0 = time.perf_counter()
+        carry = step(carry)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return carry, times, counts()
+
+
+def row_width(st):
+    """int32 columns of one exchanged row of ``st``."""
+    from dualsphysics_multilayer_tpu_torch.parallel import sharding as S
+    rows = torch.zeros(1, dtype=torch.long, device=st.pos.device)
+    return S._pack(st, S._names(st), rows).shape[1]
+
+
+def shard_job(group, jobs):
+    """What every rank runs in phases 37-38 (at module level, so that the
+    spawned ranks import it): for each (args, marks) of ``jobs``,
+    ``sharding.rank_start`` on ``args``, the counted steps to ``marks``
+    with each refresh's exchange timed by CUDA events, then SHARD_TRACE
+    more steps, rank 0's traced with ``torch.profiler`` for its
+    device-to-host copies (-1 on the other ranks).  Rank 0 returns, per
+    job, (every rank's counters, the carries at the marks, its host
+    seconds per counted step)."""
+    from torch.profiler import ProfilerActivity, profile
+    from dualsphysics_multilayer_tpu_torch.parallel import sharding as S
+    out = []
+    for args, marks in jobs:
+        run = S.rank_start(group, *args, log=lambda *a: None)
+        events = []
+
+        def timed(st, halo, refresh=run.dd.refresh, events=events):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            st = refresh(st, halo)
+            b.record()
+            events.append((a, b))
+            return st
+
+        run.dd.refresh = timed
+        carries, times = S.rank_steps(run, marks)
+        carry, copies = run.sim.carry, -1
+        torch.cuda.synchronize()
+        with (profile(activities=[ProfilerActivity.CUDA]) if group.rank == 0
+              else contextlib.nullcontext()) as prof:
+            for _ in range(SHARD_TRACE):
+                carry = run.step(carry)
+            torch.cuda.synchronize()
+        if prof is not None:
+            copies = sum("DtoH" in e.name for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+        run.sim.carry = carry
+        counts = S.rank_counts(run)
+        counts.update(exchanges=len(events), exchange_ms=sum(
+            a.elapsed_time(b) for a, b in events), traced_d2h=copies)
+        stats = S.gather_counts(group, counts)
+        out.append(None if stats is None else (stats, carries, times))
+    return out if group.rank == 0 else None
+
+
+def shard_steps(sims, marks):
+    """``shard_job`` of each of ``sims`` (equal in ranks, device and
+    backend) to ``marks`` over one start of their ranks: per simulation,
+    (every rank's counters, the carries at the marks, rank 0's host
+    seconds per step)."""
+    return sims[0].launch(shard_job, ([(s._args(), tuple(marks))
+                                       for s in sims],))
+
+
+def shard_launches(label, stats, ref, nref):
+    """Each kernel's launches on every rank against the one-device run's:
+    ``ref`` the counts of its ``nref`` steps, so a rank that ran n steps
+    launched each kernel n/nref times as often.  Returns {kernel: [each
+    rank's launches]} of the kernels the path launched."""
+    for r, s in enumerate(stats):
+        for k, v in ref.items():
+            if k in s:
+                check(s[k] * nref == v * s["nstep"],
+                      f"{label}: rank {r} launched {k} {int(s[k])} times in "
+                      f"{int(s['nstep'])} steps, the one-device run {v} "
+                      f"times in {nref}")
+    return {k: [int(s[k]) for s in stats] for k, v in ref.items()
+            if v and k in stats[0]}
+
+
+def shard_report(label, sim, stats, launched, smi):
+    """One line per rank: its launches of each kernel, rebuilds, migrants
+    and ghost rows per rebuild, bytes and collectives per step, the
+    exchange's ms; rank 0's device-to-host copies per step in its traced
+    steps (the step's flag copy and gloo's copies inside its
+    collectives)."""
+    cfg = sim.cfg
+    width = row_width(sim.state0)
+    out = []
+    for r, s in enumerate(stats):
+        reb = max(s["nrebuild"], 1.0)
+        nsteps = int(s["nstep"])
+        per = dict(
+            launches={k: v[r] for k, v in launched.items()},
+            rebuilds=int(s["nrebuild"]),
+            migrants_per_rebuild=s["migrants"] / reb,
+            ghost_rows_per_rebuild=s["ghost_rows"] / reb,
+            fluid_ghosts_per_rebuild=s["fluid_ghosts"] / reb,
+            bytes_per_step=s["bytes"] / nsteps,
+            collectives_per_step=s["collectives"] / nsteps,
+            exchange_ms=s["exchange_ms"] / max(s["exchanges"], 1.0))
+        traced = ""
+        if s["traced_d2h"] >= 0:
+            per["traced_d2h_per_step"] = s["traced_d2h"] / SHARD_TRACE
+            traced = (f"; traced over its last {SHARD_TRACE} steps "
+                      f"(torch.profiler): {per['traced_d2h_per_step']:.2f} "
+                      f"device-to-host copies per step (the step's flag "
+                      f"copy and gloo's inside its collectives)")
+        out.append(per)
+        kernels = ", ".join(f"{k} {v}" for k, v in per["launches"].items())
+        say(label, f"rank {r}: launches {kernels} in {nsteps} steps; "
+            f"{per['rebuilds']} rebuilds (the first divide among them), "
+            f"{per['migrants_per_rebuild']:.1f} migrants and "
+            f"{per['ghost_rows_per_rebuild']:.1f} ghost rows "
+            f"({per['fluid_ghosts_per_rebuild']:.1f} fluid) received per "
+            f"rebuild; each refresh sends {cfg.ghost_cap} rows of {width} "
+            f"int32 to each neighbour; {per['bytes_per_step']:.0f} bytes "
+            f"into {per['collectives_per_step']:.2f} collectives per step; "
+            f"the exchange {per['exchange_ms']:.3f} ms per refresh (CUDA "
+            f"events, {int(s['exchanges'])} refreshes){traced} ({smi})")
+    return out
+
+
+def shard_path(device, smi):
+    """Phase 37: the dam break at DP_BENCH over 2 ranks sharing the card,
+    from a state whose front has crossed the slab edge, against the
+    one-device run; then one rank over NCCL."""
+    from dualsphysics_multilayer_tpu_torch import SolverOpts, TpDensity
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    from dualsphysics_multilayer_tpu_torch.models.wcsph import (make_carry,
+                                                                make_step)
+    from dualsphysics_multilayer_tpu_torch.parallel import sharding as S
+    case = cases.dambreak3d(dp=DP_BENCH, obstacle=True, device=device)
+    csp, dom, n = case.csp, case.dom, case.np_total
+    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS)
+    cfg = S.make_shard_cfg(dom, 2, n)
+    edge = cfg.gdom.posmin[0] + cfg.ncx_loc * cfg.gdom.scell
+    step = make_step(csp, opts, dom)
+    carry = make_carry(case.state, csp, opts, dom)
+
+    def front_of(st):
+        fluid = td.is_fluid(st.code) & td.is_active(st.code)
+        return float(st.pos[fluid, 0].max()), fluid
+
+    t0 = time.perf_counter()
+    front = 0.0
+    while front < edge + SHARD_PAST and carry.t_host < SHARD_TMAX:
+        for _ in range(100):
+            carry = step(carry)
+        front, _ = front_of(carry.st)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    st = carry.st
+    front, fluid = front_of(st)
+    beyond = int((fluid & (st.pos[:, 0] >= edge)).sum())
+    check(front > edge and beyond > 0, f"the front {front} m has not "
+          f"crossed the slab edge {edge} m")
+    say("shard-path", f"{n} particles from rest to t {carry.t_host:.6f} s "
+        f"in {carry.nstep} one-device steps ({secs:.1f} s): front x "
+        f"{front:.4f} m, {beyond} fluid particles beyond the 2-rank slab "
+        f"edge x {edge:.4f} m ({cfg.ncx_loc} of {cfg.gdom.nc[0]} cell "
+        f"columns a slab); n_local {cfg.n_local}, ghost_cap "
+        f"{cfg.ghost_cap}, mig_cap {cfg.mig_cap}, {cfg.n_ext} slots a rank "
+        f"({smi})")
+    st_mid = st
+    ref, times1, launched = timed_steps(
+        step, make_carry(st_mid, csp, opts, dom), SHARD_COMPARE)
+    check(launched["cellforce"] == 2 * SHARD_COMPARE,
+          f"{launched} in the one-device reference's {SHARD_COMPARE} steps")
+    p50_1 = statistics.median(times1)
+
+    sim = S.ShardedSimulation(csp, opts, dom, st_mid, ndev=2,
+                              backend="gloo", limit=SHARD_LIMIT)
+    reset_counts()
+    t0 = time.perf_counter()
+    ((stats, carries, times),) = shard_steps([sim], [SHARD_COMPARE,
+                                                     SHARD_STEPS])
+    secs = time.perf_counter() - t0
+    c20, c200 = carries
+    err = shard_error("shard-path", c20, ref)
+    check(err <= 1e-4 * csp.dp, f"2 ranks drift {err} m from the one-device "
+          f"run in {SHARD_COMPARE} steps (1e-4 dp = {1e-4 * csp.dp})")
+    check(abs(c20.t_host - ref.t_host) <= 1e-5 * ref.t_host,
+          f"t {c20.t_host} against {ref.t_host}")
+    check(c200.nstep == SHARD_STEPS and c200.overflow == 0,
+          f"nstep {c200.nstep}, overflow {c200.overflow}")
+    for k in ("pos", "vel", "rho"):
+        check(bool(torch.isfinite(getattr(c200.st, k)).all()),
+              f"sharded state {k} not finite")
+    rmin, rmax = fluid_rho_range(c200.st, True, csp.rhopzero)
+    check(sum(s["migrants"] for s in stats) > 0, "no particle migrated")
+    check(all(s["fluid_ghosts"] > 0 for s in stats),
+          f"a rank received no fluid ghost row: {stats}")
+    check(all(s["nstep"] == SHARD_STEPS + SHARD_TRACE for s in stats),
+          f"steps per rank {[s['nstep'] for s in stats]}")
+    ranks = shard_launches("shard-path", stats, launched, SHARD_COMPARE)
+    check(stats[0]["traced_d2h"] >= SHARD_TRACE,
+          f"rank 0's trace: {stats[0]['traced_d2h']} device-to-host copies "
+          f"in {SHARD_TRACE} steps")
+    p50 = statistics.median(times)
+    say("shard-path", f"2 ranks on cuda:0 over gloo: {SHARD_COMPARE} steps "
+        f"within {err:.3e} m of the one-device run (1e-4 dp "
+        f"{1e-4 * csp.dp:.3e}), t {c20.t_host:.9f} against "
+        f"{ref.t_host:.9f}; {SHARD_STEPS} steps in {secs:.1f} s (the ranks' "
+        f"start included): overflow 0, fluid rho [{rmin:.2f}, {rmax:.2f}], "
+        f"p50 step {p50 * 1e3:.3f} ms on rank 0 against the one-device "
+        f"{p50_1 * 1e3:.3f} ms (one card shared by two ranks over gloo: "
+        f"a check, not a speed) ({smi})")
+    per_rank = shard_report("shard-path", sim, stats, ranks, smi)
+
+    one = S.ShardedSimulation(csp, opts, dom, st_mid, ndev=1,
+                              limit=SHARD_LIMIT)
+    reset_counts()
+    (c1,), times_1 = one.steps([SHARD_COMPARE])
+    err1 = shard_error("shard-nccl", c1, ref)
+    check(err1 <= 1e-6 * csp.dp, f"one NCCL rank drifts {err1} m from the "
+          f"one-device run")
+    nccl = shard_launches("shard-nccl", one.stats, launched, SHARD_COMPARE)
+    check(one.stats[0]["collectives"] >= 2 * SHARD_COMPARE,
+          f"one NCCL rank: {one.stats[0]}")
+    say("shard-nccl", f"1 rank over NCCL: {SHARD_COMPARE} steps within "
+        f"{err1:.3e} m of the one-device run, "
+        f"{int(one.stats[0]['collectives'])} collectives on the card, "
+        f"p50 step {statistics.median(times_1) * 1e3:.3f} ms ({smi})")
+    return dict(ranks=ranks, nccl=nccl, p50_ms=p50 * 1e3,
+                one_device_p50_ms=p50_1 * 1e3, per_rank=per_rank)
+
+
+def shard_paths(device, smi):
+    """Phase 38: the NN wet dam break, the floating box and the 2D mDBC
+    dam break over 2 ranks sharing the card, against their one-device
+    runs; then -shard:1 through the CLI."""
+    import shutil
+    from dualsphysics_multilayer_tpu_torch import (Features, SolverOpts,
+                                                   TpBoundary, TpDensity,
+                                                   TpSlipMode, cli)
+    from dualsphysics_multilayer_tpu_torch.io import partdata as pd
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    from dualsphysics_multilayer_tpu_torch.models import nnewtonian as NM
+    from dualsphysics_multilayer_tpu_torch.models.wcsph import (make_carry,
+                                                                make_step)
+    from dualsphysics_multilayer_tpu_torch.parallel import sharding as S
+    runs = {}
+    case, phases = NM.wet_dambreak_nn(dp=NN_DP, device=device)
+    opts = nn_opts("LAMINAR_SPS", "SPH")
+    runs["nn"] = (case, opts, case.state, None, phases,
+                  NM.make_nn_step(case.csp, opts, case.dom, phases))
+    case = cases.floatingbox2d(dp=DP_FLOAT, device=device)
+    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS, with_floating=True,
+                      tboundary=TpBoundary.MDBC, slipmode=TpSlipMode.NO_SLIP)
+    feats = Features(floating=case.meta["ftcfg"])
+    runs["floating"] = (case, opts, flowing_state(case, device, sim2d=True),
+                        feats, None, make_step(case.csp, opts, case.dom,
+                                               feats))
+    case = cases.dambreak2d(dp=DP_2D, mdbc=True, device=device)
+    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS, tboundary=TpBoundary.MDBC,
+                      slipmode=TpSlipMode.VEL0)
+    runs["mdbc"] = (case, opts, flowing_state(case, device, sim2d=True),
+                    None, None, make_step(case.csp, opts, case.dom))
+    refs, sims = {}, {}
+    for name, (case, opts, st, feats, phases, step) in runs.items():
+        refs[name] = timed_steps(step, make_carry(st, case.csp, opts,
+                                                  case.dom, feats),
+                                 SHARD_COMPARE)
+        sims[name] = S.ShardedSimulation(case.csp, opts, case.dom, st,
+                                         feats=feats, ndev=2, phases=phases,
+                                         backend="gloo", limit=SHARD_LIMIT)
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = shard_steps(list(sims.values()), [SHARD_COMPARE])
+    secs = time.perf_counter() - t0
+    say("shard-paths", f"3 paths x {SHARD_COMPARE} steps over one start of "
+        f"2 ranks on cuda:0 (gloo) in {secs:.1f} s ({smi})")
+    out = {}
+    for (name, sim), (stats, (got,), times) in zip(sims.items(), outs):
+        case = runs[name][0]
+        ref, times1, launched = refs[name]
+        err = shard_error(name, got, ref)
+        check(err <= 1e-4 * case.csp.dp, f"{name}: 2 ranks drift {err} m")
+        check(got.overflow == 0 and got.nstep == SHARD_COMPARE,
+              f"{name}: overflow {got.overflow}, nstep {got.nstep}")
+        ranks = shard_launches(name, stats, launched, SHARD_COMPARE)
+        want = (("nnforce_p1", "nnforce_p3") if name == "nn"
+                else ("cellforce",))
+        check(sorted(ranks) == sorted(want), f"{name}: the one-device run "
+              f"launched {sorted(ranks)}, expected {sorted(want)}")
+        if name == "nn":
+            check(all(s["fluid_ghosts"] > 0 for s in stats),
+                  f"{name}: a rank received no fluid ghost row")
+        extra = ""
+        if name == "floating":
+            dc = float((got.st.ft.center - ref.st.ft.center).abs().max())
+            check(dc <= 1e-6, f"floating: body centre off by {dc} m")
+            extra = f", body centre within {dc:.3e} m"
+        say("shard-paths", f"{name}: {case.np_total} particles, "
+            f"{SHARD_COMPARE} steps within {err:.3e} m of the one-device "
+            f"run (1e-4 dp {1e-4 * case.csp.dp:.3e}){extra}; p50 step "
+            f"{statistics.median(times) * 1e3:.3f} ms on rank 0 against "
+            f"{statistics.median(times1) * 1e3:.3f} ({smi})")
+        out[name] = dict(ranks=ranks,
+                         p50_ms=statistics.median(times) * 1e3,
+                         one_device_p50_ms=statistics.median(times1) * 1e3,
+                         per_rank=shard_report(f"shard-{name}", sim, stats,
+                                               ranks, smi))
+
+    root = tempfile.mkdtemp(prefix="_smoke_shard_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    try:
+        argv = ["-builtin", "dambreak3d", "-dp", repr(DP_BENCH),
+                f"-tmax:{2 * CLI_TOUT!r}", f"-tout:{CLI_TOUT!r}", "-sv:binx",
+                "-nortimes"]
+        dirs = [os.path.join(root, k) for k in ("one", "shard")]
+        check(cli.main(argv + ["-dirout", dirs[0]]) == 0, "the CLI failed")
+        reset_counts()
+        check(cli.main(argv + ["-shard:1", "-dirout", dirs[1]]) == 0,
+              "the CLI failed under -shard:1")
+        launched = counts()
+        n = cases.dambreak3d(dp=DP_BENCH, device="cpu").np_total
+        a, b = (read_parts(pd, d, n, 1000.0) for d in dirs)
+        check(sorted(a) == sorted(b) == [0, 1, 2], f"PARTs {sorted(a)}, "
+              f"{sorted(b)}")
+        err = max(float(np.abs(a[k]["pos"] - b[k]["pos"]).max()) for k in a)
+        check(all(np.array_equal(a[k]["idp"], b[k]["idp"]) for k in a)
+              and err <= 1e-6 * DP_BENCH, f"-shard:1 PARTs off by {err} m")
+        say("shard-cli", f"dsphtorch -builtin dambreak3d -shard:1: 3 PARTs "
+            f"read back, equal by id to the unsharded CLI's within {err:.3e} "
+            f"m; {launched['cellforce']} cellforce launches ({smi})")
+        out["cli"] = dict(ranks={k: [v] for k, v in launched.items()
+                                 if v and k in KERNELS})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
 
 def main():
     check(torch.cuda.is_available(), "no CUDA device: the port's smoke run "
@@ -4714,6 +5115,20 @@ def main():
     # 36. the post-processing tools over PARTs at full size, card and -cpu
     tools_path(device, smi)
 
+    # 37-38. domain decomposition: the dam break over 2 ranks sharing the
+    # card and over one NCCL rank, then the NN, floating and mDBC paths
+    # and -shard:1 through the CLI
+    shard = {"dambreak3d": shard_path(device, smi)}
+    shard.update(shard_paths(device, smi))
+    for path, ranks in (("dambreak3d-2-ranks", shard["dambreak3d"]["ranks"]),
+                        ("dambreak3d-nccl", shard["dambreak3d"]["nccl"]),
+                        ("nn-2-ranks", shard["nn"]["ranks"]),
+                        ("floating-2-ranks", shard["floating"]["ranks"]),
+                        ("mdbc-2-ranks", shard["mdbc"]["ranks"]),
+                        ("cli-shard-1", shard["cli"]["ranks"])):
+        for name, per_rank in ranks.items():
+            records[name].setdefault("shard_launches", {})[path] = per_rank
+
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=rep,
         launches=records[name]["launches"],
@@ -4722,7 +5137,7 @@ def main():
         bound_by=records[name]["bound_by"], library_ms=None,
         **{k: records[name][k] for k in ("instances", "path_launches",
                                           "open_states", "coupling_states",
-                                          "nbrlist_state")
+                                          "nbrlist_state", "shard_launches")
            if k in records[name]})
         for name, (src, rep) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,11 @@ run, as the JAX CLI does.  A case's floating-body couplings (DEM, Chrono
 links and mesh contact, moorings) run through its ``Features``; a restart
 of a Chrono case needs ``-restartchrono``, as the reference's does, and a
 restart of a moored case starts its lines from their relaxed state at the
-restored bodies.
+restored bodies.  ``-shard[:N]`` splits the run into N x-slabs, one rank
+per card (``parallel/sharding.py``; ``-shard`` alone: every card), on
+NCCL; more ranks than cards leave with a message; with ``-cpu`` the N
+ranks run on the CPU over gloo.  PARTs are saved from rank 0 after a
+gather ordered by id.
 
     python -m dualsphysics_multilayer_tpu_torch.cli -case Dambreak_Def.xml \\
         -dirout out
@@ -26,13 +30,16 @@ restored bodies.
     dsphtorch -cpu -builtin dambreak2d -dp 0.05 -tmax:0.01 -tout:0.005
     dsphtorch -builtin dambreak3d -partbegin:20 out_prev -dirout out2
     dsphtorch -builtin channel2d -dp 0.0014 -tmax:0.008 -dirout out
+    dsphtorch -builtin dambreak3d -shard:2 -dirout out
+    dsphtorch -cpu -builtin dambreak2d -dp 0.05 -shard:2 -tmax:0.01
 
 Reference colon-form flags (-tmax:1.6, -partbegin:20 dir, -svpips:2) are
 accepted alongside space-separated values, and ``-opt FILE`` reads more
 options from a file.  Options whose setting the port does not run leave
-with a message that names them: ``-shard``, ``-pallas``/``-no-pallas``
-and ``-cellmode:half``; so do the XML nodes the
-loader refuses and the options the NN step refuses.
+with a message that names them: ``-pallas``/``-no-pallas`` and
+``-cellmode:half``; so do the XML nodes the loader refuses, the options
+the NN step refuses and the features ``-shard`` refuses (inlet/outlet
+zones, DEM, periodic boundaries, AWAS).
 """
 
 from __future__ import annotations
@@ -159,7 +166,10 @@ def build_parser():
     p.add_argument("-svtimers", action="store_true",
                    help="write per-interval timing CSV (Timers.csv)")
     p.add_argument("-shard", type=int, nargs="?", const=0, default=None,
-                   help="domain decomposition (not ported)")
+                   metavar="N",
+                   help="domain decomposition into N x-slabs, one rank "
+                        "per card (default: every card; with -cpu N ranks "
+                        "on the CPU)")
     p.add_argument("-svpips", type=int, nargs="?", const=1, default=None,
                    metavar="MODE", help="compute the PIPS throughput metric")
     p.add_argument("-svdomainvtk", action="store_true",
@@ -221,9 +231,8 @@ def refuse(args):
     if args.builtin is not None and args.builtin not in BUILTINS:
         raise SystemExit(f"-builtin {args.builtin}: unknown case (the port "
                          f"builds {', '.join(BUILTINS)})")
-    if args.shard is not None:
-        raise SystemExit("-shard: domain decomposition "
-                         "(parallel/sharding.py) is not ported yet")
+    if args.shard is not None and args.shard < 0:
+        raise SystemExit(f"-shard:{args.shard}: give a rank count >= 1")
     if args.pallas is not None:
         raise SystemExit("-pallas/-no-pallas: the port has no Pallas path; "
                          "CUDA tensors always run the hand-written kernels")
@@ -241,7 +250,7 @@ def _features():
             "vtk", "csv", "restart", "savedt", "xmlcase", "nnphases",
             "symmetry", "initialize", "initnorpla", "initnorpart",
             "nn-mdbc", "inout", "periodic", "dem", "moorings",
-            "forcepoints", "chrono", "chcontact", "cuda"]
+            "forcepoints", "chrono", "chcontact", "shard", "cuda"]
 
 
 def _info(torch):
@@ -433,6 +442,21 @@ def _log_config(dirout, case, csp, opts, dom, tmax):
     return rlog
 
 
+def _sharded(args, torch, csp, opts, dom, st, feats, phases, t0, device):
+    """The ``-shard[:N]`` run, leaving with the message of a
+    feature or a rank count it refuses."""
+    from .parallel.sharding import ShardedSimulation
+    ndev = args.shard
+    if device.type == "cpu" and not ndev:
+        raise SystemExit("-shard with -cpu: give the rank count, -shard:N")
+    try:
+        return ShardedSimulation(csp, opts, dom, st, feats=feats,
+                                 ndev=ndev, phases=phases, t0=t0,
+                                 device=device.type)
+    except (NotImplementedError, ValueError) as e:
+        raise SystemExit(f"-shard: {e}") from None
+
+
 def main(argv=None):
     argv = _normalize(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
@@ -536,7 +560,11 @@ def main(argv=None):
             raise SystemExit(f"-case {args.case}: {e}") from None
         if opts.tboundary == TpBoundary.MDBC:
             print(f"[dsphtorch] {MDBC_NOTE}")
-    sim = Simulation(csp, opts, dom, st, feats=feats, step=step, t0=t0)
+    if args.shard is not None:
+        sim = _sharded(args, torch, csp, opts, dom, st, feats, phases, t0,
+                       device)
+    else:
+        sim = Simulation(csp, opts, dom, st, feats=feats, step=step, t0=t0)
     sim.part = part0
     sim.errdir = args.dirout
     pom = run.get("partsoutmax")

@@ -118,7 +118,7 @@ def _body_sum(member, x):
 def run_floating(cfg: FloatingCfg, csp: CteSph, fts: FloatingState, t, dt,
                  predictor: bool, pos, vel, code, ace, ext_face=None,
                  ext_fomegaace=None, chrono=None, chcontact=None,
-                 psum_axis=None):
+                 reduce_sum=None):
     """One floating update at time ``t`` over ``dt``.  Returns (pos, vel,
     new_state).  ``ext_face``/``ext_fomegaace`` (B,3): external forces and
     torques (moorings, force points) added to the sums.  ``chcontact``: a
@@ -127,11 +127,11 @@ def run_floating(cfg: FloatingCfg, csp: CteSph, fts: FloatingState, t, dt,
     ``features.chrono.ChronoCfg``, whose springs and hinge torsion join the
     sums and whose constrained solve replaces the per-body one (the
     attachment point of libdsphchrono, JSphCpuSingle.cpp:930-945).
-    ``psum_axis`` (the JAX package's sharded sums) is not ported and
-    raises."""
-    if psum_axis is not None:
-        raise NotImplementedError("the torch port does not cover "
-                                  "run_floating(psum_axis=...) yet")
+    ``reduce_sum``: under a domain decomposition, the sum over the ranks of
+    a tensor (JAX's ``psum_axis``): the particle sums of each rank's owned
+    rows are added over the ranks in one collective, after which the body
+    solve and its couplings run replicated on every rank; None on one
+    device."""
     B = cfg.count
     tb = body_tables(cfg, tuple(csp.gravity), vel.device)
     floating = td.is_floating(code) & td.is_active(code)
@@ -150,6 +150,9 @@ def run_floating(cfg: FloatingCfg, csp: CteSph, fts: FloatingState, t, dt,
     face_sum = _body_sum(member, force)
     dist = pos - fts.center[body]
     fomegaace_sum = _body_sum(member, torch.linalg.cross(dist, force, dim=-1))
+    if reduce_sum is not None:
+        face_sum, fomegaace_sum = reduce_sum(
+            torch.stack([face_sum, fomegaace_sum])).unbind(0)
     if ext_face is not None:
         face_sum = face_sum + ext_face
     if ext_fomegaace is not None:

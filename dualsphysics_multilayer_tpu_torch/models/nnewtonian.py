@@ -38,7 +38,8 @@ MDBC_NOTE = ("NN step under mDBC walls: no mDBC pre-pass runs (as in the "
              "rule")
 
 def make_nn_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
-                 phases: NN.PhaseCfg, feats: Features | None = None):
+                 phases: NN.PhaseCfg, feats: Features | None = None,
+                 dd=None):
     """step(carry) -> carry: the symplectic step over the NN interaction
     (ComputeStep_Sym with the _NN_SPH or _NN_FDA interaction,
     JSphCpu_NN_SPH.cpp:663, JSphCpu_NN_FDA.cpp:129).  It takes no per-step
@@ -51,18 +52,23 @@ def make_nn_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     its XML node, where JAX would run the case with it ignored.  It
     ignores ``opts.use_nbrlist``, as JAX's does: it walks ``dom``, and a
     carry made on the neighbour list's grid is divided afresh on its first
-    step."""
+    step.  ``dd``: one rank of a domain decomposition
+    (``parallel/sharding.py``, a 2-cell halo): each interaction refreshes
+    the ghost rows first, and ``wcsph.symplectic_step`` reduces the dt
+    maxima, viscetadtmax among them, over the ranks."""
     if feats is not None:
         feats.check_none_set("the NN step")
     NN.check_supported_nn(csp, opts, phases)
 
     def interaction(st: W.SimState, carry: W.StepCarry, dt):
+        if dd is not None:
+            st = dd.refresh(st, carry.halo)
         fr, _eta, _tau = NN.interaction_forces_nn(
             csp, opts, phases, dom, carry.cells, st.pos, st.vel, st.rho,
             st.code)
         return st, fr
 
-    return W.symplectic_step(csp, opts, dom, interaction)
+    return W.symplectic_step(csp, opts, dom, interaction, dd=dd)
 
 
 def make_nn_csp(*, simulate2d, dp, phases: NN.PhaseCfg, gravity=(0, 0, -9.81),

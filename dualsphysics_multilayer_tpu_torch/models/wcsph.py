@@ -143,6 +143,13 @@ class StepCarry:
     nbr_overflow: torch.Tensor | None = None
     # the domain ``cells`` divides: a step on another divides afresh
     dom: cd.Domain | None = None
+    # domain decomposition (``parallel/sharding.py``): the halo rows'
+    # slots of the last rebuild (``sharding.HaloState``), that rebuild's
+    # migrants and ghosts beyond their capacities (0-d on the device, read
+    # in each step's one copy) and the largest read so far
+    halo: object = None
+    shard_overflow: torch.Tensor | None = None
+    overflow_shard: int = 0
     t_host: float = 0.0          # host copy of t, read at the end of a step
     rebuild: bool = False        # the next step starts with a divide
     # Verlet steps since the last Euler re-anchoring step (VerletStep); it
@@ -180,12 +187,17 @@ def _rebuild(dom: cd.Domain, carry: StepCarry,
                    nrebuild=carry.nrebuild + 1, rebuild=False)
 
 
-def _rebuild_needed(csp: CteSph, margin: float, carry: StepCarry):
+def _rebuild_needed(csp: CteSph, margin: float, carry: StepCarry,
+                    dd=None):
     """Skin contract (JAX ``_rowdiv_tick``): accumulated displacement since
     the last rebuild plus this step's worst-case motion must stay under the
-    cell skin.  Returns a 0-d bool tensor on the device."""
+    cell skin.  Returns a 0-d bool tensor on the device.  Under a domain
+    decomposition (``dd``) the ghost rows are left out: they move with
+    their owners, which count on their own rank."""
     st = carry.st
     act = td.is_active(st.code)
+    if dd is not None:
+        act = act & ~td.is_periodic(st.code)
     d2 = torch.where(act, ((st.pos - carry.pos0) ** 2).sum(dim=1), 0.0).amax()
     vmax = I.velocity_max(csp, st.vel, st.code)
     return (2.0 * torch.sqrt(d2) + 4.0 * carry.dt_pre * vmax) \
@@ -193,18 +205,27 @@ def _rebuild_needed(csp: CteSph, margin: float, carry: StepCarry):
 
 
 def _sync_flags(csp: CteSph, margin: float, carry: StepCarry, filled=None,
-                ghosts=None, inout=None, dem=None, nbr=None) -> StepCarry:
+                ghosts=None, inout=None, dem=None, nbr=None,
+                dd=None) -> StepCarry:
     """The step's one device-to-host copy: the next rebuild flag, t and
     tabs, and with open boundaries, DEM or the neighbour list the step's
     overflow counts (0-d ``ghosts``, ``inout``, ``dem``, ``nbr``).
     ``filled`` (0-d bool), an inout slot filled in the layout's dead tail,
     forces the next rebuild: the skin contract cannot see a reused slot
-    (its stale ``pos0`` may lie near the spawn point)."""
-    need = _rebuild_needed(csp, margin, carry)
+    (its stale ``pos0`` may lie near the spawn point).  Under a domain
+    decomposition (``dd``, a ``sharding.SlabRank``) the flag and the last
+    rebuild's overflow are first reduced with MAX over the ranks, so every
+    rank rebuilds at the same step."""
+    need = (_rebuild_needed(csp, margin, carry) if dd is None
+            else _rebuild_needed(csp, margin, carry, dd))
     if filled is not None:
         need = need | filled
+    shard = None
+    if dd is not None:
+        need, shard = dd.agree(need, carry.shard_overflow)
     kinds = [(k, v) for k, v in (("ghosts", ghosts), ("inout", inout),
-                                 ("dem", dem), ("nbr", nbr)) if v is not None]
+                                 ("dem", dem), ("nbr", nbr),
+                                 ("shard", shard)) if v is not None]
     vals = [need.to(carry.t.dtype), carry.t, carry.tabs]
     vals += [v.to(carry.t.dtype) for _, v in kinds]
     out = torch.stack(vals).tolist()
@@ -254,7 +275,7 @@ def _margin(csp: CteSph, dom: cd.Domain) -> float:
 
 def make_carry(st: SimState, csp: CteSph, opts: SolverOpts,
                dom: cd.Domain, feats: Features | None = None,
-               t0: float = 0.0) -> StepCarry:
+               t0: float = 0.0, dd=None) -> StepCarry:
     """Initial carry: the first divide (nrebuild = 1) and dt = DtIni at
     tabs ``t0`` (a restart's PART time, so the DDT ramp, the viscosity
     table and the motions go on from there; 0 on a fresh run), with a
@@ -270,7 +291,10 @@ def make_carry(st: SimState, csp: CteSph, opts: SolverOpts,
     tables by id: ValueError unless the ids are a permutation of 0..n-1
     (one read at setup).  Under ``opts.use_nbrlist`` the first divide is
     on the neighbour list's grid, with its overflow count (read by the
-    first step's copy)."""
+    first step's copy).  Under a domain decomposition (``dd``, a
+    ``sharding.SlabRank``; ``st`` the rank's slots, ``dom`` its slab's
+    grid) the first divide is the rank's rebuild: migration, halo rows
+    and the divide of its slab."""
     if feats is not None and (feats.periodic is not None
                               or feats.inout is not None
                               or feats.dem is not None):
@@ -306,13 +330,13 @@ def make_carry(st: SimState, csp: CteSph, opts: SolverOpts,
         carry.moor = moorings.init_state(st.ft)
         carry.moor_init_s = time.perf_counter() - t0_init
     dom, spec = NB.layout(csp, opts, dom)
-    carry = _rebuild(dom, carry, spec)
-    return _sync_flags(csp, _margin(csp, dom), carry)
+    carry = _rebuild(dom, carry, spec) if dd is None else dd.rebuild(carry)
+    return _sync_flags(csp, _margin(csp, dom), carry, dd=dd)
 
 
 def _interaction(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
                  st: SimState, cells: cd.CellDiv, ftomassp=None, ddtkh=None,
-                 visco=None):
+                 visco=None, refresh=None):
     """The mDBC pre-pass and the forces of one interaction on the current
     layout (the body of `JSphCpuSingle::Interaction_Forces`), with the
     step's launch values ``ddtkh`` and ``visco`` (:func:`step_values`).
@@ -321,19 +345,27 @@ def _interaction(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     normals (JAX `wcsph.py:443-449`); without normals an mDBC run is a DBC
     run with the mDBC diffusion rule, as in JAX.  Under ``opts.symmetry``
     only the interaction meets the mirror images: the pre-pass has no
-    symmetry term, as JAX's `ops/mdbc.py` has none."""
+    symmetry term, as JAX's `ops/mdbc.py` has none.  ``refresh(st) ->
+    st`` (a domain decomposition's) brings the ghost rows up to date before
+    the pass, and once more after the pre-pass, which corrects the owners'
+    walls (JAX `sharding.py:553-569`)."""
+    if refresh is not None:
+        st = refresh(st)
     if opts.tboundary == TpBoundary.MDBC and st.boundnormal is not None:
         vel, rho = MD.mdbc_correction(csp, opts, dom, cells, st.pos, st.vel,
                                       st.rho, st.code, st.boundnormal,
                                       st.motionvel)
         st = replace(st, vel=vel, rho=rho)
+        if refresh is not None:
+            st = refresh(st)
     return st, F.interaction_forces(csp, opts, dom, cells, st.pos, st.vel,
                                     st.rho, st.code, st.spstau, ftomassp,
                                     ddtkh=ddtkh, visco=visco)
 
 
 def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
-                  feats: Features | None, spec: NB.ListSpec | None = None):
+                  feats: Features | None, spec: NB.ListSpec | None = None,
+                  dd=None):
     """(interaction, rigid) of the single-phase steps: the interaction
     ``(st, carry, dt) -> (st, Forces)`` on the carry's layout with the
     floating bodies' particle mass, the launch values of
@@ -344,7 +376,9 @@ def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     (`_post_forces`, JAX `wcsph.py:486-492`: they enter AceMax and the dt
     control); ``rigid(st, ace, t, dt, predictor, moor) -> st``, the floating
     bodies' update with the moorings' and force points' forces (the lines'
-    nodes ``moor``) and the Chrono couplings, or None."""
+    nodes ``moor``) and the Chrono couplings, or None.  Under a domain
+    decomposition (``dd``) each interaction first refreshes the ghost rows
+    and the bodies' partial sums are added over the ranks."""
     F.check_supported(csp, opts)
     floating = accinputs = periodic = dem = None
     if feats is not None:
@@ -360,9 +394,14 @@ def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
                                       st.pos.device).massp
         ddtkh, visco = step_values(csp, opts, feats, carry.tabs_host)
 
+        refresh = None
+        if dd is not None:
+            def refresh(s):
+                return dd.refresh(s, carry.halo)
+
         def interact(st, cells):
             st, fr = _interaction(csp, opts, dom, st, cells, ftomassp,
-                                  ddtkh=ddtkh, visco=visco)
+                                  ddtkh=ddtkh, visco=visco, refresh=refresh)
             if dem is not None:
                 # after the forces, on the interaction's rows (under
                 # periodic boundaries the ghost rows are candidates)
@@ -399,7 +438,8 @@ def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             pos, vel, ft = FT.run_floating(
                 floating, csp, st.ft, t, dt, predictor, st.pos, st.vel,
                 st.code, ace, ext_face=eface, ext_fomegaace=efom,
-                chrono=feats.chrono, chcontact=feats.chcontact)
+                chrono=feats.chrono, chcontact=feats.chcontact,
+                reduce_sum=None if dd is None else dd.reduce_sum)
             return replace(st, pos=pos, vel=vel, ft=ft)
 
     return interaction, rigid
@@ -508,44 +548,44 @@ def _dem_overflow(frs):
 
 
 def make_symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
-                         feats: Features | None = None):
+                         feats: Features | None = None, dd=None):
     """Returns step(carry) -> carry implementing ComputeStep_Sym
     (JSphCpuSingle.cpp:695-722) over the single-phase interaction, with the
     floating bodies of ``feats`` moved after the predictor (dt/2) and the
     corrector (dt), JSphCpuSingle.cpp:707,715, and the other hooks of
     ``feats`` after the corrector; under ``opts.use_nbrlist`` on the
-    neighbour list's layout."""
+    neighbour list's layout; ``dd``: one rank of a domain decomposition
+    (:func:`symplectic_step`)."""
     dom, spec = NB.layout(csp, opts, dom)
-    interaction, rigid = _single_phase(csp, opts, dom, feats, spec)
+    interaction, rigid = _single_phase(csp, opts, dom, feats, spec, dd)
     return symplectic_step(csp, opts, dom, interaction, rigid,
                            _after_update(csp, feats, rigid, True),
-                           _inout_hook(csp, dom, feats), spec)
+                           _inout_hook(csp, dom, feats), spec, dd)
 
 
 def make_verlet_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
-                     feats: Features | None = None):
+                     feats: Features | None = None, dd=None):
     """Returns step(carry) -> carry implementing ComputeStep_Ver
     (JSphCpuSingle.cpp:674-690): one interaction on the current layout, dt
     from it, the leapfrog against the M1 state with an Euler re-anchoring
     step every ``opts.verlet_steps`` steps (JAX `wcsph.py:662-773`), then
     the hooks of ``feats``.  The next step's skin-contract lookahead reads
     this step's dt; under ``opts.use_nbrlist`` on the neighbour list's
-    layout."""
+    layout; ``dd``: one rank of a domain decomposition, as in
+    :func:`symplectic_step`."""
     dom, spec = NB.layout(csp, opts, dom)
-    interaction, rigid = _single_phase(csp, opts, dom, feats, spec)
+    interaction, rigid = _single_phase(csp, opts, dom, feats, spec, dd)
     after = _after_update(csp, feats, rigid, False)
     inout = _inout_hook(csp, dom, feats)
     margin = _margin(csp, dom)
 
     def step(carry: StepCarry) -> StepCarry:
-        if carry.rebuild or carry.dom != dom:
-            carry = _rebuild(dom, carry, spec)
+        carry = _start(dom, carry, spec, dd)
         st, fr = interaction(carry.st, carry, carry.dt_pre)
-        velmax = I.velocity_max(csp, st.vel, st.code)
-        acemax = I.ace_max(fr.ace, st.code)
+        velmax, acemax, viscdtmax, _ = _maxima(csp, st, fr, dd)
         dt, bad, dt1, dt2 = I.dt_variable_parts(csp, acemax, velmax,
-                                                fr.viscdtmax)
-        _record_dt(carry, [carry.tabs, dt, dt1, dt2, acemax, fr.viscdtmax])
+                                                viscdtmax)
+        _record_dt(carry, [carry.tabs, dt, dt1, dt2, acemax, viscdtmax])
         shiftdisp = None
         if fr.shiftposfs is not None:
             shiftdisp = F.apply_shifting(csp, opts, dt, st.vel, st.code,
@@ -575,9 +615,28 @@ def make_verlet_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             tabs=carry.tabs + dt, awas=awas, moor=moor)
         return _sync_flags(csp, margin, carry, filled,
                            _ghost_overflow((fr,)), ovf_io,
-                           _dem_overflow((fr,)), carry.nbr_overflow)
+                           _dem_overflow((fr,)), carry.nbr_overflow, dd)
 
     return step
+
+
+def _start(dom: cd.Domain, carry: StepCarry, spec, dd) -> StepCarry:
+    """The carry a step starts from: divided afresh when the last step's
+    flag asks for it or the carry's layout is another domain's (a domain
+    decomposition's rank rebuilds through ``dd``)."""
+    if carry.rebuild or carry.dom != dom:
+        return _rebuild(dom, carry, spec) if dd is None else dd.rebuild(carry)
+    return carry
+
+
+def _maxima(csp: CteSph, st: SimState, fr: F.Forces, dd):
+    """(velmax, acemax, viscdtmax, viscetadtmax) of one interaction for the
+    dt control, each reduced with MAX over the ranks of a domain
+    decomposition in one collective (``viscetadtmax`` None on the
+    single-phase path)."""
+    vals = (I.velocity_max(csp, st.vel, st.code), I.ace_max(fr.ace, st.code),
+            fr.viscdtmax, fr.viscetadtmax)
+    return vals if dd is None else dd.reduce_max(*vals)
 
 
 def _record_dt(carry: StepCarry, row) -> None:
@@ -608,7 +667,7 @@ def _sps_tau(csp: CteSph, st: SimState, fr: F.Forces):
 
 def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
                     interaction, rigid=None, after=None, inout=None,
-                    spec: NB.ListSpec | None = None):
+                    spec: NB.ListSpec | None = None, dd=None):
     """step(carry) -> carry: the symplectic predictor and corrector over
     ``interaction(st, carry, dt) -> (st, Forces)`` on one layout of
     ``dom`` (the carry's ``cells``, ``pos0``, ``tabs`` and ``tabs_host``,
@@ -624,21 +683,24 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     (:func:`_after_update`, the bodies over dt and the mooring lines among
     them); ``inout(st, cells, tabs, nstep) -> (st,
     overflow, filled)`` the inlet/outlet pass last (:func:`_inout_hook`).
-    ``spec``: the neighbour list's, whose overflow each rebuild counts."""
+    ``spec``: the neighbour list's, whose overflow each rebuild counts.
+    ``dd``: one rank of a domain decomposition (``parallel/sharding.py``
+    ``SlabRank``): ``dom`` is its slab's grid, the rebuild migrates and
+    picks the halo rows, the dt maxima and the rebuild flag are reduced
+    with MAX over the ranks, and ``interaction`` refreshes the ghost
+    rows."""
     margin = _margin(csp, dom)
 
     def step(carry: StepCarry) -> StepCarry:
-        if carry.rebuild or carry.dom != dom:
-            carry = _rebuild(dom, carry, spec)
+        carry = _start(dom, carry, spec, dd)
         st = carry.st
         dt = carry.dt_pre
 
         # ---------------- predictor ----------------
         st, fr1 = interaction(st, carry, dt)
-        velmax1 = I.velocity_max(csp, st.vel, st.code)
-        acemax1 = I.ace_max(fr1.ace, st.code)
-        dt_p, bad_p = I.dt_variable(csp, acemax1, velmax1, fr1.viscdtmax,
-                                    fr1.viscetadtmax, opts.relaxationdt)
+        velmax1, acemax1, viscdt1, eta1 = _maxima(csp, st, fr1, dd)
+        dt_p, bad_p = I.dt_variable(csp, acemax1, velmax1, viscdt1, eta1,
+                                    opts.relaxationdt)
         pos_pre, vel_pre, rho_pre = st.pos, st.vel, st.rho
         pos1, vel1, rho1, code1 = I.symplectic_pre(
             csp, st.pos, st.vel, st.rho, st.code, fr1.ace, fr1.ar, dt)
@@ -650,13 +712,10 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
 
         # ---------------- corrector (same layout) ----------------
         st, fr2 = interaction(st, carry, dt)
-        velmax2 = I.velocity_max(csp, st.vel, st.code)
-        acemax2 = I.ace_max(fr2.ace, st.code)
+        velmax2, acemax2, viscdt2, eta2 = _maxima(csp, st, fr2, dd)
         dt_c, bad_c, dt1_c, dt2_c = I.dt_variable_parts(
-            csp, acemax2, velmax2, fr2.viscdtmax, fr2.viscetadtmax,
-            opts.relaxationdt)
-        _record_dt(carry, [carry.tabs, dt, dt1_c, dt2_c, acemax2,
-                           fr2.viscdtmax])
+            csp, acemax2, velmax2, viscdt2, eta2, opts.relaxationdt)
+        _record_dt(carry, [carry.tabs, dt, dt1_c, dt2_c, acemax2, viscdt2])
         shiftdisp = None
         if fr2.shiftposfs is not None:
             # the predictor's velocity, the step's dt (JAX wcsph.py:580-586)
@@ -686,23 +745,23 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             tabs=carry.tabs + dt, awas=awas, moor=moor)
         return _sync_flags(csp, margin, carry, filled,
                            _ghost_overflow((fr1, fr2)), ovf_io,
-                           _dem_overflow((fr1, fr2)), carry.nbr_overflow)
+                           _dem_overflow((fr1, fr2)), carry.nbr_overflow, dd)
 
     return step
 
 
 def make_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
-              feats: Features | None = None):
+              feats: Features | None = None, dd=None):
     """The single-phase step of ``opts.tstep``; the neighbour-list mode
     refuses what changes the population mid-run, with JAX's words
-    (`wcsph.py:778-784`)."""
+    (`wcsph.py:778-784`).  ``dd``: one rank of a domain decomposition."""
     if opts.use_nbrlist and feats is not None and (
             feats.periodic is not None or feats.inout is not None):
         raise NotImplementedError("nbrlist mode does not support periodic "
                                   "ghosts or inlet/outlet zones")
     if opts.tstep == TpStep.SYMPLECTIC:
-        return make_symplectic_step(csp, opts, dom, feats)
-    return make_verlet_step(csp, opts, dom, feats)
+        return make_symplectic_step(csp, opts, dom, feats, dd)
+    return make_verlet_step(csp, opts, dom, feats, dd)
 
 
 def make_advance(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
@@ -771,6 +830,11 @@ class Simulation:
                 kinds.append(f"{c.overflow_dem} DEM floating row(s) with a "
                              f"neighbour row beyond celldiv.row_cap "
                              f"(a state denser than 0.85 dp)")
+            if c.overflow_shard:
+                kinds.append(f"{c.overflow_shard} particle(s) beyond the "
+                             f"domain decomposition's migration or halo "
+                             f"capacity (raise make_shard_cfg's mig_cap or "
+                             f"ghost_cap)")
             if c.overflow_nbr:
                 kinds.append(f"{c.overflow_nbr} neighbour(s) beyond the "
                              f"neighbour list's capacity of "

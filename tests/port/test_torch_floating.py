@@ -152,18 +152,33 @@ def test_run_floating_matches_jax(name):
 
 
 def test_run_floating_external_couplings_raise():
-    """The sharded sums (``psum_axis``) still raise; the Chrono couplings
-    run (tests/port/test_torch_couplings.py), and a ``ChronoCfg`` with no
-    link reduces to the per-body solve."""
+    """The sharded sums: ``reduce_sum`` (a domain decomposition's sum over
+    its ranks, JAX's ``psum_axis``) takes the particle sums, so a sum that
+    doubles them is the update of doubled accelerations; the Chrono
+    couplings run (tests/port/test_torch_couplings.py), and a ``ChronoCfg``
+    with no link reduces to the per-body solve."""
     from dualsphysics_multilayer_tpu_torch.features import chrono as CH
     csp, jcsp = csps(False)
     r = random_bodies(False, 3)
     cfg, fts = FT.make_floating(r["bodies"], [500.0, 800.0], csp, device="cpu")
     args = (torch.tensor(r["pos"]), torch.tensor(r["vel"]),
             torch.tensor(r["code"].astype(np.int32)), torch.tensor(r["ace"]))
-    with pytest.raises(NotImplementedError, match="psum_axis"):
-        FT.run_floating(cfg, csp, fts, 0.0, 1e-3, False, *args,
-                        psum_axis="x")
+    calls = []
+
+    def doubled(x):
+        calls.append(tuple(x.shape))
+        return 2.0 * x
+
+    summed = FT.run_floating(cfg, csp, fts, 0.0, 1e-3, False, *args,
+                             reduce_sum=doubled)
+    assert calls == [(2, cfg.count, 3)]       # one collective per update
+    twice = FT.run_floating(cfg, csp, fts, 0.0, 1e-3, False, *args[:3],
+                            2.0 * args[3])
+    for a, b in zip(twice[2].__dict__.values(), summed[2].__dict__.values()):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-6,
+                                   atol=1e-7)
+    np.testing.assert_allclose(summed[1].numpy(), twice[1].numpy(),
+                               rtol=1e-6, atol=1e-7)
     plain = FT.run_floating(cfg, csp, fts, 0.0, 1e-3, False, *args)
     linked = FT.run_floating(cfg, csp, fts, 0.0, 1e-3, False, *args,
                              chrono=CH.make_chrono([], fts.center.numpy()))
