@@ -167,7 +167,10 @@ without printing the final result line:
     ``tests/port/test_torch_runloop.py``); then the ms per PART
     save on the
     host clock (binx, median of 5; binx with VTK, once) and the bytes a
-    save copies from the device, counted by ``io.partdata.HostCopy``;
+    save copies from the device, counted by ``io.partdata.HostCopy``, and
+    the write of one such PART alone through the C++ writer
+    (``native=True``, the default) and the pure writer, in turns, the
+    files byte-equal;
 23. step values: kernels 1-3 at about 50k particles (phase 9's state)
     under a DDT coefficient and a viscosity other than the constants', each
     against its plain version under the same values (phase 3's rule) and
@@ -326,7 +329,25 @@ without printing the final result line:
     61,589 (the pre-pass between two refreshes, a 2-cell halo); then
     ``dsphtorch -builtin dambreak3d -shard:1`` through ``cli.main``, its
     PARTs read back and equal by id, within 1e-6 dp, to the unsharded
-    CLI's.
+    CLI's;
+39. the open boundaries and DEM under domain decomposition, 2 ranks on
+    ``cuda:0`` over gloo, one start of the ranks, 20 steps (and 10
+    traced) per job against its one-device run: ``-builtin channel2d``
+    at 64,120 live particles (the case ``cli.main`` hands its
+    ``-shard:2`` run) and phase 30's duct through ``load_case`` at
+    283,711 (inlet/outlet zones; the live fluid count within 2, its
+    centre of mass within 2e-3 dp, each live id once, a spawn on rank 0,
+    fluid migrated to rank 1), phase 32's DEM boxes through ``-case`` at
+    274,219 with box 51 across the slab edge (body centres within 1e-6
+    m, velocities within 1e-5 m/s; each body's rows on each rank; DEM's
+    pass on rank 0 timed with CUDA events) and a y-periodic 3D tank of
+    ``tests/test_sharding.py:513-575``'s geometry at dp 0.4/60 m, its
+    fluid flowing along +y (positions by id within 1e-4 dp, rows wrapped
+    and migrated); the inout and periodic jobs' slab edge sits 5 um right
+    of a fluid column (the channel's fluid starts at its inlet's velocity);
+    kernel 1's launches on each rank against
+    the one-device run's per step, rows and bytes per refresh, each
+    job's p50 against the one-device p50.
 
 Each kernel is timed twice: alone (``ms``: CUDA events around 20
 back-to-back launches of the C launcher on prepared inputs, per launch,
@@ -356,7 +377,7 @@ lines, the lines' substep, the rigid update with Chrono), and
 ``nbrlist_state``, the same for phase 35 on the list's layout with its
 p50 step beside the default layout's, the overflow count's ms and each
 layout's candidates per pair, and ``shard_launches``, each rank's
-launches of that kernel on the sharded paths of phases 37-38, counted in
+launches of that kernel on the sharded paths of phases 37-39, counted in
 the rank; the NN
 kernels' rows add theirs on phases 6-7, the XML runs of phase 25 and the
 mDBC runs of phase 28.
@@ -1834,6 +1855,30 @@ def save_ms(sim, directory, reps, **channels):
     return statistics.median(times), om.last_save_bytes
 
 
+def write_ms(part, directory, reps=5):
+    """(ms of ``io.jbinary.write_file`` of the tree of the file ``part``
+    with native=True and with native=False, the medians of ``reps`` each
+    in turns; the file's bytes).  The two files must be byte-equal."""
+    from dualsphysics_multilayer_tpu_torch.io import jbinary as JB
+    tree = JB.read_file(part)
+    os.makedirs(directory, exist_ok=True)
+    out = {True: os.path.join(directory, "native.bi4"),
+           False: os.path.join(directory, "pure.bi4")}
+    times = {True: [], False: []}
+    for _ in range(reps):
+        for native in (True, False):
+            t0 = time.perf_counter()
+            JB.write_file(out[native], tree, filecode="JPartDataBi4",
+                          native=native)
+            times[native].append((time.perf_counter() - t0) * 1e3)
+    with open(out[True], "rb") as a, open(out[False], "rb") as b, \
+            open(part, "rb") as c:
+        got, want, orig = a.read(), b.read(), c.read()
+    check(got == want == orig, "the C++ and the pure writer's files differ")
+    return (statistics.median(times[True]), statistics.median(times[False]),
+            len(got))
+
+
 def cli_path(device, smi):
     """Phase 22: the CLI in-process on the card, ``-builtin dambreak3d`` at
     267,469 particles from rest with the DDT ramp, ~100 steps over 4 PARTs;
@@ -1961,6 +2006,13 @@ def cli_path(device, smi):
             f"{nbytes / n:g} per particle): binx {binx:.3f} ms (median of "
             f"5), binx,vtk {vtk:.3f} ms (once, {vtk_bytes} bytes), host "
             f"clock ({smi})")
+        native_ms, pure_ms, size = write_ms(
+            os.path.join(saves, "binx", PD.part_filename(0)),
+            os.path.join(saves, "rewrite"))
+        say("cli", f"the write of that PART ({size} bytes) alone: the C++ "
+            f"writer (native=True, the default) {native_ms:.3f} ms, the "
+            f"pure writer (native=False) {pure_ms:.3f} ms, median of 5 each "
+            f"in turns, the files byte-equal, host clock ({smi})")
         return launched["cellforce"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3420,21 +3472,22 @@ def _lattice_box(mk, i0, n, dp):
             f'<size x="{s[0]}" y="{s[1]}" z="{s[2]}"/></drawbox>')
 
 
-def dem_boxes(dp):
+def dem_boxes(dp, x=1.12, y=0.2):
     """Phase 32's boxes: lattice indices (start, count) of box 51 resting on
-    the floor downstream of the obstacle and of box 52 beside it, one
-    lattice step away along x (the script moves it 0.1 dp closer)."""
+    the floor downstream of the obstacle, its corner at (``x``, ``y``), and
+    of box 52 beside it, one lattice step away along x (the script moves it
+    0.1 dp closer)."""
     n = int(round(BOX_SIDE / dp))
-    i1 = (int(round(1.12 / dp)), int(round(0.2 / dp)), 1)
+    i1 = (int(round(x / dp)), int(round(y / dp)), 1)
     i2 = (i1[0] + n + 1, i1[1], 1)
     return (i1, (n, n, n)), (i2, (n, n, n))
 
 
-def dem_xml(dp, tmax, tout):
+def dem_xml(dp, tmax, tout, **at):
     """Phase 32's case: the dam break with the two 0.1 m boxes (rhopbody
-    800) and ``RigidAlgorithm=2``, ``<properties>`` for the boxes and the
-    walls."""
-    (i1, n1), (i2, n2) = dem_boxes(dp)
+    800; ``at``: box 51's corner, :func:`dem_boxes`) and
+    ``RigidAlgorithm=2``, ``<properties>`` for the boxes and the walls."""
+    (i1, n1), (i2, n2) = dem_boxes(dp, **at)
     draw = _lattice_box(51, i1, n1, dp) + "\n" + _lattice_box(52, i2, n2, dp)
     casedef = (
         '<floatings><floating mkbound="51" rhopbody="800" property="box"/>'
@@ -3472,19 +3525,24 @@ def stepping_runs(on_step):
     return (lambda: setattr(W, "Simulation", original)), sims
 
 
-def piece_ms(label, fn, reps=7):
+def piece_ms(label, fn, reps=7, tries=3):
     """A piece of a step alone: (CUDA-event ms per call, device operations
-    per call, device busy ms per call) over one traced call."""
+    per call, device busy ms per call) over one traced call, traced again
+    (up to ``tries`` times) when the profiler caught no device activity,
+    as it can drop a trace's events."""
     from torch.profiler import ProfilerActivity, profile
     ms = cuda_ms(fn, reps)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    ev = sorted((e.time_range.start, e.time_range.end)
-                for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(bool(ev), f"{label}: the trace holds no device activity")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = sorted((e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if ev:
+            break
+    check(bool(ev), f"{label}: {tries} traces hold no device activity")
     busy, cur_s, cur_e = 0.0, ev[0][0], ev[0][1]
     for s0, e0 in ev[1:]:
         if s0 > cur_e:
@@ -4474,9 +4532,13 @@ def dirs_of(root, name):
 
 SHARD_TMAX = 0.4       # phase 37: the one-device run's cap (s); it stops
 SHARD_PAST = 0.05      # once the front is this far (m) past the slab edge
-SHARD_COMPARE = 20     # phases 37-38: steps held against the one-device run
+SHARD_COMPARE = 20     # phases 37-39: steps held against the one-device run
+SHARD_DUCT = 120       # phase 39: the duct's steps; its inlet's layers
+#                        cross at steps 1, ~57 and ~114 (1,681 spawns
+#                        each), the outlet's back layer leaves at ~57, so
+#                        the third layer takes the outlet's dead's ids
 SHARD_STEPS = 200      # phase 37: steps of the density and migration checks
-SHARD_TRACE = 10       # phases 37-38: further steps, rank 0's traced
+SHARD_TRACE = 10       # phases 37-39: further steps, rank 0's traced
 SHARD_LIMIT = 600.0    # seconds: each start of the ranks
 
 
@@ -4519,20 +4581,33 @@ def row_width(st):
 
 
 def shard_job(group, jobs):
-    """What every rank runs in phases 37-38 (at module level, so that the
+    """What every rank runs in phases 37-39 (at module level, so that the
     spawned ranks import it): for each (args, marks) of ``jobs``,
     ``sharding.rank_start`` on ``args``, the counted steps to ``marks``
-    with each refresh's exchange timed by CUDA events, then SHARD_TRACE
+    with each refresh's exchange and each DEM pass timed by CUDA events,
+    then SHARD_TRACE
     more steps, rank 0's traced with ``torch.profiler`` for its
     device-to-host copies (-1 on the other ranks).  Rank 0 returns, per
     job, (every rank's counters, the carries at the marks, its host
     seconds per counted step)."""
     from torch.profiler import ProfilerActivity, profile
+    from dualsphysics_multilayer_tpu_torch.features import dem as DEM
     from dualsphysics_multilayer_tpu_torch.parallel import sharding as S
     out = []
+    apply_dem = DEM.apply_dem
     for args, marks in jobs:
         run = S.rank_start(group, *args, log=lambda *a: None)
-        events = []
+        events, dem_events = [], []
+
+        def timed_dem(*a, dem_events=dem_events, **k):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            res = apply_dem(*a, **k)
+            e1.record()
+            dem_events.append((e0, e1))
+            return res
+
+        DEM.apply_dem = timed_dem
 
         def timed(st, halo, refresh=run.dd.refresh, events=events):
             a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -4555,9 +4630,12 @@ def shard_job(group, jobs):
             copies = sum("DtoH" in e.name for e in prof.events()
                          if e.device_type == torch.autograd.DeviceType.CUDA)
         run.sim.carry = carry
+        DEM.apply_dem = apply_dem
         counts = S.rank_counts(run)
         counts.update(exchanges=len(events), exchange_ms=sum(
-            a.elapsed_time(b) for a, b in events), traced_d2h=copies)
+            a.elapsed_time(b) for a, b in events), traced_d2h=copies,
+            dem_calls=len(dem_events), dem_ms=sum(
+                a.elapsed_time(b) for a, b in dem_events))
         stats = S.gather_counts(group, counts)
         out.append(None if stats is None else (stats, carries, times))
     return out if group.rank == 0 else None
@@ -4565,11 +4643,13 @@ def shard_job(group, jobs):
 
 def shard_steps(sims, marks):
     """``shard_job`` of each of ``sims`` (equal in ranks, device and
-    backend) to ``marks`` over one start of their ranks: per simulation,
-    (every rank's counters, the carries at the marks, rank 0's host
-    seconds per step)."""
-    return sims[0].launch(shard_job, ([(s._args(), tuple(marks))
-                                       for s in sims],))
+    backend) to ``marks`` (one tuple for all, or one per simulation) over
+    one start of their ranks: per simulation, (every rank's counters, the
+    carries at the marks, rank 0's host seconds per step)."""
+    if not isinstance(marks[0], (list, tuple)):
+        marks = [marks] * len(sims)
+    return sims[0].launch(shard_job, ([(s._args(), tuple(m))
+                                       for s, m in zip(sims, marks)],))
 
 
 def shard_launches(label, stats, ref, nref):
@@ -4841,6 +4921,296 @@ def shard_paths(device, smi):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
+
+
+# ---- phase 39: open boundaries and DEM under domain decomposition ------
+SHARD_GAP = 5e-6       # phase 39: the slab edge this far right of a column
+PERIODIC3D_DP = 0.4 / 60   # phase 39's y-periodic tank: 60 rows a period
+PERIODIC3D_GAP = 3e-4  # its last row this far below the periodic edge
+
+
+class _Captured(Exception):
+    """Raised by :func:`cli_case`'s stand-in to leave ``cli.main``."""
+
+
+def cli_case(argv, root):
+    """(csp, opts, dom, state, feats) that ``dsphtorch argv -shard:2``
+    hands its ``ShardedSimulation``, taken from ``cli.main`` before any
+    rank starts."""
+    from dualsphysics_multilayer_tpu_torch import cli
+    got = {}
+
+    def capture(args, torch_, csp, opts, dom, st, feats, phases, t0, dev):
+        got.update(csp=csp, opts=opts, dom=dom, st=st, feats=feats)
+        raise _Captured
+
+    original, cli._sharded = cli._sharded, capture
+    try:
+        cli.main(argv + ["-shard:2", "-nortimes", "-dirout",
+                         os.path.join(root, "out")])
+    except _Captured:
+        pass
+    finally:
+        cli._sharded = original
+    check(bool(got), f"cli.main({argv}) reached no sharded run")
+    return tuple(got[k] for k in ("csp", "opts", "dom", "st", "feats"))
+
+
+def edge_after_column(dom, x, gap=SHARD_GAP):
+    """``dom`` with its x origin moved left so that the 2-rank slab edge
+    lies ``gap`` right of the last of the x-coordinates ``x`` left of the
+    old edge (two columns more, so the grid still covers the particles):
+    a column of particles then crosses the edge within the steps."""
+    from dualsphysics_multilayer_tpu_torch.parallel import sharding as S
+    cfg = S.make_shard_cfg(dom, 2, 1)
+    edge = dom.posmin[0] + cfg.ncx_loc * dom.scell
+    xc = float(x[x < edge].max())
+    check(edge - xc < dom.scell, f"no particle within a cell left of the "
+          f"slab edge {edge}")
+    ncx = cfg.gdom.nc[0] + 2
+    x0 = xc + gap - (ncx // 2) * dom.scell
+    return dataclasses.replace(dom, posmin=(x0,) + tuple(dom.posmin[1:]),
+                               nc=(ncx,) + tuple(dom.nc[1:]))
+
+
+def periodic_tank(device):
+    """Phase 39's y-periodic tank: ``tests/test_sharding.py:513-575``'s
+    slab (water 0.9 x 0.4 x 0.2 m over a floor, walls in x, open in y)
+    at PERIODIC3D_DP, the fluid flowing along +y at 0.5 m/s with a seeded
+    jitter of 0.05 m/s, the period 0.4 m with the last row PERIODIC3D_GAP
+    below its edge, the slab edge SHARD_GAP right of a fluid column.
+    Returns (csp, opts, dom, state, feats)."""
+    from dualsphysics_multilayer_tpu_torch import (Features, SolverOpts,
+                                                   TpDensity)
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.features.periodic import \
+        PeriodicCfg
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    dp = PERIODIC3D_DP
+    csp = td.make_ctesph(simulate2d=False, dp=dp, hswl=0.2, coefh=1.0,
+                         visco=0.05, coefsound=20.0)
+    d = cases.Draw(dp=dp, simulate2d=False)
+    d.box((0, 0, 0), (0.9 - dp, 0.4 - dp, 0.2), ptype=td.TYPE_FLUID, mk=0)
+    d.box((-3 * dp, 0, -3 * dp), (0.9 + 2 * dp, 0.4 - dp, -dp),
+          ptype=td.TYPE_FIXED, mk=0, faces="solid")
+    d.box((-3 * dp, 0, 0), (-dp, 0.4 - dp, 0.4), ptype=td.TYPE_FIXED, mk=0,
+          faces="solid")
+    d.box((0.9, 0, 0), (0.9 + 2 * dp, 0.4 - dp, 0.4), ptype=td.TYPE_FIXED,
+          mk=0, faces="solid")
+    pos, code = d.build()
+    st = cases._make_state(csp, pos, code, zsurf=0.2, device=device)
+    fluid = td.is_fluid(st.code)
+    rng = np.random.default_rng(39)
+    vel = torch.tensor(rng.normal(0.0, 0.05, (st.n, 3)), dtype=torch.float32,
+                       device=device)
+    vel[:, 1] += 0.5
+    st = dataclasses.replace(st, vel=torch.where(fluid[:, None], vel, 0.0))
+    ytop = float(pos[:, 1].max())
+    hi = ytop + PERIODIC3D_GAP
+    feats = Features(periodic=PeriodicCfg(
+        axes=(False, True, False), lo=(0.0, hi - 0.4, 0.0), hi=(0.0, hi, 0.0),
+        ghost_cap=int(1.5 * st.n * csp.kernelsize / 0.4)))
+    dom = edge_after_column(cases._make_domain(csp, pos, headroom=2.0),
+                            pos[np.asarray(fluid.cpu()), 0])
+    return csp, SolverOpts(tdensity=TpDensity.FOURTAKAS), dom, st, feats
+
+
+def shard_feats_path(device, smi):
+    """Phase 39: the open boundaries and DEM under domain decomposition, 2
+    ranks on ``cuda:0`` over gloo, one start of the ranks for the four
+    jobs, each 20 steps (the duct 120, over which it spawns more
+    particles than its free pool held at the start) against its one-device run and 10 more traced:
+    ``-builtin channel2d`` (phase 29's size) and phase 30's duct through
+    ``load_case`` (inlet/outlet zones: the live fluid count within 2, its
+    centre of mass within 2e-3 dp, every live id unique, a spawn on rank
+    0, fluid migrated to rank 1, and in the duct spawns holding ids of
+    particles that were on rank 1 at the start, which the free pool's
+    sharing brought back; the channel's fluid starts at the inlet's
+    velocity, the duct's flows as its case says), phase 32's DEM boxes through ``-case``
+    with box 51 across the slab edge (body centres within 1e-6 m and
+    velocities within 1e-5 m/s) and the y-periodic tank (positions by id
+    within 1e-4 dp, rows wrapped through the periodic edge and migrated
+    across the slab edge).  The inout and periodic jobs' slab edge is
+    moved just right of a fluid column (:func:`edge_after_column`), which
+    crosses it in the first step: the rebuild that the first step's
+    spawns or wraps force migrates it."""
+    import shutil
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.io.xmlcase import load_case
+    from dualsphysics_multilayer_tpu_torch.models.wcsph import (make_carry,
+                                                                make_step)
+    from dualsphysics_multilayer_tpu_torch.parallel import sharding as S
+    root = tempfile.mkdtemp(prefix="_smoke_shardfeat_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    try:
+        jobs = {}
+        csp, opts, dom, st, feats = cli_case(
+            ["-builtin", "channel2d", "-dp", repr(CHANNEL_DP),
+             f"-tmax:{2 * CHANNEL_TOUT!r}"], os.path.join(root, "channel"))
+        # the channel's fluid already at the inlet's velocity (the case
+        # starts it at rest), so that it crosses the slab edge
+        inner = td.is_fluid(st.code) & td.is_active(st.code)
+        vin = feats.inout.zones[0].vel_profile[0]
+        st = dataclasses.replace(st, vel=torch.where(
+            (inner & ~td.is_inout(st.code))[:, None],
+            torch.tensor([vin, 0.0, 0.0], device=st.vel.device), st.vel))
+        fluid_x = st.pos[inner, 0]
+        jobs["channel2d"] = (csp, opts, edge_after_column(
+            dom, fluid_x.cpu().numpy()), st, feats)
+        path = os.path.join(root, "Duct_Def.xml")
+        with open(path, "w") as f:
+            f.write(duct_xml(DUCT_DP, DUCT_TMAX))
+        case, opts, _run = load_case(path, device=device)
+        st = case.state
+        fluid_x = st.pos[td.is_fluid(st.code) & td.is_active(st.code), 0]
+        jobs["duct-inout"] = (case.csp, opts, edge_after_column(
+            case.dom, fluid_x.cpu().numpy()), st, case.meta["features"])
+        # box 51 across the 2-rank slab edge, clear of the obstacle in y
+        path = os.path.join(root, "Dem_Def.xml")
+        with open(path, "w") as f:
+            f.write(dem_xml(DP_BENCH, 3 * COUPLING_TOUT, COUPLING_TOUT))
+        case, _, _ = load_case(path, device="cpu")
+        cfg = S.make_shard_cfg(case.dom, 2, 1)
+        edge = cfg.gdom.posmin[0] + cfg.ncx_loc * cfg.gdom.scell
+        with open(path, "w") as f:
+            f.write(dem_xml(DP_BENCH, 3 * COUPLING_TOUT, COUPLING_TOUT,
+                            x=edge - 0.5 * BOX_SIDE, y=0.45))
+        jobs["dem-3d"] = cli_case(["-case", path],
+                                  os.path.join(root, "dem"))
+        jobs["yperiodic-3d"] = periodic_tank(device)
+
+        refs, sims, starts = {}, {}, {}
+        nsteps = {name: SHARD_COMPARE for name in jobs}
+        nsteps["duct-inout"] = SHARD_DUCT
+        for name, (csp, opts, dom, st, feats) in jobs.items():
+            refs[name] = timed_steps(make_step(csp, opts, dom, feats),
+                                     make_carry(st, csp, opts, dom, feats),
+                                     nsteps[name])
+            sims[name] = S.ShardedSimulation(csp, opts, dom, st, feats=feats,
+                                             ndev=2, backend="gloo",
+                                             limit=SHARD_LIMIT)
+            starts[name] = S._owner(sims[name].cfg, st.pos[:, 0])
+        reset_counts()
+        t0 = time.perf_counter()
+        outs = shard_steps(list(sims.values()),
+                           [[nsteps[name]] for name in sims])
+        secs = time.perf_counter() - t0
+        say("shard-feats", f"4 jobs x {nsteps} steps (and {SHARD_TRACE} "
+            f"traced) over one start of 2 ranks on cuda:0 (gloo) in "
+            f"{secs:.1f} s ({smi})")
+        out = {}
+        for (name, sim), (stats, (got,), times) in zip(sims.items(), outs):
+            csp, opts, dom, st, feats = jobs[name]
+            ref, times1, launched = refs[name]
+            label = f"shard-{name}"
+            check(got.nstep == ref.nstep == nsteps[name] and got.overflow
+                  == 0 == ref.overflow, f"{label}: nstep {got.nstep}/"
+                  f"{ref.nstep}, overflow {got.overflow}/{ref.overflow}")
+            check(abs(got.t_host - ref.t_host) <= 1e-5 * ref.t_host,
+                  f"{label}: t {got.t_host} against {ref.t_host}")
+            for k in ("pos", "vel", "rho"):
+                check(bool(torch.isfinite(getattr(got.st, k)).all()),
+                      f"{label}: {k} not finite")
+            ranks = shard_launches(label, stats, launched, nsteps[name])
+            check(sorted(ranks) == ["cellforce"], f"{label}: the one-device "
+                  f"run launched {sorted(ranks)}")
+            gi, gp = live_by_id(got.st)
+            check(len(torch.unique(gi)) == len(gi),
+                  f"{label}: a live id twice in the gathered state")
+            mig = [int(s["migrants"]) for s in stats]
+            extra = ""
+            if feats.inout is not None:
+                dp = csp.dp
+
+                def fluid(s):
+                    m = (td.is_active(s.code) & ~td.is_periodic(s.code)
+                         & td.is_fluid(s.code))
+                    return int(m.sum()), s.pos[m].double().mean(0)
+
+                n1, com1 = fluid(ref.st)
+                n2, com2 = fluid(got.st)
+                dcom = float((com1 - com2).abs().max())
+                check(abs(n1 - n2) <= 2 and dcom <= 2e-3 * dp,
+                      f"{label}: live fluid {n2} against {n1}, centre of "
+                      f"mass off by {dcom} m (2e-3 dp {2e-3 * dp})")
+                live0 = st.idp[td.is_active(st.code)]
+                new = ~torch.isin(gi, live0)
+                spawn0 = int((S._owner(sim.cfg, gp[new, 0]) == 0).sum())
+                check(spawn0 > 0, f"{label}: no spawn on rank 0")
+                check(mig[1] > 0, f"{label}: no fluid migrated to rank 1")
+                # ids back from rank 1: members of a spawning zone on rank
+                # 0's slab whose id was live on rank 1's at the start
+                owner0 = torch.full((st.n,), -1, dtype=torch.long,
+                                    device=st.idp.device)
+                live = td.is_active(st.code)
+                owner0[st.idp[live].long()] = starts[name][live]
+                m = td.is_active(got.st.code) & ~td.is_periodic(got.st.code)
+                spawner = S._spawners(feats).to(m.device)[
+                    td.code_inout(got.st.code[m]).long()]
+                back = int((spawner & (owner0[got.st.idp[m].long()] == 1)
+                            & (S._owner(sim.cfg, got.st.pos[m, 0]) == 0))
+                           .sum())
+                pool0 = sum(len(p) for p in S.spare_ids(sim.cfg, st, feats))
+                if name == "duct-inout":
+                    check(back > 0, f"{label}: no id came back from rank 1 "
+                          f"in {nsteps[name]} steps")
+                extra = (f"live fluid {n2} against {n1}, centre of mass "
+                         f"within {dcom:.3e} m (2e-3 dp {2e-3 * dp:.3e}); "
+                         f"{int(new.sum())} spawned ids live ({spawn0} on "
+                         f"rank 0's slab) of a free pool of {pool0} ids at "
+                         f"the start, and {back} spawning-zone members on "
+                         f"rank 0's slab with ids live on rank 1's at the "
+                         f"start; each id once")
+            else:
+                wi, wp = live_by_id(ref.st)
+                check(torch.equal(gi, wi), f"{label}: other ids")
+                err = float((gp - wp).abs().max())
+            if feats.dem is not None:
+                dc = float((got.st.ft.center - ref.st.ft.center).abs().max())
+                dv = float((got.st.ft.fvel - ref.st.ft.fvel).abs().max())
+                check(dc <= 1e-6 and dv <= 1e-5, f"{label}: body centres off "
+                      f"by {dc} m, velocities by {dv} m/s")
+                body = td.code_value(st.code)
+                isft = td.is_floating(st.code)
+                rows = {b: [int((isft & (body == b) & (starts[name] == r))
+                                .sum()) for r in range(2)]
+                        for b in range(feats.floating.count)}
+                check(any(min(v) > 0 for v in rows.values()),
+                      f"{label}: no body on both ranks: {rows}")
+                dem_ms = stats[0]["dem_ms"] / max(stats[0]["dem_calls"], 1)
+                extra = (f"body centres within {dc:.3e} m, velocities within "
+                         f"{dv:.3e} m/s, positions by id within {err:.3e} m; "
+                         f"each body's rows on ranks 0/1 at the start "
+                         f"{rows}; DEM's pass on rank 0 {dem_ms:.3f} ms a "
+                         f"call (CUDA events, {int(stats[0]['dem_calls'])} "
+                         f"calls)")
+            if feats.periodic is not None:
+                check(err <= 1e-4 * csp.dp, f"{label}: 2 ranks drift {err} m "
+                      f"(1e-4 dp {1e-4 * csp.dp})")
+                hi = feats.periodic.hi[1]
+                wrapped = int((ref.st.pos[:, 1] < st.pos[:, 1].min()
+                               - 0.5 * csp.dp).sum())
+                check(wrapped > 0, f"{label}: no row wrapped through y = "
+                      f"{hi}")
+                check(sum(mig) > 0, f"{label}: no particle crossed the slab "
+                      f"edge")
+                extra = (f"positions by id within {err:.3e} m (1e-4 dp "
+                         f"{1e-4 * csp.dp:.3e}); {wrapped} rows wrapped "
+                         f"through y = {hi:.5f} m")
+            p50, p50_1 = statistics.median(times), statistics.median(times1)
+            say(label, f"{int(td.is_active(st.code).sum())} live particles "
+                f"in {st.n} slots, halo {sim.cfg.halo} cell(s): {extra}; "
+                f"migrants received by rank {mig}; p50 step {p50 * 1e3:.3f} "
+                f"ms on rank 0 against the one-device {p50_1 * 1e3:.3f} ms "
+                f"(one card shared by two ranks over gloo: a check, not a "
+                f"speed) ({smi})")
+            out[name] = dict(ranks=ranks, p50_ms=p50 * 1e3,
+                             one_device_p50_ms=p50_1 * 1e3,
+                             per_rank=shard_report(label, sim, stats, ranks,
+                                                   smi))
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main():
@@ -5120,12 +5490,16 @@ def main():
     # and -shard:1 through the CLI
     shard = {"dambreak3d": shard_path(device, smi)}
     shard.update(shard_paths(device, smi))
+    # 39. the open boundaries and DEM under domain decomposition: the
+    # channel and the duct's zones, the DEM boxes, the y-periodic tank
+    feats = shard_feats_path(device, smi)
     for path, ranks in (("dambreak3d-2-ranks", shard["dambreak3d"]["ranks"]),
                         ("dambreak3d-nccl", shard["dambreak3d"]["nccl"]),
                         ("nn-2-ranks", shard["nn"]["ranks"]),
                         ("floating-2-ranks", shard["floating"]["ranks"]),
                         ("mdbc-2-ranks", shard["mdbc"]["ranks"]),
-                        ("cli-shard-1", shard["cli"]["ranks"])):
+                        ("cli-shard-1", shard["cli"]["ranks"])) + tuple(
+            (f"{k}-2-ranks", v["ranks"]) for k, v in feats.items()):
         for name, per_rank in ranks.items():
             records[name].setdefault("shard_launches", {})[path] = per_rank
 

@@ -32,14 +32,16 @@ gather ordered by id.
     dsphtorch -builtin channel2d -dp 0.0014 -tmax:0.008 -dirout out
     dsphtorch -builtin dambreak3d -shard:2 -dirout out
     dsphtorch -cpu -builtin dambreak2d -dp 0.05 -shard:2 -tmax:0.01
+    dsphtorch -cpu -builtin channel2d -dp 0.02 -shard:2 -tmax:0.01
 
 Reference colon-form flags (-tmax:1.6, -partbegin:20 dir, -svpips:2) are
 accepted alongside space-separated values, and ``-opt FILE`` reads more
 options from a file.  Options whose setting the port does not run leave
 with a message that names them: ``-pallas``/``-no-pallas`` and
 ``-cellmode:half``; so do the XML nodes the loader refuses, the options
-the NN step refuses and the features ``-shard`` refuses (inlet/outlet
-zones, DEM, periodic boundaries, AWAS).
+the NN step refuses and the features ``-shard`` refuses (x-periodic
+boundaries and the wave paddles' AWAS; it runs inlet/outlet zones, DEM
+contact and y/z-periodic boundaries).
 """
 
 from __future__ import annotations

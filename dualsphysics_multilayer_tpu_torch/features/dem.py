@@ -146,24 +146,30 @@ def _tables(cfg: DemCfg, device):
 class DemLayout:
     """The floating rows of a layout and its slots' properties, found once
     per divide: ``rows(cfg, cells, idp, code)`` computes them again only
-    when ``cells`` is another divide than the last call's."""
+    when ``cells`` is another divide than the last call's.  ``local``
+    (one rank of a domain decomposition, which holds a part of the
+    bodies' rows): only the floating ids the layout holds are kept, so the
+    contact pass scales with the rank's rows (one read of their count per
+    divide)."""
 
-    def __init__(self):
+    def __init__(self, local: bool = False):
+        self.local = local
         self._cells = None
         self._rows = None
 
     def rows(self, cfg: DemCfg, cells, idp, code):
         if cells is not self._cells:
-            self._cells, self._rows = cells, _layout_rows(cfg, idp, code)
+            self._cells = cells
+            self._rows = _layout_rows(cfg, idp, code, self.local)
         return self._rows
 
 
-def _layout_rows(cfg: DemCfg, idp, code):
+def _layout_rows(cfg: DemCfg, idp, code, local: bool = False):
     """(fidx (nf,) int64, slotprops (n, 7)): the slot of each floating id
-    in this layout (``n`` where none holds it) and each slot's properties.
-    Ghost rows (periodic copies, and the dead rows of their blocks) carry
-    a source's id but are never a target: only normal rows write the
-    id-to-slot map."""
+    in this layout (``n`` where none holds it; with ``local`` only the
+    ids it holds) and each slot's properties.  Ghost rows (periodic
+    copies, and the dead rows of their blocks) carry a source's id but are
+    never a target: only normal rows write the id-to-slot map."""
     props, ft_ids = _tables(cfg, idp.device)
     n = idp.shape[0]
     nid = props.shape[0]
@@ -171,7 +177,10 @@ def _layout_rows(cfg: DemCfg, idp, code):
     key = torch.where(real, idp, nid)
     slot = torch.full((nid + 1,), n, dtype=torch.int64, device=idp.device)
     slot[key] = torch.arange(n, device=idp.device)
-    return slot[ft_ids], props[torch.clamp(idp, 0, nid - 1)]
+    fidx = slot[ft_ids]
+    if local:
+        fidx = fidx[fidx < n]
+    return fidx, props[torch.clamp(idp, 0, nid - 1)]
 
 
 def apply_dem(cfg: DemCfg, csp: CteSph, dom: cd.Domain, cells: cd.CellDiv,

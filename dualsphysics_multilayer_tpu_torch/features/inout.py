@@ -35,6 +35,16 @@ slot of the layout's dead tail, which the kernels do not walk, so
 the next step's rebuild.  Nothing here reads the device: the counts stay
 tensors and join the step's one device-to-host copy.
 
+On one rank of a domain decomposition (``parallel/sharding.py``) the pass
+runs on the rank's owned rows: its halo rows (periodic-coded copies of
+other ranks' particles) are neither members nor requests, though the
+extrapolation reads them as fluid around a mirror node; a spawn takes
+only the slots the caller leaves it (``usable``: dead slots that hold an
+id of the global state's free pool, never a slot the halo refresh
+writes); the advanced refilling fills only the holes of its own slab; the
+calculated zsurf and the AWAS column mass are reduced over
+the ranks through the callbacks given (JAX's ``pmax`` and ``psum``).
+
 Like the reference, a restart with inout zones is refused
 (`JSphCpuSingle_InOut.cpp:76`).
 """
@@ -218,10 +228,12 @@ def init_inout(cfg: InOutCfg, csp: CteSph, st):
     return replace(st, **upd)
 
 
-def _zsurf_at(zone: InOutZone, csp: CteSph, tabs, st=None):
+def _zsurf_at(zone: InOutZone, csp: CteSph, tabs, st=None,
+              reduce_max=None):
     """The zone's zsurf (JSphInOutZsurf) at ``tabs`` (0-d f32): fixed,
-    from the time series, or calculated as the highest fluid z over the
-    zone's lateral footprint in a 2*kernelsize band ahead of the plane."""
+    from the time series, or calculated as the highest owned fluid z over
+    the zone's lateral footprint in a 2*kernelsize band ahead of the plane
+    (``reduce_max(x) -> x``: the maximum over the ranks)."""
     if zone.zsurf_times:
         return _interp(tabs, _vec([t for t, _ in zone.zsurf_times], tabs),
                        _vec([z for _, z in zone.zsurf_times], tabs))
@@ -229,14 +241,16 @@ def _zsurf_at(zone: InOutZone, csp: CteSph, tabs, st=None):
         pos, code = st.pos, st.code
         rel = pos - _vec(zone.p0, pos)[None, :]
         s = rel @ _tensor(zone.direction, pos)
-        m = (td.is_fluid(code) & td.is_active(code) & (s >= 0.0)
+        m = (td.is_fluid(code) & td.is_active(code) & ~td.is_periodic(code)
+             & (s >= 0.0)
              & (s <= 2.0 * csp.kernelsize)
              & ((rel @ _tensor(zone.tangent1, pos)).abs()
                 <= zone.size1 * 0.5 + 0.5 * csp.dp))
         if not csp.simulate2d and zone.size2 > 0:
             m = m & ((rel @ _tensor(zone.tangent2, pos)).abs()
                      <= zone.size2 * 0.5 + 0.5 * csp.dp)
-        return torch.where(m, pos[:, 2], float(zone.zsurf)).amax()
+        zc = torch.where(m, pos[:, 2], float(zone.zsurf)).amax()
+        return zc if reduce_max is None else reduce_max(zc)
     return torch.tensor(zone.zsurf, dtype=torch.float32,
                         device=tabs.device)
 
@@ -264,11 +278,14 @@ def _imposed(zone: InOutZone, csp: CteSph, pos, tabs, zsurf=None):
     return vel, rho
 
 
-def _awas_velcorr(aw: InOutAwas, csp: CteSph, pos, code, tabs):
-    """The zone's AWAS velocity correction at ``tabs`` (0-d)."""
+def _awas_velcorr(aw: InOutAwas, csp: CteSph, pos, code, tabs,
+                  reduce_sum=None):
+    """The zone's AWAS velocity correction at ``tabs`` (0-d), from the
+    owned fluid's column mass (``reduce_sum(x) -> x``: the sum over the
+    ranks)."""
     dp = csp.dp
     band = aw.band or 1.5 * dp
-    fluid = td.is_fluid(code) & td.is_active(code)
+    fluid = td.is_fluid(code) & td.is_active(code) & ~td.is_periodic(code)
     inband = fluid & ((pos[:, 0] - aw.gauge_x).abs() <= band)
     if csp.simulate2d:
         colarea = 2.0 * band
@@ -278,6 +295,8 @@ def _awas_velcorr(aw: InOutAwas, csp: CteSph, pos, code, tabs):
         colarea = 2.0 * band * dp
         vol_per = dp ** 3
     colmass = torch.where(inband, vol_per, 0.0).sum()
+    if reduce_sum is not None:
+        colmass = reduce_sum(colmass)
     zgauge = aw.z0 + colmass / colarea
     gz = float(csp.gravity[2]) if csp.gravity[2] else -9.81
     coefdepth = math.sqrt(-gz / aw.depth)
@@ -288,6 +307,19 @@ def _awas_velcorr(aw: InOutAwas, csp: CteSph, pos, code, tabs):
 
 def any_extrap(cfg: InOutCfg) -> bool:
     return any(z.vel_extrap or z.rho_extrap for z in cfg.zones)
+
+
+def can_spawn(zone: InOutZone) -> bool:
+    """Whether the zone may spawn particles: the advanced refilling, an
+    extrapolated, gridded or timed velocity, or a profile that points along
+    the zone's direction (into the fluid) at ``p0``.  A fixed profile
+    pointing out of the domain (an outlet) only destroys and captures."""
+    if (zone.refill == "advanced" or zone.vel_extrap
+            or zone.vel_grid is not None or zone.vel_times):
+        return True
+    c0, c1, c2 = zone.vel_profile
+    z = zone.p0[2]
+    return c0 + c1 * z + c2 * z * z > 0.0
 
 
 def extrap_cap(cfg: InOutCfg, csp: CteSph) -> int:
@@ -304,7 +336,8 @@ def inout_extrapolate(cfg: InOutCfg, csp: CteSph, dom: cd.Domain,
     """Ghost-node extrapolation of the zones with extrapolated velocity or
     density (`InteractionInOutExtrap_Double`, JSphCpu_InOut.cpp:55-238):
     each member mirrors across its inlet plane into the fluid, the
-    non-inout fluid within kernelsize of the mirror node builds the
+    non-inout fluid within kernelsize of the mirror node (halo rows
+    included) builds the
     first-order MLS system (3x3 in 2D, 4x4 in 3D) with four right-hand
     sides (mass-weighted density, volume-weighted velocity), and the
     corrected field is evaluated back at the member; below ``determlimit``
@@ -325,10 +358,11 @@ def inout_extrapolate(cfg: InOutCfg, csp: CteSph, dom: cd.Domain,
     wantv = torch.zeros_like(sel)
     wantr = torch.zeros_like(sel)
     ghost = pos
+    owned = active & ~td.is_periodic(code)
     for zi, zone in enumerate(cfg.zones):
         if not (zone.vel_extrap or zone.rho_extrap):
             continue
-        member = (itag == zi + 1) & active
+        member = (itag == zi + 1) & owned
         d = _tensor(zone.direction, pos)
         s = (pos - _vec(zone.p0, pos)[None, :]) @ d
         ghost = torch.where(member[:, None], pos - (2.0 * s)[:, None] * d,
@@ -414,13 +448,20 @@ def inout_extrapolate(cfg: InOutCfg, csp: CteSph, dom: cd.Domain,
 
 
 def inout_step(cfg: InOutCfg, csp: CteSph, st, tabs, nstep=None, dom=None,
-               cells=None):
+               cells=None, usable=None, owns=None, reduce_max=None,
+               reduce_sum=None):
     """One transition pass of every zone at time ``tabs`` (0-d), the
     step's ``nstep`` (a host int: the advanced refilling's tick; None ticks
     always).  ``dom`` and ``cells``, the step's layout, serve the
-    extrapolated modes.  Returns (state, overflow, filled): the 0-d int32
-    count of spawn requests that found no free slot (and extrapolation
-    members beyond its cap), and a 0-d bool, whether a slot was filled."""
+    extrapolated modes.  One rank of a domain decomposition passes
+    ``usable`` ((n,) bool, the slots a spawn may take), ``owns(pos) ->
+    (m,) bool`` (the points its slab owns: the advanced refilling fills
+    only their holes) and the reductions
+    over the ranks of the calculated zsurf and the AWAS column mass
+    (``reduce_max(x) -> x``, ``reduce_sum(x) -> x``).  Returns (state,
+    overflow, filled): the 0-d int32 count of spawn requests that found no
+    free slot (and extrapolation members beyond its cap), and a 0-d bool,
+    whether a slot was filled."""
     pos, vel, rho, code = st.pos, st.vel, st.rho, st.code
     n = pos.shape[0]
     dev = pos.device
@@ -436,6 +477,8 @@ def inout_step(cfg: InOutCfg, csp: CteSph, st, tabs, nstep=None, dom=None,
         smallest id), the index of each one's request, the requests that
         found no free slot, and whether any was placed."""
         free = _free_ids(cfg, code, idp)
+        if usable is not None:
+            free = free & usable
         nfree = free.sum(dtype=torch.int32)
         nreq = req.sum(dtype=torch.int32)
         frank = _id_rank(free, idp, n)
@@ -458,8 +501,9 @@ def inout_step(cfg: InOutCfg, csp: CteSph, st, tabs, nstep=None, dom=None,
         width = zone.layers * dp
         rel = pos - p0[None, :]
         s = rel @ d
-        active = td.is_active(code)
-        member = (td.code_inout(code) == tag) & active
+        # a rank's halo rows are other ranks' particles: not members
+        owned = td.is_active(code) & ~td.is_periodic(code)
+        member = (td.code_inout(code) == tag) & owned
         if zone.shape == "circle":
             t2 = _tensor(zone.tangent2, pos)
             u1, u2 = rel @ t1, rel @ t2
@@ -494,7 +538,7 @@ def inout_step(cfg: InOutCfg, csp: CteSph, st, tabs, nstep=None, dom=None,
             req = cross
             if zone.refill == "simplezsurf" and (
                     zone.zsurf or zone.zsurf_times or zone.zsurf_calc):
-                zs = _zsurf_at(zone, csp, tabs, st)
+                zs = _zsurf_at(zone, csp, tabs, st, reduce_max)
                 req = req & (spawn_pos[:, 2] <= zs + 0.25 * dp)
             recv, src, ovf, any_ok = take(code, req, _id_rank(req, idp, n))
             newcode = td.code_set_inout(
@@ -528,11 +572,14 @@ def inout_step(cfg: InOutCfg, csp: CteSph, st, tabs, nstep=None, dom=None,
                                             .to(torch.int32) + u2span)
                 return k
 
+            # halo members cover holes too; a rank fills only its own
             memb = (td.code_inout(code) == tag) & td.is_active(code)
             covered = torch.zeros(nkey + 1, dtype=torch.int32, device=dev)
             covered[torch.where(memb, torch.clamp(key(pos), 0, nkey - 1),
                                 nkey).long()] = 1
             hole = covered[torch.clamp(key(latpts), 0, nkey - 1).long()] == 0
+            if owns is not None:
+                hole = hole & owns(latpts)
             recv, src, ovf, any_ok = take(
                 code, hole, torch.cumsum(hole, 0, dtype=torch.int32) - 1)
             newc = td.code_set_inout(td.code_make(td.TYPE_FLUID, 0), tag)
@@ -545,12 +592,13 @@ def inout_step(cfg: InOutCfg, csp: CteSph, st, tabs, nstep=None, dom=None,
 
         # 5) impose the zone's velocity and density on every member (the
         # extrapolated quantities come from the pass below)
-        member2 = (td.code_inout(code) == tag) & td.is_active(code)
+        member2 = ((td.code_inout(code) == tag) & td.is_active(code)
+                   & ~td.is_periodic(code))
         iv, ir = _imposed(zone, csp, pos, tabs,
-                          zsurf=_zsurf_at(zone, csp, tabs, st))
+                          zsurf=_zsurf_at(zone, csp, tabs, st, reduce_max))
         if zone.awas is not None and not zone.vel_extrap:
             # subtracted (InterpolateVelCpu, JSphInOutGridData.cpp:383)
-            vc = _awas_velcorr(zone.awas, csp, pos, code, tabs)
+            vc = _awas_velcorr(zone.awas, csp, pos, code, tabs, reduce_sum)
             iv = iv - vc * d[None, :]
         if not zone.vel_extrap:
             vel = torch.where(member2[:, None], iv, vel)

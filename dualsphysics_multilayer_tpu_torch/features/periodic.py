@@ -25,6 +25,15 @@ chooses them: the first in slot order, which in a JAX state is id order
 their block order).  The rest count into the returned overflow, on the
 device.  The ids must be a permutation of 0..n-1 (``models.wcsph.
 make_carry`` checks it).
+
+On one rank of a domain decomposition (``parallel/sharding.py``) the
+state also holds the x-halo rows, which carry the periodic special code
+and their owners' ids, and dead slots; :func:`periodic_interaction` then
+wraps the owned rows, refreshes the halo rows (wrapped on their own
+ranks) and images both, which covers the slab's corners, and the ranks
+come from the masked rows only, in id order.  Each rank images distinct
+particles, so the global ``ghost_cap`` bounds its images too.  x-periodic
+conflicts with the x-slabs and is refused there.
 """
 
 from __future__ import annotations
@@ -76,17 +85,30 @@ def wrap(cfg: PeriodicCfg, pos, code):
 
 def _id_rank(mask, idp, n):
     """The rank of each row among the rows of ``mask`` in id order (valid
-    where ``mask``): an id-indexed cumulative count, no sort and no read to
-    the host."""
-    byid = torch.zeros(n, dtype=torch.int32, device=mask.device)
-    byid[idp] = mask.to(torch.int32)
-    return torch.cumsum(byid, 0, dtype=torch.int32)[idp] - 1
+    where ``mask``, whose ids lie below ``n``): an id-indexed cumulative
+    count, no sort and no read to the host.  Only the masked rows write
+    their ids, so a dead slot or a halo row whose id another row also
+    holds leaves the count alone."""
+    byid = torch.zeros(n + 1, dtype=torch.int32, device=mask.device)
+    byid[torch.where(mask, idp, n)] = 1
+    return torch.cumsum(byid[:n], 0, dtype=torch.int32)[
+        torch.clamp(idp, 0, n - 1)] - 1
 
 
 def ghost_rows(cfg: PeriodicCfg, csp: CteSph, st):
     """(rows, overflow): a dict of the state's ``GHOST_FIELDS`` with
     ``2*naxes*ghost_cap`` ghost rows after the state's rows, and the 0-d
     int32 count of edge particles beyond ``ghost_cap`` (JAX steps 2-3)."""
+    rows, overflow, _ = _ghost_rows(cfg, csp, st)
+    return rows, overflow
+
+
+def _ghost_rows(cfg: PeriodicCfg, csp: CteSph, st, halo: bool = False):
+    """:func:`ghost_rows` and each row's origin, the state's slot it copies
+    (``(n + 2*naxes*ghost_cap,)`` int64).  ``halo``: the state is one rank
+    of a domain decomposition, whose periodic-coded rows are its live
+    halo rows: they are kept and imaged like owned rows (without it they
+    are stale ghosts and die)."""
     n = st.n
     G = cfg.ghost_cap
     ks = csp.kernelsize
@@ -94,8 +116,10 @@ def ghost_rows(cfg: PeriodicCfg, csp: CteSph, st):
     rows = {k: getattr(st, k) for k in GHOST_FIELDS
             if getattr(st, k) is not None}
     dead = _dead_code()
-    rows["code"] = torch.where(td.is_periodic(rows["code"]), dead,
-                               rows["code"])
+    if not halo:
+        rows["code"] = torch.where(td.is_periodic(rows["code"]), dead,
+                                   rows["code"])
+    origin = torch.arange(n, device=dev)
     overflow = torch.zeros((), dtype=torch.int32, device=dev)
     garange = torch.arange(G, device=dev)
     for ax in range(3):
@@ -105,7 +129,7 @@ def ghost_rows(cfg: PeriodicCfg, csp: CteSph, st):
         nrows = rows["pos"].shape[0]
         live = td.is_active(rows["code"])
         x = rows["pos"][:, ax]
-        blocks = []
+        blocks, origins = [], []
         for shift in (L, -L):
             near = live & ((x < cfg.lo[ax] + ks) if shift > 0
                            else (x >= cfg.hi[ax] - ks))
@@ -128,28 +152,48 @@ def ghost_rows(cfg: PeriodicCfg, csp: CteSph, st):
                 valid, td.code_set_special(blk["code"], td.SPECIAL_PERIODIC),
                 dead)
             blocks.append(blk)
+            origins.append(origin[src])
         rows = {k: torch.cat([v] + [b[k] for b in blocks])
                 for k, v in rows.items()}
-    return rows, overflow
+        origin = torch.cat([origin] + origins)
+    return rows, overflow, origin
 
 
 def periodic_interaction(cfg: PeriodicCfg, csp: CteSph, dom: cd.Domain, st,
-                         interact):
+                         interact, refresh=None):
     """One interaction under periodic boundaries.  Wraps the state, builds
     its ghost rows, divides the rows together and runs ``interact(rows,
-    cells) -> (rows, Forces)`` on them in cell order; returns (the wrapped
-    state with the interaction's vel, rho and code of its rows, the
+    cells, refresh) -> (rows, Forces)`` on them in cell order; returns (the
+    wrapped state with the interaction's vel, rho and code of its rows, the
     Forces of its rows with ``overflow`` set).  The state's own slot order
     is left as it is, so the step's arrays (the predictor's, ``pose``) stay
-    valid."""
+    valid.
+
+    ``refresh(st) -> st``: one rank's halo refresh under a domain
+    decomposition (None otherwise).  The halo rows are refreshed after the
+    wrap and before the images are made, and kept; the ``refresh`` handed
+    to ``interact`` (None without one) brings the rows' vel and rho up to
+    date again through the state, the images from their origins (the
+    second refresh after the mDBC pre-pass)."""
     st = replace(st, pos=wrap(cfg, st.pos, st.code))
-    rows, overflow = ghost_rows(cfg, csp, st)
+    if refresh is not None:
+        st = refresh(st)
+    rows, overflow, origin = _ghost_rows(cfg, csp, st,
+                                         halo=refresh is not None)
     cells, code = cd.divide_cells(dom, rows["pos"], rows["code"])
     order = cells.order
-    srt, fr = interact(_rows_state(st, rows, code, order), cells)
     back = torch.empty_like(order)
     back[order] = torch.arange(order.shape[0], device=order.device)
     back = back[:st.n]
+    again = None
+    if refresh is not None:
+        src = origin[order]
+
+        def again(srt):
+            s = refresh(replace(st, vel=srt.vel[back], rho=srt.rho[back]))
+            return replace(srt, vel=s.vel[src], rho=s.rho[src])
+
+    srt, fr = interact(_rows_state(st, rows, code, order), cells, again)
     st = replace(st, vel=srt.vel[back], rho=srt.rho[back],
                  code=srt.code[back])
     per_row = {k: getattr(fr, k)[back] for k in (

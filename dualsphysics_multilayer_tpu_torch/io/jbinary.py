@@ -1,7 +1,8 @@
 """JBinaryData-compatible self-describing binary container (.bi4 family).
 
 Counterpart of `dualsphysics_multilayer_tpu/io/jbinary.py`, whose
-pure-Python writer and reader it copies: the base of every DualSPHysics
+pure-Python writer and reader it copies (and, as there, a C++ writer of
+the same bytes, ``native/``, by default): the base of every DualSPHysics
 particle-data file (PART .bi4, Part_Head.ibi4, PartOut .obi4, PartFloat
 .fbi4): a 64-byte header ("#FileJBD <filecode>") followed by a tree of items,
 each carrying named typed values and typed arrays.  Files written here are
@@ -183,39 +184,51 @@ def _itembase_blob(item: JItem, values_size: int) -> bytes:
     return b"".join(out)
 
 
-def _array_blob(ar: JArray) -> bytes:
-    data = np.ascontiguousarray(ar.data)
-    raw = data.astype(_NP_DTYPE[ar.type], copy=False).tobytes()
+def _array_head(ar: JArray, nbytes: int) -> bytes:
     base = []
     _w_str(base, CODE_ARRAY)
     _w_str(base, ar.name)
     base.append(struct.pack("<i", 0))          # hide
     base.append(struct.pack("<i", ar.type))
     base.append(struct.pack("<I", ar.count))
-    base.append(struct.pack("<I", len(raw)))
+    base.append(struct.pack("<I", nbytes))
     base_b = b"".join(base)
-    return struct.pack("<I", len(base_b)) + base_b + raw
+    return struct.pack("<I", len(base_b)) + base_b
 
 
-def _item_blob(item: JItem) -> bytes:
+def _write_item(f, item: JItem):
+    """Stream ``item`` to the open file ``f``: its heads, then each
+    array's buffer as it is (no copy unless its type needs a cast)."""
     values = _values_blob(item)
     base = _itembase_blob(item, len(values))
-    out = [struct.pack("<I", len(base)), base, values]
+    f.write(struct.pack("<I", len(base)) + base + values)
     for ar in item.arrays:
-        out.append(_array_blob(ar))
+        data = np.ascontiguousarray(
+            np.ascontiguousarray(ar.data).astype(_NP_DTYPE[ar.type],
+                                                 copy=False))
+        f.write(_array_head(ar, data.nbytes))
+        f.write(memoryview(data).cast("B"))
     for it in item.items:
-        out.append(_item_blob(it))
-    return b"".join(out)
+        _write_item(f, it)
 
 
-def write_file(path, root: JItem, filecode=None):
+def write_file(path, root: JItem, filecode=None, native=True):
+    """Write the tree ``root`` as a .bi4 file of ``filecode`` (the root's
+    name by default): through the port's C++ writer (``native/``, built
+    with g++ at first use; a failed build or write raises), or with
+    ``native=False`` through the pure writer below, which streams each
+    array's buffer to the file, byte for byte the same file."""
+    if native:
+        from ..native import write_item
+        write_item(path, root, filecode)
+        return
     filecode = filecode or root.name
     titu = ("#FileJBD " + filecode)[:58].ljust(58) + "\n"
     head = titu.encode() + b"\x00" + bytes([0, 0, 0, 0])
     assert len(head) == 64
     with open(path, "wb") as f:
         f.write(head)
-        f.write(_item_blob(root))
+        _write_item(f, root)
 
 
 # ---------------------------------------------------------------------------

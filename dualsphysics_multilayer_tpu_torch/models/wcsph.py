@@ -213,19 +213,22 @@ def _sync_flags(csp: CteSph, margin: float, carry: StepCarry, filled=None,
     ``filled`` (0-d bool), an inout slot filled in the layout's dead tail,
     forces the next rebuild: the skin contract cannot see a reused slot
     (its stale ``pos0`` may lie near the spawn point).  Under a domain
-    decomposition (``dd``, a ``sharding.SlabRank``) the flag and the last
-    rebuild's overflow are first reduced with MAX over the ranks, so every
-    rank rebuilds at the same step."""
+    decomposition (``dd``, a ``sharding.SlabRank``) the flag, the step's
+    overflow counts and the last rebuild's are first reduced with MAX over
+    the ranks (one collective), so every
+    rank rebuilds at the same step and every rank reads the same
+    overflow counts."""
     need = (_rebuild_needed(csp, margin, carry) if dd is None
             else _rebuild_needed(csp, margin, carry, dd))
     if filled is not None:
         need = need | filled
-    shard = None
+    kinds = [(k, v) for k, v in (
+        ("ghosts", ghosts), ("inout", inout), ("dem", dem), ("nbr", nbr),
+        ("shard", None if dd is None else carry.shard_overflow))
+        if v is not None]
     if dd is not None:
-        need, shard = dd.agree(need, carry.shard_overflow)
-    kinds = [(k, v) for k, v in (("ghosts", ghosts), ("inout", inout),
-                                 ("dem", dem), ("nbr", nbr),
-                                 ("shard", shard)) if v is not None]
+        need, maxima = dd.agree(need, [v for _, v in kinds])
+        kinds = [(k, v) for (k, _), v in zip(kinds, maxima)]
     vals = [need.to(carry.t.dtype), carry.t, carry.tabs]
     vals += [v.to(carry.t.dtype) for _, v in kinds]
     out = torch.stack(vals).tolist()
@@ -273,6 +276,19 @@ def _margin(csp: CteSph, dom: cd.Domain) -> float:
     return margin
 
 
+def check_ids(st: SimState, feats: Features | None) -> None:
+    """Periodic and inout boundaries rank particles by id (slot order in
+    the JAX package) and DEM keys its tables by id: ValueError unless the
+    ids of ``st`` are a permutation of 0..n-1 (one read)."""
+    if feats is not None and (feats.periodic is not None
+                              or feats.inout is not None
+                              or feats.dem is not None):
+        if not torch.equal(torch.sort(st.idp).values,
+                           torch.arange(st.n, device=st.idp.device)):
+            raise ValueError("periodic and inout boundaries and DEM need "
+                             "the ids to be a permutation of 0..n-1")
+
+
 def make_carry(st: SimState, csp: CteSph, opts: SolverOpts,
                dom: cd.Domain, feats: Features | None = None,
                t0: float = 0.0, dd=None) -> StepCarry:
@@ -287,23 +303,16 @@ def make_carry(st: SimState, csp: CteSph, opts: SolverOpts,
     single-phase and the NN steps alike; each step checks its own
     interaction's settings.  The Verlet step reads the M1 state: ValueError
     unless the state has it (the case built with ``need_verlet=True``);
-    periodic and inout boundaries rank particles by id and DEM keys its
-    tables by id: ValueError unless the ids are a permutation of 0..n-1
-    (one read at setup).  Under ``opts.use_nbrlist`` the first divide is
+    :func:`check_ids` checks the ids of a state with periodic or inout
+    boundaries or DEM.  Under ``opts.use_nbrlist`` the first divide is
     on the neighbour list's grid, with its overflow count (read by the
     first step's copy).  Under a domain decomposition (``dd``, a
     ``sharding.SlabRank``; ``st`` the rank's slots, ``dom`` its slab's
     grid) the first divide is the rank's rebuild: migration, halo rows
-    and the divide of its slab."""
-    if feats is not None and (feats.periodic is not None
-                              or feats.inout is not None
-                              or feats.dem is not None):
-        # ghost and spawn choices rank the particles by id (slot order in
-        # the JAX package)
-        if not torch.equal(torch.sort(st.idp).values,
-                           torch.arange(st.n, device=st.idp.device)):
-            raise ValueError("periodic and inout boundaries and DEM need "
-                             "the ids to be a permutation of 0..n-1")
+    and the divide of its slab; the ids are then the global state's
+    (``sharding.ShardedSimulation`` checks them), not the rank's slots'."""
+    if dd is None:
+        check_ids(st, feats)
     if opts.tstep == TpStep.VERLET and (st.velm1 is None or st.rhom1 is None):
         raise ValueError("the Verlet step needs the M1 state SimState.velm1 "
                          "and SimState.rhom1: build the case with "
@@ -346,11 +355,9 @@ def _interaction(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     run with the mDBC diffusion rule, as in JAX.  Under ``opts.symmetry``
     only the interaction meets the mirror images: the pre-pass has no
     symmetry term, as JAX's `ops/mdbc.py` has none.  ``refresh(st) ->
-    st`` (a domain decomposition's) brings the ghost rows up to date before
-    the pass, and once more after the pre-pass, which corrects the owners'
-    walls (JAX `sharding.py:553-569`)."""
-    if refresh is not None:
-        st = refresh(st)
+    st`` (a domain decomposition's; the caller refreshed the ghost rows
+    before the pass) brings them up to date once more after the pre-pass,
+    which corrects the owners' walls (JAX `sharding.py:553-569`)."""
     if opts.tboundary == TpBoundary.MDBC and st.boundnormal is not None:
         vel, rho = MD.mdbc_correction(csp, opts, dom, cells, st.pos, st.vel,
                                       st.rho, st.code, st.boundnormal,
@@ -378,14 +385,18 @@ def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     bodies' update with the moorings' and force points' forces (the lines'
     nodes ``moor``) and the Chrono couplings, or None.  Under a domain
     decomposition (``dd``) each interaction first refreshes the ghost rows
-    and the bodies' partial sums are added over the ranks."""
+    (under periodic boundaries after the wrap and before the images, which
+    then include the halo rows), DEM runs over owned and halo rows with
+    only the owned ones as targets, its pass walking the rank's own
+    floating rows alone, and the bodies' partial sums are added over the
+    ranks."""
     F.check_supported(csp, opts)
     floating = accinputs = periodic = dem = None
     if feats is not None:
         feats.check_supported()
         floating, accinputs = feats.floating, feats.accinputs
         periodic, dem = feats.periodic, feats.dem
-    dem_layout = DEM.DemLayout()
+    dem_layout = DEM.DemLayout(local=dd is not None)
 
     def interaction(st, carry, dt):
         ftomassp = None
@@ -399,7 +410,7 @@ def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             def refresh(s):
                 return dd.refresh(s, carry.halo)
 
-        def interact(st, cells):
+        def interact(st, cells, refresh):
             st, fr = _interaction(csp, opts, dom, st, cells, ftomassp,
                                   ddtkh=ddtkh, visco=visco, refresh=refresh)
             if dem is not None:
@@ -419,9 +430,11 @@ def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             # the wrap, the ghost rows and a divide of their own at every
             # interaction (JAX applies periodic at each one)
             st, fr = PER.periodic_interaction(periodic, csp, dom, st,
-                                              interact)
+                                              interact, refresh)
         else:
-            st, fr = interact(st, carry.cells)
+            if refresh is not None:
+                st = refresh(st)
+            st, fr = interact(st, carry.cells, refresh)
         if accinputs:
             fr = replace(fr, ace=ACC.apply_accinput(
                 accinputs, csp, carry.tabs, st.pos, st.vel, st.code, fr.ace))
@@ -510,19 +523,36 @@ def _after_update(csp: CteSph, feats: Features | None, rigid,
     return after
 
 
-def _inout_hook(csp: CteSph, dom: cd.Domain, feats: Features | None):
-    """inout(st, cells, tabs, nstep) -> (st, overflow, filled): the
-    inlet/outlet pass after the step's other hooks (JAX `wcsph.py:638-641`,
-    `:752-755`), reading the step's layout for the extrapolated modes; None
-    without zones.  Conversions, captures and destructions change codes
-    only, which kernel 1 reads at every launch; a filled slot forces the
-    next rebuild (:func:`_sync_flags`)."""
+def _inout_hook(csp: CteSph, dom: cd.Domain, feats: Features | None,
+                dd=None):
+    """inout(st, carry) -> (st, overflow, filled): the inlet/outlet pass
+    after the step's other hooks (JAX `wcsph.py:638-641`, `:752-755`) at
+    the carry's ``tabs`` and ``nstep``, reading its layout for the
+    extrapolated modes; None without zones.  Conversions, captures and
+    destructions change codes only, which kernel 1 reads at every launch;
+    a filled slot forces the next rebuild (:func:`_sync_flags`).  Under a
+    domain decomposition (``dd``) a spawn takes only the slots
+    ``dd.spawn_slots`` leaves it, ``dd.spawned`` counts the spawns and
+    the requests that found no slot, and the calculated zsurf and the AWAS
+    column mass are reduced over the ranks (JAX's ``pmax`` and ``psum``,
+    `features/inout.py:148-149`, `:382`)."""
     if feats is None or feats.inout is None:
         return None
 
-    def inout(st, cells, tabs, nstep):
-        return IO.inout_step(feats.inout, csp, st, tabs, nstep=nstep,
-                             dom=dom, cells=cells)
+    def inout(st, carry):
+        if dd is None:
+            return IO.inout_step(feats.inout, csp, st, carry.tabs,
+                                 nstep=carry.nstep, dom=dom,
+                                 cells=carry.cells)
+        usable = dd.spawn_slots(st, carry.halo)
+        out, ovf, filled = IO.inout_step(
+            feats.inout, csp, st, carry.tabs, nstep=carry.nstep, dom=dom,
+            cells=carry.cells, usable=usable, owns=dd.owns,
+            reduce_max=lambda x: dd.reduce_max(x)[0],
+            reduce_sum=dd.reduce_sum)
+        dd.spawned((usable & ~td.is_active(st.code)
+                    & td.is_active(out.code)).sum() + ovf)
+        return out, ovf, filled
 
     return inout
 
@@ -560,7 +590,7 @@ def make_symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     interaction, rigid = _single_phase(csp, opts, dom, feats, spec, dd)
     return symplectic_step(csp, opts, dom, interaction, rigid,
                            _after_update(csp, feats, rigid, True),
-                           _inout_hook(csp, dom, feats), spec, dd)
+                           _inout_hook(csp, dom, feats, dd), spec, dd)
 
 
 def make_verlet_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
@@ -576,7 +606,7 @@ def make_verlet_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     dom, spec = NB.layout(csp, opts, dom)
     interaction, rigid = _single_phase(csp, opts, dom, feats, spec, dd)
     after = _after_update(csp, feats, rigid, False)
-    inout = _inout_hook(csp, dom, feats)
+    inout = _inout_hook(csp, dom, feats, dd)
     margin = _margin(csp, dom)
 
     def step(carry: StepCarry) -> StepCarry:
@@ -605,8 +635,7 @@ def make_verlet_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             st, awas, moor = after(st, fr.ace, carry.tabs, dt, awas, moor)
         ovf_io = filled = None
         if inout is not None:
-            st, ovf_io, filled = inout(st, carry.cells, carry.tabs,
-                                       carry.nstep)
+            st, ovf_io, filled = inout(st, carry)
         _record_ftmotion(carry, st, carry.tabs + dt)
         carry = replace(
             carry, st=st, t=carry.t + dt, dt_pre=dt, nstep=carry.nstep + 1,
@@ -681,8 +710,8 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     bodies after the predictor (dt/2); ``after(st, ace, tabs, dt, awas,
     moor) -> (st, awas, moor)`` runs the hooks after the corrector
     (:func:`_after_update`, the bodies over dt and the mooring lines among
-    them); ``inout(st, cells, tabs, nstep) -> (st,
-    overflow, filled)`` the inlet/outlet pass last (:func:`_inout_hook`).
+    them); ``inout(st, carry) -> (st, overflow, filled)`` the inlet/outlet
+    pass last (:func:`_inout_hook`).
     ``spec``: the neighbour list's, whose overflow each rebuild counts.
     ``dd``: one rank of a domain decomposition (``parallel/sharding.py``
     ``SlabRank``): ``dom`` is its slab's grid, the rebuild migrates and
@@ -733,8 +762,7 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             st, awas, moor = after(st, fr2.ace, carry.tabs, dt, awas, moor)
         ovf_io = filled = None
         if inout is not None:
-            st, ovf_io, filled = inout(st, carry.cells, carry.tabs,
-                                       carry.nstep)
+            st, ovf_io, filled = inout(st, carry)
         _record_ftmotion(carry, st, carry.tabs + dt)
 
         carry = replace(

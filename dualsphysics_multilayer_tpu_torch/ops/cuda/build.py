@@ -9,6 +9,8 @@ plain C interface, at first use, and loads them with ctypes.
   per library, started together.
 * :func:`host_twin_library` compiles the matching ``*_host.cpp`` with
   ``g++``: the same per-thread bodies in a loop on the CPU, for tests.
+* :func:`host_library` compiles other C++ sources with ``g++`` (the native
+  .bi4 writer, ``native/``).
 
 Each library lands in ``_build/`` inside the package, named by a hash of
 its sources, every header of ``csrc/``, its compiler command and the
@@ -138,13 +140,19 @@ def build_cuda_libraries() -> dict:
         return dict(ex.map(one, LIBRARIES))
 
 
+def host_library(name: str, sources: list) -> str:
+    """Compile the C++ ``sources`` with g++ into ``_build/<name>-<key>.so``
+    unless it is there; returns the path."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: {name} cannot be built")
+    return _build(name, [gxx] + GXX_FLAGS, sources)
+
+
 @functools.cache
 def host_twin_library(name: str) -> ctypes.CDLL:
     """The g++-built CPU twin of ``LIBRARIES[name]``: each ``<fn>_host``
     takes the CUDA launcher's arguments without the stream."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        raise RuntimeError("g++ not found: the CPU twin cannot be built")
     _cuda, source, functions = LIBRARIES[name]
-    path = _build(f"{name}_host", [gxx] + GXX_FLAGS, [os.path.join(CSRC, source)])
+    path = host_library(f"{name}_host", [os.path.join(CSRC, source)])
     return _load(path, functions, twin=True)

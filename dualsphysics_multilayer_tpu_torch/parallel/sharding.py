@@ -27,11 +27,28 @@ steps through one object, :class:`SlabRank` (their ``dd`` argument):
   no divide: the skin contract keeps the ghost set sufficient, as it keeps
   the layout valid.  Under mDBC the pre-pass runs between two refreshes.
   Ghost rows carry the periodic special code, so they stay out of AceMax,
-  the floating sums and the rebuild test, and whatever the integrators do
-  to them is overwritten at the next refresh.
+  the floating sums, the rebuild test and the inlet/outlet pass, and
+  whatever the integrators do to them is overwritten at the next refresh.
+* **Open boundaries and DEM** (JAX's sharded step, `sharding.py:833-878`,
+  `:911-968`), each on the same layout over kernel 1: y/z-periodic
+  boundaries wrap the owned rows, refresh the ghost rows and image both
+  in each interaction (``features/periodic.py``); DEM runs over owned and
+  ghost rows, the owned ones its targets, its dt term among the MAX
+  maxima; the inlet/outlet pass runs on the owned rows, a spawn landing
+  in a dead slot that holds an id of the global state's free pool
+  (:func:`spare_ids`, split between the ranks, and shared out again at
+  every rebuild by :func:`_rebalance_pool` in proportion to the spawns
+  each rank has made, so the ids of particles that die on a rank that
+  does not spawn go back to the ranks that do), never
+  in a slot the refresh writes nor the last one, and its calculated zsurf
+  and AWAS column mass are reduced over the ranks.  Every overflow count
+  of a step joins the one MAX of its rebuild flag.
 * **Reductions.**  One ``all_reduce(MAX)`` of the stacked ``[velmax,
   acemax, viscdtmax(, viscetadtmax)]`` per interaction (JAX's three
-  ``pmax``), one of ``[rebuild flag, overflow]`` per step, and one
+  ``pmax``), one of ``[rebuild flag, overflow counts]`` per step, one MAX
+  of each calculated zsurf and one SUM of each AWAS column mass of the
+  inlet/outlet zones, one SUM of the free pool's table per rebuild when
+  a zone can spawn, and one
   ``all_reduce(SUM)`` of the floating bodies' partial sums per rigid
   update, after which the body solve, the moorings and Chrono run
   replicated on every rank.
@@ -41,17 +58,18 @@ steps through one object, :class:`SlabRank` (their ``dd`` argument):
   no free slot, are counted on the device into the step's overflow
   (``StepCarry.overflow_shard``), which fails the run: never silent.
   Every rank keeps its last slot dead, so an index list's padding always
-  names a dead slot.
+  names a dead slot.  Dead slots hold id -1, except those holding an id
+  of the free pool; migrants and ghost rows land only in slots of id -1,
+  so no id is lost.
 
 :class:`ShardedSimulation` runs the loop (the CLI's ``-shard[:N]``):
 rank 0 is the calling process, saves PARTs after a gather ordered by id,
 and runs the diagnostics on the gathered state.  Refused here, each with a
 ``NotImplementedError`` naming it: x-periodic boundaries (JAX's own
-words), y/z-periodic boundaries, inlet/outlet zones, DEM contact and
-AWAS, whose surface measurement needs the columns of every slab (the JAX
-sharded step skips it silently).  The neighbour-list mode is a
-single-device layout: the sharded steps walk their slab's grid, as JAX's
-do.
+words) and the wave paddles' AWAS (``Features.awas``), whose surface
+measurement needs the columns of every slab (the JAX sharded step skips
+it silently).  The neighbour-list mode is a single-device layout: the
+sharded steps walk their slab's grid, as JAX's do.
 """
 
 from __future__ import annotations
@@ -194,16 +212,24 @@ def _compact(flags, cap: int):
     return rows[:cap], valid, torch.clamp(cnt - cap, min=0)
 
 
+def _plain_free(st: SimState):
+    """(n,) bool: the dead slots of id -1 (no free-pool id), never the
+    last one."""
+    free = (st.code == _DEAD) & (st.idp < 0)
+    free[st.n - 1] = False
+    return free
+
+
 def _merge_into_free(st: SimState, names, recv):
-    """Write received rows into dead slots, never the last one.  Returns
-    (state, dst (m,), overflow, received): ``dst`` the slot of each
-    received row (the last slot where it is padding or found no room),
-    ``received`` the valid rows."""
+    """Write received rows into dead slots of id -1, never the last one
+    (a slot holding a free-pool id keeps it).  Returns (state, dst (m,),
+    overflow, received): ``dst`` the slot of each received row (the last
+    slot where it is padding or found no room), ``received`` the valid
+    rows."""
     n = st.n
     fields = _unpack(recv, st, names)
     valid = fields["code"] != _DEAD
-    free = st.code == _DEAD
-    free[n - 1] = False
+    free = _plain_free(st)
     m = recv.shape[0]
     slots, _, _ = _compact(free, m)
     rrank = torch.cumsum(valid.to(torch.int32), 0) - 1
@@ -216,7 +242,8 @@ def _merge_into_free(st: SimState, names, recv):
 
 
 def _dead_rows(like: SimState, m: int) -> dict:
-    """Fields of ``m`` dead slots (JAX ``shard_state``'s fill)."""
+    """Fields of ``m`` dead slots (JAX ``shard_state``'s fill, with id
+    -1)."""
     out = {}
     for k in _names(like):
         a = getattr(like, k)
@@ -225,12 +252,25 @@ def _dead_rows(like: SimState, m: int) -> dict:
     out["code"].fill_(_DEAD)
     out["pos"].fill_(-1e6)
     out["rho"].fill_(1000.0)
+    out["idp"].fill_(-1)
     return out
 
 
 # ---------------------------------------------------------------------------
 # host-side distribution
 # ---------------------------------------------------------------------------
+
+def _owner(cfg: ShardCfg, x):
+    """The rank owning x-coordinates ``x`` (numpy or torch): its x-cell's
+    slab, clamped to the ranks."""
+    g = cfg.gdom
+    if torch.is_tensor(x):
+        xcell = torch.floor((x - g.posmin[0]) / g.scell).long()
+        return torch.clamp(torch.div(xcell, cfg.ncx_loc,
+                                     rounding_mode="floor"), 0, cfg.ndev - 1)
+    xcell = np.floor((x - g.posmin[0]) / g.scell).astype(np.int64)
+    return np.clip(xcell // cfg.ncx_loc, 0, cfg.ndev - 1)
+
 
 def shard_state(cfg: ShardCfg, st: SimState) -> SimState:
     """Distribute a canonical state into the (ndev*n_local) sharded layout
@@ -243,9 +283,7 @@ def shard_state(cfg: ShardCfg, st: SimState) -> SimState:
     code = d["code"]
     live = ((code >> td.CODE_SPECIAL_SHIFT) & td.CODE_SPECIAL_MASK) \
         < td.SPECIAL_OUT_POS
-    xcell = np.floor((d["pos"][:, 0] - cfg.gdom.posmin[0])
-                     / cfg.gdom.scell).astype(np.int64)
-    owner = np.clip(xcell // cfg.ncx_loc, 0, cfg.ndev - 1)
+    owner = _owner(cfg, d["pos"][:, 0])
     out = {k: np.zeros((cfg.ndev * cfg.n_local,) + a.shape[1:], a.dtype)
            for k, a in d.items()}
     out["code"][:] = _DEAD
@@ -265,14 +303,73 @@ def shard_state(cfg: ShardCfg, st: SimState) -> SimState:
     return SimState(ft=st.ft, **kw)
 
 
-def _rank_state(cfg: ShardCfg, sharded: SimState, rank: int,
-                device) -> SimState:
+def _pool_bounds(weight, total):
+    """(ndev+1,) int64: the bounds of each rank's block of a free pool of
+    ``total`` ids (0-d) in id order, in proportion to ``weight`` (ndev,)
+    float64, evenly where it sums to 0 (one rule for :func:`spare_ids` and
+    :func:`_rebalance_pool`)."""
+    weight = torch.where(weight.sum() > 0, weight, torch.ones_like(weight))
+    cuts = torch.round(torch.cumsum(weight, 0) / weight.sum() * total)
+    return torch.cat([torch.zeros(1, dtype=torch.int64, device=cuts.device),
+                      cuts.to(torch.int64)])
+
+
+def _spawners(feats: Features | None):
+    """(nzones+1,) bool by inout tag: the zones that can spawn
+    (``features.inout.can_spawn``); None without such a zone."""
+    from ..features import inout as IO
+    if feats is None or feats.inout is None:
+        return None
+    can = [False] + [IO.can_spawn(z) for z in feats.inout.zones]
+    return torch.tensor(can) if any(can) else None
+
+
+def spare_ids(cfg: ShardCfg, st: SimState, feats: Features | None = None):
+    """The ids of the global state's free pool (its inactive slots, those
+    below ``InOutCfg.n_usable`` when set: the one-device run's free slots)
+    split between the ranks without repeats, one int64 array a rank, in
+    contiguous blocks of id order: in proportion to the members each rank
+    owns at the start of the inout zones that can spawn, evenly without
+    such members (:func:`_pool_bounds`).  A rank keeps its block in its
+    dead slots, so each spawn takes an id that the one-device run could
+    also have given, and no id is given twice."""
+    from ..features import inout as IO
+    code, idp = st.code.cpu(), st.idp.cpu()
+    live = td.is_active(code)
+    iocfg = feats.inout if feats is not None else None
+    free = ~live if iocfg is None else IO._free_ids(iocfg, code, idp)
+    ids = np.sort(idp[free].numpy())
+    weight = torch.zeros(cfg.ndev, dtype=torch.float64)
+    spawners = _spawners(feats)
+    if spawners is not None:
+        member = spawners[td.code_inout(code).long()] & live
+        weight.index_add_(0, _owner(cfg, st.pos[member, 0].cpu()),
+                          torch.ones(int(member.sum()), dtype=torch.float64))
+    bounds = _pool_bounds(weight, len(ids))
+    return np.split(ids, bounds[1:-1].numpy())
+
+
+def _rank_state(cfg: ShardCfg, sharded: SimState, rank: int, device,
+                spare) -> SimState:
     """Rank ``rank``'s ``n_ext`` slots: its ``n_local`` rows of the
-    sharded layout and ``2*ghost_cap`` dead ones for the ghosts."""
+    sharded layout and ``2*ghost_cap`` dead ones for the ghosts; its first
+    dead slots hold the free-pool ids ``spare`` (:func:`spare_ids`), the
+    other dead ones id -1."""
     lo = rank * cfg.n_local
     pad = _dead_rows(sharded, 2 * cfg.ghost_cap)
-    kw = {k: torch.cat([getattr(sharded, k)[lo:lo + cfg.n_local], pad[k]]
-                       ).to(device) for k in _names(sharded)}
+    own = {k: getattr(sharded, k)[lo:lo + cfg.n_local]
+           for k in _names(sharded)}
+    dead = own["code"] == _DEAD
+    nth = torch.cumsum(dead.to(torch.int64), 0) - 1
+    spare = torch.as_tensor(np.asarray(spare, np.int64))
+    if len(spare) > int(dead.sum()):
+        raise ValueError(f"shard {rank}: {len(spare)} free-pool ids for "
+                         f"{int(dead.sum())} dead slots")
+    own["idp"] = torch.where(dead, -1, own["idp"])
+    pooled = dead & (nth < len(spare))
+    own["idp"][pooled] = spare.to(own["idp"].device)[nth[pooled]]
+    kw = {k: torch.cat([own[k], pad[k]]).to(device)
+          for k in _names(sharded)}
     ft = sharded.ft
     if ft is not None:
         ft = type(ft)(**{k: v.to(device) for k, v in vars(ft).items()})
@@ -319,8 +416,7 @@ def migrate(cfg: ShardCfg, st: SimState, rank: int, group: G.Group):
     code = torch.where(out_x, td.code_set_special(code, td.SPECIAL_OUT_POS),
                        code)
     live = live & ~out_x
-    owner = torch.clamp(torch.div(xcell, cfg.ncx_loc, rounding_mode="floor"),
-                        0, cfg.ndev - 1)
+    owner = _owner(cfg, st.pos[:, 0])
     st = replace(st, code=code)
     names = _names(st)
     rows_l, val_l, ov_l = _compact(live & (owner < rank), cfg.mig_cap)
@@ -328,10 +424,11 @@ def migrate(cfg: ShardCfg, st: SimState, rank: int, group: G.Group):
     from_l, from_r = group.exchange(
         _pack(st, names, rows_l) if rank > 0 else None,
         _pack(st, names, rows_r) if rank < group.world - 1 else None)
-    # the rows sent free their slots
+    # the rows sent free their slots; their ids live on elsewhere
     sent = torch.cat([torch.where(val_l, rows_l, n - 1),
                       torch.where(val_r, rows_r, n - 1)])
-    st = replace(st, code=st.code.index_fill(0, sent, _DEAD))
+    st = replace(st, code=st.code.index_fill(0, sent, _DEAD),
+                 idp=st.idp.index_fill(0, sent, -1))
     recv = [r for r in (from_l, from_r) if r is not None]
     ov, got = ov_l + ov_r, torch.zeros((), dtype=torch.long,
                                        device=st.pos.device)
@@ -384,17 +481,84 @@ def exchange_ghosts(cfg: ShardCfg, st: SimState, rank: int,
             nfluid)
 
 
+@dataclass(frozen=True)
+class PoolPlan:
+    """What :func:`_rebalance_pool` needs: the inout zones, which of them
+    can spawn (by tag, :func:`_spawners`) and the most ids a rank enters
+    (the global state's free pool at the start)."""
+    cfg: object                 # features.inout.InOutCfg
+    spawners: torch.Tensor      # (nzones+1,) bool
+    cap: int
+
+
+def _rebalance_pool(st: SimState, group: G.Group, pool: PoolPlan,
+                    spawns):
+    """The free pool shared out again between the ranks, in one SUM of a
+    (world, cap+2) int64 table: each rank enters its ``spawns`` so far
+    (0-d: spawns and spawn requests that found no slot), the members it
+    owns of the zones that can spawn and up to ``pool.cap`` of its pool's
+    ids, the lowest (any more stay where they are); the slots of the ids
+    entered die, and each rank takes its block of the table's ids in id
+    order (:func:`_pool_bounds`) into dead slots of id -1: in proportion
+    to the spawns, or to the members before any spawn.  The ids of
+    particles that died on a rank that does not spawn (an outlet's) so
+    come back to the ranks that do, and a rank whose zone spawns a whole
+    layer at once holds the pool as the one-device run does.  Returns
+    (state, overflow: the ids that found no slot)."""
+    from ..features import inout as IO
+    n, dev = st.n, st.idp.device
+    rank, world, cap = group.rank, group.world, pool.cap
+    big = torch.iinfo(torch.int64).max
+    pooled = IO._free_ids(pool.cfg, st.code, st.idp) & (st.idp >= 0)
+    key, order = torch.sort(torch.where(pooled, st.idp.long(), big))
+    key, order = key[:cap], order[:cap]
+    give = key < big
+    member = (pool.spawners.to(dev)[td.code_inout(st.code).long()]
+              & td.is_active(st.code) & ~td.is_periodic(st.code))
+    table = torch.zeros((world, cap + 2), dtype=torch.int64, device=dev)
+    table[rank, 0] = spawns
+    table[rank, 1] = member.sum()
+    table[rank, 2:] = torch.where(give, key + 1, 0)
+    table = group.all_reduce(table, "sum")
+    ids = table[:, 2:].reshape(-1)
+    ids = torch.sort(torch.where(ids > 0, ids - 1, big)).values
+    weight = table[:, :2].to(torch.float64)
+    weight = torch.where(weight[:, 0].sum() > 0, weight[:, 0], weight[:, 1])
+    bounds = _pool_bounds(weight, (ids < big).sum())
+    k = torch.arange(ids.shape[0], device=dev)
+    mine = (k >= bounds[rank]) & (k < bounds[rank + 1])
+    rows = torch.where(give, order, n - 1)
+    st = replace(st, code=st.code.index_fill(0, rows, _DEAD),
+                 idp=st.idp.index_fill(0, rows, -1))
+    free = _plain_free(st)
+    slots, _, _ = _compact(free, ids.shape[0])
+    nth = torch.cumsum(mine.to(torch.int32), 0) - 1
+    ok = mine & (nth < free.sum())
+    dst = torch.where(ok, slots[torch.clamp(nth, 0, ids.shape[0] - 1)],
+                      n - 1)
+    idp = st.idp.index_put((dst,), torch.where(ok, ids, -1).to(st.idp.dtype))
+    return replace(st, idp=idp), (mine & ~ok).sum()
+
+
 def _shard_rebuild(cfg: ShardCfg, st: SimState, rank: int, group: G.Group,
-                   dom: cd.Domain):
+                   dom: cd.Domain, pool: PoolPlan | None = None,
+                   spawns=0):
     """One rank's rebuild (JAX ``_shard_rebuild``): stale ghosts die,
-    owners migrate, fresh ghosts land in free slots, and owned and ghost
-    rows are divided on the slab's grid ``dom``; the halo's index lists
-    follow the state into its new slot order.  Returns (state, CellDiv,
-    HaloState, overflow, [migrants, ghost rows, fluid ghost rows])."""
+    owners migrate, the free pool is shared out again (``pool``, given
+    when a zone can spawn, with the rank's ``spawns`` so far:
+    :func:`_rebalance_pool`), fresh ghosts land in
+    free slots, and owned and ghost rows are divided on the slab's grid
+    ``dom``; the halo's index lists follow the state into its new slot
+    order.  Returns (state, CellDiv, HaloState, overflow, [migrants, ghost
+    rows, fluid ghost rows])."""
     n = st.n
-    st = replace(st, code=torch.where(td.is_periodic(st.code), _DEAD,
-                                      st.code))
+    stale = td.is_periodic(st.code)
+    st = replace(st, code=torch.where(stale, _DEAD, st.code),
+                 idp=torch.where(stale, -1, st.idp))
     st, mig_ov, nmig = migrate(cfg, st, rank, group)
+    if pool is not None:
+        st, pool_ov = _rebalance_pool(st, group, pool, spawns)
+        mig_ov = mig_ov + pool_ov
     st, send, landed, gov, nghost, nfluid = exchange_ghosts(cfg, st, rank,
                                                             group)
     cells, code = cd.divide_cells(dom, st.pos, st.code)
@@ -434,9 +598,10 @@ def _refresh_ghosts(cfg: ShardCfg, st: SimState, halo: HaloState,
             continue
         fields = _unpack(buf, st, names)
         code = fields["code"]
+        alive = td.is_active(code) & (slots != n - 1)
         fields["code"] = torch.where(
-            td.is_active(code) & (slots != n - 1),
-            td.code_set_special(code, td.SPECIAL_PERIODIC), _DEAD)
+            alive, td.code_set_special(code, td.SPECIAL_PERIODIC), _DEAD)
+        fields["idp"] = torch.where(alive, fields["idp"], -1)
         st = replace(st, **{k: getattr(st, k).index_put((slots,), v)
                             for k, v in fields.items()})
     return st
@@ -448,15 +613,18 @@ class SlabRank:
     reductions.  ``rebuilds`` keeps each rebuild's [migrants, ghost rows,
     fluid ghost rows] as 0-d device tensors (read after a run)."""
 
-    def __init__(self, cfg: ShardCfg, group: G.Group):
-        self.cfg, self.group = cfg, group
+    def __init__(self, cfg: ShardCfg, group: G.Group,
+                 pool: PoolPlan | None = None):
+        self.cfg, self.group, self.pool = cfg, group, pool
         self.dom = slab_domain(cfg, group.rank)
         self.rebuilds = []
         self.refreshes = 0
+        self.spawns = torch.zeros((), dtype=torch.int64, device=group.device)
 
     def rebuild(self, carry: W.StepCarry) -> W.StepCarry:
         st, cells, halo, ov, stats = _shard_rebuild(
-            self.cfg, carry.st, self.group.rank, self.group, self.dom)
+            self.cfg, carry.st, self.group.rank, self.group, self.dom,
+            self.pool, self.spawns)
         self.rebuilds.append(stats)
         return replace(carry, st=st, cells=cells, pos0=st.pos, dom=self.dom,
                        halo=halo, shard_overflow=ov, nbr_overflow=None,
@@ -477,11 +645,32 @@ class SlabRank:
     def reduce_sum(self, x):
         return self.group.all_reduce(x, "sum")
 
-    def agree(self, need, overflow):
-        """(need, overflow) reduced with MAX over the ranks."""
-        v = self.group.all_reduce(torch.stack([need.to(torch.float32),
-                                               overflow.to(torch.float32)]))
-        return v[0] > 0, v[1]
+    def agree(self, need, overflows):
+        """(need, [each of ``overflows``]) reduced with MAX over the ranks,
+        in one collective."""
+        v = self.group.all_reduce(torch.stack(
+            [need.to(torch.float32)]
+            + [o.to(torch.float32) for o in overflows]))
+        return v[0] > 0, list(v[1:].unbind(0))
+
+    def owns(self, pos):
+        """(m,) bool: the points ``pos`` (m, 3) this rank's slab owns."""
+        return _owner(self.cfg, pos[:, 0]) == self.group.rank
+
+    def spawned(self, count):
+        """Add ``count`` (0-d: the inlet/outlet pass's spawns and its
+        requests that found no slot) to the rank's spawns, which weigh its
+        share of the free pool."""
+        self.spawns = self.spawns + count
+
+    def spawn_slots(self, st: SimState, halo: HaloState):
+        """(n,) bool: the slots an inlet/outlet spawn may take, those
+        holding a free-pool id (dead ones hold -1 otherwise), never a slot
+        the refresh writes, nor the last one."""
+        n = st.n
+        written = torch.cat([halo.slot_l, halo.slot_r, torch.full(
+            (1,), n - 1, dtype=torch.long, device=st.idp.device)])
+        return (st.idp >= 0).index_fill(0, written, False)
 
 
 # ---------------------------------------------------------------------------
@@ -489,28 +678,23 @@ class SlabRank:
 # ---------------------------------------------------------------------------
 
 def _check_sharded_feats(feats: Features | None):
-    """The features a sharded step runs: the shard-local hooks (motion,
-    damping, relaxation zones, multi-layer pistons, accinput, the
-    viscosity table) and the floating bodies with their replicated
-    couplings; the others raise NotImplementedError naming them."""
+    """The features a sharded step runs (JAX ``_check_sharded_feats``):
+    the shard-local hooks (motion, damping, relaxation zones, multi-layer
+    pistons, accinput, the viscosity table), the floating bodies with
+    their replicated couplings and DEM, y/z-periodic boundaries and the
+    inlet/outlet zones.  x-periodic boundaries raise NotImplementedError
+    in JAX's words, and so does the wave paddles' AWAS, which JAX's
+    sharded step never runs."""
     if feats is None:
         return None
-    if feats.periodic is not None:
-        if feats.periodic.axes[0]:
-            raise NotImplementedError(
-                "x-periodic conflicts with the x-slab decomposition; shard "
-                "along a non-periodic axis (y/z periodicity is supported)")
-        raise NotImplementedError("the torch port does not cover y/z-"
-                                  "periodic boundaries (Features.periodic) "
-                                  "under -shard yet")
-    for name, what in (("inout", "inlet/outlet zones"),
-                       ("dem", "DEM contact"),
-                       ("awas", "AWAS, whose surface measurement needs "
-                                "every slab's columns")):
-        if getattr(feats, name):
-            raise NotImplementedError(f"the torch port does not cover "
-                                      f"{what} (Features.{name}) under "
-                                      f"-shard yet")
+    if feats.periodic is not None and feats.periodic.axes[0]:
+        raise NotImplementedError(
+            "x-periodic conflicts with the x-slab decomposition; shard "
+            "along a non-periodic axis (y/z periodicity is supported)")
+    if feats.awas:
+        raise NotImplementedError(
+            "the torch port does not cover AWAS, whose surface measurement "
+            "needs every slab's columns (Features.awas), under -shard")
     return feats
 
 
@@ -687,8 +871,13 @@ def rank_start(group: G.Group, cfg: ShardCfg, csp: CteSph,
     ``next_subtick``) and the view's ``errdir``, ``partsoutmax``."""
     launched0 = _launches()
     group.reset_counts()
-    dd = SlabRank(cfg, group)
-    st = _rank_state(cfg, shard_state(cfg, state), group.rank, group.device)
+    spare = spare_ids(cfg, state, feats)
+    spawners = _spawners(feats)
+    pool = None if spawners is None else PoolPlan(
+        feats.inout, spawners, max(1, sum(len(s) for s in spare)))
+    dd = SlabRank(cfg, group, pool)
+    st = _rank_state(cfg, shard_state(cfg, state), group.rank, group.device,
+                     spare[group.rank])
     step = _rank_step(cfg, csp, opts, dd, feats, phases)
     sim = _RankSimulation(csp, opts, dd, st, feats, step, t0,
                           log if group.rank == 0 else (lambda *a: None))
@@ -822,8 +1011,16 @@ class ShardedSimulation:
                                  "(-shard:N)")
             ndev = torch.cuda.device_count()
         G.plan(ndev, device.type, backend)      # refuses before any start
+        W.check_ids(state, self.feats)
         halo = 2 if (phases is not None
                      or opts.tboundary == TpBoundary.MDBC) else 1
+        if self.feats is not None and self.feats.inout is not None:
+            # a conveyor spawn lands up to layers*dp behind its crosser: it
+            # stays inside the slab's grid until the next migration (JAX
+            # `sharding.py:1489-1498`); the ranks split the free pool by id
+            # (spare_ids), below n_usable as on one device
+            band = max(z.layers * csp.dp for z in self.feats.inout.zones)
+            halo = max(halo, int(math.ceil(band / dom.scell)))
         self.cfg = make_shard_cfg(dom, ndev, state.n, halo=halo)
         self.device, self.backend, self.limit = device.type, backend, limit
         self.state0 = state

@@ -914,3 +914,56 @@ def test_sharded_steps_on_the_card_match_one_device(cuda, ndev, backend):
     assert torch.equal(got.st.idp[mine], carry.st.idp[live][o])
     err = (got.st.pos[mine] - carry.st.pos[live][o]).abs().max()
     assert float(err) <= 1e-4 * case.csp.dp
+
+
+@pytest.mark.gpu
+def test_sharded_features_on_the_card_match_one_device(cuda):
+    """Inlet/outlet zones, DEM contact and y-periodic boundaries under
+    domain decomposition on the card, at the CPU tests' size
+    (``test_torch_sharded_feats.py``): 2 ranks sharing it over gloo, one
+    start for the three jobs and the channel whose inlet needs the
+    outlet's ids back, against the card's one-device runs with JAX's
+    tolerances; each rank launches kernel 1 (its floating instance under
+    DEM) as often per step as the one-device run."""
+    from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
+    from dualsphysics_multilayer_tpu_torch.parallel import sharding as S
+    from test_torch_sharded_feats import (CHANNEL, PER_DP, channel_job,
+                                          dem_job, one_device, owned,
+                                          periodic_job, recycle_job)
+    jobs = {"channel": channel_job(device=cuda), "dem": dem_job(cuda),
+            "yperiodic": periodic_job(cuda),
+            "channel-recycle": recycle_job(cuda)}
+    refs, sims, per_step = {}, {}, {}
+    for name, (csp, opts, dom, st, feats, tmax) in jobs.items():
+        n0 = CF.launches["cellforce"]
+        refs[name] = one_device(csp, opts, dom, st, feats, tmax)
+        per_step[name] = ((CF.launches["cellforce"] - n0)
+                          / refs[name].nstep)
+        sims[name] = S.ShardedSimulation(csp, opts, dom, st, feats=feats,
+                                         ndev=2, backend="gloo", limit=300.0)
+    out = S.steps_together(list(sims.values()),
+                           [[refs[k].nstep] for k in sims])
+    for (name, sim), (carries, _) in zip(sims.items(), out):
+        got, ref = carries[-1], refs[name]
+        assert got.nstep == ref.nstep and got.overflow == 0 == ref.overflow
+        assert per_step[name] == 2
+        assert all(s["cellforce"] == 2 * s["nstep"] for s in sim.stats)
+        mg, mr = owned(got.st), owned(ref.st)
+        gid, rid = got.st.idp[mg], ref.st.idp[mr]
+        assert len(torch.unique(gid)) == len(gid)
+        if name.startswith("channel"):
+            fg = mg & td.is_fluid(got.st.code)
+            fr = mr & td.is_fluid(ref.st.code)
+            assert abs(int(fg.sum()) - int(fr.sum())) <= 2
+            com = (got.st.pos[fg].double().mean(0)
+                   - ref.st.pos[fr].double().mean(0)).abs().max()
+            assert float(com) <= 2e-3 * CHANNEL["dp"]
+            continue
+        og, orf = torch.argsort(gid), torch.argsort(rid)
+        assert torch.equal(gid[og], rid[orf])
+        if name == "dem":
+            for k, tol in (("center", 1e-6), ("fvel", 1e-5)):
+                err = (getattr(got.st.ft, k) - getattr(ref.st.ft, k)).abs()
+                assert float(err.max()) <= tol, k
+        err = (got.st.pos[mg][og] - ref.st.pos[mr][orf]).abs().max()
+        assert float(err) <= 1e-4 * (0.025 if name == "dem" else PER_DP)

@@ -1,9 +1,11 @@
 """The port's run output against the JAX package's writers and readers,
 with no JAX stepping.
 
-* ``io/jbinary``: the port's writer is byte-equal to JAX's
-  ``write_file(native=False)`` on a tree holding every value and array
-  type, and each package reads the other's file.
+* ``io/jbinary``: the port's writer (its C++ one, the default) is
+  byte-equal to JAX's ``write_file(native=False)`` on a tree holding every
+  value and array type, and each package reads the other's file; the C++
+  writer equals the pure one on that tree and deeper ones, and a failed
+  build of it raises, with no fallback.
 * ``io/partdata``: the port's ``PartWriter`` on a state in a shuffled slot
   order (the port's slots move at every rebuild), read with JAX's
   ``read_file``, gives the items JAX's ``PartWriter`` writes for the same
@@ -90,6 +92,47 @@ def test_jbinary_bytes_equal_and_cross_read(tmp_path):
                    native=False)
     assert port.read_bytes() == jax_.read_bytes()
     assert_items_equal(JB.read_file(jax_), jJB.read_file(port), set())
+
+
+def test_native_writer_bytes_equal_pure(tmp_path):
+    """The port's C++ writer (the default) writes the pure writer's bytes
+    on every value and array type, an item's own float formats, and
+    children at several depths, in order."""
+    root = every_type_tree(JB)
+    extra = root.child("Second")
+    extra.fmtfloat, extra.fmtdouble = "%g", "%.17g"
+    extra.set_float("F", -0.1)
+    extra.child("Deep").child("Deeper").add_array(
+        "x", JB.FLOAT, np.arange(3, dtype=np.float32))
+    native, pure = tmp_path / "native.bi4", tmp_path / "pure.bi4"
+    JB.write_file(native, root, filecode="AllTypes", native=True)
+    JB.write_file(pure, root, filecode="AllTypes", native=False)
+    assert native.read_bytes() == pure.read_bytes()
+    back = JB.read_file(native)
+    assert back.find("Second").find("Deep").find("Deeper").array(
+        "x").data.tolist() == [0.0, 1.0, 2.0]
+    with pytest.raises(OSError, match="cannot create"):
+        JB.write_file(tmp_path / "no" / "such.bi4", root, native=True)
+
+
+def test_native_write_raises_when_build_fails(monkeypatch, tmp_path):
+    """A failed build of the C++ writer raises from ``write_file``; it
+    does not fall back to the pure writer."""
+    from dualsphysics_multilayer_tpu_torch import native
+    from dualsphysics_multilayer_tpu_torch.ops.cuda import build
+
+    def fail(name, sources):
+        raise RuntimeError(f"kernel build failed ({name})")
+
+    monkeypatch.setattr(build, "host_library", fail)
+    native.library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="jbinary_native"):
+            JB.write_file(tmp_path / "x.bi4", every_type_tree(JB))
+        assert not (tmp_path / "x.bi4").exists()
+        JB.write_file(tmp_path / "x.bi4", every_type_tree(JB), native=False)
+    finally:
+        native.library.cache_clear()
 
 
 def assert_items_equal(a, b, skip):

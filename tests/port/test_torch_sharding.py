@@ -32,6 +32,7 @@ each rank with one torch thread; each start carries a time limit.
 import dataclasses
 import operator
 import os
+import types
 
 import jax
 import numpy as np
@@ -374,13 +375,27 @@ def test_refusals():
         S.ShardedSimulation(*args, P.Features(periodic=per((True, False,
                                                             False))),
                             ndev=2, device="cpu")
-    for feats, name in ((P.Features(periodic=per((False, False, True))),
-                         "periodic"),
-                        (P.Features(inout=object()), "inout"),
-                        (P.Features(dem=object()), "dem"),
-                        (P.Features(awas=(object(),)), "awas")):
-        with pytest.raises(NotImplementedError, match=f"Features.{name}"):
-            S.ShardedSimulation(*args, feats, ndev=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="Features.awas"):
+        S.ShardedSimulation(*args, P.Features(awas=(object(),)), ndev=2,
+                            device="cpu")
+    # z-periodic boundaries, inlet/outlet zones and DEM contact now start
+    from dualsphysics_multilayer_tpu_torch.features import dem
+    channel = cases.channel2d(dp=0.05, device="cpu")
+    stub = types.SimpleNamespace(mass=(5.0,), massp=(0.5,))
+    props = dict(young=1e6, poisson=0.3, kfric=0.45, restitu=0.2)
+    for feats, st in (
+            (P.Features(periodic=per((False, False, True))), case.state),
+            (P.Features(dem=dem.make_dem(case.csp, case.state.code, stub,
+                                         float_props=[props])), case.state)):
+        sim = S.ShardedSimulation(case.csp, P.SolverOpts(), case.dom, st,
+                                  feats, ndev=2, device="cpu")
+        assert sim.cfg.halo == 1
+    sim = S.ShardedSimulation(channel.csp, P.SolverOpts(), channel.dom,
+                              channel.state,
+                              P.Features(inout=channel.meta["inout"]),
+                              ndev=2, device="cpu")
+    # the halo reaches the zones' bands (3 layers of dp) in cells
+    assert sim.cfg.halo == int(np.ceil(3 * 0.05 / channel.dom.scell))
     with pytest.raises(ValueError, match="need a count"):
         S.ShardedSimulation(*args, device="cpu")
     with pytest.raises(ValueError, match="halo=2"):
