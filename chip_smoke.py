@@ -347,7 +347,32 @@ without printing the final result line:
     of a fluid column (the channel's fluid starts at its inlet's velocity);
     kernel 1's launches on each rank against
     the one-device run's per step, rows and bytes per refresh, each
-    job's p50 against the one-device p50.
+    job's p50 against the one-device p50;
+40. the 3D coastal run-up (BASELINE config 5, ``cases.coastal_runup3d``
+    at coastal.py's geometry: 8 x 2 m, 0.5 m deep, a 1:10 beach from x =
+    3 m, a solitary wave of 0.12 m; dp = (V/N)^(1/3) by coastal.py's
+    rule), Fourtakas, DBC, through ``make_carry``/``make_step``: (a) N =
+    10M (~11M particles): the count, the grid, the host build's seconds
+    and memory, the card's bytes per particle; kernel 1 against its plain
+    version on the initial state (phase 3's rule; the kernel alone by
+    CUDA events, 20 launches, median of 5, the plain version once) with
+    its bound; 5 warm-up and 30 timed steps (more, up to 100, until a
+    rebuild has happened): kernel 1 exactly twice a step and no other
+    kernel, a rebuild, a finite state, the fluid density within 10%,
+    overflow 0, the Kahan position residual written and within its
+    position's ulp, the p50 and particle-steps/s, ``utils.timers.
+    profile_step``'s three phases, 3 steps traced (idle share, device
+    operations) and one device-to-host copy per step over 5; (b) one PART
+    of that state through ``io.output.OutputManager`` (the C++ writer),
+    read back and equal by id (pos, vel, rho, code), its ms and bytes;
+    (c) N = 50M (~54M particles): the build, 2 warm-up and 5 timed steps
+    with the checks of (a) but the rebuild, the p50 and the card's peak
+    bytes per particle; (d) N = 2M over 2 ranks on ``cuda:0`` over gloo,
+    SHARD_COMPARE steps against the one-device run by id within 1e-6 dp,
+    live rows per rank, the report of phase 37; (e) ``dsphtorch -builtin
+    coastal_runup3d -dp 0.04`` (still water) through ``cli.main``, PARTs
+    0-2 read back; (f) ``parallel.sharding.dryrun(2, backend="gloo")``:
+    its three lines, kernel 1 six times on rank 0.
 
 Each kernel is timed twice: alone (``ms``: CUDA events around 20
 back-to-back launches of the C launcher on prepared inputs, per launch,
@@ -368,17 +393,20 @@ break (phase 4), the Verlet path, the wave flume, the full flume, the CLI
 (phase 22), the main path with step values (phase 23) and the XML dam
 break (phase 24), and the ``<initialize>`` and ``-initnorpla`` runs
 (phase 27), the channel, the duct and the periodic channel (phases
-29-31), the couplings (phases 32-34) and the neighbour-list mode (phase
-35), with ``open_states``, kernel 1
+29-31), the couplings (phases 32-34), the neighbour-list mode (phase
+35) and the coastal run-up (phase 40: ~10M, ~50M, the CLI and rank 0 of
+the dry run), with ``open_states``, kernel 1
 against its plain version on the final states of phases 29-31 and their
-step's p50 and trace, and ``coupling_states``, the same for phases 32-34
+step's p50 and trace, ``coastal_states``, phase 40's at ~10M (kernel
+against plain, p50, trace, ``profile_step``, memory, the PART) and ~50M
+(p50, memory), and ``coupling_states``, the same for phases 32-34
 with the couplings' pieces alone (DEM's pass, the rigid update with the
 lines, the lines' substep, the rigid update with Chrono), and
 ``nbrlist_state``, the same for phase 35 on the list's layout with its
 p50 step beside the default layout's, the overflow count's ms and each
 layout's candidates per pair, and ``shard_launches``, each rank's
-launches of that kernel on the sharded paths of phases 37-39, counted in
-the rank; the NN
+launches of that kernel on the sharded paths of phases 37-39 and 40,
+counted in the rank; the NN
 kernels' rows add theirs on phases 6-7, the XML runs of phase 25 and the
 mDBC runs of phase 28.
 Imports no JAX.
@@ -5213,6 +5241,412 @@ def shard_feats_path(device, smi):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# BASELINE config 5 (coastal.py:40-55): an 8 x 2 m flume, 0.5 m deep, a
+# 1:10 beach from x = 3 m, the solitary wave of 0.12 m
+COASTAL_GEOM = dict(length=8.0, width=2.0, depth=0.5, slope_start=3.0,
+                    slope=0.1, wave_height=0.12)
+COASTAL_NP = 10_000_000        # phase 40a-b: coastal.py's rule for dp
+COASTAL_NP_LARGE = 50_000_000  # phase 40c: the config's upper end
+COASTAL_NP_SHARD = 2_000_000   # phase 40d: coastal.py's one-device default
+COASTAL_WARM, COASTAL_STEPS = 5, 30     # phase 40a
+COASTAL_MORE = 100             # phase 40a: further steps allowed for a rebuild
+COASTAL_LARGE_WARM, COASTAL_LARGE_STEPS = 2, 5   # phase 40c
+COASTAL_CLI_DP = 0.04          # phase 40e: still water, ~9 steps
+COASTAL_CLI_TMAX = 0.004
+
+
+def coastal_dp(n_target):
+    """coastal.py's dp for ``n_target`` particles: (V / N)^(1/3), V the
+    flume's water L W D less the beach's wedge (at most half of it)."""
+    g = COASTAL_GEOM
+    length, width, depth = g["length"], g["width"], g["depth"]
+    wedge = 0.5 * max(0.0, length - g["slope_start"]) ** 2 * g["slope"] * width
+    vol = length * width * depth - min(wedge, length * width * depth * 0.5)
+    return (vol / n_target) ** (1.0 / 3.0)
+
+
+def host_rss():
+    """(this process's resident bytes now, its peak so far: ru_maxrss)."""
+    import resource
+    with open("/proc/self/statm") as f:
+        now = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    return now, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def free_device():
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def coastal_build(label, n_target, device, smi):
+    """``cases.coastal_runup3d`` at coastal.py's dp for ``n_target`` on the
+    card: the case, printed with its count, grid, host seconds and memory
+    (resident and peak, the peak the process's whole run's), and the
+    device bytes the build left and its peak, per particle."""
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    free_device()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rss0, peak0 = host_rss()
+    dp = coastal_dp(n_target)
+    t0 = time.perf_counter()
+    case = cases.coastal_runup3d(dp=dp, **COASTAL_GEOM, device=device)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rss1, peak1 = host_rss()
+    n = case.np_total
+    held = torch.cuda.memory_allocated() - base
+    peak = torch.cuda.max_memory_allocated() - base
+    nfluid = int(td.is_fluid(case.state.code).sum())
+    with open("/proc/meminfo") as f:
+        total = int(f.readline().split()[1]) * 1024
+    say(label, f"coastal_runup3d at dp {dp * 1e3:.4f} mm (N = {n_target:,}): "
+        f"{n:,} particles ({nfluid:,} fluid, {case.npb:,} boundary), nc "
+        f"{case.dom.nc} ({case.dom.ncells:,} cells); built in {secs:.2f} s "
+        f"on the host, resident {rss0 / 2**30:.2f} -> {rss1 / 2**30:.2f} GiB, "
+        f"the process's peak {peak0 / 2**30:.2f} -> {peak1 / 2**30:.2f} GiB "
+        f"of the host's {total / 2**30:.1f} GiB; on the card "
+        f"{held / n:.1f} bytes per particle held, {peak / n:.1f} at the "
+        f"build's peak ({held / 2**30:.3f} / {peak / 2**30:.3f} GiB) ({smi})")
+    return case, dict(n=n, nfluid=nfluid, npb=case.npb, dp=dp,
+                      nc=list(case.dom.nc), build_s=secs, rss=rss1,
+                      peak_rss=peak1, device_bytes=held, device_peak=peak)
+
+
+def coastal_steps(label, case, device, nwarm, nsteps, smi, more=0):
+    """``make_carry``/``make_step`` of the case (Fourtakas, DBC): ``nwarm``
+    + ``nsteps`` steps, then up to ``more`` further ones until a rebuild
+    has happened inside the steps (``more`` 0: none required); kernel 1
+    exactly twice a step and no other kernel, overflow 0, a finite state,
+    the fluid density within 10%, the position residual written and
+    within its position's ulp.  Returns (step, carry, the timed steps'
+    seconds, the launches, the bytes allocated on the card at most over
+    make_carry and the steps)."""
+    from dualsphysics_multilayer_tpu_torch import SolverOpts, TpDensity
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.models.wcsph import (make_carry,
+                                                                make_step)
+    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS)
+    free_device()
+    base = torch.cuda.memory_allocated()     # the case's state among it
+    torch.cuda.reset_peak_memory_stats()
+    step = make_step(case.csp, opts, case.dom)
+    carry = make_carry(case.state, case.csp, opts, case.dom)
+    nrebuild0 = carry.nrebuild
+    carry, times, _ = run_steps(step, carry, nwarm, nsteps)
+    while more and carry.nrebuild == nrebuild0 and \
+            carry.nstep < nwarm + nsteps + more:
+        carry = step(carry)
+    torch.cuda.synchronize()
+    launched = counts()
+    nrun = carry.nstep
+    single_phase_counts(launched, "cellforce", 2, nrun)
+    check_state(carry, nrun, nrebuild0 if more else None)
+    rmin, rmax = fluid_rho_range(carry.st, True, case.csp.rhopzero)
+    # the Kahan residual carries the trajectory below float32's ulp
+    # (9.5e-7 m at x = 8 m): written, and within its position's ulp
+    st = carry.st
+    live = td.is_fluid(st.code) & td.is_active(st.code)
+    pos, pose = st.pos[live].abs(), st.pose[live].abs()
+    ulp = torch.nextafter(pos, torch.full_like(pos, math.inf)) - pos
+    written = int((pose > 0).any(dim=1).sum())
+    check(written > 0, f"{label}: no fluid row carries a position residual")
+    check(bool((pose <= ulp).all()), f"{label}: a position residual exceeds "
+          f"its position's ulp")
+    residual = (f"{written:,} of {int(live.sum()):,} fluid rows carry a "
+                f"position residual, max {float(pose.max()):.3e} m, at most "
+                f"{float((pose / ulp).max()):.3f} of its position's ulp")
+    del pos, pose, ulp
+    peak = torch.cuda.max_memory_allocated()
+    n = case.np_total
+    p50 = statistics.median(times)
+    say(label, f"{n:,} particles, {nsteps} steps after {nwarm} warm-up"
+        + (f" and {nrun - nwarm - nsteps} more" if nrun > nwarm + nsteps
+           else "") + f": p50 step {p50 * 1e3:.3f} ms, {n / p50:.1f} "
+        f"particle-steps/s; cellforce {launched['cellforce']} launches in "
+        f"{nrun} steps, {carry.nrebuild - nrebuild0} rebuilds after the "
+        f"first divide, overflow {carry.overflow}, t {carry.t_host:.6f} s, "
+        f"dt {float(carry.dt_pre):.4e} s, fluid rho [{rmin:.2f}, "
+        f"{rmax:.2f}]; {residual}; allocated on the card at most "
+        f"{peak / n:.1f} bytes "
+        f"per particle over make_carry and the steps ({peak / 2**30:.3f} "
+        f"GiB; {base / 2**30:.3f} GiB before, the state among it) ({smi})")
+    return step, carry, times, launched, peak
+
+
+def coastal_kernel_vs_plain(label, case, smi):
+    """Kernel 1 against its plain version on the case's initial state
+    (phase 3's rule), the kernel alone timed with CUDA events (20
+    launches, median of 5), the plain version once; the bound from this
+    state's in-support pairs."""
+    from dualsphysics_multilayer_tpu_torch import SolverOpts, TpDensity
+    from dualsphysics_multilayer_tpu_torch.ops import forces as F
+    from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
+    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS)
+    csp, dom, st = case.csp, case.dom, case.state
+    cells, args = sorted_args(dom, st.pos, st.vel, st.rho, st.code)
+    run = (csp, opts, dom, cells, *args)
+    got = CF.interaction_forces_cuda(*run)
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    want = F.interaction_forces_plain(*run)
+    b.record()
+    b.synchronize()
+    plain_ms = a.elapsed_time(b)
+    err = {k: close(f"cellforce {k}", getattr(got, k), getattr(want, k))
+           for k in ("ace", "ar")}
+    err["viscdtmax"] = close_scalar("cellforce viscdtmax", got.viscdtmax,
+                                    want.viscdtmax)
+    del want
+    n = args[0].shape[0]
+    pospress, velrho, kind = CF.channels(csp, *args)
+    outs = [torch.empty_like(x) for x in (got.ace, got.ar, got.ar)]
+    ms = launch_ms(bare_launcher(
+        "cellforce", "dsph_cellforce", CF.make_params(csp, opts, dom, n),
+        [pospress, velrho, kind, cells.cell, cells.begin, None, None]
+        + outs + [None, None, None]))
+    cand, pairs = pair_counts(csp, dom, cells, args[0], args[3],
+                              inclusive=False)
+    b_ms, b_by = bound(cellforce_bytes(n, dom.ncells, opts),
+                       pairs * OPS_PER_PAIR["cellforce"])
+    say(label, f"kernel 1 against its plain version on the initial state, "
+        f"{n:,} particles: max|d ace| {err['ace']:.3e}, max|d ar| "
+        f"{err['ar']:.3e}, |d viscdtmax| {err['viscdtmax']:.3e}; kernel "
+        f"alone {ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events); "
+        f"{cand:,} candidates, {pairs:,} in-support pairs with a fluid-side "
+        f"target ({cand / max(pairs, 1):.2f} per pair); bound "
+        f"{b_ms * 1e3:.2f} us by {b_by}, the kernel at "
+        f"{100 * b_ms / ms:.2f}% of it ({smi})")
+    return dict(rows=n, max_abs_err=err["ace"], ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, pairs=pairs, candidates=cand)
+
+
+def coastal_part(label, case, carry, smi):
+    """Phase 40b: one PART of the run's state through the run loop's
+    writer (``io.output.OutputManager``, the C++ writer), read back and
+    equal by id to the state."""
+    import shutil
+    from dualsphysics_multilayer_tpu_torch.io import partdata as PD
+    from dualsphysics_multilayer_tpu_torch.io.output import OutputManager
+    from dualsphysics_multilayer_tpu_torch.models.wcsph import Simulation
+    sim = Simulation.__new__(Simulation)
+    sim.csp, sim.dom, sim.carry = case.csp, case.dom, carry
+    sim.time, sim.walltime, sim.part = carry.t_host, 0.0, 0
+    root = tempfile.mkdtemp(prefix="_smoke_coastal_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    try:
+        om = OutputManager(root, case, nortimes=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        om(sim)
+        ms = (time.perf_counter() - t0) * 1e3
+        copied = om.last_save_bytes
+        path = os.path.join(root, PD.part_filename(0))
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        part = PD.read_part(path)
+        read_s = time.perf_counter() - t0
+        st = carry.st
+        o = np.argsort(part["idp"])
+        idp = st.idp.cpu().numpy()
+        so = np.argsort(idp)
+        check(np.array_equal(part["idp"][o], idp[so]),
+              f"{label}: the PART holds other ids")
+        for key, got, want in (
+                ("pos", part["pos"][o], st.pos.cpu().numpy()[so]),
+                ("vel", part["vel"][o], st.vel.cpu().numpy()[so]),
+                ("rho", part["rhop"][o], st.rho.cpu().numpy()[so]),
+                ("code", part["code"][o].astype(np.int64),
+                 st.code.cpu().numpy()[so].astype(np.int64))):
+            check(np.array_equal(got, want), f"{label}: the PART's {key} "
+                  f"differs from the state's by id")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say(label, f"one PART of {st.n:,} particles through OutputManager (the "
+        f"C++ writer): {ms:.1f} ms on the host clock, {copied:,} bytes "
+        f"copied from the card ({copied / st.n:.0f} per particle), a file "
+        f"of {size:,} bytes, read back in {read_s:.2f} s, equal by id to "
+        f"the state (pos, vel, rho, code) ({smi})")
+    return dict(ms=ms, bytes_copied=copied, file_bytes=size)
+
+
+def coastal_shard(label, device, smi):
+    """Phase 40d: the case at COASTAL_NP_SHARD over 2 ranks on ``cuda:0``
+    (gloo) against the one-device run, SHARD_COMPARE steps, by id."""
+    from dualsphysics_multilayer_tpu_torch import SolverOpts, TpDensity
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.models.wcsph import (make_carry,
+                                                                make_step)
+    from dualsphysics_multilayer_tpu_torch.parallel import sharding as S
+    case, _ = coastal_build(label, COASTAL_NP_SHARD, device, smi)
+    csp, dom, st0 = case.csp, case.dom, case.state
+    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS)
+    ref, times1, launched = timed_steps(
+        make_step(csp, opts, dom), make_carry(st0, csp, opts, dom),
+        SHARD_COMPARE)
+    check(launched["cellforce"] == 2 * SHARD_COMPARE,
+          f"{launched} in the one-device reference's {SHARD_COMPARE} steps")
+    sim = S.ShardedSimulation(csp, opts, dom, st0, ndev=2, backend="gloo",
+                              limit=SHARD_LIMIT)
+    reset_counts()
+    t0 = time.perf_counter()
+    ((stats, (got,), times),) = shard_steps([sim], [SHARD_COMPARE])
+    secs = time.perf_counter() - t0
+    err = shard_error(label, got, ref)
+    check(err <= 1e-6 * csp.dp, f"{label}: 2 ranks drift {err} m from the "
+          f"one-device run in {SHARD_COMPARE} steps (1e-6 dp = "
+          f"{1e-6 * csp.dp})")
+    check(got.overflow == 0, f"{label}: overflow {got.overflow}")
+    rmin, rmax = fluid_rho_range(got.st, True, csp.rhopzero)
+    ranks = shard_launches(label, stats, launched, SHARD_COMPARE)
+    cfg = sim.cfg
+
+    def rows(st):
+        live = td.is_active(st.code)
+        return torch.bincount(S._owner(cfg, st.pos[live, 0]),
+                              minlength=cfg.ndev).tolist()
+
+    say(label, f"2 ranks on cuda:0 over gloo: {SHARD_COMPARE} steps within "
+        f"{err:.3e} m of the one-device run (1e-6 dp {1e-6 * csp.dp:.3e}), "
+        f"t {got.t_host:.9f} against {ref.t_host:.9f}, overflow 0, fluid rho "
+        f"[{rmin:.2f}, {rmax:.2f}]; live rows per rank {rows(st0)} at the "
+        f"start, {rows(got.st)} at the end (slabs of {cfg.ncx_loc} of "
+        f"{cfg.gdom.nc[0]} cell columns, {cfg.n_ext:,} slots a rank); "
+        f"{secs:.1f} s with the ranks' start; p50 step "
+        f"{statistics.median(times) * 1e3:.3f} ms on rank 0 against the "
+        f"one-device {statistics.median(times1) * 1e3:.3f} ms (one card "
+        f"shared by two ranks over gloo: a check, not a speed) ({smi})")
+    per_rank = shard_report(label, sim, stats, ranks, smi)
+    return dict(ranks=ranks, err=err, per_rank=per_rank,
+                p50_ms=statistics.median(times) * 1e3,
+                one_device_p50_ms=statistics.median(times1) * 1e3)
+
+
+def coastal_cli(label, device, smi):
+    """Phase 40e: ``dsphtorch -builtin coastal_runup3d -dp
+    COASTAL_CLI_DP`` (still water) through ``cli.main``: PARTs 0-2 read
+    back, kernel 1 twice a step and no other kernel."""
+    import shutil
+    from dualsphysics_multilayer_tpu_torch import cli
+    from dualsphysics_multilayer_tpu_torch.io import partdata as PD
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    case = cases.coastal_runup3d(dp=COASTAL_CLI_DP, device=device)
+    root = tempfile.mkdtemp(prefix="_smoke_coastal_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    try:
+        argv = ["-builtin", "coastal_runup3d", "-dp", repr(COASTAL_CLI_DP),
+                f"-tmax:{COASTAL_CLI_TMAX!r}",
+                f"-tout:{COASTAL_CLI_TMAX / 2!r}", "-nortimes",
+                "-dirout", root]
+        reset_counts()
+        t0 = time.perf_counter()
+        check(cli.main(argv) == 0, f"{label}: the CLI failed")
+        wall = time.perf_counter() - t0
+        launched = counts()
+        parts = read_parts(PD, root, case.np_total, case.csp.rhopzero)
+        check(sorted(parts) == [0, 1, 2], f"{label}: PARTs {sorted(parts)}")
+        nsteps = parts[2]["nstep"]
+        single_phase_counts(launched, "cellforce", 2, nsteps)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say(label, f"dsphtorch {' '.join(argv[:-2])}: {case.np_total:,} "
+        f"particles, PARTs 0-2 read back (ids, finite positions, fluid "
+        f"density within 10%), {nsteps} steps in {wall:.1f} s, cellforce "
+        f"{launched['cellforce']} launches ({smi})")
+    return launched["cellforce"]
+
+
+def coastal_dryrun(label, smi):
+    """Phase 40f: ``sharding.dryrun(2, backend="gloo")`` on ``cuda:0``:
+    its three lines, and kernel 1's launches on rank 0 (this process)."""
+    from dualsphysics_multilayer_tpu_torch.parallel import sharding as S
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        S.dryrun(2, backend="gloo")
+    wall = time.perf_counter() - t0
+    lines = [x for x in out.getvalue().splitlines()
+             if x.startswith("dryrun_multichip(2): ")]
+    check(len(lines) == 3, f"{label}: {out.getvalue()!r}")
+    launched = counts()
+    check(launched["cellforce"] == 6, f"{label}: rank 0 launched "
+          f"{launched}, expected cellforce twice in each case's step")
+    for x in lines:
+        say(label, x)
+    say(label, f"{wall:.1f} s with the ranks' start; cellforce "
+        f"{launched['cellforce']} launches on rank 0 ({smi})")
+    return launched["cellforce"]
+
+
+def coastal_path(device, smi):
+    """Phase 40: the 3D coastal run-up (BASELINE config 5) at ~10M and
+    ~50M particles on the card, a PART at ~10M, 2 ranks at ~2M, the CLI
+    and the dry run.  Returns (cellforce's launches per run, the records
+    at ~10M and ~50M, the 2-rank run's record)."""
+    from dualsphysics_multilayer_tpu_torch import SolverOpts, TpDensity
+    from dualsphysics_multilayer_tpu_torch.utils.timers import profile_step
+    paths = {}
+    # a. ~10M particles
+    case, built = coastal_build("coastal-10m", COASTAL_NP, device, smi)
+    rec = coastal_kernel_vs_plain("coastal-10m", case, smi)
+    free_device()
+    step, carry, times, launched, peak = coastal_steps(
+        "coastal-10m", case, device, COASTAL_WARM, COASTAL_STEPS, smi,
+        more=COASTAL_MORE)
+    paths["coastal-10m"] = launched["cellforce"]
+    p50 = statistics.median(times)
+    phases = profile_step(case.csp, SolverOpts(tdensity=TpDensity.FOURTAKAS),
+                          case.dom, carry.st, reps=10)
+    r = trace_steps(step, carry, 3, ("cellforce",))
+    check(r is not None, "coastal-10m: the trace of 3 steps holds no device "
+          "activity")
+    d2h, carry = count_d2h(step, carry, 5)
+    check(d2h == 1, f"coastal-10m: {d2h} device-to-host copies per step, "
+          f"expected 1")
+    say("coastal-10m", "profile_step (reps 10, host clock around "
+        "synchronised calls): " + ", ".join(
+            f"{k} {v * 1e3:.3f} ms" for k, v in phases.items())
+        + f"; 3 traced steps: window {r['window_ms']:.3f} ms per step, "
+        f"device busy {r['busy_ms']:.3f} ms, idle share "
+        f"{r['idle_share']:.4f}, {r['ops']:.1f} device operations per "
+        f"step, cellforce {r['kernel_ms']['cellforce']:.3f} ms per step; "
+        f"{d2h:g} device-to-host copy per step over 5 traced steps ({smi})")
+    # b. one PART of the run's state
+    part = coastal_part("coastal-part", case, carry, smi)
+    rec.update(p50_ms=p50 * 1e3, particle_steps_per_s=case.np_total / p50,
+               busy_ms=r["busy_ms"], ops=r["ops"],
+               idle_share=r["idle_share"], profile_step_ms={
+                   k: v * 1e3 for k, v in phases.items()},
+               device_peak_bytes_per_particle=peak / case.np_total,
+               build=built, part=part)
+    del case, step, carry
+    free_device()
+    # c. ~50M particles
+    case, built = coastal_build("coastal-50m", COASTAL_NP_LARGE, device, smi)
+    step, carry, times, launched, peak = coastal_steps(
+        "coastal-50m", case, device, COASTAL_LARGE_WARM, COASTAL_LARGE_STEPS,
+        smi)
+    paths["coastal-50m"] = launched["cellforce"]
+    p50 = statistics.median(times)
+    large = dict(rows=case.np_total, p50_ms=p50 * 1e3,
+                 particle_steps_per_s=case.np_total / p50,
+                 device_peak_bytes_per_particle=peak / case.np_total,
+                 build=built)
+    del case, step, carry
+    free_device()
+    # d. 2 ranks sharing the card
+    shard = coastal_shard("coastal-shard", device, smi)
+    free_device()
+    # e. the CLI, f. the dry run
+    paths["coastal-cli"] = coastal_cli("coastal-cli", device, smi)
+    paths["dryrun-rank0"] = coastal_dryrun("coastal-dryrun", smi)
+    return paths, dict(coastal_10m=rec, coastal_50m=large), shard
+
+
 def main():
     check(torch.cuda.is_available(), "no CUDA device: the port's smoke run "
           "needs an NVIDIA GPU")
@@ -5493,12 +5927,18 @@ def main():
     # 39. the open boundaries and DEM under domain decomposition: the
     # channel and the duct's zones, the DEM boxes, the y-periodic tank
     feats = shard_feats_path(device, smi)
+    # 40. the coastal run-up (BASELINE config 5) at ~10M and ~50M
+    # particles, a PART, 2 ranks, the CLI and the dry run
+    coastal, records["cellforce"]["coastal_states"], coastal_shard = \
+        coastal_path(device, smi)
+    paths.update(coastal)
     for path, ranks in (("dambreak3d-2-ranks", shard["dambreak3d"]["ranks"]),
                         ("dambreak3d-nccl", shard["dambreak3d"]["nccl"]),
                         ("nn-2-ranks", shard["nn"]["ranks"]),
                         ("floating-2-ranks", shard["floating"]["ranks"]),
                         ("mdbc-2-ranks", shard["mdbc"]["ranks"]),
-                        ("cli-shard-1", shard["cli"]["ranks"])) + tuple(
+                        ("cli-shard-1", shard["cli"]["ranks"]),
+                        ("coastal-2-ranks", coastal_shard["ranks"])) + tuple(
             (f"{k}-2-ranks", v["ranks"]) for k, v in feats.items()):
         for name, per_rank in ranks.items():
             records[name].setdefault("shard_launches", {})[path] = per_rank
@@ -5511,7 +5951,8 @@ def main():
         bound_by=records[name]["bound_by"], library_ms=None,
         **{k: records[name][k] for k in ("instances", "path_launches",
                                           "open_states", "coupling_states",
-                                          "nbrlist_state", "shard_launches")
+                                          "nbrlist_state", "shard_launches",
+                                          "coastal_states")
            if k in records[name]})
         for name, (src, rep) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,7 @@ gather ordered by id.
     dsphtorch -cpu -builtin dambreak2d -dp 0.05 -tmax:0.01 -tout:0.005
     dsphtorch -builtin dambreak3d -partbegin:20 out_prev -dirout out2
     dsphtorch -builtin channel2d -dp 0.0014 -tmax:0.008 -dirout out
+    dsphtorch -builtin coastal_runup3d -dp 0.04 -tmax:0.01 -dirout out
     dsphtorch -builtin dambreak3d -shard:2 -dirout out
     dsphtorch -cpu -builtin dambreak2d -dp 0.05 -shard:2 -tmax:0.01
     dsphtorch -cpu -builtin channel2d -dp 0.02 -shard:2 -tmax:0.01
@@ -68,7 +69,7 @@ _BOOL_FLAGS = {"svres", "svtimers", "svdomainvtk", "svsteps", "nortimes",
                "mdbc_fast", "stable"}
 
 BUILTINS = ("dambreak2d", "dambreak3d", "floatingbox2d", "waveflume2d",
-            "channel2d")
+            "channel2d", "coastal_runup3d")
 VERSION = "0.1.0"
 
 
@@ -304,7 +305,9 @@ def _build_case(args, device):
     under -viscolamsps, as the XML loader builds them, and the walls'
     normals under -mdbc for dambreak2d (the JAX CLI's rule).  channel2d's
     spare slots cover its inflow up to the run's tmax (the JAX CLI's
-    builder sizes them for 2 s)."""
+    builder sizes them for 2 s).  The other builtins take their builder's
+    defaults but dp, as in the JAX CLI: ``coastal_runup3d`` is still water
+    (``wave_height=0``)."""
     import torch
     from .models import cases as C
     from .ops.forces import SolverOpts

@@ -212,12 +212,41 @@ def _write_item(f, item: JItem):
         _write_item(f, it)
 
 
+# an array's count and byte size and an item's counts are uint32 fields
+U32_MAX = 0xFFFFFFFF
+
+
+def check_sizes(root: JItem) -> None:
+    """Raise ValueError, naming the limit, when a count or byte size in the
+    tree ``root`` does not fit the format's 32-bit unsigned fields: each
+    array's count and bytes, each item's arrays, items and values."""
+    stack = [root]
+    while stack:
+        item = stack.pop()
+        sizes = [(f"item {item.name}: {k}", len(v)) for k, v in (
+            ("arrays", item.arrays), ("items", item.items),
+            ("values", item.values))]
+        for ar in item.arrays:
+            nbytes = ar.data.size * np.dtype(
+                _NP_DTYPE.get(ar.type, np.uint8)).itemsize
+            sizes += [(f"array {ar.name}: count", ar.count),
+                      (f"array {ar.name}: bytes", nbytes)]
+        for what, n in sizes:
+            if n > U32_MAX:
+                raise ValueError(f"{what} {n} exceeds the .bi4 format's "
+                                 f"32-bit field (at most {U32_MAX})")
+        stack.extend(item.items)
+
+
 def write_file(path, root: JItem, filecode=None, native=True):
     """Write the tree ``root`` as a .bi4 file of ``filecode`` (the root's
     name by default): through the port's C++ writer (``native/``, built
     with g++ at first use; a failed build or write raises), or with
     ``native=False`` through the pure writer below, which streams each
-    array's buffer to the file, byte for byte the same file."""
+    array's buffer to the file, byte for byte the same file.  A tree whose
+    sizes the format cannot hold raises before the file is made
+    (:func:`check_sizes`)."""
+    check_sizes(root)
     if native:
         from ..native import write_item
         write_item(path, root, filecode)

@@ -1,15 +1,15 @@
 """Built-in case construction for the port: the dp-lattice box drawing of
 GenCase (3D, or 2D in the y = 0 plane) with the mDBC normals of its faces,
 the 3D and 2D dam breaks (`examples/main/01_DamBreak/CaseDambreak_Def.xml`,
-`CaseDambreakVal2D_Def.xml`), the 2D floating box and the 2D wave flume;
-the 2D wet dam break of the multiphase non-Newtonian solver lives in
-``models/nnewtonian.py``.
+`CaseDambreakVal2D_Def.xml`), the 3D coastal run-up, the 2D floating
+box and the 2D wave flume; the 2D wet dam break of the multiphase
+non-Newtonian solver lives in ``models/nnewtonian.py``.
 
 Counterpart of `dualsphysics_multilayer_tpu/models/cases.py` (``Draw``
 with every GenCase command the XML loader ``io/xmlcase.py`` draws through,
 ``prism_pred``, ``Case``, ``_make_state``, ``_make_domain``,
-``dambreak3d``, ``dambreak2d``, ``floatingbox2d``, ``channel2d``,
-``waveflume2d``, and the periodic channel of its tests as
+``dambreak3d``, ``dambreak2d``, ``coastal_runup3d``, ``floatingbox2d``,
+``channel2d``, ``waveflume2d``, and the periodic channel of its tests as
 ``periodic_channel2d``; the
 bucket capacities of the JAX builders, ``lattice_cellcap`` among them,
 belong to the TPU layouts and have no counterpart here).  Lattices, ids,
@@ -508,8 +508,9 @@ class Case:
 
 
 def _make_state(csp: CteSph, pos, code, zsurf, *, device, need_verlet=False,
-                need_sps=False, normals=None, capacity=None):
-    """Initial state: positions cast from f64 to f32, zero velocity, and
+                need_sps=False, normals=None, capacity=None, vel=None):
+    """Initial state: positions cast from f64 to f32, zero velocity unless
+    ``vel`` (np,3) gives one (cast to f32), and
     hydrostatic density for fluid (GenCase ``rhopgradient=2``) evaluated in
     f32 as the JAX package does; boundaries and floating bodies start at
     rho0.  ``need_verlet`` adds the Verlet M1 state (the initial velocity
@@ -535,14 +536,17 @@ def _make_state(csp: CteSph, pos, code, zsurf, *, device, need_verlet=False,
     if normals is not None:
         nrm = np.zeros((cap, 3), np.float64)
         nrm[:n] = normals
+    vel0 = torch.zeros((cap, 3), **f32)
+    if vel is not None:
+        vel0[:n] = torch.from_numpy(np.asarray(vel, np.float32)).to(device)
     return SimState(
         pos=torch.tensor(posf, **f32),
-        vel=torch.zeros((cap, 3), **f32),
+        vel=vel0,
         rho=torch.tensor(rho, **f32),
         code=torch.tensor(codef, dtype=torch.int32, device=device),
         idp=torch.arange(cap, dtype=torch.int64, device=device),
         pose=torch.zeros((cap, 3), **f32),
-        velm1=torch.zeros((cap, 3), **f32) if need_verlet else None,
+        velm1=vel0.clone() if need_verlet else None,
         rhom1=torch.tensor(rho, **f32) if need_verlet else None,
         spstau=torch.zeros((cap, 6), **f32) if need_sps else None,
         boundnormal=None if nrm is None else torch.tensor(nrm, **f32),
@@ -595,6 +599,95 @@ def dambreak3d(dp=0.02, *, tank=(1.6, 0.67, 0.4), column=(0.4, 0.67, 0.3),
     npb = int(np.sum(td.code_type(code) < td.TYPE_FLOATING))
     return Case(csp=csp, dom=dom, state=st, npb=npb, np_total=pos.shape[0],
                 meta=dict(name="dambreak3d", dp=dp, zsurf=column[2]))
+
+
+def coastal_runup3d(dp=0.02, *, length=8.0, width=2.0, depth=0.5,
+                    slope_start=3.0, slope=0.1, wave_height=0.0,
+                    need_sps=False, capacity=None, headroom=0.6,
+                    device="cuda") -> Case:
+    """3D coastal run-up (BASELINE.json config 5, the 10-50M-particle case;
+    JAX `cases.py:830-930`): a flat offshore bed rising onto a plane beach,
+    b(x) = max(0, (x - slope_start) * slope), fluid in b(x) <= z < depth +
+    eta(x), three bed layers under it, and a back wall (x = 0) and two side
+    walls three layers thick up to the water column's height, the fluid
+    kept between them.  ``wave_height`` > 0 seeds a solitary hump eta(x)
+    centred at 0.4 * slope_start with the velocity u = c * eta / (depth +
+    eta) on its fluid (first-order Boussinesq, c = sqrt(g (depth +
+    wave_height))), evaluated in float64 on the host as JAX does, so the
+    case runs without a wavemaker.  Built with numpy over whole lattice
+    planes, never a loop over particles; the JAX builder's ``cellcap``, a
+    bucket capacity of the TPU layout, has no counterpart."""
+    g = 9.81
+    csp = make_ctesph(simulate2d=False, dp=dp, hswl=depth, coefh=1.0,
+                      visco=0.05, coefsound=20.0)
+    nx = int(round(length / dp)) + 1
+    ny = int(round(width / dp)) + 1
+    nz = int(round((depth + max(wave_height, 0.0) * 1.5) / dp)) + 4
+    xs = np.arange(nx) * dp
+    ys = np.arange(ny) * dp
+    zs = np.arange(nz) * dp
+    bed = np.maximum(0.0, (xs - slope_start) * slope)        # (nx,)
+    X, Z = np.meshgrid(xs, zs, indexing="ij")                # (nx, nz)
+    bedx = bed[:, None]
+    eta = np.zeros_like(xs)
+    x0 = slope_start * 0.4
+    kk = np.sqrt(3.0 * wave_height / (4.0 * depth ** 3))
+    if wave_height > 0:
+        eta = wave_height / np.cosh(np.clip(kk * (xs - x0), -20, 20)) ** 2
+    swl = depth + eta[:, None]
+    fluid2d = (Z >= bedx - 1e-9) & (Z < swl - 1e-9)
+    bound2d = (Z >= bedx - 3 * dp - 1e-9) & (Z < bedx - 1e-9)
+
+    def expand(mask2d):
+        """(nx, nz) mask -> (m*ny, 3) positions over every y."""
+        ix, iz = np.nonzero(mask2d)
+        out = np.empty((len(ix) * ny, 3))
+        out[:, 0] = np.repeat(xs[ix], ny)
+        out[:, 1] = np.tile(ys, len(ix))
+        out[:, 2] = np.repeat(zs[iz], ny)
+        return out
+
+    pos_bed = expand(bound2d)
+    pos_fl = expand(fluid2d)
+    # the fluid between the walls: three lattice columns off each side wall
+    # and off the back wall
+    wallw = 3 * dp + 1e-9
+    pos_fl = pos_fl[(pos_fl[:, 1] > wallw) & (pos_fl[:, 1] < width - wallw)
+                    & (pos_fl[:, 0] > wallw)]
+    zcol = depth + (wave_height * 1.5 if wave_height else 0.0) + 4 * dp
+    zw = zs[zs < zcol]
+    planes = [np.stack(np.meshgrid(xs[i:i + 1], ys, zw, indexing="ij"),
+                       axis=-1).reshape(-1, 3) for i in range(3)]
+    planes += [np.stack(np.meshgrid(xs, ys[j:j + 1], zw, indexing="ij"),
+                        axis=-1).reshape(-1, 3)
+               for j in list(range(3)) + list(range(ny - 3, ny))]
+    side = np.concatenate(planes)
+    # wall points below the bed's layers are dropped (the bed covers them)
+    side = side[side[:, 2] >= np.maximum(
+        0.0, (side[:, 0] - slope_start) * slope) - 3 * dp - 1e-9]
+    bound = np.concatenate([pos_bed, side])
+    # at 50M particles each (n, 3) float64 array is ~1.3 GB of host memory
+    del pos_bed, side, planes
+    bound = np.unique(np.round(bound / dp).astype(np.int64), axis=0) * dp
+    pos = np.concatenate([bound, pos_fl])
+    nbound = len(bound)
+    del pos_fl, bound
+    code = np.full(len(pos), td.code_make(td.TYPE_FLUID, 0), np.int32)
+    code[:nbound] = td.code_make(td.TYPE_FIXED, 0)
+    vel = None
+    if wave_height > 0:
+        c = np.sqrt(g * (depth + wave_height))
+        etap = wave_height / np.cosh(np.clip(kk * (pos[:, 0] - x0),
+                                             -20, 20)) ** 2
+        vel = np.zeros((len(pos), 3), np.float32)
+        vel[:, 0] = np.where(code == td.code_make(td.TYPE_FLUID, 0),
+                             c * etap / (depth + etap), 0.0)
+        del etap
+    dom = _make_domain(csp, pos, headroom=headroom)
+    st = _make_state(csp, pos, code, zsurf=depth, device=device,
+                     need_sps=need_sps, capacity=capacity, vel=vel)
+    return Case(csp=csp, dom=dom, state=st, npb=nbound, np_total=len(pos),
+                meta=dict(name="coastal_runup3d", dp=dp, zsurf=depth))
 
 
 def dambreak2d(dp=0.02, *, tank=(4.0, 3.0), column=(1.0, 2.0), visco=0.02,

@@ -64,7 +64,8 @@ steps through one object, :class:`SlabRank` (their ``dd`` argument):
 
 :class:`ShardedSimulation` runs the loop (the CLI's ``-shard[:N]``):
 rank 0 is the calling process, saves PARTs after a gather ordered by id,
-and runs the diagnostics on the gathered state.  Refused here, each with a
+and runs the diagnostics on the gathered state; :func:`dryrun` steps JAX's
+three dry-run cases over N ranks.  Refused here, each with a
 ``NotImplementedError`` naming it: x-periodic boundaries (JAX's own
 words) and the wave paddles' AWAS (``Features.awas``), whose surface
 measurement needs the columns of every slab (the JAX sharded step skips
@@ -1096,3 +1097,57 @@ def steps_together(sims, marks):
             for s, m in zip(sims, marks)]
     outs = s0.launch(_rank_jobs, (jobs,), local=dict(log=s0.log))
     return [s._took(out) for s, out in zip(sims, outs)]
+
+
+def dryrun(n: int, device=None, backend=None) -> None:
+    """One step of each of JAX's three dry-run cases over ``n`` ranks
+    (JAX ``dryrun``, `sharding.py:1356-1455`; ``__graft_entry__.
+    dryrun_multichip``), from one start of the ranks: the small 3D dam
+    break (dp 0.06, tank 0.9 x 0.3 x 0.3 m, no obstacle), the same with
+    its walls at x > 0.82 m moving (mk 9, a RECT motion of -0.05 m/s along
+    x) and a damping plane, and its mDBC form (VEL0, a 2-cell halo).
+    Raises unless each made a step with overflow 0; prints JAX's three
+    lines.  ``device``: the ranks' ("cuda", the default, or "cpu");
+    ``backend``: as for :class:`ShardedSimulation` (``"gloo"`` for ranks
+    sharing a card)."""
+    from ..features.damping import DampingPlane
+    from ..features.motion import RECT, MotionDef, Segment
+    from ..models import cases
+    from ..typesdef import TpDensity, TpSlipMode
+
+    device = "cuda" if device is None else device
+    geom = dict(dp=0.06, tank=(0.9, 0.3, 0.3), column=(0.3, 0.3, 0.2),
+                obstacle=False, device=device)
+    case = cases.dambreak3d(**geom)
+    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS)
+    st = case.state
+    strip = (td.code_type(st.code) < td.TYPE_FLUID) & (st.pos[:, 0] > 0.82)
+    moving = replace(st, code=torch.where(
+        strip, td.code_make(td.TYPE_MOVING, 9), st.code))
+    feats = Features(
+        motions=(MotionDef(mk=9, segments=(
+            Segment(kind=RECT, t0=0.0, t1=10.0, params=(-0.05, 0, 0)),)),),
+        damping=(DampingPlane(point=(0.55, 0.15, 0.15),
+                              limitpoint=(0.8, 0.15, 0.15)),))
+    case_m = cases.dambreak3d(**geom, mdbc=True)
+    opts_m = SolverOpts(tdensity=TpDensity.FOURTAKAS,
+                        tboundary=TpBoundary.MDBC, slipmode=TpSlipMode.VEL0)
+    run = dict(ndev=n, device=device, backend=backend)
+    sims = [ShardedSimulation(case.csp, opts, case.dom, st, **run),
+            ShardedSimulation(case.csp, opts, case.dom, moving, feats=feats,
+                              **run),
+            ShardedSimulation(case_m.csp, opts_m, case_m.dom, case_m.state,
+                              **run)]
+    out = [carries[-1] for carries, _ in steps_together(sims, (1,))]
+    for label, c in zip(("", "feats ", "mdbc "), out):
+        if c.nstep < 1:
+            raise RuntimeError(f"sharded {label}step did not run")
+        if c.overflow:
+            raise RuntimeError(f"{label}overflow={c.overflow}")
+    c = out[0]
+    print(f"dryrun_multichip({n}): OK — nstep={c.nstep}, t={c.t_host:.2e}, "
+          f"dt={float(c.dt_pre):.2e}, path=rowdiv")
+    print(f"dryrun_multichip({n}): featured path OK — nstep={out[1].nstep} "
+          f"(motion+damping over the ranks)")
+    print(f"dryrun_multichip({n}): mDBC path OK — nstep={out[2].nstep} "
+          f"(ghost-node correction + halo refresh over the ranks)")

@@ -6,7 +6,7 @@ appended to Run.csv with the same column ontology, and
 `JSph::CheckTermination` (JSph.cpp:2796-2820): a `TERMINATE` file in the
 output directory ends the run early (optionally carrying a new tmax as its
 text content).  The ``Hardware`` column names the card the run used, or
-``cpu``.
+``cpu``.  ``MeanValue`` is the running min/max/mean of a sampled quantity.
 """
 
 from __future__ import annotations
@@ -73,3 +73,25 @@ class TerminateCheck:
             except (OSError, ValueError):
                 return 0.0
         return None
+
+
+class MeanValue:
+    """Running min/max/mean accumulator (reference JMeanValue,
+    `JMeanValues.h:40-59`; JAX ``runinfo.MeanValue``): a one-line summary
+    of a sampled quantity."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.max = float("-inf")
+        self.min = float("inf")
+        self.mean = 0.0
+        self.values = 0
+
+    def add(self, v):
+        v = float(v)
+        self.max = max(self.max, v)
+        self.min = min(self.min, v)
+        self.mean = (self.mean * self.values + v) / (self.values + 1)
+        self.values += 1

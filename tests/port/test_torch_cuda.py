@@ -324,6 +324,30 @@ def test_cuda_kernel_matches_plain_dambreak(cuda):
 
 
 @pytest.mark.gpu
+def test_cuda_kernel_matches_plain_coastal(cuda):
+    """Kernel 1 on the coastal run-up at dp 0.04 with its solitary wave
+    (the wave's velocity in the fluid, the beach's sloped bed)."""
+    case = cases.coastal_runup3d(dp=0.04, wave_height=0.12, device=cuda)
+    st = case.state
+    assert float(st.vel[:, 0].max()) > 0.1
+    kernel_vs_plain(case.csp, F.SolverOpts(tdensity=td.TpDensity.FOURTAKAS),
+                    case.dom, st.pos, st.vel, st.rho, st.code)
+
+
+@pytest.mark.gpu
+def test_cuda_coastal_build_equals_cpu_build(cuda):
+    kw = dict(dp=0.05, wave_height=0.12)
+    got = cases.coastal_runup3d(**kw, device=cuda)
+    want = cases.coastal_runup3d(**kw, device="cpu")
+    assert (got.np_total, got.npb, got.dom) == \
+        (want.np_total, want.npb, want.dom)
+    for k in ("pos", "vel", "rho", "code", "idp", "pose"):
+        assert getattr(got.state, k).device.type == "cuda"
+        assert torch.equal(getattr(got.state, k).cpu(),
+                           getattr(want.state, k)), k
+
+
+@pytest.mark.gpu
 def test_cuda_steps_match_cpu_steps(cuda):
     """Steps on the card (kernel) and on the CPU (plain version) agree by
     particle id within 1e-4*dp, with a rebuild inside the run."""
