@@ -27,8 +27,12 @@ without printing the final result line:
    a seeded perturbed state (0.5 m/s velocity jitter, 1% density jitter):
    nnforce_p1, nnforce_p3 and nnforce_fda each against its plain pass on
    the same inputs, timed with CUDA events (median of 7), two launches of
-   each into separate zeroed buffers giving the same sha256 per output, the
-   same for the three at a third of the dp (330,781 particles), then at
+   each into separate zeroed buffers giving the same sha256 per output,
+   and at this size each also in its wide instance (the phase table in a
+   device array, as beyond 8 phases) on the same inputs, bit-equal to the
+   parameter-table instance, the two timed alone in three alternating
+   turns; the three kernels again at a third of the dp (330,781
+   particles), then at
    37,143 particles the whole
    interaction for SPH Morris, SPH ConsEq, SPH artificial, FDA Morris and
    FDA ConsEq (all Fourtakas), by the same rule (rtol 2e-3 on ace, ar,
@@ -372,7 +376,31 @@ without printing the final result line:
     live rows per rank, the report of phase 37; (e) ``dsphtorch -builtin
     coastal_runup3d -dp 0.04`` (still water) through ``cli.main``, PARTs
     0-2 read back; (f) ``parallel.sharding.dryrun(2, backend="gloo")``:
-    its three lines, kernel 1 six times on rank 0.
+    its three lines, kernel 1 six times on rank 0;
+41. NN phase tables beyond 8: the wet dam break of phase 5 with its mud
+    column in 11 strata (``layered_dambreak_nn``: 12 phases of distinct
+    rest density, consistency, yield stress, power index and, every
+    third stratum, bi-viscosity constants; 37,143 particles), where
+    kernels 4-6 run their wide instances (``nnforce_*_kernel<...,1>``:
+    the table in a device array, ``NnParams.phtab``): each kernel against
+    its plain pass and the whole interaction in phase 5's five
+    configurations by phase 5's rule; 5 + 50 SPH Morris steps (nnforce_p1
+    and nnforce_p3 exactly twice per step) and 5 + 20 FDA Morris steps
+    (nnforce_fda twice per step) with phase 6's checks for every phase; a
+    12-phase ``<nnphases>`` XML (the strata drawn as boxes) through
+    ``cli.main(["-case", ...])``, SPH, PART 3 read back with every
+    phase's density within 10%, nnforce_p1 and nnforce_p3 twice per step
+    and no other kernel; the kernels' times printed beside phase 5's
+    2-phase ones (parameter table and device table) and the p50 steps
+    beside phases 6-7's;
+42. a domain without a cell skin (cells of the kernel size, JAX
+    ``celldiv.make_domain``'s default): the 3D dam break of phase 4 at
+    267,469 particles beside the case's skinned domain, 5 + 20 steps of
+    each from phase 4's flow: cellforce exactly twice per step and no
+    other kernel, a rebuild at every step of the skinless run (each of
+    its interactions divides its own positions), overflow 0, the density
+    within 10%, positions by id within 1e-4 dp of the skinned run's, the
+    p50 step of each.
 
 Each kernel is timed twice: alone (``ms``: CUDA events around 20
 back-to-back launches of the C launcher on prepared inputs, per launch,
@@ -385,7 +413,10 @@ lanes at the SM's maximum clock; for the window-load probe the largest of
 its device-memory bytes, its loads' bytes through the SMs' load paths and
 its operations; the rows of kernels 1, 2, 4 and 6 list their other
 instances under ``instances``: the SYM instances of phase 26, the mDBC runs
-of kernels 4 and 6 with their DBC time as ``dbc_ms``) and the result line
+of kernels 4 and 6 with their DBC time as ``dbc_ms``, the wide instances of
+kernels 4-6 at 12 phases of phase 41; the NN kernels' rows add
+``table_ms``, phase 5's times of each with the parameter table and the
+device table) and the result line
 ``{"ok": true, "device": {...}}``.  Every launch count comes from its
 path's run, counted from 0 just before it (the probes' from their
 tables); cellforce's row adds ``path_launches``, its launches on the dam
@@ -394,8 +425,8 @@ break (phase 4), the Verlet path, the wave flume, the full flume, the CLI
 break (phase 24), and the ``<initialize>`` and ``-initnorpla`` runs
 (phase 27), the channel, the duct and the periodic channel (phases
 29-31), the couplings (phases 32-34), the neighbour-list mode (phase
-35) and the coastal run-up (phase 40: ~10M, ~50M, the CLI and rank 0 of
-the dry run), with ``open_states``, kernel 1
+35), the coastal run-up (phase 40: ~10M, ~50M, the CLI and rank 0 of
+the dry run) and the skinless domain (phase 42), with ``open_states``, kernel 1
 against its plain version on the final states of phases 29-31 and their
 step's p50 and trace, ``coastal_states``, phase 40's at ~10M (kernel
 against plain, p50, trace, ``profile_step``, memory, the PART) and ~50M
@@ -407,8 +438,8 @@ p50 step beside the default layout's, the overflow count's ms and each
 layout's candidates per pair, and ``shard_launches``, each rank's
 launches of that kernel on the sharded paths of phases 37-39 and 40,
 counted in the rank; the NN
-kernels' rows add theirs on phases 6-7, the XML runs of phase 25 and the
-mDBC runs of phase 28.
+kernels' rows add theirs on phases 6-7, the XML runs of phase 25, the
+mDBC runs of phase 28 and the 12-phase runs of phase 41.
 Imports no JAX.
 """
 
@@ -726,6 +757,31 @@ def nn_launch_ms(name, params, rows, outs, ins=()):
           f"{name}: two launches on the same inputs differ")
     return launch_ms(bare_launcher("nnforce", f"dsph_{name}", params,
                                    args + outs)), "; two launches bit-equal"
+
+
+def nn_table_ms(name, table, wide, rows, outs, ins=(), turns=3):
+    """NN kernel ``name`` with the parameters' phase table (params
+    ``table``) and with the device table (``wide``) on the same inputs:
+    raises unless their outputs are bit-equal; then each alone
+    (:func:`launch_ms`), in ``turns`` alternating turns.  Returns the two
+    medians (ms)."""
+    args = rows + list(ins)
+    got = []
+    for params in (table, wide):
+        bufs = [None if o is None else torch.zeros_like(o) for o in outs]
+        check(bare_launcher("nnforce", f"dsph_{name}", params,
+                            args + bufs)() == 0, f"{name} launch failed")
+        torch.cuda.synchronize()
+        got.append([o for o in bufs if o is not None])
+    check(all(torch.equal(a, b) for a, b in zip(*got)),
+          f"{name}: the device table's instance differs from the parameter "
+          f"table's on the same inputs")
+    ms = ([], [])
+    for _ in range(turns):
+        for k, params in enumerate((table, wide)):
+            ms[k].append(launch_ms(bare_launcher("nnforce", f"dsph_{name}",
+                                                 params, args + outs)))
+    return statistics.median(ms[0]), statistics.median(ms[1])
 
 
 def compare_cellforce(csp, opts, dom, cells, args, reps, spstau=None,
@@ -1094,11 +1150,13 @@ def nn_opts(tvisco, velgrad, shiftmode="NONE"):
 
 
 def nn_kernels_vs_plain(case, phases, device, smi, label="nn-kernel-vs-plain",
-                        full=True):
-    """Phase 5: each NN kernel against its plain pass on the same inputs,
-    two launches of each bit-equal, then the whole interaction in five
-    configurations (``full``).  Returns the kernels' records (without
-    launches)."""
+                        full=True, wide_too=False):
+    """Phases 5 and 41: each NN kernel against its plain pass on the same
+    inputs, two launches of each bit-equal, then the whole interaction in
+    five configurations (``full``); with ``wide_too``, each kernel's wide
+    instance (the phase table in a device array) on the same inputs too,
+    bit-equal to the parameter-table one, the two timed in turns (phase
+    41).  Returns the kernels' records (without launches)."""
     from dualsphysics_multilayer_tpu_torch.ops import forces_nn as NN
     from dualsphysics_multilayer_tpu_torch.ops.cuda import nnforce as NF
     csp, dom = case.csp, case.dom
@@ -1123,13 +1181,21 @@ def nn_kernels_vs_plain(case, phases, device, smi, label="nn-kernel-vs-plain",
 
     def record(name, opts, errs, kernel_fn, plain_fn, run, outs, out_bytes,
                ins=()):
-        ms, same = nn_launch_ms(name, NF.make_params(csp, opts, phases, dom, n),
-                                rows, outs, ins)
+        params = NF.make_params(csp, opts, phases, dom, n,
+                                NF.table_device(phases, device))
+        ms, same = nn_launch_ms(name, params, rows, outs, ins)
         wrapped_ms = cuda_ms(lambda: kernel_fn(*run))
         plain_ms = cuda_ms(lambda: plain_fn(*run))
         b = bound(state_bytes + n * out_bytes, pairs * OPS_PER_PAIR[name])
         records[name] = dict(max_abs_err=errs["ace"], ms=ms, plain_ms=plain_ms,
                              bound_ms=b[0], bound_by=b[1])
+        if wide_too:
+            records[name]["table_ms"], records[name]["wide_ms"] = \
+                nn_table_ms(name, params, NF.make_params(
+                    csp, opts, phases, dom, n, str(device)), rows, outs, ins)
+            same += (f"; parameter table {records[name]['table_ms']:.4f} ms, "
+                     f"device table {records[name]['wide_ms']:.4f} ms, "
+                     f"bit-equal")
         say(label, f"{name}: max|d| " + ", ".join(
             f"{k} {v:.3e}" for k, v in errs.items())
             + f"{same}; kernel alone {ms:.3f} ms, with its wrapper "
@@ -1200,10 +1266,12 @@ def nn_kernels_vs_plain(case, phases, device, smi, label="nn-kernel-vs-plain",
     return records
 
 
-def nn_path(case, phases, opts, device, nwarm, nsteps, label, smi, csp=None):
-    """Phases 6, 7, 16 and 17: ``nwarm + nsteps`` NN steps from a flowing
-    start, under the case's constants or ``csp``; returns (the launch
-    counts, the step, the final carry)."""
+def nn_path(case, phases, opts, device, nwarm, nsteps, label, smi, csp=None,
+            p50s=None):
+    """Phases 6, 7, 16, 17 and 41: ``nwarm + nsteps`` NN steps from a
+    flowing start, under the case's constants or ``csp``; returns (the
+    launch counts, the step, the final carry) and puts the p50 step (s)
+    in ``p50s[label]``."""
     from dualsphysics_multilayer_tpu_torch import make_carry, make_nn_step
     csp = csp or case.csp
     step = make_nn_step(csp, opts, case.dom, phases)
@@ -1217,6 +1285,8 @@ def nn_path(case, phases, opts, device, nwarm, nsteps, label, smi, csp=None):
               for k, p in enumerate(phases.phases)]
     n = case.np_total
     p50 = statistics.median(times)
+    if p50s is not None:
+        p50s[label] = p50
     say(label, f"{n} particles, {nsteps} steps after {nwarm} warm-up: p50 step "
         f"{p50 * 1e3:.3f} ms, {n / p50:.1f} particle-steps/s; launches "
         f"{launched}, {carry.nrebuild - nrebuild0} rebuilds inside the steps, "
@@ -1226,15 +1296,17 @@ def nn_path(case, phases, opts, device, nwarm, nsteps, label, smi, csp=None):
     return launched, step, carry
 
 
-def nn_instance(kernel, csp, opts):
+def nn_instance(kernel, csp, opts, wide=False):
     """The ptxas name of the instance of ``kernel`` that these constants and
-    options launch."""
+    options launch, with the parameters' phase table or (``wide``) the
+    device table."""
     from dualsphysics_multilayer_tpu_torch import TpShifting
     from dualsphysics_multilayer_tpu_torch.ops.cuda import nnforce as NF
     ker = csp.tkernel.value
     if kernel == "nnforce_p3":
-        return f"nnforce_p3_kernel<{ker},{NF.VISC[opts.tvisco]}>"
-    return f"{kernel}_kernel<{ker},{int(opts.shiftmode != TpShifting.NONE)}>"
+        return f"nnforce_p3_kernel<{ker},{NF.VISC[opts.tvisco]},{int(wide)}>"
+    return (f"{kernel}_kernel<{ker},{int(opts.shiftmode != TpShifting.NONE)},"
+            f"{int(wide)}>")
 
 
 def nn_result_errors(label, got, want, rtol):
@@ -2800,6 +2872,188 @@ def nn_mdbc_path(device, registers, smi):
         return out, records
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def layered_nn_xml(phases, dp, velgrad, tmax, tout):
+    """Phase 25's XML with the mud column drawn as ``phases.count - 1``
+    strata of equal height, mkfluid 1.. from the bottom, and the phase
+    table ``phases`` in ``<nnphases>``."""
+    layers = phases.count - 1
+    h = 0.3 / layers
+    mud = "".join(
+        f'<setmkfluid mk="{k}"/><drawbox><boxfill>solid</boxfill>\n'
+        f'    <point x="0" y="0" z="{(k - 1) * h!r}"/>'
+        f'<size x="0.5" y="0" z="{h!r}"/></drawbox>\n   '
+        for k in range(1, layers + 1))
+    table = "".join(
+        f'<phase mkfluid="{p.mkfluid}"><rhop value="{p.rho0!r}"/>'
+        f'<csound value="{p.csound!r}"/><visco value="{p.visco!r}"/>'
+        f'<tau_yield value="{p.tau_yield!r}"/>'
+        f'<tau_max value="{p.tau_max!r}"/><Bi_multi value="{p.bi_multi!r}"/>'
+        f'<HBP_m value="{p.hbp_m!r}"/><HBP_n value="{p.hbp_n!r}"/></phase>\n'
+        for p in phases.phases)
+    xml = NN_XML.format(dp=dp, cs_w=0.0, cs_m=0.0, velgrad=velgrad,
+                        tmax=tmax, tout=tout)
+    start = xml.index('<setmkfluid mk="1"/>')
+    xml = xml[:start] + mud + xml[xml.index('<setmkbound'):]
+    start = xml.index("<nnphases>") + len("<nnphases>\n")
+    return xml[:start] + table + xml[xml.index("  </nnphases>"):]
+
+
+def nn_phases_path(device, registers, records, p50s, smi):
+    """Phase 41: the NN wet dam break with a phase table of 12 phases
+    (``layered_dambreak_nn``: its mud column in 11 strata of distinct rest
+    density, consistency, yield stress, power index and, every third,
+    bi-viscosity constants) at phase 5's size: kernels 4-6 (their wide
+    instances: the table in a device array) against their plain passes and
+    the whole interaction in phase 5's five configurations, by phase 5's
+    rule; 5 + 50 SPH Morris steps (nnforce_p1 and nnforce_p3 twice per
+    step) and 5 + 20 FDA Morris steps (nnforce_fda twice per step) through
+    ``make_carry``/``make_nn_step``, each phase's density within 10%; a
+    12-phase ``<nnphases>`` XML through ``cli.main(["-case", ...])``, SPH,
+    PARTs 0-3 read back; the times beside phase 5's 2-phase kernels and
+    phases 6-7's steps.  Returns ({path: {kernel: launches}},
+    {instance: record})."""
+    import shutil
+    import tempfile
+    from dualsphysics_multilayer_tpu_torch import cli
+    from dualsphysics_multilayer_tpu_torch.io import partdata as PD
+    from dualsphysics_multilayer_tpu_torch.io.xmlcase import load_case
+    from dualsphysics_multilayer_tpu_torch.models import nnewtonian as NM
+    case, phases = NM.layered_dambreak_nn(dp=NN_DP, device=device)
+    check(phases.count == 12, f"{phases.count} phases")
+    counts12 = torch.bincount(case.state.code[(case.state.code >> 16) & 3 == 3]
+                              & 0xFFFF).tolist()
+    check(len(counts12) == 12 and min(counts12) > 0,
+          f"fluid particles per phase {counts12}")
+    say("nn12-case", f"{case.np_total} particles, 12 phases, fluid per phase "
+        f"{counts12}, rho0 " + ", ".join(f"{p.rho0:g}" for p in phases.phases))
+    kern = nn_kernels_vs_plain(case, phases, device, smi,
+                               label="nn12-kernel-vs-plain")
+    out, instances = {}, {}
+    for label, opts, kernels in (
+            ("nn12-main-path", nn_opts("LAMINAR_SPS", "SPH"),
+             ("nnforce_p1", "nnforce_p3")),
+            ("nn12-fda-path", nn_opts("LAMINAR_SPS", "FDA"),
+             ("nnforce_fda",))):
+        nwarm, nsteps = (5, 50) if len(kernels) == 2 else (5, 20)
+        launched, _, _ = nn_path(case, phases, opts, device, nwarm, nsteps,
+                                 label, smi, p50s=p50s)
+        want = {**dict.fromkeys(launched, 0),
+                **{k: 2 * (nwarm + nsteps) for k in kernels}}
+        check(launched == want, f"{label}: {launched} in {nwarm + nsteps} "
+              f"steps, expected {kernels} twice per step and no other kernel")
+        out[label] = {k: launched[k] for k in kernels}
+        for k in kernels:
+            instance = nn_instance(k, case.csp, opts, wide=True)
+            instances[instance] = dict(
+                kernel=k, variant="12 phases", launches=launched[k],
+                registers=registers.get(instance, "?"), **kern[k])
+
+    # the same table through an XML: -case, SPH
+    root = tempfile.mkdtemp(prefix="_smoke_nn12_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    try:
+        path = os.path.join(root, "WetDambreakLayers_Def.xml")
+        with open(path, "w") as f:
+            f.write(layered_nn_xml(phases, NN_DP, 2, 3 * NN_XML_TOUT,
+                                   NN_XML_TOUT))
+        loaded, _opts, _run = load_case(path, device=device)
+        check(loaded.meta["phases"] == phases,
+              f"the XML's phases {loaded.meta['phases']}")
+        d = os.path.join(root, "out")
+        reset_counts()
+        check(cli.main(["-case", path, "-sv:binx", "-nortimes", "-dirout",
+                        d]) == 0, "the 12-phase -case run failed")
+        torch.cuda.synchronize()
+        launched = counts()
+        p = PD.read_part(os.path.join(d, PD.part_filename(3)))
+        nsteps = p["nstep"]
+        want = {**dict.fromkeys(launched, 0),
+                **{k: 2 * nsteps for k in ("nnforce_p1", "nnforce_p3")}}
+        check(launched == want, f"xml 12 phases: {launched} in {nsteps} "
+              f"steps, expected nnforce_p1 and nnforce_p3 twice per step")
+        code = p["code"].astype(np.int64)
+        fluid = (code >> 16) & 3 == 3
+        for i, ph in enumerate(phases.phases):
+            r = p["rhop"][fluid & ((code & 0xFFFF) == i)]
+            check(r.size > 0 and 0.9 * ph.rho0 <= r.min()
+                  and r.max() <= 1.1 * ph.rho0,
+                  f"xml 12 phases: phase {i} density out of +-10%")
+        check(bool(np.isfinite(p["pos"]).all()), "xml 12 phases: Posd")
+        out["xml-nn12-sph"] = {k: launched[k]
+                               for k in ("nnforce_p1", "nnforce_p3")}
+        say("nn12-xml", f"-case with 12 <nnphases>, {loaded.np_total} "
+            f"particles: {nsteps} steps, launches {launched}, PART 3 read "
+            f"back with every phase's density within 10% ({smi})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    say("nn12-vs-2", "kernels alone, 12 phases (device table) against 2 "
+        "(phase 5: parameter table / device table): " + "; ".join(
+            f"{k} {kern[k]['ms']:.4f} ms against {records[k]['table_ms']:.4f}"
+            f" / {records[k]['wide_ms']:.4f} ms"
+            for k in ("nnforce_p1", "nnforce_p3", "nnforce_fda"))
+        + f"; p50 step SPH {p50s['nn12-main-path'] * 1e3:.3f} ms against "
+        f"{p50s['nn-main-path'] * 1e3:.3f}, FDA "
+        f"{p50s['nn12-fda-path'] * 1e3:.3f} ms against "
+        f"{p50s['nn-fda-path'] * 1e3:.3f} (phases 6-7; {smi})")
+    return out, instances
+
+
+SKINLESS_STEPS = 20      # phase 42: steps of each domain after 5 warm-up
+
+
+def skinless_path(device, smi):
+    """Phase 42: the 3D dam break at DP_BENCH on a domain without a cell
+    skin (cells of the kernel size, JAX ``celldiv.make_domain``'s default,
+    which the port runs with a rebuild at every step and a divide of its
+    own at each interaction, ``wcsph.fresh_interaction``) beside the
+    case's domain, both from :func:`flowing_state`: 5 + SKINLESS_STEPS
+    steps of each, cellforce exactly twice per step and no other kernel,
+    overflow 0, the density within 10%, a rebuild at every step of the
+    skinless run, positions by id within 1e-4 dp of the other run's, the
+    p50 step of each.  Returns the cellforce launches of the skinless
+    run."""
+    from dualsphysics_multilayer_tpu_torch import SolverOpts, TpDensity
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    from dualsphysics_multilayer_tpu_torch.models import wcsph as W
+    from dualsphysics_multilayer_tpu_torch.ops import celldiv as cd
+    case = cases.dambreak3d(dp=DP_BENCH, obstacle=True, device=device)
+    csp, d = case.csp, case.dom
+    flat = cd.make_domain(d.posmin, [p + k * d.scell for p, k in
+                                     zip(d.posmin, d.nc)], csp.kernelsize)
+    check(W.skinless(csp, flat) and not W.skinless(csp, d),
+          "the skinless domain has a skin")
+    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS)
+    st0 = flowing_state(case, device)
+    runs = {}
+    for label, dom in (("skinned", d), ("skinless", flat)):
+        step = W.make_step(csp, opts, dom)
+        carry = W.make_carry(st0, csp, opts, dom)
+        nrebuild0 = carry.nrebuild
+        carry, times, launched = run_steps(step, carry, 5, SKINLESS_STEPS)
+        single_phase_counts(launched, "cellforce", 2, carry.nstep)
+        check_state(carry, 5 + SKINLESS_STEPS, nrebuild0)
+        fluid_rho_range(carry.st, True, csp.rhopzero)
+        runs[label] = (carry, statistics.median(times), launched,
+                       carry.nrebuild - nrebuild0)
+    rebuilt = runs["skinless"][3]
+    check(rebuilt == 5 + SKINLESS_STEPS, f"the skinless run rebuilt "
+          f"{rebuilt} times in {5 + SKINLESS_STEPS} steps")
+    a, b = runs["skinned"][0], runs["skinless"][0]
+    live = td_active(a.st) & td_active(b.st)
+    dpos = float((by_id_pos(a.st) - by_id_pos(b.st))[live].abs().max())
+    check(dpos <= 1e-4 * csp.dp, f"max |d pos| {dpos:.3e} m between the "
+          f"domains, over 1e-4 dp")
+    say("skinless", f"{case.np_total} particles, {5 + SKINLESS_STEPS} steps "
+        f"each: cells of {flat.scell * 1e3:.3f} mm (skinned "
+        f"{d.scell * 1e3:.3f}); p50 step {runs['skinless'][1] * 1e3:.3f} ms "
+        f"({rebuilt} rebuilds, 2 divides of its own a step) against "
+        f"{runs['skinned'][1] * 1e3:.3f} ms ({runs['skinned'][3]} rebuilds); "
+        f"max |d pos| by id {dpos:.3e} m ({dpos / csp.dp:.2e} dp); cellforce "
+        f"{runs['skinless'][2]['cellforce']} launches ({smi})")
+    return runs["skinless"][2]["cellforce"]
 
 
 def count_d2h(step, carry, nsteps, tries=3):
@@ -5740,7 +5994,8 @@ def main():
 
     # 5. NN kernels vs plain at bench.py's nnmud size
     case, phases = NM.wet_dambreak_nn(dp=NN_DP, device=device)
-    records.update(nn_kernels_vs_plain(case, phases, device, smi))
+    records.update(nn_kernels_vs_plain(case, phases, device, smi,
+                                       wide_too=True))
     # kernels 4 and 6 at a third of the dp (330,781 particles), where one
     # thread per target fills the card too
     nn_kernels_vs_plain(*NM.wet_dambreak_nn(dp=NN_DP / 3, device=device),
@@ -5749,8 +6004,10 @@ def main():
 
     # 6. NN main path: SPH Morris, Fourtakas
     nwarm, nsteps = 5, 50
+    nn_p50s = {}
     launched, step, carry = nn_path(case, phases, nn_opts("LAMINAR_SPS", "SPH"),
-                                    device, nwarm, nsteps, "nn-main-path", smi)
+                                    device, nwarm, nsteps, "nn-main-path", smi,
+                                    p50s=nn_p50s)
     for k in ("nnforce_p1", "nnforce_p3"):
         check(launched[k] == 2 * (nwarm + nsteps),
               f"{launched} in {nwarm + nsteps} steps, expected {k} 2 per step")
@@ -5759,7 +6016,8 @@ def main():
     # 7. NN FDA path: FDA Morris
     nwarm, nsteps = 5, 20
     launched, _, _ = nn_path(case, phases, nn_opts("LAMINAR_SPS", "FDA"),
-                             device, nwarm, nsteps, "nn-fda-path", smi)
+                             device, nwarm, nsteps, "nn-fda-path", smi,
+                             p50s=nn_p50s)
     check(launched["nnforce_fda"] == 2 * (nwarm + nsteps),
           f"{launched} in {nwarm + nsteps} steps, expected nnforce_fda 2 per step")
     records["nnforce_fda"]["launches"] = launched["nnforce_fda"]
@@ -5932,6 +6190,25 @@ def main():
     coastal, records["cellforce"]["coastal_states"], coastal_shard = \
         coastal_path(device, smi)
     paths.update(coastal)
+    # 41. the NN wet dam break with 12 phases: kernels 4-6 over the phase
+    # table in a device array, the SPH and FDA paths, a 12-phase XML
+    nn12, nn12_records = nn_phases_path(device, registers, records, nn_p50s,
+                                        smi)
+    for path, launched in nn12.items():
+        for name, k in launched.items():
+            records[name]["path_launches"][path] = k
+    # 42. a domain without a cell skin: the 3D dam break over kernel 1
+    paths["skinless"] = skinless_path(device, smi)
+    for key, r in nn12_records.items():
+        records[r["kernel"]]["instances"].append(dict(
+            instance=key, **{f: r[f] for f in (
+                "variant", "launches", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by")}))
+    for name in ("nnforce_p1", "nnforce_p3", "nnforce_fda"):
+        records[name]["table_ms"] = {"2 phases, parameter table":
+                                     records[name]["table_ms"],
+                                     "2 phases, device table":
+                                     records[name].pop("wide_ms")}
     for path, ranks in (("dambreak3d-2-ranks", shard["dambreak3d"]["ranks"]),
                         ("dambreak3d-nccl", shard["dambreak3d"]["nccl"]),
                         ("nn-2-ranks", shard["nn"]["ranks"]),
@@ -5952,7 +6229,7 @@ def main():
         **{k: records[name][k] for k in ("instances", "path_launches",
                                           "open_states", "coupling_states",
                                           "nbrlist_state", "shard_launches",
-                                          "coastal_states")
+                                          "coastal_states", "table_ms")
            if k in records[name]})
         for name, (src, rep) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

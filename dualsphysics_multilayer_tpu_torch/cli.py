@@ -37,12 +37,15 @@ gather ordered by id.
 
 Reference colon-form flags (-tmax:1.6, -partbegin:20 dir, -svpips:2) are
 accepted alongside space-separated values, and ``-opt FILE`` reads more
-options from a file.  Options whose setting the port does not run leave
-with a message that names them: ``-pallas``/``-no-pallas`` and
-``-cellmode:half``; so do the XML nodes the loader refuses, the options
-the NN step refuses and the features ``-shard`` refuses (x-periodic
-boundaries and the wave paddles' AWAS; it runs inlet/outlet zones, DEM
-contact and y/z-periodic boundaries).
+options from a file.  ``-pallas``/``-no-pallas``, the JAX package's choice
+between its two implementations of the same physics, run the port's one
+path (:data:`PALLAS_NOTE`).  Options whose setting the port does not run
+leave with a message that names them: ``-cellmode:half``, as in the JAX
+CLI; so do the XML nodes the loader refuses, the options the NN step
+refuses and the features ``-shard`` refuses (x-periodic boundaries and
+the wave paddles' AWAS; it runs inlet/outlet zones, DEM contact and y/z-
+periodic boundaries).  ``-cpu -shard`` without a count runs one rank, as
+the JAX CLI's ``-shard`` runs over the one device of its CPU backend.
 """
 
 from __future__ import annotations
@@ -71,6 +74,11 @@ _BOOL_FLAGS = {"svres", "svtimers", "svdomainvtk", "svsteps", "nortimes",
 BUILTINS = ("dambreak2d", "dambreak3d", "floatingbox2d", "waveflume2d",
             "channel2d", "coastal_runup3d")
 VERSION = "0.1.0"
+# -pallas/-no-pallas pick the JAX package's Pallas kernels or its XLA
+# bucket path, the same physics; the port has one path
+PALLAS_NOTE = ("-pallas/-no-pallas: the port has one path, the hand-written "
+               "CUDA kernels on the card (their plain versions with -cpu); "
+               "the option changes nothing")
 
 
 def _normalize(argv):
@@ -210,7 +218,7 @@ def build_parser():
     p.add_argument("-nsteps", type=int, default=None,
                    help="debug: stop at the first save after N steps")
     p.add_argument("-pallas", action="store_true", default=None,
-                   help="the JAX package's Pallas switch (refused)")
+                   help="the JAX package's Pallas switch (one path here)")
     p.add_argument("-no-pallas", dest="pallas", action="store_false")
     p.add_argument("-initnorpla", action="append", default=[],
                    help="mDBC wall normals from a plane: mkbound=LIST:"
@@ -236,9 +244,6 @@ def refuse(args):
                          f"builds {', '.join(BUILTINS)})")
     if args.shard is not None and args.shard < 0:
         raise SystemExit(f"-shard:{args.shard}: give a rank count >= 1")
-    if args.pallas is not None:
-        raise SystemExit("-pallas/-no-pallas: the port has no Pallas path; "
-                         "CUDA tensors always run the hand-written kernels")
     if args.cellmode == "half":
         raise SystemExit(
             "-cellmode:half is not supported: the port's cells are the "
@@ -448,15 +453,13 @@ def _log_config(dirout, case, csp, opts, dom, tmax):
 
 
 def _sharded(args, torch, csp, opts, dom, st, feats, phases, t0, device):
-    """The ``-shard[:N]`` run, leaving with the message of a
-    feature or a rank count it refuses."""
+    """The ``-shard[:N]`` run (without N every card, or with ``-cpu`` one
+    rank), leaving with the message of a feature or a rank count it
+    refuses."""
     from .parallel.sharding import ShardedSimulation
-    ndev = args.shard
-    if device.type == "cpu" and not ndev:
-        raise SystemExit("-shard with -cpu: give the rank count, -shard:N")
     try:
         return ShardedSimulation(csp, opts, dom, st, feats=feats,
-                                 ndev=ndev, phases=phases, t0=t0,
+                                 ndev=args.shard, phases=phases, t0=t0,
                                  device=device.type)
     except (NotImplementedError, ValueError) as e:
         raise SystemExit(f"-shard: {e}") from None
@@ -474,6 +477,8 @@ def main(argv=None):
         print(json.dumps(_info(torch), indent=1))
         return 0
     refuse(args)
+    if args.pallas is not None:
+        print(f"[dsphtorch] {PALLAS_NOTE}")
     if not args.case and not args.builtin:
         print("error: give -case <xml> or -builtin <name>", file=sys.stderr)
         return 2

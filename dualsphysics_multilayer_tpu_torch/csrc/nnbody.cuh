@@ -9,9 +9,11 @@
 //   * a pair is j != i, both live, not boundary-boundary, with
 //     ALMOSTZERO <= rr2 <= kernelsize^2;
 //   * a candidate's mass is its phase's (massbound for boundaries); phase
-//     constants come from the per-phase tables of NnParams, indexed by the
-//     per-particle phase (the fluid typecode value clipped to the table, so
-//     boundaries carry phase 0);
+//     constants come from a per-phase table indexed by the per-particle
+//     phase (the fluid typecode value clipped to the table, so boundaries
+//     carry phase 0): NnParams' own table for up to NN_TABLE_PHASES phases,
+//     or, in the kWide instances, NnParams.phtab, a device array of any
+//     count (phase_cte);
 //   * boundary targets take continuity and viscdt only;
 //   * density diffusion acts on same-phase fluid pairs with the candidate's
 //     cs0 as cbar; a boundary neighbour in range blocks a target's whole
@@ -39,8 +41,16 @@
 
 #include "cellwalk.cuh"
 
-// Largest phase table the kernels take; ops/forces_nn.py MAX_PHASES.
-constexpr int NN_MAX_PHASES = 8;
+// The phases NnParams' own table holds (ops/cuda/nnforce.py
+// TABLE_PHASES); a case with more runs the kWide instances, which read
+// NnParams.phtab.
+constexpr int NN_TABLE_PHASES = 8;
+
+// The per-phase constants, one row of the table each.
+enum {
+  PH_CS0 = 0, PH_MASS, PH_VISCO, PH_TAUY, PH_TAUMAX, PH_BIMUL, PH_HBPM,
+  PH_HBPN, PH_FIELDS
+};
 
 // Viscosity modes of the viscous pass.
 enum { VISC_ARTIFICIAL = 0, VISC_MORRIS = 1, VISC_CONSEQ = 2 };
@@ -58,6 +68,8 @@ struct NnParams {
   int tkernel;     // KER_* of the instance the launchers pick
   int shiftmode;   // typesdef.TpShifting; not NONE picks the SHIFT instance
   int tboundary;   // BOUNDARY_*: Molteni's wall block under DBC only
+  int nphases;     // rows of the phase table: 1 .. NN_TABLE_PHASES in tab,
+                   // any count in phtab
   float kernelsize2;
   float kernelh;
   float bwen;
@@ -69,16 +81,36 @@ struct NnParams {
   float massbound;
   float almostzero;
   CubicCte cubic;
-  // per-phase tables
-  float cs0[NN_MAX_PHASES];
-  float mass[NN_MAX_PHASES];
-  float visco[NN_MAX_PHASES];
-  float tauy[NN_MAX_PHASES];
-  float taumax[NN_MAX_PHASES];
-  float bimul[NN_MAX_PHASES];
-  float hbpm[NN_MAX_PHASES];
-  float hbpn[NN_MAX_PHASES];
+  // the phase table of up to NN_TABLE_PHASES phases, field PH_* of phase
+  // ph at tab[PH_*][ph], read from the parameters' constant bank
+  float tab[PH_FIELDS][NN_TABLE_PHASES];
+  // null, or the phase table of any count in device memory (PH_FIELDS rows
+  // of nphases f32), which picks the kWide instances at launch
+  const float* phtab;
 };
+
+// Field f (PH_*) of phase ph: from NnParams' table, or (kWide) from the
+// device table, whose loads go through the read-only cache like the
+// particles'.  The launchers pick kWide, so the pair loop never tests it.
+template <bool kWide>
+DSPH_HD float phase_cte(const NnParams& p, int f, int ph) {
+  if constexpr (kWide) {
+#if defined(__CUDA_ARCH__)
+    return __ldg(p.phtab + f * p.nphases + ph);
+#else
+    return p.phtab[f * p.nphases + ph];
+#endif
+  } else {
+    return p.tab[f][ph];
+  }
+}
+
+// Whether the parameters' phase table is one the kWide (phtab set) or the
+// other instances can read.
+DSPH_HD bool nn_phases_fit(const NnParams* p) {
+  return p->nphases >= 1
+         && (p->phtab != nullptr || p->nphases <= NN_TABLE_PHASES);
+}
 
 // HBP effective viscosity (forces_nn.eta_effective, JSphCpu_Tensors.cpp:
 // 116-136): tau_yield, visco, m and n of phase ph, the bi-viscosity
@@ -87,11 +119,15 @@ struct NnParams {
 // Papanastasiou term, so its tau/(2*ALMOSTZERO)-sized yield term never
 // meets the zero factor 1 - exp(-m*dm); the power law runs only where it
 // is selected.
+template <bool kWide>
 DSPH_HD float eta_effective(const NnParams& p, float magn, int ph, int ppx) {
   const float eps = p.almostzero;
-  const float visco = p.visco[ph], tauy = p.tauy[ph];
-  const float m = p.hbpm[ph], n = p.hbpn[ph];
-  const float taumax = p.taumax[ppx], bimul = p.bimul[ppx];
+  const float visco = phase_cte<kWide>(p, PH_VISCO, ph);
+  const float tauy = phase_cte<kWide>(p, PH_TAUY, ph);
+  const float m = phase_cte<kWide>(p, PH_HBPM, ph);
+  const float n = phase_cte<kWide>(p, PH_HBPN, ph);
+  const float taumax = phase_cte<kWide>(p, PH_TAUMAX, ppx);
+  const float bimul = phase_cte<kWide>(p, PH_BIMUL, ppx);
   const float dm = fmaxf(magn, eps);
   const bool has_tm = taumax > 0.f;
   const bool bi = has_tm && dm <= taumax / (2.f * fmaxf(bimul * visco, eps));
@@ -293,11 +329,12 @@ struct NnGroupLane {
 // and, when p.gradvel, the 6-component velocity gradient) or of the fused
 // FDA pass (kFda true: the same without the gradient, plus the per-pair
 // strain -> eta -> Morris or ConsEq force and the per-target eta max) for
-// target i, with kernel KER and, with SHIFT, the shifting sums.  Every live
-// target walks, boundary targets for their continuity and viscdt.  Before
-// the butterfly the group votes its flags (settle, which folds each lane's
-// diffusion term into its continuity sum unless blocked).
-template <int KER, bool SHIFT, bool kFda>
+// target i, with kernel KER and, with SHIFT, the shifting sums; kWide reads
+// the phase table from NnParams.phtab.  Every live target walks, boundary
+// targets for their continuity and viscdt.  Before the butterfly the group
+// votes its flags (settle, which folds each lane's diffusion term into its
+// continuity sum unless blocked).
+template <int KER, bool SHIFT, bool kFda, bool kWide>
 struct NnPass1Lane : NnGroupLane {
   // One lane's partial sums.
   struct Sums {
@@ -337,7 +374,8 @@ struct NnPass1Lane : NnGroupLane {
     const float dvfr = dvx * frx + dvy * fry + dvz * frz;
     const float dot = drx * dvx + dry * dvy + drz * dvz;
     const float rr2e = rr2 + p.eta2;
-    const float mass2 = bound_c ? p.massbound : p.mass[phj];
+    const float mass2 =
+        bound_c ? p.massbound : phase_cte<kWide>(p, PH_MASS, phj);
     const float rhoi = vi.w, rhoj = vj.w;
     s.vmax = fmaxf(s.vmax, dot / rr2e);
     // continuity with per-phase masses
@@ -355,7 +393,9 @@ struct NnPass1Lane : NnGroupLane {
     const float drfr = drx * frx + dry * fry + drz * frz;
     if constexpr (SHIFT) {
       // a lighter candidate of another fluid phase adds nothing
-      const bool heavy = !bound_c && phi != phj && p.mass[phi] > p.mass[phj];
+      const bool heavy = !bound_c && phi != phj
+                         && phase_cte<kWide>(p, PH_MASS, phi)
+                                > phase_cte<kWide>(p, PH_MASS, phj);
       const float massrhop = heavy ? 0.f : mass2 / rhoj;
       s.shx += massrhop * frx;
       s.shy += massrhop * fry;
@@ -365,7 +405,7 @@ struct NnPass1Lane : NnGroupLane {
     }
     if (p.tdensity != DDT_NONE) {
       const bool same = !bound_c && phi == phj;
-      const float cbar = p.cs0[phj];
+      const float cbar = phase_cte<kWide>(p, PH_CS0, phj);
       if (p.tdensity == DDT_MOLTENI) {
         if (same) s.dlt += p.ddtkh * cbar * (rhoi / rhoj - 1.f) / rr2e * drfr * mass2;
         s.blocked = s.blocked || (bound_c && p.tboundary == BOUNDARY_DBC);
@@ -409,7 +449,8 @@ struct NnPass1Lane : NnGroupLane {
       const float ii2 = sxy * sxy + syz * syz + sxz * sxz;
       // rheology of the candidate's phase (the target's for a boundary
       // candidate), bi-viscosity constants of the target's
-      const float eta = eta_effective(p, fabsf(ii1 - ii2), bound_c ? phi : phj, phi);
+      const float eta =
+          eta_effective<kWide>(p, fabsf(ii1 - ii2), bound_c ? phi : phj, phi);
       s.emax = fmaxf(s.emax, eta);
       if (p.visc == VISC_MORRIS) {
         const float vtemp = mass2 * (2.f * eta / (rr2e * rhoj)) * drfr;
@@ -519,9 +560,10 @@ struct NnPass1Lane : NnGroupLane {
 // VISC_ARTIFICIAL with the candidate phase's visco and cs0 on approaching
 // pairs, with kernel KER; the form is a template parameter, as the TPU
 // kernel picks it statically (nnforce.py:485-487), so no instance carries
-// another form's registers.  Boundary and dead targets do not walk: their
-// groups end at once and add nothing.
-template <int KER, int VISC>
+// another form's registers.  kWide reads the phase table from
+// NnParams.phtab.  Boundary and dead targets do not walk: their groups end
+// at once and add nothing.
+template <int KER, int VISC, bool kWide>
 struct NnPass3Lane : NnGroupLane {
   static_assert(VISC == VISC_ARTIFICIAL || VISC == VISC_MORRIS
                 || VISC == VISC_CONSEQ, "a viscous form of pass 3");
@@ -566,7 +608,8 @@ struct NnPass3Lane : NnGroupLane {
     const float fac = kernel_fac<KER>(rr2, p.kernelh, p.bwen, p.cubic);
     const float frx = fac * drx, fry = fac * dry, frz = fac * drz;
     const float rr2e = rr2 + p.eta2;
-    const float mass2 = bound_c ? p.massbound : p.mass[phj];
+    const float mass2 =
+        bound_c ? p.massbound : phase_cte<kWide>(p, PH_MASS, phj);
     const float rhoj = vj.w;
     const float dvx = vi.x - vj.x, dvy = vi.y - vj.y, dvz = vi.z - vj.z;
     if constexpr (VISC == VISC_MORRIS) {
@@ -590,7 +633,9 @@ struct NnPass3Lane : NnGroupLane {
       if (dot >= 0.f) return;
       const float amubar = p.kernelh * (dot / rr2e);
       const float robar = (vi.w + rhoj) * 0.5f;
-      const float pi_visc = (-p.visco[phj] * p.cs0[phj] * amubar / robar) * mass2;
+      const float pi_visc = (-phase_cte<kWide>(p, PH_VISCO, phj)
+                             * phase_cte<kWide>(p, PH_CS0, phj) * amubar / robar)
+                            * mass2;
       s.ax -= pi_visc * frx;
       s.ay -= pi_visc * fry;
       s.az -= pi_visc * frz;
@@ -628,10 +673,11 @@ struct NnPass3Lane : NnGroupLane {
 
 // Whether pass 3 has an instance for these parameters and inputs: the
 // Wendland or cubic kernel, a viscous form VISC_*, eta under Morris, tau
-// under ConsEq, and a grid GroupWalk can hold.
+// under ConsEq, a phase table it reads and a grid GroupWalk can hold.
 DSPH_HD bool nn_pass3_takes(const NnParams* p, const void* eta,
                             const void* tau) {
   return (p->tkernel == KER_WENDLAND || p->tkernel == KER_CUBIC)
+         && nn_phases_fit(p)
          && (p->visc == VISC_ARTIFICIAL || p->visc == VISC_MORRIS
              || p->visc == VISC_CONSEQ)
          && (p->visc != VISC_MORRIS || eta != nullptr)

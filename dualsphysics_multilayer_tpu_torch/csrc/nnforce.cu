@@ -17,16 +17,19 @@
 // per combination, picked by its launcher from the parameters: the
 // smoothing kernel KER (Wendland, or the cubic spline with the tensile
 // correction in p1 and FDA), for p1 and FDA whether a shifting mode adds
-// the shifting sums (SHIFT), and for p3 the viscous form (VISC: artificial,
-// Morris or ConsEq).  A runtime test in one instance would cost the default
-// instance registers and time, as it did kernel 1's floating branch
-// (cellforce.cu).
+// the shifting sums (SHIFT), for p3 the viscous form (VISC: artificial,
+// Morris or ConsEq), and for all three where the phase table lies (kWide:
+// up to NN_TABLE_PHASES phases in the parameters' own table, read from the
+// constant bank as before; any count in a device array, NnParams.phtab,
+// read through the read-only cache, phase_cte).  A runtime test in one
+// instance would cost the default instance registers and time, as it did
+// kernel 1's floating branch (cellforce.cu).
 //
 // Pass 2 (strain rate -> effective viscosity -> tau) is elementwise torch
 // between the p1 and p3 launches (ops/forces_nn.py).  The per-pair
 // arithmetic lives in nnbody.cuh, shared with the g++-built CPU twins;
-// per-phase constants come from the tables of NnParams instead of the
-// TPU's per-particle constant channels.
+// per-phase constants come from a phase table instead of the TPU's
+// per-particle constant channels.
 //
 // What bounds them on the card: gathers of candidate fields through L1/L2,
 // and their latency.  In 2D a target walks 3 rows of 3 cells, about
@@ -105,12 +108,12 @@ __device__ __forceinline__ void group_fold(Lane& lane) {
 }
 
 // Pass 1 or FDA: the walk, the group's flags by ballot, the butterfly.
-template <int KER, bool SHIFT, bool kFda>
+template <int KER, bool SHIFT, bool kFda, bool kWide>
 __device__ __forceinline__ void pass1_group(const NnParams& p,
                                             const NnInputs& x,
                                             const NnOutputs& o) {
   __shared__ int queue[kBlock / kGroup][kGroupQueue];
-  NnPass1Lane<KER, SHIFT, kFda> lane;
+  NnPass1Lane<KER, SHIFT, kFda, kWide> lane;
   group_walk(lane, p, x, queue[threadIdx.x / kGroup]);
   const int base = group_base();
   const unsigned blocked = __ballot_sync(kFull, lane.s.blocked) >> base;
@@ -120,24 +123,24 @@ __device__ __forceinline__ void pass1_group(const NnParams& p,
   lane.write(p, o);
 }
 
-template <int KER, bool SHIFT>
+template <int KER, bool SHIFT, bool kWide>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
 nnforce_p1_kernel(NnParams p, NnInputs x, NnOutputs o) {
-  pass1_group<KER, SHIFT, false>(p, x, o);
+  pass1_group<KER, SHIFT, false, kWide>(p, x, o);
 }
 
-template <int KER, bool SHIFT>
+template <int KER, bool SHIFT, bool kWide>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
 nnforce_fda_kernel(NnParams p, NnInputs x, NnOutputs o) {
-  pass1_group<KER, SHIFT, true>(p, x, o);
+  pass1_group<KER, SHIFT, true, kWide>(p, x, o);
 }
 
 // Pass 3: the walk, the butterfly.
-template <int KER, int VISC>
+template <int KER, int VISC, bool kWide>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
 nnforce_p3_kernel(NnParams p, NnInputs x, NnOutputs o) {
   __shared__ int queue[kBlock / kGroup][kGroupQueue];
-  NnPass3Lane<KER, VISC> lane;
+  NnPass3Lane<KER, VISC, kWide> lane;
   group_walk(lane, p, x, queue[threadIdx.x / kGroup]);
   group_fold(lane);
   lane.write(p, o);
@@ -145,13 +148,13 @@ nnforce_p3_kernel(NnParams p, NnInputs x, NnOutputs o) {
 
 int nblocks(int threads) { return (threads + kBlock - 1) / kBlock; }
 
-template <int KER, bool SHIFT, bool kFda>
+template <int KER, bool SHIFT, bool kFda, bool kWide>
 void launch_p1_one(const NnParams* p, const void* pospress, const void* velrho,
                    const void* kind, const void* phase, const void* cell,
                    const void* begin, void* ace, void* ar, void* viscdt,
                    void* last, void* shift, void* shiftblk, void* stream) {
-  auto* kernel = kFda ? nnforce_fda_kernel<KER, SHIFT>
-                      : nnforce_p1_kernel<KER, SHIFT>;
+  auto* kernel = kFda ? nnforce_fda_kernel<KER, SHIFT, kWide>
+                      : nnforce_p1_kernel<KER, SHIFT, kWide>;
   const NnOutputs o{static_cast<float*>(ace), static_cast<float*>(ar),
                     static_cast<float*>(viscdt),
                     kFda ? nullptr : static_cast<float*>(last),
@@ -165,9 +168,9 @@ void launch_p1_one(const NnParams* p, const void* pospress, const void* velrho,
 }
 
 // Pass 1 or FDA (``last`` is gradvel or etamax): the instance of the
-// parameters' kernel and shifting mode; cudaErrorInvalidValue for another
-// kernel, a shifting mode without its outputs, or a grid GroupWalk cannot
-// hold.
+// parameters' kernel, shifting mode and phase table; cudaErrorInvalidValue
+// for another kernel, a shifting mode without its outputs, a phase table
+// neither instance reads, or a grid GroupWalk cannot hold.
 template <bool kFda>
 int launch_p1(const NnParams* p, const void* pospress, const void* velrho,
               const void* kind, const void* phase, const void* cell,
@@ -176,23 +179,32 @@ int launch_p1(const NnParams* p, const void* pospress, const void* velrho,
   const bool shifting = p->shiftmode != SHIFT_NONE;
   if ((p->tkernel != KER_WENDLAND && p->tkernel != KER_CUBIC)
       || (shifting && (shift == nullptr || shiftblk == nullptr))
-      || !group_walk_fits(p->ncx, p->ncy, p->ncz)) {
+      || !nn_phases_fit(p) || !group_walk_fits(p->ncx, p->ncy, p->ncz)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool cubic = p->tkernel == KER_CUBIC;
-  auto* one = cubic ? (shifting ? launch_p1_one<KER_CUBIC, true, kFda>
-                                : launch_p1_one<KER_CUBIC, false, kFda>)
-                    : (shifting ? launch_p1_one<KER_WENDLAND, true, kFda>
-                                : launch_p1_one<KER_WENDLAND, false, kFda>);
-  one(p, pospress, velrho, kind, phase, cell, begin, ace, ar, viscdt, last,
+  using One = void (*)(const NnParams*, const void*, const void*, const void*,
+                       const void*, const void*, const void*, void*, void*,
+                       void*, void*, void*, void*, void*);
+  // [wide][cubic][shifting]
+  static const One one[2][2][2] = {
+      {{launch_p1_one<KER_WENDLAND, false, kFda, false>,
+        launch_p1_one<KER_WENDLAND, true, kFda, false>},
+       {launch_p1_one<KER_CUBIC, false, kFda, false>,
+        launch_p1_one<KER_CUBIC, true, kFda, false>}},
+      {{launch_p1_one<KER_WENDLAND, false, kFda, true>,
+        launch_p1_one<KER_WENDLAND, true, kFda, true>},
+       {launch_p1_one<KER_CUBIC, false, kFda, true>,
+        launch_p1_one<KER_CUBIC, true, kFda, true>}}};
+  one[p->phtab != nullptr][p->tkernel == KER_CUBIC][shifting](
+      p, pospress, velrho, kind, phase, cell, begin, ace, ar, viscdt, last,
       shift, shiftblk, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int KER, int VISC>
+template <int KER, int VISC, bool kWide>
 void launch_p3_one(const NnParams* p, const NnInputs& x, const NnOutputs& o,
                    cudaStream_t stream) {
-  nnforce_p3_kernel<KER, VISC>
+  nnforce_p3_kernel<KER, VISC, kWide>
       <<<nblocks(p->n * kGroup), kBlock, 0, stream>>>(*p, x, o);
 }
 
@@ -201,8 +213,9 @@ void launch_p3_one(const NnParams* p, const NnInputs& x, const NnOutputs& o,
 // Each launcher launches on `stream` and returns cudaGetLastError() (0 on
 // success), or cudaErrorInvalidValue when the parameters name a kernel or
 // (p3) a viscous form it has no instance of, a shifting mode without shift
-// and shiftblk, (p3) Morris without eta or ConsEq without tau, or a grid of
-// 2^24 x-cells or 2^16 y- or z-cells or more.
+// and shiftblk, (p3) Morris without eta or ConsEq without tau, no phase or
+// more than NN_TABLE_PHASES without phtab, or a grid of 2^24 x-cells or
+// 2^16 y- or z-cells or more.  A set phtab picks the kWide instances.
 // Inputs: pospress, velrho (n,4) f32, kind, phase, cell (n,) i32, begin
 // (ncells+1,) i32, eta (n,) and tau (n,6) f32 (p3).  Outputs: ace (n,3), ar,
 // viscdt (n,) f32, gradvel (n,6) f32 (p1), etamax (n,) f32 (FDA), shift
@@ -236,16 +249,23 @@ extern "C" int dsph_nnforce_p3(const NnParams* p, const void* pospress,
   if (!nn_pass3_takes(p, eta, tau)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static void (*const one[2][3])(const NnParams*, const NnInputs&,
-                                 const NnOutputs&, cudaStream_t) = {
-      {launch_p3_one<KER_CUBIC, VISC_ARTIFICIAL>,
-       launch_p3_one<KER_CUBIC, VISC_MORRIS>,
-       launch_p3_one<KER_CUBIC, VISC_CONSEQ>},
-      {launch_p3_one<KER_WENDLAND, VISC_ARTIFICIAL>,
-       launch_p3_one<KER_WENDLAND, VISC_MORRIS>,
-       launch_p3_one<KER_WENDLAND, VISC_CONSEQ>}};
+  // [wide][wendland][visc]
+  static void (*const one[2][2][3])(const NnParams*, const NnInputs&,
+                                    const NnOutputs&, cudaStream_t) = {
+      {{launch_p3_one<KER_CUBIC, VISC_ARTIFICIAL, false>,
+        launch_p3_one<KER_CUBIC, VISC_MORRIS, false>,
+        launch_p3_one<KER_CUBIC, VISC_CONSEQ, false>},
+       {launch_p3_one<KER_WENDLAND, VISC_ARTIFICIAL, false>,
+        launch_p3_one<KER_WENDLAND, VISC_MORRIS, false>,
+        launch_p3_one<KER_WENDLAND, VISC_CONSEQ, false>}},
+      {{launch_p3_one<KER_CUBIC, VISC_ARTIFICIAL, true>,
+        launch_p3_one<KER_CUBIC, VISC_MORRIS, true>,
+        launch_p3_one<KER_CUBIC, VISC_CONSEQ, true>},
+       {launch_p3_one<KER_WENDLAND, VISC_ARTIFICIAL, true>,
+        launch_p3_one<KER_WENDLAND, VISC_MORRIS, true>,
+        launch_p3_one<KER_WENDLAND, VISC_CONSEQ, true>}}};
   const NnOutputs o{static_cast<float*>(ace)};
-  one[p->tkernel == KER_WENDLAND][p->visc](
+  one[p->phtab != nullptr][p->tkernel == KER_WENDLAND][p->visc](
       p, nn_inputs(pospress, velrho, kind, phase, cell, begin, eta, tau), o,
       static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());

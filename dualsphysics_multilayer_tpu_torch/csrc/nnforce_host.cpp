@@ -1,7 +1,7 @@
 // CPU twins of nnforce.cu: the same bodies (nnbody.cuh) in the card's lane
 // groups, emulated a warp at a time, each launcher picking the instance of
-// the parameters' kernel, shifting mode and viscous form as the CUDA one
-// does.  Built with g++ by ops/cuda/build.py so the kernels' arithmetic can
+// the parameters' kernel, shifting mode, viscous form and phase table as
+// the CUDA one does.  Built with g++ by ops/cuda/build.py so the kernels' arithmetic can
 // be tested on a machine without a GPU.
 #include "nnbody.cuh"
 
@@ -72,9 +72,9 @@ void warp_fold(Lane (&lane)[kWarp]) {
 
 // Pass 1 or FDA (nnforce.cu pass1_group): a group's flags are the OR over
 // its lanes.
-template <int KER, bool SHIFT, bool kFda>
+template <int KER, bool SHIFT, bool kFda, bool kWide>
 void pass1_all(const NnParams* p, const NnInputs& x, const NnOutputs& o) {
-  using Lane = NnPass1Lane<KER, SHIFT, kFda>;
+  using Lane = NnPass1Lane<KER, SHIFT, kFda, kWide>;
   for (int t0 = 0; t0 < p->n * kGroup; t0 += kWarp) {
     Lane lane[kWarp];
     warp_walk(lane, t0, *p, x);
@@ -99,7 +99,7 @@ int pass1(const NnParams* p, const void* pospress, const void* velrho,
   const bool shifting = p->shiftmode != SHIFT_NONE;
   if ((p->tkernel != KER_WENDLAND && p->tkernel != KER_CUBIC)
       || (shifting && (shift == nullptr || shiftblk == nullptr))
-      || !group_walk_fits(p->ncx, p->ncy, p->ncz)) {
+      || !nn_phases_fit(p) || !group_walk_fits(p->ncx, p->ncy, p->ncz)) {
     return kInvalidValue;
   }
   const NnOutputs o{static_cast<float*>(ace), static_cast<float*>(ar),
@@ -108,19 +108,25 @@ int pass1(const NnParams* p, const void* pospress, const void* velrho,
                     kFda ? static_cast<float*>(last) : nullptr,
                     static_cast<float*>(shift),
                     static_cast<unsigned char*>(shiftblk)};
-  const bool cubic = p->tkernel == KER_CUBIC;
-  auto* all = cubic ? (shifting ? pass1_all<KER_CUBIC, true, kFda>
-                                : pass1_all<KER_CUBIC, false, kFda>)
-                    : (shifting ? pass1_all<KER_WENDLAND, true, kFda>
-                                : pass1_all<KER_WENDLAND, false, kFda>);
-  all(p, nn_inputs(pospress, velrho, kind, phase, cell, begin, nullptr,
+  // [wide][cubic][shifting]
+  static void (*const all[2][2][2])(const NnParams*, const NnInputs&,
+                                    const NnOutputs&) = {
+      {{pass1_all<KER_WENDLAND, false, kFda, false>,
+        pass1_all<KER_WENDLAND, true, kFda, false>},
+       {pass1_all<KER_CUBIC, false, kFda, false>,
+        pass1_all<KER_CUBIC, true, kFda, false>}},
+      {{pass1_all<KER_WENDLAND, false, kFda, true>,
+        pass1_all<KER_WENDLAND, true, kFda, true>},
+       {pass1_all<KER_CUBIC, false, kFda, true>,
+        pass1_all<KER_CUBIC, true, kFda, true>}}};
+  all[p->phtab != nullptr][p->tkernel == KER_CUBIC][shifting](p, nn_inputs(pospress, velrho, kind, phase, cell, begin, nullptr,
                    nullptr), o);
   return 0;
 }
 
-template <int KER, int VISC>
+template <int KER, int VISC, bool kWide>
 void pass3_all(const NnParams* p, const NnInputs& x, const NnOutputs& o) {
-  using Lane = NnPass3Lane<KER, VISC>;
+  using Lane = NnPass3Lane<KER, VISC, kWide>;
   for (int t0 = 0; t0 < p->n * kGroup; t0 += kWarp) {
     Lane lane[kWarp];
     warp_walk(lane, t0, *p, x);
@@ -157,15 +163,23 @@ extern "C" int dsph_nnforce_p3_host(const NnParams* p, const void* pospress,
                                     const void* begin, const void* eta,
                                     const void* tau, void* ace) {
   if (!nn_pass3_takes(p, eta, tau)) return kInvalidValue;
-  static void (*const all[2][3])(const NnParams*, const NnInputs&,
-                                 const NnOutputs&) = {
-      {pass3_all<KER_CUBIC, VISC_ARTIFICIAL>, pass3_all<KER_CUBIC, VISC_MORRIS>,
-       pass3_all<KER_CUBIC, VISC_CONSEQ>},
-      {pass3_all<KER_WENDLAND, VISC_ARTIFICIAL>,
-       pass3_all<KER_WENDLAND, VISC_MORRIS>,
-       pass3_all<KER_WENDLAND, VISC_CONSEQ>}};
+  // [wide][wendland][visc]
+  static void (*const all[2][2][3])(const NnParams*, const NnInputs&,
+                                    const NnOutputs&) = {
+      {{pass3_all<KER_CUBIC, VISC_ARTIFICIAL, false>,
+        pass3_all<KER_CUBIC, VISC_MORRIS, false>,
+        pass3_all<KER_CUBIC, VISC_CONSEQ, false>},
+       {pass3_all<KER_WENDLAND, VISC_ARTIFICIAL, false>,
+        pass3_all<KER_WENDLAND, VISC_MORRIS, false>,
+        pass3_all<KER_WENDLAND, VISC_CONSEQ, false>}},
+      {{pass3_all<KER_CUBIC, VISC_ARTIFICIAL, true>,
+        pass3_all<KER_CUBIC, VISC_MORRIS, true>,
+        pass3_all<KER_CUBIC, VISC_CONSEQ, true>},
+       {pass3_all<KER_WENDLAND, VISC_ARTIFICIAL, true>,
+        pass3_all<KER_WENDLAND, VISC_MORRIS, true>,
+        pass3_all<KER_WENDLAND, VISC_CONSEQ, true>}}};
   const NnOutputs o{static_cast<float*>(ace)};
-  all[p->tkernel == KER_WENDLAND][p->visc](
+  all[p->phtab != nullptr][p->tkernel == KER_WENDLAND][p->visc](
       p, nn_inputs(pospress, velrho, kind, phase, cell, begin, eta, tau), o);
   return 0;
 }

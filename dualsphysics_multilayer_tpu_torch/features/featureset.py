@@ -22,11 +22,6 @@ from dataclasses import dataclass, fields
 from .floating import FloatingCfg
 
 
-# the fields the port's steps run
-PORTED = ("motions", "damping", "accinputs", "floating", "relaxzones",
-          "mlpistons", "awas", "viscotime", "periodic", "inout", "dem",
-          "moorings", "forcepoints", "chrono", "chcontact")
-
 # the case XML's node behind each ported field, for refusals that name it
 XML_NODES = {"motions": "<motion> or <special><wavepaddles>",
              "damping": "<special><damping>",
@@ -77,14 +72,10 @@ class Features:
                 and getattr(self, f.name) != ()]
 
     def check_supported(self) -> None:
-        """Raise NotImplementedError naming the first feature the port does
-        not cover: a field outside ``PORTED``, or a configuration given as
-        another class than the port's (the JAX package's go through
-        ``convert.features`` first)."""
+        """Raise NotImplementedError naming the first feature given as
+        another class than the port's configuration (the JAX package's go
+        through ``convert.features`` first); the steps run every field."""
         for name in self.set_fields():
-            if name not in PORTED:
-                raise NotImplementedError(f"the torch port does not cover "
-                                          f"Features.{name} yet")
             kinds = _kinds().get(name)
             value = getattr(self, name)
             if kinds is not None and not isinstance(value, kinds):

@@ -45,6 +45,7 @@ import torch
 from .. import typesdef as td
 from ..typesdef import CteSph
 from ..ops import celldiv as cd
+from ..ops import forces as F
 
 # the per-row fields a ghost row carries (the interaction's inputs)
 GHOST_FIELDS = ("pos", "vel", "rho", "code", "idp", "spstau",
@@ -182,9 +183,7 @@ def periodic_interaction(cfg: PeriodicCfg, csp: CteSph, dom: cd.Domain, st,
                                          halo=refresh is not None)
     cells, code = cd.divide_cells(dom, rows["pos"], rows["code"])
     order = cells.order
-    back = torch.empty_like(order)
-    back[order] = torch.arange(order.shape[0], device=order.device)
-    back = back[:st.n]
+    back = cd.slots_of(cells)[:st.n]
     again = None
     if refresh is not None:
         src = origin[order]
@@ -196,10 +195,7 @@ def periodic_interaction(cfg: PeriodicCfg, csp: CteSph, dom: cd.Domain, st,
     srt, fr = interact(_rows_state(st, rows, code, order), cells, again)
     st = replace(st, vel=srt.vel[back], rho=srt.rho[back],
                  code=srt.code[back])
-    per_row = {k: getattr(fr, k)[back] for k in (
-        "ace", "ar", "shiftposfs", "shift_blocked", "spsgradvel")
-        if getattr(fr, k) is not None}
-    return st, replace(fr, overflow=overflow, **per_row)
+    return st, replace(F.gathered(fr, back), overflow=overflow)
 
 
 def _rows_state(st, rows, code, order):

@@ -2,11 +2,12 @@
 
 Counterpart of `dualsphysics_multilayer_tpu/models/nnewtonian.py`:
 ``make_nn_step``, ``make_nn_csp`` and the 2D wet dam break
-``wet_dambreak_nn``.  The step is the single-phase symplectic step
-(``wcsph.symplectic_step``: one cell-sorted layout for the predictor and
-the corrector, re-divided only when the skin contract demands it) over the
-NN interaction of ``ops/forces_nn.py``, whose ``viscetadtmax`` adds the
-viscous dt3 control.  The port's single layout plays the part of the JAX
+``wet_dambreak_nn``; ``layered_dambreak_nn`` cuts its mud column into
+strata of their own phases, a phase table of any count.  The step is the
+single-phase symplectic step (``wcsph.symplectic_step``: one cell-sorted
+layout for the predictor and the corrector, re-divided only when the skin
+contract demands it) over the NN interaction of ``ops/forces_nn.py``,
+whose ``viscetadtmax`` adds the viscous dt3 control.  The port's single layout plays the part of the JAX
 package's ``nn_rowdiv_ok`` path.
 
 Under mDBC walls (normals from ``<initialize>``, ``-initnorpla`` or
@@ -19,6 +20,7 @@ diffusion, which a wall neighbour no longer blocks.  The CLI prints
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -52,21 +54,28 @@ def make_nn_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     its XML node, where JAX would run the case with it ignored.  It
     ignores ``opts.use_nbrlist``, as JAX's does: it walks ``dom``, and a
     carry made on the neighbour list's grid is divided afresh on its first
-    step.  ``dd``: one rank of a domain decomposition
+    step.  On a domain without a cell skin each interaction divides
+    afresh (``wcsph.fresh_interaction``).  ``dd``: one rank of a domain decomposition
     (``parallel/sharding.py``, a 2-cell halo): each interaction refreshes
     the ghost rows first, and ``wcsph.symplectic_step`` reduces the dt
     maxima, viscetadtmax among them, over the ranks."""
     if feats is not None:
         feats.check_none_set("the NN step")
     NN.check_supported_nn(csp, opts, phases)
+    W.check_skin(csp, dom, None, dd)
+    fresh = W.skinless(csp, dom)
+
+    def forces(st: W.SimState, cells):
+        fr, _eta, _tau = NN.interaction_forces_nn(
+            csp, opts, phases, dom, cells, st.pos, st.vel, st.rho, st.code)
+        return st, fr
 
     def interaction(st: W.SimState, carry: W.StepCarry, dt):
         if dd is not None:
             st = dd.refresh(st, carry.halo)
-        fr, _eta, _tau = NN.interaction_forces_nn(
-            csp, opts, phases, dom, carry.cells, st.pos, st.vel, st.rho,
-            st.code)
-        return st, fr
+        if fresh:
+            return W.fresh_interaction(dom, st, forces)
+        return forces(st, carry.cells)
 
     return W.symplectic_step(csp, opts, dom, interaction, dd=dd)
 
@@ -126,3 +135,61 @@ def wet_dambreak_nn(dp=0.02, *, tank=(2.0, 1.0), mud=(0.5, 0.3),
                   meta=dict(name="wet_dambreak_nn", dp=dp, phases=phases,
                             zsurf=water_depth))
     return case, phases
+
+
+def layered_phases(water: NN.Phase, mud: NN.Phase, layers: int,
+                   water_rho: float = 1000.0) -> NN.PhaseCfg:
+    """``water`` as phase 0 and ``layers`` HBP muds as phases 1..layers,
+    bottom to top, each with its own rest density (from 1.2 to 0.8 times
+    ``mud``'s excess over water), consistency (2 to 0.5 times ``mud``'s),
+    yield stress (2 to 0.5 times) and sound speed (``water``'s scaled by
+    sqrt(rho0 / water_rho), as :func:`wet_dambreak_nn` does), with
+    ``mud``'s power index; every third layer also takes the bi-viscosity
+    constants (tau_max 10 times its yield stress, Bi_multi 20).  Under
+    FDA, whose strain magnitude is the square of the rate
+    (``forces_nn.strain_magn_pair``), a power index above 1 beside the
+    no-slip walls blows up at dp 3.21 mm, in the JAX package as in the
+    port (``ROADMAP.md`` §3)."""
+    out = [water]
+    for k in range(1, layers + 1):
+        f = (k - 1) / max(layers - 1, 1)
+        rho0 = water_rho + (mud.rho0 - water_rho) * (1.2 - 0.4 * f)
+        tauy = mud.tau_yield * 2.0 ** (1.0 - 2.0 * f)
+        bi = k % 3 == 0
+        out.append(NN.Phase(
+            mkfluid=k, rho0=rho0,
+            csound=water.csound * math.sqrt(rho0 / water_rho),
+            visco=mud.visco * 2.0 ** (1.0 - 2.0 * f), tau_yield=tauy,
+            tau_max=10.0 * tauy if bi else 0.0, bi_multi=20.0 if bi else 0.0,
+            hbp_m=mud.hbp_m, hbp_n=mud.hbp_n))
+    return NN.PhaseCfg(phases=tuple(out))
+
+
+def layered_dambreak_nn(dp=0.02, *, layers=11, tank=(2.0, 1.0),
+                        mud=(0.5, 0.3), water_depth=0.15, device="cuda",
+                        **kw):
+    """:func:`wet_dambreak_nn` with its mud column cut into ``layers``
+    horizontal strata of equal height (its rows' span plus dp, a row in
+    the stratum of its middle), phase k =
+    1..layers from the bottom (:func:`layered_phases`), each at its own
+    rest density: a phase table of 1 + ``layers`` phases, the same
+    particles.  ``kw`` goes to :func:`wet_dambreak_nn`.  Returns (Case,
+    PhaseCfg)."""
+    case, base = wet_dambreak_nn(dp, tank=tank, mud=mud,
+                                 water_depth=water_depth, device=device, **kw)
+    water_rho = base.phases[0].rho0
+    phases = layered_phases(base.phases[0], base.phases[1], layers, water_rho)
+    st = case.state
+    ismud = td.is_fluid(st.code) & (td.code_value(st.code) == 1)
+    csp = make_nn_csp(simulate2d=True, dp=dp, phases=phases,
+                      hswl=max(mud[1], water_depth))
+    z = st.pos[:, 2]
+    z0, z1 = float(z[ismud].min()), float(z[ismud].max())
+    k = ((z - z0 + 0.5 * dp) / ((z1 - z0 + dp) / layers)).floor()
+    layer = torch.clamp(k.to(st.code.dtype), 0, layers - 1) + 1
+    rho0 = phases.tables(csp, device)["rho0"][layer.long()]
+    st = dataclasses.replace(
+        st, code=torch.where(ismud, st.code - 1 + layer, st.code),
+        rho=torch.where(ismud, rho0, st.rho))
+    meta = dict(case.meta, name="layered_dambreak_nn", phases=phases)
+    return dataclasses.replace(case, csp=csp, state=st, meta=meta), phases

@@ -35,7 +35,11 @@ neighbours beyond the list's capacity into the step's overflow; DEM then
 reads the list's rows.  The carry records the domain of its layout
 (``StepCarry.dom``): a step that walks another divides afresh, so the
 NN step, which ignores the option as JAX's does, runs from a carry made
-under it.
+under it.  A domain without a cell skin (cells of the kernel size, JAX
+``make_domain``'s default, which JAX's bucket path runs) keeps no layout
+between interactions: each step starts with a rebuild and each
+interaction divides its own positions afresh (:func:`fresh_interaction`),
+as JAX divides at both.
 
 Torch has no device-side loop, so the host drives the steps.  Each step
 ends with ONE small device-to-host copy, ``[rebuild flag for the next step,
@@ -268,12 +272,53 @@ def step_values(csp: CteSph, opts: SolverOpts, feats: Features | None,
     return ddtkh, visco
 
 
+def skinless(csp: CteSph, dom: cd.Domain) -> bool:
+    """Whether the cells leave no skin beyond the kernel size (JAX's rule
+    for its bucket path, `wcsph.py:126`): no layout then holds the pairs
+    of moved particles, so each interaction divides afresh."""
+    return dom.scell <= csp.kernelsize * (1.0 + 1e-6)
+
+
 def _margin(csp: CteSph, dom: cd.Domain) -> float:
+    """The cells' skin beyond the kernel size, which the skin contract
+    spends between rebuilds; without one (:func:`skinless`) every step
+    rebuilds."""
     margin = dom.scell - csp.kernelsize
-    if margin <= 0:
-        raise ValueError("the domain needs a cell skin "
-                         "(make_domain(..., skin=...) with skin > 0)")
+    if margin < 0:
+        raise ValueError("cells narrower than the kernel size: the walks "
+                         "of 3 cells per axis would miss pairs")
     return margin
+
+
+def check_skin(csp: CteSph, dom: cd.Domain, feats: Features | None,
+               dd=None) -> None:
+    """NotImplementedError for what a domain without a cell skin does not
+    run yet: inlet/outlet zones (their pass reads the step's layout after
+    the corrector) and a domain decomposition (its halo rows are picked at
+    the step's rebuild)."""
+    if not skinless(csp, dom):
+        return
+    F.raise_unsupported([
+        (feats is not None and feats.inout is not None,
+         "inlet/outlet zones on a domain without a cell skin"),
+        (dd is not None, "a domain decomposition on a domain without a "
+         "cell skin")])
+
+
+def fresh_interaction(dom: cd.Domain, st, interact):
+    """One interaction on a divide of its own positions, for a domain
+    without a cell skin: runs ``interact(rows, cells) -> (rows, Forces)``
+    on the state in cell order and returns the state with the
+    interaction's vel, rho and code and the Forces' per-particle arrays
+    in the state's own slot order, so the step's arrays (the predictor's,
+    ``pose``) stay valid (the divide of ``periodic_interaction`` without
+    its ghost rows)."""
+    cells, code = cd.divide_cells(dom, st.pos, st.code)
+    back = cd.slots_of(cells)
+    srt, fr = interact(replace(st, code=code).permuted(cells.order), cells)
+    st = replace(st, vel=srt.vel[back], rho=srt.rho[back],
+                 code=srt.code[back])
+    return st, F.gathered(fr, back)
 
 
 def check_ids(st: SimState, feats: Features | None) -> None:
@@ -391,6 +436,8 @@ def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     floating rows alone, and the bodies' partial sums are added over the
     ranks."""
     F.check_supported(csp, opts)
+    check_skin(csp, dom, feats, dd)
+    fresh = skinless(csp, dom)
     floating = accinputs = periodic = dem = None
     if feats is not None:
         feats.check_supported()
@@ -431,6 +478,9 @@ def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             # interaction (JAX applies periodic at each one)
             st, fr = PER.periodic_interaction(periodic, csp, dom, st,
                                               interact, refresh)
+        elif fresh:
+            st, fr = fresh_interaction(
+                dom, st, lambda s, cells: interact(s, cells, None))
         else:
             if refresh is not None:
                 st = refresh(st)

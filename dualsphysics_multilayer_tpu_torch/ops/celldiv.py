@@ -83,6 +83,15 @@ class CellDiv:
     order: torch.Tensor      # (n,) int64 sorted slot k holds particle order[k]
 
 
+def slots_of(cells: CellDiv) -> torch.Tensor:
+    """(n,) int64: the sorted slot of each particle of the divided order
+    (the inverse of ``cells.order``), to gather results back."""
+    back = torch.empty_like(cells.order)
+    back[cells.order] = torch.arange(cells.order.shape[0],
+                                     device=cells.order.device)
+    return back
+
+
 def divide_cells(dom: Domain, pos, code):
     """Sort particles by linear cell id (x fastest).  Returns ``(CellDiv,
     new_code)`` where ``new_code`` (in the input order) marks formerly active

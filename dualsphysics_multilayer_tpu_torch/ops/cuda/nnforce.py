@@ -9,7 +9,9 @@ Counterpart of `dualsphysics_multilayer_tpu/ops/pallas/nnforce.py`
    TPU wrapper's channels): position with the per-phase pressure and
    velocity with density packed as 16-byte rows, the particle kind (type,
    or -1 when inactive) and the phase index; the phase constants travel in
-   the parameter struct's tables;
+   the parameter struct's table for up to :data:`TABLE_PHASES` phases, and
+   in a device array of any count (``NnParams.phtab``, :func:`phase_table`)
+   for more, which picks the kernels' wide instances;
 2. ``nnforce_p1`` (or ``nnforce_fda``) on torch's current stream, writing
    ace, ar with the density diffusion folded in, the per-target viscdt and
    the velocity gradient (or the per-target eta max), and with a shifting
@@ -49,33 +51,47 @@ launches = dict(nnforce_p1=0, nnforce_p3=0, nnforce_fda=0)
 # the viscous form of pass 3 (VISC_* of csrc/nnbody.cuh, the VISC of its
 # instances) for each viscosity option
 VISC = {TpVisco.ARTIFICIAL: 0, TpVisco.LAMINAR_SPS: 1, TpVisco.CONST_EQ: 2}
-# NnParams table -> PhaseCfg.tables key
-_TABLES = dict(cs0="cs0", mass="mass", visco="visco", tauy="tau_yield",
-               taumax="tau_max", bimul="bi_multi", hbpm="hbp_m", hbpn="hbp_n")
+# The phases NnParams' own table holds (csrc/nnbody.cuh NN_TABLE_PHASES);
+# a case with more runs the kernels' wide instances over phase_table.
+TABLE_PHASES = 8
+# The table's rows (PH_* of csrc/nnbody.cuh), as PhaseCfg.tables keys.
+FIELDS = ("cs0", "mass", "visco", "tau_yield", "tau_max", "bi_multi",
+          "hbp_m", "hbp_n")
 
 
 class NnParams(ctypes.Structure):
     """Mirror of ``struct NnParams`` in csrc/nnbody.cuh."""
     _fields_ = ([(k, ctypes.c_int) for k in (
         "n", "ncx", "ncy", "ncz", "ncells", "sim2d", "tdensity", "visc",
-        "gradvel", "tkernel", "shiftmode", "tboundary")]
+        "gradvel", "tkernel", "shiftmode", "tboundary", "nphases")]
         + [(k, ctypes.c_float) for k in (
             "kernelsize2", "kernelh", "bwen", "eta2", "ddtkh", "ddtgz",
             "rhopzero", "ovgamma", "massbound", "almostzero")]
-        + [("cubic", CubicCte)]
-        + [(k, ctypes.c_float * NN.MAX_PHASES) for k in _TABLES])
+        + [("cubic", CubicCte),
+           ("tab", (ctypes.c_float * TABLE_PHASES) * len(FIELDS)),
+           ("phtab", ctypes.c_void_p)])
+
+
+def phase_table(csp: CteSph, phases: NN.PhaseCfg, device) -> torch.Tensor:
+    """The wide instances' phase table on ``device``: (len(FIELDS),
+    phases.count) f32, row k the f32 values of ``PhaseCfg.tables`` key
+    FIELDS[k]."""
+    tb = phases.tables(csp, device)
+    return torch.stack([tb[k] for k in FIELDS]).contiguous()
 
 
 @functools.lru_cache(maxsize=32)
 def make_params(csp: CteSph, opts: SolverOpts, phases: NN.PhaseCfg,
-                dom: Domain, n: int) -> NnParams:
-    """The kernels' parameters, the phase tables holding the f32 values of
-    ``PhaseCfg.tables`` (cached: nothing writes the struct after)."""
+                dom: Domain, n: int, table: str | None = None) -> NnParams:
+    """The kernels' parameters (cached: nothing writes the struct after).
+    ``table``: None puts the phase table, the f32 values of
+    ``PhaseCfg.tables``, in the struct (at most :data:`TABLE_PHASES`
+    phases); a device ("cuda:0", "cpu" for the g++ twins) puts it in
+    :func:`phase_table` there, which the struct holds on to, and picks the
+    wide instances."""
     ncx, ncy, ncz = dom.nc
-    tb = phases.tables(csp, "cpu")
-    tables = {k: (ctypes.c_float * NN.MAX_PHASES)(*tb[src].tolist())
-              for k, src in _TABLES.items()}
-    return NnParams(
+    wide = None if table is None else phase_table(csp, phases, table)
+    params = NnParams(
         n=n, ncx=ncx, ncy=ncy, ncz=ncz, ncells=dom.ncells,
         sim2d=int(csp.simulate2d), tdensity=opts.tdensity.value,
         visc=VISC[opts.tvisco], gradvel=int(NN.uses_gradvel(opts)),
@@ -85,7 +101,24 @@ def make_params(csp: CteSph, opts: SolverOpts, phases: NN.PhaseCfg,
         eta2=csp.eta2, ddtkh=csp.ddtkh, ddtgz=csp.ddtgz,
         rhopzero=csp.rhopzero, ovgamma=1.0 / csp.gamma,
         massbound=csp.massbound, almostzero=td.ALMOSTZERO,
-        cubic=CubicCte.of(csp), **tables)
+        cubic=CubicCte.of(csp), nphases=phases.count,
+        phtab=None if wide is None else wide.data_ptr())
+    if wide is None:
+        if phases.count > len(params.tab[0]):
+            raise ValueError(f"{phases.count} phases: the struct's table "
+                             f"holds {len(params.tab[0])}, give the table's "
+                             f"device")
+        tb = phases.tables(csp, "cpu")
+        for k, key in enumerate(FIELDS):
+            params.tab[k][:phases.count] = tb[key].tolist()
+    params.table = wide     # the struct points into it
+    return params
+
+
+def table_device(phases: NN.PhaseCfg, device) -> str | None:
+    """``make_params``' ``table``: the name of ``device`` beyond
+    :data:`TABLE_PHASES` phases (the wide instances), else None."""
+    return str(device) if phases.count > TABLE_PHASES else None
 
 
 def _device_type(twin: bool) -> str:
@@ -134,7 +167,8 @@ def pass1(csp: CteSph, opts: SolverOpts, phases: NN.PhaseCfg, dom: Domain,
           cells: CellDiv, pos, vel, rho, ch: NN.NnChannels,
           twin: bool = False) -> NN.Pass1:
     """``nnforce_p1``, or ``nnforce_fda`` under ``forces_nn.uses_fda``,
-    the instance of ``csp.tkernel`` and ``opts.shiftmode``."""
+    the instance of ``csp.tkernel``, ``opts.shiftmode`` and the phase
+    table (:func:`table_device`)."""
     kernel = "nnforce_fda" if NN.uses_fda(opts) else "nnforce_p1"
     _check(kernel, twin, dom, cells, pos, vel, rho, ch)
     n = pos.shape[0]
@@ -150,7 +184,8 @@ def pass1(csp: CteSph, opts: SolverOpts, phases: NN.PhaseCfg, dom: Domain,
     pospress, velrho = _rows(pos, vel, rho, ch)
     last = out.etamax if kernel == "nnforce_fda" else out.gradvel
     _launch(kernel, twin, pos.device,
-            ctypes.byref(make_params(csp, opts, phases, dom, n)),
+            ctypes.byref(make_params(csp, opts, phases, dom, n,
+                                     table_device(phases, pos.device))),
             pospress.data_ptr(), velrho.data_ptr(), ch.kind.data_ptr(),
             ch.phase.data_ptr(), cells.cell.data_ptr(), cells.begin.data_ptr(),
             out.ace.data_ptr(), out.ar.data_ptr(), out.viscdt.data_ptr(),
@@ -161,8 +196,9 @@ def pass1(csp: CteSph, opts: SolverOpts, phases: NN.PhaseCfg, dom: Domain,
 def pass3(csp: CteSph, opts: SolverOpts, phases: NN.PhaseCfg, dom: Domain,
           cells: CellDiv, pos, vel, rho, ch: NN.NnChannels, visco_eta, tau,
           ace, twin: bool = False) -> None:
-    """``nnforce_p3``, the instance of ``csp.tkernel`` and the viscous form
-    of ``opts.tvisco``: adds the viscous forces into ``ace``."""
+    """``nnforce_p3``, the instance of ``csp.tkernel``, the viscous form
+    of ``opts.tvisco`` and the phase table (:func:`table_device`): adds
+    the viscous forces into ``ace``."""
     n = pos.shape[0]
     _check("nnforce_p3", twin, dom, cells, pos, vel, rho, ch, extra={
         "visco_eta": (visco_eta, torch.float32, (n,)),
@@ -170,7 +206,8 @@ def pass3(csp: CteSph, opts: SolverOpts, phases: NN.PhaseCfg, dom: Domain,
         "ace": (ace, torch.float32, (n, 3))})
     pospress, velrho = _rows(pos, vel, rho, ch)
     _launch("nnforce_p3", twin, pos.device,
-            ctypes.byref(make_params(csp, opts, phases, dom, n)),
+            ctypes.byref(make_params(csp, opts, phases, dom, n,
+                                     table_device(phases, pos.device))),
             pospress.data_ptr(), velrho.data_ptr(), ch.kind.data_ptr(),
             ch.phase.data_ptr(), cells.cell.data_ptr(), cells.begin.data_ptr(),
             visco_eta.data_ptr(), tau.data_ptr(), ace.data_ptr())

@@ -97,6 +97,14 @@ class Forces:
     dem_overflow: torch.Tensor | None = None
 
 
+def gathered(fr: Forces, index) -> Forces:
+    """``fr`` with its per-particle arrays taken at ``index``: the Forces
+    of rows in cell order brought back to the state's slot order."""
+    return replace(fr, **{k: getattr(fr, k)[index] for k in (
+        "ace", "ar", "shiftposfs", "shift_blocked", "spsgradvel")
+        if getattr(fr, k) is not None})
+
+
 def raise_unsupported(unsupported) -> None:
     """Raise NotImplementedError naming the first ``(bad, name)`` pair that
     is bad."""

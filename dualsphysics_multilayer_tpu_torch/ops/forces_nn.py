@@ -46,11 +46,6 @@ from .celldiv import CellDiv, Domain
 from .forces import (FLT_MAX, Forces, SolverOpts, candidate_chunks,
                      raise_unsupported)
 
-# Largest phase table the CUDA kernels take (csrc/nnbody.cuh NN_MAX_PHASES).
-MAX_PHASES = 8
-
-_NN_VISCO = (TpVisco.ARTIFICIAL, TpVisco.LAMINAR_SPS, TpVisco.CONST_EQ)
-
 
 @dataclass(frozen=True)
 class Phase:
@@ -183,10 +178,13 @@ def check_supported_nn(csp: CteSph, opts: SolverOpts, phases: PhaseCfg) -> None:
     """Raise NotImplementedError for any configuration outside the NN
     slices (symmetry, floating bodies, Verlet, the SaveDt and
     floating-motion rings and the DDT ramp among them; either kernel,
-    every shifting mode and DBC or mDBC walls are in), ValueError for a
-    phase table the kernels cannot hold.  The JAX NN step runs a symmetry
-    case without the mirror; the port refuses it instead.  The
-    neighbour-list mode passes: the NN step ignores it, as JAX's does."""
+    every shifting mode, DBC or mDBC walls and a phase table of any count
+    are in), ValueError for a table of no phase (JAX's ``make_nn_csp``
+    fails on one).  The JAX NN step runs these options ignored (a symmetry
+    case without the mirror, Verlet as symplectic, floating bodies as
+    fluid-side particles that never move); the port refuses them instead
+    (ROADMAP.md §3).  The neighbour-list mode passes: the NN step ignores
+    it, as JAX's does."""
     raise_unsupported([
         (opts.tstep != TpStep.SYMPLECTIC, f"tstep={opts.tstep.name}"),
         (opts.symmetry, "symmetry=True on the NN step"),
@@ -196,12 +194,8 @@ def check_supported_nn(csp: CteSph, opts: SolverOpts, phases: PhaseCfg) -> None:
         (opts.savedt, "savedt on the NN step"),
         (opts.ftmotion, "ftmotion on the NN step"),
         (opts.ddtramp is not None, "ddtramp on the NN step")])
-    if opts.tvisco not in _NN_VISCO:
-        raise NotImplementedError(f"the torch port does not cover "
-                                  f"tvisco={opts.tvisco.name} yet")
-    if not 1 <= phases.count <= MAX_PHASES:
-        raise ValueError(f"{phases.count} phases: the NN kernels take 1 to "
-                         f"{MAX_PHASES}")
+    if phases.count < 1:
+        raise ValueError("an NN phase table needs at least one phase")
 
 
 def uses_fda(opts: SolverOpts) -> bool:

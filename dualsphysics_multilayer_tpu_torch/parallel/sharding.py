@@ -981,7 +981,8 @@ class ShardedSimulation:
     """Host-side run loop over ``ndev`` ranks (JAX ``ShardedSimulation``,
     the CLI's ``-shard[:N]``): the save schedule and diagnostics of
     ``wcsph.Simulation`` with the step split into x-slabs.  ``ndev``: the
-    ranks, by default one per card; ``device``: "cuda" (the state's
+    ranks, by default one per card (one on the CPU, JAX's CPU backend's
+    device count); ``device``: "cuda" (the state's
     device by default) or "cpu"; ``backend``: None for the rule of
     ``parallel/group.py`` (NCCL with a card per rank, gloo on the CPU),
     "gloo" to share cards.  Each rank holds the whole state's count of
@@ -1003,14 +1004,13 @@ class ShardedSimulation:
                  limit: float | None = None):
         self.csp, self.opts, self.dom = csp, opts, dom
         self.feats = _check_sharded_feats(feats)
+        W.check_skin(csp, dom, self.feats, dd=True)   # refuses before a start
         self.phases = phases
         device = torch.device(device if device is not None
                               else state.pos.device.type)
         if not ndev:
-            if device.type != "cuda":
-                raise ValueError("ranks on the CPU need a count: ndev=N "
-                                 "(-shard:N)")
-            ndev = torch.cuda.device_count()
+            # every card, or the CPU as one device (JAX's CPU backend)
+            ndev = torch.cuda.device_count() if device.type == "cuda" else 1
         G.plan(ndev, device.type, backend)      # refuses before any start
         W.check_ids(state, self.feats)
         halo = 2 if (phases is not None

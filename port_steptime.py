@@ -2,7 +2,8 @@
 comparing two checkouts in one run (parent, change, change, parent):
 
     python3 port_steptime.py [--root DIR]
-        [--paths main,nn,lamsps,cubic,floatingbox,mdbc] [--trace N]
+        [--paths main,nn,nn12,lamsps,cubic,floatingbox,mdbc,skinless]
+        [--trace N]
 
 ``--root`` is the checkout whose ``dualsphysics_multilayer_tpu_torch`` is
 imported (default: the directory of this script); the cases, the flowing
@@ -15,11 +16,19 @@ from this script's ``chip_smoke.py``.  Paths:
   shifting (the reference's ``-viscolamsps:1e-6 -shifting:2``);
 * ``cubic``: the same with the cubic spline (``-cubic``);
 * ``nn``: the 2D wet dam break NN at 37,143 particles, SPH Morris;
+* ``nn12``: the same with its mud column in 11 strata, 12 phases
+  (``nnewtonian.layered_dambreak_nn``: kernels 4-6 read the phase table
+  from a device array);
 * ``floatingbox``: the 2D floating box at 62,033 particles with bench.py's
   floatingbox options (Fourtakas, floating bodies, mDBC walls without
   normals, so no pre-pass);
 * ``mdbc``: the 2D dam break with mDBC walls at 61,589 particles,
-  Fourtakas, VEL0 (the CLI's ``-mdbc``).
+  Fourtakas, VEL0 (the CLI's ``-mdbc``);
+* ``skinless``: ``main`` on cells of the kernel size (a domain without a
+  cell skin: a rebuild every step, a divide at each interaction).
+
+A path may be named more than once (``nn,nn12,nn12,nn``): each runs on
+its own case, in the order given.
 
 Prints one JSON line per path: particles, p50 step of 50 steps after 5
 warm-up (host clock around a step that ends in
@@ -65,9 +74,10 @@ def make_path(path, device):
         step = P.make_step(csp, opts, case.dom,
                            P.Features(floating=case.meta["ftcfg"]) if flt
                            else None)
-    elif path == "nn":
+    elif path in ("nn", "nn12"):
         from dualsphysics_multilayer_tpu_torch.models import nnewtonian as NM
-        case, phases = NM.wet_dambreak_nn(dp=CS.NN_DP, device=device)
+        build = NM.wet_dambreak_nn if path == "nn" else NM.layered_dambreak_nn
+        case, phases = build(dp=CS.NN_DP, device=device)
         csp = case.csp
         opts = P.SolverOpts(tvisco=td.TpVisco.LAMINAR_SPS,
                             tdensity=td.TpDensity.FOURTAKAS)
@@ -86,6 +96,12 @@ def make_path(path, device):
                                 shiftmode=td.TpShifting.NO_FIXED)
         elif path == "cubic":
             csp = csp.replace(tkernel=td.TpKernel.CUBIC)
+        elif path == "skinless":
+            from dualsphysics_multilayer_tpu_torch.ops import celldiv as cd
+            d = case.dom
+            case.dom = cd.make_domain(d.posmin, [p + k * d.scell for p, k in
+                                                 zip(d.posmin, d.nc)],
+                                      csp.kernelsize)
         step = P.make_step(csp, opts, case.dom)
     st = CS.flowing_state(case, device, sim2d=csp.simulate2d)
     return case.np_total, step, P.make_carry(st, csp, opts, case.dom)
@@ -157,7 +173,7 @@ def main():
         out = dict(root=root, path=path, gpu=smi)
         try:
             n, step, carry = make_path(path, device)
-        except (NotImplementedError, AttributeError) as e:
+        except (NotImplementedError, AttributeError, ValueError) as e:
             print(json.dumps(dict(out, unsupported=str(e))), flush=True)
             continue
         nrebuild0, times = carry.nrebuild, []

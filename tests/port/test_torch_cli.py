@@ -16,6 +16,8 @@
   dambreak2d -dp 0.05 -tmax:0.01 -tout:0.005`` writes Part_0000-0002,
   which JAX's ``read_part`` reads; ``-partbegin:1`` from there goes on
   with Part_0001-0002, the last within 0.25*dp of the first run's by id.
+* ``-pallas``/``-no-pallas`` and ``-cpu -shard`` without a count, which
+  the JAX CLI runs, run and write the plain run's PARTs.
 * Every option the port refuses leaves with a message naming it;
   ``-initnorpla``/``-initnorpart`` give the run's state JAX's normals
   under mDBC walls, and an NN case under ``-mdbc`` runs and says that its
@@ -169,7 +171,6 @@ def test_module_run_writes_parts_jax_reads_and_restarts(tmp_path):
     (["-case", "x.xml"], "-case"),
     # channel2d runs its inlet/outlet zones; a restart of it is refused
     (["-builtin", "channel2d", "-partbegin:1", "prev"], "channel2d"),
-    (["-builtin", "dambreak2d", "-shard"], "-shard"),
     # -initnorpla/-initnorpart run (test_initnor_options_give_jax_normals):
     # the refusal named is the next option's
     (["-builtin", "dambreak2d", "-initnorpla", "mkbound=0:normal=0:0:1",
@@ -178,8 +179,6 @@ def test_module_run_writes_parts_jax_reads_and_restarts(tmp_path):
     (["-case", "CHRONO_CASE", "-initnorpart", "mkbound=0", "-partbegin:1",
       "prev"], "-restartchrono"),
     (["-case", "CHRONO_CASE", "-partbegin:1", "prev"], "-restartchrono"),
-    (["-builtin", "dambreak2d", "-pallas"], "-pallas"),
-    (["-builtin", "dambreak2d", "-no-pallas"], "-no-pallas"),
     (["-builtin", "dambreak2d", "-cellmode:half"], "-cellmode:half"),
 ])
 def test_refused_options_name_themselves(argv, name, tmp_path):
@@ -192,6 +191,49 @@ def test_refused_options_name_themselves(argv, name, tmp_path):
         cli.main(["-cpu", "-dirout", str(out)] + argv)
     assert "TPU" not in str(e.value) and "lane" not in str(e.value)
     assert not out.exists()
+
+
+RUN_DP = 0.1
+RUN_ARGV = ["-cpu", "-builtin", "dambreak2d", "-dp", str(RUN_DP),
+            "-tmax:0.004", "-tout:0.002", "-sv:binx", "-nortimes"]
+
+
+@pytest.fixture(scope="module")
+def plain_run(tmp_path_factory):
+    out = tmp_path_factory.mktemp("plain")
+    assert cli.main(RUN_ARGV + ["-dirout", str(out)]) == 0
+    return out
+
+
+@pytest.mark.parametrize("flag", ["-pallas", "-no-pallas", "-shard"])
+def test_options_the_jax_cli_runs_run(flag, plain_run, tmp_path, capsys):
+    """``-pallas``/``-no-pallas`` (the JAX package's choice between two
+    implementations of the same physics) run the port's one path and say
+    so; ``-cpu -shard`` without a count runs one rank, as the JAX CLI's
+    ``-shard`` runs over its CPU backend's one device.  Each writes the
+    plain run's PARTs, by id within 1e-4*dp (bit-equal under the Pallas
+    switch)."""
+    out = tmp_path / "out"
+    threads = torch.get_num_threads()
+    try:
+        assert cli.main(RUN_ARGV + [flag, "-dirout", str(out)]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    said = capsys.readouterr().out
+    assert (cli.PALLAS_NOTE in said) == (flag != "-shard")
+    assert ("sharded" in said or "rank" in said) == (flag == "-shard")
+    names = sorted(f for f in os.listdir(plain_run) if f.endswith(".bi4"))
+    assert len(names) == 3
+    assert names == sorted(f for f in os.listdir(out) if f.endswith(".bi4"))
+    for f in names:
+        a, b = PD.read_part(plain_run / f), PD.read_part(out / f)
+        np.testing.assert_array_equal(a["idp"], b["idp"])
+        if flag == "-shard":
+            np.testing.assert_allclose(b["pos"], a["pos"], rtol=0,
+                                       atol=1e-4 * RUN_DP)
+        else:
+            np.testing.assert_array_equal(b["pos"], a["pos"])
+            np.testing.assert_array_equal(b["rhop"], a["rhop"])
 
 
 # a coarse 2D wet dam break (dp 0.05, 126 particles): two phases, the SPH

@@ -377,6 +377,40 @@ def test_cuda_steps_match_cpu_steps(cuda):
 
 
 @pytest.mark.gpu
+def test_cuda_skinless_steps_match_cpu_steps(cuda):
+    """On a domain without a cell skin (a rebuild every step, a divide of
+    its own at each interaction) steps on the card and on the CPU agree
+    by particle id within 1e-4*dp."""
+    from dualsphysics_multilayer_tpu_torch.models import wcsph as W
+    opts = P.SolverOpts(tdensity=td.TpDensity.FOURTAKAS)
+    out = {}
+    for dev in ("cpu", cuda):
+        case = cases.dambreak3d(**GEOM, device=dev)
+        d = case.dom
+        flat = cd.make_domain(d.posmin, [p + k * d.scell for p, k in
+                                         zip(d.posmin, d.nc)],
+                              case.csp.kernelsize)
+        assert W.skinless(case.csp, flat)
+        fluid = td.is_fluid(case.state.code)
+        vel = torch.where(fluid[:, None],
+                          torch.tensor([2.5, 0.0, 0.0], device=dev), 0.0)
+        carry = P.make_carry(dataclasses.replace(case.state, vel=vel),
+                             case.csp, opts, flat)
+        step = P.make_step(case.csp, opts, flat)
+        launches = CF.launches["cellforce"]
+        for _ in range(4):
+            carry = step(carry)
+        if dev != "cpu":
+            assert CF.launches["cellforce"] == launches + 8
+        assert carry.nrebuild == 5
+        pos = torch.empty_like(carry.st.pos)
+        pos[carry.st.idp] = carry.st.pos
+        out[str(dev)] = pos.cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=0,
+                               atol=1e-4 * GEOM["dp"])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("path", ["lamsps", "cubic"])
 def test_cuda_path_steps_match_cpu_steps(cuda, path):
     """Steps of the laminar+SPS+shifting and the cubic paths on the card and
@@ -507,6 +541,51 @@ def test_cuda_nn_kernels_match_plain(cuda, tvisco, velgrad):
     case, phases = NM.wet_dambreak_nn(dp=0.02, device=cuda)
     nn_kernels_vs_plain(case.csp, nn_opts(tvisco, velgrad), phases, case.dom,
                         *nn_perturbed(case, phases, 4, cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tvisco,velgrad", NN_CONFIGS)
+def test_cuda_nn_kernels_match_plain_twelve_phases(cuda, tvisco, velgrad):
+    """Kernels 4-6 in their wide instances (the phase table in a device
+    array) on the wet dam break with its mud column in 11 strata."""
+    case, phases = NM.layered_dambreak_nn(dp=0.02, device=cuda)
+    assert phases.count == 12 > NF.TABLE_PHASES
+    nn_kernels_vs_plain(case.csp, nn_opts(tvisco, velgrad), phases, case.dom,
+                        *nn_perturbed(case, phases, 6, cuda))
+
+
+@pytest.mark.gpu
+def test_cuda_nn_wide_kernels_equal_table_kernels(cuda, monkeypatch):
+    """At 2 phases the wide instances (picked here by a parameters' table
+    of one phase) and the parameter-table ones give bit-equal outputs on
+    the card."""
+    case, phases = NM.wet_dambreak_nn(dp=0.02, device=cuda)
+    pos, vel, rho, code = nn_perturbed(case, phases, 7, cuda)
+    cells, code = cd.divide_cells(case.dom, pos, code)
+    o = cells.order
+    for tvisco, velgrad in NN_CONFIGS:
+        opts = dataclasses.replace(nn_opts(tvisco, velgrad),
+                                   shiftmode=td.TpShifting.NO_BOUND)
+        ch = NN.channels(case.csp, phases, phases.tables(case.csp, cuda),
+                         rho[o], code[o])
+        run = (case.csp, opts, phases, case.dom, cells, pos[o], vel[o],
+               rho[o], ch)
+        a = NF.pass1(*run)
+        monkeypatch.setattr(NF, "TABLE_PHASES", 1)
+        b = NF.pass1(*run)
+        monkeypatch.undo()
+        for k in ("ace", "ar", "viscdt", "gradvel", "etamax", "shift",
+                  "shiftblk"):
+            assert torch.equal(getattr(a, k), getattr(b, k)), (tvisco, k)
+        if not NN.uses_fda(opts):
+            eta, tau = NN.pass2(opts, phases.tables(case.csp, cuda), ch,
+                                code[o], a)
+            aces = [torch.zeros_like(a.ace) for _ in range(2)]
+            for table, ace in zip((NF.TABLE_PHASES, 1), aces):
+                monkeypatch.setattr(NF, "TABLE_PHASES", table)
+                NF.pass3(*run, eta, tau, ace)
+            monkeypatch.undo()
+            assert torch.equal(aces[0], aces[1]), tvisco
 
 
 @pytest.mark.gpu
