@@ -400,7 +400,32 @@ without printing the final result line:
     other kernel, a rebuild at every step of the skinless run (each of
     its interactions divides its own positions), overflow 0, the density
     within 10%, positions by id within 1e-4 dp of the skinned run's, the
-    p50 step of each.
+    p50 step of each;
+43. the last inputs JAX runs and the port refused
+    (:func:`last_inputs_path`): phase 26's half dam break (133,804
+    particles) through the library with ``SolverOpts(symmetry=True,
+    tvisco=LAMINAR_SPS)``, kernel 3's four SYM instances (Wendland and
+    cubic, with and without NO_FIXED shifting) against the plain mirror
+    pass (rtol 2e-3, 4e-3 cubic), each timed alone beside the same
+    instance without the plane, with its bound ((pairs + image pairs) x
+    its operations per pair) and ptxas registers and spills, then 5 + 20
+    steps of ``-viscolamsps:1e-6 -shifting:2`` with the plane
+    (cellforce_lamsps_sym exactly twice per step); a half tank with a
+    0.1 m floating box on the plane (``half_float_xml``, loaded without
+    the Symmetry key, given ``symmetry=True``): the FT x SYM instances of
+    kernels 1-3 against their plain versions alike, then 5 + 20 steps
+    (cellforce_sym twice per step, the box rigid, its centre and velocity
+    printed); phase 30's inout duct on cells of the kernel size beside
+    the case's domain, 5 + 20 steps each (a rebuild every step of the
+    skinless run, the same live ids, spawns and overflow, positions by id
+    within 1e-4 dp); and skinless domains over 2 ranks sharing the card
+    (gloo), 20 steps each from one start of the ranks: the dam break from
+    phase 37's state past the slab edge, the NN wet dam break and the
+    duct with its zones, against their one-device skinless runs
+    (positions by id within 1e-4 dp), a rebuild every step, a fresh
+    ghost exchange before each interaction (and before the duct's
+    extrapolation), no refresh, the collectives and exchanges per step
+    and rank 0's p50.
 
 Each kernel is timed twice: alone (``ms``: CUDA events around 20
 back-to-back launches of the C launcher on prepared inputs, per launch,
@@ -411,8 +436,10 @@ and the f32 operations of this run's in-support pairs over 67 TFLOP/s,
 the H100 SXM peaks; for the FMA probe its steps over the SM's 128 f32
 lanes at the SM's maximum clock; for the window-load probe the largest of
 its device-memory bytes, its loads' bytes through the SMs' load paths and
-its operations; the rows of kernels 1, 2, 4 and 6 list their other
-instances under ``instances``: the SYM instances of phase 26, the mDBC runs
+its operations; the rows of kernels 1-4 and 6 list their other
+instances under ``instances``: the SYM instances of phases 26 and 43
+(with the instance without the plane alone as ``flat_ms``, and phase
+43's with their ptxas ``registers`` and ``spills``), the mDBC runs
 of kernels 4 and 6 with their DBC time as ``dbc_ms``, the wide instances of
 kernels 4-6 at 12 phases of phase 41; the NN kernels' rows add
 ``table_ms``, phase 5's times of each with the parameter table and the
@@ -426,7 +453,9 @@ break (phase 24), and the ``<initialize>`` and ``-initnorpla`` runs
 (phase 27), the channel, the duct and the periodic channel (phases
 29-31), the couplings (phases 32-34), the neighbour-list mode (phase
 35), the coastal run-up (phase 40: ~10M, ~50M, the CLI and rank 0 of
-the dry run) and the skinless domain (phase 42), with ``open_states``, kernel 1
+the dry run), the skinless domain (phase 42) and phase 43's half tank
+with its box and skinless duct (kernel 3's row: its symmetry path), with
+``open_states``, kernel 1
 against its plain version on the final states of phases 29-31 and their
 step's p50 and trace, ``coastal_states``, phase 40's at ~10M (kernel
 against plain, p50, trace, ``profile_step``, memory, the PART) and ~50M
@@ -436,7 +465,7 @@ lines, the lines' substep, the rigid update with Chrono), and
 ``nbrlist_state``, the same for phase 35 on the list's layout with its
 p50 step beside the default layout's, the overflow count's ms and each
 layout's candidates per pair, and ``shard_launches``, each rank's
-launches of that kernel on the sharded paths of phases 37-39 and 40,
+launches of that kernel on the sharded paths of phases 37-39, 40 and 43,
 counted in the rank; the NN
 kernels' rows add theirs on phases 6-7, the XML runs of phase 25, the
 mDBC runs of phase 28 and the 12-phase runs of phase 41.
@@ -808,20 +837,34 @@ def compare_cellforce(csp, opts, dom, cells, args, reps, spstau=None,
     if want.shift_blocked is not None:
         check(torch.equal(got.shift_blocked, want.shift_blocked),
               f"{name} shift_blocked disagrees with the plain version")
-    n = args[0].shape[0]
-    pospress, velrho, kind = CF.channels(csp, *args)
-    outs = [None if x is None else torch.empty_like(x) for x in (
-        got.ace, got.ar, got.ar, got.spsgradvel, got.shiftposfs,
-        got.shift_blocked)]
-    ftmass = CF.floating_mass(csp, opts, args[3], ftomassp)
-    ms = launch_ms(bare_launcher(
-        "cellforce", f"dsph_{name}", CF.make_params(csp, opts, dom, n, **over),
-        [pospress, velrho, kind, cells.cell, cells.begin, spstau, ftmass]
-        + outs))
+    ms = instance_ms(csp, opts, dom, cells, args, spstau, ftomassp, **over)
     wrapped_ms = cuda_ms(lambda: CF.interaction_forces_cuda(*run, **over),
                          reps)
     plain_ms = cuda_ms(lambda: F.interaction_forces_plain(*run, **over), reps)
     return err, ms, wrapped_ms, plain_ms
+
+
+def instance_ms(csp, opts, dom, cells, args, spstau=None, ftomassp=None,
+                **over):
+    """One cellforce instance alone (:func:`launch_ms`) on these inputs
+    (``over``: a step's launch values, as for :func:`compare_cellforce`)."""
+    from dualsphysics_multilayer_tpu_torch import TpShifting, TpVisco
+    from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
+    n, dev = args[0].shape[0], args[0].device
+    lam = opts.tvisco == TpVisco.LAMINAR_SPS
+    shift = opts.shiftmode != TpShifting.NONE
+    pospress, velrho, kind = CF.channels(csp, *args)
+    outs = [torch.empty((n, 3), device=dev), torch.empty(n, device=dev),
+            torch.empty(n, device=dev),
+            torch.empty((n, 6), device=dev) if lam else None,
+            torch.empty((n, 4), device=dev) if shift else None,
+            torch.empty(n, dtype=torch.bool, device=dev) if shift else None]
+    return launch_ms(bare_launcher(
+        "cellforce", f"dsph_{CF.kernel_name(csp, opts)}",
+        CF.make_params(csp, opts, dom, n, **over),
+        [pospress, velrho, kind, cells.cell, cells.begin,
+         spstau if lam else None,
+         CF.floating_mass(csp, opts, args[3], ftomassp)] + outs))
 
 
 def cellforce_bytes(n, ncells, opts):
@@ -2552,18 +2595,8 @@ def symmetry_path(device, registers, full_front, smi):
             err, ms, wrapped_ms, plain_ms = compare_cellforce(
                 csp, o, case.dom, cells, args, reps=5)
             # the instance without the plane, alone on the same state
-            pospress, velrho, kind = CF.channels(csp, *args)
-            flat = dataclasses.replace(o, symmetry=False)
-            outs = [torch.empty((n, 3), device=device)] + [
-                torch.empty(n, device=device) for _ in range(2)] + [None] + (
-                [torch.empty((n, 4), device=device),
-                 torch.empty(n, dtype=torch.bool, device=device)]
-                if shift != TpShifting.NONE else [None, None])
-            flat_ms = launch_ms(bare_launcher(
-                "cellforce", f"dsph_{name}",
-                CF.make_params(csp, flat, case.dom, n),
-                [pospress, velrho, kind, cells.cell, cells.begin, None, None]
-                + outs))
+            flat_ms = instance_ms(csp, dataclasses.replace(o, symmetry=False),
+                                  case.dom, cells, args)
             b = bound(cellforce_bytes(n, case.dom.ncells, o),
                       (pairs + images) * ops_per_pair(name, o))
             instance = (f"cellforce_kernel<{ker.value},1,"
@@ -3732,10 +3765,10 @@ def _property(name, p):
 
 
 def _dambreak_with(dp, tmax, tout, draw="", casedef="", special="",
-                   params=""):
-    """Phase 24's dam break with more geometry (``draw``), casedef nodes,
-    ``<special>`` nodes and parameters."""
-    xml = DAMBREAK_XML.format(dp=dp, tmax=tmax, tout=tout)
+                   params="", base=None):
+    """Phase 24's dam break (or ``base``, a form of it) with more geometry
+    (``draw``), casedef nodes, ``<special>`` nodes and parameters."""
+    xml = (base or DAMBREAK_XML).format(dp=dp, tmax=tmax, tout=tout)
     xml = xml.replace("  </mainlist></commands>",
                       draw + "\n  </mainlist></commands>")
     xml = xml.replace("</casedef>", casedef + "\n</casedef>")
@@ -5096,7 +5129,8 @@ def shard_path(device, smi):
         f"{int(one.stats[0]['collectives'])} collectives on the card, "
         f"p50 step {statistics.median(times_1) * 1e3:.3f} ms ({smi})")
     return dict(ranks=ranks, nccl=nccl, p50_ms=p50 * 1e3,
-                one_device_p50_ms=p50_1 * 1e3, per_rank=per_rank)
+                one_device_p50_ms=p50_1 * 1e3, per_rank=per_rank,
+                state=st_mid)
 
 
 def shard_paths(device, smi):
@@ -5901,6 +5935,472 @@ def coastal_path(device, smi):
     return paths, dict(coastal_10m=rec, coastal_50m=large), shard
 
 
+# ---------------------------------------------------------------------------
+# phase 43: the symmetry plane with laminar+SPS and with floating bodies, the
+# skinless domain with inlet/outlet zones and under -shard
+# ---------------------------------------------------------------------------
+
+SYM_STEPS = 20         # phase 43: timed steps of the symmetry paths after 5
+SKINLESS_SHARD = 20    # phase 43: sharded skinless steps against one device
+SYM_VISCO = 1e-4       # phase 43: the laminar viscosity of the comparisons
+
+
+def half_float_xml(dp, tmax, tout):
+    """Phase 43's half tank with a floating box on the plane: phase 26's
+    half dam break without its Symmetry key (the loaders refuse the plane
+    with floating bodies, JSph.cpp:1174-1179), one of phase 32's 0.1 m
+    boxes (rhopbody 800) inside the fluid column, drawn from y = 0 so that
+    its other half is its image, and ``RigidAlgorithm=1``."""
+    n = int(round(BOX_SIDE / dp))
+    i0 = (int(round(0.15 / dp)), 0, int(round(0.1 / dp)))
+    return _dambreak_with(
+        dp, tmax, tout, _lattice_box(51, i0, (n, n // 2, n), dp),
+        '<floatings><floating mkbound="51" rhopbody="800"/></floatings>',
+        params='<parameter key="RigidAlgorithm" value="1"/>',
+        base=HALF_XML.replace('<parameter key="Symmetry" value="1"/>', ""))
+
+
+def ptxas_of(instance, library="cellforce"):
+    """(spill line, register line) of ``instance`` in ``library``'s ptxas
+    log."""
+    from dualsphysics_multilayer_tpu_torch.ops.cuda import build
+    entry, spill = None, "?"
+    with open(build.library_path(library) + ".log") as f:
+        for line in f:
+            m = re.search(r"entry function '([^']+)'", line)
+            if m:
+                entry, spill = kernel_label(m.group(1)), "?"
+            elif entry == instance and "spill" in line:
+                spill = line.strip()
+            elif entry == instance and "registers" in line:
+                return spill, line.strip()
+    return spill, "?"
+
+
+def sym_instances_vs_plain(label, variants, dom, cells, args, spstau, smi,
+                           ftomassp=None):
+    """Each (name, csp, opts) of ``variants``, a SYM instance of kernels
+    1-3, against the plain mirror pass on the same inputs (rtol 2e-3,
+    4e-3 with the cubic spline), timed alone beside the same instance
+    without the plane, with its bound ((pairs + image pairs) x its
+    operations per pair; the slot masses' bytes with floating bodies) and
+    its ptxas registers and spills.  Returns {instance: record}."""
+    from dualsphysics_multilayer_tpu_torch import TpShifting
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.ops.cuda import cellforce as CF
+    n = args[0].shape[0]
+    csp0 = variants[0][1]
+    cand, pairs = pair_counts(csp0, dom, cells, args[0], args[3],
+                              inclusive=False)
+    images = image_pairs(csp0, dom, cells, args[0], args[3])
+    near = int((args[0][:, 1] <= csp0.kernelsize).sum())
+    nft = int(td.is_floating(args[3]).sum())
+    records = {}
+    for variant, csp, opts in variants:
+        name = CF.kernel_name(csp, opts)
+        err, ms, wrapped_ms, plain_ms = compare_cellforce(
+            csp, opts, dom, cells, args, reps=3, spstau=spstau,
+            ftomassp=ftomassp)
+        flat_ms = instance_ms(csp, dataclasses.replace(opts, symmetry=False),
+                              dom, cells, args, spstau, ftomassp)
+        ft = int(ftomassp is not None and opts.with_floating)
+        b = bound(cellforce_bytes(n, dom.ncells, opts) + 4 * n * ft,
+                  (pairs + images) * ops_per_pair(name, opts))
+        instance = (f"cellforce_kernel<{csp.tkernel.value},"
+                    f"{opts.tvisco.value},"
+                    f"{int(opts.shiftmode != TpShifting.NONE)},{ft},1>")
+        spill, regs = ptxas_of(instance)
+        records[instance] = dict(
+            kernel=name, variant=variant, launches=0,
+            max_abs_err=err["ace"], ms=ms, plain_ms=plain_ms,
+            bound_ms=b[0], bound_by=b[1], flat_ms=flat_ms, registers=regs,
+            spills=spill)
+        say(label, f"{variant} ({instance}), {n} particles ({near} within "
+            f"the kernel size of the plane, {nft} floating): max|d| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+            + f"; kernel alone {ms:.4f} ms (the instance without the plane "
+            f"{flat_ms:.4f} ms, {ms / flat_ms:.3f}x), with its wrapper "
+            f"{wrapped_ms:.4f} ms, plain {plain_ms:.3f} ms (CUDA events); "
+            f"{cand} candidates, {pairs} in-support pairs with a fluid-side "
+            f"target plus {images} with images; bound {b[0] * 1e3:.2f} us "
+            f"by {b[1]}; ptxas: {regs}; {spill} ({smi})")
+    return records
+
+
+def sps_constants(csp, visco):
+    """``csp`` with laminar viscosity ``visco`` and the Smagorinsky and
+    Blin constants of a laminar+SPS case at its dp."""
+    lam = lamsps_csp(csp.dp, visco=visco)
+    return csp.replace(visco=visco, spssmag=lam.spssmag, spsblin=lam.spsblin)
+
+
+def seeded_tau(code, seed):
+    """(n,6) SPS stress: N(0, 1e-3) on the fluid, zero elsewhere."""
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    rng = np.random.default_rng(seed)
+    return torch.where(td.is_fluid(code)[:, None], torch.tensor(
+        rng.normal(0.0, 1e-3, (code.shape[0], 6)), dtype=torch.float32,
+        device=code.device), 0.0).contiguous()
+
+
+def symmetry_lamsps_path(device, smi):
+    """Phase 43, part 1: phase 26's half dam break (133,804 particles)
+    through the library with ``SolverOpts(symmetry=True,
+    tvisco=LAMINAR_SPS)``, which the loaders refuse: the four SYM
+    instances of kernel 3 (Wendland and cubic, with and without NO_FIXED
+    shifting) against the plain mirror pass on a perturbed state with a
+    seeded SPS stress, then 5 + SYM_STEPS steps of the reference's
+    ``-viscolamsps:1e-6 -shifting:2`` with the plane from phase 4's flow:
+    cellforce_lamsps_sym exactly twice per step and no other kernel, the
+    state and the SPS stress finite, the density within 10%, the p50.
+    Returns (records, launches)."""
+    import shutil
+    from dualsphysics_multilayer_tpu_torch import (SolverOpts, TpDensity,
+                                                   TpKernel, TpShifting,
+                                                   TpVisco)
+    from dualsphysics_multilayer_tpu_torch.io.xmlcase import load_case
+    from dualsphysics_multilayer_tpu_torch.models.wcsph import (make_carry,
+                                                                make_step)
+    root = tempfile.mkdtemp(prefix="_smoke_symlam_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    try:
+        path = os.path.join(root, "DambreakHalf_Def.xml")
+        with open(path, "w") as f:
+            f.write(HALF_XML.format(dp=DP_BENCH, tmax=3 * XML_TOUT,
+                                    tout=XML_TOUT))
+        case, opts, _run = load_case(path, device=device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(opts.symmetry, "the half case's Symmetry=1 did not load")
+    n, dom = case.np_total, case.dom
+    pos, vel, rho, code = perturbed_state(case, device, case.csp.rhopzero,
+                                          seed=7)
+    cells, args = sorted_args(dom, pos, vel, rho, code)
+    tau = seeded_tau(args[3], 8)
+    lam = sps_constants(case.csp, SYM_VISCO)
+    nofixed = TpShifting.NO_FIXED
+    variants = []
+    for label, ker, shift in (("wendland", TpKernel.WENDLAND, TpShifting.NONE),
+                              ("wendland+shift", TpKernel.WENDLAND, nofixed),
+                              ("cubic", TpKernel.CUBIC, TpShifting.NONE),
+                              ("cubic+shift", TpKernel.CUBIC, nofixed)):
+        variants.append((f"symmetry laminar+SPS {label}",
+                         lam.replace(tkernel=ker),
+                         SolverOpts(tvisco=TpVisco.LAMINAR_SPS,
+                                    tdensity=TpDensity.FOURTAKAS,
+                                    symmetry=True, shiftmode=shift)))
+    records = sym_instances_vs_plain("symmetry-lamsps-vs-plain", variants,
+                                     dom, cells, args, tau, smi)
+    csp = sps_constants(case.csp, LAMSPS_VISCO)
+    o = SolverOpts(tvisco=TpVisco.LAMINAR_SPS, tdensity=TpDensity.FOURTAKAS,
+                   symmetry=True, shiftmode=nofixed)
+    st = flowing_state(case, device)
+    st = dataclasses.replace(st, spstau=torch.zeros((n, 6), device=device))
+    carry, times, launched = run_steps(
+        make_step(csp, o, dom), make_carry(st, csp, o, dom), 5, SYM_STEPS)
+    single_phase_counts(launched, "cellforce_lamsps_sym", 2, 5 + SYM_STEPS)
+    check_state(carry, 5 + SYM_STEPS, None)
+    check(bool(torch.isfinite(carry.st.spstau).all()), "spstau not finite")
+    rmin, rmax = fluid_rho_range(carry.st, True, csp.rhopzero)
+    p50 = statistics.median(times)
+    k = launched["cellforce_lamsps_sym"]
+    records["cellforce_kernel<2,2,1,0,1>"]["launches"] = k
+    say("symmetry-lamsps", f"half dam break, {n} particles, -viscolamsps:1e-6 "
+        f"-shifting:2 with the plane through the library: 20 steps after 5 "
+        f"from a flow of 1 m/s: p50 {p50 * 1e3:.3f} ms, {k} "
+        f"cellforce_lamsps_sym launches, {carry.nrebuild} divides, fluid rho "
+        f"[{rmin:.2f}, {rmax:.2f}], max |spstau| "
+        f"{float(carry.st.spstau.abs().max()):.3e} ({smi})")
+    return records, k, p50 * 1e3
+
+
+def symmetry_floating_path(device, smi):
+    """Phase 43, part 2: :func:`half_float_xml` at DP_BENCH, loaded without
+    the Symmetry key and run with ``symmetry=True``: the FT x SYM instances
+    of kernels 1 and 2 (artificial viscosity) and of kernel 3 (laminar+SPS),
+    Wendland and cubic, with and without NO_FIXED shifting, against the
+    plain mirror pass on a perturbed state with the box's particle mass;
+    then 5 + SYM_STEPS steps of the case from rest: cellforce_sym (its FT
+    x SYM instance) exactly twice per step, the state and the body finite,
+    the box rigid, the density within 10%, the body's centre and
+    velocity printed.  Returns (records, launches)."""
+    import shutil
+    from dualsphysics_multilayer_tpu_torch import (SolverOpts, TpDensity,
+                                                   TpKernel, TpShifting,
+                                                   TpVisco)
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.features import floating as FT
+    from dualsphysics_multilayer_tpu_torch.io.xmlcase import load_case
+    from dualsphysics_multilayer_tpu_torch.models.wcsph import (make_carry,
+                                                                make_step)
+    root = tempfile.mkdtemp(prefix="_smoke_symft_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    try:
+        path = os.path.join(root, "HalfFloat_Def.xml")
+        with open(path, "w") as f:
+            f.write(half_float_xml(DP_BENCH, 3 * XML_TOUT, XML_TOUT))
+        case, opts, _run = load_case(path, device=device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    feats = case.meta["features"]
+    check(opts.with_floating and not opts.symmetry and feats is not None
+          and feats.floating.count == 1, f"the half tank's options {opts}")
+    opts = dataclasses.replace(opts, symmetry=True)
+    n, dom, csp = case.np_total, case.dom, case.csp
+    st = case.state
+    isft = td.is_floating(st.code)
+    check(float(st.pos[isft, 1].min()) == 0.0, "the box is not on the plane")
+    ftomassp = FT.body_tables(feats.floating, tuple(csp.gravity),
+                              device).massp
+    pos, vel, rho, code = perturbed_state(case, device, csp.rhopzero, seed=9)
+    cells, args = sorted_args(dom, pos, vel, rho, code)
+    tau = seeded_tau(args[3], 10)
+    lam = sps_constants(csp, SYM_VISCO)
+    nofixed, none = TpShifting.NO_FIXED, TpShifting.NONE
+    fd = dict(tdensity=TpDensity.FOURTAKAS, symmetry=True, with_floating=True)
+    variants = []
+    for kname, c, visc in (("kernel 1", csp.replace(tkernel=TpKernel.WENDLAND),
+                            TpVisco.ARTIFICIAL),
+                           ("kernel 2", csp.replace(tkernel=TpKernel.CUBIC),
+                            TpVisco.ARTIFICIAL),
+                           ("kernel 3 wendland",
+                            lam.replace(tkernel=TpKernel.WENDLAND),
+                            TpVisco.LAMINAR_SPS),
+                           ("kernel 3 cubic",
+                            lam.replace(tkernel=TpKernel.CUBIC),
+                            TpVisco.LAMINAR_SPS)):
+        for shift in (none, nofixed):
+            variants.append((
+                f"symmetry + floating, {kname}"
+                + (" + shift" if shift != none else ""), c,
+                SolverOpts(tvisco=visc, shiftmode=shift, **fd)))
+    records = sym_instances_vs_plain("symmetry-floating-vs-plain", variants,
+                                     dom, cells, args, tau, smi,
+                                     ftomassp=ftomassp)
+    check(opts.tvisco == TpVisco.ARTIFICIAL and opts.shiftmode == none
+          and csp.tkernel == TpKernel.WENDLAND, f"the path's options {opts}")
+    ends = st.idp[isft][torch.tensor([0, -1], device=device)]
+    span0 = float((st.pos[isft][0] - st.pos[isft][-1]).norm())
+    step = make_step(csp, opts, dom, feats)
+    carry, times, launched = run_steps(
+        step, make_carry(st, csp, opts, dom, feats), 5, SYM_STEPS)
+    single_phase_counts(launched, "cellforce_sym", 2, 5 + SYM_STEPS)
+    check_state(carry, 5 + SYM_STEPS, None)
+    ft = carry.st.ft
+    for k in ("center", "fvel", "fomega"):
+        check(bool(torch.isfinite(getattr(ft, k)).all()), f"body {k} not "
+              f"finite")
+    e = carry.st.pos[_by_id_rows(carry.st, ends)]
+    dspan = abs(float((e[0] - e[1]).norm()) - span0)
+    check(dspan < 1e-3 * csp.dp, f"the box deformed by {dspan / csp.dp:.2e} dp")
+    rmin, rmax = fluid_rho_range(carry.st, True, csp.rhopzero)
+    p50 = statistics.median(times)
+    k = launched["cellforce_sym"]
+    records["cellforce_kernel<2,1,0,1,1>"]["launches"] = k
+    say("symmetry-floating", f"half tank with a {BOX_SIDE} m box on the "
+        f"plane (rhopbody 800, RigidAlgorithm=1), {n} particles "
+        f"({int(isft.sum())} floating): 20 steps after 5 from rest: p50 "
+        f"{p50 * 1e3:.3f} ms, {k} cellforce_sym launches; body centre "
+        f"{[round(x, 6) for x in ft.center[0].tolist()]} m, fvel "
+        f"{[round(x, 6) for x in ft.fvel[0].tolist()]} m/s, fomega "
+        f"{[round(x, 6) for x in ft.fomega[0].tolist()]} rad/s (its y "
+        f"motion is not held to the plane, as in JAX); rigid within "
+        f"{dspan / csp.dp:.2e} dp; fluid rho [{rmin:.2f}, {rmax:.2f}] "
+        f"({smi})")
+    return records, k, p50 * 1e3
+
+
+def flat_domain(csp, dom):
+    """``dom``'s extent in cells of the kernel size: a domain without a
+    cell skin."""
+    from dualsphysics_multilayer_tpu_torch.models import wcsph as W
+    from dualsphysics_multilayer_tpu_torch.ops import celldiv as cd
+    flat = cd.make_domain(dom.posmin, dom.posmax, csp.kernelsize,
+                          simulate2d=dom.simulate2d)
+    check(W.skinless(csp, flat), "the flat domain has a skin")
+    return flat
+
+
+def duct_case(device):
+    """Phase 30's duct through ``load_case``: (case, opts, its zones)."""
+    import shutil
+    from dualsphysics_multilayer_tpu_torch.io.xmlcase import load_case
+    root = tempfile.mkdtemp(prefix="_smoke_duct43_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    try:
+        path = os.path.join(root, "Duct_Def.xml")
+        with open(path, "w") as f:
+            f.write(duct_xml(DUCT_DP, DUCT_TMAX))
+        case, opts, _run = load_case(path, device=device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    feats = case.meta["features"]
+    check(feats is not None and feats.inout is not None, "the duct's zones")
+    return case, opts, feats
+
+
+def skinless_duct_path(device, smi):
+    """Phase 43, part 3: phase 30's duct (its extrapolated outlet reads a
+    divide of the post-step positions there) on the case's domain and on
+    cells of the kernel size, 5 + SYM_STEPS steps of each from its start:
+    cellforce exactly twice per step, a rebuild at every step of the
+    skinless run, the live ids, spawns and overflow counts of both runs
+    equal, positions by id within 1e-4 dp, the p50 of each.  Returns
+    (the skinless run's launches, its p50 ms, the skinned p50 ms)."""
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.models import wcsph as W
+    case, opts, feats = duct_case(device)
+    csp = case.csp
+    flat = flat_domain(csp, case.dom)
+    act0 = td_active(case.state)
+    runs = {}
+    for label, dom in (("skinned", case.dom), ("skinless", flat)):
+        carry = W.make_carry(case.state, csp, opts, dom, feats)
+        nrebuild0 = carry.nrebuild
+        carry, times, launched = run_steps(W.make_step(csp, opts, dom, feats),
+                                           carry, 5, SYM_STEPS)
+        single_phase_counts(launched, "cellforce", 2, 5 + SYM_STEPS)
+        check_state(carry, 5 + SYM_STEPS, None)
+        runs[label] = dict(carry=carry, p50=statistics.median(times),
+                           launches=launched["cellforce"],
+                           rebuilds=carry.nrebuild - nrebuild0,
+                           live=td_active(carry.st))
+    a, b = runs["skinned"], runs["skinless"]
+    check(b["rebuilds"] == 5 + SYM_STEPS, f"the skinless duct rebuilt "
+          f"{b['rebuilds']} times in {5 + SYM_STEPS} steps")
+    spawns = {k: int((r["live"] & ~act0).sum()) for k, r in runs.items()}
+    ovf = {k: (r["carry"].overflow, r["carry"].overflow_inout)
+           for k, r in runs.items()}
+    check(torch.equal(a["live"], b["live"]) and ovf["skinned"] == (0, 0)
+          == ovf["skinless"], f"the runs' live sets differ by "
+          f"{int((a['live'] ^ b['live']).sum())} ids; spawns {spawns}, "
+          f"overflow (all, inout) {ovf}")
+    check(spawns["skinless"] > 0, "no spawn in the duct's steps")
+    live = a["live"]
+    dpos = float((by_id_pos(a["carry"].st) - by_id_pos(b["carry"].st))[live]
+                 .abs().max())
+    check(dpos <= 1e-4 * csp.dp, f"max |d pos| {dpos:.3e} m between the "
+          f"domains, over 1e-4 dp")
+    say("skinless-duct", f"phase 30's duct, {int(live.sum())} live "
+        f"particles after {5 + SYM_STEPS} steps of each domain: skinless "
+        f"(cells of {flat.scell * 1e3:.3f} mm, {b['rebuilds']} rebuilds) "
+        f"p50 {b['p50'] * 1e3:.3f} ms against the skinned "
+        f"{a['p50'] * 1e3:.3f} ms ({a['rebuilds']} rebuilds); "
+        f"{spawns['skinless']} spawns in each, the same live ids, overflow "
+        f"0; max |d pos| by id {dpos:.3e} m ({dpos / csp.dp:.2e} dp); "
+        f"cellforce {b['launches']} launches ({smi})")
+    return b["launches"], b["p50"] * 1e3, a["p50"] * 1e3
+
+
+def skinless_shard_path(device, smi, dam_state):
+    """Phase 43, part 4: skinless domains over 2 ranks sharing the card
+    (gloo), one start of the ranks for three jobs of SKINLESS_SHARD steps:
+    the 3D dam break from ``dam_state`` (phase 37's, its front past the
+    slab edge), the NN wet dam break at NN_DP (SPH Morris, a 2-cell halo)
+    from phase 6's flow and the duct with its zones, each against its
+    one-device skinless run: positions by id within 1e-4 dp (bit-equal
+    said when they are), a rebuild (migration) at every step, a fresh
+    ghost exchange before each interaction and none refreshed in place,
+    each kernel as often per step as on one device; the collectives and
+    exchanges per step and rank 0's p50.  Returns {path: {kernel: each
+    rank's launches}}."""
+    from dualsphysics_multilayer_tpu_torch import SolverOpts, TpDensity
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    from dualsphysics_multilayer_tpu_torch.models import nnewtonian as NM
+    from dualsphysics_multilayer_tpu_torch.models import wcsph as W
+    from dualsphysics_multilayer_tpu_torch.parallel import sharding as S
+    dam = cases.dambreak3d(dp=DP_BENCH, obstacle=True, device=device)
+    nn, phases = NM.wet_dambreak_nn(dp=NN_DP, device=device)
+    duct, dopts, dfeats = duct_case(device)
+    jobs = {
+        "dambreak3d": (dam.csp, SolverOpts(tdensity=TpDensity.FOURTAKAS),
+                       flat_domain(dam.csp, dam.dom), dam_state, None, None,
+                       dam.csp.dp),
+        "nn": (nn.csp, nn_opts("LAMINAR_SPS", "SPH"),
+               flat_domain(nn.csp, nn.dom),
+               flowing_state(nn, device, sim2d=True), None, phases, NN_DP),
+        "duct": (duct.csp, dopts, flat_domain(duct.csp, duct.dom),
+                 duct.state, dfeats, None, DUCT_DP),
+    }
+    refs, sims = {}, {}
+    for name, (csp, opts, dom, st, feats, ph, dp) in jobs.items():
+        if ph is None:
+            step = W.make_step(csp, opts, dom, feats)
+        else:
+            step = NM.make_nn_step(csp, opts, dom, ph)
+        carry, times, launched = timed_steps(
+            step, W.make_carry(st, csp, opts, dom, feats), SKINLESS_SHARD)
+        check(carry.overflow == 0, f"skinless {name}: overflow "
+              f"{carry.overflow} on one device")
+        refs[name] = (carry, statistics.median(times), launched)
+        sims[name] = S.ShardedSimulation(csp, opts, dom, st, feats=feats,
+                                         ndev=2, phases=ph, backend="gloo",
+                                         limit=SHARD_LIMIT)
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = S.steps_together(list(sims.values()), (SKINLESS_SHARD,))
+    secs = time.perf_counter() - t0
+    ranks = {}
+    per_step = dict(dambreak3d=2, nn=2, duct=3)
+    for (name, sim), (carries, times) in zip(sims.items(), outs):
+        label = f"skinless-shard-{name}"
+        got = carries[-1]
+        ref, p50_1, launched = refs[name]
+        dp = jobs[name][-1]
+        check(got.nstep == SKINLESS_SHARD and got.overflow == 0,
+              f"{label}: nstep {got.nstep}, overflow {got.overflow}")
+        err = shard_error(label, got, ref)
+        check(err <= 1e-4 * dp, f"{label}: 2 ranks drift {err} m from the "
+              f"one-device run (1e-4 dp = {1e-4 * dp})")
+        stats = sim.stats
+        for r, s in enumerate(stats):
+            check(s["nrebuild"] == 1 + SKINLESS_SHARD
+                  and s["refreshes"] == 0 and s["ghost_exchanges"]
+                  == per_step[name] * SKINLESS_SHARD, f"{label}: rank {r} "
+                  f"{s['nrebuild']} rebuilds, {s['refreshes']} refreshes, "
+                  f"{s['ghost_exchanges']} exchanges in {SKINLESS_SHARD} "
+                  f"steps")
+        check(all(s["fluid_ghosts"] > 0 for s in stats),
+              f"{label}: a rank received no fluid ghost row")
+        ranks[f"skinless-{name}-2-ranks"] = shard_launches(
+            label, stats, launched, SKINLESS_SHARD)
+        p50 = statistics.median(times)
+        migr = sum(int(s["migrants"]) for s in stats)
+        say(label, f"{sim.state0.n} slots, 2 ranks on cuda:0 over gloo, "
+            f"{SKINLESS_SHARD} steps: "
+            + ("bit-equal to" if err == 0.0 else
+               f"within {err:.3e} m ({err / dp:.2e} dp) of")
+            + f" the one-device skinless run; per step on each rank: "
+            + "; ".join(f"rank {r} {s['collectives'] / SKINLESS_SHARD:.2f} "
+                        f"collectives, {s['ghost_exchanges'] / SKINLESS_SHARD:.2f}"
+                        f" ghost exchanges ({s['ghost_rows'] / max(s['ghost_exchanges'], 1):.1f}"
+                        f" rows each), {s['bytes'] / SKINLESS_SHARD:.0f} "
+                        f"bytes" for r, s in enumerate(stats))
+            + f"; {migr} migrants; p50 step {p50 * 1e3:.3f} ms on rank 0 "
+            f"against the one-device {p50_1 * 1e3:.3f} ms (one card shared "
+            f"by two ranks: a check, not a speed) ({smi})")
+    say("skinless-shard", f"the three jobs in one start of the ranks: "
+        f"{secs:.1f} s ({smi})")
+    return ranks
+
+
+def last_inputs_path(device, smi, dam_state):
+    """Phase 43: parts 1-4 (:func:`symmetry_lamsps_path`,
+    :func:`symmetry_floating_path`, :func:`skinless_duct_path`,
+    :func:`skinless_shard_path`).  Returns (instance records, launches by
+    path, shard launches by path)."""
+    t0 = time.perf_counter()
+    lam, k_lam, _ = symmetry_lamsps_path(device, smi)
+    flt, k_flt, _ = symmetry_floating_path(device, smi)
+    k_duct, _, _ = skinless_duct_path(device, smi)
+    ranks = skinless_shard_path(device, smi, dam_state)
+    say("last-inputs", f"phase 43 in {time.perf_counter() - t0:.1f} s "
+        f"({smi})")
+    return ({**lam, **flt}, {"symmetry-lamsps": k_lam,
+                             "symmetry-floating": k_flt,
+                             "skinless-duct": k_duct}, ranks)
+
+
 def main():
     check(torch.cuda.is_available(), "no CUDA device: the port's smoke run "
           "needs an NVIDIA GPU")
@@ -6199,6 +6699,19 @@ def main():
             records[name]["path_launches"][path] = k
     # 42. a domain without a cell skin: the 3D dam break over kernel 1
     paths["skinless"] = skinless_path(device, smi)
+    # 43. the last inputs JAX runs and the port refused: the symmetry plane
+    # with laminar+SPS and with floating bodies, the skinless domain with
+    # inlet/outlet zones and under -shard
+    inst43, paths43, ranks43 = last_inputs_path(
+        device, smi, shard["dambreak3d"].pop("state"))
+    records["cellforce_lamsps"].setdefault("path_launches", {})[
+        "symmetry-lamsps"] = paths43.pop("symmetry-lamsps")
+    paths.update(paths43)
+    for key, r in inst43.items():
+        records[r["kernel"]].setdefault("instances", []).append(dict(
+            instance=key, **{f: r[f] for f in (
+                "variant", "launches", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "flat_ms", "registers", "spills")}))
     for key, r in nn12_records.items():
         records[r["kernel"]]["instances"].append(dict(
             instance=key, **{f: r[f] for f in (
@@ -6216,7 +6729,8 @@ def main():
                         ("mdbc-2-ranks", shard["mdbc"]["ranks"]),
                         ("cli-shard-1", shard["cli"]["ranks"]),
                         ("coastal-2-ranks", coastal_shard["ranks"])) + tuple(
-            (f"{k}-2-ranks", v["ranks"]) for k, v in feats.items()):
+            (f"{k}-2-ranks", v["ranks"]) for k, v in feats.items()) + tuple(
+            ranks43.items()):
         for name, per_rank in ranks.items():
             records[name].setdefault("shard_launches", {})[path] = per_rank
 

@@ -11,10 +11,11 @@
 // Each takes the shifting sums when the launch parameters name a shifting
 // mode, the floating bodies' particle masses (the TPU kernels' ftomassp
 // channel) when given them, and the mDBC form of the Molteni diffusion when
-// the parameters name mDBC walls; the first two also take the lateral
-// symmetry plane y = 0 (SYM instances, with or without shifting, no
-// floating bodies) when the parameters' symmetry field is set.  The TPU
-// kernels had no symmetry: the JAX package ran it on its bucket path only.  The outputs are the TPU kernels':
+// the parameters name mDBC walls; each also takes the lateral symmetry
+// plane y = 0 (SYM instances, with or without shifting and floating bodies)
+// when the parameters' symmetry field is set.  The TPU kernels had no
+// symmetry: the JAX package ran it on its bucket path only.  The outputs
+// are the TPU kernels':
 // momentum, continuity with the density diffusion folded in, viscdt, and
 // the SPS gradient and shifting sums where asked, over the GPU layout of
 // the original DualSPHysics solver
@@ -87,7 +88,7 @@ cellforce_kernel(CfParams p, const F4* __restrict__ pospress,
                                            q);
 }
 
-template <int KER, int VISC, bool SHIFT, bool FT, bool SYM = false>
+template <int KER, int VISC, bool SHIFT, bool FT, bool SYM>
 void launch_one(const CfParams* p, const void* pospress, const void* velrho,
                 const void* kind, const void* cell, const void* begin,
                 const void* tau, const void* ftmass, void* ace, void* ar,
@@ -106,10 +107,17 @@ void launch_one(const CfParams* p, const void* pospress, const void* velrho,
 }
 
 // The SHIFT instance when the parameters name a shifting mode, the FT one
-// when ftmass is not null, the SYM one (artificial viscosity without
-// floating bodies only) when the parameters' symmetry field is set;
-// returns cudaGetLastError() (0 on success), cudaErrorInvalidValue for a
-// symmetry plane with another viscosity or with floating bodies.
+// when ftmass is not null, the SYM one when the parameters' symmetry field
+// is set: one of eight instances per (KER, VISC), picked here and never
+// tested inside the kernel.  Returns cudaGetLastError() (0 on success).
+template <int KER, int VISC, bool SYM>
+auto* pick(bool shifting, bool floating) {
+  return shifting ? (floating ? launch_one<KER, VISC, true, true, SYM>
+                              : launch_one<KER, VISC, true, false, SYM>)
+                  : (floating ? launch_one<KER, VISC, false, true, SYM>
+                              : launch_one<KER, VISC, false, false, SYM>);
+}
+
 template <int KER, int VISC>
 int launch(const CfParams* p, const void* pospress, const void* velrho,
            const void* kind, const void* cell, const void* begin,
@@ -118,19 +126,8 @@ int launch(const CfParams* p, const void* pospress, const void* velrho,
            void* stream) {
   const bool shifting = p->shiftmode != SHIFT_NONE;
   const bool floating = ftmass != nullptr;
-  if (p->symmetry && (VISC != VISCO_ARTIFICIAL || floating)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  auto* one = shifting ? (floating ? launch_one<KER, VISC, true, true>
-                                   : launch_one<KER, VISC, true, false>)
-                       : (floating ? launch_one<KER, VISC, false, true>
-                                   : launch_one<KER, VISC, false, false>);
-  if constexpr (VISC == VISCO_ARTIFICIAL) {
-    if (p->symmetry) {
-      one = shifting ? launch_one<KER, VISC, true, false, true>
-                     : launch_one<KER, VISC, false, false, true>;
-    }
-  }
+  auto* one = p->symmetry ? pick<KER, VISC, true>(shifting, floating)
+                          : pick<KER, VISC, false>(shifting, floating);
   one(p, pospress, velrho, kind, cell, begin, tau, ftmass, ace, ar, viscdt,
       gradvel, shift, shiftblk, stream);
   return static_cast<int>(cudaGetLastError());

@@ -10,7 +10,7 @@ namespace {
 // cudaErrorInvalidValue, as the CUDA launchers return it
 constexpr int kInvalidValue = 1;
 
-template <int KER, int VISC, bool SHIFT, bool FT, bool SYM = false>
+template <int KER, int VISC, bool SHIFT, bool FT, bool SYM>
 void run_one(const CfParams* p, const void* pospress, const void* velrho,
              const void* kind, const void* cell, const void* begin,
              const void* tau, const void* ftmass, void* ace, void* ar,
@@ -28,6 +28,15 @@ void run_one(const CfParams* p, const void* pospress, const void* velrho,
   }
 }
 
+// the instance the CUDA launcher picks (cellforce.cu `pick`)
+template <int KER, int VISC, bool SYM>
+auto* pick(bool shifting, bool floating) {
+  return shifting ? (floating ? run_one<KER, VISC, true, true, SYM>
+                              : run_one<KER, VISC, true, false, SYM>)
+                  : (floating ? run_one<KER, VISC, false, true, SYM>
+                              : run_one<KER, VISC, false, false, SYM>);
+}
+
 template <int KER, int VISC>
 int run(const CfParams* p, const void* pospress, const void* velrho,
         const void* kind, const void* cell, const void* begin, const void* tau,
@@ -35,19 +44,8 @@ int run(const CfParams* p, const void* pospress, const void* velrho,
         void* shift, void* shiftblk) {
   const bool shifting = p->shiftmode != SHIFT_NONE;
   const bool floating = ftmass != nullptr;
-  if (p->symmetry && (VISC != VISCO_ARTIFICIAL || floating)) {
-    return kInvalidValue;
-  }
-  auto* one = shifting ? (floating ? run_one<KER, VISC, true, true>
-                                   : run_one<KER, VISC, true, false>)
-                       : (floating ? run_one<KER, VISC, false, true>
-                                   : run_one<KER, VISC, false, false>);
-  if constexpr (VISC == VISCO_ARTIFICIAL) {
-    if (p->symmetry) {
-      one = shifting ? run_one<KER, VISC, true, false, true>
-                     : run_one<KER, VISC, false, false, true>;
-    }
-  }
+  auto* one = p->symmetry ? pick<KER, VISC, true>(shifting, floating)
+                          : pick<KER, VISC, false>(shifting, floating);
   one(p, pospress, velrho, kind, cell, begin, tau, ftmass, ace, ar, viscdt,
       gradvel, shift, shiftblk);
   return 0;

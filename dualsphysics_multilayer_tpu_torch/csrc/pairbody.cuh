@@ -22,9 +22,12 @@
 //     candidate in the plane, itself included: dr_y = y_i + y_j and dv_y =
 //     vy_i + vy_j, every other term as for the candidate.  Images in support
 //     lie within one cell in y of the target, so the walk is the same.  The
-//     launcher picks SYM from the parameters' symmetry field, for artificial
-//     viscosity without floating bodies (the reference's restrictions,
-//     JSph.cpp:1174-1179); without SYM the body compiles as before.
+//     launcher picks SYM from the parameters' symmetry field, for either
+//     viscosity, with or without floating bodies: an image keeps its
+//     candidate's mass (ftmass[j] under FT) and its SPS stress tau_j,
+//     unreflected, as the JAX bucket path's pair inputs do (the case
+//     loaders refuse these two combinations, JSph.cpp:1174-1179, the
+//     library runs them); without SYM the body compiles as before.
 // Rules every instance keeps:
 //   * boundary targets get only continuity and viscdt;
 //   * boundary-boundary pairs contribute nothing, not even to viscdt;

@@ -332,7 +332,8 @@ def extrap_cap(cfg: InOutCfg, csp: CteSph) -> int:
 
 
 def inout_extrapolate(cfg: InOutCfg, csp: CteSph, dom: cd.Domain,
-                      cells: cd.CellDiv, st, max_pairs: int = 1 << 22):
+                      cells: cd.CellDiv, st, max_pairs: int = 1 << 22,
+                      order=None):
     """Ghost-node extrapolation of the zones with extrapolated velocity or
     density (`InteractionInOutExtrap_Double`, JSphCpu_InOut.cpp:55-238):
     each member mirrors across its inlet plane into the fluid, the
@@ -345,7 +346,10 @@ def inout_extrapolate(cfg: InOutCfg, csp: CteSph, dom: cd.Domain,
 
     The candidates come from the neighbour rows of the step's layout
     (``celldiv.point_ranges``, valid under the skin contract, as the mDBC
-    pre-pass reads them; the JAX package divides afresh).  Sizes are
+    pre-pass reads them; the JAX package divides afresh).  ``order``: the
+    state's slot of each of the layout's rows when the state is not in the
+    layout's order (a divide of its own positions, ``cells.order``; None
+    when it is).  Sizes are
     static (:func:`extrap_cap` members, ``celldiv.row_cap`` slots a row), so
     nothing is read to the host.  Returns (vel, rho, overflow): members
     beyond the cap plus members with a longer row."""
@@ -403,6 +407,8 @@ def inout_extrapolate(cfg: InOutCfg, csp: CteSph, dom: cd.Domain,
         valid = (off < lens[t, :, None]).reshape(len(t), -1)
         j = torch.where(valid.reshape(len(t), R, L),
                         starts[t, :, None] + off, 0).reshape(len(t), -1)
+        if order is not None:
+            j = order[j]
         dr = gpos[t, None, :] - pos[j]
         rr2 = (dr * dr).sum(dim=-1)
         pair = (valid & fluid_c[j] & (rr2 <= csp.kernelsize2)
@@ -449,11 +455,11 @@ def inout_extrapolate(cfg: InOutCfg, csp: CteSph, dom: cd.Domain,
 
 def inout_step(cfg: InOutCfg, csp: CteSph, st, tabs, nstep=None, dom=None,
                cells=None, usable=None, owns=None, reduce_max=None,
-               reduce_sum=None):
+               reduce_sum=None, order=None):
     """One transition pass of every zone at time ``tabs`` (0-d), the
     step's ``nstep`` (a host int: the advanced refilling's tick; None ticks
     always).  ``dom`` and ``cells``, the step's layout, serve the
-    extrapolated modes.  One rank of a domain decomposition passes
+    extrapolated modes (``order`` as for :func:`inout_extrapolate`).  One rank of a domain decomposition passes
     ``usable`` ((n,) bool, the slots a spawn may take), ``owns(pos) ->
     (m,) bool`` (the points its slab owns: the advanced refilling fills
     only their holes) and the reductions
@@ -611,7 +617,7 @@ def inout_step(cfg: InOutCfg, csp: CteSph, st, tabs, nstep=None, dom=None,
                              "need the domain and the layout")
         vel, rho, ovf = inout_extrapolate(
             cfg, csp, dom, cells, replace(st, pos=pos, vel=vel, rho=rho,
-                                          code=code))
+                                          code=code), order=order)
         overflow = overflow + ovf
 
     upd = dict(pos=pos, vel=vel, rho=rho, code=code)

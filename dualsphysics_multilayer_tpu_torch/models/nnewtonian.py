@@ -55,14 +55,14 @@ def make_nn_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     ignores ``opts.use_nbrlist``, as JAX's does: it walks ``dom``, and a
     carry made on the neighbour list's grid is divided afresh on its first
     step.  On a domain without a cell skin each interaction divides
-    afresh (``wcsph.fresh_interaction``).  ``dd``: one rank of a domain decomposition
-    (``parallel/sharding.py``, a 2-cell halo): each interaction refreshes
-    the ghost rows first, and ``wcsph.symplectic_step`` reduces the dt
-    maxima, viscetadtmax among them, over the ranks."""
+    afresh (``wcsph.fresh_interaction``).  ``dd``: one rank of a domain
+    decomposition (``parallel/sharding.py``, a 2-cell halo): each
+    interaction refreshes the ghost rows first (on a slab without a cell
+    skin, exchanges them afresh), and ``wcsph.symplectic_step`` reduces
+    the dt maxima, viscetadtmax among them, over the ranks."""
     if feats is not None:
         feats.check_none_set("the NN step")
     NN.check_supported_nn(csp, opts, phases)
-    W.check_skin(csp, dom, None, dd)
     fresh = W.skinless(csp, dom)
 
     def forces(st: W.SimState, cells):
@@ -72,7 +72,7 @@ def make_nn_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
 
     def interaction(st: W.SimState, carry: W.StepCarry, dt):
         if dd is not None:
-            st = dd.refresh(st, carry.halo)
+            st = dd.exchange(st) if fresh else dd.refresh(st, carry.halo)
         if fresh:
             return W.fresh_interaction(dom, st, forces)
         return forces(st, carry.cells)

@@ -39,7 +39,9 @@ under it.  A domain without a cell skin (cells of the kernel size, JAX
 ``make_domain``'s default, which JAX's bucket path runs) keeps no layout
 between interactions: each step starts with a rebuild and each
 interaction divides its own positions afresh (:func:`fresh_interaction`),
-as JAX divides at both.
+as JAX divides at both; the inlet/outlet zones' extrapolation divides the
+post-step positions too, and under a domain decomposition the rebuild
+migrates and each interaction exchanges the ghost rows afresh.
 
 Torch has no device-side loop, so the host drives the steps.  Each step
 ends with ONE small device-to-host copy, ``[rebuild flag for the next step,
@@ -228,7 +230,7 @@ def _sync_flags(csp: CteSph, margin: float, carry: StepCarry, filled=None,
         need = need | filled
     kinds = [(k, v) for k, v in (
         ("ghosts", ghosts), ("inout", inout), ("dem", dem), ("nbr", nbr),
-        ("shard", None if dd is None else carry.shard_overflow))
+        ("shard", None if dd is None else dd.overflow(carry)))
         if v is not None]
     if dd is not None:
         need, maxima = dd.agree(need, [v for _, v in kinds])
@@ -288,21 +290,6 @@ def _margin(csp: CteSph, dom: cd.Domain) -> float:
         raise ValueError("cells narrower than the kernel size: the walks "
                          "of 3 cells per axis would miss pairs")
     return margin
-
-
-def check_skin(csp: CteSph, dom: cd.Domain, feats: Features | None,
-               dd=None) -> None:
-    """NotImplementedError for what a domain without a cell skin does not
-    run yet: inlet/outlet zones (their pass reads the step's layout after
-    the corrector) and a domain decomposition (its halo rows are picked at
-    the step's rebuild)."""
-    if not skinless(csp, dom):
-        return
-    F.raise_unsupported([
-        (feats is not None and feats.inout is not None,
-         "inlet/outlet zones on a domain without a cell skin"),
-        (dd is not None, "a domain decomposition on a domain without a "
-         "cell skin")])
 
 
 def fresh_interaction(dom: cd.Domain, st, interact):
@@ -434,9 +421,12 @@ def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     then include the halo rows), DEM runs over owned and halo rows with
     only the owned ones as targets, its pass walking the rank's own
     floating rows alone, and the bodies' partial sums are added over the
-    ranks."""
+    ranks.  On a slab without a cell skin the ghost rows are exchanged
+    afresh before each interaction instead (``dd.exchange``, JAX
+    ``_sharded_interaction``), before the wrap under periodic boundaries,
+    and the mDBC pre-pass's second refresh writes the slots of that
+    exchange, in the interaction's cell order."""
     F.check_supported(csp, opts)
-    check_skin(csp, dom, feats, dd)
     fresh = skinless(csp, dom)
     floating = accinputs = periodic = dem = None
     if feats is not None:
@@ -454,8 +444,14 @@ def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
 
         refresh = None
         if dd is not None:
+            if fresh:
+                # the stale ghost rows die and the rows within the halo of
+                # each slab edge now come afresh
+                st = dd.exchange(st)
+            halo = dd.halo if fresh else carry.halo
+
             def refresh(s):
-                return dd.refresh(s, carry.halo)
+                return dd.refresh(s, halo)
 
         def interact(st, cells, refresh):
             st, fr = _interaction(csp, opts, dom, st, cells, ftomassp,
@@ -479,8 +475,14 @@ def _single_phase(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             st, fr = PER.periodic_interaction(periodic, csp, dom, st,
                                               interact, refresh)
         elif fresh:
-            st, fr = fresh_interaction(
-                dom, st, lambda s, cells: interact(s, cells, None))
+            def interact_sorted(s, cells):
+                again = None
+                if dd is not None:
+                    def again(x):
+                        return dd.refresh(x, halo.moved(cd.slots_of(cells)))
+                return interact(s, cells, again)
+
+            st, fr = fresh_interaction(dom, st, interact_sorted)
         else:
             if refresh is not None:
                 st = refresh(st)
@@ -578,7 +580,11 @@ def _inout_hook(csp: CteSph, dom: cd.Domain, feats: Features | None,
     """inout(st, carry) -> (st, overflow, filled): the inlet/outlet pass
     after the step's other hooks (JAX `wcsph.py:638-641`, `:752-755`) at
     the carry's ``tabs`` and ``nstep``, reading its layout for the
-    extrapolated modes; None without zones.  Conversions, captures and
+    extrapolated modes; None without zones.  On a domain without a cell
+    skin no layout holds the post-step positions: the extrapolated modes
+    read a divide of their own instead (JAX `features/inout.py:458`), the
+    state left in its slot order, and on a slab the ghost rows are first
+    exchanged afresh for them.  Conversions, captures and
     destructions change codes only, which kernel 1 reads at every launch;
     a filled slot forces the next rebuild (:func:`_sync_flags`).  Under a
     domain decomposition (``dd``) a spawn takes only the slots
@@ -588,18 +594,25 @@ def _inout_hook(csp: CteSph, dom: cd.Domain, feats: Features | None,
     `features/inout.py:148-149`, `:382`)."""
     if feats is None or feats.inout is None:
         return None
+    flat = skinless(csp, dom)
+    fresh = flat and IO.any_extrap(feats.inout)
 
     def inout(st, carry):
+        if fresh and dd is not None:
+            st = dd.exchange(st)
+        layout = dict(dom=dom, cells=carry.cells)
+        if fresh:
+            cells, _ = cd.divide_cells(dom, st.pos, st.code)
+            layout.update(cells=cells, order=cells.order)
         if dd is None:
             return IO.inout_step(feats.inout, csp, st, carry.tabs,
-                                 nstep=carry.nstep, dom=dom,
-                                 cells=carry.cells)
-        usable = dd.spawn_slots(st, carry.halo)
+                                 nstep=carry.nstep, **layout)
+        usable = dd.spawn_slots(st, dd.halo if flat else carry.halo)
         out, ovf, filled = IO.inout_step(
-            feats.inout, csp, st, carry.tabs, nstep=carry.nstep, dom=dom,
-            cells=carry.cells, usable=usable, owns=dd.owns,
+            feats.inout, csp, st, carry.tabs, nstep=carry.nstep,
+            usable=usable, owns=dd.owns,
             reduce_max=lambda x: dd.reduce_max(x)[0],
-            reduce_sum=dd.reduce_sum)
+            reduce_sum=dd.reduce_sum, **layout)
         dd.spawned((usable & ~td.is_active(st.code)
                     & td.is_active(out.code)).sum() + ovf)
         return out, ovf, filled

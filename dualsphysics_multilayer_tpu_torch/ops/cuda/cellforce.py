@@ -12,10 +12,11 @@ kernel and the viscosity,
   `_kernel`);
 
 each with the shifting sums when ``opts.shiftmode`` names a mode, the
-floating bodies' particle masses under ``opts.with_floating`` and the mDBC
-form of the Molteni diffusion under ``opts.tboundary == MDBC``; the first
-two with the lateral symmetry plane y = 0 under ``opts.symmetry`` (their
-SYM instances, counted as ``cellforce_sym`` and ``cellforce_cubic_sym``).
+floating bodies' particle masses under ``opts.with_floating``, the mDBC
+form of the Molteni diffusion under ``opts.tboundary == MDBC`` and the
+lateral symmetry plane y = 0 under ``opts.symmetry`` (their SYM instances,
+with any of the above, counted as ``cellforce_sym``,
+``cellforce_cubic_sym`` and ``cellforce_lamsps_sym``).
 A call:
 
 1. per-particle channel prep, the `_fast_channels` analog: position with
@@ -49,10 +50,10 @@ from ..forces import Forces, SolverOpts, check_spstau, check_supported
 from . import build
 
 # Kernel launches since the last reset, one count per kernel and one for
-# the symmetry-plane instances of each of the first two; the only mutable
-# module state.
+# the symmetry-plane instances of each; the only mutable module state.
 launches = dict(cellforce=0, cellforce_cubic=0, cellforce_lamsps=0,
-                cellforce_sym=0, cellforce_cubic_sym=0)
+                cellforce_sym=0, cellforce_cubic_sym=0,
+                cellforce_lamsps_sym=0)
 # queued image slots carry this bit (kMirror in csrc/pairbody.cuh), so a
 # symmetry launch takes fewer slots
 MIRROR_BIT = 1 << 30

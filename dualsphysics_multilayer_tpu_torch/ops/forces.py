@@ -8,7 +8,10 @@ the plain torch version of the same function: it walks the same 9 (3 in 2D)
 contiguous neighbour ranges per target as the kernel, gathers them padded to
 the longest range, and evaluates :func:`pairphys.pair_terms`; under
 ``opts.symmetry`` it evaluates the same candidates' images in the plane
-y = 0 too, for the targets within the kernel size of it.
+y = 0 too, for the targets within the kernel size of it: an image is its
+candidate with dr_y and dv_y replaced, so it keeps the candidate's mass
+(a floating body's particle mass) and its SPS stress, unreflected, as the
+JAX bucket path's pair inputs do.
 
 Acceleration excludes gravity (added by the integrator), as in the reference.
 """
@@ -53,8 +56,10 @@ class SolverOpts:
     nbr_m: int = 0
     nbr_skin: float = 0.5
     # the lateral symmetry plane y = 0 (<parameter key="Symmetry">): targets
-    # within kernelsize of it also meet each candidate's mirror image (3D,
-    # artificial viscosity, no floating bodies: JSph.cpp:1174-1179)
+    # within kernelsize of it also meet each candidate's mirror image (3D
+    # only; the case loaders also refuse laminar+SPS viscosity and floating
+    # bodies with it, JSph.cpp:1174-1179, which the library runs as the JAX
+    # bucket path does)
     symmetry: bool = False
     # NN velocity-gradient formulation: SPH = accumulated per-particle
     # gradients (3 passes), FDA = per-pair finite differences (1 pass)
@@ -117,16 +122,13 @@ def check_supported(csp: CteSph, opts: SolverOpts) -> None:
     """Raise NotImplementedError for any configuration outside the
     single-phase interaction: Wendland or cubic, artificial or laminar+SPS
     viscosity, every density diffusion and shifting mode, DBC or mDBC
-    walls, with or without floating bodies; the symmetry plane in 3D with
-    artificial viscosity and no floating bodies (the reference's rule,
-    JSph.cpp:1174-1179, which the case loaders enforce as ValueError)."""
+    walls, with or without floating bodies, and the symmetry plane in 3D
+    with any of these (the JAX bucket path's mirror pass; the case loaders
+    refuse laminar+SPS and floating bodies with it as ValueError, the
+    reference's rule, JSph.cpp:1174-1179)."""
     raise_unsupported([
         (opts.tvisco not in (TpVisco.ARTIFICIAL, TpVisco.LAMINAR_SPS),
          f"tvisco={opts.tvisco.name}"),
-        (opts.symmetry and opts.tvisco != TpVisco.ARTIFICIAL,
-         f"symmetry=True with tvisco={opts.tvisco.name}"),
-        (opts.symmetry and opts.with_floating,
-         "symmetry=True with floating bodies"),
         (opts.symmetry and csp.simulate2d, "symmetry=True in 2D")])
 
 

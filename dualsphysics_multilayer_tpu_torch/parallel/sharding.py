@@ -26,6 +26,12 @@ steps through one object, :class:`SlabRank` (their ``dd`` argument):
   in their recorded slots by one exchange (:func:`_refresh_ghosts`), with
   no divide: the skin contract keeps the ghost set sufficient, as it keeps
   the layout valid.  Under mDBC the pre-pass runs between two refreshes.
+  A slab without a cell skin (cells of the kernel size, ``wcsph.skinless``)
+  has no such contract: its rebuild, at every step, migrates and divides
+  the owned rows, and before each interaction the stale ghost rows die and
+  fresh ones are exchanged (:meth:`SlabRank.exchange`, JAX's
+  ``make_sharded_step``), which the interaction divides with the owned
+  rows (``wcsph.fresh_interaction``).
   Ghost rows carry the periodic special code, so they stay out of AceMax,
   the floating sums, the rebuild test and the inlet/outlet pass, and
   whatever the integrators do to them is overwritten at the next refresh.
@@ -395,6 +401,42 @@ class HaloState:
     slot_l: torch.Tensor      # (ghost_cap,) ghosts from the left neighbour
     slot_r: torch.Tensor
 
+    def moved(self, slot_of) -> "HaloState":
+        """The lists after the state's slots moved to ``slot_of`` (n,) (a
+        divide's ``celldiv.slots_of``).  The padding stays the last slot:
+        that slot is dead, so a stable divide sorts it last."""
+        return HaloState(*(slot_of[x] for x in (
+            self.send_l, self.send_r, self.slot_l, self.slot_r)))
+
+
+def _halo_state(cfg: ShardCfg, n: int, device, send=None, landed=None,
+                slot_of=None):
+    """The HaloState of one ghost exchange (:func:`exchange_ghosts`'s
+    ``send`` and ``landed``), its slots taken through ``slot_of`` when the
+    state was divided since; without an exchange, padding only."""
+    last = torch.full((cfg.ghost_cap,), n - 1, dtype=torch.long,
+                      device=device)
+    if send is None:
+        return HaloState(last, last, last, last)
+    move = (lambda x: x) if slot_of is None else (lambda x: slot_of[x])
+
+    def sent(rows, val):
+        return torch.where(val, move(rows), n - 1)
+
+    def arrived(dst):
+        return last if dst is None else torch.where(dst != n - 1, move(dst),
+                                                    n - 1)
+
+    return HaloState(send_l=sent(*send[0]), send_r=sent(*send[1]),
+                     slot_l=arrived(landed[0]), slot_r=arrived(landed[1]))
+
+
+def _kill_ghosts(st: SimState) -> SimState:
+    """The state with its ghost rows dead (id -1)."""
+    stale = td.is_periodic(st.code)
+    return replace(st, code=torch.where(stale, _DEAD, st.code),
+                   idp=torch.where(stale, -1, st.idp))
+
 
 def _bounds(cfg: ShardCfg, rank: int):
     g = cfg.gdom
@@ -543,41 +585,31 @@ def _rebalance_pool(st: SimState, group: G.Group, pool: PoolPlan,
 
 def _shard_rebuild(cfg: ShardCfg, st: SimState, rank: int, group: G.Group,
                    dom: cd.Domain, pool: PoolPlan | None = None,
-                   spawns=0):
+                   spawns=0, ghosts: bool = True):
     """One rank's rebuild (JAX ``_shard_rebuild``): stale ghosts die,
     owners migrate, the free pool is shared out again (``pool``, given
     when a zone can spawn, with the rank's ``spawns`` so far:
     :func:`_rebalance_pool`), fresh ghosts land in
-    free slots, and owned and ghost rows are divided on the slab's grid
-    ``dom``; the halo's index lists follow the state into its new slot
-    order.  Returns (state, CellDiv, HaloState, overflow, [migrants, ghost
-    rows, fluid ghost rows])."""
+    free slots (not with ``ghosts`` False: a slab without a cell skin
+    exchanges them before each interaction), and owned and ghost rows are
+    divided on the slab's grid ``dom``; the halo's index lists follow the
+    state into its new slot order.  Returns (state, CellDiv, HaloState,
+    overflow, [migrants, ghost rows, fluid ghost rows])."""
     n = st.n
-    stale = td.is_periodic(st.code)
-    st = replace(st, code=torch.where(stale, _DEAD, st.code),
-                 idp=torch.where(stale, -1, st.idp))
-    st, mig_ov, nmig = migrate(cfg, st, rank, group)
+    st, mig_ov, nmig = migrate(cfg, _kill_ghosts(st), rank, group)
     if pool is not None:
         st, pool_ov = _rebalance_pool(st, group, pool, spawns)
         mig_ov = mig_ov + pool_ov
-    st, send, landed, gov, nghost, nfluid = exchange_ghosts(cfg, st, rank,
-                                                            group)
+    zero = torch.zeros((), dtype=torch.long, device=st.pos.device)
+    send = landed = None
+    gov = nghost = nfluid = zero
+    if ghosts:
+        st, send, landed, gov, nghost, nfluid = exchange_ghosts(cfg, st, rank,
+                                                                group)
     cells, code = cd.divide_cells(dom, st.pos, st.code)
     st = replace(st, code=code).permuted(cells.order)
-    slot_of = torch.empty(n, dtype=torch.long, device=st.pos.device)
-    slot_of[cells.order] = torch.arange(n, device=st.pos.device)
-    last = torch.full((cfg.ghost_cap,), n - 1, dtype=torch.long,
-                      device=st.pos.device)
-
-    def sent(rows, val):
-        return torch.where(val, slot_of[rows], n - 1)
-
-    def arrived(dst):
-        return last if dst is None else torch.where(dst != n - 1,
-                                                    slot_of[dst], n - 1)
-
-    halo = HaloState(send_l=sent(*send[0]), send_r=sent(*send[1]),
-                     slot_l=arrived(landed[0]), slot_r=arrived(landed[1]))
+    halo = _halo_state(cfg, n, st.pos.device, send, landed,
+                       cd.slots_of(cells))
     return st, cells, halo, mig_ov + gov, [nmig, nghost, nfluid]
 
 
@@ -610,23 +642,36 @@ def _refresh_ghosts(cfg: ShardCfg, st: SimState, halo: HaloState,
 
 class SlabRank:
     """One rank of the decomposition as the port's steps see it (their
-    ``dd``): its slab's grid ``dom``, the rebuild, the refresh and the
+    ``dd``): its slab's grid ``dom``, the rebuild, the refresh, the fresh
+    exchange of a slab without a cell skin (``skinless``) and the
     reductions.  ``rebuilds`` keeps each rebuild's [migrants, ghost rows,
-    fluid ghost rows] as 0-d device tensors (read after a run)."""
+    fluid ghost rows] and ``exchanges`` each fresh exchange's [ghost rows,
+    fluid ghost rows] as 0-d device tensors (read after a run); ``halo``
+    is the last fresh exchange's :class:`HaloState`, in the state's slot
+    order."""
 
     def __init__(self, cfg: ShardCfg, group: G.Group,
-                 pool: PoolPlan | None = None):
+                 pool: PoolPlan | None = None, skinless: bool = False):
         self.cfg, self.group, self.pool = cfg, group, pool
+        self.skinless = skinless
         self.dom = slab_domain(cfg, group.rank)
         self.rebuilds = []
+        self.exchanges = []
         self.refreshes = 0
-        self.spawns = torch.zeros((), dtype=torch.int64, device=group.device)
+        self.halo = None
+        dev = group.device
+        self.spawns = torch.zeros((), dtype=torch.int64, device=dev)
+        self.exchange_overflow = torch.zeros((), dtype=torch.int64,
+                                             device=dev)
 
     def rebuild(self, carry: W.StepCarry) -> W.StepCarry:
+        """Migration, the free pool, the ghost rows (not on a skinless
+        slab) and the divide (:func:`_shard_rebuild`)."""
         st, cells, halo, ov, stats = _shard_rebuild(
             self.cfg, carry.st, self.group.rank, self.group, self.dom,
-            self.pool, self.spawns)
+            self.pool, self.spawns, ghosts=not self.skinless)
         self.rebuilds.append(stats)
+        self.exchange_overflow = torch.zeros_like(self.exchange_overflow)
         return replace(carry, st=st, cells=cells, pos0=st.pos, dom=self.dom,
                        halo=halo, shard_overflow=ov, nbr_overflow=None,
                        nrebuild=carry.nrebuild + 1, rebuild=False)
@@ -634,6 +679,26 @@ class SlabRank:
     def refresh(self, st: SimState, halo: HaloState) -> SimState:
         self.refreshes += 1
         return _refresh_ghosts(self.cfg, st, halo, self.group)
+
+    def exchange(self, st: SimState) -> SimState:
+        """A skinless slab's ghost rows before an interaction (JAX
+        ``_sharded_interaction``, `sharding.py:821-830`): the stale ones
+        die and the live rows within ``cfg.halo`` cells of each slab edge
+        land afresh in free slots (:func:`exchange_ghosts`).  The state
+        keeps its slot order; ``halo`` records the exchange for
+        :meth:`refresh` and :meth:`spawn_slots`, its overflow joins the
+        step's (:meth:`overflow`)."""
+        st, send, landed, ov, nghost, nfluid = exchange_ghosts(
+            self.cfg, _kill_ghosts(st), self.group.rank, self.group)
+        self.halo = _halo_state(self.cfg, st.n, st.pos.device, send, landed)
+        self.exchange_overflow = torch.maximum(self.exchange_overflow, ov)
+        self.exchanges.append([nghost, nfluid])
+        return st
+
+    def overflow(self, carry: W.StepCarry):
+        """The step's rows beyond a capacity: the last rebuild's, and on a
+        skinless slab the largest of the fresh exchanges since."""
+        return torch.maximum(carry.shard_overflow, self.exchange_overflow)
 
     def reduce_max(self, *vals):
         """The values (0-d tensors or None) reduced with MAX over the
@@ -846,7 +911,7 @@ def _launches():
 
 
 STAT_KEYS = ("nstep", "nrebuild", "migrants", "ghost_rows", "fluid_ghosts",
-             "refreshes", "collectives", "bytes")
+             "refreshes", "ghost_exchanges", "collectives", "bytes")
 
 
 @dataclass
@@ -876,7 +941,7 @@ def rank_start(group: G.Group, cfg: ShardCfg, csp: CteSph,
     spawners = _spawners(feats)
     pool = None if spawners is None else PoolPlan(
         feats.inout, spawners, max(1, sum(len(s) for s in spare)))
-    dd = SlabRank(cfg, group, pool)
+    dd = SlabRank(cfg, group, pool, skinless=W.skinless(csp, cfg.gdom))
     st = _rank_state(cfg, shard_state(cfg, state), group.rank, group.device,
                      spare[group.rank])
     step = _rank_step(cfg, csp, opts, dd, feats, phases)
@@ -926,9 +991,11 @@ def rank_counts(run: RankRun) -> dict:
     ``nnforce_p1``, ...)."""
     dd, carry = run.dd, run.sim.carry
     reb = [sum(int(s[i]) for s in dd.rebuilds) for i in range(3)]
+    exc = [sum(int(s[i]) for s in dd.exchanges) for i in range(2)]
     out = dict(nstep=carry.nstep, nrebuild=carry.nrebuild, migrants=reb[0],
-               ghost_rows=reb[1], fluid_ghosts=reb[2],
-               refreshes=dd.refreshes, **dd.group.counts)
+               ghost_rows=reb[1] + exc[0], fluid_ghosts=reb[2] + exc[1],
+               refreshes=dd.refreshes, ghost_exchanges=len(dd.exchanges),
+               **dd.group.counts)
     out.update({k: v - run.launched0[k] for k, v in _launches().items()})
     return out
 
@@ -1004,7 +1071,6 @@ class ShardedSimulation:
                  limit: float | None = None):
         self.csp, self.opts, self.dom = csp, opts, dom
         self.feats = _check_sharded_feats(feats)
-        W.check_skin(csp, dom, self.feats, dd=True)   # refuses before a start
         self.phases = phases
         device = torch.device(device if device is not None
                               else state.pos.device.type)

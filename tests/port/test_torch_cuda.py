@@ -1070,3 +1070,106 @@ def test_sharded_features_on_the_card_match_one_device(cuda):
                 assert float(err.max()) <= tol, k
         err = (got.st.pos[mg][og] - ref.st.pos[mr][orf]).abs().max()
         assert float(err) <= 1e-4 * (0.025 if name == "dem" else PER_DP)
+
+
+# (what, tkernel, shiftmode): the SYM instances of kernel 3 and the FT x SYM
+# ones of kernels 1-3
+SYM_DRESSED = [("lamsps", "WENDLAND", "NONE"), ("lamsps", "CUBIC", "NO_FIXED"),
+               ("floating", "WENDLAND", "NONE"),
+               ("floating", "CUBIC", "NO_BOUND"),
+               ("both", "WENDLAND", "FULL"), ("both", "CUBIC", "NONE")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what,tkernel,shiftmode", SYM_DRESSED)
+def test_cuda_symmetry_dressed_kernels_match_plain(cuda, what, tkernel,
+                                                   shiftmode):
+    """The symmetry plane with laminar+SPS viscosity, floating bodies or
+    both: the cloud in y in [0, 0.5] (targets near the plane meet their
+    images), each instance counted under its ``_sym`` name, against the
+    plain mirror pass."""
+    lam, flt = what in ("lamsps", "both"), what in ("floating", "both")
+    tvisco = "LAMINAR_SPS" if lam else "ARTIFICIAL"
+    csp = td.make_ctesph(simulate2d=False, dp=0.05, hswl=0.25,
+                         visco=1e-3 if lam else 0.05, viscoboundfactor=0.5,
+                         tkernel=td.TpKernel[tkernel],
+                         tvisco=td.TpVisco[tvisco])
+    opts = F.SolverOpts(tvisco=td.TpVisco[tvisco],
+                        tdensity=td.TpDensity.FOURTAKAS, symmetry=True,
+                        shiftmode=td.TpShifting[shiftmode],
+                        with_floating=flt)
+    pos, vel, rho, code = cloud(False, 18, cuda, mixed=flt)
+    assert int((pos[:, 1] < 0.5 * csp.kernelsize).sum()) > 20
+    ftomassp = torch.tensor([0.5, 0.3, 0.4], device=cuda) * csp.massfluid \
+        if flt else None
+    spstau = None
+    if lam:
+        rng = np.random.default_rng(19)
+        spstau = torch.where(td.is_fluid(code)[:, None], torch.tensor(
+            rng.normal(0, 1e-2, (pos.shape[0], 6)), dtype=torch.float32,
+            device=cuda), 0.0)
+    dom = cd.make_domain(pos.min(0).values.tolist(), pos.max(0).values.tolist(),
+                         csp.kernelsize, borders=0.01)
+    cells, code = cd.divide_cells(dom, pos, code)
+    o = cells.order
+    args = (pos[o], vel[o], rho[o], code[o])
+    tau = None if spstau is None else spstau[o].contiguous()
+    launches = dict(CF.launches)
+    name = CF.counter_name(csp, opts)
+    assert name.endswith("_sym")
+    launches[name] += 1
+    got = F.interaction_forces(csp, opts, dom, cells, *args, spstau=tau,
+                               ftomassp=ftomassp)
+    torch.cuda.synchronize()
+    assert CF.launches == launches
+    rtol = 4e-3 if tkernel == "CUBIC" else 2e-3
+    assert_close(F.interaction_forces_plain(csp, opts, dom, cells, *args,
+                                            spstau=tau, ftomassp=ftomassp),
+                 got, rtol)
+
+
+@pytest.mark.gpu
+def test_skinless_sharded_steps_on_the_card_match_the_cpu(cuda):
+    """A skinless 2D dam break whose fluid flows across the slab edge over
+    2 ranks sharing the card (gloo): a rebuild (migration) every step and
+    a fresh ghost exchange before each interaction, no refresh, kernel 1
+    twice per step on each rank; positions by id within 1e-4*dp of the
+    one-device skinless steps on the CPU."""
+    from dualsphysics_multilayer_tpu_torch.models import wcsph as W
+    from dualsphysics_multilayer_tpu_torch.parallel import sharding as S
+    opts = P.SolverOpts(tdensity=P.TpDensity.FOURTAKAS)
+    runs = {}
+    for dev in ("cpu", cuda):
+        case = cases.dambreak2d(dp=0.01, tank=(0.6, 0.4), column=(0.5, 0.3),
+                                device=dev)
+        d = case.dom
+        flat = cd.make_domain(d.posmin, [p + k * d.scell for p, k in
+                                         zip(d.posmin, d.nc)],
+                              case.csp.kernelsize, simulate2d=True)
+        assert W.skinless(case.csp, flat)
+        st = case.state
+        vel = torch.zeros_like(st.vel)
+        vel[:, 0] = 2.0
+        st = dataclasses.replace(st, vel=torch.where(
+            td.is_fluid(st.code)[:, None], vel, st.vel))
+        runs[str(dev)] = (case.csp, flat, st)
+    csp, flat, st = runs["cpu"]
+    step = P.make_step(csp, opts, flat)
+    carry = P.make_carry(st, csp, opts, flat)
+    for _ in range(10):
+        carry = step(carry)
+    csp, flat, st = runs["cuda"]
+    sim = S.ShardedSimulation(csp, opts, flat, st, ndev=2, backend="gloo",
+                              limit=300.0)
+    (got,), _ = sim.steps([10])
+    assert got.nstep == 10 and got.overflow == 0
+    for s in sim.stats:
+        assert s["cellforce"] == 20 and s["nrebuild"] == 11
+        assert s["ghost_exchanges"] == 20 and s["refreshes"] == 0
+        assert s["fluid_ghosts"] > 0
+    live = td.is_active(carry.st.code)
+    o = torch.argsort(carry.st.idp[live])
+    mine = td.is_active(got.st.code)
+    assert torch.equal(got.st.idp[mine].cpu(), carry.st.idp[live][o])
+    err = (got.st.pos[mine].cpu() - carry.st.pos[live][o]).abs().max()
+    assert float(err) <= 1e-4 * csp.dp

@@ -15,6 +15,17 @@
   False)``: positions within 1e-4*dp by id, density within rtol 1e-5.
 * The loader's three ValueErrors (2D, floating bodies, laminar+SPS), with
   JAX's wording.
+* The library runs the two combinations the loaders refuse, as the JAX
+  bucket path does: the interaction with laminar+SPS viscosity (a seeded
+  SPS stress), with floating bodies (a body straddling the plane, half the
+  fluid's particle mass) and with both, Wendland and cubic, with and
+  without shifting, plain and g++ twin (the SYM instances of kernel 3 and
+  the FT x SYM ones of kernels 1-3) against JAX at rtol 2e-3, the SPS
+  velocity gradient included; mutants of the mirror pass that reflect the
+  image's stress or weigh a floating image as fluid fail that comparison;
+  and 3 steps of the half case with each, loaded without ``Symmetry`` and
+  given ``symmetry=True``, against jitted JAX ``make_step`` by id within
+  1e-4*dp.
 
 The CUDA instances are held against the plain version on the card
 (chip_smoke.py phase 26).
@@ -104,22 +115,28 @@ def variant(cloud, tkernel, shiftmode):
     return csp, jcsp, opts, jopts
 
 
-def jax_forces(cloud, jcsp, jopts):
+def jax_forces(cloud, jcsp, jopts, code=None, spstau=None, ftomassp=None):
     pos, vel, rho = cloud["jarr"]
-    fr = jF.interaction_forces(jcsp, jopts, cloud["jdiv"], pos, vel, rho,
-                               jeos.press_from_rho(jcsp, rho), cloud["jcode"])
+    f32 = lambda x: None if x is None else jnp.asarray(x, jnp.float32)
+    fr = jF.interaction_forces(
+        jcsp, jopts, cloud["jdiv"], pos, vel, rho,
+        jeos.press_from_rho(jcsp, rho),
+        cloud["jcode"] if code is None else jnp.asarray(code),
+        spstau=f32(spstau), ftomassp=f32(ftomassp))
     out = dict(ace=np.asarray(fr.ace), ar=np.asarray(fr.ar),
                viscdtmax=float(fr.viscdtmax))
     if fr.shiftposfs is not None:
         out.update(shift=np.asarray(fr.shiftposfs),
                    blocked=np.asarray(fr.shift_blocked))
+    if fr.spsgradvel is not None:
+        out["gradvel"] = np.asarray(fr.spsgradvel)
     return out
 
 
 def as_dict(fr, order):
     out = dict(viscdtmax=float(fr.viscdtmax))
     for k, v in (("ace", fr.ace), ("ar", fr.ar), ("shift", fr.shiftposfs),
-                 ("blocked", fr.shift_blocked)):
+                 ("blocked", fr.shift_blocked), ("gradvel", fr.spsgradvel)):
         if v is not None:
             out[k] = np.empty_like(v.numpy())
             out[k][order] = v.numpy()
@@ -127,7 +144,7 @@ def as_dict(fr, order):
 
 
 def assert_close(want, got, rtol=2e-3):
-    for k in ("ace", "ar", "shift"):
+    for k in ("ace", "ar", "shift", "gradvel"):
         if k in want:
             scale = np.abs(want[k]).max() + 1e-6
             np.testing.assert_allclose(got[k], want[k], atol=rtol * scale,
@@ -260,3 +277,209 @@ def test_symmetry_restrictions_raise_as_jax(tmp_path, what):
     for load in (jX.load_case, lambda p: X.load_case(p, device="cpu")):
         with pytest.raises(ValueError, match=message):
             load(str(path))
+
+
+# ---------------------------------------------------------------------------
+# the library's combinations: laminar+SPS and floating bodies with the plane
+# ---------------------------------------------------------------------------
+
+# (what, tkernel, shiftmode): "lamsps" laminar+SPS viscosity, "floating" a
+# floating body with artificial viscosity, "both" the two together
+DRESSED = [("lamsps", "WENDLAND", "NONE"), ("lamsps", "CUBIC", "NONE"),
+           ("lamsps", "WENDLAND", "NO_FIXED"), ("lamsps", "CUBIC", "FULL"),
+           ("floating", "WENDLAND", "NONE"), ("floating", "CUBIC", "NONE"),
+           ("floating", "WENDLAND", "NO_BOUND"), ("floating", "CUBIC", "FULL"),
+           ("both", "WENDLAND", "NO_FIXED"), ("both", "CUBIC", "NONE")]
+LAMSPS_VISCO = 1e-3
+
+
+def dressed(cloud, what, tkernel, shiftmode):
+    """The cloud's configuration with laminar+SPS viscosity (a seeded SPS
+    stress on the fluid, zero elsewhere, as the steps keep it) and/or a
+    floating body: the fluid in x in (0.15, 0.25), z in (0.05, 0.15), which
+    spans the cloud's y, so its particles' images are in support of the
+    targets near the plane; the body's particle mass is half the fluid's.
+    Returns (csp, jcsp, opts, jopts, kw): ``kw`` the arrays (``code``,
+    ``spstau``, ``ftomassp``) in the cloud's input order."""
+    lam, flt = what in ("lamsps", "both"), what in ("floating", "both")
+    csp, jcsp, opts, jopts = variant(cloud, tkernel, shiftmode)
+    pos = cloud["jarr"][0]
+    code = np.asarray(cloud["jcode"]).copy()
+    fluid = jtd.code_type(code) == jtd.TYPE_FLUID
+    kw = dict(code=code, spstau=None, ftomassp=None)
+    if flt:
+        x, z = np.asarray(pos[:, 0]), np.asarray(pos[:, 2])
+        body = fluid & (x > 0.15) & (x < 0.25) & (z > 0.05) & (z < 0.15)
+        assert body.sum() >= 10
+        code[body] = jtd.code_make(jtd.TYPE_FLOATING, 0)
+        fluid = fluid & ~body
+        kw["ftomassp"] = np.array([0.5 * csp.massfluid], np.float32)
+    if lam:
+        rng = np.random.default_rng(12)
+        kw["spstau"] = np.where(fluid[:, None],
+                                rng.normal(0.0, 0.02, (len(code), 6)),
+                                0.0).astype(np.float32)
+        sps = td.make_ctesph(simulate2d=False, dp=DP, hswl=0.2,
+                             tvisco=td.TpVisco.LAMINAR_SPS)
+        sub = dict(visco=LAMSPS_VISCO, spssmag=sps.spssmag,
+                   spsblin=sps.spsblin)
+        csp, jcsp = csp.replace(**sub), jcsp.replace(**sub)
+    for m, o in ((td, opts), (jtd, jopts)):
+        upd = dict(with_floating=flt)
+        if lam:
+            upd["tvisco"] = m.TpVisco.LAMINAR_SPS
+        if m is td:
+            opts = dataclasses.replace(o, **upd)
+        else:
+            jopts = dataclasses.replace(o, **upd)
+    return csp, jcsp, opts, jopts, kw
+
+
+def port_run(cloud, csp, opts, kw):
+    """interaction_forces_plain's arguments on the cloud with ``kw``'s
+    arrays, in the divide's order."""
+    o = cloud["cells"].order
+    code = torch.tensor(kw["code"].astype(np.int32))[o]
+    extra = {}
+    if kw["spstau"] is not None:
+        extra["spstau"] = torch.tensor(kw["spstau"])[o].contiguous()
+    if kw["ftomassp"] is not None:
+        extra["ftomassp"] = torch.tensor(kw["ftomassp"])
+    return (csp, opts, cloud["dom"], cloud["cells"], *cloud["args"][:3],
+            code), extra
+
+
+@pytest.mark.parametrize("what,tkernel,shiftmode", DRESSED)
+def test_dressed_interaction_matches_jax(gxx, cloud, what, tkernel,
+                                         shiftmode):
+    csp, jcsp, opts, jopts, kw = dressed(cloud, what, tkernel, shiftmode)
+    want = jax_forces(cloud, jcsp, jopts, **kw)
+    run, extra = port_run(cloud, csp, opts, kw)
+    launches = dict(CF.launches)
+    assert CF.counter_name(csp, opts).endswith("_sym")
+    for fr in (F.interaction_forces_plain(*run, **extra),
+               CF.interaction_forces_host_twin(*run, **extra)):
+        assert_close(want, as_dict(fr, cloud["order"]))
+    assert CF.launches == launches          # the twins are no launches
+
+
+@pytest.mark.parametrize("mutant", ["reflected_stress", "fluid_mass"])
+def test_mirror_mutants_fail(cloud, monkeypatch, mutant):
+    """A mirror pass that reflects the image's SPS stress in the plane
+    (xy and yz change sign), or weighs a floating image with the fluid's
+    mass, misses JAX's sums: the image keeps its candidate's stress and
+    mass, as JAX's pair inputs do."""
+    what = "lamsps" if mutant == "reflected_stress" else "floating"
+    csp, jcsp, opts, jopts, kw = dressed(cloud, what, "WENDLAND", "NONE")
+    want = jax_forces(cloud, jcsp, jopts, **kw)
+    run, extra = port_run(cloud, csp, opts, kw)
+    assert_close(want, as_dict(F.interaction_forces_plain(*run, **extra),
+                               cloud["order"]))
+    mirrored = F._mirrored
+
+    def mutated(csp, p, pos, vel, t, j, live_pair):
+        m = mirrored(csp, p, pos, vel, t, j, live_pair)
+        if mutant == "reflected_stress":
+            flip = torch.tensor([1.0, -1.0, 1.0, 1.0, -1.0, 1.0])
+            return dataclasses.replace(m, tau_c=m.tau_c * flip)
+        return dataclasses.replace(m, mass2=torch.where(
+            m.ft_c, csp.massfluid, m.mass2))
+
+    monkeypatch.setattr(F, "_mirrored", mutated)
+    got = as_dict(F.interaction_forces_plain(*run, **extra), cloud["order"])
+    with pytest.raises(AssertionError):
+        assert_close(want, got)
+
+
+# the half case with a floating box from the plane on (its other half is
+# the image), inside the fluid column
+SYM_FLOAT_XML = dict(SYM_XML, cmds=SYM_XML["cmds"] + """
+    <setmkbound mk="1"/><drawbox><boxfill>solid</boxfill>
+     <point x="0.08" y="0" z="0.08"/><size x="0.08" y="0.04" z="0.08"/></drawbox>
+    """)
+FLOAT_CASEDEF = ('<floatings><floating mkbound="1"><rhopbody value="800"/>'
+                 '</floating></floatings>')
+NO_SYM_PARAMS = SYM_PARAMS.replace(
+    '<parameter key="Symmetry" value="1"/>',
+    '<parameter key="RigidAlgorithm" value="1"/>')
+
+
+def lamsps_constants(csp):
+    """``csp`` with a laminar viscosity and the Smagorinsky and Blin
+    constants of a laminar+SPS case (the loaders refuse the plane with
+    it, so the case is loaded with artificial viscosity)."""
+    sps = td.make_ctesph(simulate2d=False, dp=csp.dp, hswl=0.12,
+                         tvisco=td.TpVisco.LAMINAR_SPS)
+    return csp.replace(visco=LAMSPS_VISCO, spssmag=sps.spssmag,
+                       spsblin=sps.spsblin)
+
+
+@pytest.mark.parametrize("what", ["lamsps", "floating"])
+def test_dressed_steps_match_jax(tmp_path, what):
+    """3 symplectic steps of the half case with the plane and laminar+SPS
+    viscosity (the SPS stress from rest, zero) or with a floating box on
+    the plane, both loaded without ``Symmetry`` and run with
+    ``symmetry=True``, against jitted JAX: positions by id within
+    1e-4*dp, density within rtol 1e-5, and the body's centre within
+    1e-4*dp."""
+    flt = what == "floating"
+    path = tmp_path / f"{what}_Def.xml"
+    path.write_text(xml(**(SYM_FLOAT_XML if flt else SYM_XML),
+                        params=NO_SYM_PARAMS if flt else SYM_PARAMS,
+                        casedef=FLOAT_CASEDEF if flt else ""))
+    jres, pres = jX.load_case(str(path)), X.load_case(str(path), device="cpu")
+    assert_loads_equal(jres, pres)
+    (jcase, jopts, _), (case, opts, _) = jres, pres
+    jfeats, feats = jcase.meta["features"], case.meta["features"]
+    jcsp, csp = jcase.csp, case.csp
+    st = case.state
+    fluid = td.is_fluid(st.code)
+    vel = torch.where(fluid[:, None], torch.tensor([1.0, -0.5, 0.0]), st.vel)
+    st = dataclasses.replace(st, vel=vel)
+    jst = dataclasses.replace(jcase.state, vel=jnp.asarray(vel.numpy()))
+    if flt:
+        assert opts.with_floating and jopts.with_floating
+        assert not opts.symmetry and feats.floating is not None
+        body = st.pos[td.code_type(st.code) == td.TYPE_FLOATING]
+        assert float(body[:, 1].min()) == 0.0
+    else:
+        jcsp, csp = lamsps_constants(jcsp), lamsps_constants(csp)
+        st = dataclasses.replace(st, spstau=torch.zeros((st.n, 6)))
+        jst = dataclasses.replace(jst, spstau=jnp.zeros((st.n, 6),
+                                                        jnp.float32))
+    sym = dict(symmetry=True)
+    if not flt:
+        opts = dataclasses.replace(opts, tvisco=td.TpVisco.LAMINAR_SPS, **sym)
+        jopts = dataclasses.replace(jopts, tvisco=jtd.TpVisco.LAMINAR_SPS,
+                                    **sym)
+    else:
+        opts = dataclasses.replace(opts, **sym)
+        jopts = dataclasses.replace(jopts, **sym)
+    pos = jcase.state.pos
+    cxyz = np.floor((np.asarray(pos) - np.asarray(jcase.dom.posmin))
+                    / jcase.dom.scell).astype(np.int64)
+    jdom = dataclasses.replace(jcase.dom,
+                               maxcells=4 * len(np.unique(cxyz, axis=0)))
+    jopts = dataclasses.replace(jopts, use_pallas=False)
+    jstep = jax.jit(jW.make_step(jcsp, jopts, jdom, jfeats))
+    jcarry = jW.make_carry(jst, jcsp, jopts, jfeats, dom=jdom)
+    carry = P.make_carry(st, csp, opts, case.dom, feats)
+    step = P.make_step(csp, opts, case.dom, feats)
+    for _ in range(3):
+        jcarry, carry = jstep(jcarry), step(carry)
+    assert int(jcarry.overflow) == 0 and carry.nstep == 3
+    np.testing.assert_allclose(by_id(carry.st, "pos"),
+                               np.asarray(jcarry.st.pos), rtol=0,
+                               atol=1e-4 * csp.dp)
+    np.testing.assert_allclose(by_id(carry.st, "rho"),
+                               np.asarray(jcarry.st.rho), rtol=1e-5)
+    if flt:
+        np.testing.assert_allclose(carry.st.ft.center.numpy(),
+                                   np.asarray(jcarry.st.ft.center), rtol=0,
+                                   atol=1e-4 * csp.dp)
+    else:
+        tau = by_id(carry.st, "spstau")
+        assert np.abs(tau).max() > 0
+        want = np.asarray(jcarry.st.spstau)
+        np.testing.assert_allclose(tau, want, rtol=2e-3,
+                                   atol=2e-3 * np.abs(want).max())
