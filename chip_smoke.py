@@ -425,7 +425,23 @@ without printing the final result line:
     (positions by id within 1e-4 dp), a rebuild every step, a fresh
     ghost exchange before each interaction (and before the duct's
     extrapolation), no refresh, the collectives and exchanges per step
-    and rank 0's p50.
+    and rank 0's p50;
+44. the twins of the JAX package's examples and of verify_e2e.py on the
+    card (:func:`twins_path`): ``port_verify_e2e.py`` to its tmax of 0.2 s
+    with its own pass rule (overflow 0, density in (900, 1150), the front's
+    advance/H > 0.5 at t* > 1; a FAIL fails the phase); the twins of
+    examples/02-04 through ``main(max_steps=1)`` at their own dp, to their
+    first save; the twin of 01 (``sh examples/torch/01_dambreak.sh``) on
+    phase 24's dam-break XML and that of 05 on phase 25's NN XML (SPH),
+    each in a process of its own for 2 intervals, whose CLI prints the
+    child's kernel launches; the twin of 06, the dry run over 2 ranks
+    sharing the card over gloo; and a y-periodic duct with an inlet and an
+    outlet whose velocity and density are extrapolated
+    (:func:`periodic_duct`, ~200k particles) for 20 steps.  Each run
+    launches kernel 1 twice per step (05: kernels 4 and 5) and no other,
+    keeps its state finite and its fluid density within 10% of rho0, and
+    ends with overflow 0; each prints its p50 step (the CLI twins their
+    mean step) and wall seconds.
 
 Each kernel is timed twice: alone (``ms``: CUDA events around 20
 back-to-back launches of the C launcher on prepared inputs, per launch,
@@ -453,8 +469,10 @@ break (phase 24), and the ``<initialize>`` and ``-initnorpla`` runs
 (phase 27), the channel, the duct and the periodic channel (phases
 29-31), the couplings (phases 32-34), the neighbour-list mode (phase
 35), the coastal run-up (phase 40: ~10M, ~50M, the CLI and rank 0 of
-the dry run), the skinless domain (phase 42) and phase 43's half tank
-with its box and skinless duct (kernel 3's row: its symmetry path), with
+the dry run), the skinless domain (phase 42), phase 43's half tank
+with its box and skinless duct (kernel 3's row: its symmetry path) and
+phase 44's runs (``verify-e2e``, ``twin-01`` to ``twin-06`` but 05,
+``periodic-inout``; kernels 4-5: ``twin-05``), with
 ``open_states``, kernel 1
 against its plain version on the final states of phases 29-31 and their
 step's p50 and trace, ``coastal_states``, phase 40's at ~10M (kernel
@@ -6401,6 +6419,381 @@ def last_inputs_path(device, smi, dam_state):
                              "skinless-duct": k_duct}, ranks)
 
 
+# ---------------------------------------------------------------------------
+# phase 44: the examples' twins, port_verify_e2e, periodic + inout
+# ---------------------------------------------------------------------------
+
+PDUCT = dict(length=0.2, width=0.2, height=0.06, layers=3, vel=0.5,
+             jitter=(0.05, 0.5))
+PDUCT_DP = 0.0025        # phase 44: ~200k particles
+PDUCT_STEPS = 20
+
+
+def periodic_duct(dp, device):
+    """A y-periodic duct with an x inlet and an x outlet: water ``height``
+    deep over a bed three particles thick, ``length`` between the zones'
+    planes, the period ``width`` (box [-dp/2, width - dp/2)), gravity.  The
+    inlet (imposed ``vel``, hydrostatic density under a calculated zsurf,
+    an AWAS correction) spans the middle 40% of the width, so no member of
+    it lies within a kernel size of a periodic edge; the outlet (velocity
+    and density extrapolated, capturing fluid) spans all of it.  The fluid,
+    members included, moves at ``vel`` along x plus noise of ``jitter``
+    (m/s, kg/m^3) seeded with 0.  Returns (csp, dom, state, Features, the
+    drawn lattice)."""
+    from dualsphysics_multilayer_tpu_torch import Features
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.features import inout as IO
+    from dualsphysics_multilayer_tpu_torch.features import periodic as PER
+    from dualsphysics_multilayer_tpu_torch.models import cases
+    L, W, H = PDUCT["length"], PDUCT["width"], PDUCT["height"]
+    lay = PDUCT["layers"]
+    csp = td.make_ctesph(simulate2d=False, dp=dp, hswl=H, visco=0.02)
+    d = cases.Draw(dp=dp)
+    w = (lay + 2) * dp
+    d.box((dp, 0, 0), (L - dp, W - dp, H), ptype=td.TYPE_FLUID, mk=0)
+    d.box((-w, 0, -3 * dp), (L + w, W - dp, -dp), ptype=td.TYPE_FIXED, mk=0)
+    pos, code = d.build()
+    yc = 0.5 * (W - dp)
+    aw = IO.InOutAwas(inletmode=True, depth=H, zsurf_t=(0.0, 1.0),
+                      zsurf_v=(H + 0.6 * dp, H + 0.6 * dp), gauge_x=3 * dp,
+                      gauge_y=yc, z0=-0.5 * dp)
+    inlet = IO.InOutZone(p0=(0.0, yc, H / 2), direction=(1, 0, 0),
+                         layers=lay, tangent1=(0, 0, 1), size1=H + dp,
+                         size2=0.4 * W, vel_profile=(PDUCT["vel"], 0, 0),
+                         rho_mode="hydrostatic", zsurf=H, zsurf_calc=True,
+                         awas=aw)
+    outlet = IO.InOutZone(p0=(L, yc, H / 2), direction=(-1, 0, 0),
+                          layers=lay, tangent1=(0, 0, 1), size1=H + dp,
+                          size2=W, vel_extrap=True, rho_extrap=True)
+    iocfg = IO.InOutCfg(zones=(inlet, outlet))
+    ks = csp.kernelsize
+    near = int(max((pos[:, 1] < ks).sum(), (pos[:, 1] >= W - dp - ks).sum()))
+    pcfg = PER.PeriodicCfg(axes=(False, True, False), lo=(0, -dp / 2, 0),
+                           hi=(0, W - dp / 2, 0),
+                           ghost_cap=int(1.5 * near) + 64)
+    spare = IO.slots_required(iocfg, csp) + int(
+        3 * len(IO.zone_points(inlet, csp)) / lay) + 256
+    st = cases._make_state(csp, pos, code, H, device=device,
+                           capacity=pos.shape[0] + spare)
+    st = IO.init_inout(iocfg, csp, st)
+    rng = np.random.default_rng(0)
+    jitter = PDUCT["jitter"]
+    fl = td.is_fluid(st.code) & td.is_active(st.code)
+    m = int(fl.sum())
+    vel = st.vel.clone()
+    vel[fl] = torch.tensor([PDUCT["vel"], 0.0, 0.0], device=device) \
+        + torch.tensor(rng.normal(0, jitter[0], (m, 3)), dtype=torch.float32,
+                       device=device)
+    rho = st.rho.clone()
+    rho[fl] += torch.tensor(rng.normal(0, jitter[1], m), dtype=torch.float32,
+                            device=device)
+    st = dataclasses.replace(st, vel=vel, rho=rho)
+    dom = cases._make_domain(csp, pos, headroom=0.5)
+    return csp, dom, st, Features(periodic=pcfg, inout=iocfg), pos
+
+
+TWIN_STEPS = 1           # phase 44: the twins stop at their first save
+TWIN03_TOUT = 0.01       # phase 44: twin 03's first save (its own is 0.1 s)
+
+
+def load_file(path, name):
+    """The module of a script of the checkout (a twin, port_verify_e2e.py),
+    imported without running its ``__main__`` block."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def timed_run_steps():
+    """Every step that ``Simulation.run`` makes inside the block, timed on
+    the host after a device synchronisation: yields the list of seconds
+    (``models.wcsph.make_advance`` builds its step through the module's
+    ``make_step``)."""
+    from dualsphysics_multilayer_tpu_torch.models import wcsph as W
+    orig = W.make_step
+    times = []
+
+    def make_step(*args, **kw):
+        step = orig(*args, **kw)
+
+        def timed(carry):
+            t0 = time.perf_counter()
+            carry = step(carry)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return carry
+        return timed
+
+    W.make_step = make_step
+    try:
+        yield times
+    finally:
+        W.make_step = orig
+
+
+def sim_twin(label, module, smi, **kw):
+    """A twin's ``main(max_steps=TWIN_STEPS, **kw)`` (its own case and dp,
+    its own save interval unless ``kw`` gives one; it stops at its first
+    save): kernel 1 twice per step and no other kernel, overflow 0, the
+    state finite, the fluid density within 10% of rho0.  Returns
+    (launches, p50 s, wall s, steps)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    with timed_run_steps() as times, contextlib.redirect_stdout(
+            io.StringIO()) as out:
+        sim = module.main(max_steps=TWIN_STEPS, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    print(out.getvalue(), end="", flush=True)
+    c = sim.carry
+    nsteps = c.nstep
+    single_phase_counts(launched, "cellforce", 2, nsteps)
+    check(len(times) == nsteps, f"{label}: {len(times)} timed steps of "
+          f"{nsteps}")
+    check_state(c, nsteps, None)
+    rmin, rmax = fluid_rho_range(c.st, True, sim.csp.rhopzero)
+    lines = out.getvalue().splitlines()
+    p50 = statistics.median(times)
+    say(label, f"{lines[-1]!r} after {nsteps} steps ({len(lines)} lines "
+        f"printed); cellforce {launched['cellforce']} launches, overflow 0, "
+        f"fluid rho [{rmin:.2f}, {rmax:.2f}]; p50 step {p50 * 1e3:.3f} ms, "
+        f"wall {wall:.1f} s ({smi})")
+    return launched["cellforce"], p50, wall, nsteps
+
+
+def cli_twin(label, argv, root, env, dirout):
+    """A twin that runs ``python -m dualsphysics_multilayer_tpu_torch.cli``
+    in a process of its own, from ``root``, with ``-svsteps -svtimers``
+    and its output in ``dirout``: exit code 0 (the run loop raises on an
+    overflow), its CLI line ``done: ... launches={...}`` (the child's
+    kernel launches, counted from its start), one interval of one step
+    per row of its ``Timers.csv`` (timed after a device synchronisation,
+    its PART's save left out, after the initial PART's row).  Returns (the launches, steps, the steps'
+    p50 s, wall s of the child's run, wall s of the command)."""
+    t0 = time.perf_counter()
+    r = subprocess.run(argv + ["-svsteps", "-svtimers", "-dirout", dirout],
+                       cwd=root, env=env, capture_output=True, text=True,
+                       timeout=900)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"{label}: exit code {r.returncode}: "
+          f"{r.stdout[-1500:]} {r.stderr[-3000:]}")
+    m = re.search(r"done: t=\S+ steps=(\d+) wall=([\d.]+)s .* "
+                  r"launches=(\{.*\})", r.stdout)
+    check(m is not None, f"{label}: no done line in {r.stdout[-1500:]!r}")
+    nsteps = int(m.group(1))
+    with open(os.path.join(dirout, "Timers.csv")) as f:
+        head, *rows = f.read().splitlines()
+    sep = head[len("Part")]
+    rows = [x.split(sep) for x in rows]
+    # the initial PART's row (no step), then one row a step
+    check([x[2] for x in rows] == ["0"] + ["1"] * nsteps,
+          f"{label}: Timers.csv's steps {[x[2] for x in rows]} for "
+          f"{nsteps} steps")
+    rows = rows[1:]
+    p50 = statistics.median(float(x[3]) for x in rows)
+    return json.loads(m.group(3)), nsteps, p50, float(m.group(2)), wall
+
+
+def part_densities(directory, groups):
+    """Each PART of ``directory``: the ids of the first, positions finite,
+    the fluid density of each (select(code), rho0) of ``groups`` within
+    10% of its rho0.  Returns (the PARTs' count, [min, max] per group)."""
+    from dualsphysics_multilayer_tpu_torch.io import partdata as PD
+    names = sorted(f for f in os.listdir(directory)
+                   if re.fullmatch(r"Part_\d{4}\.bi4", f))
+    ids0, ranges = None, [[np.inf, -np.inf] for _ in groups]
+    for f in names:
+        d = PD.read_part(os.path.join(directory, f))
+        ids = np.sort(d["idp"])
+        ids0 = ids if ids0 is None else ids0
+        check(np.array_equal(ids, ids0), f"{f}: ids differ from the first "
+              f"PART's")
+        check(bool(np.isfinite(d["pos"]).all()), f"{f}: Posd not finite")
+        code = d["code"].astype(np.int64)
+        for rg, (select, rho0) in zip(ranges, groups):
+            r = d["rhop"][select(code)]
+            check(r.size > 0 and 0.9 * rho0 <= r.min()
+                  and r.max() <= 1.1 * rho0, f"{f}: fluid density out of "
+                  f"+-10% of {rho0}")
+            rg[:] = [min(rg[0], r.min()), max(rg[1], r.max())]
+    return len(names), ranges
+
+
+def periodic_duct_path(device, smi):
+    """Phase 44's periodic + inout duct (:func:`periodic_duct`) at
+    ``PDUCT_DP`` for ``PDUCT_STEPS`` steps: cellforce twice per step and no
+    other kernel, overflow 0, the inlet's spawns, the state finite, the
+    fluid density within 10%; the outlet's members within a kernel size of
+    a periodic edge, whose mirror nodes read the periodic images."""
+    from dualsphysics_multilayer_tpu_torch import SolverOpts, TpDensity
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.models.wcsph import (make_carry,
+                                                                make_step)
+    csp, dom, st, feats, _lat = periodic_duct(PDUCT_DP, device)
+    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS)
+    pcfg = feats.periodic
+    step = make_step(csp, opts, dom, feats)
+    carry = make_carry(st, csp, opts, dom, feats)
+    live0 = int(td.is_active(carry.st.code).sum())
+    ids0 = set(carry.st.idp[td.is_active(carry.st.code)].tolist())
+    carry, times, launched = run_steps(step, carry, 0, PDUCT_STEPS)
+    single_phase_counts(launched, "cellforce", 2, PDUCT_STEPS)
+    check_state(carry, PDUCT_STEPS, None)
+    s = carry.st
+    act = td.is_active(s.code)
+    spawned = len(set(s.idp[act].tolist()) - ids0)
+    check(spawned > 0, "periodic duct: the inlet spawned nothing")
+    rmin, rmax = fluid_rho_range(s, True, csp.rhopzero)
+    y = s.pos[:, 1]
+    edge = act & (td.code_inout(s.code) == 2) & (
+        torch.minimum(y - pcfg.lo[1], pcfg.hi[1] - y) < csp.kernelsize)
+    p50 = statistics.median(times)
+    say("periodic-inout", f"y-periodic duct at dp {PDUCT_DP}: {live0} live "
+        f"of {s.n} slots, ghost_cap {pcfg.ghost_cap}; {PDUCT_STEPS} steps: "
+        f"{launched['cellforce']} cellforce launches, {carry.nrebuild} "
+        f"rebuilds, {spawned} spawns, {int(act.sum())} live, "
+        f"{int(edge.sum())} outlet members within a kernel size of a "
+        f"periodic edge, fluid rho [{rmin:.2f}, {rmax:.2f}], overflow 0; "
+        f"p50 step {p50 * 1e3:.3f} ms ({smi})")
+    return launched["cellforce"], p50
+
+
+def twins_path(device, smi):
+    """Phase 44: ``port_verify_e2e.py`` at its full tmax with its own pass
+    rule, the twins of examples/01-06 on the card and phase 44's periodic
+    + inout duct.  Returns ({path: cellforce launches}, {path: {NN kernel:
+    launches}})."""
+    import shutil
+    from dualsphysics_multilayer_tpu_torch import typesdef as td
+    from dualsphysics_multilayer_tpu_torch.models import nnewtonian as NM
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="_smoke_twins_", dir=here)
+    cwd = os.getcwd()
+    paths, nn = {}, {}
+    try:
+        os.chdir(root)
+        # port_verify_e2e: VERIFY OK or the phase fails
+        pve = load_file("port_verify_e2e.py", "port_verify_e2e")
+        reset_counts()
+        t0 = time.perf_counter()
+        with timed_run_steps() as times:
+            ok, rows = pve.main()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        nsteps = len(times)
+        single_phase_counts(launched, "cellforce", 2, nsteps)
+        last = rows[-1]
+        check(ok, f"port_verify_e2e: VERIFY FAIL at {last}")
+        check(0.9e3 <= min(r[4] for r in rows)
+              and max(r[5] for r in rows) <= 1.1e3,
+              f"port_verify_e2e: fluid density out of +-10%: {rows}")
+        say("verify-e2e", f"VERIFY OK: front advance/H "
+            f"{(last[3] - pve.FRONT0) / pve.H:.4f} at t* {last[2]:.4f} "
+            f"(part {last[0]}, t {last[1]:.4f} s), fluid rho [{last[4]:.2f}, "
+            f"{last[5]:.2f}], overflow {last[6]}; {nsteps} steps, "
+            f"cellforce {launched['cellforce']} launches; p50 step "
+            f"{statistics.median(times) * 1e3:.3f} ms, wall {wall:.1f} s "
+            f"({smi})")
+        paths["verify-e2e"] = launched["cellforce"]
+
+        # twins 02-04 through main(max_steps=...)
+        for key, name in (("02", "02_waveflume"),
+                          ("03", "03_floating_moored"),
+                          ("04", "04_inout_channel")):
+            mod = load_file(f"examples/torch/{name}.py", f"twin_{key}")
+            kw = dict(tout=TWIN03_TOUT) if key == "03" else {}
+            paths[f"twin-{key}"] = sim_twin(f"twin-{key}", mod, smi,
+                                            **kw)[0]
+
+        # twins 01 and 05: the CLI in processes of their own, on phase
+        # 24's dam-break XML and phase 25's NN XML, each for 2 intervals
+        env = dict(os.environ, PYTHON=sys.executable, PYTHONPATH=os.pathsep
+                   .join(p for p in (here, os.environ.get("PYTHONPATH"))
+                         if p))
+        xml = os.path.join(root, "Dambreak_Def.xml")
+        with open(xml, "w") as f:
+            f.write(DAMBREAK_XML.format(dp=DP_BENCH, tmax=3 * XML_TOUT,
+                                        tout=XML_TOUT))
+        d01 = os.path.join(root, "out01")
+        launched, nsteps, p50, run_s, wall = cli_twin("twin-01", [
+            "sh", os.path.join(here, "examples", "torch", "01_dambreak.sh"),
+            "-case", xml, f"-tmax:{2 * XML_TOUT!r}",
+            f"-tout:{XML_TOUT!r}", "-sv:binx"], root, env, d01)
+        check(launched == {"cellforce": 2 * nsteps}, f"twin-01: {launched} "
+              f"in {nsteps} steps, expected cellforce twice per step")
+        nparts, ranges = part_densities(d01, [(lambda c: td.code_type(c)
+                                               == td.TYPE_FLUID, 1000.0)])
+        say("twin-01", f"examples/torch/01_dambreak.sh -case (phase 24's "
+            f"XML at dp {DP_BENCH:.6g}) -tmax:{2 * XML_TOUT:g}: "
+            f"{nsteps} steps, {nparts} PARTs read back, fluid rho "
+            f"[{ranges[0][0]:.2f}, {ranges[0][1]:.2f}], launches "
+            f"{launched}; p50 step {p50 * 1e3:.3f} ms (the child's "
+            f"Timers.csv), the run {run_s:.1f} s with a PART a step, the "
+            f"command {wall:.1f} s ({smi})")
+        paths["twin-01"] = launched["cellforce"]
+        _case, phases = NM.wet_dambreak_nn(dp=NN_DP, device=device)
+        xml = os.path.join(root, "WetDambreak_Def.xml")
+        with open(xml, "w") as f:
+            f.write(NN_XML.format(
+                dp=NN_DP, cs_w=phases.phases[0].csound,
+                cs_m=phases.phases[1].csound, velgrad=2,
+                tmax=3 * NN_XML_TOUT, tout=NN_XML_TOUT))
+        d05 = os.path.join(root, "out05")
+        launched, nsteps, p50, run_s, wall = cli_twin("twin-05", [
+            sys.executable, os.path.join(here, "examples", "torch",
+                                         "05_nn_mud_dambreak.py"),
+            "-case", xml, f"-tmax:{2 * NN_XML_TOUT!r}",
+            f"-tout:{NN_XML_TOUT!r}"], root, env, d05)
+        want = {"nnforce_p1": 2 * nsteps, "nnforce_p3": 2 * nsteps}
+        check(launched == want, f"twin-05: {launched} in {nsteps} steps, "
+              f"expected nnforce_p1 and nnforce_p3 twice per step")
+        groups = [((lambda c, i=i: ((c >> 16) & 3 == 3)
+                    & ((c & 0xFFFF) == i)), ph.rho0)
+                  for i, ph in enumerate(phases.phases)]
+        nparts, ranges = part_densities(d05, groups)
+        say("twin-05", f"examples/torch/05_nn_mud_dambreak.py -case (phase "
+            f"25's SPH XML at dp {NN_DP:.6g}) -tmax:{2 * NN_XML_TOUT:g}: "
+            f"{nsteps} steps, {nparts} PARTs read back, phase "
+            + ", ".join(f"{i} rho [{a:.2f}, {b:.2f}]"
+                        for i, (a, b) in enumerate(ranges))
+            + f", launches {launched}; p50 step {p50 * 1e3:.3f} ms (the "
+            f"child's Timers.csv), the run {run_s:.1f} s with a PART a step,"
+            f" the command {wall:.1f} s ({smi})")
+        nn["twin-05"] = launched
+
+        # twin 06: the dry run over 2 ranks sharing the card (gloo)
+        mod = load_file("examples/torch/06_sharded_runup.py", "twin_06")
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            nranks = mod.main()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        print(out.getvalue(), end="", flush=True)
+        lines = out.getvalue().splitlines()
+        check(nranks == max(2, torch.cuda.device_count())
+              and sum(x.startswith(f"dryrun_multichip({nranks}): ")
+                      for x in lines) == 3
+              and lines[-1] == f"sharded step OK on {nranks} ranks",
+              f"twin-06: {lines}")
+        check(launched["cellforce"] == 6, f"twin-06: rank 0 launched "
+              f"{launched}, expected cellforce twice in each case's step")
+        say("twin-06", f"{lines[-1]!r}: rank 0 {launched['cellforce']} "
+            f"cellforce launches, wall {wall:.1f} s with the ranks' start "
+            f"({smi})")
+        paths["twin-06"] = launched["cellforce"]
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    paths["periodic-inout"] = periodic_duct_path(device, smi)[0]
+    return paths, nn
+
+
 def main():
     check(torch.cuda.is_available(), "no CUDA device: the port's smoke run "
           "needs an NVIDIA GPU")
@@ -6712,6 +7105,13 @@ def main():
             instance=key, **{f: r[f] for f in (
                 "variant", "launches", "max_abs_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "flat_ms", "registers", "spills")}))
+    # 44. the twins of examples/01-06 and port_verify_e2e.py on the card,
+    # and periodic boundaries with inlet/outlet zones
+    paths44, nn44 = twins_path(device, smi)
+    paths.update(paths44)
+    for path, launched in nn44.items():
+        for name, k in launched.items():
+            records[name]["path_launches"][path] = k
     for key, r in nn12_records.items():
         records[r["kernel"]]["instances"].append(dict(
             instance=key, **{f: r[f] for f in (

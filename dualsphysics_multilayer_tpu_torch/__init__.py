@@ -13,9 +13,12 @@ files, VTK, CSV, restart), ``utils/`` keeps its bookkeeping, and
 (``python -m dualsphysics_multilayer_tpu_torch.cli``).
 """
 
+__version__ = "0.1.0"   # cli.VERSION
+
 from . import typesdef
-from .typesdef import (CteSph, TpBoundary, TpDensity, TpKernel, TpShifting,
-                       TpSlipMode, TpStep, TpVelGrad, TpVisco, make_ctesph)
+from .typesdef import (CteSph, TpBoundary, TpDensity, TpKernel, TpRigidMode,
+                       TpShifting, TpSlipMode, TpStep, TpVelGrad, TpVisco,
+                       make_ctesph)
 from .features.featureset import Features
 from .ops.forces import SolverOpts
 from .ops.forces_nn import Phase, PhaseCfg
@@ -24,8 +27,9 @@ from .models.wcsph import (SimState, Simulation, StepCarry, make_advance,
 from .models.nnewtonian import make_nn_step
 
 __all__ = [
-    "typesdef", "CteSph", "TpBoundary", "TpDensity", "TpKernel", "TpShifting",
-    "TpSlipMode", "TpStep", "TpVelGrad", "TpVisco", "make_ctesph", "Features",
+    "__version__", "typesdef", "CteSph", "TpBoundary", "TpDensity",
+    "TpKernel", "TpRigidMode", "TpShifting", "TpSlipMode", "TpStep",
+    "TpVelGrad", "TpVisco", "make_ctesph", "Features",
     "SolverOpts", "Phase",
     "PhaseCfg", "SimState", "Simulation", "StepCarry", "make_advance",
     "make_carry", "make_step", "make_nn_step",

@@ -45,7 +45,9 @@ CLI; so do the XML nodes the loader refuses, the options the NN step
 refuses and the features ``-shard`` refuses (x-periodic boundaries and
 the wave paddles' AWAS; it runs inlet/outlet zones, DEM contact and y/z-
 periodic boundaries).  ``-cpu -shard`` without a count runs one rank, as
-the JAX CLI's ``-shard`` runs over the one device of its CPU backend.
+the JAX CLI's ``-shard`` runs over the one device of its CPU backend.  A
+``DsphConfig.xml`` at $DSPHCONFIG, in the cwd or beside the package gives
+the defaults of ``-createdirs`` and ``-csvsep`` (:func:`load_dsphconfig`).
 """
 
 from __future__ import annotations
@@ -55,6 +57,8 @@ import dataclasses
 import json
 import os
 import sys
+
+from . import __version__ as VERSION
 
 # flags that take a value and may appear in the reference's colon form
 _COLON_FLAGS = {
@@ -73,7 +77,6 @@ _BOOL_FLAGS = {"svres", "svtimers", "svdomainvtk", "svsteps", "nortimes",
 
 BUILTINS = ("dambreak2d", "dambreak3d", "floatingbox2d", "waveflume2d",
             "channel2d", "coastal_runup3d")
-VERSION = "0.1.0"
 # -pallas/-no-pallas pick the JAX package's Pallas kernels or its XLA
 # bucket path, the same physics; the port has one path
 PALLAS_NOTE = ("-pallas/-no-pallas: the port has one path, the hand-written "
@@ -296,6 +299,14 @@ def _info(torch):
     }
 
 
+def _launches():
+    """The CUDA kernels' launches in this process, as JSON (those that
+    ran; ``{}`` on the CPU, where their plain versions run)."""
+    from .ops.cuda import cellforce, nnforce
+    return json.dumps({k: v for d in (cellforce.launches, nnforce.launches)
+                       for k, v in d.items() if v})
+
+
 def _device(args, torch):
     if args.cpu:
         return torch.device("cpu")
@@ -465,9 +476,40 @@ def _sharded(args, torch, csp, opts, dom, st, feats, phases, t0, device):
         raise SystemExit(f"-shard: {e}") from None
 
 
+def load_dsphconfig(paths=None):
+    """The machine's DsphConfig.xml defaults (the reference's JDsphConfig,
+    which reads it beside the binary; JAX `cli.py:192-215`): the first file
+    of ``paths``, or of $DSPHCONFIG, ``DsphConfig.xml`` in the cwd and
+    beside this package.  Returns ``createdirs`` and ``csvsep`` from
+    ``<common><createdirs v>`` and ``<csvseparator v>``, {} without a
+    file."""
+    import xml.etree.ElementTree as ET
+    cand = paths or [
+        os.environ.get("DSPHCONFIG", ""),
+        os.path.join(os.getcwd(), "DsphConfig.xml"),
+        os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "DsphConfig.xml"),
+    ]
+    for p in cand:
+        if p and os.path.isfile(p):
+            com = ET.parse(p).getroot().find("common")
+            out = {}
+            if com is not None:
+                for tag, key in (("createdirs", "createdirs"),
+                                 ("csvseparator", "csvsep")):
+                    el = com.find(tag)
+                    if el is not None and el.get("v") is not None:
+                        out[key] = int(float(el.get("v")))
+            return out
+    return {}
+
+
 def main(argv=None):
     argv = _normalize(sys.argv[1:] if argv is None else argv)
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    # the machine's defaults; flags given still win
+    parser.set_defaults(**load_dsphconfig())
+    args = parser.parse_args(argv)
     if args.ver:
         print(json.dumps({"name": "dualsphysics_multilayer_tpu_torch",
                           "version": VERSION, "features": _features()}))
@@ -651,8 +693,8 @@ def main(argv=None):
     nstep = sim.carry.nstep
     psps = case.np_total * nstep / max(wall, 1e-9)
     print(f"[dsphtorch] done: t={sim.time:.6g} steps={nstep} "
-          f"wall={wall:.1f}s ({psps:.3g} particle-steps/s) parts={sim.part} "
-          f"dtmodif={int(sim.carry.dtmodif)}")
+          f"wall={wall:.3f}s ({psps:.3g} particle-steps/s) parts={sim.part} "
+          f"dtmodif={int(sim.carry.dtmodif)} launches={_launches()}")
     if timers_rows:
         with open(os.path.join(args.dirout, "Timers.csv"), "w") as f:
             f.write(sep.join(["Part", "Time", "Steps", "WallSeconds"]) + "\n")

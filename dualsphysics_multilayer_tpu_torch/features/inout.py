@@ -228,20 +228,34 @@ def init_inout(cfg: InOutCfg, csp: CteSph, st):
     return replace(st, **upd)
 
 
+def _counted(code, images):
+    """(code, kept): the codes of the state's rows followed by those of
+    the periodic ``images`` (:func:`inout_step`'s), and the rows the
+    column sums count: the owned rows and the images of owned rows."""
+    owned = ~td.is_periodic(code)
+    if images is None:
+        return code, owned
+    return (torch.cat([code, images["code"]]),
+            torch.cat([owned, images["counted"]]))
+
+
 def _zsurf_at(zone: InOutZone, csp: CteSph, tabs, st=None,
-              reduce_max=None):
+              reduce_max=None, images=None):
     """The zone's zsurf (JSphInOutZsurf) at ``tabs`` (0-d f32): fixed,
     from the time series, or calculated as the highest owned fluid z over
-    the zone's lateral footprint in a 2*kernelsize band ahead of the plane
-    (``reduce_max(x) -> x``: the maximum over the ranks)."""
+    the zone's lateral footprint in a 2*kernelsize band ahead of the plane,
+    periodic images included (``reduce_max(x) -> x``: the maximum over the
+    ranks)."""
     if zone.zsurf_times:
         return _interp(tabs, _vec([t for t, _ in zone.zsurf_times], tabs),
                        _vec([z for _, z in zone.zsurf_times], tabs))
     if zone.zsurf_calc and st is not None:
-        pos, code = st.pos, st.code
+        pos = st.pos if images is None else torch.cat([st.pos,
+                                                       images["pos"]])
+        code, kept = _counted(st.code, images)
         rel = pos - _vec(zone.p0, pos)[None, :]
         s = rel @ _tensor(zone.direction, pos)
-        m = (td.is_fluid(code) & td.is_active(code) & ~td.is_periodic(code)
+        m = (td.is_fluid(code) & td.is_active(code) & kept
              & (s >= 0.0)
              & (s <= 2.0 * csp.kernelsize)
              & ((rel @ _tensor(zone.tangent1, pos)).abs()
@@ -279,13 +293,16 @@ def _imposed(zone: InOutZone, csp: CteSph, pos, tabs, zsurf=None):
 
 
 def _awas_velcorr(aw: InOutAwas, csp: CteSph, pos, code, tabs,
-                  reduce_sum=None):
+                  reduce_sum=None, images=None):
     """The zone's AWAS velocity correction at ``tabs`` (0-d), from the
-    owned fluid's column mass (``reduce_sum(x) -> x``: the sum over the
-    ranks)."""
+    owned fluid's column mass, periodic images included (``reduce_sum(x)
+    -> x``: the sum over the ranks)."""
     dp = csp.dp
     band = aw.band or 1.5 * dp
-    fluid = td.is_fluid(code) & td.is_active(code) & ~td.is_periodic(code)
+    if images is not None:
+        pos = torch.cat([pos, images["pos"]])
+    code, kept = _counted(code, images)
+    fluid = td.is_fluid(code) & td.is_active(code) & kept
     inband = fluid & ((pos[:, 0] - aw.gauge_x).abs() <= band)
     if csp.simulate2d:
         colarea = 2.0 * band
@@ -333,7 +350,7 @@ def extrap_cap(cfg: InOutCfg, csp: CteSph) -> int:
 
 def inout_extrapolate(cfg: InOutCfg, csp: CteSph, dom: cd.Domain,
                       cells: cd.CellDiv, st, max_pairs: int = 1 << 22,
-                      order=None):
+                      order=None, images=None):
     """Ghost-node extrapolation of the zones with extrapolated velocity or
     density (`InteractionInOutExtrap_Double`, JSphCpu_InOut.cpp:55-238):
     each member mirrors across its inlet plane into the fluid, the
@@ -349,7 +366,10 @@ def inout_extrapolate(cfg: InOutCfg, csp: CteSph, dom: cd.Domain,
     pre-pass reads them; the JAX package divides afresh).  ``order``: the
     state's slot of each of the layout's rows when the state is not in the
     layout's order (a divide of its own positions, ``cells.order``; None
-    when it is).  Sizes are
+    when it is).  ``images``: the periodic images of the state's rows
+    (:func:`inout_step`'s), which are sources too, as JAX's ghosts in its
+    state are; the state's and the images' rows are then divided afresh
+    together and ``cells`` is not read.  Sizes are
     static (:func:`extrap_cap` members, ``celldiv.row_cap`` slots a row), so
     nothing is read to the host.  Returns (vel, rho, overflow): members
     beyond the cap plus members with a longer row."""
@@ -358,6 +378,14 @@ def inout_extrapolate(cfg: InOutCfg, csp: CteSph, dom: cd.Domain,
     f32, dev = pos.dtype, pos.device
     active = td.is_active(code)
     itag = td.code_inout(code)
+    # the sources: the state's rows, then any periodic images
+    spos, svel, srho, scode = pos, vel, rho, code
+    if images is not None:
+        spos, svel, srho, scode = (
+            torch.cat([a, images[k]]) for a, k in (
+                (pos, "pos"), (vel, "vel"), (rho, "rho"), (code, "code")))
+        cells, _ = cd.divide_cells(dom, spos, scode)
+        order = cells.order
     sel = torch.zeros(n, dtype=torch.bool, device=dev)
     wantv = torch.zeros_like(sel)
     wantr = torch.zeros_like(sel)
@@ -392,7 +420,7 @@ def inout_extrapolate(cfg: InOutCfg, csp: CteSph, dom: cd.Domain,
     overflow = (torch.clamp(sel.sum() - cap, min=0)
                 + ((lens > L).any(dim=1) & used).sum()).to(torch.int32)
     lens = torch.clamp(lens, max=L)
-    fluid_c = td.is_fluid(code) & active & ~td.is_inout(code)
+    fluid_c = td.is_fluid(scode) & td.is_active(scode) & ~td.is_inout(scode)
 
     dims = [0, 2] if csp.simulate2d else [0, 1, 2]
     d = 1 + len(dims)
@@ -409,7 +437,7 @@ def inout_extrapolate(cfg: InOutCfg, csp: CteSph, dom: cd.Domain,
                         starts[t, :, None] + off, 0).reshape(len(t), -1)
         if order is not None:
             j = order[j]
-        dr = gpos[t, None, :] - pos[j]
+        dr = gpos[t, None, :] - spos[j]
         rr2 = (dr * dr).sum(dim=-1)
         pair = (valid & fluid_c[j] & (rr2 <= csp.kernelsize2)
                 & (rr2 >= 1e-18))
@@ -417,7 +445,7 @@ def inout_extrapolate(cfg: InOutCfg, csp: CteSph, dom: cd.Domain,
         rr2s = torch.where(pair, rr2, csp.kernelsize2)
         wab = pw * K.kernel_wab(csp, rr2s)
         fr = (pw * K.kernel_fac(csp, rr2s))[..., None] * dr[..., dims]
-        volp2 = mass / rho[j]
+        volp2 = mass / srho[j]
         vwab = wab * volp2
         # rows [Shepard, d/dx_a]; columns [1, dx_a]
         rows = torch.cat([vwab[..., None], fr * volp2[..., None]], dim=-1)
@@ -428,7 +456,7 @@ def inout_extrapolate(cfg: InOutCfg, csp: CteSph, dom: cd.Domain,
         # times each velocity component
         bw = torch.cat([(mass * wab)[..., None], mass * fr], dim=-1)
         b[t] = torch.cat([bw.sum(dim=1)[..., None],
-                          torch.einsum("bpi,bpq->biq", rows, vel[j])], dim=-1)
+                          torch.einsum("bpi,bpq->biq", rows, svel[j])], dim=-1)
     determ = torch.linalg.det(amat)
     ok1 = determ.abs() >= cfg.determlimit
     eye = torch.eye(d, dtype=f32, device=dev)
@@ -455,7 +483,7 @@ def inout_extrapolate(cfg: InOutCfg, csp: CteSph, dom: cd.Domain,
 
 def inout_step(cfg: InOutCfg, csp: CteSph, st, tabs, nstep=None, dom=None,
                cells=None, usable=None, owns=None, reduce_max=None,
-               reduce_sum=None, order=None):
+               reduce_sum=None, order=None, images=None):
     """One transition pass of every zone at time ``tabs`` (0-d), the
     step's ``nstep`` (a host int: the advanced refilling's tick; None ticks
     always).  ``dom`` and ``cells``, the step's layout, serve the
@@ -464,7 +492,14 @@ def inout_step(cfg: InOutCfg, csp: CteSph, st, tabs, nstep=None, dom=None,
     (m,) bool`` (the points its slab owns: the advanced refilling fills
     only their holes) and the reductions
     over the ranks of the calculated zsurf and the AWAS column mass
-    (``reduce_max(x) -> x``, ``reduce_sum(x) -> x``).  Returns (state,
+    (``reduce_max(x) -> x``, ``reduce_sum(x) -> x``).  Under periodic
+    boundaries ``images`` (``periodic.images``: pos, vel, rho, code,
+    counted) are the periodic images of the state's rows, which JAX keeps
+    in its state as ghosts: they are sources of the calculated zsurf, the
+    AWAS column and the extrapolation, as JAX's ghosts are, and take the
+    transitions JAX's ghosts take (a member past its plane becomes fluid,
+    one out through the back dies; no capture), but neither spawn nor take
+    a value: the state's rows do that.  Returns (state,
     overflow, filled): the 0-d int32 count of spawn requests that found no
     free slot (and extrapolation members beyond its cap), and a 0-d bool,
     whether a slot was filled."""
@@ -499,6 +534,7 @@ def inout_step(cfg: InOutCfg, csp: CteSph, st, tabs, nstep=None, dom=None,
         return src >= 0, torch.clamp(src, min=0), \
             torch.clamp(nreq - nfree, min=0), ok.any()
 
+    images0 = images
     for zi, zone in enumerate(cfg.zones):
         tag = zi + 1
         d = _tensor(zone.direction, pos)
@@ -507,6 +543,15 @@ def inout_step(cfg: InOutCfg, csp: CteSph, st, tabs, nstep=None, dom=None,
         width = zone.layers * dp
         rel = pos - p0[None, :]
         s = rel @ d
+        if images is not None:
+            icode = images["code"]
+            imember = (td.code_inout(icode) == tag) & td.is_active(icode)
+            si = (images["pos"] - p0[None, :]) @ d
+            icode = torch.where(imember & (si > 0.0),
+                                td.code_set_inout(icode, 0), icode)
+            icode = torch.where(imember & (si < -width), td.code_set_special(
+                icode, td.SPECIAL_OUT_MOVE), icode)
+            images = dict(images, code=icode)
         # a rank's halo rows are other ranks' particles: not members
         owned = td.is_active(code) & ~td.is_periodic(code)
         member = (td.code_inout(code) == tag) & owned
@@ -544,7 +589,7 @@ def inout_step(cfg: InOutCfg, csp: CteSph, st, tabs, nstep=None, dom=None,
             req = cross
             if zone.refill == "simplezsurf" and (
                     zone.zsurf or zone.zsurf_times or zone.zsurf_calc):
-                zs = _zsurf_at(zone, csp, tabs, st, reduce_max)
+                zs = _zsurf_at(zone, csp, tabs, st, reduce_max, images0)
                 req = req & (spawn_pos[:, 2] <= zs + 0.25 * dp)
             recv, src, ovf, any_ok = take(code, req, _id_rank(req, idp, n))
             newcode = td.code_set_inout(
@@ -600,11 +645,12 @@ def inout_step(cfg: InOutCfg, csp: CteSph, st, tabs, nstep=None, dom=None,
         # extrapolated quantities come from the pass below)
         member2 = ((td.code_inout(code) == tag) & td.is_active(code)
                    & ~td.is_periodic(code))
-        iv, ir = _imposed(zone, csp, pos, tabs,
-                          zsurf=_zsurf_at(zone, csp, tabs, st, reduce_max))
+        iv, ir = _imposed(zone, csp, pos, tabs, zsurf=_zsurf_at(
+            zone, csp, tabs, st, reduce_max, images0))
         if zone.awas is not None and not zone.vel_extrap:
             # subtracted (InterpolateVelCpu, JSphInOutGridData.cpp:383)
-            vc = _awas_velcorr(zone.awas, csp, pos, code, tabs, reduce_sum)
+            vc = _awas_velcorr(zone.awas, csp, pos, code, tabs, reduce_sum,
+                               images)
             iv = iv - vc * d[None, :]
         if not zone.vel_extrap:
             vel = torch.where(member2[:, None], iv, vel)
@@ -617,7 +663,8 @@ def inout_step(cfg: InOutCfg, csp: CteSph, st, tabs, nstep=None, dom=None,
                              "need the domain and the layout")
         vel, rho, ovf = inout_extrapolate(
             cfg, csp, dom, cells, replace(st, pos=pos, vel=vel, rho=rho,
-                                          code=code), order=order)
+                                          code=code), order=order,
+            images=images)
         overflow = overflow + ovf
 
     upd = dict(pos=pos, vel=vel, rho=rho, code=code)

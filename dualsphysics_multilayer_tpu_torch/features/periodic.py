@@ -24,7 +24,9 @@ chooses them: the first in slot order, which in a JAX state is id order
 (the real particles by ``idp``, then the ghosts of the axes before in
 their block order).  The rest count into the returned overflow, on the
 device.  The ids must be a permutation of 0..n-1 (``models.wcsph.
-make_carry`` checks it).
+make_carry`` checks it).  The inlet/outlet pass after a step reads the
+images of the state's rows as it stands (:func:`images`), as JAX's zones
+read the ghosts its state keeps.
 
 On one rank of a domain decomposition (``parallel/sharding.py``) the
 state also holds the x-halo rows, which carry the periodic special code
@@ -158,6 +160,23 @@ def _ghost_rows(cfg: PeriodicCfg, csp: CteSph, st, halo: bool = False):
                 for k, v in rows.items()}
         origin = torch.cat([origin] + origins)
     return rows, overflow, origin
+
+
+def images(cfg: PeriodicCfg, csp: CteSph, st, halo: bool = False):
+    """(images, overflow): the ghost rows of :func:`ghost_rows` alone, for
+    the inlet/outlet pass after a step (``features/inout.py``), as a dict
+    of their pos, vel, rho and code, and ``counted``, the live images of
+    the rank's own rows (not of its halo rows, whose own rank counts
+    them); and the 0-d int32 count of edge particles beyond ``ghost_cap``.
+    JAX keeps its ghosts in the state through the step, where its zones
+    read them as sources; here they are made again from the state as it
+    stands.  ``halo`` as for :func:`_ghost_rows`."""
+    rows, overflow, origin = _ghost_rows(cfg, csp, st, halo)
+    n = st.n
+    img = {k: rows[k][n:] for k in ("pos", "vel", "rho", "code")}
+    img["counted"] = (td.is_active(img["code"])
+                      & ~td.is_periodic(st.code)[origin[n:]])
+    return img, overflow
 
 
 def periodic_interaction(cfg: PeriodicCfg, csp: CteSph, dom: cd.Domain, st,

@@ -577,7 +577,8 @@ def _after_update(csp: CteSph, feats: Features | None, rigid,
 
 def _inout_hook(csp: CteSph, dom: cd.Domain, feats: Features | None,
                 dd=None):
-    """inout(st, carry) -> (st, overflow, filled): the inlet/outlet pass
+    """inout(st, carry) -> (st, overflow, ghosts, filled): the inlet/outlet
+    pass
     after the step's other hooks (JAX `wcsph.py:638-641`, `:752-755`) at
     the carry's ``tabs`` and ``nstep``, reading its layout for the
     extrapolated modes; None without zones.  On a domain without a cell
@@ -591,22 +592,34 @@ def _inout_hook(csp: CteSph, dom: cd.Domain, feats: Features | None,
     ``dd.spawn_slots`` leaves it, ``dd.spawned`` counts the spawns and
     the requests that found no slot, and the calculated zsurf and the AWAS
     column mass are reduced over the ranks (JAX's ``pmax`` and ``psum``,
-    `features/inout.py:148-149`, `:382`)."""
+    `features/inout.py:148-149`, `:382`).  Under periodic boundaries the
+    pass reads the periodic images of the state's rows as sources, as
+    JAX's zones read the ghosts its state holds (`features/inout.py:138`,
+    `:374`, `:466`): ``ghosts`` counts the edge particles beyond the ghost
+    cap, as an interaction's overflow does (None without periodic
+    boundaries)."""
     if feats is None or feats.inout is None:
         return None
     flat = skinless(csp, dom)
     fresh = flat and IO.any_extrap(feats.inout)
+    periodic = feats.periodic
 
     def inout(st, carry):
         if fresh and dd is not None:
             st = dd.exchange(st)
         layout = dict(dom=dom, cells=carry.cells)
-        if fresh:
+        ghost_ovf = None
+        if periodic is not None:
+            layout["images"], ghost_ovf = PER.images(
+                periodic, csp, st, halo=dd is not None)
+        elif fresh:
             cells, _ = cd.divide_cells(dom, st.pos, st.code)
             layout.update(cells=cells, order=cells.order)
         if dd is None:
-            return IO.inout_step(feats.inout, csp, st, carry.tabs,
-                                 nstep=carry.nstep, **layout)
+            out, ovf, filled = IO.inout_step(
+                feats.inout, csp, st, carry.tabs, nstep=carry.nstep,
+                **layout)
+            return out, ovf, ghost_ovf, filled
         usable = dd.spawn_slots(st, dd.halo if flat else carry.halo)
         out, ovf, filled = IO.inout_step(
             feats.inout, csp, st, carry.tabs, nstep=carry.nstep,
@@ -615,7 +628,7 @@ def _inout_hook(csp: CteSph, dom: cd.Domain, feats: Features | None,
             reduce_sum=dd.reduce_sum, **layout)
         dd.spawned((usable & ~td.is_active(st.code)
                     & td.is_active(out.code)).sum() + ovf)
-        return out, ovf, filled
+        return out, ovf, ghost_ovf, filled
 
     return inout
 
@@ -628,10 +641,11 @@ def _largest(values):
     return out
 
 
-def _ghost_overflow(frs):
+def _ghost_overflow(frs, images=None):
     """The step's periodic ghost overflow: the largest of its
-    interactions' (None without periodic boundaries)."""
-    return _largest(fr.overflow for fr in frs)
+    interactions' and of the inlet/outlet pass's periodic images'
+    (``images``; None without periodic boundaries)."""
+    return _largest([fr.overflow for fr in frs] + [images])
 
 
 def _dem_overflow(frs):
@@ -696,9 +710,9 @@ def make_verlet_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
         awas, moor = carry.awas, carry.moor
         if after is not None:
             st, awas, moor = after(st, fr.ace, carry.tabs, dt, awas, moor)
-        ovf_io = filled = None
+        ovf_io = ovf_img = filled = None
         if inout is not None:
-            st, ovf_io, filled = inout(st, carry)
+            st, ovf_io, ovf_img, filled = inout(st, carry)
         _record_ftmotion(carry, st, carry.tabs + dt)
         carry = replace(
             carry, st=st, t=carry.t + dt, dt_pre=dt, nstep=carry.nstep + 1,
@@ -706,7 +720,7 @@ def make_verlet_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             dtmodif=carry.dtmodif + bad.to(torch.int32),
             tabs=carry.tabs + dt, awas=awas, moor=moor)
         return _sync_flags(csp, margin, carry, filled,
-                           _ghost_overflow((fr,)), ovf_io,
+                           _ghost_overflow((fr,), ovf_img), ovf_io,
                            _dem_overflow((fr,)), carry.nbr_overflow, dd)
 
     return step
@@ -773,8 +787,8 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
     bodies after the predictor (dt/2); ``after(st, ace, tabs, dt, awas,
     moor) -> (st, awas, moor)`` runs the hooks after the corrector
     (:func:`_after_update`, the bodies over dt and the mooring lines among
-    them); ``inout(st, carry) -> (st, overflow, filled)`` the inlet/outlet
-    pass last (:func:`_inout_hook`).
+    them); ``inout(st, carry) -> (st, overflow, ghosts, filled)`` the
+    inlet/outlet pass last (:func:`_inout_hook`).
     ``spec``: the neighbour list's, whose overflow each rebuild counts.
     ``dd``: one rank of a domain decomposition (``parallel/sharding.py``
     ``SlabRank``): ``dom`` is its slab's grid, the rebuild migrates and
@@ -823,9 +837,9 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
         awas, moor = carry.awas, carry.moor
         if after is not None:
             st, awas, moor = after(st, fr2.ace, carry.tabs, dt, awas, moor)
-        ovf_io = filled = None
+        ovf_io = ovf_img = filled = None
         if inout is not None:
-            st, ovf_io, filled = inout(st, carry)
+            st, ovf_io, ovf_img, filled = inout(st, carry)
         _record_ftmotion(carry, st, carry.tabs + dt)
 
         carry = replace(
@@ -835,7 +849,7 @@ def symplectic_step(csp: CteSph, opts: SolverOpts, dom: cd.Domain,
             + bad_c.to(torch.int32),
             tabs=carry.tabs + dt, awas=awas, moor=moor)
         return _sync_flags(csp, margin, carry, filled,
-                           _ghost_overflow((fr1, fr2)), ovf_io,
+                           _ghost_overflow((fr1, fr2), ovf_img), ovf_io,
                            _dem_overflow((fr1, fr2)), carry.nbr_overflow, dd)
 
     return step

@@ -22,8 +22,12 @@
   ``-initnorpla``/``-initnorpart`` give the run's state JAX's normals
   under mDBC walls, and an NN case under ``-mdbc`` runs and says that its
   step runs no mDBC pre-pass.
-* A fresh interpreter importing the CLI and the output modules loads
-  neither JAX nor the JAX package.
+* A ``DsphConfig.xml`` gives the CLI its defaults as JAX's does
+  (explicit flags win; Run.csv takes its separator), and the package
+  exports the JAX package's top-level names.
+* A fresh interpreter importing the CLI, the output modules,
+  ``port_verify_e2e.py`` and the examples' twins (without running them)
+  loads neither JAX nor the JAX package.
 """
 
 import os
@@ -441,6 +445,48 @@ def test_case_leaves_naming_a_refused_node(tmp_path):
         cli.main(["-cpu", "-case", str(xmlp), "-dirout", str(tmp_path)])
 
 
+def test_dsphconfig_defaults(tmp_path, monkeypatch):
+    """The machine's DsphConfig.xml gives the CLI its defaults (JDsphConfig;
+    JAX's tests/test_cli_channels.py test of the same name), explicit flags
+    win, and a run's Run.csv takes the file's separator."""
+    (tmp_path / "DsphConfig.xml").write_text(
+        '<?xml version="1.0"?><dsphconfig><common>'
+        '<createdirs v="0"/><csvseparator v="1"/>'
+        '</common></dsphconfig>')
+    monkeypatch.delenv("DSPHCONFIG", raising=False)
+    monkeypatch.chdir(tmp_path)
+    cfg = cli.load_dsphconfig()
+    assert cfg == dict(createdirs=0, csvsep=1) == jcli.load_dsphconfig()
+    p = cli.build_parser()
+    p.set_defaults(**cfg)
+    args = p.parse_args([])
+    assert args.createdirs == 0 and args.csvsep == 1
+    # explicit flags still win
+    assert p.parse_args(["-csvsep", "0"]).csvsep == 0
+    assert cli.load_dsphconfig([str(tmp_path / "none.xml")]) == {}
+    out = tmp_path / "out"
+    assert cli.main(["-cpu", "-builtin", "dambreak2d", "-dp", "0.1",
+                     "-tmax:0.001", "-tout:0.001", "-svres", "-runname",
+                     "chan", "-dirout", str(out)]) == 0
+    head, row = open(out / "Run.csv").read().splitlines()[:2]
+    assert ";" not in head and row.split(",")[0] == "chan"
+
+
+def test_package_exports_jax_top_level_names():
+    """The package's top-level names are JAX's (``__init__.py:11-19``):
+    ``TpRigidMode`` and ``__version__``, the CLI's version."""
+    import dualsphysics_multilayer_tpu as J
+    import dualsphysics_multilayer_tpu_torch as P
+    from dualsphysics_multilayer_tpu_torch import TpRigidMode, __version__
+    assert __version__ == cli.VERSION == J.__version__
+    assert [m.name for m in TpRigidMode] == [m.name for m in J.TpRigidMode]
+    assert {"TpRigidMode", "__version__"} <= set(P.__all__)
+    # every name JAX's package defines (its subpackages aside) is the port's
+    names = {k for k, v in vars(J).items()
+             if not k.startswith("_") and not isinstance(v, type(J))}
+    assert names | {"__version__", "typesdef"} <= set(P.__all__)
+
+
 def test_cli_and_output_modules_import_no_jax():
     code = ("import sys\n"
             "import dualsphysics_multilayer_tpu_torch.cli\n"
@@ -458,6 +504,16 @@ def test_cli_and_output_modules_import_no_jax():
             "import dualsphysics_multilayer_tpu_torch.features.initialize\n"
             "from dualsphysics_multilayer_tpu_torch.tools.common import (\n"
             "    pair_indices, parse_range_filter, wendland_wab)\n"
+            "import importlib.util\n"
+            "for path in ('port_verify_e2e.py',) + tuple(\n"
+            "        'examples/torch/' + f for f in (\n"
+            "        '02_waveflume.py', '03_floating_moored.py',\n"
+            "        '04_inout_channel.py', '05_nn_mud_dambreak.py',\n"
+            "        '06_sharded_runup.py')):\n"
+            "    spec = importlib.util.spec_from_file_location('twin', path)\n"
+            "    twin = importlib.util.module_from_spec(spec)\n"
+            "    spec.loader.exec_module(twin)\n"
+            "    assert callable(twin.main), path\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'jaxlib', 'dualsphysics_multilayer_tpu.'))"
             " or m == 'dualsphysics_multilayer_tpu']\n"

@@ -34,6 +34,10 @@ its command line:
   ``make_step(use_pallas=False)``: positions by id and the body centre
   within 1e-4 dp, the bodies' velocities within rtol 1e-4 (floor 1e-4 of
   the largest value), the line's nodes within 1e-4 dp;
+* 15 steps of two boxes in a 2D tank, one moving and turning, in which
+  the stale skin-contract layout's DEM candidate pairs differ from a
+  fresh divide's: the dt sequence (SaveDt rows) within rtol 1e-5 and
+  positions within 1e-4 dp of jitted JAX's;
 * ``load_case`` against JAX's, array by array, on inline XMLs: DEM with
   ``<properties>`` (a property file and links); ``<moorings>`` with a
   MoorDyn file (a fixed and a connect end); ``<chrono>`` with links,
@@ -582,6 +586,117 @@ def test_coupled_box_steps_match_jax(kind):
                       feats)
     c1 = step(c1)
     assert (c1.st.ft.fvel - c2.st.ft.fvel).abs().max() > 1e-6
+
+
+def two_boxes(dp=0.05):
+    """A 2D tank with two boxes of 16 particles on its floor, sunk 0.1 dp:
+    body 0 at rest, body 1 left of it moving right at 1 m/s and turning at
+    8 rad/s, its right column 1e-3 m short of a cell face.  (JAX csp, dom,
+    state, Features with DEM)."""
+    csp = jtd.make_ctesph(simulate2d=True, dp=dp, hswl=0.3, coefh=1.0,
+                          visco=0.05, coefsound=20.0)
+    d = jcases.Draw(dp=dp, simulate2d=True)
+    d.box((0, 0, 0), (1.2, 0, 0.3), ptype=jtd.TYPE_FLUID, mk=0)
+    d.box((0, 0, 0), (1.2, 0, 0.8), ptype=jtd.TYPE_FIXED, mk=0,
+          faces="bottom|left|right")
+    d.box((0.65, 0, 0.05), (0.8, 0, 0.2), ptype=jtd.TYPE_FLOATING, mk=0)
+    d.box((0.25, 0, 0.05), (0.4, 0, 0.2), ptype=jtd.TYPE_FLOATING, mk=1)
+    pos, code = d.build()
+    dom = jcases._make_domain(csp, pos,
+                              cellcap=jcases.lattice_cellcap(csp, 2.0))
+    ft = jtd.code_type(code) == jtd.TYPE_FLOATING
+    body = np.where(ft, code & 0xFFFF, -1)
+    x1 = pos[body == 1, 0].max()
+    face = dom.posmin[0] + np.ceil((x1 - dom.posmin[0]) / dom.scell) \
+        * dom.scell
+    pos[body == 1, 0] += face - 1e-3 - x1
+    pos[ft, 2] -= 0.1 * dp
+    jcfg, jft = jFT.make_floating([pos[body == 0], pos[body == 1]],
+                                  [1500.0, 1500.0], csp)
+    om = 8.0
+    r = pos[body == 1] - np.asarray(jft.center)[1]
+    vel = np.zeros_like(pos)
+    vel[body == 1] = np.stack([1.0 + om * r[:, 2], 0 * r[:, 0],
+                               -om * r[:, 0]], 1)
+    jft = dataclasses.replace(
+        jft, fvel=jnp.asarray([[0, 0, 0], [1.0, 0, 0]], jnp.float32),
+        fomega=jnp.asarray([[0, 0, 0], [0, om, 0]], jnp.float32))
+    st = dataclasses.replace(jcases._make_state(csp, pos, code, zsurf=0.3),
+                             pos=jnp.asarray(pos, jnp.float32),
+                             vel=jnp.asarray(vel, jnp.float32), ft=jft)
+    dem = jDEM.make_dem(csp, np.asarray(st.code), jcfg,
+                        float_props=[STEP_PROPS, STEP_PROPS])
+    return csp, dom, st, jFeatures(floating=jcfg, dem=dem)
+
+
+def stale_candidates(dom, carry):
+    """Pairs of a floating target and another body's particle in the 3x3
+    cells around it by the current positions but not by the layout's
+    cells, or the other way round: DEM's candidates that JAX's fresh
+    divide and the port's stale layout disagree on."""
+    st = carry.st
+    nx, ny, _ = dom.nc
+    cur = cd.cell_coords(dom, st.pos)
+    lay = carry.cells.cell.long()
+    lx, lz = lay % nx, lay // (nx * ny)
+    fl = td.is_floating(st.code)
+    body = torch.where(fl, st.code & 0xFFFF, -1)
+    t = torch.nonzero(fl).flatten()
+    other = fl[None, :] & (body[None, :] != body[t, None])
+
+    def near(x, z):
+        return (((x[None, :] - cur[t, 0, None]).abs() <= 1)
+                & ((z[None, :] - cur[t, 2, None]).abs() <= 1))
+
+    return int((other & (near(cur[:, 0], cur[:, 2])
+                         != near(lx, lz))).sum())
+
+
+def test_dem_dt_over_a_stale_layout_matches_jax():
+    """15 steps of two boxes in contact range: the port's DEM reads the
+    cells of its last divide, JAX's divides at every step.  Between two
+    rebuilds the moving box's particles change cells, so the candidate
+    pairs of the dt term differ; the dt sequence (SaveDt rows) within rtol
+    1e-5 and positions within 1e-4 dp by id, as JAX's."""
+    nsteps = 15
+    csp, dom, st0, jfeats = two_boxes()
+    kw = dict(tdensity=jtd.TpDensity.FOURTAKAS, with_floating=True)
+    jopts = jF.SolverOpts(use_pallas=False, savedt=nsteps, **kw)
+    jstep = jax.jit(jW.make_step(csp, jopts, dom, jfeats))
+    jcarry = jW.make_carry(st0, csp, jopts, jfeats, dom=dom)
+    for _ in range(nsteps):
+        jcarry = jstep(jcarry)
+    pcsp = convert.ctesph(dataclasses.asdict(csp))
+    pdom = convert.domain(dataclasses.asdict(dom))
+    arrays = {k: np.asarray(getattr(st0, k))
+              for k in ("pos", "vel", "rho", "code", "idp")}
+    arrays["ft"] = {k: np.asarray(getattr(st0.ft, k)) for k in BODY}
+    feats = convert.features(jfeats, idp=arrays["idp"])
+    opts = P.SolverOpts(savedt=nsteps, tdensity=td.TpDensity.FOURTAKAS,
+                        with_floating=True)
+    carry = P.make_carry(convert.simstate(arrays, device="cpu"), pcsp, opts,
+                         pdom, feats)
+    step = P.make_step(pcsp, opts, pdom, feats)
+    stale = 0
+    for _ in range(nsteps):
+        carry = step(carry)
+        if not carry.rebuild:
+            stale += stale_candidates(pdom, carry)
+    assert stale > 0 and carry.nrebuild >= 2 and carry.overflow == 0
+    jd, pd_ = np.asarray(jcarry.dthist), carry.dthist.numpy()
+    # DEM's term sets the viscdt max of some steps: without it, lower
+    nodem = dataclasses.replace(feats, dem=None)
+    c2 = P.make_carry(convert.simstate(arrays, device="cpu"), pcsp, opts,
+                      pdom, nodem)
+    step2 = P.make_step(pcsp, opts, pdom, nodem)
+    for _ in range(nsteps):
+        c2 = step2(c2)
+    assert (c2.dthist[:, 5].numpy() < 0.9 * pd_[:, 5]).sum() >= 3
+    np.testing.assert_allclose(pd_[:, 1], jd[:, 1], rtol=1e-5)
+    np.testing.assert_allclose(pd_[:, 5], jd[:, 5], rtol=1e-5)
+    np.testing.assert_allclose(by_id(carry.st, "pos"),
+                               np.asarray(jcarry.st.pos), rtol=0,
+                               atol=1e-4 * csp.dp)
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,13 @@ steps, the ``<special><inout>`` loader and the CLI.
   and of ``channel2d(dp=0.02, length=0.5, height=0.16, vel=0.4)`` (members
   convert and spawn at step 1) against jitted JAX steps: positions within
   1e-4 dp by id, density rtol 1e-5, codes exact;
+* 3 symplectic steps of chip_smoke.py's y-periodic duct with an inlet
+  (calculated zsurf, AWAS) and a full-width extrapolated outlet against
+  JAX's state with its ghost tail, where the outlet's members by the
+  periodic edges read periodic images: codes, live ids and spawns exact,
+  positions within 1e-4 dp, velocity rtol 2e-3, density rtol 1e-5;
+* the inlet/outlet pass counts the edge particles its periodic images
+  leave out beyond the ghost cap;
 * the layout kept after a spawn holds every pair a fresh divide finds;
 * the loader against JAX's ``load_case`` on the inline XMLs of
   tests/test_inout.py and chip_smoke.py's duct at a coarse dp;
@@ -54,6 +61,7 @@ from dualsphysics_multilayer_tpu_torch.features import periodic as PER
 from dualsphysics_multilayer_tpu_torch.io import partdata as PD
 from dualsphysics_multilayer_tpu_torch.io import xmlcase as X
 from dualsphysics_multilayer_tpu_torch.models import cases
+from dualsphysics_multilayer_tpu_torch.models import wcsph as W
 from dualsphysics_multilayer_tpu_torch.ops import celldiv as cd
 
 from test_torch_variant_steps import by_id, pairs_per_target
@@ -482,6 +490,105 @@ def test_periodic_channel_steps_match_jax(verlet):
     wrapped = (jpos[:, 0] < 0.02) & (st.pos[:, 0].numpy() > 0.7)
     assert wrapped.sum() >= 7
     assert carry.overflow == 0 == int(jcarry.overflow)
+
+
+def jax_zone(zone):
+    """The JAX package's zone with the port zone's fields."""
+    kw = {f.name: getattr(zone, f.name) for f in dataclasses.fields(zone)}
+    if zone.awas is not None:
+        kw["awas"] = jIO.InOutAwas(**dataclasses.asdict(zone.awas))
+    return jIO.InOutZone(**kw)
+
+
+def test_periodic_duct_with_zones_matches_jax():
+    """3 symplectic steps of chip_smoke.py's y-periodic duct at dp 0.02
+    (990 drawn particles, 168 zone members, the flow jittered): an inlet
+    with a calculated zsurf and AWAS, a full-width outlet whose velocity
+    and density are extrapolated.  JAX keeps its ghosts in its state,
+    where the outlet's mirror nodes near a periodic edge find fluid across
+    it; the port hands its zones the periodic images of its rows.  Live
+    ids, codes and spawns exact by id, positions within 1e-4 dp, velocity
+    rtol 2e-3 (floor 2e-3 of the largest value) and density rtol 1e-5."""
+    dp = 0.02
+    csp, dom, st, feats, lattice = chip_smoke.periodic_duct(dp, "cpu")
+    pcfg, icfg = feats.periodic, feats.inout
+    n = st.n
+    jcsp = jtd.make_ctesph(simulate2d=False, dp=dp,
+                           hswl=chip_smoke.PDUCT["height"], visco=0.02)
+    assert convert.ctesph(dataclasses.asdict(jcsp)) == csp
+    jdom = jcases._make_domain(jcsp, lattice, headroom=0.5)
+    assert convert.domain(dataclasses.asdict(jdom)) == dom
+    jpcfg = jPER.PeriodicCfg(axes=pcfg.axes, lo=pcfg.lo, hi=pcfg.hi,
+                             ghost_cap=pcfg.ghost_cap)
+    jicfg = jIO.InOutCfg(zones=tuple(jax_zone(z) for z in icfg.zones),
+                         n_usable=n)
+    assert convert.feature(jicfg).zones == icfg.zones
+    G = jPER.ghost_slots_required(jpcfg)
+
+    def pad(a, fill):
+        a = a.numpy()
+        return np.concatenate([a, np.full((G,) + a.shape[1:], fill,
+                                          a.dtype)])
+
+    jst = jW.SimState(
+        pos=jnp.asarray(pad(st.pos, -1e6)), vel=jnp.asarray(pad(st.vel, 0.0)),
+        rho=jnp.asarray(pad(st.rho, 1000.0)),
+        code=jnp.asarray(pad(st.code, jtd.code_make(
+            jtd.TYPE_FLUID, 0, jtd.SPECIAL_OUT_IGNORE)).astype(np.uint32)),
+        idp=jnp.arange(n + G, dtype=jnp.uint32))
+    jopts = jF.SolverOpts(tdensity=jtd.TpDensity.FOURTAKAS, use_pallas=False)
+    jfeats = jFeatures(periodic=jpcfg, inout=jicfg)
+    jstep = jax.jit(jW.make_step(jcsp, jopts, jdom, jfeats))
+    jcarry = jW.make_carry(jst, jcsp, jopts, jfeats, dom=jdom)
+    for _ in range(NSTEPS):
+        jcarry = jstep(jcarry)
+    opts = P.SolverOpts(tdensity=td.TpDensity.FOURTAKAS)
+    carry = P.make_carry(st, csp, opts, dom, feats)
+    step = P.make_step(csp, opts, dom, feats)
+    for _ in range(NSTEPS):
+        carry = step(carry)
+    out, jout = carry.st, jcarry.st
+    jcode = np.asarray(jout.code)[:n].astype(np.int32)
+    np.testing.assert_array_equal(by_id(out, "code"), jcode)
+    act = jtd.is_active(jcode)
+    spawned = act & ~jtd.is_active(st.code.numpy())
+    assert spawned.sum() == 16
+    np.testing.assert_allclose(by_id(out, "pos")[act],
+                               np.asarray(jout.pos)[:n][act], rtol=0,
+                               atol=1e-4 * dp)
+    want = np.asarray(jout.vel)[:n][act]
+    np.testing.assert_allclose(by_id(out, "vel")[act], want, rtol=2e-3,
+                               atol=2e-3 * np.abs(want).max(), err_msg="vel")
+    np.testing.assert_allclose(by_id(out, "rho")[act],
+                               np.asarray(jout.rho)[:n][act], rtol=1e-5,
+                               err_msg="rho")
+    # the outlet's members by both periodic edges took JAX's values
+    edge = (jtd.code_inout(jcode) == 2) & act & (
+        np.minimum(np.asarray(jout.pos)[:n, 1] - pcfg.lo[1],
+                   pcfg.hi[1] - np.asarray(jout.pos)[:n, 1]) < dp)
+    assert edge.sum() >= 2 * 3 * 4
+    assert carry.overflow == 0 == int(jcarry.overflow)
+
+
+def test_inout_pass_counts_the_images_overflow():
+    """The inlet/outlet pass under periodic boundaries returns the edge
+    particles its images leave out beyond the ghost cap (the step adds
+    them to its ghost overflow, as an interaction's), and none when they
+    fit."""
+    csp, dom, st, feats, _ = chip_smoke.periodic_duct(0.02, "cpu")
+    opts = P.SolverOpts(tdensity=td.TpDensity.FOURTAKAS)
+    pcfg = feats.periodic
+    y, ks = st.pos[:, 1], csp.kernelsize
+    live = td.is_active(st.code)
+    near = [int((live & (y < pcfg.lo[1] + ks)).sum()),
+            int((live & (y >= pcfg.hi[1] - ks)).sum())]
+    for cap, want in ((pcfg.ghost_cap, 0), (4, sum(k - 4 for k in near))):
+        fs = dataclasses.replace(feats, periodic=dataclasses.replace(
+            pcfg, ghost_cap=cap))
+        carry = P.make_carry(st, csp, opts, dom, fs)
+        _, ovf, ghosts, _ = W._inout_hook(csp, dom, fs)(carry.st, carry)
+        assert int(ovf) == 0 and int(ghosts) == want, (cap, want)
+    assert min(near) > 4
 
 
 def _lattice():

@@ -23,7 +23,14 @@ each, against the port's one-device runs.
     predictor carries it across, so the corrector's interaction wraps it
     and images the halo rows): positions by id within 1e-4*dp of the
     port's one-device step and of the JAX package's jitted single-device
-    periodic step (plain path) on the same state.
+    periodic step (plain path) on the same state;
+  - chip_smoke.py's y-periodic duct with an inlet (calculated zsurf,
+    AWAS) and an extrapolated outlet at dp 0.02 to 2.5e-3 s (2 steps,
+    the inlet's 16 spawns in the first): the inlet/outlet pass reads the
+    periodic images of the rank's own and halo rows and reduces the zsurf
+    and the AWAS column over the ranks; the same live ids and spawns,
+    positions by id within 1e-4*dp and density rtol 1e-5 of the
+    one-device run.
 * Unit tests that start no rank: the periodic pass keeps and images a
   rank's halo rows; the id ranks ignore dead and duplicate ids; the
   calculated zsurf and the AWAS column mass of a state split in two,
@@ -35,6 +42,8 @@ each, against the port's one-device runs.
 """
 
 import dataclasses
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -49,6 +58,9 @@ from dualsphysics_multilayer_tpu_torch.features import periodic as PER
 from dualsphysics_multilayer_tpu_torch.models import cases
 from dualsphysics_multilayer_tpu_torch.parallel import sharding as S
 
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
+import chip_smoke  # noqa: E402
+
 LIMIT = 240.0        # seconds: the start of the ranks
 CHANNEL = dict(dp=0.02, length=0.5, height=0.16, vel=0.4)
 RECYCLE_POOL = 12    # free ids: one inlet column of 9 and 3 more
@@ -57,6 +69,7 @@ PER_DP = 0.05
 # the periodic box of test_sharding.py:530 (period 0.4 m) moved down
 # 0.0497 m: the lattice's last row (y = 0.35) sits 0.3 mm below its edge
 PER_LO, PER_HI = -0.0497, 0.3503
+DUCT_DP = 0.02
 
 
 def channel_job(verlet=False, device="cpu"):
@@ -193,6 +206,13 @@ def jax_periodic_steps(st, nsteps):
     return carry
 
 
+def duct_job(device="cpu"):
+    """chip_smoke.py's y-periodic duct with its inlet and outlet zones."""
+    csp, dom, st, feats, _ = chip_smoke.periodic_duct(DUCT_DP, device)
+    return (csp, P.SolverOpts(tdensity=P.TpDensity.FOURTAKAS), dom, st,
+            feats, 2.5e-3)
+
+
 def one_device(csp, opts, dom, st, feats, tmax):
     step = P.make_step(csp, opts, dom, feats)
     carry = P.make_carry(st, csp, opts, dom, feats)
@@ -219,7 +239,7 @@ def runs():
     one-device run, and JAX's periodic steps."""
     jobs = {"channel": channel_job(), "channel-verlet": channel_job(True),
             "channel-recycle": recycle_job(), "dem": dem_job(),
-            "yperiodic": periodic_job()}
+            "yperiodic": periodic_job(), "duct": duct_job()}
     refs, sims = {}, {}
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -324,6 +344,30 @@ def test_sharded_yperiodic_matches_one_device_and_jax(runs):
     np.testing.assert_allclose(pos, np.asarray(j.st.pos)[live][o], rtol=0,
                                atol=1e-4 * PER_DP)
     np.testing.assert_allclose(got.t_host, float(j.t), rtol=1e-5)
+
+
+def test_sharded_periodic_duct_with_zones_matches_one_device(runs):
+    got, ref = check_common(runs, "duct")
+    assert got.nstep == 2
+    idp, pos = by_id(got.st)
+    rid, rpos = by_id(ref.st)
+    np.testing.assert_array_equal(idp, rid)
+    np.testing.assert_allclose(pos, rpos, rtol=0, atol=1e-4 * DUCT_DP)
+
+    def rho(st):
+        m = owned(st)
+        return st.rho[m][torch.argsort(st.idp[m])].numpy()
+
+    np.testing.assert_allclose(rho(got.st), rho(ref.st), rtol=1e-5)
+    st0 = runs["jobs"]["duct"][3]
+    assert len(np.setdiff1d(rid, st0.idp[owned(st0)].numpy())) == 16
+    # both ranks hold members of a zone: the inlet's on rank 0, the
+    # outlet's on rank 1
+    sim = runs["sims"]["duct"]
+    for tag, rank in ((1, 0), (2, 1)):
+        m = (td.code_inout(got.st.code) == tag) & owned(got.st)
+        assert m.any() and (S._owner(sim.cfg, got.st.pos[m, 0])
+                            == rank).all()
 
 
 # ---------------------------------------------------------------------------

@@ -259,7 +259,7 @@ def test_skinless_inout_pass_divides_the_post_step_positions():
     feats = P.Features(inout=convert.feature(jcfg))
     hook = W._inout_hook(csp, dom, feats)
     carry = types.SimpleNamespace(tabs=torch.zeros(()), nstep=0, cells=cells)
-    out, ov, _ = hook(moved, carry)
+    out, ov, _, _ = hook(moved, carry)
     assert int(ov) == 0 == int(jov)
     assert torch.equal(out.idp, moved.idp) and torch.equal(out.pos,
                                                            moved.pos)
